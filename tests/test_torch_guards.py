@@ -1,0 +1,130 @@
+"""Guards on the PyTorch port's boundaries: it never imports JAX or the
+JAX package, it never falls back to the CPU on its own, and the engine
+rejects what this slice does not serve instead of ignoring it."""
+
+import ast
+import json
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "kubedl_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"
+]
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_never_imports_jax_or_the_jax_package(path):
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "kubedl_tpu", "flax", "optax"), \
+            f"{path.name} imports {mod}"
+
+
+def test_port_files_found():
+    names = {p.name for p in PORT_FILES}
+    assert {"llama.py", "paged_attention.py", "server.py", "kv_blocks.py",
+            "build.py", "chip_smoke.py"} <= names
+
+
+def test_engine_without_device_raises_when_no_cuda(monkeypatch):
+    from kubedl_tpu_torch.serving.server import LlamaEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LlamaEngine(preset="tiny")
+    with pytest.raises(RuntimeError):
+        LlamaEngine(preset="tiny", device="cuda")
+
+
+def test_resolve_device_rule(monkeypatch):
+    from kubedl_tpu_torch import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(RuntimeError):
+        resolve_device(None)
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+@pytest.mark.parametrize("kw", [
+    {"quantize": "int8"},
+    {"mesh_axes": {"tensor": 2}},
+    {"spec_k": 4},
+    {"prefix_cache_mb": 64.0},
+    {"kv_layout": "contiguous"},
+    {"role": "prefill"},
+    {"role": "decode"},
+    {"ckpt_dir": "/nonexistent"},
+    {"kv_attention": "dense"},
+    {"kv_layout": "ragged"},
+], ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values()))))
+def test_unsupported_engine_knobs_raise(kw):
+    from kubedl_tpu_torch.serving.server import LlamaEngine
+
+    with pytest.raises(ValueError):
+        LlamaEngine(preset="tiny", device="cpu", max_seq=64, **kw)
+
+
+def test_hot_swap_raises_naming_later_slice():
+    from kubedl_tpu_torch.serving.server import LlamaEngine
+
+    eng = LlamaEngine(preset="tiny", device="cpu", max_seq=64)
+    try:
+        for call in (lambda: eng.load_version("v2", "/x"),
+                     lambda: eng.activate_version("v2"),
+                     lambda: eng.retire_version("v2")):
+            with pytest.raises(ValueError, match="later port slice"):
+                call()
+    finally:
+        eng.close()
+
+
+def test_serve_main_rejects_chaos(monkeypatch):
+    from kubedl_tpu_torch.serving import server
+
+    monkeypatch.setenv("KUBEDL_SERVE_CONFIG",
+                       json.dumps({"chaos": {"seed": 1, "sites": {}}}))
+    with pytest.raises(ValueError, match="later port slice"):
+        server.serve_main({})
+
+
+def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
+    """The build runs only when a kernel is launched; without nvcc it
+    raises rather than falling back to anything."""
+    from kubedl_tpu_torch.ops import build
+
+    monkeypatch.setenv("NVCC", str(tmp_path / "missing-nvcc"))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build.shutil, "which", lambda _name: None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.find_nvcc()
+    assert build.NVCC_FLAGS[:2] == ("-gencode", "arch=compute_90a,code=sm_90a")
+
+
+def test_chip_smoke_refuses_without_cuda(monkeypatch):
+    """chip_smoke.py exits non-zero, printing no result, with no card."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_under_test", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("sys.argv", ["chip_smoke.py"])
+    assert mod.main() != 0
