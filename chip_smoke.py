@@ -1,13 +1,15 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py                # every phase, one card
-    python3 chip_smoke.py --skip-engine  # build + kernel checks only
+    python3 chip_smoke.py --skip-engine  # without phases 5 and 6
+    python3 chip_smoke.py --skip-train   # without phases 8 to 10
 
 Phases (any failure exits non-zero before the final line):
 
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA.
 2. build: compiles the port's CUDA sources (kubedl_tpu_torch/csrc) with
-   nvcc for sm_90a and prints the build seconds.
+   nvcc for sm_90a, one nvcc per source started together, and prints
+   the build seconds.
 3. blocked kernel vs its plain PyTorch version at the serving shapes
    (Llama-3-8B: B=8, KV=8, group 4, hd 128, BS 16, MB 128; Gemma-2B:
    hd 256, KV 1, group 8) for S in {1, 64, 512}, ragged starts, block
@@ -30,6 +32,27 @@ Phases (any failure exits non-zero before the final line):
    request, under torch.profiler: device time by kernel category
    (paged attention, matmul, other) and the device's busy share of the
    wall time.
+7. flash kernels vs their plain PyTorch versions: the llama3-1b training
+   shape (B=4, H=32, KV=8, S=2048, hd=64, bf16, causal, with and without
+   fused RoPE), Llama-3-8B (hd 128) and Gemma-2B (hd 256) head widths, a
+   ragged non-causal S=1000, and float32 at each hd: out and lse against
+   the plain forward, the fused backward and the split pair against the
+   plain backward and against each other; at the training shape each
+   kernel's time (CUDA events, median of 20, L2 flushed), the plain
+   version's, its bound, and SDPA's forward / backward as the yardstick.
+8. training: ``train_main`` with KUBEDL_TRAIN_CONFIG={"model":
+   "llama3-1b", "global_batch": 4, "seq_len": 2048, "steps": 8} on the
+   card, full width and depth, seeded random weights; gates on finite
+   losses and grad norms, attn_impl "flash", no sanity violations and 16
+   flash_fwd + 16 flash_bwd_fused launches per step. Then Trainer.fit on
+   one repeated batch must end below its first loss; then two steps with
+   the backward forced to the split pair (16 + 16 launches per step).
+9. f32 parity: llama3-1b width cut to 2 layers in float32 (TF32 off), one
+   train step on the fused and split kernel routes against the dense
+   route: losses within 1e-5 relative, gradients and updated params
+   within the tolerances stated in ``run_train_f32_parity``.
+10. profile: two llama3-1b train steps under torch.profiler: device time
+   by category (flash fwd, flash bwd, matmul, other) and the busy share.
 
 Output: the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -237,6 +260,419 @@ def check_fused(pa, shape, dtype, timed: bool):
         rec["library_ms"] = time_ms(sdpa_yardstick(q, kr, vr, bt, starts))
         rec["bound_ms"], rec["bound_by"] = bound(shape, 1, dtype, fused=True)
     return rec
+
+
+# ---- phase 7: flash kernels -------------------------------------------------
+
+FLASH_REPLACES = {
+    "flash_fwd": "kubedl_tpu/ops/flash_attention.py:120 _fwd_kernel",
+    "flash_bwd_fused": "kubedl_tpu/ops/flash_attention.py:480 _bwd_fused_kernel",
+    "flash_bwd_dq": "kubedl_tpu/ops/flash_attention.py:314 _bwd_dq_kernel",
+    "flash_bwd_dkdv": "kubedl_tpu/ops/flash_attention.py:393 _bwd_dkdv_kernel",
+}
+#: (label, B, H, KV, S, hd, dtype, causal, rope, timed). The first is the
+#: llama3-1b training shape (the main path's); then Llama-3-8B and
+#: Gemma-2B head widths, a ragged non-causal length, and float32 at each hd.
+FLASH_CASES = [
+    ("llama3-1b", 4, 32, 8, 2048, 64, torch.bfloat16, True, True, True),
+    ("llama3-1b no-rope", 4, 32, 8, 2048, 64, torch.bfloat16, True, False,
+     False),
+    ("llama3-8b width", 1, 32, 8, 2048, 128, torch.bfloat16, True, True, False),
+    ("gemma-2b width", 1, 8, 1, 1024, 256, torch.bfloat16, True, True, False),
+    ("ragged S=1000", 2, 8, 2, 1000, 64, torch.bfloat16, False, True, False),
+    ("f32 hd64", 1, 8, 2, 512, 64, torch.float32, True, True, False),
+    ("f32 hd128 ragged", 1, 4, 1, 1000, 128, torch.float32, False, False,
+     False),
+    ("f32 hd256", 1, 4, 2, 256, 256, torch.float32, True, True, False),
+]
+#: Tolerances against the plain versions on the same inputs (N(0,1)):
+#: out: bf16 2e-2 max abs (both sides sum in float32 and round once to
+#: bf16, ~1 ulp of |out| <= 4 after reordered sums); f32 1e-5. lse: 1e-4
+#: max abs in both types (float32 sums reordered, |lse| < 30). Gradients,
+#: max abs error over max |grad|: f32 1e-4 (the fused dq is summed with
+#: float32 atomics in run-to-run order); bf16 2e-2 (dS and P are rounded
+#: to bf16 at the same points on both sides, but from float32 values that
+#: differ in their last bits, so a rounding may land one bf16 ulp (2^-8)
+#: apart before a sum over thousands of keys, and the output is bf16).
+FLASH_TOL = {torch.bfloat16: {"out": 2e-2, "lse": 1e-4, "grad": 2e-2},
+             torch.float32: {"out": 1e-5, "lse": 1e-4, "grad": 1e-4}}
+
+
+def flash_inputs(B, H, KV, S, hd, dtype, rope, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
+    do = randn(B, S, H, hd)
+    cos = sin = None
+    if rope:  # llama3's tables (theta 500000) at this head width
+        from kubedl_tpu_torch.models.llama import rope_table
+
+        cos, sin = rope_table(hd, 500000.0, S, device="cuda")
+    return q, k, v, do, cos, sin
+
+
+def flash_bound(kind, B, H, KV, S, hd, dtype, causal, rope):
+    """Least time for the work of one call: each input read once, each
+    output written once; flops per visible (query, key) pair and head:
+    fwd 4*hd (QK^T, PV), fused bwd 10*hd (QK^T, dO.V^T, dV, dK, dQ), split
+    dq 6*hd (QK^T, dO.V^T, dQ), split dk/dv 8*hd (QK^T, dO.V^T, dV, dK)."""
+    esz = torch.tensor([], dtype=dtype).element_size()
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    qb, kb, lse_b = B * S * H * hd * esz, B * S * KV * hd * esz, B * H * S * 4
+    tables = 2 * S * (hd // 2) * 4 if rope else 0
+    ins = {"flash_fwd": qb + 2 * kb}
+    bwd_in = 3 * qb + 2 * kb + lse_b  # q, out, dout, k, v, lse
+    ins.update(flash_bwd_fused=bwd_in, flash_bwd_dq=bwd_in,
+               flash_bwd_dkdv=bwd_in)
+    outs = {"flash_fwd": qb + lse_b, "flash_bwd_fused": qb + 2 * kb,
+            "flash_bwd_dq": qb, "flash_bwd_dkdv": 2 * qb}
+    per_pair = {"flash_fwd": 4, "flash_bwd_fused": 10, "flash_bwd_dq": 6,
+                "flash_bwd_dkdv": 8}
+    nbytes = ins[kind] + outs[kind] + tables
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = per_pair[kind] * hd * pairs / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _max_err(got, want):
+    return (got.float() - want.float()).abs().max().item()
+
+
+def _grad_err(got, want):
+    """Max abs error over max |want| (inf if not finite)."""
+    err = _max_err(got, want)
+    scale = want.float().abs().max().item()
+    return err / scale if math.isfinite(err) and scale > 0 else float("inf")
+
+
+def sdpa_flash_yardsticks(q, k, v, do, cos, sin, fa):
+    """SDPA forward and its backward on the post-rope inputs ([B, H, S,
+    hd] copies made outside the timed calls), causal with GQA: the
+    library_ms yardsticks. The port never calls SDPA."""
+    import torch.nn.functional as F
+
+    if cos is not None:
+        q, k = fa._rope_rotate(q, cos, sin), fa._rope_rotate(k, cos, sin)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    out = fwd()
+
+    def bwd():
+        return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+    return fwd, bwd
+
+
+def check_flash_case(fa, case, records):
+    """One FLASH_CASES entry: every kernel against its plain version, the
+    two backward routes against each other; timings when ``timed``."""
+    label, B, H, KV, S, hd, dtype, causal, rope, timed = case
+    tol = FLASH_TOL[dtype]
+    q, k, v, do, cos, sin = flash_inputs(B, H, KV, S, hd, dtype, rope,
+                                         seed=S + hd)
+    out, lse = fa.flash_fwd(q, k, v, cos, sin, causal)
+    fused = fa.flash_bwd_fused(q, k, v, cos, sin, out, lse, do, causal)
+    dq_s = fa.flash_bwd_dq(q, k, v, cos, sin, out, lse, do, causal)
+    dk_h, dv_h = fa.flash_bwd_dkdv(q, k, v, cos, sin, out, lse, do, causal)
+    torch.cuda.synchronize()
+    split = (dq_s, dk_h.reshape(B, S, KV, H // KV, hd).sum(3).to(dtype),
+             dv_h.reshape(B, S, KV, H // KV, hd).sum(3).to(dtype))
+    p_out, p_lse = fa._plain_fwd(q, k, v, cos, sin, causal)
+    args = (q, k, v, cos, sin, out, lse, do, causal)
+    p_grads = fa._plain_bwd_fused(*args)
+    p_dq = fa._plain_bwd_dq(*args)
+    p_dk_h, p_dv_h = fa._plain_bwd_dkdv_per_head(*args)
+    errs = {
+        "out": _max_err(out, p_out), "lse": _max_err(lse, p_lse),
+        "flash_bwd_fused": max(_grad_err(a, b)
+                               for a, b in zip(fused, p_grads)),
+        "flash_bwd_dq": _grad_err(dq_s, p_dq),
+        "flash_bwd_dkdv": max(_grad_err(dk_h, p_dk_h),
+                              _grad_err(dv_h, p_dv_h)),
+        "split_vs_plain_fused": max(_grad_err(a, b)
+                                    for a, b in zip(split, p_grads)),
+        "fused_vs_split": max(_grad_err(a, b) for a, b in zip(fused, split)),
+    }
+    bad = [n for n in ("out", "lse") if not errs[n] <= tol[n]]
+    bad += [n for n in ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkdv",
+                        "split_vs_plain_fused", "fused_vs_split")
+            if not errs[n] <= tol["grad"]]
+    if bad:
+        fail(f"flash {label} {dtype}: {bad} out of tolerance: "
+             f"{json.dumps(errs)}")
+    print(f"flash {label} {str(dtype)[6:]} causal={causal} rope={rope}: "
+          + json.dumps(errs), flush=True)
+    if not timed:
+        return
+    shape = (B, H, KV, S, hd, dtype, causal, rope)
+    # absolute error of each kernel's worst output against its plain version
+    abs_errs = {
+        "flash_fwd": max(errs["out"], errs["lse"]),
+        "flash_bwd_fused": max(_max_err(a, b) for a, b in zip(fused, p_grads)),
+        "flash_bwd_dq": _max_err(dq_s, p_dq),
+        "flash_bwd_dkdv": max(_max_err(dk_h, p_dk_h), _max_err(dv_h, p_dv_h)),
+    }
+    sdpa_fwd, sdpa_bwd = sdpa_flash_yardsticks(q, k, v, do, cos, sin, fa)
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, cos, sin, causal),
+                      lambda: fa._plain_fwd(q, k, v, cos, sin, causal),
+                      sdpa_fwd),
+        "flash_bwd_fused": (lambda: fa.flash_bwd_fused(*args),
+                            lambda: fa._plain_bwd_fused(*args), sdpa_bwd),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*args),
+                         lambda: fa._plain_bwd_dq(*args), None),
+        "flash_bwd_dkdv": (lambda: fa.flash_bwd_dkdv(*args),
+                           lambda: fa._plain_bwd_dkdv_per_head(*args), None),
+    }
+    for name, (kern, plain, lib) in calls.items():
+        rec = {"max_abs_err": abs_errs[name],
+               "max_err_over_max_grad": errs.get(name)}
+        rec["ms"] = time_ms(kern, reps=20)
+        rec["plain_ms"] = time_ms(plain, reps=5, warmup=1)
+        rec["library_ms"] = time_ms(lib, reps=20) if lib else None
+        rec["bound_ms"], rec["bound_by"] = flash_bound(name, *shape)
+        rec["shape"] = f"B={B} H={H} KV={KV} S={S} hd={hd} {str(dtype)[6:]}" \
+                       f" causal={causal} rope={rope}"
+        records[name] = rec
+        print(f"{name} timed: " + json.dumps(rec), flush=True)
+
+
+def run_flash_kernels(fa):
+    records = {}
+    for case in FLASH_CASES:
+        check_flash_case(fa, case, records)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return records
+
+
+# ---- phases 8 to 10: training ------------------------------------------------
+
+#: the slice's main path: Llama-3.2-1B widths and depth, random weights
+#: from the seed, synthetic tokens (what a user sets in the env)
+TRAIN_CONFIG = {"model": "llama3-1b", "global_batch": 4, "seq_len": 2048,
+                "steps": 8, "log_every": 1}
+
+
+def _reset(fa):
+    for k in fa.LAUNCHES:
+        fa.LAUNCHES[k] = 0
+
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_train_entry(fa, llama_mod):
+    """Phase 8: ``train_main`` in-process on the card. Gates: finite loss
+    and grad norm at every step, attn_impl "flash", no sanity violations,
+    16 flash_fwd and 16 flash_bwd_fused launches per step (remat under
+    "dots_flash" never re-runs the forward kernel)."""
+    from kubedl_tpu_torch.training import entry
+    from kubedl_tpu_torch.training.trainer import Trainer
+
+    metrics = []
+    real_step = Trainer.train_step
+
+    def recording_step(self, state, batch):
+        state, m = real_step(self, state, batch)
+        metrics.append(m)  # device scalars, read after the run
+        return state, m
+
+    Trainer.train_step = recording_step
+    _reset(fa)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        rc = entry.train_main({"KUBEDL_TRAIN_CONFIG": json.dumps(TRAIN_CONFIG)})
+    finally:
+        Trainer.train_step = real_step
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    s = entry.LAST_SUMMARY
+    steps = TRAIN_CONFIG["steps"]
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    layers = llama_mod.preset(TRAIN_CONFIG["model"]).n_layers
+    if rc != 0 or len(losses) != steps:
+        fail(f"train_main rc {rc}, {len(losses)} steps")
+    if not all(math.isfinite(x) for x in losses + norms):
+        fail(f"non-finite loss or grad norm: {losses} {norms}")
+    if s["attn_impl"] != "flash" or s["sanity_violations"]:
+        fail(f"attn_impl {s['attn_impl']}, sanity {s['sanity_violations']}")
+    want = {"flash_fwd": layers * steps, "flash_bwd_fused": layers * steps,
+            "flash_bwd_dq": 0, "flash_bwd_dkdv": 0}
+    if launches != want:
+        fail(f"flash launches {launches} != {want} ({layers} layers x "
+             f"{steps} steps)")
+    print("train_main llama3-1b (smoke run, not a benchmark): " + json.dumps({
+        "config": TRAIN_CONFIG, "losses": losses, "grad_norms": norms,
+        "step_time_ms": s["step_time_ms"],
+        "tokens_per_sec": s["tokens_per_sec"], "mfu": s["mfu"],
+        "first_step_seconds": s["first_step_seconds"],
+        "hbm_floor_ms": s["hbm_floor_ms"], "n_params": s["n_params"],
+        "max_memory_allocated_gib": peak / 2**30,
+        "launches": launches,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "sanity_violations": s["sanity_violations"]}), flush=True)
+    _free()
+    return {k: launches[k] for k in ("flash_fwd", "flash_bwd_fused")}
+
+
+def _kernel_group(name: str) -> str:
+    if "flash_fwd_kernel" in name:
+        return "flash_fwd"
+    if "flash_bwd" in name or "flash_dq_finish" in name:
+        return "flash_bwd"
+    return _kernel_category(name)
+
+
+def run_overfit_and_split(fa, llama_mod):
+    """Phase 8, then 10: Trainer.fit on ONE repeated batch for 8 steps
+    (warmup 1) must end below its first loss; two steps under
+    torch.profiler (device time by category, busy share); then two steps
+    with the reference's predicate forced to the split backward (its
+    scratch cap monkeypatched to 0, as its own test does): 16 launches of
+    each split kernel per step and finite losses."""
+    import itertools
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubedl_tpu_torch.training.data import SyntheticTokens
+    from kubedl_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    model = llama_mod.preset(TRAIN_CONFIG["model"])
+    B, S = TRAIN_CONFIG["global_batch"], TRAIN_CONFIG["seq_len"]
+    tr = Trainer(TrainConfig(model=model, global_batch=B, seq_len=S,
+                             steps=8, warmup_steps=1, attn_impl="flash"))
+    batch = next(iter(SyntheticTokens(B, S, model.vocab_size, seed=1)))
+    state, s = tr.fit(itertools.repeat(batch))
+    if not (math.isfinite(s["final_loss"]) and s["final_loss"] < s["first_loss"]):
+        fail(f"repeated batch did not overfit: {s['first_loss']} -> "
+             f"{s['final_loss']}")
+    print("overfit one batch, 8 steps: " + json.dumps({
+        "first_loss": s["first_loss"], "final_loss": s["final_loss"],
+        "step_time_ms": s["step_time_ms"], "mfu": s["mfu"]}), flush=True)
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            state, _ = tr.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cats, top = {}, []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        cat = _kernel_group(e.key)
+        cats[cat] = cats.get(cat, 0.0) + us / 1e3
+        top.append((us / 1e3, e.count, e.key[:90]))
+    dev_ms = sum(cats.values())
+    top.sort(reverse=True)
+    print(f"profile (2 train steps, {TRAIN_CONFIG['model']} b{B} s{S}): "
+          + json.dumps({
+        "wall_ms": wall_ms, "device_ms": dev_ms,
+        "busy_share": dev_ms / wall_ms if wall_ms else None,
+        "by_category_ms": cats,
+        "top": [[n, ms, c] for ms, c, n in top[:10]]}), flush=True)
+    if dev_ms == 0.0:
+        print("profile: the profiler saw no device time", flush=True)
+
+    old = fa._FUSED_BWD_SCRATCH_BYTES
+    fa._FUSED_BWD_SCRATCH_BYTES = 0
+    _reset(fa)
+    try:
+        state, s2 = tr.fit(itertools.repeat(batch), state=state,
+                           steps=state["step"] + 2)
+    finally:
+        fa._FUSED_BWD_SCRATCH_BYTES = old
+    launches = dict(fa.LAUNCHES)
+    n = 2 * model.n_layers
+    want = {"flash_fwd": n, "flash_bwd_fused": 0, "flash_bwd_dq": n,
+            "flash_bwd_dkdv": n}
+    if launches != want or not math.isfinite(s2["final_loss"]):
+        fail(f"split route: launches {launches} != {want}, final loss "
+             f"{s2['final_loss']}")
+    print("split backward route, 2 steps: " + json.dumps({
+        "losses": [s2["first_loss"], s2["final_loss"]],
+        "launches": launches}), flush=True)
+    del tr, state
+    _free()
+    return {k: launches[k] for k in ("flash_bwd_dq", "flash_bwd_dkdv")}
+
+
+def run_train_f32_parity(fa, llama_mod):
+    """Phase 9: llama3-1b width cut to 2 layers, float32, TF32 off, one
+    seeded init: one train step on each kernel route (fused, split) and on
+    the plain route (dense attention). Gates: losses within 1e-5
+    relative; every gradient leaf within 1e-4 of max |grad| (float32 sums
+    reordered, the fused dq by atomics); updated params within 2.0001*lr
+    max abs (one Adam step moves an element by at most lr(1 + wd|p|); a
+    gradient near zero may flip sign between routes) and 1e-3*lr mean
+    abs."""
+    from kubedl_tpu_torch.training.data import SyntheticTokens
+    from kubedl_tpu_torch.training.trainer import (
+        TrainConfig, Trainer, tree_leaves,
+    )
+
+    model = dataclasses.replace(llama_mod.preset("llama3-1b"), n_layers=2,
+                                dtype=torch.float32)
+    lr = 3e-4
+    kw = dict(model=model, global_batch=2, seq_len=1024, steps=4,
+              warmup_steps=0, learning_rate=lr)
+    batch = next(iter(SyntheticTokens(2, 1024, model.vocab_size, seed=3)))
+    runs = {}
+    for route in ("dense", "fused", "split"):
+        tr = Trainer(TrainConfig(attn_impl="dense" if route == "dense"
+                                 else "flash", **kw))
+        state = tr.init_state()
+        old = fa._FUSED_BWD_SCRATCH_BYTES
+        if route == "split":
+            fa._FUSED_BWD_SCRATCH_BYTES = 0
+        try:
+            loss, grads = tr.value_and_grad(state["params"],
+                                            tr.shard_batch(batch))
+            state, m = tr.train_step(state, batch)
+        finally:
+            fa._FUSED_BWD_SCRATCH_BYTES = old
+        runs[route] = (float(loss), grads, tree_leaves(state["params"]),
+                       float(m["loss"]), tr.attn_impl)
+        del tr, state
+        _free()
+    ref_loss, ref_grads, ref_params, _, _ = runs["dense"]
+    report = {}
+    for route in ("fused", "split"):
+        loss, grads, params, step_loss, impl = runs[route]
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        gerr = max(_grad_err(a, b) for a, b in zip(grads, ref_grads))
+        pmax = max(_max_err(a, b) for a, b in zip(params, ref_params))
+        pmean = sum((a - b).abs().sum().item()
+                    for a, b in zip(params, ref_params)) / \
+            sum(p.numel() for p in params)
+        report[route] = {"loss_rel": rel, "grad_err_over_max": gerr,
+                         "param_max_abs": pmax, "param_mean_abs": pmean,
+                         "attn_impl": impl}
+        if impl != "flash" or not (rel <= 1e-5 and gerr <= 1e-4
+                                   and pmax <= 2.0001 * lr
+                                   and pmean <= 1e-3 * lr
+                                   and math.isfinite(step_loss)):
+            fail(f"f32 parity {route} vs dense: {json.dumps(report)}")
+    print("f32 2-layer llama3-1b width, kernels vs dense: "
+          + json.dumps(report), flush=True)
 
 
 # ---- phase 5 ----------------------------------------------------------------
@@ -502,7 +938,9 @@ def run_gather(server_mod, reqs, serve_cfg, blocked_tokens):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--skip-engine", action="store_true",
-                    help="build and check the kernels only")
+                    help="skip the serving engine (phases 5 and 6)")
+    ap.add_argument("--skip-train", action="store_true",
+                    help="skip the training phases (8 to 10)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs a GPU", file=sys.stderr)
@@ -511,6 +949,7 @@ def main() -> int:
     from kubedl_tpu_torch.models import llama as llama_mod
     from kubedl_tpu_torch.models import paged_attention as pa
     from kubedl_tpu_torch.ops import build
+    from kubedl_tpu_torch.ops import flash_attention as fa
     from kubedl_tpu_torch.serving import server as server_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -522,7 +961,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
 
     t0 = time.perf_counter()
-    build.load_kernels(verbose=True)
+    build.build_all(verbose=True)
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({json.dumps(build.BUILD_SECONDS)})", flush=True)
 
@@ -548,13 +987,22 @@ def main() -> int:
     rec = check_blocked(pa, small, 64, torch.bfloat16, timed=False)
     print("blocked hd=64 S=64 bf16: " + json.dumps(rec), flush=True)
 
-    summary = {"launches": {"blocked": None, "fused": None}}
+    launches = {"blocked": None, "fused": None}
+    summary = {"launches": launches}
     if not args.skip_engine:
         blocked_tokens, reqs, serve_cfg = run_engine(
             pa, server_mod, llama_mod, summary)
+        launches = summary["launches"]
         run_gather(server_mod, reqs, serve_cfg, blocked_tokens)
         run_f32_parity(server_mod, llama_mod, reqs, serve_cfg)
         run_profile(server_mod, reqs, serve_cfg)
+
+    kernels.update(run_flash_kernels(fa))
+    launches.update({name: None for name in FLASH_REPLACES})
+    if not args.skip_train:
+        launches.update(run_train_entry(fa, llama_mod))
+        launches.update(run_overfit_and_split(fa, llama_mod))
+        run_train_f32_parity(fa, llama_mod)
 
     line = []
     for name in ("paged_attention_blocked", "paged_attention_fused"):
@@ -563,7 +1011,17 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "kubedl_tpu_torch/csrc/paged_attention.cu",
             "replaces": REPLACES[name],
-            "launches": summary["launches"][name.rsplit("_", 1)[1]],
+            "launches": launches[name.rsplit("_", 1)[1]],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+        })
+    for name in FLASH_REPLACES:
+        rec = kernels[name]
+        line.append({
+            "name": name, "route": "cuda",
+            "source": "kubedl_tpu_torch/csrc/flash_attention.cu",
+            "replaces": FLASH_REPLACES[name], "launches": launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

@@ -1,14 +1,19 @@
-"""Llama-3-family decoder: the paged-KV serving path, in PyTorch.
+"""Llama-3-family decoder in PyTorch: the training forward and loss, and
+the paged-KV serving path.
 
 Port of ``kubedl_tpu/models/llama.py`` (config, presets, init, building
-blocks and the paged functions of ``:849-1468``). Parameters are a plain
+blocks, the training path of ``:39-90`` and ``:415-606``, and the paged
+functions of ``:849-1468``). Parameters are a plain
 dict with the reference's names and stacked ``[L, in, out]`` shapes, so
 a checkpoint moves between the packages without transposes
 (:func:`params_from_numpy` carries a JAX tree across).
 
 Differences in idiom, not in math:
 
-- ``lax.scan`` over layers and steps becomes a Python loop; projections
+- ``lax.scan`` over layers and steps becomes a Python loop, and
+  ``jax.checkpoint(body, policy)`` a per-layer non-reentrant
+  ``torch.utils.checkpoint`` with a selective policy of the same meaning
+  (:func:`remat_policy_for`); projections
   stay ``torch.matmul`` (the reference left them to XLA outside any
   Pallas kernel).
 - The paged functions update the cache dict and its pools IN PLACE and
@@ -55,8 +60,23 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16
+    #: checkpoint each layer (trade flops for device memory)
+    remat: bool = True
+    #: what the layer checkpoint saves (see :func:`remat_policy_for`):
+    #: "dots_flash" (matmul outputs AND the flash forward's out/lse — the
+    #: default: without them the backward re-runs the forward kernel every
+    #: layer), "flash_rope", "flash", "dots", "dots_attn", "nothing",
+    #: "attn", "attn_flash"
+    remat_policy: str = "dots_flash"
+    #: compute the LM loss over sequence chunks of this many positions
+    #: (0 = whole sequence at once), so the [B, S, V] float32 logits never
+    #: exist at once
+    loss_chunk: int = 0
     #: tie lm_head to the embedding table (smaller models do)
     tie_embeddings: bool = False
+    #: fuse the QKV (and gate/up) projections into single matmuls at use
+    #: (concat-at-use: the parameter tree is unchanged)
+    fuse_projections: bool = False
     # -- Gemma-family knobs (same decoder skeleton, different details) -----
     #: MLP activation: "silu" (Llama SwiGLU) or "gelu" (Gemma GeGLU, tanh)
     act: str = "silu"
@@ -87,6 +107,10 @@ class LlamaConfig:
         head = 0 if self.tie_embeddings else self.dim * self.vocab_size
         return embed + self.n_layers * per_layer + head + self.dim
 
+    def flops_per_token(self) -> float:
+        """Approximate training FLOPs/token (fwd+bwd ~= 6*N)."""
+        return 6.0 * self.num_params()
+
 
 # ---- presets ---------------------------------------------------------------
 
@@ -97,11 +121,11 @@ LLAMA3_1B = LlamaConfig(
 )
 BENCH_350M = LlamaConfig(
     vocab_size=32768, dim=1024, n_layers=24, n_heads=16, n_kv_heads=8,
-    ffn_dim=4096, max_seq=2048,
+    ffn_dim=4096, max_seq=2048, loss_chunk=0, remat_policy="flash_rope",
 )
 TINY = LlamaConfig(
     vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2, ffn_dim=128,
-    max_seq=128, dtype=torch.float32,
+    max_seq=128, dtype=torch.float32, remat=False,
 )
 #: Gemma-2B: MQA, head_dim 256, GeGLU, (1+w) norms, sqrt(dim)-scaled tied
 #: embeddings
@@ -113,7 +137,7 @@ GEMMA_2B = LlamaConfig(
 TINY_DEEP = dataclasses.replace(TINY, n_layers=4, zero_init_deep_from=2)
 TINY_GEMMA = LlamaConfig(
     vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=1, ffn_dim=128,
-    max_seq=128, dtype=torch.float32, tie_embeddings=True,
+    max_seq=128, dtype=torch.float32, remat=False, tie_embeddings=True,
     act="gelu", norm_plus_one=True, embed_scale=True, head_dim_fixed=32,
 )
 
@@ -317,6 +341,197 @@ def _last_logits(params, x, lengths, cfg):
     idx = torch.clamp(lengths.long() - 1, min=0)
     x_last = x[torch.arange(x.shape[0], device=x.device), idx]  # [B, D]
     return (x_last @ lm_head_of(params, cfg)).float()
+
+
+# ---- training forward: remat policies, blocks, loss -------------------------
+
+@torch.library.custom_op("kubedl_tpu::checkpoint_name", mutates_args=())
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """A named copy of ``x`` that a remat policy can save by its name (the
+    counterpart of ``jax.ad_checkpoint.checkpoint_name``; a policy sees
+    operators, never tensors). Only emitted for names the active policy
+    saves, so it costs one copy of exactly what is kept."""
+    return x.clone()
+
+
+checkpoint_name.register_autograd(
+    lambda ctx, grad: (grad, None),
+    setup_context=lambda ctx, inputs, output: None,
+)
+
+#: name -> (saves matmul outputs, names saved), with the meaning of the
+#: reference's jax.checkpoint policy of the same name
+_REMAT_POLICIES = {
+    "dots": (True, ()),
+    "nothing": (False, ()),
+    "attn": (False, ("attn_out",)),
+    "dots_attn": (True, ("attn_out",)),
+    "flash": (False, ("flash_out", "flash_lse")),
+    "flash_rope": (False, ("flash_out", "flash_lse", "rope_out", "attn_v")),
+    "attn_flash": (False, ("attn_out", "flash_out", "flash_lse")),
+    "dots_flash": (True, ("flash_out", "flash_lse")),
+}
+
+
+def remat_policy_for(name: str):
+    """Map a config string to a selective-checkpoint policy function for
+    ``torch.utils.checkpoint.create_selective_checkpoint_contexts``.
+
+    "dots" saves the matmul outputs (``aten.mm``: products without batch
+    dims, like ``dots_with_no_batch_dims_saveable``), "nothing" nothing;
+    the other names save the tensors tagged with those names
+    (:func:`checkpoint_name`) and/or, for "flash_out"/"flash_lse", the
+    outputs of the ``kubedl_tpu::flash_fwd`` operator (out and lse
+    together). PyTorch replays the whole layer in the backward and skips
+    only the saved operators, so a saved name spares the kernel launch,
+    not the (cheap) ops that fed it. The returned function carries the
+    saved names as ``.names``. An unknown name raises."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    import kubedl_tpu_torch.ops.flash_attention  # noqa: F401 (registers flash_fwd)
+
+    try:
+        saves_dots, names = _REMAT_POLICIES[name]
+    except KeyError:
+        raise ValueError(f"unknown remat_policy {name!r}") from None
+    dots = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+    flash_fwd = torch.ops.kubedl_tpu.flash_fwd.default
+    tag = torch.ops.kubedl_tpu.checkpoint_name.default
+
+    def policy(ctx, op, *args, **kwargs):
+        if (saves_dots and op in dots) \
+                or (op == flash_fwd and "flash_out" in names) \
+                or (op == tag and args[1] in names):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    policy.names = names
+    return policy
+
+
+def _tag(x: torch.Tensor, name: str, names) -> torch.Tensor:
+    return checkpoint_name(x, name) if name in names else x
+
+
+def _block(x: torch.Tensor, lp: Params, cfg: LlamaConfig, cos, sin,
+           attn_fn=None, names=()) -> torch.Tensor:
+    """One decoder block (the reference's ``_block`` on one device). With
+    an ``attn_fn`` that has ``fused_rope``, q/k go in PRE-rope with the
+    tables; otherwise RoPE is applied here. ``names`` are the tags the
+    active remat policy saves."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    po = cfg.norm_plus_one
+    h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps, po)
+    n_heads = lp["wq"].shape[-1] // hd
+    n_kv = lp["wk"].shape[-1] // hd
+    if cfg.fuse_projections:
+        # one [D, (H+2KV)*hd] matmul; autograd slices the grad back apart
+        qkv = h @ torch.cat([lp["wq"], lp["wk"], lp["wv"]], dim=1)
+        dq_w, dkv_w = n_heads * hd, n_kv * hd
+        q = qkv[..., :dq_w].reshape(B, S, n_heads, hd)
+        k = qkv[..., dq_w:dq_w + dkv_w].reshape(B, S, n_kv, hd)
+        v = qkv[..., dq_w + dkv_w:].reshape(B, S, n_kv, hd)
+    else:
+        q = (h @ lp["wq"]).reshape(B, S, n_heads, hd)
+        k = (h @ lp["wk"]).reshape(B, S, n_kv, hd)
+        v = (h @ lp["wv"]).reshape(B, S, n_kv, hd)
+    if getattr(attn_fn, "fused_rope", False):
+        q = _tag(q, "rope_out", names)
+        k = _tag(k, "rope_out", names)
+        v = _tag(v, "attn_v", names)
+        attn = attn_fn(q, k, v, rope_cos=cos, rope_sin=sin)
+    else:
+        q = _tag(apply_rope(q, cos, sin), "rope_out", names)
+        k = _tag(apply_rope(k, cos, sin), "rope_out", names)
+        v = _tag(v, "attn_v", names)
+        attn = (attn_fn or attention)(q, k, v)
+    attn = _tag(attn.reshape(B, S, n_heads * hd), "attn_out", names)
+    x = x + attn @ lp["wo"]
+    if not cfg.fuse_projections:
+        return _mlp(x, lp, cfg)
+    h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps, po)
+    Fd = lp["w_gate"].shape[-1]
+    g_u = h @ torch.cat([lp["w_gate"], lp["w_up"]], dim=1)
+    gate = _act(cfg)(g_u[..., :Fd].float()).to(h.dtype)
+    return x + (gate * g_u[..., Fd:]) @ lp["w_down"]
+
+
+def llama_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+                 attn_fn=None) -> torch.Tensor:
+    """tokens [B, S] -> final-norm hidden states [B, S, D]. The layer
+    loop is a Python loop; with ``cfg.remat`` each layer runs under a
+    non-reentrant ``torch.utils.checkpoint`` whose selective policy is
+    ``remat_policy_for(cfg.remat_policy)``."""
+    from torch.utils.checkpoint import (
+        checkpoint, create_selective_checkpoint_contexts,
+    )
+
+    S = tokens.shape[1]
+    x = _embed_in(params, tokens, cfg)
+    cos, sin = rope_freqs(cfg, S, device=x.device)
+    if cfg.remat:
+        policy = remat_policy_for(cfg.remat_policy)
+        ctx_fn = functools.partial(create_selective_checkpoint_contexts,
+                                   policy)
+        for i in range(cfg.n_layers):
+            x = checkpoint(_block, x, _layer(params, i), cfg, cos, sin,
+                           attn_fn, policy.names, use_reentrant=False,
+                           context_fn=ctx_fn)
+    else:
+        for i in range(cfg.n_layers):
+            x = _block(x, _layer(params, i), cfg, cos, sin, attn_fn)
+    return rmsnorm(x, params["final_norm"], cfg.norm_eps, cfg.norm_plus_one)
+
+
+def llama_forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+                  attn_fn=None) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, V] (float32)."""
+    x = llama_hidden(params, tokens, cfg, attn_fn)
+    return (x @ lm_head_of(params, cfg)).float()
+
+
+def llama_loss(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+               attn_fn=None) -> torch.Tensor:
+    """Next-token cross entropy over tokens[:, 1:] (the forward runs on
+    the full sequence). With ``cfg.loss_chunk`` the head matmul and
+    softmax run chunk by chunk."""
+    if cfg.loss_chunk:
+        x = llama_hidden(params, tokens, cfg, attn_fn)
+        return chunked_next_token_nll(x, lm_head_of(params, cfg), tokens,
+                                      cfg.loss_chunk)
+    return next_token_nll(llama_forward(params, tokens, cfg, attn_fn), tokens)
+
+
+def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Mean next-token NLL: logits [B, S, V] (full sequence) scored against
+    tokens shifted by one."""
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    targets = tokens[:, 1:].long()
+    return -logp.gather(-1, targets[..., None])[..., 0].mean()
+
+
+def _chunk_nll_sum(xc, head, tc):
+    logp = torch.log_softmax((xc @ head).float(), dim=-1)
+    return -logp.gather(-1, tc.long()[..., None]).sum()
+
+
+def chunked_next_token_nll(x: torch.Tensor, head: torch.Tensor,
+                           tokens: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Same mean NLL as :func:`next_token_nll` over sequence chunks: each
+    chunk's logits are recomputed in the backward (checkpointed, nothing
+    saved), so peak loss memory is [B, chunk, V]."""
+    from torch.utils.checkpoint import checkpoint
+
+    B, S = tokens.shape
+    n_pos = S - 1
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, n_pos, chunk):
+        c1 = min(c0 + chunk, n_pos)
+        total = total + checkpoint(_chunk_nll_sum, x[:, c0:c1], head,
+                                   tokens[:, c0 + 1:c1 + 1],
+                                   use_reentrant=False)
+    return total / (B * n_pos)
 
 
 # ---- paged KV (block-table serving path) -----------------------------------
@@ -585,6 +800,8 @@ def paged_prefill_from(
 
 __all__ = [
     "LlamaConfig", "preset", "PRESETS", "llama_init", "params_from_numpy",
+    "remat_policy_for", "checkpoint_name", "llama_hidden", "llama_forward",
+    "llama_loss", "next_token_nll", "chunked_next_token_nll",
     "rmsnorm", "rope_table", "rope_freqs", "apply_rope", "attention",
     "gather_embed", "lm_head_of", "merge_chain_tokens", "init_paged_cache",
     "paged_decode_step_batched", "paged_decode_segment",

@@ -103,15 +103,55 @@ def _declare_paged_attention(lib) -> None:
     lib.kdl_paged_attention_fused.restype = i
 
 
+def _declare_flash_attention(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    dims = [i] * 10  # B Sq Sk H KV hd causal rope dtype, then the stream
+    dims[-1] = p
+    lib.kdl_flash_fwd.argtypes = [p] * 7 + dims  # q k v cos sin out lse
+    # q k v cos sin out lse dout + dq_ws dq dk dv / dq / dk_h dv_h
+    lib.kdl_flash_bwd_fused.argtypes = [p] * 12 + dims
+    lib.kdl_flash_bwd_dq.argtypes = [p] * 9 + dims
+    lib.kdl_flash_bwd_dkdv.argtypes = [p] * 10 + dims
+    for fn in (lib.kdl_flash_fwd, lib.kdl_flash_bwd_fused,
+               lib.kdl_flash_bwd_dq, lib.kdl_flash_bwd_dkdv):
+        fn.restype = i
+
+
+_SOURCES = {
+    "paged_attention": _declare_paged_attention,
+    "flash_attention": _declare_flash_attention,
+}
+
+
+def _load(name: str, verbose: bool):
+    with _lock:
+        lib: Optional[ctypes.CDLL] = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name + ".cu", verbose)))
+            _SOURCES[name](lib)
+            _libs[name] = lib
+        return lib
+
+
+def build_all(verbose: bool = False) -> None:
+    """Compile every source that has no up-to-date build, one ``nvcc``
+    each, all started together; then load them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(_SOURCES)) as pool:
+        list(pool.map(lambda n: build(n + ".cu", verbose), _SOURCES))
+    for name in _SOURCES:
+        _load(name, verbose)
+
+
 def load_kernels(verbose: bool = False):
     """The paged-attention kernel library (built on first call)."""
-    with _lock:
-        lib: Optional[ctypes.CDLL] = _libs.get("paged_attention")
-        if lib is None:
-            lib = ctypes.CDLL(str(build("paged_attention.cu", verbose)))
-            _declare_paged_attention(lib)
-            _libs["paged_attention"] = lib
-        return lib
+    return _load("paged_attention", verbose)
+
+
+def load_flash_kernels(verbose: bool = False):
+    """The flash-attention kernel library (built on first call)."""
+    return _load("flash_attention", verbose)
 
 
 def check_launch(err: int, name: str) -> None:
@@ -122,5 +162,5 @@ def check_launch(err: int, name: str) -> None:
         raise RuntimeError(f"CUDA launch of {name} failed: cudaError {err}")
 
 
-__all__ = ["build", "load_kernels", "check_launch", "find_nvcc",
-           "BUILD_DIR", "BUILD_SECONDS"]
+__all__ = ["build", "build_all", "load_kernels", "load_flash_kernels",
+           "check_launch", "find_nvcc", "BUILD_DIR", "BUILD_SECONDS"]

@@ -1,0 +1,344 @@
+"""The port's flash attention (kubedl_tpu_torch.ops.flash_attention)
+against the reference's Pallas kernels run in interpret mode on the CPU.
+
+The same numpy inputs go through JAX ``flash_attention(..., interpret=
+True)`` and the port's ``flash_attention`` (whose operators run their
+plain PyTorch versions on CPU tensors). Tolerances, float32: forward and
+lse 2e-5 abs/rel (reordered float32 sums at S <= 128 sit near 1e-7);
+gradients 1e-4 (the reference's own gradient tolerance), 2e-3 on the
+long odd sequence (as the reference's test). Each JAX reference is
+computed once per case (its interpret compile dominates the cost).
+
+The CUDA kernels are held against the plain versions on the card (the
+``cuda`` cases, skipped without one; ``chip_smoke.py`` does it at the
+training shapes).
+"""
+
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from kubedl_tpu_torch.ops import flash_attention as tfa  # noqa: E402
+
+FWD_TOL = 2e-5
+GRAD_TOL = 1e-4
+
+
+def _qkv(seed, B=2, S=64, H=4, KV=2, hd=16):
+    rng = np.random.RandomState(seed)
+    return tuple(rng.standard_normal(s).astype(np.float32)
+                 for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+
+
+def _rope(hd, S):
+    from kubedl_tpu.models import llama as jl
+
+    cos, sin = jl.rope_table(hd, 10000.0, S)
+    return np.array(cos), np.array(sin)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_case(seed, B, S, H, KV, hd, causal, block, rope, split=False):
+    """JAX out and d/d(q,k,v) of (o*o).sum() through the reference's
+    interpret-mode flash kernels (``split`` forces the split backward)."""
+    import jax
+    import jax.numpy as jnp
+
+    from kubedl_tpu.ops import flash_attention_module as jfa
+
+    q, k, v = _qkv(seed, B, S, H, KV, hd)
+    kw = dict(causal=causal, block_q=block, block_k=block,
+              bwd_block_q=block, bwd_block_k=block, interpret=True)
+    if rope:
+        cos, sin = _rope(hd, S)
+        kw.update(rope_cos=jnp.asarray(cos), rope_sin=jnp.asarray(sin))
+
+    def loss(q, k, v):
+        o = jfa.flash_attention(q, k, v, **kw)
+        return (o * o).sum(), o
+
+    old = jfa._FUSED_BWD_SCRATCH_BYTES
+    if split:
+        jfa._FUSED_BWD_SCRATCH_BYTES = 0
+    try:
+        (_, o), g = jax.value_and_grad(loss, argnums=(0, 1, 2),
+                                       has_aux=True)(*map(jnp.asarray,
+                                                          (q, k, v)))
+    finally:
+        jfa._FUSED_BWD_SCRATCH_BYTES = old
+    return np.asarray(o), tuple(np.asarray(x) for x in g)
+
+
+def _port_case(seed, B, S, H, KV, hd, causal, block, rope):
+    assert tfa.fit_block(S, block) > 0  # the flash route, not the oracle
+    q, k, v = (torch.from_numpy(x).requires_grad_(True)
+               for x in _qkv(seed, B, S, H, KV, hd))
+    kw = dict(causal=causal, block_q=block, block_k=block,
+              bwd_block_q=block, bwd_block_k=block)
+    if rope:
+        cos, sin = (torch.from_numpy(t) for t in _rope(hd, S))
+        kw.update(rope_cos=cos, rope_sin=sin)
+    o = tfa.flash_attention(q, k, v, **kw)
+    g = torch.autograd.grad((o * o).sum(), (q, k, v))
+    return o.detach().numpy(), tuple(x.numpy() for x in g)
+
+
+#: (seed, B, S, H, KV, hd, causal, block, rope). Every case tiles (a
+#: block below S must be a multiple of 128, else both sides would take
+#: the dense oracle): one block at S <= block, 2 x 2 tiles at S = 256.
+CASES = {
+    "causal-group2": (0, 2, 64, 4, 2, 16, True, 64, False),
+    "noncausal-group2": (1, 2, 64, 4, 2, 16, False, 64, False),
+    "causal-group4": (2, 1, 64, 8, 2, 16, True, 64, False),
+    "causal-mqa": (3, 1, 64, 8, 1, 16, True, 64, False),
+    "noncausal-mqa": (4, 1, 48, 4, 1, 16, False, 1024, False),
+    "multi-block": (5, 1, 256, 4, 2, 16, True, 128, False),
+    "rope-gqa": (6, 1, 256, 4, 2, 16, True, 128, True),
+    "rope-mqa": (7, 1, 64, 8, 1, 32, True, 64, True),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_forward_matches_reference(case):
+    o_ref, _ = _jax_case(*CASES[case])
+    o, _ = _port_case(*CASES[case])
+    np.testing.assert_allclose(o, o_ref, atol=FWD_TOL, rtol=FWD_TOL)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_gradients_match_reference(case):
+    _, g_ref = _jax_case(*CASES[case])
+    _, g = _port_case(*CASES[case])
+    for a, b in zip(g, g_ref):
+        np.testing.assert_allclose(a, b, atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+def test_fused_rope_matches_explicit_rope():
+    """Fused rope takes PRE-rope q/k and returns pre-rope gradients: it
+    equals rotating outside and attending, forward and backward."""
+    from kubedl_tpu_torch.models import llama as tl
+
+    seed, B, S, H, KV, hd, causal, block, _ = CASES["rope-gqa"]
+    o_fused, g_fused = _port_case(seed, B, S, H, KV, hd, causal, block, True)
+    q, k, v = (torch.from_numpy(x).requires_grad_(True)
+               for x in _qkv(seed, B, S, H, KV, hd))
+    cos, sin = (torch.from_numpy(t) for t in _rope(hd, S))
+    o = tfa.flash_attention(tl.apply_rope(q, cos, sin),
+                            tl.apply_rope(k, cos, sin), v, causal=causal)
+    g = torch.autograd.grad((o * o).sum(), (q, k, v))
+    np.testing.assert_allclose(o_fused, o.detach().numpy(), atol=FWD_TOL,
+                               rtol=FWD_TOL)
+    for a, b in zip(g_fused, g):
+        np.testing.assert_allclose(a, b.numpy(), atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+def test_fused_rope_split_backward_path(monkeypatch):
+    """The reference's monkeypatch of the fused-scratch cap to 0 on both
+    sides: the split pair with in-kernel rope matches the reference's
+    split kernels, and the port's own fused route."""
+    case = CASES["rope-gqa"]
+    _, g_fused = _port_case(*case)
+    _, g_ref = _jax_case(*case, split=True)
+    monkeypatch.setattr(tfa, "_FUSED_BWD_SCRATCH_BYTES", 0)
+    assert tfa.bwd_route(case[2], case[5]) == "split"
+    calls = {"dq": 0, "dkdv": 0}
+    real_dq, real_dkdv = tfa._plain_bwd_dq, tfa._plain_bwd_dkdv_per_head
+
+    def dq(*a):
+        calls["dq"] += 1
+        return real_dq(*a)
+
+    def dkdv(*a):
+        calls["dkdv"] += 1
+        return real_dkdv(*a)
+
+    monkeypatch.setattr(tfa, "_plain_bwd_dq", dq)
+    monkeypatch.setattr(tfa, "_plain_bwd_dkdv_per_head", dkdv)
+    _, g_split = _port_case(*case)
+    assert calls == {"dq": 1, "dkdv": 1}
+    for a, b, c in zip(g_split, g_ref, g_fused):
+        np.testing.assert_allclose(a, b, atol=GRAD_TOL, rtol=GRAD_TOL)
+        np.testing.assert_allclose(a, c, atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+def test_lse_is_base2_and_matches_reference_fwd():
+    """The plain forward's lse is the reference kernel's: base 2,
+    [B, H, Sq, 1] float32 (checked with fused rope)."""
+    import jax.numpy as jnp
+
+    from kubedl_tpu.ops import flash_attention_module as jfa
+
+    seed, B, S, H, KV, hd, causal, block, _ = CASES["rope-gqa"]
+    q, k, v = _qkv(seed, B, S, H, KV, hd)
+    cos, sin = _rope(hd, S)
+    _, lse_ref = jfa._fwd(
+        *(jnp.asarray(x).transpose(0, 2, 1, 3) for x in (q, k, v)),
+        causal, block, block, True, cos=jnp.asarray(cos),
+        sin=jnp.asarray(sin))
+    out, lse = tfa._plain_fwd(*(torch.from_numpy(x) for x in (q, k, v, cos,
+                                                            sin)), causal)
+    assert tuple(lse.shape) == (B, H, S, 1) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref),
+                               atol=FWD_TOL, rtol=FWD_TOL)
+    # base 2: the first query sees only key 0 (causal), so its lse is its
+    # one score in log2 units, s * log2(e) / sqrt(hd)
+    qr = tfa._rope_rotate(torch.from_numpy(q), torch.from_numpy(cos),
+                          torch.from_numpy(sin))
+    kr = tfa._rope_rotate(torch.from_numpy(k), torch.from_numpy(cos),
+                          torch.from_numpy(sin))
+    s00 = float((qr[0, 0, 0] * kr[0, 0, 0]).sum()) / np.sqrt(hd)
+    assert abs(float(lse[0, 0, 0, 0]) - s00 * np.log2(np.e)) < 1e-5
+
+
+def test_mask_falls_back_to_dense():
+    from kubedl_tpu_torch.models import llama as tl
+
+    q, k, v = (torch.from_numpy(x) for x in _qkv(8, S=32))
+    mask = torch.ones((1, 1, 1, 32, 32), dtype=torch.bool)
+    mask[..., 5:] = False
+    calls = []
+    real = tfa._plain_fwd
+    try:
+        tfa._plain_fwd = lambda *a: calls.append(1) or real(*a)
+        got = tfa.flash_attention(q, k, v, causal=False, mask=mask)
+    finally:
+        tfa._plain_fwd = real
+    assert not calls
+    want = tl.attention(q, k, v, causal=False, mask=mask)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=FWD_TOL,
+                               rtol=FWD_TOL)
+
+
+def test_untileable_shape_falls_back_to_oracle():
+    import jax.numpy as jnp
+
+    from kubedl_tpu.ops import flash_attention_module as jfa
+
+    q, k, v = _qkv(9, S=48)
+    want = jfa.flash_attention(*map(jnp.asarray, (q, k, v)), block_q=32,
+                               block_k=32)
+    got = tfa.flash_attention(*map(torch.from_numpy, (q, k, v)), block_q=32,
+                              block_k=32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4,
+                               rtol=2e-4)
+
+
+def test_odd_long_seq_refit_gradients(monkeypatch):
+    """The reference's long odd-sequence re-fit case (S=5376, hd=16, its
+    shrunken thresholds): both sides take the fused route with a re-fit
+    512-tile and agree on the gradients (2e-3, the reference's tolerance
+    there)."""
+    import jax
+    import jax.numpy as jnp
+
+    from kubedl_tpu.ops import flash_attention_module as jfa
+
+    S, hd = 5376, 16
+    for mod in (jfa, tfa):
+        monkeypatch.setattr(mod, "_FUSED_BWD_SMALL_TILE_BYTES", 256 << 10)
+        monkeypatch.setattr(mod, "_FUSED_BWD_SCRATCH_BYTES", 1 << 20)
+    assert tfa.bwd_route(S, hd) == "fused" and tfa.fit_block(S, 512) == 384
+    q, k, v = _qkv(5, B=1, S=S, H=2, KV=1, hd=hd)
+
+    def jloss(q, k, v):
+        o = jfa.flash_attention(q, k, v, causal=True, interpret=True)
+        return (o * o).sum()
+
+    g_ref = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    o = tfa.flash_attention(qt, kt, vt, causal=True)
+    g = torch.autograd.grad((o * o).sum(), (qt, kt, vt))
+    for a, b in zip(g, g_ref):
+        assert np.isfinite(a.numpy()).all()
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-3,
+                                   rtol=2e-3)
+
+
+@pytest.mark.parametrize("hd", [16, 64, 128, 256])
+def test_routing_equals_reference(hd):
+    """fit_block, supports and the fused/split choice, over S = 1..9000."""
+    from kubedl_tpu.ops import flash_attention_module as jfa
+
+    for S in range(1, 9001):
+        for want in (512, 1024):
+            assert tfa.fit_block(S, want) == jfa.fit_block(S, want), (S, want)
+        assert tfa.supports(S) == jfa.supports(S), S
+        scratch = S * hd * 8
+        ref_fused = scratch <= jfa._FUSED_BWD_SCRATCH_BYTES and (
+            scratch <= jfa._FUSED_BWD_SMALL_TILE_BYTES
+            or jfa.fit_block(S, 512) > 0)
+        assert tfa.bwd_route(S, hd) == ("fused" if ref_fused else "split"), S
+
+
+def test_make_flash_attention_single_device_only():
+    fn = tfa.make_flash_attention(None)
+    assert fn.fused_rope is True
+    assert tfa.make_flash_attention({"data": 1}).fused_rope is True
+    with pytest.raises(ValueError, match="multi-chip"):
+        tfa.make_flash_attention({"data": 2})
+
+
+def test_kernel_wrapper_rejects_uninstantiated_head_dim():
+    """An hd with no compiled kernel raises in the wrapper's checks; it is
+    never routed to the plain version."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(10, S=16, hd=32))
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa._check_cuda_inputs(q, k, v, None, None)
+    q, k, v = (torch.from_numpy(x) for x in _qkv(10, S=16, hd=64))
+    tfa._check_cuda_inputs(q, k, v, None, None)
+    with pytest.raises(TypeError):
+        tfa._check_cuda_inputs(q.double(), k.double(), v.double(), None, None)
+
+
+# ---- on the card --------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the port's CUDA kernels)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [False, True], ids=["fused", "split"])
+def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch, split):
+    """A CUDA tensor on the flash route launches the kernels: every plain
+    version is replaced by a tripwire, and the kernel results still match
+    the plain versions computed beforehand (the port's own rope tables:
+    this case needs no JAX)."""
+    from kubedl_tpu_torch.models.llama import rope_table
+
+    seed, B, S, H, KV, hd = 11, 1, 128, 8, 2, 64
+    qn, kn, vn = _qkv(seed, B, S, H, KV, hd)
+    cos, sin = rope_table(hd, 10000.0, S, device=cuda)
+    q, k, v = (torch.from_numpy(x).to(cuda).requires_grad_(True)
+               for x in (qn, kn, vn))
+    o_ref = tfa.flash_attention(q.cpu(), k.cpu(), v.cpu(),
+                                rope_cos=cos.cpu(), rope_sin=sin.cpu()).detach()
+
+    def tripwire(*a, **kw):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("_plain_fwd", "_plain_bwd_fused", "_plain_bwd_dq",
+                 "_plain_bwd_dkdv_per_head"):
+        monkeypatch.setattr(tfa, name, tripwire)
+    if split:
+        monkeypatch.setattr(tfa, "_FUSED_BWD_SCRATCH_BYTES", 0)
+    before = dict(tfa.LAUNCHES)
+    o = tfa.flash_attention(q, k, v, rope_cos=cos, rope_sin=sin)
+    torch.autograd.grad((o.float() ** 2).sum(), (q, k, v))
+    torch.cuda.synchronize()
+    launched = {n: tfa.LAUNCHES[n] - before[n] for n in before}
+    assert launched["flash_fwd"] == 1
+    if split:
+        assert launched["flash_bwd_dq"] == launched["flash_bwd_dkdv"] == 1
+    else:
+        assert launched["flash_bwd_fused"] == 1
+    np.testing.assert_allclose(o.detach().cpu().numpy(), o_ref.numpy(),
+                               atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention(*(torch.from_numpy(x).to(cuda)
+                              for x in _qkv(seed, S=16, hd=32)))

@@ -1,6 +1,7 @@
-"""Guards on the PyTorch port's boundaries: it never imports JAX or the
-JAX package, it never falls back to the CPU on its own, and the engine
-rejects what this slice does not serve instead of ignoring it."""
+"""Guards on the PyTorch port's boundaries: it never imports JAX, optax
+or the JAX package, it never falls back to the CPU on its own, and the
+engine and the trainer reject what the port does not run yet instead of
+ignoring it."""
 
 import ast
 import json
@@ -38,7 +39,8 @@ def test_port_never_imports_jax_or_the_jax_package(path):
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"llama.py", "paged_attention.py", "server.py", "kv_blocks.py",
-            "build.py", "chip_smoke.py"} <= names
+            "build.py", "chip_smoke.py", "flash_attention.py", "trainer.py",
+            "entry.py", "topology.py", "data.py"} <= names
 
 
 def test_engine_without_device_raises_when_no_cuda(monkeypatch):
@@ -49,6 +51,15 @@ def test_engine_without_device_raises_when_no_cuda(monkeypatch):
         LlamaEngine(preset="tiny")
     with pytest.raises(RuntimeError):
         LlamaEngine(preset="tiny", device="cuda")
+
+
+def test_trainer_without_device_raises_when_no_cuda(monkeypatch):
+    from kubedl_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(TrainConfig())
+    assert Trainer(TrainConfig(), device="cpu").device.type == "cpu"
 
 
 def test_resolve_device_rule(monkeypatch):

@@ -11,6 +11,7 @@ functions, not from a JAX engine run.
 """
 
 import json
+import os
 import threading
 import urllib.error
 import urllib.request
@@ -273,6 +274,11 @@ def test_serve_main_serves_and_stops(monkeypatch):
     cfg = {"preset": "tiny", "max_batch": 2, "max_seq": 64,
            "kv_block_size": 4, "kv_attention": "blocked",
            "prefill_chunk_tokens": 8, "device": "cpu", "port": port}
+    # serve_main reads the process environment: clear what an earlier
+    # in-process serve_main (of either package) may have left there
+    for name in [k for k in os.environ if k.startswith("KUBEDL_SERVE_")] \
+            + ["KUBEDL_MODEL_PATH"]:
+        monkeypatch.delenv(name, raising=False)
     monkeypatch.setenv("KUBEDL_SERVE_CONFIG", json.dumps(cfg))
     cancel = threading.Event()
     th = threading.Thread(target=srv.serve_main,
