@@ -8,8 +8,10 @@ Phases (any failure exits non-zero before the final line):
 
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA.
 2. build: compiles the port's CUDA sources (kubedl_tpu_torch/csrc) with
-   nvcc for sm_90a, one nvcc per source started together, and prints
-   the build seconds.
+   nvcc for sm_90a (``-Xptxas -v``), one nvcc per source started
+   together, and prints the build seconds; then, for each tensor-core
+   flash kernel, its registers and spill bytes (ptxas) and its count of
+   HGMMA instructions (``cuobjdump -sass``), failing if one has none.
 3. blocked kernel vs its plain PyTorch version at the serving shapes
    (Llama-3-8B: B=8, KV=8, group 4, hd 128, BS 16, MB 128; Gemma-2B:
    hd 256, KV 1, group 8) for S in {1, 64, 512}, ragged starts, block
@@ -52,7 +54,8 @@ Phases (any failure exits non-zero before the final line):
    route: losses within 1e-5 relative, gradients and updated params
    within the tolerances stated in ``run_train_f32_parity``.
 10. profile: two llama3-1b train steps under torch.profiler: device time
-   by category (flash fwd, flash bwd, matmul, other) and the busy share.
+   by category (flash fwd, flash bwd, the flash RoPE pre-pass, matmul,
+   other) and the busy share.
 
 Output: the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -260,6 +263,67 @@ def check_fused(pa, shape, dtype, timed: bool):
         rec["library_ms"] = time_ms(sdpa_yardstick(q, kr, vr, bt, starts))
         rec["bound_ms"], rec["bound_by"] = bound(shape, 1, dtype, fused=True)
     return rec
+
+
+# ---- phase 2: what the compiler made of the tensor-core kernels --------------
+
+#: the tensor-core flash kernels, by the names ptxas and cuobjdump print
+TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_tc_kernel")
+
+
+def _kernel_key(mangled: str):
+    """``flash_fwd_tc_kernel<64>`` from a mangled name, or None."""
+    import re
+
+    m = re.search(r"(?<=\d)(flash_[a-z_]+?_kernel)ILi(\d+)E", mangled)
+    if m is None or m.group(1) not in TC_KERNELS:
+        return None
+    return f"{m.group(1)}<{m.group(2)}>"
+
+
+def tc_kernel_report(build) -> dict:
+    """Registers and spill bytes (ptxas -v, from this run's build) and
+    HGMMA count (cuobjdump -sass of the built library) per tensor-core
+    kernel instantiation. Fails if one was not found or has no HGMMA."""
+    import re
+
+    rep, cur = {}, None
+    for line in build.BUILD_LOG.get("flash_attention.cu", "").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\w+)", line)
+        if m:
+            cur = _kernel_key(m.group(1))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rep.setdefault(cur, {}).update(spill_stores=int(m.group(1)),
+                                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rep.setdefault(cur, {})["registers"] = int(m.group(1))
+    nvcc = build.find_nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    lib = build.build("flash_attention.cu")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass failed: {sass.stderr[-500:]}")
+    cur = None
+    for line in sass.stdout.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            cur = _kernel_key(m.group(1))
+            if cur:
+                rep.setdefault(cur, {})["hgmma"] = 0
+        elif cur and "HGMMA" in line:
+            rep[cur]["hgmma"] += 1
+    want = {f"{k}<{hd}>" for k in TC_KERNELS for hd in (64, 128)}
+    if not want <= set(rep) or any(rep[k].get("hgmma", 0) == 0 for k in want):
+        fail(f"tensor-core kernels missing or without HGMMA: {rep}")
+    return rep
 
 
 # ---- phase 7: flash kernels -------------------------------------------------
@@ -529,7 +593,9 @@ def run_train_entry(fa, llama_mod):
 
 
 def _kernel_group(name: str) -> str:
-    if "flash_fwd_kernel" in name:
+    if "flash_rope" in name:  # the pre-pass of both flash_fwd and the bwd
+        return "flash_rope"
+    if "flash_fwd" in name:
         return "flash_fwd"
     if "flash_bwd" in name or "flash_dq_finish" in name:
         return "flash_bwd"
@@ -964,6 +1030,8 @@ def main() -> int:
     build.build_all(verbose=True)
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({json.dumps(build.BUILD_SECONDS)})", flush=True)
+    print("tensor-core kernels (ptxas -v, cuobjdump -sass): "
+          + json.dumps(tc_kernel_report(build)), flush=True)
 
     kernels = {}
     for name, shape in (("llama", LLAMA), ("gemma", GEMMA)):
@@ -1004,28 +1072,30 @@ def main() -> int:
         launches.update(run_overfit_and_split(fa, llama_mod))
         run_train_f32_parity(fa, llama_mod)
 
-    line = []
-    for name in ("paged_attention_blocked", "paged_attention_fused"):
-        rec = kernels[name]
-        line.append({
-            "name": name, "route": "cuda",
-            "source": "kubedl_tpu_torch/csrc/paged_attention.cu",
-            "replaces": REPLACES[name],
-            "launches": launches[name.rsplit("_", 1)[1]],
+    def record(name, source, replaces, n, rec, design):
+        lib = rec["library_ms"]
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-        })
+            "bound_by": rec["bound_by"], "library_ms": lib,
+            "design": design,
+            "ms_over_library": rec["ms"] / lib if lib else None,
+        }
+
+    line = [record(name, "kubedl_tpu_torch/csrc/paged_attention.cu",
+                   REPLACES[name], launches[name.rsplit("_", 1)[1]],
+                   kernels[name], "cuda_core")
+            for name in ("paged_attention_blocked", "paged_attention_fused")]
+    main_case = FLASH_CASES[0]  # the timed shape: llama3-1b training
     for name in FLASH_REPLACES:
-        rec = kernels[name]
-        line.append({
-            "name": name, "route": "cuda",
-            "source": "kubedl_tpu_torch/csrc/flash_attention.cu",
-            "replaces": FLASH_REPLACES[name], "launches": launches[name],
-            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-        })
+        tc = name in ("flash_fwd", "flash_bwd_fused") and \
+            fa.tensor_core_route(main_case[6], main_case[5])
+        line.append(record(name, "kubedl_tpu_torch/csrc/flash_attention.cu",
+                           FLASH_REPLACES[name], launches[name],
+                           kernels[name],
+                           "tensor_core" if tc else "cuda_core"))
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,9 +34,62 @@
 // bytes that are each input read once and each output written once. At
 // the training shape (S = 2048, hd = 64..256) that is far above the
 // card's ridge point: the kernels are bound by operations, and the
-// published 989 TFLOP/s is a tensor-core rate.
+// published 989 TFLOP/s bf16 is a tensor-core rate.
 //
-// Design, and what it does about that bound:
+// Two designs, chosen statically by type and head width (TcRoute below;
+// ops/flash_attention.py's TENSOR_CORE_HEAD_DIMS mirrors it). There is no
+// fallback between them: a refused launch returns its error.
+//
+// 1. Tensor cores (bf16 at hd 64 and 128; flash_fwd_tc_kernel and
+//    flash_bwd_tc_kernel, the fused route's dq finish, two pre-passes):
+//    - Every product is a warpgroup wgmma.mma_async (sm_90a) on bf16
+//      tiles in 128-byte-swizzled shared memory, accumulating in float32
+//      registers. Forward: a CTA owns 192 q rows, three warpgroups of 64
+//      and one producer warp; S = Q.K^T reads both from shared memory
+//      (K-major); P is rounded to bf16 in registers, where the S
+//      accumulator's fragment is already the A operand of O += P.V, and V
+//      is read MN-major (transposed B). The online softmax runs on the
+//      accumulator layout: the four lanes of a quad share a row, so row
+//      max and sum are two xor shuffles; exp2 is the MUFU's ex2.approx.
+//    - Fused backward: a CTA owns 128 keys of one kv-head (one warpgroup
+//      per 64) and walks the GQA group's q-heads and causal q tiles of 64,
+//      keeping dK/dV in float32 registers across the group (the
+//      reference's contract). Per tile: S^T = K.Q^T and dP^T = V.dO^T
+//      (shared memory), P^T and dS^T in registers, dV += P^T.dO and
+//      dK += dS^T.Q (register A, MN-major B); dS^T goes to shared memory
+//      and dQ = dS.K (both operands MN-major, each warpgroup half of hd)
+//      is staged as a float32 tile and added to a [B, H, Sq_pad, hd]
+//      workspace by ONE bulk reduce (cp.reduce.async.bulk .add.f32) per
+//      tile; flash_dq_finish_kernel casts (and inverse-rotates) it.
+//    - Tiles arrive by TMA (cp.async.bulk.tensor, 4-D maps over
+//      [B, S, heads, hd] with 128-byte swizzle = one 64-wide bf16 panel,
+//      an mbarrier per stage), two stages: the next K/V (forward, issued
+//      by the producer warp against "empty" barriers, so the warpgroups
+//      never wait for each other) or Q/dO (backward, issued at the top of
+//      each tile) loads while this one is multiplied. TMA's zero
+//      fill past S makes any length safe; masking is per element only on
+//      tiles that straddle the diagonal or the ragged end. The maps are
+//      encoded on the host for each call and passed as __grid_constant__;
+//      cuTensorMapEncodeTiled is fetched with cudaGetDriverEntryPoint, so
+//      the library does not link libcuda.
+//    - RoPE and D leave the inner loops: flash_rope_kernel writes rotated
+//      q and k once per call (float32 rotation, rounded to bf16, as the
+//      plain version does) into workspaces the wrapper allocates, and
+//      flash_bwd_prep_kernel writes {lse, D = rowsum(dO * O)} per q row
+//      into a padded float32 workspace (staged per tile by one bulk copy)
+//      and zeroes the dq workspace.
+//    On the card both kernels still take several times their operations
+//    bound (PERF.md). Builds with the products, the exponentials or the
+//    loads taken out were not much faster than the whole, which points
+//    at the serial S -> softmax -> P.V chain of each warpgroup.
+//    Overlapping it (the next tile's Q.K^T under this tile's P.V) needs
+//    two score tiles in registers; ptxas serialised the wgmmas when that
+//    was tried, and it is left for a later change.
+// 2. CUDA cores (float32 at every hd, where TF32 tensor cores would break
+//    the float32 contract; bf16 at hd 256, where the forward's O alone
+//    takes 128 float32 registers a thread and the backward's dK/dV would
+//    need two warpgroups splitting hd; and the split backward pair at
+//    every type), whose design follows:
 // - The TPU grid walked (q block, k block) tiles in order and carried
 //   the softmax state, and the fused backward's whole-sequence dk/dv, in
 //   VMEM scratch from one grid step to the next. Hopper blocks run in no
@@ -55,18 +108,20 @@
 // - RoPE is applied while a tile is staged: each CTA rotates the q/k
 //   rows it loads (the TPU kernel kept a whole-sequence rotated copy;
 //   the values are identical, the rotation is elementwise).
-// - Simple first: tiles are staged in shared memory as float32 and the
-//   products are float32 FMAs on the CUDA cores (a 16 x 16 thread grid,
-//   each thread a register micro-tile), so bf16 runs at the FP32 rate,
-//   far below the tensor-core bound. mma/wgmma tiles, TMA staging and
-//   warp specialisation are the next steps.
+// - Tiles are staged in shared memory as float32 and the products are
+//   float32 FMAs on the CUDA cores (a 16 x 16 thread grid, each thread a
+//   register micro-tile): the float32 rate, exact float32 products.
 //
 // C interface (bound with ctypes): each entry point launches on the given
-// stream, allocates nothing and returns cudaGetLastError().
+// stream, allocates nothing (workspaces come from the caller) and returns
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments it refuses.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -125,11 +180,16 @@ struct Params {
   const float* sin;
   void* o;          // forward: out
   float* lse_out;   // forward: lse
-  float* dq_ws;     // fused backward: float32 dq sums [B, Sq, H, hd]
+  float* dq_ws;     // fused backward: float32 dq sums, [B, Sq, H, hd]
+                    // (CUDA cores) or [B, H, sq_pad, hd] (tensor cores)
   void* dq;
   void* dk;         // fused: [B, Sk, KV, hd]; split: dk_h [B, Sk, H, hd]
   void* dv;
+  void* q_rot;      // tensor cores with rope: rotated q / k workspaces
+  void* k_rot;
+  float* stats;     // tensor-core backward: {lse, D} [B, H, sq_pad, 2]
   int B, Sq, Sk, H, KV, group, causal, rope;
+  int sq_pad;       // Sq rounded up to the tensor-core backward's q tile
   float scale;      // 1 / sqrt(hd)
 };
 
@@ -603,24 +663,858 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
 }
 
 // The fused backward's epilogue for dq: inverse rotation (with rope) of
-// the float32 sums, then the cast.
-template <typename T, int HD>
+// the float32 sums, then the cast. kHeadMajor: the tensor-core kernel's
+// [B, H, sq_pad, hd] workspace, else [B, Sq, H, hd]. blockIdx.x is the
+// position s, blockIdx.y the batch; threads cover the heads' hd/2 pairs.
+template <typename T, int HD, bool kHeadMajor>
 __global__ void flash_dq_finish_kernel(Params p) {
   constexpr int H2 = HD / 2;
-  const size_t rows = (size_t)p.B * p.Sq * p.H;
+  const int s = blockIdx.x, b = blockIdx.y;
   T* dq = static_cast<T*>(p.dq);
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
-       i < rows * H2; i += (size_t)gridDim.x * blockDim.x) {
-    const size_t row = i / H2;
-    const int d = (int)(i - row * H2);
-    const int s = (int)((row / p.H) % p.Sq);
-    float x1 = p.dq_ws[row * HD + d], x2 = p.dq_ws[row * HD + d + H2];
+  for (int i = threadIdx.x; i < p.H * H2; i += blockDim.x) {
+    const int h = i / H2, d = i - h * H2;
+    const size_t row = ((size_t)b * p.Sq + s) * p.H + h;  // (b, s, h) of dq
+    const size_t ws =
+        kHeadMajor ? ((size_t)b * p.H + h) * p.sq_pad + s : row;
+    float x1 = p.dq_ws[ws * HD + d], x2 = p.dq_ws[ws * HD + d + H2];
     if (p.rope)
       rotate(x1, x2, p.cos[(size_t)s * H2 + d], p.sin[(size_t)s * H2 + d],
              true, x1, x2);
     dq[row * HD + d] = from_f<T>(x1);
     dq[row * HD + d + H2] = from_f<T>(x2);
   }
+}
+
+// ---- tensor-core kernels (bf16, hd 64 and 128) ------------------------------
+
+// Static route: which (type, head width) takes the tensor-core kernels.
+template <typename T, int HD>
+struct TcRoute {
+  static constexpr bool value =
+      std::is_same<T, __nv_bfloat16>::value && (HD == 64 || HD == 128);
+};
+
+constexpr int kTcThreads = 256;  // backward: two consumer warpgroups
+constexpr int kTcFwdWGs = 3;     // forward: consumer warpgroups, 64 q rows each
+constexpr int kTcFwdBQ = 64 * kTcFwdWGs;
+constexpr int kTcFwdStages = 2;  // forward: K/V tiles in flight
+constexpr int kTcBwdBK = 128;    // backward: keys per CTA (64 per warpgroup)
+constexpr int kTcBwdBQ = 64;     // backward: q rows per tile
+constexpr int kPanel = 64;       // bf16 columns per 128-byte swizzled panel
+
+// Forward keys per tile: 128 at hd 64; 64 at hd 128 (the O accumulator
+// doubles there, so S halves to keep registers under the cap).
+template <int HD>
+struct TcFwdBK {
+  static constexpr int value = HD == 64 ? 128 : 64;
+};
+
+// The tensor maps of one launch (each 128 bytes, in kernel parameter
+// space via __grid_constant__).
+struct TcMaps {
+  CUtensorMap q, k, v, dout;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Generic-proxy shared-memory writes become visible to wgmma / bulk copies.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One TMA box (64 columns x rows of one head) of a [B, S, heads, hd] map.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int d, int head,
+                                         int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(d),
+      "r"(head), "r"(row), "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// dst[0:bytes/4] += src (float32, in L2), as one bulk group.
+__device__ __forceinline__ void bulk_reduce_add(float* dst, const void* src,
+                                                uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], "
+      "%2;\n" ::"l"(dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// At most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving accesses of wgmma operands across the
+// fence / wait (the tensor cores read and write them asynchronously).
+template <int R>
+__device__ __forceinline__ void pin(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void pin(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// A wgmma shared-memory descriptor for a 128-byte-swizzled operand. K-major
+// (rows of 64 bf16 along K): SBO = 1024, the next 8-row group; a 16-wide K
+// step is +32 bytes in the row. MN-major (rows along K, 64 MN columns per
+// panel): SBO = 1024 (8 K rows), LBO = the next 64-column panel.
+__device__ __forceinline__ uint64_t sw128_desc(const void* ptr, uint32_t lbo,
+                                               uint32_t sbo) {
+  const uint32_t a = smem_u32(ptr);
+  return (uint64_t)((a & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x by the MUFU unit (ex2.approx.ftz: relative error ~2^-22, results
+// below 2^-126 flushed to zero), in place of exp2f's subnormal handling:
+// P and the rescale factors are exp2 of non-positive arguments, and a P
+// under 2^-126 of the row maximum is below every rounding that follows.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
+}
+
+// wgmma.mma_async m64nNk16, bf16 in, float32 accumulate. _ss: A and B
+// from shared memory (TA / TB: 1 = MN-major); _rs: A from registers (the
+// m16n8k16 A fragment of each warp's 16 rows), B from shared memory.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+
+// RoPE pre-pass: x [B, S, N, HD] -> y, rotated in float32 by each row's
+// position and rounded to T (the values the CUDA-core kernels rotate
+// while staging, and the plain version computes). blockIdx.x is the
+// position, blockIdx.y the batch; a block's threads cover the N heads'
+// HD / 2 pairs, so no thread divides by a run-time size.
+template <typename T, int HD>
+__global__ void flash_rope_kernel(const T* x, T* y, const float* cos,
+                                  const float* sin, int S, int N) {
+  constexpr int H2 = HD / 2;
+  const int s = blockIdx.x;
+  const size_t row0 = ((size_t)blockIdx.y * S + s) * N;
+  for (int i = threadIdx.x; i < N * H2; i += blockDim.x) {
+    const int n = i / H2, d = i - n * H2;
+    const size_t off = (row0 + n) * HD + d;
+    float o1, o2;
+    rotate(to_f<T>(x[off]), to_f<T>(x[off + H2]), cos[s * H2 + d],
+           sin[s * H2 + d], false, o1, o2);
+    y[off] = from_f<T>(o1);
+    y[off + H2] = from_f<T>(o2);
+  }
+}
+
+template <int HD>
+constexpr size_t fwd_tc_smem_bytes() {
+  return 1024 + (size_t)kTcFwdBQ * HD * 2 +
+         2 * kTcFwdStages * (size_t)TcFwdBK<HD>::value * HD * 2 + 64;
+}
+
+// Forward: one CTA per (kTcFwdBQ q rows, b, h). Warpgroup wg owns rows
+// 64 wg .. 64 wg + 63 and walks the visible k tiles; one more warp only
+// issues the TMA loads, kTcFwdStages K/V tiles ahead, so the consumer
+// warpgroups never wait for each other.
+template <int HD>
+__global__ void __launch_bounds__(kTcFwdWGs * 128 + 32, 1)
+    flash_fwd_tc_kernel(const __grid_constant__ TcMaps maps, Params p) {
+  constexpr int BQ = kTcFwdBQ, BK = TcFwdBK<HD>::value, NP = HD / kPanel;
+  constexpr int ST = kTcFwdStages;
+  constexpr uint32_t kQBytes = BQ * HD * 2, kKBytes = BK * HD * 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align1024(smem_raw);  // [NP panels][BQ rows][128 B]
+  uint8_t* sK = sQ + kQBytes;         // [ST stages][NP][BK][128 B]
+  uint8_t* sV = sK + ST * kKBytes;
+  // q loaded, then per stage: K/V loaded (full), K/V consumed (empty)
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + ST * kKBytes);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + ST;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int n_q = (p.Sq + BQ - 1) / BQ;
+  // causal: the longest rows first, so the last wave is the short tiles
+  const int qt = p.causal ? n_q - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int q0 = qt * BQ;
+  const int bh = blockIdx.y, b = bh / p.H, h = bh - b * p.H;
+  const int kvh = h / p.group;
+  const int q_last = min(q0 + BQ, p.Sq) - 1;
+  const int k_end = p.causal ? min(q_last + 1, p.Sk) : p.Sk;
+  const int n_k = (k_end + BK - 1) / BK;
+  const float scale2 = p.scale * kLog2e;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kTcFwdWGs * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid >= kTcFwdWGs * 128) {  // the producer warp
+    if (tid == kTcFwdWGs * 128) {
+      mbar_expect_tx(bar_q, kQBytes);
+#pragma unroll
+      for (int pn = 0; pn < NP; ++pn)
+        tma_load(sQ + pn * BQ * 128, &maps.q, bar_q, pn * kPanel, h, q0, b);
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int st = kt % ST;
+        if (kt >= ST) mbar_wait(&empty[st], (kt / ST - 1) & 1);
+        mbar_expect_tx(&full[st], 2 * kKBytes);
+#pragma unroll
+        for (int pn = 0; pn < NP; ++pn) {
+          const uint32_t off = st * kKBytes + pn * BK * 128;
+          tma_load(sK + off, &maps.k, &full[st], pn * kPanel, kvh, kt * BK, b);
+          tma_load(sV + off, &maps.v, &full[st], pn * kPanel, kvh, kt * BK, b);
+        }
+      }
+    }
+    return;
+  }
+  // this thread's accumulator rows (row0, row0 + 8 of its warpgroup's 64)
+  // and columns (col0, col0 + 1 of every 8)
+  const int row0 = 16 * warp + (lane >> 2), col0 = 2 * (lane & 3);
+  const int qrow = q0 + 64 * wg + row0;
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  const uint8_t* qa = sQ + wg * 64 * 128;
+  mbar_wait(bar_q, 0);
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int st = kt % ST, k0 = kt * BK;
+    mbar_wait(&full[st], (kt / ST) & 1);
+    const uint8_t* kb = sK + st * kKBytes;
+    const uint8_t* vb = sV + st * kKBytes;
+    float s[BK / 2];
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks)
+      wgmma_ss<0, 0>(s, sw128_desc(qa + (ks >> 2) * BQ * 128 + (ks & 3) * 32, 16, 1024),
+                     sw128_desc(kb + (ks >> 2) * BK * 128 + (ks & 3) * 32, 16, 1024),
+                     ks > 0);
+    wg_commit();
+    wg_wait_all();
+    pin(s);
+    const bool need_mask =
+        k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > q0 + 64 * wg);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float x = s[4 * j + 2 * i + c] * scale2;
+          if (need_mask && !visible(p, qrow + 8 * i, k0 + 8 * j + col0 + c))
+            x = kNegInf;
+          s[4 * j + 2 * i + c] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+    float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m_r[i], quad_max(mx[i]));
+      corr[i] = exp2_approx(m_r[i] - m_new);
+      m_r[i] = m_new;
+    }
+    // P rounded to bf16 straight into the A fragments of P.V
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float x0 = s[4 * j + 2 * i], x1 = s[4 * j + 2 * i + 1];
+        const float p0 = x0 <= kNegInf ? 0.f : exp2_approx(x0 - m_r[i]);
+        const float p1 = x1 <= kNegInf ? 0.f : exp2_approx(x1 - m_r[i]);
+        rs[i] += p0 + p1;  // l sums the unrounded P
+        pa[j >> 1][(j & 1) * 2 + i] = pack_bf16(p0, p1);
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l_r[i] = l_r[i] * corr[i] + rs[i];
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        o[4 * j + 2 * i] *= corr[i];
+        o[4 * j + 2 * i + 1] *= corr[i];
+      }
+    pin(o);
+    pin(pa);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<1>(o, pa[kk], sw128_desc(vb + kk * 2048, BK * 128, 1024), 1);
+    wg_commit();
+    wg_wait_all();
+    pin(o);
+    mbar_arrive(&empty[st]);  // this thread is done with stage st
+  }
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float lc = fmaxf(quad_sum(l_r[i]), 1e-30f);
+    const int qi = qrow + 8 * i;
+    if (qi >= p.Sq) continue;
+    __nv_bfloat16* orow = out + ((size_t)(b * p.Sq + qi) * p.H + h) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + col0) =
+          pack_bf16(o[4 * j + 2 * i] / lc, o[4 * j + 2 * i + 1] / lc);
+    if ((lane & 3) == 0)
+      p.lse_out[(size_t)bh * p.Sq + qi] = m_r[i] + log2f(lc);
+  }
+}
+
+// Backward pre-pass: one warp per row (b, h, s) of [B, H, sq_pad]
+// (blockIdx.y = b * H + h, 8 rows s per block): stats = {lse, D =
+// rowsum(dO * O)} in float32 (zero past Sq), and the row of the dq
+// workspace zeroed.
+template <int HD>
+__global__ void flash_bwd_prep_kernel(Params p) {
+  const int bh = blockIdx.y, b = bh / p.H, h = bh - b * p.H;
+  const int s = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  const size_t row = (size_t)bh * p.sq_pad + s;
+  float acc = 0.f;
+  if (s < p.Sq) {
+    const size_t off = ((size_t)(b * p.Sq + s) * p.H + h) * HD;
+    const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(p.dout) + off;
+    const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(p.out) + off;
+    for (int d = lane; d < HD; d += 32)
+      acc = fmaf(__bfloat162float(g[d]), __bfloat162float(o[d]), acc);
+  }
+  acc = sum32(acc);
+  for (int d = lane; d < HD; d += 32) p.dq_ws[row * HD + d] = 0.f;
+  if (lane == 0) {
+    p.stats[2 * row] = s < p.Sq ? p.lse[(size_t)bh * p.Sq + s] : 0.f;
+    p.stats[2 * row + 1] = s < p.Sq ? acc : 0.f;
+  }
+}
+
+template <int HD>
+constexpr size_t bwd_tc_smem_bytes() {
+  return 1024 + 2 * (size_t)kTcBwdBK * HD * 2  // K, V
+         + 4 * (size_t)kTcBwdBQ * HD * 2        // Q, dO x 2 stages
+         + (size_t)kTcBwdBK * kTcBwdBQ * 2       // dS^T
+         + 2 * (size_t)kTcBwdBQ * HD * 4         // dQ staging x 2
+         + 2 * (size_t)kTcBwdBQ * 8 + 64;        // stats x 2, barriers
+}
+
+// Fused backward: one CTA per (128 keys, b, kv-head); warpgroup wg owns
+// keys 64 wg .. 64 wg + 63 and walks the group's q-heads and q tiles.
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_bwd_tc_kernel(const __grid_constant__ TcMaps maps, Params p) {
+  constexpr int BK = kTcBwdBK, BQ = kTcBwdBQ, NP = HD / kPanel;
+  constexpr uint32_t kKBytes = BK * HD * 2, kQBytes = BQ * HD * 2;
+  constexpr uint32_t kDsBytes = BK * BQ * 2, kDqBytes = BQ * HD * 4;
+  constexpr uint32_t kStatBytes = BQ * 8;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = align1024(smem_raw);  // [NP][BK][128 B]
+  uint8_t* sV = sK + kKBytes;
+  uint8_t* sQ = sV + kKBytes;         // [2 stages][NP][BQ][128 B]
+  uint8_t* sdO = sQ + 2 * kQBytes;
+  uint8_t* sDS = sdO + 2 * kQBytes;   // dS^T [BK keys][BQ q], swizzled
+  uint8_t* sDQ = sDS + kDsBytes;      // [2][BQ][HD] float32
+  uint8_t* sStat = sDQ + 2 * kDqBytes;  // [2][BQ] {lse, D}
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sStat + 2 * kStatBytes);
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int k0 = blockIdx.x * BK;
+  const int b = blockIdx.y / p.KV, kvh = blockIdx.y - b * p.KV;
+  const int n_q = (p.Sq + BQ - 1) / BQ;
+  const int qt0 = p.causal ? min(k0 / BQ, n_q) : 0;  // first tile with a row >= k0
+  const int per_head = n_q - qt0, n_tiles = p.group * per_head;
+  const float scale2 = p.scale * kLog2e;
+
+  auto load_q = [&](int t) {
+    const int st = t & 1, h = kvh * p.group + t / per_head;
+    const int q0 = (qt0 + t % per_head) * BQ;
+    mbar_expect_tx(&bar[1 + st], 2 * kQBytes + kStatBytes);
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) {
+      const uint32_t off = st * kQBytes + pn * BQ * 128;
+      tma_load(sQ + off, &maps.q, &bar[1 + st], pn * kPanel, h, q0, b);
+      tma_load(sdO + off, &maps.dout, &bar[1 + st], pn * kPanel, h, q0, b);
+    }
+    bulk_load(sStat + st * kStatBytes,
+              p.stats + ((size_t)(b * p.H + h) * p.sq_pad + q0) * 2,
+              kStatBytes, &bar[1 + st]);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(&bar[i], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&bar[0], 2 * kKBytes);
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) {
+      tma_load(sK + pn * BK * 128, &maps.k, &bar[0], pn * kPanel, kvh, k0, b);
+      tma_load(sV + pn * BK * 128, &maps.v, &bar[0], pn * kPanel, kvh, k0, b);
+    }
+    if (n_tiles > 0) load_q(0);
+  }
+  // accumulator rows: keys row0, row0 + 8 of the warpgroup's 64; columns
+  // col0, col0 + 1 of every 8 (q in S^T, hd in dK/dV)
+  const int row0 = 16 * warp + (lane >> 2), col0 = 2 * (lane & 3);
+  const int krow = k0 + 64 * wg + row0;
+  float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+  const uint8_t* ka = sK + wg * 64 * 128;
+  const uint8_t* va = sV + wg * 64 * 128;
+  // this warpgroup's half of dQ's columns, as K's MN-major B operand
+  const uint8_t* kq =
+      sK + (wg * HD / 2 / kPanel) * BK * 128 + (wg * HD / 2 % kPanel) * 2;
+  mbar_wait(&bar[0], 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1, h = kvh * p.group + t / per_head;
+    const int q0 = (qt0 + t % per_head) * BQ;
+    if (tid == 0) bulk_wait_read<1>();  // tile t - 2's reduce has read sDQ[st]
+    __syncthreads();  // tile t - 1 is done with stage st ^ 1 and sDS
+    if (tid == 0 && t + 1 < n_tiles) load_q(t + 1);
+    mbar_wait(&bar[1 + st], (t >> 1) & 1);
+    const uint8_t* qb = sQ + st * kQBytes;
+    const uint8_t* gb = sdO + st * kQBytes;
+    float s[BQ / 2], dp[BQ / 2];
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks)
+      wgmma_ss<0, 0>(s, sw128_desc(ka + (ks >> 2) * BK * 128 + (ks & 3) * 32, 16, 1024),
+                     sw128_desc(qb + (ks >> 2) * BQ * 128 + (ks & 3) * 32, 16, 1024),
+                     ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks)
+      wgmma_ss<0, 0>(dp, sw128_desc(va + (ks >> 2) * BK * 128 + (ks & 3) * 32, 16, 1024),
+                     sw128_desc(gb + (ks >> 2) * BQ * 128 + (ks & 3) * 32, 16, 1024),
+                     ks > 0);
+    wg_commit();
+    wg_wait_all();
+    pin(s);
+    pin(dp);
+    const float2* stat = reinterpret_cast<const float2*>(sStat + st * kStatBytes);
+    const bool need_mask = q0 + BQ > p.Sq || k0 + BK > p.Sk ||
+                           (p.causal && q0 < k0 + 64 * wg + 63);
+    // P^T = exp2(s - lse) rounded to bf16 for dV; dS^T = P^T (dP^T - D)
+    // rounded to bf16 for dK (registers) and dQ (shared memory)
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      float pv[2][2], dsv[2][2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int qc = 8 * j + col0 + c;
+        const float2 ld = stat[qc];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float pr = 0.f;
+          if (!need_mask || visible(p, q0 + qc, krow + 8 * i))
+            pr = exp2_approx(s[4 * j + 2 * i + c] * scale2 - ld.x);
+          pv[i][c] = pr;
+          dsv[i][c] = pr * (dp[4 * j + 2 * i + c] - ld.y);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        pa[j >> 1][(j & 1) * 2 + i] = pack_bf16(pv[i][0], pv[i][1]);
+        const uint32_t d2 = pack_bf16(dsv[i][0], dsv[i][1]);
+        da[j >> 1][(j & 1) * 2 + i] = d2;
+        const int r = 64 * wg + row0 + 8 * i;  // key row of sDS
+        *reinterpret_cast<uint32_t*>(sDS + r * 128 + ((j ^ (r & 7)) << 4) +
+                                     col0 * 2) = d2;
+      }
+    }
+    fence_proxy_async();
+    pin(dv);
+    pin(dk);
+    pin(pa);
+    pin(da);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rs<1>(dv, pa[kk], sw128_desc(gb + kk * 2048, BQ * 128, 1024), 1);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rs<1>(dk, da[kk], sw128_desc(qb + kk * 2048, BQ * 128, 1024), 1);
+    wg_commit();
+    wg_wait_all();
+    pin(dv);
+    pin(dk);
+    __syncthreads();  // both warpgroups' dS^T rows are in sDS
+    // this tile's dQ columns: dS (MN-major A) . K (MN-major B), all 128 keys
+    float dq[HD / 4];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_ss<1, 1>(dq, sw128_desc(sDS + kk * 2048, BQ * 128, 1024),
+                     sw128_desc(kq + kk * 2048, BK * 128, 1024), kk > 0);
+    wg_commit();
+    wg_wait_all();
+    pin(dq);
+    float* sdq = reinterpret_cast<float*>(sDQ + st * kDqBytes);
+#pragma unroll
+    for (int j = 0; j < HD / 16; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<float2*>(sdq + (row0 + 8 * i) * HD + wg * HD / 2 +
+                                   8 * j + col0) =
+            make_float2(dq[4 * j + 2 * i] * p.scale,
+                        dq[4 * j + 2 * i + 1] * p.scale);
+    fence_proxy_async();
+    __syncthreads();
+    if (tid == 0)
+      bulk_reduce_add(p.dq_ws + ((size_t)(b * p.H + h) * p.sq_pad + q0) * HD,
+                      sdq, kDqBytes);
+  }
+  if (tid == 0) bulk_wait_all();
+  __nv_bfloat16* dk_out = static_cast<__nv_bfloat16*>(p.dk);
+  __nv_bfloat16* dv_out = static_cast<__nv_bfloat16*>(p.dv);
+  constexpr int H2 = HD / 2, HJ = HD / 16;  // hd/2 is HJ blocks of 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kj = krow + 8 * i;
+    if (kj >= p.Sk) continue;
+    const size_t base = ((size_t)(b * p.Sk + kj) * p.KV + kvh) * HD;
+#pragma unroll
+    for (int j = 0; j < HJ; ++j) {
+      float x1[2], x2[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        x1[c] = dk[4 * j + 2 * i + c] * p.scale;
+        x2[c] = dk[4 * (j + HJ) + 2 * i + c] * p.scale;
+        if (p.rope) {
+          const size_t t = (size_t)kj * H2 + 8 * j + col0 + c;
+          rotate(x1[c], x2[c], p.cos[t], p.sin[t], true, x1[c], x2[c]);
+        }
+      }
+      *reinterpret_cast<uint32_t*>(dk_out + base + 8 * j + col0) =
+          pack_bf16(x1[0], x1[1]);
+      *reinterpret_cast<uint32_t*>(dk_out + base + H2 + 8 * j + col0) =
+          pack_bf16(x2[0], x2[1]);
+    }
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dv_out + base + 8 * j + col0) =
+          pack_bf16(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+  }
+}
+
+// ---- tensor-core launchers ---------------------------------------------------
+
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (a CUDA driver API function), through the
+// runtime's entry-point query (no link against libcuda).
+EncodeTiledFn tensor_map_encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// A contiguous bf16 [B, S, heads, hd] tensor as a 4-D map whose box is one
+// 64-column panel x `rows` rows of one head, 128-byte swizzled, zero
+// filled past S.
+bool encode_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
+                int hd, int rows) {
+  const EncodeTiledFn enc = tensor_map_encoder();
+  if (enc == nullptr || ptr == nullptr ||
+      (reinterpret_cast<uintptr_t>(ptr) & 15) != 0)
+    return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)S * heads * hd * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kPanel, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Threads for a block that walks the (d, d + hd/2) pairs of `heads` rows.
+int pair_threads(int heads, int hd) {
+  return heads * hd / 2 < 256 ? heads * hd / 2 : 256;
+}
+
+// q_rot / k_rot = the rotated q / k (the tensor-core kernels read these).
+template <int HD>
+cudaError_t rope_prepass(const Params& p, cudaStream_t st) {
+  using T = __nv_bfloat16;
+  flash_rope_kernel<T, HD><<<dim3(p.Sq, p.B), pair_threads(p.H, HD), 0, st>>>(
+      static_cast<const T*>(p.q), static_cast<T*>(p.q_rot), p.cos, p.sin,
+      p.Sq, p.H);
+  flash_rope_kernel<T, HD><<<dim3(p.Sk, p.B), pair_threads(p.KV, HD), 0, st>>>(
+      static_cast<const T*>(p.k), static_cast<T*>(p.k_rot), p.cos, p.sin,
+      p.Sk, p.KV);
+  return cudaGetLastError();
+}
+
+template <typename K>
+cudaError_t launch_tc(K kernel, dim3 grid, int threads, size_t smem,
+                      cudaStream_t st, const TcMaps& maps, const Params& p) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, st>>>(maps, p);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_fwd_tc(const Params& p, cudaStream_t st) {
+  if (p.rope && (p.q_rot == nullptr || p.k_rot == nullptr))
+    return cudaErrorInvalidValue;
+  if (p.rope) {
+    const cudaError_t err = rope_prepass<HD>(p, st);
+    if (err != cudaSuccess) return err;
+  }
+  constexpr int BK = TcFwdBK<HD>::value;
+  TcMaps maps{};
+  if (!encode_map(&maps.q, p.rope ? p.q_rot : p.q, p.B, p.Sq, p.H, HD,
+                  kTcFwdBQ) ||
+      !encode_map(&maps.k, p.rope ? p.k_rot : p.k, p.B, p.Sk, p.KV, HD, BK) ||
+      !encode_map(&maps.v, p.v, p.B, p.Sk, p.KV, HD, BK))
+    return cudaErrorInvalidValue;
+  const dim3 grid((p.Sq + kTcFwdBQ - 1) / kTcFwdBQ, p.B * p.H);
+  return launch_tc(flash_fwd_tc_kernel<HD>, grid, kTcFwdWGs * 128 + 32,
+                   fwd_tc_smem_bytes<HD>(), st, maps, p);
+}
+
+template <int HD>
+cudaError_t launch_bwd_fused_tc(const Params& p, cudaStream_t st) {
+  if (p.stats == nullptr || p.dq_ws == nullptr ||
+      (p.rope && (p.q_rot == nullptr || p.k_rot == nullptr)))
+    return cudaErrorInvalidValue;
+  if (p.rope) {
+    const cudaError_t err = rope_prepass<HD>(p, st);
+    if (err != cudaSuccess) return err;
+  }
+  flash_bwd_prep_kernel<HD><<<dim3(p.sq_pad / 8, p.B * p.H), 256, 0, st>>>(p);
+  TcMaps maps{};
+  if (!encode_map(&maps.q, p.rope ? p.q_rot : p.q, p.B, p.Sq, p.H, HD,
+                  kTcBwdBQ) ||
+      !encode_map(&maps.k, p.rope ? p.k_rot : p.k, p.B, p.Sk, p.KV, HD,
+                  kTcBwdBK) ||
+      !encode_map(&maps.v, p.v, p.B, p.Sk, p.KV, HD, kTcBwdBK) ||
+      !encode_map(&maps.dout, p.dout, p.B, p.Sq, p.H, HD, kTcBwdBQ))
+    return cudaErrorInvalidValue;
+  const dim3 grid((p.Sk + kTcBwdBK - 1) / kTcBwdBK, p.B * p.KV);
+  cudaError_t err = launch_tc(flash_bwd_tc_kernel<HD>, grid, kTcThreads,
+                              bwd_tc_smem_bytes<HD>(), st, maps, p);
+  if (err != cudaSuccess) return err;
+  flash_dq_finish_kernel<__nv_bfloat16, HD, true>
+      <<<dim3(p.Sq, p.B), pair_threads(p.H, HD), 0, st>>>(p);
+  return cudaGetLastError();
 }
 
 // ---- launchers -------------------------------------------------------------
@@ -648,9 +1542,8 @@ cudaError_t launch_bwd_fused(const Params& p, cudaStream_t st) {
   cudaError_t err = launch_smem(flash_bwd_kv_kernel<T, HD, true>, grid,
                                 bwd_smem_bytes<HD>(), st, p);
   if (err != cudaSuccess) return err;
-  const size_t pairs = (size_t)p.B * p.Sq * p.H * (HD / 2);
-  const int blocks = (int)((pairs + 255) / 256 < 8192 ? (pairs + 255) / 256 : 8192);
-  flash_dq_finish_kernel<T, HD><<<blocks, 256, 0, st>>>(p);
+  flash_dq_finish_kernel<T, HD, false>
+      <<<dim3(p.Sq, p.B), pair_threads(p.H, HD), 0, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -674,9 +1567,12 @@ template <typename T, int HD>
 cudaError_t launch(Which w, const Params& p, cudaStream_t st) {
   switch (w) {
     case kFwd:
-      return launch_fwd<T, HD>(p, st);
+      if constexpr (TcRoute<T, HD>::value) return launch_fwd_tc<HD>(p, st);
+      else return launch_fwd<T, HD>(p, st);
     case kBwdFused:
-      return launch_bwd_fused<T, HD>(p, st);
+      if constexpr (TcRoute<T, HD>::value)
+        return launch_bwd_fused_tc<HD>(p, st);
+      else return launch_bwd_fused<T, HD>(p, st);
     case kBwdDq:
       return launch_bwd_dq<T, HD>(p, st);
     case kBwdDkdv:
@@ -728,26 +1624,39 @@ Params make_params(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// q_rot / k_rot: the tensor-core route's rotated-q/k workspaces (shaped as
+// q / k; with rope only, else null).
 extern "C" int kdl_flash_fwd(const void* q, const void* k, const void* v,
                              const void* cos, const void* sin, void* out,
-                             void* lse, int B, int Sq, int Sk, int H, int KV,
-                             int hd, int causal, int rope, int dtype,
-                             void* stream) {
+                             void* lse, void* q_rot, void* k_rot, int B,
+                             int Sq, int Sk, int H, int KV, int hd,
+                             int causal, int rope, int dtype, void* stream) {
   Params p = make_params(q, k, v, cos, sin, B, Sq, Sk, H, KV, hd, causal, rope);
   p.o = out;
   p.lse_out = static_cast<float*>(lse);
+  p.q_rot = q_rot;
+  p.k_rot = k_rot;
   return dispatch(kFwd, p, hd, dtype, stream);
 }
 
+// Workspaces by route. Tensor cores: q_rot / k_rot (rope only, else null),
+// stats float32 [B, H, sq_pad, 2] and dq_ws float32 [B, H, sq_pad, hd],
+// sq_pad = Sq rounded up to 64, neither initialised. CUDA cores: q_rot,
+// k_rot and stats null, dq_ws float32 [B, Sq, H, hd] zeroed.
 extern "C" int kdl_flash_bwd_fused(
     const void* q, const void* k, const void* v, const void* cos,
     const void* sin, const void* out, const void* lse, const void* dout,
-    void* dq_ws, void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H,
-    int KV, int hd, int causal, int rope, int dtype, void* stream) {
+    void* q_rot, void* k_rot, void* stats, void* dq_ws, void* dq, void* dk,
+    void* dv, int B, int Sq, int Sk, int H, int KV, int hd, int causal,
+    int rope, int dtype, void* stream) {
   Params p = make_params(q, k, v, cos, sin, B, Sq, Sk, H, KV, hd, causal, rope);
   p.out = out;
   p.lse = static_cast<const float*>(lse);
   p.dout = dout;
+  p.q_rot = q_rot;
+  p.k_rot = k_rot;
+  p.stats = static_cast<float*>(stats);
+  p.sq_pad = (Sq + kTcBwdBQ - 1) / kTcBwdBQ * kTcBwdBQ;
   p.dq_ws = static_cast<float*>(dq_ws);
   p.dq = dq;
   p.dk = dk;

@@ -36,6 +36,9 @@ _lock = threading.Lock()
 _libs: dict = {}
 #: seconds each source took to build in this process (0.0 = loaded)
 BUILD_SECONDS: dict = {}
+#: nvcc's output per source built in this process (with ``verbose``, the
+#: ``-Xptxas -v`` report: registers, spills, shared memory per kernel)
+BUILD_LOG: dict = {}
 
 
 def find_nvcc() -> str:
@@ -80,8 +83,9 @@ def build(src_name: str, verbose: bool = False) -> Path:
             f"nvcc failed for {src_name} (rc {proc.returncode}):\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
-    if verbose and (proc.stdout or proc.stderr):
-        print(proc.stdout + proc.stderr, flush=True)
+    BUILD_LOG[src_name] = proc.stdout + proc.stderr
+    if verbose and BUILD_LOG[src_name]:
+        print(BUILD_LOG[src_name], flush=True)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees a torso
     BUILD_SECONDS[src_name] = time.perf_counter() - t0
     return out
@@ -105,11 +109,12 @@ def _declare_paged_attention(lib) -> None:
 
 def _declare_flash_attention(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    dims = [i] * 10  # B Sq Sk H KV hd causal rope dtype, then the stream
-    dims[-1] = p
-    lib.kdl_flash_fwd.argtypes = [p] * 7 + dims  # q k v cos sin out lse
-    # q k v cos sin out lse dout + dq_ws dq dk dv / dq / dk_h dv_h
-    lib.kdl_flash_bwd_fused.argtypes = [p] * 12 + dims
+    dims = [i] * 9 + [p]  # B Sq Sk H KV hd causal rope dtype, the stream
+    # q k v cos sin out lse q_rot k_rot
+    lib.kdl_flash_fwd.argtypes = [p] * 9 + dims
+    # q k v cos sin out lse dout, then q_rot k_rot stats dq_ws dq dk dv /
+    # dq / dk_h dv_h
+    lib.kdl_flash_bwd_fused.argtypes = [p] * 15 + dims
     lib.kdl_flash_bwd_dq.argtypes = [p] * 9 + dims
     lib.kdl_flash_bwd_dkdv.argtypes = [p] * 10 + dims
     for fn in (lib.kdl_flash_fwd, lib.kdl_flash_bwd_fused,
@@ -163,4 +168,5 @@ def check_launch(err: int, name: str) -> None:
 
 
 __all__ = ["build", "build_all", "load_kernels", "load_flash_kernels",
-           "check_launch", "find_nvcc", "BUILD_DIR", "BUILD_SECONDS"]
+           "check_launch", "find_nvcc", "BUILD_DIR", "BUILD_SECONDS",
+           "BUILD_LOG"]

@@ -27,6 +27,12 @@ op                  computes                                  replaces
 ``flash_bwd_dkdv``  per-q-head (dk_h, dv_h)                   ``_bwd_dkdv_kernel``
 ==================  ========================================  ===========
 
+Kernel design by route (:func:`tensor_core_route`, a static table): the
+bf16 ``flash_fwd`` and ``flash_bwd_fused`` at hd 64 and 128 launch the
+tensor-core kernels (wgmma on TMA-staged bf16 tiles), for which the
+wrapper allocates the rotated-q/k, row-stats and dq workspaces; float32,
+hd 256 and the split pair launch the CUDA-core kernels.
+
 Numerics contract (the reference's; kernels and plain versions keep it,
 and a kernel redesign must too):
 
@@ -79,6 +85,12 @@ LAUNCHES = {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dq": 0,
 
 #: head dims the CUDA kernels are compiled for
 KERNEL_HEAD_DIMS = (64, 128, 256)
+#: head dims whose bf16 forward and fused backward take the tensor-core
+#: kernels (wgmma, TMA); float32 at every hd, bf16 at hd 256 and the split
+#: pair take the CUDA-core ones. The source's ``TcRoute`` is the same table.
+TENSOR_CORE_HEAD_DIMS = (64, 128)
+#: the tensor-core backward's q tile: its workspaces pad Sq to a multiple
+_TC_BWD_BQ = 64
 
 
 # ---- routing (copied from the reference: same shapes, same route) ----------
@@ -270,6 +282,21 @@ def _check_cuda_inputs(q, k, v, cos, sin, extra=()):
             raise TypeError(f"{name} is {t.dtype}, expected {want}")
 
 
+def tensor_core_route(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether ``flash_fwd`` / ``flash_bwd_fused`` launch the tensor-core
+    kernels for this input type and head width (a static table, not a
+    fallback: each route launches its kernel or raises)."""
+    return dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS
+
+
+def _rope_workspaces(q, k, cos):
+    """The tensor-core route's rotated q / k (written by the kernels'
+    RoPE pre-pass), or None where that route or rope is off."""
+    if cos is None or not tensor_core_route(q.dtype, q.shape[3]):
+        return None, None
+    return torch.empty_like(q), torch.empty_like(k)
+
+
 def _launch(fn_name: str, counter: str, q, k, v, cos, sin, causal, ptrs):
     from kubedl_tpu_torch.ops.build import check_launch, load_flash_kernels
 
@@ -282,7 +309,7 @@ def _launch(fn_name: str, counter: str, q, k, v, cos, sin, causal, ptrs):
         err = getattr(lib, fn_name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             cos.data_ptr() if rope else None, sin.data_ptr() if rope else None,
-            *[t.data_ptr() for t in ptrs],
+            *[None if t is None else t.data_ptr() for t in ptrs],
             B, Sq, Sk, H, KV, hd, int(causal), int(rope),
             1 if q.dtype == torch.bfloat16 else 0, stream,
         )
@@ -295,8 +322,9 @@ def _cuda_fwd(q, k, v, cos, sin, causal):
     B, Sq, H, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq, 1), dtype=torch.float32, device=q.device)
+    q_rot, k_rot = _rope_workspaces(q, k, cos)
     _launch("kdl_flash_fwd", "flash_fwd", q, k, v, cos, sin, causal,
-            (out, lse))
+            (out, lse, q_rot, k_rot))
     return out, lse
 
 
@@ -311,10 +339,20 @@ def _check_bwd_inputs(q, k, v, cos, sin, out, lse, dout):
 
 def _cuda_bwd_fused(q, k, v, cos, sin, out, lse, dout, causal):
     _check_bwd_inputs(q, k, v, cos, sin, out, lse, dout)
-    dq_ws = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    B, Sq, H, hd = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    q_rot, k_rot = _rope_workspaces(q, k, cos)
+    if tensor_core_route(q.dtype, hd):
+        # written whole by the kernels' pre-pass: {lse, D} per q row and the
+        # zeroed dq sums, both [B, H, Sq padded to the q tile, ...]
+        sq_pad = -(-Sq // _TC_BWD_BQ) * _TC_BWD_BQ
+        stats = torch.empty((B, H, sq_pad, 2), **f32)
+        dq_ws = torch.empty((B, H, sq_pad, hd), **f32)
+    else:
+        stats, dq_ws = None, torch.zeros(q.shape, **f32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _launch("kdl_flash_bwd_fused", "flash_bwd_fused", q, k, v, cos, sin,
-            causal, (out, lse, dout, dq_ws, dq, dk, dv))
+            causal, (out, lse, dout, q_rot, k_rot, stats, dq_ws, dq, dk, dv))
     return dq, dk, dv
 
 
@@ -503,5 +541,5 @@ __all__ = [
     "flash_attention", "make_flash_attention", "flash_backward", "fit_block",
     "supports", "bwd_route", "mesh_axes", "mesh_size", "flash_fwd", "flash_bwd_fused",
     "flash_bwd_dq", "flash_bwd_dkdv", "LAUNCHES", "KERNEL_HEAD_DIMS",
-    "NEG_INF", "LOG2E",
+    "TENSOR_CORE_HEAD_DIMS", "tensor_core_route", "NEG_INF", "LOG2E",
 ]

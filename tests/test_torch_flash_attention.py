@@ -342,3 +342,62 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch, split):
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_attention(*(torch.from_numpy(x).to(cuda)
                               for x in _qkv(seed, S=16, hd=32)))
+
+
+#: tolerances on the card, kernel against plain version on the same inputs
+#: (those of chip_smoke.py's phase 7): out max abs, lse max abs, gradients
+#: max abs over max |grad|. bf16: both sides sum in float32 and round at
+#: the same points, so they differ by about one bf16 ulp of |out| <= 4 and
+#: of a rounded P or dS; float32: reordered float32 sums (the fused dq by
+#: atomics or bulk reductions in run-to-run order).
+CARD_TOL = {"bfloat16": {"out": 2e-2, "lse": 1e-4, "grad": 2e-2},
+            "float32": {"out": 1e-5, "lse": 1e-4, "grad": 1e-4}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["causal-S256", "ragged-noncausal-S200"])
+@pytest.mark.parametrize("rope", [False, True], ids=["norope", "rope"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_cuda_kernels_match_plain_versions(cuda, hd, dtype, rope, shape):
+    """All four operators' kernels (tensor-core or CUDA-core, as the route
+    table says) against their plain versions on the same CUDA inputs, and
+    the split route against the fused one."""
+    from kubedl_tpu_torch.models.llama import rope_table
+
+    causal = shape.startswith("causal")
+    B, S, H, KV = (1, 256, 4, 2) if causal else (2, 200, 4, 1)
+    dt = getattr(torch, dtype)
+    tol = CARD_TOL[dtype]
+    rng = np.random.RandomState(hd + S)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   .to(cuda, dt) for s in ((B, S, H, hd), (B, S, KV, hd),
+                                           (B, S, KV, hd), (B, S, H, hd)))
+    cos = sin = None
+    if rope:
+        cos, sin = rope_table(hd, 500000.0, S, device=cuda)
+    out, lse = tfa.flash_fwd(q, k, v, cos, sin, causal)
+    args = (q, k, v, cos, sin, out, lse, do, causal)
+    fused = tfa.flash_bwd_fused(*args)
+    dq_s = tfa.flash_bwd_dq(*args)
+    dk_h, dv_h = tfa.flash_bwd_dkdv(*args)
+    torch.cuda.synchronize()
+    p_out, p_lse = tfa._plain_fwd(q, k, v, cos, sin, causal)
+    assert (out.float() - p_out.float()).abs().max().item() <= tol["out"]
+    assert (lse - p_lse).abs().max().item() <= tol["lse"]
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    p_grads = tfa._plain_bwd_fused(*args)
+    p_dk_h, p_dv_h = tfa._plain_bwd_dkdv_per_head(*args)
+    split = (dq_s, dk_h.reshape(B, S, KV, H // KV, hd).sum(3).to(dt),
+             dv_h.reshape(B, S, KV, H // KV, hd).sum(3).to(dt))
+    for a, b in zip(fused, p_grads):
+        assert rel(a, b) <= tol["grad"]
+    assert rel(dq_s, tfa._plain_bwd_dq(*args)) <= tol["grad"]
+    assert rel(dk_h, p_dk_h) <= tol["grad"]
+    assert rel(dv_h, p_dv_h) <= tol["grad"]
+    for a, b in zip(fused, split):
+        assert rel(a, b) <= tol["grad"]

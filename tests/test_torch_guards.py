@@ -4,7 +4,10 @@ engine and the trainer reject what the port does not run yet instead of
 ignoring it."""
 
 import ast
+import ctypes
 import json
+import re
+import types
 from pathlib import Path
 
 import pytest
@@ -139,3 +142,63 @@ def test_chip_smoke_refuses_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr("sys.argv", ["chip_smoke.py"])
     assert mod.main() != 0
+
+
+# ---- the ctypes bindings against the C entry points ---------------------------
+
+def _c_entry_points() -> dict:
+    """``{name: [param, ...]}`` of every ``extern "C" int kdl_*(...)`` in
+    the port's CUDA sources."""
+    found = {}
+    for src in sorted((ROOT / "kubedl_tpu_torch" / "csrc").glob("*.cu")):
+        text = re.sub(r"//[^\n]*", "", src.read_text())
+        for m in re.finditer(r'extern\s+"C"\s+int\s+(kdl_\w+)\s*\(([^)]*)\)',
+                             text):
+            found[m.group(1)] = [" ".join(a.split())
+                                 for a in m.group(2).split(",")]
+    return found
+
+
+C_ENTRY_POINTS = _c_entry_points()
+
+
+class _StandIn:
+    """Takes the ``argtypes`` / ``restype`` a ``_declare_*`` sets."""
+
+    def __init__(self):
+        self.fns = {}
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        return self.fns.setdefault(name, types.SimpleNamespace())
+
+
+def _declared() -> dict:
+    from kubedl_tpu_torch.ops import build
+
+    lib = _StandIn()
+    for declare in build._SOURCES.values():
+        declare(lib)
+    return lib.fns
+
+
+def test_every_declared_entry_point_exists_in_the_sources():
+    assert len(C_ENTRY_POINTS) >= 6
+    assert set(_declared()) == set(C_ENTRY_POINTS)
+
+
+@pytest.mark.parametrize("name", sorted(C_ENTRY_POINTS))
+def test_ctypes_declaration_matches_c_signature(name):
+    """Same argument count; every pointer (and the stream) c_void_p, every
+    int c_int: a pointer passed as a 32-bit int would be cut."""
+    fn = _declared()[name]
+    params = C_ENTRY_POINTS[name]
+    assert len(fn.argtypes) == len(params), (name, params)
+    for param, declared in zip(params, fn.argtypes):
+        if "*" in param:
+            assert declared is ctypes.c_void_p, (name, param)
+        else:
+            assert param.split()[0] == "int", (name, param)
+            assert declared is ctypes.c_int, (name, param)
+    assert fn.restype is ctypes.c_int
