@@ -10,16 +10,23 @@ Phases (any failure exits non-zero before the final line):
 2. build: compiles the port's CUDA sources (kubedl_tpu_torch/csrc) with
    nvcc for sm_90a (``-Xptxas -v``), one nvcc per source started
    together, and prints the build seconds; then, for each tensor-core
-   flash kernel, its registers and spill bytes (ptxas) and its count of
-   HGMMA instructions (``cuobjdump -sass``), failing if one has none.
-3. blocked kernel vs its plain PyTorch version at the serving shapes
+   kernel (flash forward and backward, paged prefill), its registers and
+   spill bytes (ptxas) and its count of HGMMA instructions
+   (``cuobjdump -sass``), failing if one has none.
+3. blocked entry vs its plain PyTorch version at the serving shapes
    (Llama-3-8B: B=8, KV=8, group 4, hd 128, BS 16, MB 128; Gemma-2B:
    hd 256, KV 1, group 8) for S in {1, 64, 512}, ragged starts, block
-   boundaries and an all-trash row, bf16 and f32; kernel, plain and
-   library (SDPA over the gathered view) times.
-4. fused decode kernel (S=1, KV write fused) vs plain scatter + plain
-   attention: pools bitwise equal outside the trash block, outputs within
-   tolerance; the same timings.
+   boundaries and an all-trash row, bf16 and f32, each case's route
+   printed (``paged_route``: split-K, tensor cores or CUDA cores); kernel,
+   plain and library (SDPA over the gathered view) times (see
+   ``time_ms``: "ms" is the call's device time with the host's queueing
+   hidden, "call_ms" one call with the queueing in it).
+4. fused decode entry (S=1, KV write fused, split-K) vs plain scatter +
+   plain attention: pools bitwise equal outside the trash block, outputs
+   within tolerance; the first call runs under
+   ``torch.cuda.set_sync_debug_mode("error")`` (the decode path must not
+   sync); a long-context case (MB=512, 8192 positions) where most splits
+   of the short rows are empty; the same timings.
 5. the engine: ``serve_main`` serving Llama-3-8B (full width and depth,
    seeded random weights) on 127.0.0.1, 8 concurrent /v1/generate
    requests (6 greedy, 2 at temperature 0.8, prompts of 64-1536 tokens,
@@ -31,16 +38,17 @@ Phases (any failure exits non-zero before the final line):
    in float32, where the blocked and gather engines' greedy streams must
    be identical (gated: f32 leaves no near-ties at these logit gaps).
 6. profile: the blocked Llama-3-8B engine again, 32 new tokens per
-   request, under torch.profiler: device time by kernel category
-   (paged attention, matmul, other) and the device's busy share of the
-   wall time.
+   request, under torch.profiler: device time and kernel count by
+   category (paged attention by entry point and the split-K merge,
+   matmul, other) and the device's busy share of the wall time.
 7. flash kernels vs their plain PyTorch versions: the llama3-1b training
    shape (B=4, H=32, KV=8, S=2048, hd=64, bf16, causal, with and without
    fused RoPE), Llama-3-8B (hd 128) and Gemma-2B (hd 256) head widths, a
    ragged non-causal S=1000, and float32 at each hd: out and lse against
    the plain forward, the fused backward and the split pair against the
    plain backward and against each other; at the training shape each
-   kernel's time (CUDA events, median of 20, L2 flushed), the plain
+   kernel's time (CUDA events, median of 20, L2 flushed; device time and
+   call time as in phase 3), the plain
    version's, its bound, and SDPA's forward / backward as the yardstick.
 8. training: ``train_main`` with KUBEDL_TRAIN_CONFIG={"model":
    "llama3-1b", "global_batch": 4, "seq_len": 2048, "steps": 8} on the
@@ -70,6 +78,7 @@ import gc
 import json
 import math
 import os
+import re
 import socket
 import statistics
 import subprocess
@@ -97,6 +106,10 @@ LLAMA = dict(B=8, KV=8, H=32, hd=128, BS=16, MB=128)
 GEMMA = dict(B=8, KV=1, H=8, hd=256, BS=16, MB=128)
 STARTS = [0, 15, 16, 47, 300, 1023, 1500, 0]  # row 7: all-trash table
 TRASH_ROW = 7
+#: the long-context decode case: Llama-3-8B widths over 8192 positions,
+#: mostly short rows (most of their splits empty) beside two long ones
+LONG = dict(LLAMA, MB=512)
+LONG_STARTS = [0, 15, 16, 47, 300, 4095, 8190, 0]
 
 REPLACES = {
     "paged_attention_blocked":
@@ -125,11 +138,20 @@ def smi_line() -> str:
 # ---- timing -----------------------------------------------------------------
 
 _flush = None
+#: cycles the card spins before a timed call, so that the host has queued
+#: the whole call before the start event fires: about 1 ms at the H100's
+#: 1.98 GHz boost clock, against 0.05-0.2 ms to queue one call
+HIDE_HOST_CYCLES = 2_000_000
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, reps: int = 20, warmup: int = 3,
+            hide_host: bool = True) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn``, with the 50 MB L2
-    flushed before each (the engine meets every layer's pool cold)."""
+    flushed before each (the engine meets every layer's pool cold). With
+    ``hide_host`` the card is kept busy while the host queues the call, so
+    the events bracket only the call's device work (its kernels and the
+    gaps between them); without it they also take in the host's queueing
+    of the call ("call_ms")."""
     global _flush
     if _flush is None:
         _flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -138,6 +160,8 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     times = []
     for _ in range(reps):
         _flush.zero_()
+        if hide_host:
+            torch.cuda._sleep(HIDE_HOST_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -150,7 +174,7 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 # ---- inputs and bounds ------------------------------------------------------
 
-def make_case(shape, S, dtype, seed):
+def make_case(shape, S, dtype, seed, starts=STARTS):
     g = torch.Generator(device="cuda").manual_seed(seed)
     B, KV, H, hd, BS, MB = (shape[k] for k in ("B", "KV", "H", "hd", "BS", "MB"))
     NB = 1 + B * MB
@@ -162,13 +186,13 @@ def make_case(shape, S, dtype, seed):
     bt = perm.to(torch.int32).reshape(B, MB).contiguous()
     bt[TRASH_ROW] = 0
     q = torch.randn((B, S, H, hd), generator=g, device="cuda").to(dtype)
-    starts = torch.tensor(STARTS[:B], dtype=torch.int32, device="cuda")
+    starts = torch.tensor(starts[:B], dtype=torch.int32, device="cuda")
     nk = torch.randn((B, KV, hd), generator=g, device="cuda").to(dtype)
     nv = torch.randn((B, KV, hd), generator=g, device="cuda").to(dtype)
     return q, kp, vp, bt, starts, nk, nv
 
 
-def bound(shape, S, dtype, fused=False):
+def bound(shape, S, dtype, fused=False, starts=STARTS):
     """Least time for the work: K/V positions each row's queries can see
     read once (this run's starts), q read and out written once; flops
     4*hd per (query head, visible key), at the input type's peak."""
@@ -176,7 +200,7 @@ def bound(shape, S, dtype, fused=False):
     max_s = BS * MB
     esz = torch.tensor([], dtype=dtype).element_size()
     keys = vis = 0
-    for st in STARTS[:B]:
+    for st in starts[:B]:
         keys += min(st + S - 1, max_s - 1) + 1
         vis += sum(min(st + s, max_s - 1) + 1 for s in range(S))
     nbytes = 2 * keys * KV * hd * esz + 2 * B * S * H * hd * esz
@@ -213,8 +237,15 @@ def sdpa_yardstick(q, kp, vp, bt, starts):
 
 # ---- phases 3 and 4 ---------------------------------------------------------
 
+def route_of(pa, shape, S, dtype, fused=False):
+    return pa.paged_route(dtype, shape["hd"], S, shape["H"] // shape["KV"],
+                          shape["BS"], fused)
+
+
 def check_blocked(pa, shape, S, dtype, timed: bool):
     q, kp, vp, bt, starts, _, _ = make_case(shape, S, dtype, seed=S + 11)
+    route = route_of(pa, shape, S, dtype)
+    before = pa.ROUTE_LAUNCHES[route]
     out = pa.paged_attention(q, kp, vp, bt, starts)
     torch.cuda.synchronize()
     ref = pa.plain_paged_attention(q, kp, vp, bt, starts)
@@ -222,22 +253,39 @@ def check_blocked(pa, shape, S, dtype, timed: bool):
     if not math.isfinite(err) or err > TOL[dtype]:
         fail(f"blocked kernel {shape} S={S} {dtype}: max abs err {err} "
              f"> {TOL[dtype]}")
-    rec = {"max_abs_err": err}
+    if pa.ROUTE_LAUNCHES[route] != before + 1:
+        fail(f"blocked {shape} S={S} {dtype} did not take route {route}")
+    rec = {"route": route, "max_abs_err": err}
     if timed:
-        rec["ms"] = time_ms(lambda: pa.paged_attention(q, kp, vp, bt, starts))
+        kern = lambda: pa.paged_attention(q, kp, vp, bt, starts)  # noqa: E731
+        lib = sdpa_yardstick(q, kp, vp, bt, starts)
+        rec["ms"], rec["call_ms"] = time_ms(kern), time_ms(kern, hide_host=False)
         rec["plain_ms"] = time_ms(
-            lambda: pa.plain_paged_attention(q, kp, vp, bt, starts), reps=20)
-        rec["library_ms"] = time_ms(sdpa_yardstick(q, kp, vp, bt, starts))
+            lambda: pa.plain_paged_attention(q, kp, vp, bt, starts), reps=20,
+            hide_host=False)
+        rec["library_ms"] = time_ms(lib)
+        rec["library_call_ms"] = time_ms(lib, hide_host=False)
         rec["bound_ms"], rec["bound_by"] = bound(shape, S, dtype)
     return rec
 
 
-def check_fused(pa, shape, dtype, timed: bool):
-    q, kp, vp, bt, starts, nk, nv = make_case(shape, 1, dtype, seed=97)
+def check_fused(pa, shape, dtype, timed: bool, start_list=STARTS):
+    q, kp, vp, bt, starts, nk, nv = make_case(shape, 1, dtype, seed=97,
+                                              starts=start_list)
     kk, vk = kp.clone(), vp.clone()
-    out, kk2, vk2 = pa.paged_attention(q, kk, vk, bt, starts,
-                                       new_k=nk, new_v=nv)
+    route = route_of(pa, shape, 1, dtype, fused=True)
+    before = pa.ROUTE_LAUNCHES[route]
     torch.cuda.synchronize()
+    # the decode path reads no device value: any sync in the call raises
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, kk2, vk2 = pa.paged_attention(q, kk, vk, bt, starts,
+                                           new_k=nk, new_v=nv)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if pa.ROUTE_LAUNCHES[route] != before + 1:
+        fail(f"fused {shape} {dtype} did not take route {route}")
     if kk2.data_ptr() != kk.data_ptr():
         fail("fused kernel did not update the pools in place")
     kr, vr = kp.clone(), vp.clone()
@@ -250,32 +298,39 @@ def check_fused(pa, shape, dtype, timed: bool):
     err = (out[own].float() - ref[own].float()).abs().max().item()
     if not math.isfinite(err) or err > TOL[dtype]:
         fail(f"fused kernel {shape} {dtype}: max abs err {err} > {TOL[dtype]}")
-    rec = {"max_abs_err": err}
+    rec = {"route": route, "max_abs_err": err, "sync_free": True}
     if timed:
-        rec["ms"] = time_ms(lambda: pa.paged_attention(
-            q, kk, vk, bt, starts, new_k=nk, new_v=nv))
+        def kern():
+            return pa.paged_attention(q, kk, vk, bt, starts, new_k=nk,
+                                      new_v=nv)
 
         def plain():
             pa.plain_fused_write(kr, vr, bt, starts, nk, nv)
             return pa.plain_paged_attention(q, kr, vr, bt, starts)
 
-        rec["plain_ms"] = time_ms(plain)
-        rec["library_ms"] = time_ms(sdpa_yardstick(q, kr, vr, bt, starts))
-        rec["bound_ms"], rec["bound_by"] = bound(shape, 1, dtype, fused=True)
+        lib = sdpa_yardstick(q, kr, vr, bt, starts)
+        rec["ms"], rec["call_ms"] = time_ms(kern), time_ms(kern, hide_host=False)
+        rec["plain_ms"] = time_ms(plain, hide_host=False)
+        rec["library_ms"] = time_ms(lib)
+        rec["library_call_ms"] = time_ms(lib, hide_host=False)
+        rec["bound_ms"], rec["bound_by"] = bound(shape, 1, dtype, fused=True,
+                                                 starts=start_list)
     return rec
 
 
 # ---- phase 2: what the compiler made of the tensor-core kernels --------------
 
-#: the tensor-core flash kernels, by the names ptxas and cuobjdump print
-TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_tc_kernel")
+#: the tensor-core kernels, by the names ptxas and cuobjdump print, and
+#: the source each is built from
+TC_KERNELS = {"flash_fwd_tc_kernel": "flash_attention.cu",
+              "flash_bwd_tc_kernel": "flash_attention.cu",
+              "paged_prefill_tc_kernel": "paged_attention.cu"}
 
 
 def _kernel_key(mangled: str):
     """``flash_fwd_tc_kernel<64>`` from a mangled name, or None."""
-    import re
-
-    m = re.search(r"(?<=\d)(flash_[a-z_]+?_kernel)ILi(\d+)E", mangled)
+    m = re.search(r"(?<=\d)((?:flash|paged)_[a-z_]+?_kernel)ILi(\d+)E",
+                  mangled)
     if m is None or m.group(1) not in TC_KERNELS:
         return None
     return f"{m.group(1)}<{m.group(2)}>"
@@ -285,10 +340,18 @@ def tc_kernel_report(build) -> dict:
     """Registers and spill bytes (ptxas -v, from this run's build) and
     HGMMA count (cuobjdump -sass of the built library) per tensor-core
     kernel instantiation. Fails if one was not found or has no HGMMA."""
-    import re
+    rep = {}
+    for src in sorted(set(TC_KERNELS.values())):
+        rep.update(_tc_source_report(build, src))
+    want = {f"{k}<{hd}>" for k in TC_KERNELS for hd in (64, 128)}
+    if not want <= set(rep) or any(rep[k].get("hgmma", 0) == 0 for k in want):
+        fail(f"tensor-core kernels missing or without HGMMA: {rep}")
+    return rep
 
+
+def _tc_source_report(build, src) -> dict:
     rep, cur = {}, None
-    for line in build.BUILD_LOG.get("flash_attention.cu", "").splitlines():
+    for line in build.BUILD_LOG.get(src, "").splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for)"
                       r" '?(\w+)", line)
         if m:
@@ -306,7 +369,7 @@ def tc_kernel_report(build) -> dict:
             rep.setdefault(cur, {})["registers"] = int(m.group(1))
     nvcc = build.find_nvcc()
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    lib = build.build("flash_attention.cu")
+    lib = build.build(src)
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300)
     if sass.returncode != 0:
@@ -320,9 +383,6 @@ def tc_kernel_report(build) -> dict:
                 rep.setdefault(cur, {})["hgmma"] = 0
         elif cur and "HGMMA" in line:
             rep[cur]["hgmma"] += 1
-    want = {f"{k}<{hd}>" for k in TC_KERNELS for hd in (64, 128)}
-    if not want <= set(rep) or any(rep[k].get("hgmma", 0) == 0 for k in want):
-        fail(f"tensor-core kernels missing or without HGMMA: {rep}")
     return rep
 
 
@@ -501,8 +561,11 @@ def check_flash_case(fa, case, records):
         rec = {"max_abs_err": abs_errs[name],
                "max_err_over_max_grad": errs.get(name)}
         rec["ms"] = time_ms(kern, reps=20)
-        rec["plain_ms"] = time_ms(plain, reps=5, warmup=1)
+        rec["call_ms"] = time_ms(kern, reps=20, hide_host=False)
+        rec["plain_ms"] = time_ms(plain, reps=5, warmup=1, hide_host=False)
         rec["library_ms"] = time_ms(lib, reps=20) if lib else None
+        rec["library_call_ms"] = (time_ms(lib, reps=20, hide_host=False)
+                                  if lib else None)
         rec["bound_ms"], rec["bound_by"] = flash_bound(name, *shape)
         rec["shape"] = f"B={B} H={H} KV={KV} S={S} hd={hd} {str(dtype)[6:]}" \
                        f" causal={causal} rope={rope}"
@@ -827,10 +890,12 @@ def run_engine(pa, server_mod, llama_mod, summary):
     reqs = make_requests(cfg8.vocab_size)
     _, before = http_json(base + "/v1/stats")
     torch.cuda.reset_peak_memory_stats()
-    for k in pa.LAUNCHES:
-        pa.LAUNCHES[k] = 0
+    for counts in (pa.LAUNCHES, pa.ROUTE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
     results, wall = post_all(base, reqs)
     launches = dict(pa.LAUNCHES)
+    routes = dict(pa.ROUTE_LAUNCHES)
     _, st = http_json(base + "/v1/stats")
     peak = torch.cuda.max_memory_allocated()
     cancel.set()
@@ -847,6 +912,11 @@ def run_engine(pa, server_mod, llama_mod, summary):
     if launches["fused"] < cfg8.n_layers * steps or steps <= 0:
         fail(f"fused launches {launches['fused']} < layers x decode steps "
              f"({cfg8.n_layers} x {steps})")
+    # prefill chunks (S >= 16, group 4, bf16) take the tensor cores; every
+    # decode step the split-K kernel
+    if routes["tensor_core"] != launches["blocked"] or \
+            routes["split_k"] != launches["fused"]:
+        fail(f"engine routes {routes} do not match {launches}")
     if st["nonfinite_logits"] != 0:
         fail(f"{st['nonfinite_logits']} non-finite logits")
     dec_tokens = pipe["decode_tokens"] - pipe0["decode_tokens"]
@@ -864,6 +934,7 @@ def run_engine(pa, server_mod, llama_mod, summary):
         "ttft_ms_p95": st.get("ttft_ms_p95"),
         "max_memory_allocated_gib": peak / 2**30,
         "launches": launches,
+        "route_launches": routes,
     }
     print("engine (smoke run, not a benchmark): " + json.dumps(eng), flush=True)
     summary["launches"] = launches
@@ -925,9 +996,13 @@ def run_f32_parity(server_mod, llama_mod, reqs, serve_cfg):
 
 
 def _kernel_category(name: str) -> str:
-    if "paged_attention_kernel" in name:
+    if "paged_split_kernel" in name:  # split-K: by its fused flag
         return "paged_attention_fused" if "true>" in name \
             else "paged_attention_blocked"
+    if "paged_combine_kernel" in name:  # the split-K merge
+        return "paged_attention_combine"
+    if "paged_prefill_tc_kernel" in name or "paged_attention_kernel" in name:
+        return "paged_attention_blocked"
     low = name.lower()
     if any(k in low for k in ("gemm", "xmma", "cutlass", "cublas", "gemv",
                               "nvjet")):
@@ -959,7 +1034,7 @@ def run_profile(server_mod, reqs, serve_cfg):
     wall_ms = span["wall_ms"]
     if any(len((o or {}).get("token_ids", [])) != 32 for o in outs):
         fail(f"profiled run: bad responses {str(outs)[:300]}")
-    cats, top = {}, []
+    cats, counts, top = {}, {}, []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -968,6 +1043,7 @@ def run_profile(server_mod, reqs, serve_cfg):
             us = e.self_cuda_time_total
         cat = _kernel_category(e.key)
         cats[cat] = cats.get(cat, 0.0) + us / 1e3
+        counts[cat] = counts.get(cat, 0) + e.count
         top.append((us / 1e3, e.count, e.key[:90]))
     dev_ms = sum(cats.values())
     top.sort(reverse=True)
@@ -975,6 +1051,8 @@ def run_profile(server_mod, reqs, serve_cfg):
         "wall_ms": wall_ms, "device_ms": dev_ms,
         "busy_share": dev_ms / wall_ms if wall_ms else None,
         "by_category_ms": cats,
+        "by_category_kernels": counts,
+        "ms_per_kernel": {k: cats[k] / counts[k] for k in cats if counts[k]},
         "top": [[n, ms, c] for ms, c, n in top[:10]],
     }), flush=True)
     if dev_ms == 0.0:
@@ -1044,6 +1122,10 @@ def main() -> int:
         print(f"fused {name} bf16: " + json.dumps(rec), flush=True)
         if name == "llama":
             kernels["paged_attention_fused"] = rec
+    rec = check_fused(pa, LONG, torch.bfloat16, timed=True,
+                      start_list=LONG_STARTS)
+    print("fused llama long-context MB=512 bf16: " + json.dumps(rec),
+          flush=True)
     small = dict(LLAMA, hd=64)
     for shape, S in ((LLAMA, 64), (GEMMA, 64), (small, 8)):
         rec = check_blocked(pa, shape, S, torch.float32, timed=False)
@@ -1082,11 +1164,14 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": lib,
             "design": design,
             "ms_over_library": rec["ms"] / lib if lib else None,
+            # one call with the host's queueing in it
+            "call_ms": rec["call_ms"], "library_call_ms": rec["library_call_ms"],
         }
 
+    # each paged entry's design is the route its timed case took
     line = [record(name, "kubedl_tpu_torch/csrc/paged_attention.cu",
                    REPLACES[name], launches[name.rsplit("_", 1)[1]],
-                   kernels[name], "cuda_core")
+                   kernels[name], kernels[name]["route"])
             for name in ("paged_attention_blocked", "paged_attention_fused")]
     main_case = FLASH_CASES[0]  # the timed shape: llama3-1b training
     for name in FLASH_REPLACES:

@@ -14,10 +14,26 @@ picked by where the tensors live — never by a fallback:
   of MB with C*BS <= tile keys, folded with :func:`_online_fold`) and
   ``_fused_write_lax``. The CPU tests hold it against the JAX function,
   and ``chip_smoke.py`` holds the kernels against it on the card.
-- **kernel** (CUDA tensors): two CUDA C++ kernels written for Hopper
-  (``csrc/paged_attention.cu``): ``paged_attention_blocked`` (replaces
-  the TPU ``_blocked_kernel``) and ``paged_attention_fused`` (replaces
-  ``_fused_kernel``). A CUDA tensor launches the kernel or raises.
+- **kernel** (CUDA tensors): CUDA C++ written for Hopper
+  (``csrc/paged_attention.cu``) behind two entry points,
+  ``paged_attention_blocked`` (replaces the TPU ``_blocked_kernel``) and
+  ``paged_attention_fused`` (replaces ``_fused_kernel``). Which kernel a
+  call launches is a static route, :func:`paged_route` (the source's
+  ``route_of`` is the same table), with no fallback between routes: a
+  CUDA tensor launches its route's kernel or raises.
+
+  - ``"split_k"``: every fused decode call, and any blocked call with
+    R = S*group < 64 query rows a kv-head. Keys are split into
+    :func:`split_plan` ranges, one CTA each (flash decoding); the splits'
+    float32 partials (m, l, acc) go to a workspace the wrapper allocates
+    and a second small kernel merges them (:func:`combine_splits` is the
+    plain version of that merge). The plan depends on shapes only: the
+    wrapper reads no device value, so a decode segment never syncs.
+  - ``"tensor_core"``: bf16 prefill at hd 64/128 with R >= 64, the block
+    size a multiple of 8 dividing 64 and the GQA group dividing 64: wgmma
+    on TMA-staged tiles, each 64-key tile gathered block by block.
+  - ``"cuda_core"``: the rest (float32 prefill, hd 256 prefill, other
+    block sizes or groups).
 
 Numerics contract (copied from the reference; the kernels keep it):
 
@@ -62,12 +78,61 @@ M_FLOOR = -1e29
 #: keys folded per plain-path step (the reference's measured default)
 DEFAULT_TILE = 256
 
-#: launches per CUDA kernel, counted by the wrappers where they launch —
-#: a run reads them to show its main path really went through the kernels
+#: launches per entry point, counted by the wrappers where they launch (one
+#: per op call, however many CUDA kernels the call runs) — a run reads them
+#: to show its main path really went through the kernels
 LAUNCHES = {"blocked": 0, "fused": 0}
+#: the same op calls by the route they took (see :func:`paged_route`)
+SPLIT_K, TENSOR_CORE, CUDA_CORE = "split_k", "tensor_core", "cuda_core"
+ROUTE_LAUNCHES = {SPLIT_K: 0, TENSOR_CORE: 0, CUDA_CORE: 0}
 
 #: head dims the CUDA kernels are compiled for
 KERNEL_HEAD_DIMS = (64, 128, 256)
+#: head dims whose bf16 prefill takes the tensor-core kernel
+TENSOR_CORE_HEAD_DIMS = (64, 128)
+#: the tensor-core kernel's keys a K/V tile: whole pool blocks, so the
+#: block size divides it; the GQA group divides it too, so each 64-row
+#: query tile holds whole sequence positions
+TC_TILE_KEYS = 64
+#: query rows (S*group) a kv-head from which a blocked call leaves split-K
+SPLIT_MAX_ROWS = 64
+
+#: SMs of an H100 SXM: the split-K grid is sized to fill them twice over
+SM_COUNT = 132
+#: split lengths are multiples of this (every split-K stage's key count
+#: divides it) ...
+SPLIT_QUANTUM = 32
+#: ... and about this long when the key range, not the SM count, decides
+SPLIT_TARGET_KEYS = 256
+
+
+def paged_route(dtype, head_dim: int, S: int, group: int,
+                block_size: int, fused: bool = False) -> str:
+    """The kernel a CUDA call takes: ``"split_k"`` for a fused decode call
+    or fewer than 64 query rows a kv-head; ``"tensor_core"`` for bf16 at
+    hd 64/128 whose block size is a multiple of 8 dividing 64 and whose
+    group divides 64; ``"cuda_core"`` for the rest. Mirrors the source's
+    ``route_of``."""
+    if fused or S * group < SPLIT_MAX_ROWS:
+        return SPLIT_K
+    if (dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS
+            and block_size % 8 == 0 and TC_TILE_KEYS % block_size == 0
+            and TC_TILE_KEYS % group == 0):
+        return TENSOR_CORE
+    return CUDA_CORE
+
+
+def split_plan(max_s: int, rows_kv: int) -> tuple:
+    """``(nsplit, split_len)`` for a split-K call over ``max_s = MB*BS``
+    logical positions and ``rows_kv = B*KV`` (row, kv-head) pairs: enough
+    splits that the grid covers the SMs at least twice (where the key
+    range allows it) and at most about ``SPLIT_TARGET_KEYS`` keys a split;
+    lengths in multiples of ``SPLIT_QUANTUM``. Shapes only, never data."""
+    want = max(-(-2 * SM_COUNT // max(rows_kv, 1)),
+               -(-max_s // SPLIT_TARGET_KEYS))
+    split_len = max(SPLIT_QUANTUM,
+                    max_s // want // SPLIT_QUANTUM * SPLIT_QUANTUM)
+    return -(-max_s // split_len), split_len
 
 
 def blocks_per_chunk(num_blocks: int, block_size: int,
@@ -137,6 +202,55 @@ def plain_paged_attention(
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
 
 
+def plain_split_partials(q, k_pool, v_pool, bt, starts, split_len: int):
+    """The plain version of the split-K kernel's first pass: for each
+    split of ``split_len`` logical positions, the online-softmax state
+    (m, l, acc) over that split's keys alone, in float32 and base e —
+    ``m``/``l`` [B, KV, group, S, N], ``acc`` [B, KV, group, S, N, hd]. A
+    split with no visible key is the empty partial (-1e29, 0, 0)."""
+    B, S, H, hd = q.shape
+    BS, KV = k_pool.shape[1], k_pool.shape[2]
+    MB = bt.shape[1]
+    max_s = MB * BS
+    group = H // KV
+    dev = q.device
+    qg = q.reshape(B, S, KV, group, hd).float()
+    posq = torch.clamp(
+        starts.long()[:, None] + torch.arange(S, device=dev)[None, :],
+        max=max_s - 1,
+    )
+    kf = k_pool[bt.long()].reshape(B, max_s, KV, hd).float()
+    vf = v_pool[bt.long()].reshape(B, max_s, KV, hd).float()
+    ms, ls, accs = [], [], []
+    for lo in range(0, max_s, split_len):
+        t = torch.arange(lo, min(lo + split_len, max_s), device=dev)
+        s = torch.einsum("bskgh,btkh->bkgst", qg, kf[:, t]) / math.sqrt(hd)
+        valid = t[None, None, :] <= posq[:, :, None]
+        s = torch.where(valid[:, None, None], s, NEG_INF)
+        m = torch.full((B, KV, group, S), M_FLOOR, dtype=torch.float32,
+                       device=dev)
+        m, l, acc = _online_fold(m, torch.zeros_like(m),
+                                 torch.zeros(m.shape + (hd,), device=dev),
+                                 s, vf[:, t])
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
+    return (torch.stack(ms, -1), torch.stack(ls, -1), torch.stack(accs, -2))
+
+
+def combine_splits(m, l, acc):
+    """The plain version of the split-K merge: partials ``m``/``l``
+    [..., N] and ``acc`` [..., N, hd] (base e, as :func:`_online_fold`
+    keeps them; the kernel's are base 2) folded into ``acc / max(l,
+    1e-30)`` [..., hd] under the same -1e29 clamp, so an empty partial
+    adds exact zeros."""
+    mm = torch.clamp(m.amax(dim=-1), min=M_FLOOR)
+    w = torch.exp(m - mm[..., None])
+    l_sum = (l * w).sum(dim=-1)
+    a_sum = (acc * w[..., None]).sum(dim=-2)
+    return a_sum / torch.clamp(l_sum, min=1e-30)[..., None]
+
+
 def plain_fused_write(k_pool, v_pool, bt, starts, new_k, new_v):
     """The plain version of the fused kernel's write: land row b's step
     K/V at ``(bt[b, starts//BS], starts % BS)``, IN PLACE. A plain copy,
@@ -193,51 +307,52 @@ def _dtype_code(dtype) -> int:
     return 1 if dtype == torch.bfloat16 else 0
 
 
-def _cuda_blocked(q, k_pool, v_pool, bt, starts):
+def _cuda_launch(q, k_pool, v_pool, bt, starts, new_k=None, new_v=None):
+    """One op call on the card: the route's kernel (split-K: the split
+    kernel and the merge), launched on the current stream without a
+    device read; the fused call updates the pools in place."""
     from kubedl_tpu_torch.ops.build import check_launch, load_kernels
 
-    _check_kernel_inputs(q, k_pool, v_pool, bt, starts)
-    lib = load_kernels()
+    fused = new_k is not None
+    extra = (("new_k", new_k), ("new_v", new_v)) if fused else ()
+    _check_kernel_inputs(q, k_pool, v_pool, bt, starts, extra=extra)
     B, S, H, hd = q.shape
     NB, BS, KV, _ = k_pool.shape
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.kdl_paged_attention_blocked(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            bt.data_ptr(), starts.data_ptr(), out.data_ptr(),
-            B, S, H, KV, hd, NB, BS, bt.shape[1], _dtype_code(q.dtype),
-            stream,
-        )
-    check_launch(err, "paged_attention_blocked")
-    LAUNCHES["blocked"] += 1
-    return out
-
-
-def _cuda_fused(q, k_pool, v_pool, bt, starts, new_k, new_v):
-    from kubedl_tpu_torch.ops.build import check_launch, load_kernels
-
-    _check_kernel_inputs(q, k_pool, v_pool, bt, starts,
-                         extra=(("new_k", new_k), ("new_v", new_v)))
-    B, S, H, hd = q.shape
-    NB, BS, KV, _ = k_pool.shape
-    if new_k.shape != (B, KV, hd) or new_v.shape != (B, KV, hd):
+    MB = bt.shape[1]
+    if fused and (new_k.shape != (B, KV, hd) or new_v.shape != (B, KV, hd)):
         raise ValueError(
             f"new_k/new_v must be [B, KV, hd] = {(B, KV, hd)}, got "
             f"{tuple(new_k.shape)} / {tuple(new_v.shape)}"
         )
+    route = paged_route(q.dtype, hd, S, H // KV, BS, fused)
     lib = load_kernels()
     out = torch.empty_like(q)
+    ws, nsplit, split_len = None, 0, 0
+    if route == SPLIT_K:
+        nsplit, split_len = split_plan(MB * BS, B * KV)
+        ws = torch.empty((B, KV, nsplit, S * (H // KV), hd + 2),
+                         dtype=torch.float32, device=q.device)
+    ws_ptr = None if ws is None else ws.data_ptr()
+    dims = (NB, BS, MB, nsplit, split_len, _dtype_code(q.dtype))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.kdl_paged_attention_fused(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            bt.data_ptr(), starts.data_ptr(), new_k.data_ptr(),
-            new_v.data_ptr(), out.data_ptr(),
-            B, H, KV, hd, NB, BS, bt.shape[1], _dtype_code(q.dtype), stream,
-        )
-    check_launch(err, "paged_attention_fused")
-    LAUNCHES["fused"] += 1
+        if fused:
+            err = lib.kdl_paged_attention_fused(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                bt.data_ptr(), starts.data_ptr(), new_k.data_ptr(),
+                new_v.data_ptr(), ws_ptr, out.data_ptr(),
+                B, H, KV, hd, *dims, stream,
+            )
+        else:
+            err = lib.kdl_paged_attention_blocked(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                bt.data_ptr(), starts.data_ptr(), ws_ptr, out.data_ptr(),
+                B, S, H, KV, hd, *dims, stream,
+            )
+    name = "fused" if fused else "blocked"
+    check_launch(err, f"paged_attention_{name} ({route})")
+    LAUNCHES[name] += 1
+    ROUTE_LAUNCHES[route] += 1
     return out
 
 
@@ -260,8 +375,8 @@ def paged_attention(
     the pools are updated in place).
 
     CPU tensors take the plain PyTorch version; CUDA tensors launch the
-    Hopper kernel or raise (see the module docstring for the masking and
-    -1e29 clamp contract both keep)."""
+    kernel of :func:`paged_route` or raise (see the module docstring for
+    the masking and -1e29 clamp contract every route keeps)."""
     if self_k is not None or self_v is not None or self_mask is not None:
         raise NotImplementedError(
             "read-only self_k/self_v/self_mask verify modes belong to "
@@ -277,22 +392,28 @@ def paged_attention(
                 f"fused KV write is decode-only (S=1), got S={q.shape[1]}"
             )
         if q.is_cuda:
-            out = _cuda_fused(q, k_pool, v_pool, bt, starts, new_k, new_v)
+            out = _cuda_launch(q, k_pool, v_pool, bt, starts, new_k, new_v)
             return out, k_pool, v_pool
         plain_fused_write(k_pool, v_pool, bt, starts, new_k, new_v)
         out = plain_paged_attention(q, k_pool, v_pool, bt, starts)
         return out, k_pool, v_pool
     if q.is_cuda:
-        return _cuda_blocked(q, k_pool, v_pool, bt, starts)
+        return _cuda_launch(q, k_pool, v_pool, bt, starts)
     return plain_paged_attention(q, k_pool, v_pool, bt, starts)
 
 
 __all__ = [
     "paged_attention",
+    "paged_route",
+    "split_plan",
     "plain_paged_attention",
+    "plain_split_partials",
+    "combine_splits",
     "plain_fused_write",
     "blocks_per_chunk",
     "DEFAULT_TILE",
     "LAUNCHES",
+    "ROUTE_LAUNCHES",
     "KERNEL_HEAD_DIMS",
+    "TENSOR_CORE_HEAD_DIMS",
 ]

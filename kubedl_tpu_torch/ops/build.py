@@ -4,7 +4,8 @@ Every ``*.cu`` under ``kubedl_tpu_torch/csrc/`` is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library with a plain C interface
 under ``build/kubedl_tpu_torch/`` at the repository root, at first use,
 and loaded with ``ctypes``. The library name carries a hash of the
-sources and flags, so an edited source never loads a stale build. No
+source, of the shared headers (``csrc/*.cuh``) and of the flags, so an
+edited source or header never loads a stale build. No
 PyTorch headers are involved (a source including them takes minutes to
 compile; this one takes seconds).
 
@@ -57,7 +58,11 @@ def find_nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
+    """The build of ``src`` named by a hash of its text, of every header
+    beside it (``*.cuh``, which any source may include) and of the flags."""
     h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(src.parent.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 
@@ -93,15 +98,20 @@ def build(src_name: str, verbose: bool = False) -> Path:
 
 def _declare_paged_attention(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
+    lib.kdl_paged_route.argtypes = [i] * 6  # dtype hd S group BS fused
+    lib.kdl_paged_route.restype = i
     lib.kdl_paged_attention_blocked.argtypes = [
-        p, p, p, p, p, p,  # q, k_pool, v_pool, bt, starts, out
-        i, i, i, i, i, i, i, i, i,  # B S H KV hd NB BS MB dtype
+        p, p, p, p, p, p, p,  # q, k_pool, v_pool, bt, starts, ws, out
+        i, i, i, i, i, i, i, i,  # B S H KV hd NB BS MB
+        i, i, i,  # nsplit split_len dtype
         p,  # stream
     ]
     lib.kdl_paged_attention_blocked.restype = i
     lib.kdl_paged_attention_fused.argtypes = [
-        p, p, p, p, p, p, p, p,  # q k_pool v_pool bt starts new_k new_v out
-        i, i, i, i, i, i, i, i,  # B H KV hd NB BS MB dtype
+        p, p, p, p, p, p, p,  # q k_pool v_pool bt starts new_k new_v
+        p, p,  # ws out
+        i, i, i, i, i, i, i,  # B H KV hd NB BS MB
+        i, i, i,  # nsplit split_len dtype
         p,  # stream
     ]
     lib.kdl_paged_attention_fused.restype = i
