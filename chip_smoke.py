@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py                # every phase, one card
     python3 chip_smoke.py --skip-engine  # without phases 5 and 6
-    python3 chip_smoke.py --skip-train   # without phases 8 to 10
+    python3 chip_smoke.py --skip-train   # without phases 8 to 12
 
 Phases (any failure exits non-zero before the final line):
 
@@ -10,9 +10,10 @@ Phases (any failure exits non-zero before the final line):
 2. build: compiles the port's CUDA sources (kubedl_tpu_torch/csrc) with
    nvcc for sm_90a (``-Xptxas -v``), one nvcc per source started
    together, and prints the build seconds; then, for each tensor-core
-   kernel (flash forward and backward, paged prefill), its registers and
-   spill bytes (ptxas) and its count of HGMMA instructions
-   (``cuobjdump -sass``), failing if one has none.
+   kernel (flash forward, fused backward, the split pair, paged
+   prefill), its registers and spill bytes (ptxas) and its count of
+   HGMMA instructions (``cuobjdump -sass``), failing if one has none or
+   if a split-pair kernel spills.
 3. blocked entry vs its plain PyTorch version at the serving shapes
    (Llama-3-8B: B=8, KV=8, group 4, hd 128, BS 16, MB 128; Gemma-2B:
    hd 256, KV 1, group 8) for S in {1, 64, 512}, ragged starts, block
@@ -49,7 +50,17 @@ Phases (any failure exits non-zero before the final line):
    plain backward and against each other; at the training shape each
    kernel's time (CUDA events, median of 20, L2 flushed; device time and
    call time as in phase 3), the plain
-   version's, its bound, and SDPA's forward / backward as the yardstick.
+   version's, its bound, and SDPA's forward / backward as the yardstick
+   (SDPA's backward is also the split pair's: one call computes dq, dk and
+   dv, so it is held against the pair's dq + dk/dv + group sum). Then the
+   split pair at the long-context training shape (B=1, H=32, KV=8,
+   S=32768, hd 64, bf16, causal, RoPE), where ``bwd_route`` is "split":
+   against the plain versions run head by head (one q-head with its
+   kv-head a call: one float32 score tensor of all 32 heads would be
+   137 GB) and against the tensor-core fused kernel, with the same
+   timings; and a head slice (H=4, KV=1, S=16384) through
+   ``flash_backward`` with the split route forced, against the plain
+   versions run whole.
 8. training: ``train_main`` with KUBEDL_TRAIN_CONFIG={"model":
    "llama3-1b", "global_batch": 4, "seq_len": 2048, "steps": 8} on the
    card, full width and depth, seeded random weights; gates on finite
@@ -64,6 +75,21 @@ Phases (any failure exits non-zero before the final line):
 10. profile: two llama3-1b train steps under torch.profiler: device time
    by category (flash fwd, flash bwd, the flash RoPE pre-pass, matmul,
    other) and the busy share.
+11. long-context training: ``train_main`` with KUBEDL_TRAIN_CONFIG=
+   {"model": "llama3-1b", "global_batch": 1, "seq_len": 32768, "steps": 4}
+   (full width and depth; the trainer's long-context policy applies
+   ``loss_chunk=512,remat_policy=flash_rope``, and ``bwd_route`` is
+   "split"); gates on finite losses and grad norms, attn_impl "flash", no
+   sanity violations, that policy string, and per step 16 flash_fwd (the
+   policy saves the forward's outputs), 16 flash_bwd_dq, 16
+   flash_bwd_dkdv and 0 flash_bwd_fused launches; prints step time,
+   tokens/s, MFU (6N flops a token: attention's flops left out), peak
+   memory, and a one-step profile with the split pair's two kernels as
+   their own categories.
+12. bf16 gate: llama3-1b width cut to 2 layers, bf16, B=1, S=32768: the
+   loss and every gradient leaf of one train step on the split route (the
+   route at this length) against the same step with the fused route
+   forced, within the tolerances stated in ``run_train_bf16_routes``.
 
 Output: the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -320,32 +346,46 @@ def check_fused(pa, shape, dtype, timed: bool, start_list=STARTS):
 
 # ---- phase 2: what the compiler made of the tensor-core kernels --------------
 
-#: the tensor-core kernels, by the names ptxas and cuobjdump print, and
-#: the source each is built from
-TC_KERNELS = {"flash_fwd_tc_kernel": "flash_attention.cu",
-              "flash_bwd_tc_kernel": "flash_attention.cu",
-              "paged_prefill_tc_kernel": "paged_attention.cu"}
+#: the tensor-core kernels, by the names ptxas and cuobjdump print: the
+#: source each is built from, and its template flags past the head width
+#: (flash_bwd_tc_kernel<hd, true> is the fused backward, <hd, false> the
+#: split pair's dk/dv)
+TC_KERNELS = {"flash_fwd_tc_kernel": ("flash_attention.cu", ("",)),
+              "flash_bwd_tc_kernel": ("flash_attention.cu",
+                                      (", true", ", false")),
+              "flash_bwd_dq_tc_kernel": ("flash_attention.cu", ("",)),
+              "paged_prefill_tc_kernel": ("paged_attention.cu", ("",))}
+#: the split pair's tensor-core kernels, which must not spill
+NO_SPILL = ("flash_bwd_tc_kernel<64, false>", "flash_bwd_tc_kernel<128, false>",
+            "flash_bwd_dq_tc_kernel<64>", "flash_bwd_dq_tc_kernel<128>")
 
 
 def _kernel_key(mangled: str):
-    """``flash_fwd_tc_kernel<64>`` from a mangled name, or None."""
-    m = re.search(r"(?<=\d)((?:flash|paged)_[a-z_]+?_kernel)ILi(\d+)E",
-                  mangled)
+    """``flash_bwd_tc_kernel<64, true>`` from a mangled name, or None."""
+    m = re.search(r"(?<=\d)((?:flash|paged)_[a-z_]+?_kernel)ILi(\d+)E"
+                  r"(?:Lb([01])E)?", mangled)
     if m is None or m.group(1) not in TC_KERNELS:
         return None
-    return f"{m.group(1)}<{m.group(2)}>"
+    flag = {None: "", "1": ", true", "0": ", false"}[m.group(3)]
+    return f"{m.group(1)}<{m.group(2)}{flag}>"
 
 
 def tc_kernel_report(build) -> dict:
     """Registers and spill bytes (ptxas -v, from this run's build) and
     HGMMA count (cuobjdump -sass of the built library) per tensor-core
-    kernel instantiation. Fails if one was not found or has no HGMMA."""
+    kernel instantiation. Fails if one was not found, has no HGMMA, or is
+    a split-pair kernel and spills."""
     rep = {}
-    for src in sorted(set(TC_KERNELS.values())):
+    for src in sorted({src for src, _ in TC_KERNELS.values()}):
         rep.update(_tc_source_report(build, src))
-    want = {f"{k}<{hd}>" for k in TC_KERNELS for hd in (64, 128)}
+    want = {f"{k}<{hd}{flag}>" for k, (_, flags) in TC_KERNELS.items()
+            for flag in flags for hd in (64, 128)}
     if not want <= set(rep) or any(rep[k].get("hgmma", 0) == 0 for k in want):
         fail(f"tensor-core kernels missing or without HGMMA: {rep}")
+    spills = {k: rep[k] for k in NO_SPILL
+              if rep[k].get("spill_stores", 1) or rep[k].get("spill_loads", 1)}
+    if spills:
+        fail(f"split-pair kernels spill: {spills}")
     return rep
 
 
@@ -396,12 +436,22 @@ FLASH_REPLACES = {
 }
 #: (label, B, H, KV, S, hd, dtype, causal, rope, timed). The first is the
 #: llama3-1b training shape (the main path's); then Llama-3-8B and
-#: Gemma-2B head widths, a ragged non-causal length, and float32 at each hd.
+#: Gemma-2B head widths, GQA groups 1 and 8 at both tensor-core widths
+#: with and without RoPE, causal and not, ragged lengths, and float32 at
+#: each hd. Every case runs all four kernels (the split pair too).
 FLASH_CASES = [
     ("llama3-1b", 4, 32, 8, 2048, 64, torch.bfloat16, True, True, True),
     ("llama3-1b no-rope", 4, 32, 8, 2048, 64, torch.bfloat16, True, False,
      False),
     ("llama3-8b width", 1, 32, 8, 2048, 128, torch.bfloat16, True, True, False),
+    ("hd128 group 1 no-rope", 1, 8, 8, 1024, 128, torch.bfloat16, True,
+     False, False),
+    ("hd64 group 8 non-causal", 1, 16, 2, 1024, 64, torch.bfloat16, False,
+     False, False),
+    ("hd128 group 8 ragged S=1000", 1, 8, 1, 1000, 128, torch.bfloat16,
+     True, True, False),
+    ("hd64 group 1 ragged non-causal", 1, 4, 4, 1000, 64, torch.bfloat16,
+     False, True, False),
     ("gemma-2b width", 1, 8, 1, 1024, 256, torch.bfloat16, True, True, False),
     ("ragged S=1000", 2, 8, 2, 1000, 64, torch.bfloat16, False, True, False),
     ("f32 hd64", 1, 8, 2, 512, 64, torch.float32, True, True, False),
@@ -420,6 +470,24 @@ FLASH_CASES = [
 #: apart before a sum over thousands of keys, and the output is bf16).
 FLASH_TOL = {torch.bfloat16: {"out": 2e-2, "lse": 1e-4, "grad": 2e-2},
              torch.float32: {"out": 1e-5, "lse": 1e-4, "grad": 1e-4}}
+
+
+#: the split backward pair: one SDPA backward is their joint yardstick
+PAIR = ("flash_bwd_dq", "flash_bwd_dkdv")
+
+
+@contextlib.contextmanager
+def forced_route(fa, route):
+    """The reference's backward predicate forced to ``route``: the fused
+    scratch cap set to 0 ("split", as the reference's own test does) or
+    above any length ("fused"); None leaves it as it is."""
+    old = fa._FUSED_BWD_SCRATCH_BYTES
+    if route is not None:
+        fa._FUSED_BWD_SCRATCH_BYTES = 0 if route == "split" else 1 << 62
+    try:
+        yield
+    finally:
+        fa._FUSED_BWD_SCRATCH_BYTES = old
 
 
 def flash_inputs(B, H, KV, S, hd, dtype, rope, seed):
@@ -546,6 +614,11 @@ def check_flash_case(fa, case, records):
         "flash_bwd_dkdv": max(_max_err(dk_h, p_dk_h), _max_err(dv_h, p_dv_h)),
     }
     sdpa_fwd, sdpa_bwd = sdpa_flash_yardsticks(q, k, v, do, cos, sin, fa)
+    # SDPA's backward computes dq, dk and dv in one call: the split pair's
+    # yardstick is held against dq + dk/dv + the group sum (flash_backward
+    # on the split route), timed once for the pair
+    with forced_route(fa, "split"):
+        pair_ms = time_ms(lambda: fa.flash_backward(*args), reps=20)
     calls = {
         "flash_fwd": (lambda: fa.flash_fwd(q, k, v, cos, sin, causal),
                       lambda: fa._plain_fwd(q, k, v, cos, sin, causal),
@@ -553,9 +626,10 @@ def check_flash_case(fa, case, records):
         "flash_bwd_fused": (lambda: fa.flash_bwd_fused(*args),
                             lambda: fa._plain_bwd_fused(*args), sdpa_bwd),
         "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*args),
-                         lambda: fa._plain_bwd_dq(*args), None),
+                         lambda: fa._plain_bwd_dq(*args), sdpa_bwd),
         "flash_bwd_dkdv": (lambda: fa.flash_bwd_dkdv(*args),
-                           lambda: fa._plain_bwd_dkdv_per_head(*args), None),
+                           lambda: fa._plain_bwd_dkdv_per_head(*args),
+                           sdpa_bwd),
     }
     for name, (kern, plain, lib) in calls.items():
         rec = {"max_abs_err": abs_errs[name],
@@ -567,6 +641,8 @@ def check_flash_case(fa, case, records):
         rec["library_call_ms"] = (time_ms(lib, reps=20, hide_host=False)
                                   if lib else None)
         rec["bound_ms"], rec["bound_by"] = flash_bound(name, *shape)
+        if name in PAIR:
+            rec["pair_ms"] = pair_ms
         rec["shape"] = f"B={B} H={H} KV={KV} S={S} hd={hd} {str(dtype)[6:]}" \
                        f" causal={causal} rope={rope}"
         records[name] = rec
@@ -577,9 +653,152 @@ def run_flash_kernels(fa):
     records = {}
     for case in FLASH_CASES:
         check_flash_case(fa, case, records)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     return records
+
+
+#: the split pair's main-path shape: llama3-1b training at 32k tokens
+#: (bwd_route(32768, 64) is "split"), and a head slice of it that the
+#: plain versions run whole
+LONG_FLASH = ("llama3-1b 32k", 1, 32, 8, 32768, 64, torch.bfloat16, True,
+              True)
+SLICE_FLASH = ("head slice 16k", 1, 4, 1, 16384, 64, torch.bfloat16, True,
+               True)
+
+
+def timed_once(fn):
+    """(fn(), its wall time in ms to a synchronize): one call of a slow
+    plain version."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def plain_by_head(fn, q, k, v, cos, sin, out, lse, do, causal):
+    """A plain backward version (``_plain_bwd_dq`` or
+    ``_plain_bwd_dkdv_per_head``) one q-head at a time, each with its
+    kv-head, concatenated on the head axis: the same function, since the
+    plain versions mix heads only through the GQA grouping, and one
+    head's float32 score tensor (4.3 GB at S=32768) fits the card."""
+    H, G = q.shape[2], q.shape[2] // k.shape[2]
+    parts = []
+    for h in range(H):
+        j = h // G
+        r = fn(q[:, :, h:h + 1].contiguous(), k[:, :, j:j + 1].contiguous(),
+               v[:, :, j:j + 1].contiguous(), cos, sin,
+               out[:, :, h:h + 1].contiguous(), lse[:, h:h + 1].contiguous(),
+               do[:, :, h:h + 1].contiguous(), causal)
+        parts.append(r if isinstance(r, tuple) else (r,))
+        _free()
+    cat = tuple(torch.cat(xs, dim=2) for xs in zip(*parts))
+    return cat if len(cat) > 1 else cat[0]
+
+
+def group_sum(x, KV, dtype):
+    B, S, H, hd = x.shape
+    return x.reshape(B, S, KV, H // KV, hd).sum(3).to(dtype)
+
+
+def run_flash_long(fa, records):
+    """Phase 7, long context: the split pair at LONG_FLASH against the
+    plain versions run head by head and against the tensor-core fused
+    kernel, timed as at S=2048 (plain: one call); then SLICE_FLASH through
+    ``flash_backward`` with the split route forced against the plain
+    versions run whole. The S=2048 records stay beside the new ones
+    under "s2048"."""
+    label, B, H, KV, S, hd, dtype, causal, rope = LONG_FLASH
+    if fa.bwd_route(S, hd) != "split":
+        fail(f"bwd_route({S}, {hd}) is not split")
+    tol = FLASH_TOL[dtype]["grad"]
+    q, k, v, do, cos, sin = flash_inputs(B, H, KV, S, hd, dtype, rope,
+                                         seed=S + hd)
+    out, lse = fa.flash_fwd(q, k, v, cos, sin, causal)
+    args = (q, k, v, cos, sin, out, lse, do, causal)
+    dq = fa.flash_bwd_dq(*args)
+    dk_h, dv_h = fa.flash_bwd_dkdv(*args)
+    fused = fa.flash_bwd_fused(*args)
+    torch.cuda.synchronize()
+    split = (dq, group_sum(dk_h, KV, dtype), group_sum(dv_h, KV, dtype))
+    p_dq, plain_dq_ms = timed_once(
+        lambda: plain_by_head(fa._plain_bwd_dq, *args))
+    (p_dk_h, p_dv_h), plain_dkdv_ms = timed_once(
+        lambda: plain_by_head(fa._plain_bwd_dkdv_per_head, *args))
+    errs = {
+        "flash_bwd_dq": _grad_err(dq, p_dq),
+        "flash_bwd_dkdv": max(_grad_err(dk_h, p_dk_h),
+                              _grad_err(dv_h, p_dv_h)),
+        "split_vs_fused": max(_grad_err(a, b) for a, b in zip(split, fused)),
+    }
+    abs_errs = {"flash_bwd_dq": _max_err(dq, p_dq),
+                "flash_bwd_dkdv": max(_max_err(dk_h, p_dk_h),
+                                      _max_err(dv_h, p_dv_h))}
+    del p_dq, p_dk_h, p_dv_h, split, fused
+    _free()
+    if not all(e <= tol for e in errs.values()):
+        fail(f"flash {label}: out of tolerance {tol}: {json.dumps(errs)}")
+    print(f"flash {label} bf16 causal rope (plain by head): "
+          + json.dumps(errs), flush=True)
+    _, sdpa_bwd = sdpa_flash_yardsticks(q, k, v, do, cos, sin, fa)
+    lib_ms = time_ms(sdpa_bwd, reps=20)
+    with forced_route(fa, "split"):
+        pair_ms = time_ms(lambda: fa.flash_backward(*args), reps=20)
+    fused_ms = time_ms(lambda: fa.flash_bwd_fused(*args), reps=20)
+    del sdpa_bwd
+    _free()
+    shape = (B, H, KV, S, hd, dtype, causal, rope)
+    calls = {"flash_bwd_dq": (lambda: fa.flash_bwd_dq(*args), plain_dq_ms),
+             "flash_bwd_dkdv": (lambda: fa.flash_bwd_dkdv(*args),
+                                plain_dkdv_ms)}
+    for name, (kern, plain_ms) in calls.items():
+        rec = {"max_abs_err": abs_errs[name],
+               "max_err_over_max_grad": errs[name],
+               "split_vs_fused": errs["split_vs_fused"],
+               "ms": time_ms(kern, reps=20),
+               "call_ms": time_ms(kern, reps=5, warmup=1, hide_host=False),
+               "plain_ms": plain_ms, "plain_calls": H,
+               "library_ms": lib_ms, "library_call_ms": None,
+               "pair_ms": pair_ms, "fused_ms": fused_ms}
+        rec["bound_ms"], rec["bound_by"] = flash_bound(name, *shape)
+        rec["shape"] = f"B={B} H={H} KV={KV} S={S} hd={hd} bf16 " \
+                       f"causal={causal} rope={rope}"
+        rec["s2048"] = {key: records[name].get(key) for key in (
+            "ms", "call_ms", "plain_ms", "library_ms", "pair_ms",
+            "bound_ms", "max_abs_err", "shape")}
+        records[name] = rec
+        print(f"{name} timed (long context): " + json.dumps(rec), flush=True)
+    del q, k, v, do, out, lse, dq, dk_h, dv_h, args
+    _free()
+
+    label, B, H, KV, S, hd, dtype, causal, rope = SLICE_FLASH
+    q, k, v, do, cos, sin = flash_inputs(B, H, KV, S, hd, dtype, rope,
+                                         seed=S + hd)
+    out, lse = fa.flash_fwd(q, k, v, cos, sin, causal)
+    args = (q, k, v, cos, sin, out, lse, do, causal)
+    with forced_route(fa, "split"):
+        before = dict(fa.LAUNCHES)
+        got = fa.flash_backward(*args)
+        if fa.LAUNCHES["flash_bwd_dq"] != before["flash_bwd_dq"] + 1 or \
+                fa.LAUNCHES["flash_bwd_fused"] != before["flash_bwd_fused"]:
+            fail(f"flash {label}: the split route did not run")
+    dq = fa.flash_bwd_dq(*args)
+    dk_h, dv_h = fa.flash_bwd_dkdv(*args)
+    torch.cuda.synchronize()
+    errs = {"flash_backward split": max(
+        _grad_err(a, b) for a, b in zip(got, fa._plain_bwd_fused(*args)))}
+    _free()
+    errs["flash_bwd_dq"] = _grad_err(dq, fa._plain_bwd_dq(*args))
+    _free()
+    p_dk_h, p_dv_h = fa._plain_bwd_dkdv_per_head(*args)
+    errs["flash_bwd_dkdv"] = max(_grad_err(dk_h, p_dk_h),
+                                 _grad_err(dv_h, p_dv_h))
+    del p_dk_h, p_dv_h, got, dq, dk_h, dv_h, args, q, k, v, do, out, lse
+    _free()
+    if not all(e <= tol for e in errs.values()):
+        fail(f"flash {label}: out of tolerance {tol}: {json.dumps(errs)}")
+    print(f"flash {label} bf16 causal rope, split forced (plain whole): "
+          + json.dumps(errs), flush=True)
 
 
 # ---- phases 8 to 10: training ------------------------------------------------
@@ -600,11 +819,13 @@ def _free():
     torch.cuda.empty_cache()
 
 
-def run_train_entry(fa, llama_mod):
-    """Phase 8: ``train_main`` in-process on the card. Gates: finite loss
-    and grad norm at every step, attn_impl "flash", no sanity violations,
-    16 flash_fwd and 16 flash_bwd_fused launches per step (remat under
-    "dots_flash" never re-runs the forward kernel)."""
+def train_main_run(fa, llama_mod, config, want_per_step, policy=""):
+    """``train_main`` in-process on the card with ``config``. Gates:
+    finite loss and grad norm at every step, attn_impl "flash", no sanity
+    violations, the long-context policy string ``policy`` ("" = none
+    applied) and ``want_per_step`` x steps launches of each flash kernel
+    (counts set to 0 just before the run, read just after). Returns the
+    launches and the printed record."""
     from kubedl_tpu_torch.training import entry
     from kubedl_tpu_torch.training.trainer import Trainer
 
@@ -620,44 +841,153 @@ def run_train_entry(fa, llama_mod):
     _reset(fa)
     torch.cuda.reset_peak_memory_stats()
     try:
-        rc = entry.train_main({"KUBEDL_TRAIN_CONFIG": json.dumps(TRAIN_CONFIG)})
+        rc = entry.train_main({"KUBEDL_TRAIN_CONFIG": json.dumps(config)})
     finally:
         Trainer.train_step = real_step
     launches = dict(fa.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     s = entry.LAST_SUMMARY
-    steps = TRAIN_CONFIG["steps"]
+    steps = config["steps"]
     losses = [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
-    layers = llama_mod.preset(TRAIN_CONFIG["model"]).n_layers
+    layers = llama_mod.preset(config["model"]).n_layers
     if rc != 0 or len(losses) != steps:
         fail(f"train_main rc {rc}, {len(losses)} steps")
     if not all(math.isfinite(x) for x in losses + norms):
         fail(f"non-finite loss or grad norm: {losses} {norms}")
     if s["attn_impl"] != "flash" or s["sanity_violations"]:
         fail(f"attn_impl {s['attn_impl']}, sanity {s['sanity_violations']}")
-    want = {"flash_fwd": layers * steps, "flash_bwd_fused": layers * steps,
-            "flash_bwd_dq": 0, "flash_bwd_dkdv": 0}
+    if s["long_context_policy"] != policy:
+        fail(f"long_context_policy {s['long_context_policy']!r} != {policy!r}")
+    want = {k: n * layers * steps for k, n in want_per_step.items()}
     if launches != want:
         fail(f"flash launches {launches} != {want} ({layers} layers x "
              f"{steps} steps)")
-    print("train_main llama3-1b (smoke run, not a benchmark): " + json.dumps({
-        "config": TRAIN_CONFIG, "losses": losses, "grad_norms": norms,
-        "step_time_ms": s["step_time_ms"],
-        "tokens_per_sec": s["tokens_per_sec"], "mfu": s["mfu"],
-        "first_step_seconds": s["first_step_seconds"],
-        "hbm_floor_ms": s["hbm_floor_ms"], "n_params": s["n_params"],
-        "max_memory_allocated_gib": peak / 2**30,
-        "launches": launches,
-        "launches_per_step": {k: v / steps for k, v in launches.items()},
-        "sanity_violations": s["sanity_violations"]}), flush=True)
+    rec = {"config": config, "losses": losses, "grad_norms": norms,
+           "step_time_ms": s["step_time_ms"],
+           "tokens_per_sec": s["tokens_per_sec"], "mfu": s["mfu"],
+           "first_step_seconds": s["first_step_seconds"],
+           "hbm_floor_ms": s["hbm_floor_ms"], "n_params": s["n_params"],
+           "long_context_policy": s["long_context_policy"],
+           "max_memory_allocated_gib": peak / 2**30,
+           "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "sanity_violations": s["sanity_violations"]}
     _free()
+    return launches, rec
+
+
+def run_train_entry(fa, llama_mod):
+    """Phase 8: ``train_main`` at TRAIN_CONFIG: 16 flash_fwd and 16
+    flash_bwd_fused launches per step (remat under "dots_flash" never
+    re-runs the forward kernel)."""
+    launches, rec = train_main_run(
+        fa, llama_mod, TRAIN_CONFIG,
+        {"flash_fwd": 1, "flash_bwd_fused": 1, "flash_bwd_dq": 0,
+         "flash_bwd_dkdv": 0})
+    print("train_main llama3-1b (smoke run, not a benchmark): "
+          + json.dumps(rec), flush=True)
     return {k: launches[k] for k in ("flash_fwd", "flash_bwd_fused")}
+
+
+#: the long-context path: Llama-3.2-1B at 32k tokens (published with a
+#: 128k context), where the trainer's long-context policy applies and
+#: the backward takes the split pair on every layer
+LONG_TRAIN_CONFIG = {"model": "llama3-1b", "global_batch": 1,
+                     "seq_len": 32768, "steps": 4, "log_every": 1}
+LONG_POLICY = "loss_chunk=512,remat_policy=flash_rope"
+
+
+def run_long_context_train(fa, llama_mod):
+    """Phase 11: ``train_main`` at LONG_TRAIN_CONFIG. Per step: 16
+    flash_fwd ("flash_rope" saves the forward's outputs, so remat never
+    re-runs it), 16 flash_bwd_dq, 16 flash_bwd_dkdv, 0 flash_bwd_fused.
+    Then one step (after one unprofiled) under torch.profiler. MFU is the
+    trainer's 6N flops a token, which leaves attention's flops out."""
+    from kubedl_tpu_torch.training.data import SyntheticTokens
+    from kubedl_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    cfg = LONG_TRAIN_CONFIG
+    model = llama_mod.preset(cfg["model"])
+    if fa.bwd_route(cfg["seq_len"], model.head_dim) != "split":
+        fail(f"bwd_route at seq_len {cfg['seq_len']} is not split")
+    launches, rec = train_main_run(
+        fa, llama_mod, cfg,
+        {"flash_fwd": 1, "flash_bwd_fused": 0, "flash_bwd_dq": 1,
+         "flash_bwd_dkdv": 1}, policy=LONG_POLICY)
+    print("train_main llama3-1b long context (smoke run, not a benchmark): "
+          + json.dumps(rec), flush=True)
+    B, S = cfg["global_batch"], cfg["seq_len"]
+    tr = Trainer(TrainConfig(model=model, global_batch=B, seq_len=S,
+                             steps=2, warmup_steps=1, attn_impl="flash"))
+    state = tr.init_state()
+    batch = next(iter(SyntheticTokens(B, S, model.vocab_size, seed=2)))
+    state, _ = tr.train_step(state, batch)
+    profile_train_steps(tr, state, batch, 1, f"{cfg['model']} b{B} s{S}")
+    del tr, state
+    _free()
+    return {k: launches[k] for k in PAIR}
+
+
+def run_train_bf16_routes(fa, llama_mod):
+    """Phase 12: llama3-1b width cut to 2 layers, bf16, B=1, S=32768, one
+    seeded init: the loss and gradients of one train step on the split
+    route (the route at this length) against the same step with the fused
+    route forced. Gates: the loss within 1e-5 relative (both routes run
+    the same forward kernels); every gradient leaf within 3e-2 of its max
+    |grad|. Why 3e-2: the two backward kernels round P and dS to bf16
+    from float32 scores summed in other orders, and the split route rounds
+    each q-head's dk/dv to bf16 before the group sum where the fused one
+    sums in float32 and rounds once, so dq, dk and dv differ by one or two
+    bf16 ulps (2^-8 relative) of the largest element; the weight
+    gradients round once more (bf16 products) and layer 0's pass through
+    layer 1's backward: about eight ulps of the largest gradient."""
+    from kubedl_tpu_torch.training.data import SyntheticTokens
+    from kubedl_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    model = dataclasses.replace(llama_mod.preset("llama3-1b"), n_layers=2)
+    S = LONG_TRAIN_CONFIG["seq_len"]
+    batch = next(iter(SyntheticTokens(1, S, model.vocab_size, seed=3)))
+    runs = {}
+    for route in ("split", "fused"):
+        tr = Trainer(TrainConfig(model=model, global_batch=1, seq_len=S,
+                                 steps=1, warmup_steps=0, attn_impl="flash"))
+        state = tr.init_state()
+        _reset(fa)
+        with forced_route(fa, None if route == "split" else "fused"):
+            loss, grads = tr.value_and_grad(state["params"],
+                                            tr.shard_batch(batch))
+        torch.cuda.synchronize()
+        runs[route] = (float(loss), grads, dict(fa.LAUNCHES))
+        del tr, state
+        _free()
+    (l_s, g_s, n_s), (l_f, g_f, n_f) = runs["split"], runs["fused"]
+    rel = abs(l_s - l_f) / abs(l_f)
+    gerr = max(_grad_err(a, b) for a, b in zip(g_s, g_f))
+    report = {"loss_split": l_s, "loss_fused": l_f, "loss_rel": rel,
+              "grad_err_over_max": gerr, "launches_split": n_s,
+              "launches_fused": n_f}
+    n = model.n_layers
+    if n_s["flash_bwd_dq"] != n or n_s["flash_bwd_dkdv"] != n or \
+            n_s["flash_bwd_fused"] != 0 or n_f["flash_bwd_fused"] != n or \
+            n_f["flash_bwd_dq"] != 0:
+        fail(f"bf16 routes did not run as forced: {json.dumps(report)}")
+    if not (math.isfinite(l_s) and rel <= 1e-5 and gerr <= 3e-2):
+        fail(f"bf16 2-layer split vs fused: {json.dumps(report)}")
+    print("bf16 2-layer llama3-1b width s32768, split vs fused: "
+          + json.dumps(report), flush=True)
 
 
 def _kernel_group(name: str) -> str:
     if "flash_rope" in name:  # the pre-pass of both flash_fwd and the bwd
         return "flash_rope"
+    # the split pair's kernels: the dq ones and the per-q-head dk/dv
+    # instantiations (template flag false)
+    if "flash_bwd_dq" in name:
+        return "flash_bwd_dq"
+    if ("flash_bwd_kv_kernel" in name or "flash_bwd_tc_kernel" in name) \
+            and "false>" in name:
+        return "flash_bwd_dkdv"
     if "flash_fwd" in name:
         return "flash_fwd"
     if "flash_bwd" in name or "flash_dq_finish" in name:
@@ -673,9 +1003,6 @@ def run_overfit_and_split(fa, llama_mod):
     scratch cap monkeypatched to 0, as its own test does): 16 launches of
     each split kernel per step and finite losses."""
     import itertools
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from kubedl_tpu_torch.training.data import SyntheticTokens
     from kubedl_tpu_torch.training.trainer import TrainConfig, Trainer
@@ -693,42 +1020,13 @@ def run_overfit_and_split(fa, llama_mod):
         "first_loss": s["first_loss"], "final_loss": s["final_loss"],
         "step_time_ms": s["step_time_ms"], "mfu": s["mfu"]}), flush=True)
 
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    with prof:
-        t0 = time.perf_counter()
-        for _ in range(2):
-            state, _ = tr.train_step(state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    cats, top = {}, []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        cat = _kernel_group(e.key)
-        cats[cat] = cats.get(cat, 0.0) + us / 1e3
-        top.append((us / 1e3, e.count, e.key[:90]))
-    dev_ms = sum(cats.values())
-    top.sort(reverse=True)
-    print(f"profile (2 train steps, {TRAIN_CONFIG['model']} b{B} s{S}): "
-          + json.dumps({
-        "wall_ms": wall_ms, "device_ms": dev_ms,
-        "busy_share": dev_ms / wall_ms if wall_ms else None,
-        "by_category_ms": cats,
-        "top": [[n, ms, c] for ms, c, n in top[:10]]}), flush=True)
-    if dev_ms == 0.0:
-        print("profile: the profiler saw no device time", flush=True)
+    state = profile_train_steps(tr, state, batch, 2,
+                                f"{TRAIN_CONFIG['model']} b{B} s{S}")
 
-    old = fa._FUSED_BWD_SCRATCH_BYTES
-    fa._FUSED_BWD_SCRATCH_BYTES = 0
     _reset(fa)
-    try:
+    with forced_route(fa, "split"):
         state, s2 = tr.fit(itertools.repeat(batch), state=state,
                            steps=state["step"] + 2)
-    finally:
-        fa._FUSED_BWD_SCRATCH_BYTES = old
     launches = dict(fa.LAUNCHES)
     n = 2 * model.n_layers
     want = {"flash_fwd": n, "flash_bwd_fused": 0, "flash_bwd_dq": n,
@@ -741,7 +1039,44 @@ def run_overfit_and_split(fa, llama_mod):
         "launches": launches}), flush=True)
     del tr, state
     _free()
-    return {k: launches[k] for k in ("flash_bwd_dq", "flash_bwd_dkdv")}
+
+
+def profile_train_steps(tr, state, batch, steps, label):
+    """``steps`` train steps under torch.profiler: device time by
+    category (``_kernel_group`` of each kernel's name, the split pair's
+    two kernels on their own), the top kernels and the device's busy share
+    of the wall time. Returns the state."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = tr.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cats, counts, top = {}, {}, []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        cat = _kernel_group(e.key)
+        cats[cat] = cats.get(cat, 0.0) + us / 1e3
+        counts[cat] = counts.get(cat, 0) + e.count
+        top.append((us / 1e3, e.count, e.key[:90]))
+    dev_ms = sum(cats.values())
+    top.sort(reverse=True)
+    print(f"profile ({steps} train step(s), {label}): " + json.dumps({
+        "wall_ms": wall_ms, "device_ms": dev_ms,
+        "busy_share": dev_ms / wall_ms if wall_ms else None,
+        "by_category_ms": cats, "by_category_kernels": counts,
+        "top": [[n, ms, c] for ms, c, n in top[:10]]}), flush=True)
+    if dev_ms == 0.0:
+        print("profile: the profiler saw no device time", flush=True)
+    return state
 
 
 def run_train_f32_parity(fa, llama_mod):
@@ -1084,7 +1419,7 @@ def main() -> int:
     ap.add_argument("--skip-engine", action="store_true",
                     help="skip the serving engine (phases 5 and 6)")
     ap.add_argument("--skip-train", action="store_true",
-                    help="skip the training phases (8 to 10)")
+                    help="skip the training phases (8 to 12)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs a GPU", file=sys.stderr)
@@ -1105,7 +1440,8 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
 
     t0 = time.perf_counter()
-    build.build_all(verbose=True)
+    # a fresh build even where one exists: phase 2 reads ptxas's report
+    build.build_all(verbose=True, force=True)
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({json.dumps(build.BUILD_SECONDS)})", flush=True)
     print("tensor-core kernels (ptxas -v, cuobjdump -sass): "
@@ -1148,25 +1484,35 @@ def main() -> int:
         run_profile(server_mod, reqs, serve_cfg)
 
     kernels.update(run_flash_kernels(fa))
+    run_flash_long(fa, kernels)
     launches.update({name: None for name in FLASH_REPLACES})
     if not args.skip_train:
         launches.update(run_train_entry(fa, llama_mod))
-        launches.update(run_overfit_and_split(fa, llama_mod))
+        run_overfit_and_split(fa, llama_mod)
         run_train_f32_parity(fa, llama_mod)
+        # the split pair's main path: the long-context training run
+        launches.update(run_long_context_train(fa, llama_mod))
+        run_train_bf16_routes(fa, llama_mod)
 
     def record(name, source, replaces, n, rec, design):
         lib = rec["library_ms"]
-        return {
+        # the split pair is held against one SDPA backward as a pair
+        ms = rec.get("pair_ms", rec["ms"])
+        out = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": lib,
             "design": design,
-            "ms_over_library": rec["ms"] / lib if lib else None,
+            "ms_over_library": ms / lib if lib else None,
             # one call with the host's queueing in it
             "call_ms": rec["call_ms"], "library_call_ms": rec["library_call_ms"],
         }
+        for key in ("shape", "pair_ms", "fused_ms", "s2048"):
+            if key in rec:
+                out[key] = rec[key]
+        return out
 
     # each paged entry's design is the route its timed case took
     line = [record(name, "kubedl_tpu_torch/csrc/paged_attention.cu",
@@ -1175,8 +1521,7 @@ def main() -> int:
             for name in ("paged_attention_blocked", "paged_attention_fused")]
     main_case = FLASH_CASES[0]  # the timed shape: llama3-1b training
     for name in FLASH_REPLACES:
-        tc = name in ("flash_fwd", "flash_bwd_fused") and \
-            fa.tensor_core_route(main_case[6], main_case[5])
+        tc = fa.tensor_core_route(main_case[6], main_case[5])
         line.append(record(name, "kubedl_tpu_torch/csrc/flash_attention.cu",
                            FLASH_REPLACES[name], launches[name],
                            kernels[name],

@@ -30,18 +30,22 @@
 //   applied in float32 before the final cast.
 //
 // Bound: the flops, 4*hd per visible (query, key) pair and head forward
-// (QK^T and PV) and 10*hd backward (QK^T, dO.V^T, dV, dK, dQ), against
-// bytes that are each input read once and each output written once. At
-// the training shape (S = 2048, hd = 64..256) that is far above the
-// card's ridge point: the kernels are bound by operations, and the
-// published 989 TFLOP/s bf16 is a tensor-core rate.
+// (QK^T and PV), 10*hd fused backward (QK^T, dO.V^T, dV, dK, dQ), 6*hd
+// split dq (QK^T, dO.V^T, dQ) and 8*hd split dk/dv (QK^T, dO.V^T, dV,
+// dK), against bytes that are each input read once and each output
+// written once. At the training shapes (S = 2048..32768, hd = 64..256)
+// that is far above the card's ridge point: the kernels are bound by
+// operations, and the published 989 TFLOP/s bf16 is a tensor-core rate.
 //
-// Two designs, chosen statically by type and head width (TcRoute below;
-// ops/flash_attention.py's TENSOR_CORE_HEAD_DIMS mirrors it). There is no
-// fallback between them: a refused launch returns its error.
+// Two designs, chosen statically by type and head width, the same for
+// all four operators (TcRoute below; ops/flash_attention.py's
+// tensor_core_route is the same table, and kdl_flash_route reports it).
+// There is no fallback between them: a refused launch returns its error.
 //
-// 1. Tensor cores (bf16 at hd 64 and 128; flash_fwd_tc_kernel and
-//    flash_bwd_tc_kernel, the fused route's dq finish, two pre-passes):
+// 1. Tensor cores (bf16 at hd 64 and 128; flash_fwd_tc_kernel,
+//    flash_bwd_tc_kernel<HD, kFused> for the fused backward and the split
+//    dk/dv, flash_bwd_dq_tc_kernel for the split dq, the fused route's dq
+//    finish, two pre-passes):
 //    - Every product is a warpgroup wgmma.mma_async (sm_90a) on bf16
 //      tiles in 128-byte-swizzled shared memory, accumulating in float32
 //      registers. Forward: a CTA owns 192 q rows, three warpgroups of 64
@@ -61,6 +65,24 @@
 //      is staged as a float32 tile and added to a [B, H, Sq_pad, hd]
 //      workspace by ONE bulk reduce (cp.reduce.async.bulk .add.f32) per
 //      tile; flash_dq_finish_kernel casts (and inverse-rotates) it.
+//    - The split pair (the reference's route when the fused kernel's
+//      whole-sequence scratch would not fit, i.e. long sequences: every
+//      backward of a 32k-token training step). dk/dv: the fused kernel's
+//      tile code with kFused = false: a CTA owns 128 keys against ONE
+//      q-head's causal q tiles, four products a tile (no dS^T staging, no
+//      dQ), and writes that head's dk_h / dv_h, rounded, for the group
+//      sum outside (the reference's split contract). dq: a CTA owns
+//      64 x TcDqWGs q rows of one q-head (a warpgroup per 64) and walks
+//      the visible K/V tiles of its kv-head, streamed by a producer warp
+//      through a two-stage ring against "empty" barriers, as the forward
+//      does; per tile S = Q.K^T and dP = dO.V^T from shared memory, P and
+//      dS in registers (the {lse, D} of each thread's two rows read once),
+//      and dQ += dS.K with dS as the register A operand and K read
+//      MN-major. dQ lives in float32 registers for the whole loop and is
+//      written once, inverse-rotated in registers (a thread holds columns
+//      c and c + hd/2 of its rows): no workspace, no cross-CTA sum, no
+//      finishing kernel. Tiles above a warpgroup's diagonal are waited on
+//      and released, not multiplied.
 //    - Tiles arrive by TMA (cp.async.bulk.tensor, 4-D maps over
 //      [B, S, heads, hd] with 128-byte swizzle = one 64-wide bf16 panel,
 //      an mbarrier per stage), two stages: the next K/V (forward, issued
@@ -76,8 +98,9 @@
 //      q and k once per call (float32 rotation, rounded to bf16, as the
 //      plain version does) into workspaces the wrapper allocates, and
 //      flash_bwd_prep_kernel writes {lse, D = rowsum(dO * O)} per q row
-//      into a padded float32 workspace (staged per tile by one bulk copy)
-//      and zeroes the dq workspace.
+//      into a padded float32 workspace (staged per tile by one bulk copy,
+//      or read per row by the dq kernel) and zeroes the fused route's dq
+//      workspace. Each of the split pair's two calls runs them for itself.
 //    On the card both kernels still take several times their operations
 //    bound (PERF.md). Builds with the products, the exponentials or the
 //    loads taken out were not much faster than the whole, which points
@@ -88,8 +111,7 @@
 // 2. CUDA cores (float32 at every hd, where TF32 tensor cores would break
 //    the float32 contract; bf16 at hd 256, where the forward's O alone
 //    takes 128 float32 registers a thread and the backward's dK/dV would
-//    need two warpgroups splitting hd; and the split backward pair at
-//    every type), whose design follows:
+//    need two warpgroups splitting hd), whose design follows:
 // - The TPU grid walked (q block, k block) tiles in order and carried
 //   the softmax state, and the fused backward's whole-sequence dk/dv, in
 //   VMEM scratch from one grid step to the next. Hopper blocks run in no
@@ -902,7 +924,7 @@ __global__ void __launch_bounds__(kTcFwdWGs * 128 + 32, 1)
 // Backward pre-pass: one warp per row (b, h, s) of [B, H, sq_pad]
 // (blockIdx.y = b * H + h, 8 rows s per block): stats = {lse, D =
 // rowsum(dO * O)} in float32 (zero past Sq), and the row of the dq
-// workspace zeroed.
+// workspace zeroed (the fused route's; the split pair passes none).
 template <int HD>
 __global__ void flash_bwd_prep_kernel(Params p) {
   const int bh = blockIdx.y, b = bh / p.H, h = bh - b * p.H;
@@ -918,30 +940,43 @@ __global__ void flash_bwd_prep_kernel(Params p) {
       acc = fmaf(__bfloat162float(g[d]), __bfloat162float(o[d]), acc);
   }
   acc = sum32(acc);
-  for (int d = lane; d < HD; d += 32) p.dq_ws[row * HD + d] = 0.f;
+  if (p.dq_ws != nullptr)
+    for (int d = lane; d < HD; d += 32) p.dq_ws[row * HD + d] = 0.f;
   if (lane == 0) {
     p.stats[2 * row] = s < p.Sq ? p.lse[(size_t)bh * p.Sq + s] : 0.f;
     p.stats[2 * row + 1] = s < p.Sq ? acc : 0.f;
   }
 }
 
-template <int HD>
+// dS^T and the dQ staging tiles: the fused route's only.
+template <int HD, bool kFused>
+struct BwdTcDq {
+  static constexpr uint32_t ds = kFused ? kTcBwdBK * kTcBwdBQ * 2 : 0;
+  static constexpr uint32_t dq = kFused ? kTcBwdBQ * HD * 4 : 0;
+};
+
+template <int HD, bool kFused>
 constexpr size_t bwd_tc_smem_bytes() {
   return 1024 + 2 * (size_t)kTcBwdBK * HD * 2  // K, V
          + 4 * (size_t)kTcBwdBQ * HD * 2        // Q, dO x 2 stages
-         + (size_t)kTcBwdBK * kTcBwdBQ * 2       // dS^T
-         + 2 * (size_t)kTcBwdBQ * HD * 4         // dQ staging x 2
+         + BwdTcDq<HD, kFused>::ds              // dS^T
+         + 2 * (size_t)BwdTcDq<HD, kFused>::dq  // dQ staging x 2
          + 2 * (size_t)kTcBwdBQ * 8 + 64;        // stats x 2, barriers
 }
 
-// Fused backward: one CTA per (128 keys, b, kv-head); warpgroup wg owns
-// keys 64 wg .. 64 wg + 63 and walks the group's q-heads and q tiles.
-template <int HD>
+// Tensor-core backward: one CTA per 128 keys; warpgroup wg owns keys
+// 64 wg .. 64 wg + 63. kFused (flash_bwd_fused): the keys of one
+// (b, kv-head), walking the GQA group's q-heads and q tiles, dK/dV summed
+// over the group and each tile's dQ added to the workspace. Otherwise
+// (flash_bwd_dkdv): the keys against one (b, q-head)'s q tiles, four
+// products a tile and no dQ, written as that head's dk_h / dv_h.
+template <int HD, bool kFused>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_bwd_tc_kernel(const __grid_constant__ TcMaps maps, Params p) {
   constexpr int BK = kTcBwdBK, BQ = kTcBwdBQ, NP = HD / kPanel;
   constexpr uint32_t kKBytes = BK * HD * 2, kQBytes = BQ * HD * 2;
-  constexpr uint32_t kDsBytes = BK * BQ * 2, kDqBytes = BQ * HD * 4;
+  constexpr uint32_t kDsBytes = BwdTcDq<HD, kFused>::ds;
+  constexpr uint32_t kDqBytes = BwdTcDq<HD, kFused>::dq;
   constexpr uint32_t kStatBytes = BQ * 8;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sK = align1024(smem_raw);  // [NP][BK][128 B]
@@ -955,14 +990,18 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
   const int lane = tid & 31;
   const int k0 = blockIdx.x * BK;
-  const int b = blockIdx.y / p.KV, kvh = blockIdx.y - b * p.KV;
+  const int heads = kFused ? p.KV : p.H;  // blockIdx.y = b * heads + head
+  const int b = blockIdx.y / heads, head = blockIdx.y - b * heads;
+  const int kvh = kFused ? head : head / p.group;
+  const int h_first = kFused ? kvh * p.group : head;
   const int n_q = (p.Sq + BQ - 1) / BQ;
   const int qt0 = p.causal ? min(k0 / BQ, n_q) : 0;  // first tile with a row >= k0
-  const int per_head = n_q - qt0, n_tiles = p.group * per_head;
+  const int per_head = n_q - qt0;
+  const int n_tiles = (kFused ? p.group : 1) * per_head;
   const float scale2 = p.scale * kLog2e;
 
   auto load_q = [&](int t) {
-    const int st = t & 1, h = kvh * p.group + t / per_head;
+    const int st = t & 1, h = h_first + t / per_head;
     const int q0 = (qt0 + t % per_head) * BQ;
     mbar_expect_tx(&bar[1 + st], 2 * kQBytes + kStatBytes);
 #pragma unroll
@@ -1003,9 +1042,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       sK + (wg * HD / 2 / kPanel) * BK * 128 + (wg * HD / 2 % kPanel) * 2;
   mbar_wait(&bar[0], 0);
   for (int t = 0; t < n_tiles; ++t) {
-    const int st = t & 1, h = kvh * p.group + t / per_head;
+    const int st = t & 1, h = h_first + t / per_head;
     const int q0 = (qt0 + t % per_head) * BQ;
-    if (tid == 0) bulk_wait_read<1>();  // tile t - 2's reduce has read sDQ[st]
+    if (kFused && tid == 0) bulk_wait_read<1>();  // tile t - 2's reduce has read sDQ[st]
     __syncthreads();  // tile t - 1 is done with stage st ^ 1 and sDS
     if (tid == 0 && t + 1 < n_tiles) load_q(t + 1);
     mbar_wait(&bar[1 + st], (t >> 1) & 1);
@@ -1054,12 +1093,14 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         pa[j >> 1][(j & 1) * 2 + i] = pack_bf16(pv[i][0], pv[i][1]);
         const uint32_t d2 = pack_bf16(dsv[i][0], dsv[i][1]);
         da[j >> 1][(j & 1) * 2 + i] = d2;
-        const int r = 64 * wg + row0 + 8 * i;  // key row of sDS
-        *reinterpret_cast<uint32_t*>(sDS + r * 128 + ((j ^ (r & 7)) << 4) +
-                                     col0 * 2) = d2;
+        if constexpr (kFused) {
+          const int r = 64 * wg + row0 + 8 * i;  // key row of sDS
+          *reinterpret_cast<uint32_t*>(sDS + r * 128 + ((j ^ (r & 7)) << 4) +
+                                       col0 * 2) = d2;
+        }
       }
     }
-    fence_proxy_async();
+    if constexpr (kFused) fence_proxy_async();
     pin(dv);
     pin(dk);
     pin(pa);
@@ -1075,33 +1116,35 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     wg_wait_all();
     pin(dv);
     pin(dk);
-    __syncthreads();  // both warpgroups' dS^T rows are in sDS
-    // this tile's dQ columns: dS (MN-major A) . K (MN-major B), all 128 keys
-    float dq[HD / 4];
-    wg_fence();
+    if constexpr (kFused) {
+      __syncthreads();  // both warpgroups' dS^T rows are in sDS
+      // this tile's dQ columns: dS (MN-major A) . K (MN-major B), all 128 keys
+      float dq[HD / 4];
+      wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_ss<1, 1>(dq, sw128_desc(sDS + kk * 2048, BQ * 128, 1024),
-                     sw128_desc(kq + kk * 2048, BK * 128, 1024), kk > 0);
-    wg_commit();
-    wg_wait_all();
-    pin(dq);
-    float* sdq = reinterpret_cast<float*>(sDQ + st * kDqBytes);
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_ss<1, 1>(dq, sw128_desc(sDS + kk * 2048, BQ * 128, 1024),
+                       sw128_desc(kq + kk * 2048, BK * 128, 1024), kk > 0);
+      wg_commit();
+      wg_wait_all();
+      pin(dq);
+      float* sdq = reinterpret_cast<float*>(sDQ + st * kDqBytes);
 #pragma unroll
-    for (int j = 0; j < HD / 16; ++j)
+      for (int j = 0; j < HD / 16; ++j)
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        *reinterpret_cast<float2*>(sdq + (row0 + 8 * i) * HD + wg * HD / 2 +
-                                   8 * j + col0) =
-            make_float2(dq[4 * j + 2 * i] * p.scale,
-                        dq[4 * j + 2 * i + 1] * p.scale);
-    fence_proxy_async();
-    __syncthreads();
-    if (tid == 0)
-      bulk_reduce_add(p.dq_ws + ((size_t)(b * p.H + h) * p.sq_pad + q0) * HD,
-                      sdq, kDqBytes);
+        for (int i = 0; i < 2; ++i)
+          *reinterpret_cast<float2*>(sdq + (row0 + 8 * i) * HD + wg * HD / 2 +
+                                     8 * j + col0) =
+              make_float2(dq[4 * j + 2 * i] * p.scale,
+                          dq[4 * j + 2 * i + 1] * p.scale);
+      fence_proxy_async();
+      __syncthreads();
+      if (tid == 0)
+        bulk_reduce_add(p.dq_ws + ((size_t)(b * p.H + h) * p.sq_pad + q0) * HD,
+                        sdq, kDqBytes);
+    }
   }
-  if (tid == 0) bulk_wait_all();
+  if (kFused && tid == 0) bulk_wait_all();
   __nv_bfloat16* dk_out = static_cast<__nv_bfloat16*>(p.dk);
   __nv_bfloat16* dv_out = static_cast<__nv_bfloat16*>(p.dv);
   constexpr int H2 = HD / 2, HJ = HD / 16;  // hd/2 is HJ blocks of 8
@@ -1109,7 +1152,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   for (int i = 0; i < 2; ++i) {
     const int kj = krow + 8 * i;
     if (kj >= p.Sk) continue;
-    const size_t base = ((size_t)(b * p.Sk + kj) * p.KV + kvh) * HD;
+    // fused: [B, Sk, KV, hd] at kvh; split: dk_h / dv_h [B, Sk, H, hd] at h
+    const size_t base = ((size_t)(b * p.Sk + kj) * heads + head) * HD;
 #pragma unroll
     for (int j = 0; j < HJ; ++j) {
       float x1[2], x2[2];
@@ -1131,6 +1175,195 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     for (int j = 0; j < HD / 8; ++j)
       *reinterpret_cast<uint32_t*>(dv_out + base + 8 * j + col0) =
           pack_bf16(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+  }
+}
+
+// Split dq: the q rows per CTA are 64 per consumer warpgroup: three at
+// hd 64, two at hd 128 (the dQ accumulator doubles there, so a third
+// warpgroup would push the registers a thread under what it needs).
+template <int HD>
+struct TcDqWGs {
+  static constexpr int value = HD == 64 ? 3 : 2;
+};
+constexpr int kTcDqBK = 64;      // split dq: keys per K/V tile
+constexpr int kTcDqStages = 2;   // split dq: K/V tiles in flight
+
+template <int HD>
+constexpr size_t dq_tc_smem_bytes() {
+  return 1024 + 2 * (size_t)64 * TcDqWGs<HD>::value * HD * 2  // Q, dO
+         + 2 * kTcDqStages * (size_t)kTcDqBK * HD * 2         // K, V stages
+         + 64;                                                  // barriers
+}
+
+// Split dq: one CTA per (64 x TcDqWGs q rows, b, q-head). Warpgroup wg
+// owns rows 64 wg .. 64 wg + 63 and walks the visible k tiles of kv-head
+// h / group, which one producer warp streams through a kTcDqStages ring
+// against "empty" barriers (as the forward does). Per tile: S = Q.K^T and
+// dP = dO.V^T (shared memory), P = exp2(S - lse) and dS = P (dP - D) in
+// registers, dS rounded to bf16 where the accumulator fragment is already
+// the A operand of dQ += dS.K (K read MN-major). dQ stays in float32
+// registers across the whole loop and is written once (inverse-rotated
+// under rope): no workspace, no cross-CTA sum.
+template <int HD>
+__global__ void __launch_bounds__(TcDqWGs<HD>::value * 128 + 32, 1)
+    flash_bwd_dq_tc_kernel(const __grid_constant__ TcMaps maps, Params p) {
+  constexpr int WGS = TcDqWGs<HD>::value, BQ = 64 * WGS, BK = kTcDqBK;
+  constexpr int NP = HD / kPanel, ST = kTcDqStages;
+  constexpr uint32_t kQBytes = BQ * HD * 2, kKBytes = BK * HD * 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align1024(smem_raw);  // [NP panels][BQ rows][128 B]
+  uint8_t* sdO = sQ + kQBytes;
+  uint8_t* sK = sdO + kQBytes;        // [ST stages][NP][BK][128 B]
+  uint8_t* sV = sK + ST * kKBytes;
+  // Q/dO loaded, then per stage: K/V loaded (full), K/V consumed (empty)
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + ST * kKBytes);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + ST;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int n_q = (p.Sq + BQ - 1) / BQ;
+  // causal: the longest rows first, so the last wave is the short tiles
+  const int qt = p.causal ? n_q - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int q0 = qt * BQ;
+  const int bh = blockIdx.y, b = bh / p.H, h = bh - b * p.H;
+  const int kvh = h / p.group;
+  const int q_last = min(q0 + BQ, p.Sq) - 1;
+  const int k_end = p.causal ? min(q_last + 1, p.Sk) : p.Sk;
+  const int n_k = (k_end + BK - 1) / BK;
+  const float scale2 = p.scale * kLog2e;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], WGS * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid >= WGS * 128) {  // the producer warp
+    if (tid == WGS * 128) {
+      mbar_expect_tx(bar_q, 2 * kQBytes);
+#pragma unroll
+      for (int pn = 0; pn < NP; ++pn) {
+        tma_load(sQ + pn * BQ * 128, &maps.q, bar_q, pn * kPanel, h, q0, b);
+        tma_load(sdO + pn * BQ * 128, &maps.dout, bar_q, pn * kPanel, h, q0,
+                 b);
+      }
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int st = kt % ST;
+        if (kt >= ST) mbar_wait(&empty[st], (kt / ST - 1) & 1);
+        mbar_expect_tx(&full[st], 2 * kKBytes);
+#pragma unroll
+        for (int pn = 0; pn < NP; ++pn) {
+          const uint32_t off = st * kKBytes + pn * BK * 128;
+          tma_load(sK + off, &maps.k, &full[st], pn * kPanel, kvh, kt * BK, b);
+          tma_load(sV + off, &maps.v, &full[st], pn * kPanel, kvh, kt * BK, b);
+        }
+      }
+    }
+    return;
+  }
+  // this thread's accumulator rows (row0, row0 + 8 of its warpgroup's 64)
+  // and columns (col0, col0 + 1 of every 8: keys in S and dP, hd in dQ)
+  const int row0 = 16 * warp + (lane >> 2), col0 = 2 * (lane & 3);
+  const int wq0 = q0 + 64 * wg, qrow = wq0 + row0;
+  float lse_r[2], d_r[2];  // the rows' {lse, D} (the pre-pass's stats)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = qrow + 8 * i;
+    float2 st = make_float2(0.f, 0.f);
+    if (qi < p.Sq)
+      st = reinterpret_cast<const float2*>(p.stats)[(size_t)bh * p.sq_pad + qi];
+    lse_r[i] = st.x;
+    d_r[i] = st.y;
+  }
+  float dq[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+  const uint8_t* qa = sQ + wg * 64 * 128;
+  const uint8_t* ga = sdO + wg * 64 * 128;
+  mbar_wait(bar_q, 0);
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int st = kt % ST, k0 = kt * BK;
+    mbar_wait(&full[st], (kt / ST) & 1);
+    // a tile wholly above this warpgroup's diagonal, or a warpgroup wholly
+    // past Sq, adds nothing (uniform over the warpgroup, as wgmma needs)
+    if (wq0 < p.Sq && !(p.causal && k0 > wq0 + 63)) {
+      const uint8_t* kb = sK + st * kKBytes;
+      const uint8_t* vb = sV + st * kKBytes;
+      float s[BK / 2], dp[BK / 2];
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks)
+        wgmma_ss<0, 0>(s, sw128_desc(qa + (ks >> 2) * BQ * 128 + (ks & 3) * 32, 16, 1024),
+                       sw128_desc(kb + (ks >> 2) * BK * 128 + (ks & 3) * 32, 16, 1024),
+                       ks > 0);
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks)
+        wgmma_ss<0, 0>(dp, sw128_desc(ga + (ks >> 2) * BQ * 128 + (ks & 3) * 32, 16, 1024),
+                       sw128_desc(vb + (ks >> 2) * BK * 128 + (ks & 3) * 32, 16, 1024),
+                       ks > 0);
+      wg_commit();
+      wg_wait_all();
+      pin(s);
+      pin(dp);
+      const bool need_mask =
+          k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > wq0);
+      // dS = P (dP - D) rounded to bf16 straight into the A fragments
+      uint32_t da[BK / 16][4];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float ds[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int x = 4 * j + 2 * i + c;
+            float pr = 0.f;
+            if (!need_mask || visible(p, qrow + 8 * i, k0 + 8 * j + col0 + c))
+              pr = exp2_approx(s[x] * scale2 - lse_r[i]);
+            ds[c] = pr * (dp[x] - d_r[i]);
+          }
+          da[j >> 1][(j & 1) * 2 + i] = pack_bf16(ds[0], ds[1]);
+        }
+      pin(dq);
+      pin(da);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<1>(dq, da[kk], sw128_desc(kb + kk * 2048, BK * 128, 1024), 1);
+      wg_commit();
+      wg_wait_all();
+      pin(dq);
+    }
+    mbar_arrive(&empty[st]);  // this thread is done with stage st
+  }
+  __nv_bfloat16* dq_out = static_cast<__nv_bfloat16*>(p.dq);
+  constexpr int H2 = HD / 2, HJ = HD / 16;  // hd/2 is HJ blocks of 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = qrow + 8 * i;
+    if (qi >= p.Sq) continue;
+    const size_t base = ((size_t)(b * p.Sq + qi) * p.H + h) * HD;
+#pragma unroll
+    for (int j = 0; j < HJ; ++j) {
+      // columns c and c + hd/2 of one row sit in this thread
+      float x1[2], x2[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        x1[c] = dq[4 * j + 2 * i + c] * p.scale;
+        x2[c] = dq[4 * (j + HJ) + 2 * i + c] * p.scale;
+        if (p.rope) {
+          const size_t t = (size_t)qi * H2 + 8 * j + col0 + c;
+          rotate(x1[c], x2[c], p.cos[t], p.sin[t], true, x1[c], x2[c]);
+        }
+      }
+      *reinterpret_cast<uint32_t*>(dq_out + base + 8 * j + col0) =
+          pack_bf16(x1[0], x1[1]);
+      *reinterpret_cast<uint32_t*>(dq_out + base + H2 + 8 * j + col0) =
+          pack_bf16(x2[0], x2[1]);
+    }
   }
 }
 
@@ -1184,9 +1417,13 @@ cudaError_t launch_fwd_tc(const Params& p, cudaStream_t st) {
                    fwd_tc_smem_bytes<HD>(), st, maps, p);
 }
 
+// The tensor-core backward's pre-passes (rotated q / k under rope, the
+// {lse, D} stats, the fused route's zeroed dq workspace) and its tensor
+// maps: q / dout boxes of q_rows rows, k / v boxes of k_rows.
 template <int HD>
-cudaError_t launch_bwd_fused_tc(const Params& p, cudaStream_t st) {
-  if (p.stats == nullptr || p.dq_ws == nullptr ||
+cudaError_t bwd_tc_prepare(const Params& p, cudaStream_t st, TcMaps& maps,
+                           int q_rows, int k_rows) {
+  if (p.stats == nullptr ||
       (p.rope && (p.q_rot == nullptr || p.k_rot == nullptr)))
     return cudaErrorInvalidValue;
   if (p.rope) {
@@ -1194,21 +1431,51 @@ cudaError_t launch_bwd_fused_tc(const Params& p, cudaStream_t st) {
     if (err != cudaSuccess) return err;
   }
   flash_bwd_prep_kernel<HD><<<dim3(p.sq_pad / 8, p.B * p.H), 256, 0, st>>>(p);
-  TcMaps maps{};
   if (!encode_map(&maps.q, p.rope ? p.q_rot : p.q, p.B, p.Sq, p.H, HD,
-                  kTcBwdBQ) ||
+                  q_rows) ||
       !encode_map(&maps.k, p.rope ? p.k_rot : p.k, p.B, p.Sk, p.KV, HD,
-                  kTcBwdBK) ||
-      !encode_map(&maps.v, p.v, p.B, p.Sk, p.KV, HD, kTcBwdBK) ||
-      !encode_map(&maps.dout, p.dout, p.B, p.Sq, p.H, HD, kTcBwdBQ))
+                  k_rows) ||
+      !encode_map(&maps.v, p.v, p.B, p.Sk, p.KV, HD, k_rows) ||
+      !encode_map(&maps.dout, p.dout, p.B, p.Sq, p.H, HD, q_rows))
     return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_bwd_fused_tc(const Params& p, cudaStream_t st) {
+  if (p.dq_ws == nullptr) return cudaErrorInvalidValue;
+  TcMaps maps{};
+  cudaError_t err = bwd_tc_prepare<HD>(p, st, maps, kTcBwdBQ, kTcBwdBK);
+  if (err != cudaSuccess) return err;
   const dim3 grid((p.Sk + kTcBwdBK - 1) / kTcBwdBK, p.B * p.KV);
-  cudaError_t err = launch_tc(flash_bwd_tc_kernel<HD>, grid, kTcThreads,
-                              bwd_tc_smem_bytes<HD>(), st, maps, p);
+  err = launch_tc(flash_bwd_tc_kernel<HD, true>, grid, kTcThreads,
+                  bwd_tc_smem_bytes<HD, true>(), st, maps, p);
   if (err != cudaSuccess) return err;
   flash_dq_finish_kernel<__nv_bfloat16, HD, true>
       <<<dim3(p.Sq, p.B), pair_threads(p.H, HD), 0, st>>>(p);
   return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_bwd_dq_tc(const Params& p, cudaStream_t st) {
+  constexpr int WGS = TcDqWGs<HD>::value;
+  TcMaps maps{};
+  const cudaError_t err = bwd_tc_prepare<HD>(p, st, maps, 64 * WGS, kTcDqBK);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + 64 * WGS - 1) / (64 * WGS), p.B * p.H);
+  return launch_tc(flash_bwd_dq_tc_kernel<HD>, grid, WGS * 128 + 32,
+                   dq_tc_smem_bytes<HD>(), st, maps, p);
+}
+
+template <int HD>
+cudaError_t launch_bwd_dkdv_tc(const Params& p, cudaStream_t st) {
+  TcMaps maps{};
+  const cudaError_t err =
+      bwd_tc_prepare<HD>(p, st, maps, kTcBwdBQ, kTcBwdBK);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sk + kTcBwdBK - 1) / kTcBwdBK, p.B * p.H);
+  return launch_tc(flash_bwd_tc_kernel<HD, false>, grid, kTcThreads,
+                   bwd_tc_smem_bytes<HD, false>(), st, maps, p);
 }
 
 // ---- launchers -------------------------------------------------------------
@@ -1268,11 +1535,30 @@ cudaError_t launch(Which w, const Params& p, cudaStream_t st) {
         return launch_bwd_fused_tc<HD>(p, st);
       else return launch_bwd_fused<T, HD>(p, st);
     case kBwdDq:
-      return launch_bwd_dq<T, HD>(p, st);
+      if constexpr (TcRoute<T, HD>::value) return launch_bwd_dq_tc<HD>(p, st);
+      else return launch_bwd_dq<T, HD>(p, st);
     case kBwdDkdv:
-      return launch_bwd_dkdv<T, HD>(p, st);
+      if constexpr (TcRoute<T, HD>::value)
+        return launch_bwd_dkdv_tc<HD>(p, st);
+      else return launch_bwd_dkdv<T, HD>(p, st);
   }
   return cudaErrorInvalidValue;
+}
+
+// 1 where the four operators launch their tensor-core kernels at (T, hd)
+// (each case of launch() reads TcRoute), 0 where their CUDA-core ones, -1
+// for a head width with no kernel.
+template <typename T>
+int route_hd(int hd) {
+  switch (hd) {
+    case 64:
+      return TcRoute<T, 64>::value;
+    case 128:
+      return TcRoute<T, 128>::value;
+    case 256:
+      return TcRoute<T, 256>::value;
+  }
+  return -1;
 }
 
 template <typename T>
@@ -1358,16 +1644,24 @@ extern "C" int kdl_flash_bwd_fused(
   return dispatch(kBwdFused, p, hd, dtype, stream);
 }
 
+// The split pair's workspaces by route. Tensor cores: q_rot / k_rot
+// (rope only, else null) and stats float32 [B, H, sq_pad, 2] (sq_pad = Sq
+// rounded up to 64, written by the pre-pass). CUDA cores: all three null.
 extern "C" int kdl_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* cos, const void* sin,
                                 const void* out, const void* lse,
-                                const void* dout, void* dq, int B, int Sq,
-                                int Sk, int H, int KV, int hd, int causal,
-                                int rope, int dtype, void* stream) {
+                                const void* dout, void* q_rot, void* k_rot,
+                                void* stats, void* dq, int B, int Sq, int Sk,
+                                int H, int KV, int hd, int causal, int rope,
+                                int dtype, void* stream) {
   Params p = make_params(q, k, v, cos, sin, B, Sq, Sk, H, KV, hd, causal, rope);
   p.out = out;
   p.lse = static_cast<const float*>(lse);
   p.dout = dout;
+  p.q_rot = q_rot;
+  p.k_rot = k_rot;
+  p.stats = static_cast<float*>(stats);
+  p.sq_pad = (Sq + kTcBwdBQ - 1) / kTcBwdBQ * kTcBwdBQ;
   p.dq = dq;
   return dispatch(kBwdDq, p, hd, dtype, stream);
 }
@@ -1375,15 +1669,26 @@ extern "C" int kdl_flash_bwd_dq(const void* q, const void* k, const void* v,
 extern "C" int kdl_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                                   const void* cos, const void* sin,
                                   const void* out, const void* lse,
-                                  const void* dout, void* dk_h, void* dv_h,
-                                  int B, int Sq, int Sk, int H, int KV, int hd,
+                                  const void* dout, void* q_rot, void* k_rot,
+                                  void* stats, void* dk_h, void* dv_h, int B,
+                                  int Sq, int Sk, int H, int KV, int hd,
                                   int causal, int rope, int dtype,
                                   void* stream) {
   Params p = make_params(q, k, v, cos, sin, B, Sq, Sk, H, KV, hd, causal, rope);
   p.out = out;
   p.lse = static_cast<const float*>(lse);
   p.dout = dout;
+  p.q_rot = q_rot;
+  p.k_rot = k_rot;
+  p.stats = static_cast<float*>(stats);
+  p.sq_pad = (Sq + kTcBwdBQ - 1) / kTcBwdBQ * kTcBwdBQ;
   p.dk = dk_h;
   p.dv = dv_h;
   return dispatch(kBwdDkdv, p, hd, dtype, stream);
+}
+
+// The static route table as the launches read it: 1 = tensor cores,
+// 0 = CUDA cores, -1 = no kernel; dtype: 1 bf16, 0 float32.
+extern "C" int kdl_flash_route(int dtype, int hd) {
+  return dtype == 1 ? route_hd<__nv_bfloat16>(hd) : route_hd<float>(hd);
 }

@@ -67,12 +67,13 @@ def _lib_path(src: Path) -> Path:
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 
 
-def build(src_name: str, verbose: bool = False) -> Path:
-    """Compile ``csrc/<src_name>`` unless an up-to-date build exists;
+def build(src_name: str, verbose: bool = False, force: bool = False) -> Path:
+    """Compile ``csrc/<src_name>`` unless an up-to-date build exists (or
+    ``force``: compile again, e.g. for the ``-Xptxas -v`` report);
     returns the shared library's path."""
     src = CSRC_DIR / src_name
     out = _lib_path(src)
-    if out.exists():
+    if out.exists() and not force:
         BUILD_SECONDS.setdefault(src_name, 0.0)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -122,13 +123,15 @@ def _declare_flash_attention(lib) -> None:
     dims = [i] * 9 + [p]  # B Sq Sk H KV hd causal rope dtype, the stream
     # q k v cos sin out lse q_rot k_rot
     lib.kdl_flash_fwd.argtypes = [p] * 9 + dims
-    # q k v cos sin out lse dout, then q_rot k_rot stats dq_ws dq dk dv /
+    # q k v cos sin out lse dout q_rot k_rot stats, then dq_ws dq dk dv /
     # dq / dk_h dv_h
     lib.kdl_flash_bwd_fused.argtypes = [p] * 15 + dims
-    lib.kdl_flash_bwd_dq.argtypes = [p] * 9 + dims
-    lib.kdl_flash_bwd_dkdv.argtypes = [p] * 10 + dims
+    lib.kdl_flash_bwd_dq.argtypes = [p] * 12 + dims
+    lib.kdl_flash_bwd_dkdv.argtypes = [p] * 13 + dims
+    lib.kdl_flash_route.argtypes = [i] * 2  # dtype hd
     for fn in (lib.kdl_flash_fwd, lib.kdl_flash_bwd_fused,
-               lib.kdl_flash_bwd_dq, lib.kdl_flash_bwd_dkdv):
+               lib.kdl_flash_bwd_dq, lib.kdl_flash_bwd_dkdv,
+               lib.kdl_flash_route):
         fn.restype = i
 
 
@@ -148,13 +151,14 @@ def _load(name: str, verbose: bool):
         return lib
 
 
-def build_all(verbose: bool = False) -> None:
-    """Compile every source that has no up-to-date build, one ``nvcc``
-    each, all started together; then load them."""
+def build_all(verbose: bool = False, force: bool = False) -> None:
+    """Compile every source that has no up-to-date build (every source
+    with ``force``), one ``nvcc`` each, all started together; then load
+    them."""
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(len(_SOURCES)) as pool:
-        list(pool.map(lambda n: build(n + ".cu", verbose), _SOURCES))
+        list(pool.map(lambda n: build(n + ".cu", verbose, force), _SOURCES))
     for name in _SOURCES:
         _load(name, verbose)
 

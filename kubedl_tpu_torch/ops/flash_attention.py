@@ -27,11 +27,12 @@ op                  computes                                  replaces
 ``flash_bwd_dkdv``  per-q-head (dk_h, dv_h)                   ``_bwd_dkdv_kernel``
 ==================  ========================================  ===========
 
-Kernel design by route (:func:`tensor_core_route`, a static table): the
-bf16 ``flash_fwd`` and ``flash_bwd_fused`` at hd 64 and 128 launch the
+Kernel design by route (:func:`tensor_core_route`, a static table, the
+same for all four operators): bf16 at hd 64 and 128 launches the
 tensor-core kernels (wgmma on TMA-staged bf16 tiles), for which the
-wrapper allocates the rotated-q/k, row-stats and dq workspaces; float32,
-hd 256 and the split pair launch the CUDA-core kernels.
+wrapper allocates the rotated-q/k and row-stats workspaces (and the
+fused route's dq sums); float32 at every hd and bf16 at hd 256 launch
+the CUDA-core kernels.
 
 Numerics contract (the reference's; kernels and plain versions keep it,
 and a kernel redesign must too):
@@ -85,9 +86,9 @@ LAUNCHES = {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dq": 0,
 
 #: head dims the CUDA kernels are compiled for
 KERNEL_HEAD_DIMS = (64, 128, 256)
-#: head dims whose bf16 forward and fused backward take the tensor-core
-#: kernels (wgmma, TMA); float32 at every hd, bf16 at hd 256 and the split
-#: pair take the CUDA-core ones. The source's ``TcRoute`` is the same table.
+#: head dims whose bf16 kernels take the tensor cores (wgmma, TMA), for
+#: every operator; float32 at every hd and bf16 at hd 256 take the
+#: CUDA-core ones. The source's ``TcRoute`` is the same table.
 TENSOR_CORE_HEAD_DIMS = (64, 128)
 #: the tensor-core backward's q tile: its workspaces pad Sq to a multiple
 _TC_BWD_BQ = 64
@@ -283,9 +284,9 @@ def _check_cuda_inputs(q, k, v, cos, sin, extra=()):
 
 
 def tensor_core_route(dtype: torch.dtype, head_dim: int) -> bool:
-    """Whether ``flash_fwd`` / ``flash_bwd_fused`` launch the tensor-core
-    kernels for this input type and head width (a static table, not a
-    fallback: each route launches its kernel or raises)."""
+    """Whether the four operators launch their tensor-core kernels for
+    this input type and head width (a static table, not a fallback: each
+    route launches its kernel or raises)."""
     return dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS
 
 
@@ -337,19 +338,29 @@ def _check_bwd_inputs(q, k, v, cos, sin, out, lse, dout):
                        extra=(("out", out), ("lse", lse), ("dout", dout)))
 
 
+def _stats_workspace(q):
+    """The tensor-core backward's {lse, D} per q row, [B, H, Sq padded to
+    the q tile, 2] float32 (written whole by the kernels' pre-pass), or
+    None on the CUDA-core route."""
+    B, Sq, H, hd = q.shape
+    if not tensor_core_route(q.dtype, hd):
+        return None
+    sq_pad = -(-Sq // _TC_BWD_BQ) * _TC_BWD_BQ
+    return torch.empty((B, H, sq_pad, 2), dtype=torch.float32,
+                       device=q.device)
+
+
 def _cuda_bwd_fused(q, k, v, cos, sin, out, lse, dout, causal):
     _check_bwd_inputs(q, k, v, cos, sin, out, lse, dout)
     B, Sq, H, hd = q.shape
     f32 = dict(dtype=torch.float32, device=q.device)
     q_rot, k_rot = _rope_workspaces(q, k, cos)
-    if tensor_core_route(q.dtype, hd):
-        # written whole by the kernels' pre-pass: {lse, D} per q row and the
-        # zeroed dq sums, both [B, H, Sq padded to the q tile, ...]
-        sq_pad = -(-Sq // _TC_BWD_BQ) * _TC_BWD_BQ
-        stats = torch.empty((B, H, sq_pad, 2), **f32)
-        dq_ws = torch.empty((B, H, sq_pad, hd), **f32)
+    stats = _stats_workspace(q)
+    if stats is not None:
+        # zeroed by the pre-pass: the dq sums, [B, H, Sq padded, hd]
+        dq_ws = torch.empty((B, H, stats.shape[2], hd), **f32)
     else:
-        stats, dq_ws = None, torch.zeros(q.shape, **f32)
+        dq_ws = torch.zeros(q.shape, **f32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _launch("kdl_flash_bwd_fused", "flash_bwd_fused", q, k, v, cos, sin,
             causal, (out, lse, dout, q_rot, k_rot, stats, dq_ws, dq, dk, dv))
@@ -358,9 +369,11 @@ def _cuda_bwd_fused(q, k, v, cos, sin, out, lse, dout, causal):
 
 def _cuda_bwd_dq(q, k, v, cos, sin, out, lse, dout, causal):
     _check_bwd_inputs(q, k, v, cos, sin, out, lse, dout)
+    q_rot, k_rot = _rope_workspaces(q, k, cos)
+    stats = _stats_workspace(q)
     dq = torch.empty_like(q)
     _launch("kdl_flash_bwd_dq", "flash_bwd_dq", q, k, v, cos, sin, causal,
-            (out, lse, dout, dq))
+            (out, lse, dout, q_rot, k_rot, stats, dq))
     return dq
 
 
@@ -368,10 +381,12 @@ def _cuda_bwd_dkdv(q, k, v, cos, sin, out, lse, dout, causal):
     _check_bwd_inputs(q, k, v, cos, sin, out, lse, dout)
     B, Sk = k.shape[:2]
     shape = (B, Sk, q.shape[2], q.shape[3])
+    q_rot, k_rot = _rope_workspaces(q, k, cos)
+    stats = _stats_workspace(q)
     dk_h = torch.empty(shape, dtype=k.dtype, device=q.device)
     dv_h = torch.empty(shape, dtype=v.dtype, device=q.device)
     _launch("kdl_flash_bwd_dkdv", "flash_bwd_dkdv", q, k, v, cos, sin,
-            causal, (out, lse, dout, dk_h, dv_h))
+            causal, (out, lse, dout, q_rot, k_rot, stats, dk_h, dv_h))
     return dk_h, dv_h
 
 

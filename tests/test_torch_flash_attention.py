@@ -257,12 +257,27 @@ def test_odd_long_seq_refit_gradients(monkeypatch):
                                    rtol=2e-3)
 
 
-@pytest.mark.parametrize("hd", [16, 64, 128, 256])
-def test_routing_equals_reference(hd):
-    """fit_block, supports and the fused/split choice, over S = 1..9000."""
+#: the sequence lengths each routing case sweeps: 1..9000 at every hd,
+#: and the long-context lengths around the split route's threshold (every
+#: S > 16384 at hd 64, S > 8192 at hd 128)
+ROUTING_CASES = {
+    "16": (16, range(1, 9001)),
+    "64": (64, range(1, 9001)),
+    "128": (128, range(1, 9001)),
+    "256": (256, range(1, 9001)),
+    "64-long": (64, (16384, 16385, 24576, 32768)),
+    "128-long": (128, (16384, 16385, 24576, 32768)),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTING_CASES), ids=list(ROUTING_CASES))
+def test_routing_equals_reference(case):
+    """fit_block, supports and the fused/split choice against the
+    reference's, over each case's lengths."""
     from kubedl_tpu.ops import flash_attention_module as jfa
 
-    for S in range(1, 9001):
+    hd, lengths = ROUTING_CASES[case]
+    for S in lengths:
         for want in (512, 1024):
             assert tfa.fit_block(S, want) == jfa.fit_block(S, want), (S, want)
         assert tfa.supports(S) == jfa.supports(S), S
@@ -271,6 +286,53 @@ def test_routing_equals_reference(hd):
             scratch <= jfa._FUSED_BWD_SMALL_TILE_BYTES
             or jfa.fit_block(S, 512) > 0)
         assert tfa.bwd_route(S, hd) == ("fused" if ref_fused else "split"), S
+
+
+def test_long_context_lengths_take_the_split_pair():
+    """At the long-context training lengths the reference's predicate picks
+    the split pair (the lengths the tensor-core pair exists for)."""
+    for S in (16385, 24576, 32768):
+        assert tfa.bwd_route(S, 64) == "split"
+    assert tfa.bwd_route(16384, 64) == "fused"
+    assert tfa.bwd_route(8193, 128) == "split"
+    assert tfa.bwd_route(8192, 128) == "fused"
+
+
+def _source_route_table():
+    """({(dtype, hd)} that the source's ``TcRoute`` sends to the tensor
+    cores, {operator: whether its case in ``launch`` reads TcRoute})."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tfa.__file__).resolve().parents[1] / "csrc"
+           / "flash_attention.cu").read_text()
+    m = re.search(r"struct TcRoute \{\s*static constexpr bool value =\s*"
+                  r"std::is_same<T, __nv_bfloat16>::value && "
+                  r"\(([^)]*)\);", src)
+    assert m, "TcRoute is no longer 'bf16 && (HD == a || HD == b ...)'"
+    pairs = {(torch.bfloat16, int(x))
+             for x in re.findall(r"HD == (\d+)", m.group(1))}
+    launch = src[src.index("cudaError_t launch(Which w"):]
+    launch = launch[:launch.index("\n}\n")]
+    ops = {"kFwd": "flash_fwd", "kBwdFused": "flash_bwd_fused",
+           "kBwdDq": "flash_bwd_dq", "kBwdDkdv": "flash_bwd_dkdv"}
+    reads = {ops[case]: "if constexpr (TcRoute<T, HD>::value)" in body
+             for case, body in re.findall(r"case (k\w+):(.*?)(?=case k|\Z)",
+                                          launch, re.S)}
+    return pairs, reads
+
+
+def test_tensor_core_route_matches_source_table():
+    """tensor_core_route and the source's TcRoute name the same (type, hd)
+    pairs, and each of the four operators' launches reads that table."""
+    pairs, reads = _source_route_table()
+    assert reads == dict.fromkeys(
+        ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkdv"),
+        True)
+    for dtype in (torch.bfloat16, torch.float32):
+        for hd in tfa.KERNEL_HEAD_DIMS:
+            assert tfa.tensor_core_route(dtype, hd) == ((dtype, hd) in pairs)
+    assert pairs == {(torch.bfloat16, 64), (torch.bfloat16, 128)}
 
 
 def test_make_flash_attention_single_device_only():
@@ -401,3 +463,70 @@ def test_cuda_kernels_match_plain_versions(cuda, hd, dtype, rope, shape):
     assert rel(dv_h, p_dv_h) <= tol["grad"]
     for a, b in zip(fused, split):
         assert rel(a, b) <= tol["grad"]
+
+
+#: the split pair on the card: (B, S, H, KV, hd, causal, rope) over GQA
+#: groups 1, 4 and 8, both tensor-core widths, RoPE on and off, causal
+#: and not, ragged lengths (not a multiple of any tile)
+SPLIT_CARD_CASES = {
+    "hd64-g1-causal-rope": (1, 512, 4, 4, 64, True, True),
+    "hd64-g4-ragged-noncausal": (1, 1000, 8, 2, 64, False, False),
+    "hd64-g8-ragged-causal-rope": (1, 1000, 8, 1, 64, True, True),
+    "hd128-g1-noncausal-rope": (1, 512, 4, 4, 128, False, True),
+    "hd128-g4-causal": (2, 384, 8, 2, 128, True, False),
+    "hd128-g8-ragged-causal-rope": (1, 1000, 8, 1, 128, True, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SPLIT_CARD_CASES))
+def test_cuda_split_pair_matches_plain_versions(cuda, monkeypatch, case):
+    """The split pair (bf16: the tensor-core dq and dk/dv kernels) against
+    the plain versions on the same CUDA inputs, and flash_backward on the
+    split route against the plain fused backward (CARD_TOL bf16)."""
+    from kubedl_tpu_torch.models.llama import rope_table
+
+    B, S, H, KV, hd, causal, rope = SPLIT_CARD_CASES[case]
+    tol = CARD_TOL["bfloat16"]["grad"]
+    rng = np.random.RandomState(S + hd + H)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   .to(cuda, torch.bfloat16)
+                   for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd),
+                             (B, S, H, hd)))
+    cos = sin = None
+    if rope:
+        cos, sin = rope_table(hd, 500000.0, S, device=cuda)
+    out, lse = tfa.flash_fwd(q, k, v, cos, sin, causal)
+    args = (q, k, v, cos, sin, out, lse, do, causal)
+    before = dict(tfa.LAUNCHES)
+    dq = tfa.flash_bwd_dq(*args)
+    dk_h, dv_h = tfa.flash_bwd_dkdv(*args)
+    monkeypatch.setattr(tfa, "_FUSED_BWD_SCRATCH_BYTES", 0)
+    grads = tfa.flash_backward(*args)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_bwd_dq"] - before["flash_bwd_dq"] == 2
+    assert tfa.LAUNCHES["flash_bwd_fused"] == before["flash_bwd_fused"]
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    assert rel(dq, tfa._plain_bwd_dq(*args)) <= tol
+    p_dk_h, p_dv_h = tfa._plain_bwd_dkdv_per_head(*args)
+    assert rel(dk_h, p_dk_h) <= tol and rel(dv_h, p_dv_h) <= tol
+    for a, b in zip(grads, tfa._plain_bwd_fused(*args)):
+        assert rel(a, b) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_route_table_matches_source(cuda):
+    """The source's route (kdl_flash_route, the TcRoute every launch reads)
+    and tensor_core_route agree for every type and head width."""
+    from kubedl_tpu_torch.ops.build import load_flash_kernels
+
+    lib = load_flash_kernels()
+    for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+        for hd in tfa.KERNEL_HEAD_DIMS:
+            assert lib.kdl_flash_route(code, hd) == \
+                int(tfa.tensor_core_route(dtype, hd)), (dtype, hd)
+    assert lib.kdl_flash_route(1, 32) == -1

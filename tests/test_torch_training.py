@@ -143,6 +143,105 @@ def test_trainer_reproduces_jax_trajectory(accum, remat):
     assert tstate["step"] == 6
 
 
+#: what the long-context policy applies to a remat'ing Llama config
+LONG_POLICY = "loss_chunk=512,remat_policy=flash_rope"
+#: the flash operators' plain versions, by the operator they implement
+PLAIN_VERSIONS = {"_plain_fwd": "flash_fwd",
+                  "_plain_bwd_fused": "flash_bwd_fused",
+                  "_plain_bwd_dq": "flash_bwd_dq",
+                  "_plain_bwd_dkdv_per_head": "flash_bwd_dkdv"}
+
+
+@pytest.fixture
+def plain_calls(monkeypatch):
+    """Calls of each flash operator's plain version (on the CPU, what the
+    operator runs in place of its kernel), counted by operator."""
+    from kubedl_tpu_torch.ops import flash_attention as tfa
+
+    counts = dict.fromkeys(PLAIN_VERSIONS.values(), 0)
+    for name, op in PLAIN_VERSIONS.items():
+        def counted(*a, _real=getattr(tfa, name), _op=op, **kw):
+            counts[_op] += 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(tfa, name, counted)
+    return counts
+
+
+def test_long_context_split_trajectory_matches_jax(plain_calls, monkeypatch):
+    """The long-context path on tiny: the policy applied by a lowered
+    threshold (seq_len 64 >= 32: "flash_rope" remat, a 512-token loss
+    chunk) and the backward forced to the split pair, as a 32k-token run
+    takes it. Four steps from the same parameters and batches: the JAX
+    trainer (dense attention, the same policy) and the port's (the split
+    operators' plain versions) agree on every loss and grad norm within
+    1e-4 relative. Per step the port runs each split operator once a
+    layer and the fused one never, and the forward once a layer: the
+    policy saves the forward's outputs, so remat does not re-run it."""
+    import jax
+
+    from kubedl_tpu_torch.ops import flash_attention as tfa
+
+    monkeypatch.setattr(tfa, "_FUSED_BWD_SCRATCH_BYTES", 0)
+    kw = dict(global_batch=2, seq_len=64, steps=4, warmup_steps=1,
+              learning_rate=1e-2, long_context_threshold=32)
+    jtr = _jax_trainer(dict(kw, model={"remat": True}))
+    assert jtr.long_context_policy_applied == LONG_POLICY
+    jstate = jtr.init_state()
+    model = dataclasses.replace(tl.TINY, remat=True)
+    ttr = tt.Trainer(tt.TrainConfig(model=model, attn_impl="flash", **kw),
+                     device="cpu")
+    assert ttr.long_context_policy_applied == LONG_POLICY
+    assert tfa.bwd_route(64, model.head_dim) == "split"
+    tstate = ttr.init_state()
+    tstate["params"] = tl.params_from_numpy(
+        jax.tree.map(np.asarray, jstate["params"]), model, "cpu")
+    tstate["opt_state"] = ttr.tx.init(tt.tree_leaves(tstate["params"]))
+    data = SyntheticTokens(2, 64, tl.TINY.vocab_size, seed=11)
+    layers = model.n_layers
+    for _ in range(4):
+        before = dict(plain_calls)
+        batch = next(data)
+        jstate, jm = jtr.train_step(jstate, jtr.shard_batch(batch))
+        tstate, tm = ttr.train_step(tstate, batch)
+        for key in ("loss", "grad_norm"):
+            a, b = float(tm[key]), float(jm[key])
+            assert abs(a - b) <= 1e-4 * abs(b), (key, a, b)
+        assert {op: plain_calls[op] - before[op] for op in plain_calls} == {
+            "flash_fwd": layers, "flash_bwd_fused": 0,
+            "flash_bwd_dq": layers, "flash_bwd_dkdv": layers}
+
+
+def test_train_main_long_context_policy(capsys, clean_env, monkeypatch,
+                                        plain_calls):
+    """train_main on the CPU at the long-context configuration above (a
+    remat'ing tiny, the policy's threshold lowered to 32, the split route
+    forced): its worker summary carries the policy it applied, and the
+    split operators ran on every layer of every step."""
+    from kubedl_tpu_torch.ops import flash_attention as tfa
+    from kubedl_tpu_torch.training import entry
+
+    @dataclasses.dataclass(frozen=True)
+    class LowThreshold(tt.TrainConfig):
+        long_context_threshold: int = 32
+
+    monkeypatch.setattr(tt, "TrainConfig", LowThreshold)
+    monkeypatch.setitem(tl.PRESETS, "tiny-remat",
+                        dataclasses.replace(tl.TINY, remat=True))
+    monkeypatch.setattr(tfa, "_FUSED_BWD_SCRATCH_BYTES", 0)
+    cfg = {"model": "tiny-remat", "steps": 2, "seq_len": 64,
+           "global_batch": 2, "device": "cpu", "attn_impl": "flash"}
+    assert entry.train_main({"KUBEDL_TRAIN_CONFIG": json.dumps(cfg)}) == 0
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith('{"worker_summary"')]
+    s = json.loads(lines[-1])["worker_summary"]
+    assert s["long_context_policy"] == LONG_POLICY
+    assert np.isfinite(s["final_loss"]) and s["sanity_violations"] == []
+    n = 2 * tl.TINY.n_layers
+    assert plain_calls == {"flash_fwd": n, "flash_bwd_fused": 0,
+                           "flash_bwd_dq": n, "flash_bwd_dkdv": n}
+
+
 def test_loss_falls_on_a_repeated_batch():
     """Overfitting one fixed batch (uniform tokens carry no signal across
     batches): the check the reference's dry run makes."""
