@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py                # every phase, one card
-    python3 chip_smoke.py --skip-engine  # without phases 5 and 6
+    python3 chip_smoke.py --skip-engine  # without phases 5, 6 and 13-15
     python3 chip_smoke.py --skip-train   # without phases 8 to 12
 
 Phases (any failure exits non-zero before the final line):
@@ -21,7 +21,11 @@ Phases (any failure exits non-zero before the final line):
    printed (``paged_route``: split-K, tensor cores or CUDA cores); kernel,
    plain and library (SDPA over the gathered view) times (see
    ``time_ms``: "ms" is the call's device time with the host's queueing
-   hidden, "call_ms" one call with the queueing in it).
+   hidden, "call_ms" one call with the queueing in it). Then speculative
+   verify's shapes: Llama-3-8B widths at S in {2, 5, 8} (R = S*group < 64:
+   the split-K route), bf16 and f32, starts that cross block boundaries
+   and clamp at max_s - 1 (``VERIFY_STARTS``), S=5 bf16 timed; and one
+   hd-64 case.
 4. fused decode entry (S=1, KV write fused, split-K) vs plain scatter +
    plain attention: pools bitwise equal outside the trash block, outputs
    within tolerance; the first call runs under
@@ -29,19 +33,23 @@ Phases (any failure exits non-zero before the final line):
    sync); a long-context case (MB=512, 8192 positions) where most splits
    of the short rows are empty; the same timings.
 5. the engine: ``serve_main`` serving Llama-3-8B (full width and depth,
-   seeded random weights) on 127.0.0.1, 8 concurrent /v1/generate
-   requests (6 greedy, 2 at temperature 0.8, prompts of 64-1536 tokens,
-   128 new tokens each); gates on every response, on both kernels'
-   launch counts during that run and on finite logits; then the same
+   seeded random weights; the reference's defaults: the double-buffered
+   tick, the prefix cache at 64 MB) on 127.0.0.1, 8 concurrent
+   /v1/generate requests (6 greedy, 2 at temperature 0.8, prompts of
+   64-1536 tokens, 128 new tokens each); gates on every response, on both
+   kernels' launch counts during that run, on a deferred (overlapped)
+   harvest and on finite logits; prints ms per decode step, decode
+   tokens/s, TTFT p50/p95 and the pipeline's fields; then the same
    requests on a kv_attention="gather" engine, whose greedy-token
    agreement with the blocked run is printed (not gated: bf16 logits of
    random weights have near-ties); then Llama-3-8B width cut to 2 layers
    in float32, where the blocked and gather engines' greedy streams must
    be identical (gated: f32 leaves no near-ties at these logit gaps).
 6. profile: the blocked Llama-3-8B engine again, 32 new tokens per
-   request, under torch.profiler: device time and kernel count by
-   category (paged attention by entry point and the split-K merge,
-   matmul, other) and the device's busy share of the wall time.
+   request, under torch.profiler (device activity only): device time
+   and kernel count by category (paged attention by entry point and the
+   split-K merge, matmul, other) and the device's busy share of the wall
+   time.
 7. flash kernels vs their plain PyTorch versions: the llama3-1b training
    shape (B=4, H=32, KV=8, S=2048, hd=64, bf16, causal, with and without
    fused RoPE), Llama-3-8B (hd 128) and Gemma-2B (hd 256) head widths, a
@@ -90,6 +98,26 @@ Phases (any failure exits non-zero before the final line):
    loss and every gradient leaf of one train step on the split route (the
    route at this length) against the same step with the fused route
    forced, within the tolerances stated in ``run_train_bf16_routes``.
+13. shared prefix: ``serve_main`` with Llama-3-8B bf16, full depth,
+   ``prefix_cache_mb`` 512, whole-prompt prefill: 8 greedy requests share
+   a 1024-token system prompt (own 64-256-token suffixes, 64 new tokens);
+   two go first (the observation trie stores the shared prompt at their
+   prefill), then six graft it. Gates: prefix hits, tokens saved, every
+   second-wave row grafting 1024 tokens, blocked launches on the grafted
+   suffixes (and none at ``prefix_cache_mb`` 0, whose TTFT on the same
+   waves is printed beside); a profiled repeat of the wave gives the
+   grafted-suffix prefill's in-model time.
+14. speculative: the main engine's config with ``spec_k`` 4 and the
+   n-gram draft, then the model draft (``spec_draft_layers`` 4), 8 greedy
+   requests x 64 tokens. Gates: verify rounds and blocked launches on the
+   split-K route (S = 5); prints acceptance, tokens per verify, ms per
+   emitted token, verify ms, and the verify launches' in-model time.
+15. f32 greedy identity: Llama-3-8B width cut to 2 layers, float32: the
+   prefix cache, ``spec_k`` 4 n-gram, ``spec_k`` 4 with 3 candidates and
+   the tree, and the model draft must each give greedy streams IDENTICAL
+   to the plain engine's (no prefix cache, no speculation).
+
+Phases 13-15 run after phase 6 (they are skipped with ``--skip-engine``).
 
 Output: the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -136,6 +164,12 @@ TRASH_ROW = 7
 #: mostly short rows (most of their splits empty) beside two long ones
 LONG = dict(LLAMA, MB=512)
 LONG_STARTS = [0, 15, 16, 47, 300, 4095, 8190, 0]
+
+#: speculative verify's blocked calls (S = k+1 <= 8, so R = S*group < 64:
+#: the split-K route): starts that cross block boundaries (14 + 5 > 16),
+#: sit on one (47 + 1 = 48), end deep in the table and clamp at max_s - 1
+#: (2045 + 8 > 2047); row 7 all-trash
+VERIFY_STARTS = [14, 15, 30, 47, 300, 1020, 2045, 0]
 
 REPLACES = {
     "paged_attention_blocked":
@@ -268,8 +302,9 @@ def route_of(pa, shape, S, dtype, fused=False):
                           shape["BS"], fused)
 
 
-def check_blocked(pa, shape, S, dtype, timed: bool):
-    q, kp, vp, bt, starts, _, _ = make_case(shape, S, dtype, seed=S + 11)
+def check_blocked(pa, shape, S, dtype, timed: bool, start_list=STARTS):
+    q, kp, vp, bt, starts, _, _ = make_case(shape, S, dtype, seed=S + 11,
+                                            starts=start_list)
     route = route_of(pa, shape, S, dtype)
     before = pa.ROUTE_LAUNCHES[route]
     out = pa.paged_attention(q, kp, vp, bt, starts)
@@ -291,7 +326,8 @@ def check_blocked(pa, shape, S, dtype, timed: bool):
             hide_host=False)
         rec["library_ms"] = time_ms(lib)
         rec["library_call_ms"] = time_ms(lib, hide_host=False)
-        rec["bound_ms"], rec["bound_by"] = bound(shape, S, dtype)
+        rec["bound_ms"], rec["bound_by"] = bound(shape, S, dtype,
+                                                 starts=start_list)
     return rec
 
 
@@ -1188,10 +1224,16 @@ def post_all(base: str, reqs):
     return results, time.perf_counter() - t0
 
 
-def run_engine(pa, server_mod, llama_mod, summary):
-    serve_cfg = {"preset": "llama3-8b", "max_batch": 8, "max_seq": 2048,
-                 "kv_block_size": 16, "kv_attention": "blocked",
-                 "prefill_chunk_tokens": 512}
+def reset_counts(pa):
+    for counts in (pa.LAUNCHES, pa.ROUTE_LAUNCHES, pa.ENTRY_ROUTE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+@contextlib.contextmanager
+def serving(server_mod, serve_cfg):
+    """``serve_main`` on 127.0.0.1 with ``serve_cfg``; yields its base URL
+    and stops it (gracefully, through the cancel event) on exit."""
     port = free_port()
     cfg = dict(serve_cfg, port=port, host="127.0.0.1")
     cancel = threading.Event()
@@ -1204,42 +1246,56 @@ def run_engine(pa, server_mod, llama_mod, summary):
         except BaseException as e:  # surfaced by the health wait below
             box["error"] = repr(e)
 
-    t_start = time.perf_counter()
     th = threading.Thread(target=serve, daemon=True)
     th.start()
     base = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
     while True:
         if "error" in box:
-            fail(f"server failed to start: {box['error']}")
+            fail(f"server failed to start ({serve_cfg}): {box['error']}")
         try:
             if http_json(base + "/healthz", timeout=5)[0] == 200:
                 break
         except OSError:
             pass
-        if time.perf_counter() - t_start > 600:
+        if time.perf_counter() - t0 > 600:
             fail("server not healthy after 600 s")
-        time.sleep(1.0)
-    print(f"engine up in {time.perf_counter() - t_start:.1f} s "
-          f"(llama3-8b init + kernel warmup)", flush=True)
+        time.sleep(0.5)
+    print(f"engine up in {time.perf_counter() - t0:.1f} s ({serve_cfg['preset']} "
+          "init + kernel warmup)", flush=True)
+    try:
+        yield base
+    finally:
+        cancel.set()
+        th.join(timeout=120)
+        if th.is_alive():
+            fail("server did not stop")
+        _free()
+
+
+def checked(results, n_tokens, what):
+    for j, (code, res) in enumerate(results):
+        if code != 200 or len(res.get("token_ids", [])) != n_tokens:
+            fail(f"{what} request {j}: HTTP {code}, {str(res)[:300]}")
+    return [r[1] for r in results]
+
+
+def run_engine(pa, server_mod, llama_mod, summary):
+    serve_cfg = {"preset": "llama3-8b", "max_batch": 8, "max_seq": 2048,
+                 "kv_block_size": 16, "kv_attention": "blocked",
+                 "prefill_chunk_tokens": 512}
     cfg8 = llama_mod.preset("llama3-8b")
     reqs = make_requests(cfg8.vocab_size)
-    _, before = http_json(base + "/v1/stats")
-    torch.cuda.reset_peak_memory_stats()
-    for counts in (pa.LAUNCHES, pa.ROUTE_LAUNCHES):
-        for k in counts:
-            counts[k] = 0
-    results, wall = post_all(base, reqs)
-    launches = dict(pa.LAUNCHES)
-    routes = dict(pa.ROUTE_LAUNCHES)
-    _, st = http_json(base + "/v1/stats")
-    peak = torch.cuda.max_memory_allocated()
-    cancel.set()
-    th.join(timeout=120)
-    if th.is_alive():
-        fail("server did not stop")
-    for j, (code, res) in enumerate(results):
-        if code != 200 or len(res.get("token_ids", [])) != 128:
-            fail(f"request {j}: HTTP {code}, {str(res)[:300]}")
+    with serving(server_mod, serve_cfg) as base:
+        _, before = http_json(base + "/v1/stats")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(pa)
+        results, wall = post_all(base, reqs)
+        launches = dict(pa.LAUNCHES)
+        routes = dict(pa.ROUTE_LAUNCHES)
+        _, st = http_json(base + "/v1/stats")
+        peak = torch.cuda.max_memory_allocated()
+    checked(results, 128, "engine")
     pipe, pipe0 = st["pipeline"], before["pipeline"]
     steps = pipe["decode_steps"] - pipe0["decode_steps"]
     if launches["blocked"] <= 0:
@@ -1256,6 +1312,8 @@ def run_engine(pa, server_mod, llama_mod, summary):
         fail(f"{st['nonfinite_logits']} non-finite logits")
     dec_tokens = pipe["decode_tokens"] - pipe0["decode_tokens"]
     dec_ms = pipe["decode_ms_sum"] - pipe0["decode_ms_sum"]
+    if pipe["deferred_harvests"] - pipe0["deferred_harvests"] <= 0:
+        fail(f"the decode pipeline never deferred a harvest: {pipe}")
     eng = {
         "requests": len(reqs), "wall_s": wall,
         "prompt_lens": [len(r["prompt_ids"]) for r in reqs],
@@ -1270,13 +1328,22 @@ def run_engine(pa, server_mod, llama_mod, summary):
         "max_memory_allocated_gib": peak / 2**30,
         "launches": launches,
         "route_launches": routes,
+        # the double-buffered tick (the reference's pipeline_stats keys)
+        "pipeline": {k: pipe.get(k) for k in PIPELINE_FIELDS},
+        "prefix_cache": {k: st["prefix_cache"].get(k)
+                         for k in ("hits", "misses", "inserts")},
     }
     print("engine (smoke run, not a benchmark): " + json.dumps(eng), flush=True)
     summary["launches"] = launches
     blocked_tokens = [r[1]["token_ids"] for r in results[:6]]
-    gc.collect()
-    torch.cuda.empty_cache()
     return blocked_tokens, reqs, serve_cfg
+
+
+#: pipeline_stats fields each engine phase prints
+PIPELINE_FIELDS = ("ticks", "segments", "deferred_harvests", "flushes",
+                   "chain_rebuilds", "overlap_ratio", "dispatch_ms_p50",
+                   "harvest_ms_p50", "host_ms_p50", "tick_ms_p50",
+                   "ms_per_decode_step", "decode_tokens_per_s")
 
 
 def generate_concurrent(eng, reqs):
@@ -1349,12 +1416,13 @@ def _kernel_category(name: str) -> str:
 
 def run_profile(server_mod, reqs, serve_cfg):
     """Where the device time goes on the main path: device time of every
-    kernel in a profiled engine run, by category, and the busy share."""
+    kernel in a profiled engine run, by category, and the busy share.
+    Device activity only: the kernel times are all it reads."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     short = [dict(r, max_tokens=32) for r in reqs]
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CUDA])
     span = {}
 
     @contextlib.contextmanager
@@ -1412,12 +1480,238 @@ def run_gather(server_mod, reqs, serve_cfg, blocked_tokens):
                         "common_prefix_lens": prefixes}), flush=True)
 
 
+# ---- phases 13 to 15: the prefix cache and speculative decoding --------------
+
+def shared_prefix_requests(vocab, new_tokens, seed=1):
+    """8 greedy requests sharing a 1024-token system prompt, each with its
+    own 64-256-token suffix."""
+    rng = np.random.RandomState(seed)
+    system = rng.randint(0, vocab, size=1024).tolist()
+    return [{"prompt_ids": system + rng.randint(0, vocab, size=int(n)).tolist(),
+             "max_tokens": new_tokens, "temperature": 0.0}
+            for n in rng.randint(64, 257, size=8)]
+
+
+def profiled_paged(fn):
+    """Run ``fn`` under torch.profiler; device ms and kernel count of the
+    paged kernels by category (the blocked kernel's split-K launches
+    apart from its tensor-core ones). Device activity only: kernel times
+    are all this reads, and host ops would cost minutes of trace
+    processing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cats = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        cat = _kernel_category(e.key)
+        if cat == "paged_attention_blocked" and "paged_split_kernel" in e.key:
+            cat = "paged_attention_blocked_split"
+        if not cat.startswith("paged"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        ms, n = cats.get(cat, (0.0, 0))
+        cats[cat] = (ms + us / 1e3, n + e.count)
+    return {k: {"ms": ms, "kernels": n, "ms_per_kernel": ms / n if n else None}
+            for k, (ms, n) in cats.items()}
+
+
+def run_shared_prefix(pa, server_mod, llama_mod, summary):
+    """Phase 13: Llama-3-8B bf16, full depth, prefix_cache_mb 512, whole-
+    prompt prefill (so the only blocked launches are grafted suffixes):
+    two requests walk the shared 1024-token prompt (the observation trie
+    stores it at their prefill), then six more graft it. Gates on hits,
+    tokens saved, every second-wave row grafting all 1024 tokens and
+    blocked launches in that wave; records TTFT against the same waves at
+    prefix_cache_mb 0 (no graft: no blocked launch there, gated)."""
+    cfg8 = llama_mod.preset("llama3-8b")
+    reqs = shared_prefix_requests(cfg8.vocab_size, 64)
+    base_cfg = {"preset": "llama3-8b", "max_batch": 8, "max_seq": 2048,
+                "kv_block_size": 16, "kv_attention": "blocked",
+                "prefill_chunk_tokens": 0}
+    out, streams = {}, {}
+    for mb in (512.0, 0.0):
+        with serving(server_mod, dict(base_cfg, prefix_cache_mb=mb)) as base:
+            checked(post_all(base, reqs[:2])[0], 64, "prefix warm")
+            reset_counts(pa)
+            res, wall = post_all(base, reqs[2:])
+            launches = dict(pa.LAUNCHES)
+            routes = dict(pa.ENTRY_ROUTE_LAUNCHES)
+            res = checked(res, 64, f"prefix_cache_mb={mb}")
+            _, st = http_json(base + "/v1/stats")
+            rec = {"wave2_wall_s": wall, "launches": launches,
+                   "entry_routes": {k: v for k, v in routes.items() if v},
+                   "ttft_ms": sorted(r["ttft_ms"] for r in res),
+                   "cached_prefix_lens": [r["cached_prefix_len"] for r in res],
+                   "pipeline": {k: st["pipeline"].get(k)
+                                for k in PIPELINE_FIELDS}}
+            rec["ttft_ms_p50"] = statistics.median(rec["ttft_ms"])
+            if mb:
+                rec["prefix_cache"] = {k: st["prefix_cache"][k] for k in (
+                    "hits", "misses", "inserts", "tokens_saved", "entries",
+                    "bytes", "evictions")}
+                rec["advertised"] = len(st["prefix_cache"]["advertised"])
+                # in-model time of the grafted-suffix prefill: the same
+                # wave again (every row grafts again), profiled, with two
+                # new tokens (the prefill is what it reads)
+                short = [dict(r, max_tokens=2) for r in reqs[2:]]
+                rec["profile"] = profiled_paged(
+                    lambda: checked(post_all(base, short)[0], 2,
+                                    "prefix profiled"))
+                summary.setdefault("paths", {})["shared_prefix"] = launches
+            streams[mb] = [r["token_ids"] for r in res]
+            out[f"prefix_cache_mb={mb:g}"] = rec
+    hit = out["prefix_cache_mb=512"]
+    if hit["prefix_cache"]["hits"] <= 0 or \
+            hit["prefix_cache"]["tokens_saved"] <= 0:
+        fail(f"shared-prefix phase: no prefix hit {hit['prefix_cache']}")
+    if hit["cached_prefix_lens"] != [1024] * 6:
+        fail(f"shared-prefix rows did not graft the 1024-token prompt: "
+             f"{hit['cached_prefix_lens']}")
+    if hit["launches"]["blocked"] <= 0:
+        fail("the blocked kernel never launched on grafted suffixes")
+    if out["prefix_cache_mb=0"]["launches"]["blocked"] != 0:
+        fail("whole-prompt prefill without a graft launched the blocked "
+             "kernel")
+    same = sum(a == b for x, y in zip(streams[512.0], streams[0.0])
+               for a, b in zip(x, y))
+    out["greedy_tokens_equal_hit_vs_miss"] = [same, 6 * 64]
+    print("shared prefix (smoke run, not a benchmark): " + json.dumps(out),
+          flush=True)
+
+
+def spec_requests(vocab, seed=2):
+    """8 greedy requests, prompts of 64-512 tokens, 64 new tokens."""
+    rng = np.random.RandomState(seed)
+    return [{"prompt_ids": rng.randint(0, vocab, size=int(n)).tolist(),
+             "max_tokens": 64, "temperature": 0.0}
+            for n in rng.randint(64, 513, size=8)]
+
+
+def run_speculative(pa, server_mod, llama_mod, serve_cfg, summary):
+    """Phase 14: Llama-3-8B bf16, full depth, the main engine's config
+    with spec_k 4 and the n-gram draft, then the early-exit model draft
+    (spec_draft_layers 4). Gates: every request answered, verify rounds,
+    and the blocked kernel launched on the split-K route (S = 5, R = 20)
+    while verifying; records acceptance, tokens per verify, ms per
+    emitted token and verify ms, and (n-gram) the in-model time of the
+    verify launches."""
+    cfg8 = llama_mod.preset("llama3-8b")
+    reqs = spec_requests(cfg8.vocab_size)
+    out = {}
+    for draft, extra in (("ngram", {}), ("model", {"spec_draft_layers": 4})):
+        cfg = dict(serve_cfg, spec_k=4, spec_draft=draft, **extra)
+        with serving(server_mod, cfg) as base:
+            reset_counts(pa)
+            res, wall = post_all(base, reqs)
+            launches = dict(pa.LAUNCHES)
+            routes = dict(pa.ENTRY_ROUTE_LAUNCHES)
+            res = checked(res, 64, f"spec {draft}")
+            _, st = http_json(base + "/v1/stats")
+            sp, pipe = st["speculative"], st["pipeline"]
+            if sp["verifies"] <= 0:
+                fail(f"spec {draft}: no verify round {sp}")
+            if routes["blocked/split_k"] <= 0:
+                fail(f"spec {draft}: the blocked kernel never took the "
+                     f"split-K route while verifying: {routes}")
+            rounds = max(pipe["spec_rounds"], 1)
+            round_ms = pipe["spec_ms_sum"] / rounds
+            rec = {"wall_s": wall,
+                   "e2e_tokens_per_s": 64 * len(reqs) / wall,
+                   "launches": launches,
+                   "entry_routes": {k: v for k, v in routes.items() if v},
+                   "speculative": sp,
+                   "spec_rounds": pipe["spec_rounds"],
+                   # a round verifies every decoding row at once: a row's
+                   # ms per emitted token is the round over its tokens (to
+                   # set beside the plain engine's ms per decode step)
+                   "ms_per_token_per_row": round_ms
+                   / max(sp["tokens_per_verify"], 1e-9),
+                   "batch_ms_per_emitted_token": pipe["spec_ms_sum"]
+                   / max(sp["emitted"], 1),
+                   "verify_ms_per_round": pipe["verify_ms_sum"] / rounds,
+                   "spec_ms_per_round": round_ms,
+                   "ttft_ms_p50": st.get("ttft_ms_p50")}
+            if draft == "ngram":
+                summary.setdefault("paths", {})["speculative"] = launches
+                short = [dict(r, max_tokens=16) for r in reqs]
+                rec["profile"] = profiled_paged(
+                    lambda: checked(post_all(base, short)[0], 16,
+                                    "spec profiled"))
+            out[draft] = rec
+    print("speculative (smoke run, not a benchmark): " + json.dumps(out),
+          flush=True)
+
+
+def run_f32_identity(server_mod, llama_mod):
+    """Phase 15: Llama-3-8B width cut to 2 layers, float32, blocked: the
+    greedy streams with the prefix cache on, with spec_k 4 (n-gram), with
+    spec_k 4 + 3 candidates + the tree, and with the model draft must be
+    IDENTICAL to the plain engine's (prefix cache off, no speculation) on
+    the shared-prefix requests in two waves. A divergence fails the run."""
+    name = "llama3-8b-2layer-f32"
+    llama_mod.PRESETS.setdefault(name, dataclasses.replace(
+        llama_mod.preset("llama3-8b"), n_layers=2, dtype=torch.float32))
+    reqs = shared_prefix_requests(llama_mod.preset(name).vocab_size, 32,
+                                  seed=3)
+    base_kw = dict(preset=name, max_batch=8, max_seq=2048, kv_block_size=16,
+                   kv_attention="blocked", prefill_chunk_tokens=512)
+    variants = {
+        "plain": dict(prefix_cache_mb=0.0),
+        "prefix": dict(prefix_cache_mb=512.0),
+        "spec_ngram": dict(prefix_cache_mb=0.0, spec_k=4),
+        "spec_tree": dict(prefix_cache_mb=0.0, spec_k=4, spec_candidates=3,
+                          spec_tree=True),
+        "spec_model": dict(prefix_cache_mb=0.0, spec_k=4, spec_draft="model"),
+    }
+    streams, facts = {}, {}
+    for label, kw in variants.items():
+        eng = server_mod.LlamaEngine(**base_kw, **kw)
+        try:
+            outs = generate_concurrent(eng, reqs[:2]) \
+                + generate_concurrent(eng, reqs[2:])
+            st = eng.stats()
+        finally:
+            eng.close()
+        del eng
+        _free()
+        streams[label] = [(o or {}).get("token_ids") for o in outs]
+        if any(t is None or len(t) != 32 for t in streams[label]):
+            fail(f"f32 identity {label}: bad responses {str(outs)[:300]}")
+        facts[label] = {
+            "prefix_hits": st.get("prefix_cache", {}).get("hits"),
+            "verifies": st.get("speculative", {}).get("verifies"),
+            "accepted": st.get("speculative", {}).get("accepted"),
+            "candidates_scored": st.get("speculative", {}).get(
+                "candidates_scored"),
+        }
+    for label in variants:
+        if streams[label] != streams["plain"]:
+            fail(f"f32 2-layer Llama-3-8B: {label} greedy streams differ "
+                 f"from the plain engine's: {streams[label]} vs "
+                 f"{streams['plain']}")
+    if not facts["prefix"]["prefix_hits"]:
+        fail(f"f32 identity: the prefix variant never hit {facts}")
+    if not all(facts[k]["verifies"] for k in variants if k.startswith("spec")):
+        fail(f"f32 identity: a spec variant never verified {facts}")
+    if not facts["spec_tree"]["candidates_scored"]:
+        fail(f"f32 identity: the tree variant scored no candidate {facts}")
+    print("f32 2-layer llama3-8b width, greedy identity with the plain "
+          "engine (8 streams x 32 tokens): " + json.dumps(facts), flush=True)
+
+
 # ---- main -------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--skip-engine", action="store_true",
-                    help="skip the serving engine (phases 5 and 6)")
+                    help="skip the serving engine (phases 5, 6, 13-15)")
     ap.add_argument("--skip-train", action="store_true",
                     help="skip the training phases (8 to 12)")
     args = ap.parse_args()
@@ -1472,7 +1766,30 @@ def main() -> int:
         print(f"fused hd={shape['hd']} f32: " + json.dumps(rec), flush=True)
     rec = check_blocked(pa, small, 64, torch.bfloat16, timed=False)
     print("blocked hd=64 S=64 bf16: " + json.dumps(rec), flush=True)
+    # speculative verify's shapes (S = k+1): the split-K route at 1 < S < 16
+    for dtype in (torch.bfloat16, torch.float32):
+        for S in (2, 5, 8):
+            timed = S == 5 and dtype == torch.bfloat16
+            rec = check_blocked(pa, LLAMA, S, dtype, timed=timed,
+                                start_list=VERIFY_STARTS)
+            print(f"blocked verify llama S={S} {dtype}: " + json.dumps(rec),
+                  flush=True)
+            if timed:
+                kernels["paged_attention_blocked"]["verify_s5"] = {
+                    k: rec[k] for k in ("route", "max_abs_err", "ms",
+                                        "call_ms", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by")}
+    rec = check_blocked(pa, small, 5, torch.bfloat16, timed=False,
+                        start_list=VERIFY_STARTS)
+    print("blocked verify hd=64 S=5 bf16: " + json.dumps(rec), flush=True)
 
+    launches = {"blocked": None, "fused": None}
+    summary = {"launches": launches}
+    def stamp(label):
+        print(f"[{time.perf_counter() - t0:.1f} s since the build began] "
+              f"{label} done", flush=True)
+
+    stamp("phases 2-4")
     launches = {"blocked": None, "fused": None}
     summary = {"launches": launches}
     if not args.skip_engine:
@@ -1481,18 +1798,31 @@ def main() -> int:
         launches = summary["launches"]
         run_gather(server_mod, reqs, serve_cfg, blocked_tokens)
         run_f32_parity(server_mod, llama_mod, reqs, serve_cfg)
+        stamp("phase 5")
         run_profile(server_mod, reqs, serve_cfg)
+        stamp("phase 6")
+        run_shared_prefix(pa, server_mod, llama_mod, summary)
+        stamp("phase 13")
+        run_speculative(pa, server_mod, llama_mod, serve_cfg, summary)
+        stamp("phase 14")
+        run_f32_identity(server_mod, llama_mod)
+        stamp("phase 15")
 
     kernels.update(run_flash_kernels(fa))
     run_flash_long(fa, kernels)
+    stamp("phase 7")
     launches.update({name: None for name in FLASH_REPLACES})
     if not args.skip_train:
         launches.update(run_train_entry(fa, llama_mod))
         run_overfit_and_split(fa, llama_mod)
+        stamp("phase 8")
         run_train_f32_parity(fa, llama_mod)
+        stamp("phases 9-10")
         # the split pair's main path: the long-context training run
         launches.update(run_long_context_train(fa, llama_mod))
+        stamp("phase 11")
         run_train_bf16_routes(fa, llama_mod)
+        stamp("phase 12")
 
     def record(name, source, replaces, n, rec, design):
         lib = rec["library_ms"]
@@ -1509,7 +1839,7 @@ def main() -> int:
             # one call with the host's queueing in it
             "call_ms": rec["call_ms"], "library_call_ms": rec["library_call_ms"],
         }
-        for key in ("shape", "pair_ms", "fused_ms", "s2048"):
+        for key in ("shape", "pair_ms", "fused_ms", "s2048", "verify_s5"):
             if key in rec:
                 out[key] = rec[key]
         return out
@@ -1519,6 +1849,11 @@ def main() -> int:
                    REPLACES[name], launches[name.rsplit("_", 1)[1]],
                    kernels[name], kernels[name]["route"])
             for name in ("paged_attention_blocked", "paged_attention_fused")]
+    for rec in line:  # this slice's serving paths, each counted alone
+        entry = rec["name"].rsplit("_", 1)[1]
+        rec["launches_by_path"] = {
+            path: counts[entry]
+            for path, counts in summary.get("paths", {}).items()}
     main_case = FLASH_CASES[0]  # the timed shape: llama3-1b training
     for name in FLASH_REPLACES:
         tc = fa.tensor_core_route(main_case[6], main_case[5])

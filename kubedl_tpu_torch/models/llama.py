@@ -2,8 +2,10 @@
 the paged-KV serving path.
 
 Port of ``kubedl_tpu/models/llama.py`` (config, presets, init, building
-blocks, the training path of ``:39-90`` and ``:415-606``, and the paged
-functions of ``:849-1468``). Parameters are a plain
+blocks, the training path of ``:39-90`` and ``:415-606``, the paged
+functions of ``:849-1614`` with speculative verify and the prefix-cache
+block ops, and the contiguous functions the model draft needs,
+``:711-925``). Parameters are a plain
 dict with the reference's names and stacked ``[L, in, out]`` shapes, so
 a checkpoint moves between the packages without transposes
 (:func:`params_from_numpy` carries a JAX tree across).
@@ -684,14 +686,29 @@ def _paged_suffix_forward(
     starts: torch.Tensor,  # [B] per-row global start offset
     cfg: LlamaConfig,
     kv_attention: str = "gather",
+    self_contained: bool = False,
+    positions: Optional[torch.Tensor] = None,  # [B, S] per-token positions
+    self_mask: Optional[torch.Tensor] = None,  # [B, S, S] in-suffix mask
 ) -> Tuple[torch.Tensor, Params]:
-    """Run suffix tokens at global positions ``starts[b] + s`` (offset
-    causal mask ``t <= starts[b] + s``), scattering their K/V into each
-    row's blocks before attending. Pad positions (``s >= lengths[b]``)
-    and inactive rows write to the trash block. Write path only (the
-    read-only verify modes come with speculation). Returns (final-norm
-    hidden states [B, S, D], cache updated in place)."""
+    """Shared body of paged prefill and speculative verify: run suffix
+    tokens at global positions ``starts[b] + s`` (offset causal mask
+    ``t <= starts[b] + s``), scattering their K/V into each row's blocks
+    before attending. Pad positions (``s >= lengths[b]``) and inactive
+    rows write to the trash block. Returns (final-norm hidden states
+    [B, S, D], cache updated in place).
+
+    ``self_contained=True`` is the READ-ONLY scoring mode behind
+    :func:`paged_verify_multi` / :func:`paged_verify_tree`: the pool is
+    never written; each query attends committed history ``t < starts``
+    merged with the suffix's own fresh K/V under an in-suffix causal mask
+    (or ``self_mask[b, s, t]``), the same key set the write path would
+    see. ``positions`` overrides the consecutive layout ``starts[b] + s``
+    (trie nodes of one depth share a RoPE angle). Both are read-only-mode
+    only; the returned cache is the input cache, untouched."""
     _check_kv_attention(kv_attention)
+    if (positions is not None or self_mask is not None) \
+            and not self_contained:
+        raise ValueError("positions/self_mask require self_contained=True")
     B, S = tokens.shape
     hd = cfg.head_dim
     dev = tokens.device
@@ -704,11 +721,27 @@ def _paged_suffix_forward(
     x = _embed_in(params, tokens, cfg)
     cos_full, sin_full = rope_freqs(cfg, max_s, device=dev)
     ar = torch.arange(S, device=dev)
-    posq = torch.clamp(starts.long()[:, None] + ar[None, :], max=max_s - 1)
+    if positions is None:
+        posq = torch.clamp(starts.long()[:, None] + ar[None, :],
+                           max=max_s - 1)
+    else:
+        posq = torch.clamp(positions.long(), max=max_s - 1)
     cos_t = cos_full[posq][:, :, None, :]
     sin_t = sin_full[posq][:, :, None, :]
-    mask = (torch.arange(max_s, device=dev)[None, None, :]
-            <= posq[:, :, None])[:, None, None]  # [B, 1, 1, S, T]
+    tpos = torch.arange(max_s, device=dev)
+    if self_contained:
+        # pool history (t < starts) ++ the in-suffix block: the key set
+        # the write path exposes, without the writes
+        hist = (tpos[None, None, :] < starts.long()[:, None, None]).expand(
+            B, S, max_s)
+        if self_mask is None:
+            own = (ar[None, :] <= ar[:, None])[None].expand(B, S, S)
+        else:
+            own = self_mask.bool()
+        mask = torch.cat([hist, own], dim=-1)[:, None, None]
+    else:
+        mask = (tpos[None, None, :]
+                <= posq[:, :, None])[:, None, None]  # [B, 1, 1, S, T]
     writable = active[:, None] & (ar[None, :] < lengths_l[:, None])
     rows = torch.arange(B, device=dev)[:, None]
     blk = torch.where(writable, bt.long()[rows, posq // BS], 0)
@@ -721,16 +754,30 @@ def _paged_suffix_forward(
         k = _rotate((h @ lp["wk"]).reshape(B, S, cfg.n_kv_heads, hd),
                     cos_t, sin_t)
         v = (h @ lp["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
-        ckp[blk, off] = k
-        cvp[blk, off] = v
+        if not self_contained:
+            ckp[blk, off] = k
+            cvp[blk, off] = v
         if kv_attention == "blocked":
-            attn = blocked_attention.paged_attention(q, ckp, cvp, bt, starts)
+            if self_contained:
+                attn = blocked_attention.paged_attention(
+                    q, ckp, cvp, bt, starts, self_k=k, self_v=v,
+                    self_mask=self_mask)
+            else:
+                attn = blocked_attention.paged_attention(q, ckp, cvp, bt,
+                                                         starts)
+        elif self_contained:
+            attn = attention(
+                q, torch.cat([_paged_view(ckp, bt), k], dim=1),
+                torch.cat([_paged_view(cvp, bt), v], dim=1),
+                causal=False, mask=mask)
         else:
             attn = attention(q, _paged_view(ckp, bt), _paged_view(cvp, bt),
                              causal=False, mask=mask)
         x = x + attn.reshape(B, S, cfg.n_heads * hd) @ lp["wo"]
         x = _mlp(x, lp, cfg)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps, cfg.norm_plus_one)
+    if self_contained:
+        return x, cache
     new_pos = torch.clamp(starts.long() + lengths_l, max=max_s - 1)
     cache["pos"] = torch.where(active, new_pos,
                                cache["pos"].long()).to(torch.int32)
@@ -798,6 +845,242 @@ def paged_prefill_from(
     return _last_logits(params, x, lengths, cfg), cache
 
 
+def paged_verify(
+    params: Params, cache: Params,
+    tokens: torch.Tensor,  # [B, S]: [last accepted token, draft_1..draft_k]
+    lengths: torch.Tensor,  # [B] k+1 for verifying rows, 0 = untouched
+    starts: torch.Tensor,  # [B] row position before the verify
+    cfg: LlamaConfig, kv_attention: str = "gather",
+) -> Tuple[torch.Tensor, Params]:
+    """Speculative verify: score a draft-extended suffix in ONE forward
+    (the write path: with ``"blocked"`` every layer launches the blocked
+    kernel at S = k+1) and return the target's greedy ids [B, S] —
+    ``ids[b, j]`` is the argmax after consuming ``tokens[b, j]``. The
+    host accepts the longest agreeing draft prefix plus the bonus token;
+    rejected-suffix K/V stays in the row's blocks beyond the rolled-back
+    position (the engine rewinds its pos mirror and frees the blocks)."""
+    x, cache = _paged_suffix_forward(
+        params, cache, tokens, lengths, starts, cfg,
+        kv_attention=kv_attention,
+    )
+    logits = (x @ lm_head_of(params, cfg)).float()  # [B, S, V]
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+
+def paged_verify_multi(
+    params: Params, cache: Params,
+    tokens: torch.Tensor,  # [B, N, S]: N candidate suffixes per row
+    lengths: torch.Tensor,  # [B] suffix length (shared by a row's candidates)
+    starts: torch.Tensor,  # [B] row position before the verify
+    cfg: LlamaConfig, kv_attention: str = "gather",
+) -> torch.Tensor:
+    """Score N candidate continuations per row in ONE read-only forward:
+    the target's greedy ids [B, N, S]. Candidates are flattened to B*N
+    rows SHARING each row's block table and start — legal only because
+    the self-contained suffix forward never writes the pool. The host
+    re-runs :func:`paged_verify` on the winner alone."""
+    B, N, S = tokens.shape
+
+    def rep(a):
+        return a.repeat_interleave(N, dim=0)
+
+    flat = {"k": cache["k"], "v": cache["v"], "pos": rep(cache["pos"]),
+            "bt": rep(cache["bt"])}
+    x, _ = _paged_suffix_forward(
+        params, flat, tokens.reshape(B * N, S), rep(lengths), rep(starts),
+        cfg, kv_attention=kv_attention, self_contained=True,
+    )
+    logits = (x @ lm_head_of(params, cfg)).float()
+    return torch.argmax(logits, dim=-1).to(torch.int32).reshape(B, N, S)
+
+
+def paged_verify_tree(
+    params: Params, cache: Params,
+    tokens: torch.Tensor,  # [B, M] trie-node tokens (node 0 = last accepted)
+    positions: torch.Tensor,  # [B, M] global position of each node
+    tree_mask: torch.Tensor,  # [B, M, M] bool: node m sees node t
+    lengths: torch.Tensor,  # [B] live node count; 0 = row untouched
+    starts: torch.Tensor,  # [B] row position before the verify
+    cfg: LlamaConfig, kv_attention: str = "gather",
+) -> torch.Tensor:
+    """Score a prefix trie of draft continuations in ONE read-only
+    forward: the target's greedy ids [B, M], ``ids[b, m]`` the argmax
+    after consuming node m along its root path. ``tree_mask[b, m, t]``
+    is True exactly when t is m or an ancestor of m, and ``positions[b,
+    m] = starts[b] + depth(m)``; each node then attends committed history
+    plus its own root path, the key set a chain verify of that path
+    sees. Nothing here writes the pool."""
+    x, _ = _paged_suffix_forward(
+        params, cache, tokens, lengths, starts, cfg,
+        kv_attention=kv_attention, self_contained=True,
+        positions=positions, self_mask=tree_mask,
+    )
+    logits = (x @ lm_head_of(params, cfg)).float()
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def copy_kv_block(cache: Params, src, dst) -> Params:
+    """Copy one block's K/V across all layers (``src`` -> ``dst``), IN
+    PLACE. The copy-on-write primitive: the engine calls it when a row
+    must append inside a SHARED block (the partial tail of a grafted
+    prefix), so the write lands in a private copy and the prefix entry's
+    block stays immutable for its other readers."""
+    src, dst = int(src), int(dst)
+    cache["k"][:, dst] = cache["k"][:, src]
+    cache["v"][:, dst] = cache["v"][:, src]
+    return cache
+
+
+def paged_graft_prefix(cache: Params, k: torch.Tensor, v: torch.Tensor,
+                       row, length) -> Params:
+    """Scatter an array-payload prefix entry's K/V ([L, P, KV, hd]) into
+    ``row``'s blocks at positions [0, P) and set its pos to ``length``,
+    IN PLACE. Block-ref entries never need this (the engine splices the
+    block table host-side); it serves entries holding materialized
+    arrays. Pad positions beyond the row's blocks hit trash-block table
+    entries and vanish."""
+    L, P, KV, hd = k.shape
+    bt = cache["bt"]
+    BS = cache["k"].shape[2]
+    dev = cache["k"].device
+    posw = torch.clamp(torch.arange(P, device=dev), max=bt.shape[1] * BS - 1)
+    blk = bt[int(row)].long()[posw // BS]  # [P]
+    off = posw % BS
+    cache["k"][:, blk, off] = k.to(cache["k"].dtype)
+    cache["v"][:, blk, off] = v.to(cache["v"].dtype)
+    cache["pos"][int(row)] = int(length)
+    return cache
+
+
+# ---- contiguous KV cache (the model draft's path) ---------------------------
+
+def init_batched_cache(cfg: LlamaConfig, batch: int, max_seq: int,
+                       device="cpu") -> Params:
+    """Contiguous continuous-batching cache with PER-ROW positions:
+    K/V ``[L, B, max_seq, KV, hd]`` + ``pos`` [B]."""
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def _row_update(cache_layer: torch.Tensor, new: torch.Tensor,
+                pos: torch.Tensor) -> torch.Tensor:
+    """Write ``new`` [B, S, KV, hd] into ``cache_layer`` [B, T, KV, hd] at
+    per-row offset ``pos`` [B], IN PLACE — the reference's vmapped
+    ``dynamic_update_slice``, whose start clamps to ``T - S``."""
+    B, S = new.shape[:2]
+    T = cache_layer.shape[1]
+    dev = cache_layer.device
+    start = torch.clamp(pos.long(), min=0, max=T - S)
+    idx = start[:, None] + torch.arange(S, device=dev)[None, :]
+    cache_layer[torch.arange(B, device=dev)[:, None], idx] = new
+    return cache_layer
+
+
+def decode_step_batched(params: Params, cache: Params, tokens: torch.Tensor,
+                        cfg: LlamaConfig) -> Tuple[torch.Tensor, Params]:
+    """One decode step over the contiguous cache with per-row positions:
+    tokens [B, 1] -> (logits [B, V], cache). Row b writes its K/V at
+    ``pos[b]`` and attends ``t <= pos[b]``; pos advances by one
+    (clamped). The cache is updated in place."""
+    B = tokens.shape[0]
+    hd = cfg.head_dim
+    dev = tokens.device
+    pos = cache["pos"]
+    pos_l = pos.long()
+    max_s = cache["k"].shape[2]
+    x = _embed_in(params, tokens, cfg)  # [B, 1, D]
+    cos, sin = rope_freqs(cfg, max_s, device=dev)
+    cos_t = cos[pos_l][:, None, None, :]
+    sin_t = sin[pos_l][:, None, None, :]
+    valid = torch.arange(max_s, device=dev)[None, :] <= pos_l[:, None]
+    mask = valid[:, None, None, None, :]
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps, cfg.norm_plus_one)
+        q = _rotate((h @ lp["wq"]).reshape(B, 1, cfg.n_heads, hd), cos_t, sin_t)
+        k = _rotate((h @ lp["wk"]).reshape(B, 1, cfg.n_kv_heads, hd),
+                    cos_t, sin_t)
+        v = (h @ lp["wv"]).reshape(B, 1, cfg.n_kv_heads, hd)
+        ck = _row_update(cache["k"][i], k, pos)
+        cv = _row_update(cache["v"][i], v, pos)
+        attn = attention(q, ck, cv, causal=False, mask=mask)
+        x = x + attn.reshape(B, 1, cfg.n_heads * hd) @ lp["wo"]
+        x = _mlp(x, lp, cfg)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps, cfg.norm_plus_one)
+    logits = (x[:, 0] @ lm_head_of(params, cfg)).float()
+    cache["pos"] = torch.clamp(pos + 1, max=max_s - 1).to(torch.int32)
+    return logits, cache
+
+
+def decode_segment(
+    params: Params, cache: Params,
+    tokens: torch.Tensor,  # [B, 1] first input token per row
+    temps: torch.Tensor,  # [B] sampling temperature; <= 0 = greedy
+    generator: Optional[torch.Generator], cfg: LlamaConfig, n_steps: int,
+    greedy: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, Params]:
+    """``n_steps`` contiguous decode steps with on-device sampling, as
+    :func:`paged_decode_segment` over the paged cache. Returns (ids
+    [B, n_steps], last ids [B, 1], cache)."""
+    toks = tokens
+    out = []
+    for _ in range(n_steps):
+        logits, cache = decode_step_batched(params, cache, toks, cfg)
+        if greedy:
+            z = logits
+        else:
+            g = -torch.log(torch.empty_like(logits).exponential_(
+                generator=generator))
+            z = torch.where(
+                temps[:, None] > 0.0,
+                logits / torch.clamp(temps[:, None], min=1e-4) + g,
+                logits,
+            )
+        toks = torch.argmax(z, dim=-1).to(torch.int32)[:, None]
+        out.append(toks[:, 0])
+    return torch.stack(out, dim=1), toks, cache
+
+
+def prefill_batched(params: Params, cache: Params, tokens: torch.Tensor,
+                    lengths: torch.Tensor,
+                    cfg: LlamaConfig) -> Tuple[torch.Tensor, Params]:
+    """Whole prompts from position 0 into the contiguous cache in one
+    forward: last-token logits [B, V] + the cache (in place). Rows with
+    ``lengths[b] == 0`` keep their K/V and pos; active rows take K/V at
+    [0, S) (pad positions hold garbage that later steps overwrite)."""
+    B, S = tokens.shape
+    hd = cfg.head_dim
+    dev = tokens.device
+    max_s = cache["k"].shape[2]
+    lengths_l = lengths.long()
+    active = lengths_l > 0
+    x = _embed_in(params, tokens, cfg)
+    cos, sin = rope_freqs(cfg, S, device=dev)
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps, cfg.norm_plus_one)
+        q = apply_rope((h @ lp["wq"]).reshape(B, S, cfg.n_heads, hd), cos, sin)
+        k = apply_rope((h @ lp["wk"]).reshape(B, S, cfg.n_kv_heads, hd),
+                       cos, sin)
+        v = (h @ lp["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+        attn = attention(q, k, v, causal=True)
+        x = x + attn.reshape(B, S, cfg.n_heads * hd) @ lp["wo"]
+        x = _mlp(x, lp, cfg)
+        sel = active[:, None, None, None]
+        cache["k"][i][:, :S] = torch.where(sel, k, cache["k"][i][:, :S])
+        cache["v"][i][:, :S] = torch.where(sel, v, cache["v"][i][:, :S])
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps, cfg.norm_plus_one)
+    logits = _last_logits(params, x, lengths, cfg)
+    new_pos = torch.clamp(lengths_l, max=max_s - 1)
+    cache["pos"] = torch.where(active, new_pos,
+                               cache["pos"].long()).to(torch.int32)
+    return logits, cache
+
+
 __all__ = [
     "LlamaConfig", "preset", "PRESETS", "llama_init", "params_from_numpy",
     "remat_policy_for", "checkpoint_name", "llama_hidden", "llama_forward",
@@ -805,5 +1088,8 @@ __all__ = [
     "rmsnorm", "rope_table", "rope_freqs", "apply_rope", "attention",
     "gather_embed", "lm_head_of", "merge_chain_tokens", "init_paged_cache",
     "paged_decode_step_batched", "paged_decode_segment",
-    "paged_prefill_batched", "paged_prefill_from",
+    "paged_prefill_batched", "paged_prefill_from", "paged_verify",
+    "paged_verify_multi", "paged_verify_tree", "copy_kv_block",
+    "paged_graft_prefix", "init_batched_cache", "decode_step_batched",
+    "decode_segment", "prefill_batched",
 ]

@@ -59,9 +59,15 @@ copies), the port updates the pools IN PLACE and returns the same
 tensors. Rows own their blocks exclusively; vacant rows all point at
 the trash block 0, where colliding writes are garbage by contract.
 
-The read-only ``self_k``/``self_v``/``self_mask`` verify modes belong to
-speculative decoding, which is not ported yet: they raise
-``NotImplementedError``.
+Read-only verify modes (``self_k``/``self_v``, optionally ``self_mask``):
+pool keys are restricted to committed history ``t < starts`` and the
+fresh suffix K/V attends itself under the in-suffix causal mask, or under
+``self_mask`` (tree verify); the pool is never written. The reference
+has no Pallas kernel for these modes (it takes Pallas only without
+``self_k``), so they are ported as its lax code — plain tensor ops
+(:func:`read_only_paged_attention`) on either device, with the same
+-1e29 fold guard: a row with ``starts=0`` has no history at all, which
+is where ``exp(0)=1`` poisoning would otherwise strike.
 """
 
 from __future__ import annotations
@@ -85,6 +91,10 @@ LAUNCHES = {"blocked": 0, "fused": 0}
 #: the same op calls by the route they took (see :func:`paged_route`)
 SPLIT_K, TENSOR_CORE, CUDA_CORE = "split_k", "tensor_core", "cuda_core"
 ROUTE_LAUNCHES = {SPLIT_K: 0, TENSOR_CORE: 0, CUDA_CORE: 0}
+#: the same op calls by entry point and route ("blocked/split_k": a
+#: speculative verify's S = k+1 call, say)
+ENTRY_ROUTE_LAUNCHES = {f"{e}/{r}": 0 for e in LAUNCHES
+                        for r in ROUTE_LAUNCHES}
 
 #: head dims the CUDA kernels are compiled for
 KERNEL_HEAD_DIMS = (64, 128, 256)
@@ -159,17 +169,12 @@ def _online_fold(m, l, acc, s, vb):
     return m_new, l_new, acc_new
 
 
-def plain_paged_attention(
-    q: torch.Tensor,  # [B, S, H, hd]
-    k_pool: torch.Tensor,  # [NB, BS, KV, hd]
-    v_pool: torch.Tensor,
-    bt: torch.Tensor,  # [B, MB] int32
-    starts: torch.Tensor,  # [B] int32
-    tile: int = DEFAULT_TILE,
-) -> torch.Tensor:
-    """The plain PyTorch version of the blocked kernel (port of the
-    reference's ``_lax_paged_attention`` without the read-only modes).
-    Runs on any device; float32 accumulation."""
+def _fold_pool(q, k_pool, v_pool, bt, starts, tile: int,
+               history_only: bool):
+    """The pool half of the reference's ``_lax_paged_attention``: fold
+    chunks of C blocks through the online softmax. Query s sees pool keys
+    ``t <= posq`` (the write path), or ``t < starts`` with
+    ``history_only`` (the read-only modes). Returns (qg, m, l, acc)."""
     B, S, H, hd = q.shape
     BS, KV = k_pool.shape[1], k_pool.shape[2]
     MB = bt.shape[1]
@@ -195,11 +200,69 @@ def plain_paged_attention(
         vb = v_pool[btj].reshape(B, C * BS, KV, hd).float()
         s = torch.einsum("bskgh,btkh->bkgst", qg, kb) * scale
         t = c * (C * BS) + torch.arange(C * BS, device=dev)
-        valid = t[None, None, :] <= posq[:, :, None]  # [B, S, C*BS]
+        if history_only:  # committed history only, the same for every s
+            valid = (t[None, :] < starts.long()[:, None])[:, None, :]
+        else:
+            valid = t[None, None, :] <= posq[:, :, None]  # [B, S, C*BS]
         s = torch.where(valid[:, None, None], s, NEG_INF)
         m, l, acc = _online_fold(m, l, acc, s, vb)
+    return qg, m, l, acc
+
+
+def _finish(q, l, acc):
+    B, S, H, hd = q.shape
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
+
+
+def plain_paged_attention(
+    q: torch.Tensor,  # [B, S, H, hd]
+    k_pool: torch.Tensor,  # [NB, BS, KV, hd]
+    v_pool: torch.Tensor,
+    bt: torch.Tensor,  # [B, MB] int32
+    starts: torch.Tensor,  # [B] int32
+    tile: int = DEFAULT_TILE,
+) -> torch.Tensor:
+    """The plain PyTorch version of the blocked kernel (port of the
+    reference's ``_lax_paged_attention`` on its write path). Runs on any
+    device; float32 accumulation."""
+    _qg, _m, l, acc = _fold_pool(q, k_pool, v_pool, bt, starts, tile,
+                                 history_only=False)
+    return _finish(q, l, acc)
+
+
+def read_only_paged_attention(
+    q: torch.Tensor,  # [B, S, H, hd]
+    k_pool: torch.Tensor,  # [NB, BS, KV, hd]
+    v_pool: torch.Tensor,
+    bt: torch.Tensor,  # [B, MB] int32
+    starts: torch.Tensor,  # [B] int32
+    self_k: torch.Tensor,  # [B, S, KV, hd] the suffix's fresh K
+    self_v: torch.Tensor,
+    self_mask: Optional[torch.Tensor] = None,  # [B, S, S] bool
+    tile: int = DEFAULT_TILE,
+) -> torch.Tensor:
+    """The read-only verify modes (port of ``_lax_paged_attention``'s
+    ``self_k`` branch, ``kubedl_tpu/models/paged_attention.py:118-178``):
+    pool history ``t < starts`` folded chunk by chunk, then the suffix's
+    own K/V under the in-suffix causal mask (default) or ``self_mask``
+    (``self_mask[b, s, t]``: node s sees node t). Never writes the pool.
+    Plain tensor ops on either device: the reference has no kernel here."""
+    B, S, H, hd = q.shape
+    KV = k_pool.shape[2]
+    qg, m, l, acc = _fold_pool(q, k_pool, v_pool, bt, starts, tile,
+                               history_only=True)
+    kb = self_k.reshape(B, S, KV, hd).float()
+    vb = self_v.reshape(B, S, KV, hd).float()
+    s = torch.einsum("bskgh,btkh->bkgst", qg, kb) * (1.0 / math.sqrt(hd))
+    if self_mask is None:
+        ar = torch.arange(S, device=q.device)
+        vis = (ar[None, :] <= ar[:, None])[None, None, None]  # [Sq, Sk]
+    else:
+        vis = self_mask.bool()[:, None, None]
+    s = torch.where(vis, s, NEG_INF)
+    m, l, acc = _online_fold(m, l, acc, s, vb)
+    return _finish(q, l, acc)
 
 
 def plain_split_partials(q, k_pool, v_pool, bt, starts, split_len: int):
@@ -353,6 +416,7 @@ def _cuda_launch(q, k_pool, v_pool, bt, starts, new_k=None, new_v=None):
     check_launch(err, f"paged_attention_{name} ({route})")
     LAUNCHES[name] += 1
     ROUTE_LAUNCHES[route] += 1
+    ENTRY_ROUTE_LAUNCHES[f"{name}/{route}"] += 1
     return out
 
 
@@ -376,16 +440,23 @@ def paged_attention(
 
     CPU tensors take the plain PyTorch version; CUDA tensors launch the
     kernel of :func:`paged_route` or raise (see the module docstring for
-    the masking and -1e29 clamp contract every route keeps)."""
-    if self_k is not None or self_v is not None or self_mask is not None:
-        raise NotImplementedError(
-            "read-only self_k/self_v/self_mask verify modes belong to "
-            "speculative decoding, which a later port slice brings"
-        )
+    the masking and -1e29 clamp contract every route keeps). With
+    ``self_k``/``self_v`` the call is a read-only verify mode
+    (:func:`read_only_paged_attention`, plain tensor ops on both
+    devices, as in the reference)."""
     if (new_k is None) != (new_v is None):
         raise ValueError("new_k and new_v go together")
+    if (self_k is None) != (self_v is None):
+        raise ValueError("self_k and self_v go together")
+    if self_mask is not None and self_k is None:
+        raise ValueError("self_mask requires self_k/self_v")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
+    if self_k is not None:
+        if new_k is not None:
+            raise ValueError("fused KV write excludes self_k/self_v")
+        return read_only_paged_attention(q, k_pool, v_pool, bt, starts,
+                                         self_k, self_v, self_mask)
     if new_k is not None:
         if q.shape[1] != 1:
             raise ValueError(
@@ -407,6 +478,7 @@ __all__ = [
     "paged_route",
     "split_plan",
     "plain_paged_attention",
+    "read_only_paged_attention",
     "plain_split_partials",
     "combine_splits",
     "plain_fused_write",
@@ -414,6 +486,7 @@ __all__ = [
     "DEFAULT_TILE",
     "LAUNCHES",
     "ROUTE_LAUNCHES",
+    "ENTRY_ROUTE_LAUNCHES",
     "KERNEL_HEAD_DIMS",
     "TENSOR_CORE_HEAD_DIMS",
 ]

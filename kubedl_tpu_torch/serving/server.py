@@ -6,7 +6,7 @@ Port of ``kubedl_tpu/serving/server.py`` for ``kv_layout="paged"``:
 - GET  /v1/models          -> model metadata
 - GET  /v1/stats           -> live counters (same keys where ported)
 - POST /v1/generate        -> {"prompt_ids": [...], "max_tokens": N,
-                               "temperature": T}
+                               "temperature": T, "cache_prefix": bool}
                               -> {"token_ids": [...], "latency_ms": ...}
 - POST /v1/cancel, /admin/drain
 
@@ -15,26 +15,31 @@ PyTorch replica. Runs as ``python -m kubedl_tpu_torch.serving.server``
 or through :func:`serve_main`; the engine runs on the card unless
 ``device`` is ``"cpu"``.
 
-What this slice serves, and what it rejects: continuous batching over a
-block-table KV pool, whole-prompt and chunked prefill, multi-step decode
-segments with on-device sampling, preemption under block exhaustion,
-shedding, drain and cancel. The prefix cache, speculative decoding,
-disaggregated roles, int8 weights, mesh sharding, checkpoint restore,
-weight hot-swap and the contiguous layout are later slices: asking for
-them raises ``ValueError`` rather than being ignored.
+What it serves: continuous batching over a block-table KV pool,
+whole-prompt and chunked prefill, multi-step decode segments with
+on-device sampling in the reference's double-buffered pipeline (segment
+N is dispatched before segment N-1's ids are harvested), the prefix
+cache (shared prompt prefixes kept as refcounted pool blocks, on by
+default at 64 MB), draft-k / verify-1 speculative decoding
+(``spec_k > 0``: n-gram, repeat and early-exit model drafts,
+multi-candidate and tree verify), preemption under block exhaustion,
+shedding, drain and cancel. Disaggregated roles, int8 weights, mesh
+sharding, checkpoint restore, weight hot-swap, trained zoo drafts and the
+contiguous layout are later slices: asking for them raises
+``ValueError`` rather than being ignored.
 
-Harvest is SYNCHRONOUS in this slice: a tick dispatches a decode segment
-and copies its sampled ids to the host before the next tick (the
-reference double-buffers, overlapping the harvest with the next
-segment). The host pos/bt mirrors stay authoritative and are uploaded
-(copied, never shared with numpy) before every dispatch.
+The host pos/bt mirrors stay authoritative and are uploaded (copied,
+never shared with numpy) before every dispatch, through pinned staging
+buffers so that no upload syncs the stream.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import math
 import os
+import statistics
 import threading
 import time
 from collections import deque
@@ -48,6 +53,11 @@ from kubedl_tpu_torch import resolve_device
 from kubedl_tpu_torch.models import llama
 from kubedl_tpu_torch.models import paged_attention
 from kubedl_tpu_torch.serving.kv_blocks import BlockAllocator
+from kubedl_tpu_torch.serving.prefix_cache import PrefixCache
+from kubedl_tpu_torch.serving.router_policy import prefix_digest
+from kubedl_tpu_torch.serving.speculative import (
+    ModelDraft, SpecStats, accept_length, build_tree, make_draft,
+)
 
 log = logging.getLogger("kubedl_tpu_torch.serving.server")
 
@@ -73,15 +83,19 @@ class _Slot:
     """One in-flight sequence occupying a batch row."""
 
     def __init__(self, prompt, max_tokens: int, temperature: float,
-                 request_id: str = "") -> None:
+                 cache_prefix: bool = False, request_id: str = "") -> None:
         self.prompt = prompt
         self.max_tokens = max_tokens
         self.temperature = temperature
+        self.cache_prefix = cache_prefix  # request opted into insertion
         self.request_id = request_id  # non-empty: cancellable via cancel()
         self.fed = 0  # inputs consumed (prompt + generated)
-        #: chunked-prefill progress: prompt tokens whose KV is committed;
-        #: -1 = chunking not started
+        self.pending = 0  # tokens dispatched on the device, not harvested
+        self.cached_len = 0  # prompt tokens grafted from the prefix cache
+        #: chunked-prefill progress: prompt tokens whose KV is committed
+        #: (grafted prefix + dispatched chunks); -1 = chunking not started
         self.prefill_pos = -1
+        self.pinned = None  # PrefixEntry pinned while this row uses it
         self.version = ""
         self.ttft_ms: Optional[float] = None
         self.out_ids: list = []
@@ -106,19 +120,96 @@ def _pct(vals, q: float) -> float:
     return round(srt[min(len(srt) - 1, int(len(srt) * q))], 3)
 
 
+class _Copy:
+    """A device-to-host copy in flight: :meth:`wait` blocks on its event
+    and returns an owned numpy array, then frees the pinned buffer."""
+
+    def __init__(self, entry, event) -> None:
+        self._entry = entry
+        self._event = event
+
+    def wait(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        out = self._entry[0].numpy().copy()
+        self.discard()
+        return out
+
+    def discard(self) -> None:
+        """Release the buffer unread; it is reused only once its event
+        shows the copy done."""
+        self._entry[2] = False
+
+
+class _Staging:
+    """Pinned host buffers for the engine's host<->device copies, so that
+    neither direction syncs the stream (a copy from pageable memory
+    does). Each buffer carries the event of its last copy and is reused
+    only once that event shows the copy done (and, for a download, once
+    the host has read it). On the CPU, uploads are owned copies and
+    downloads are immediate."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self._rings: Dict[tuple, list] = {}  # key -> [[buf, event, held]]
+
+    def _acquire(self, shape, dtype) -> list:
+        ring = self._rings.setdefault((tuple(shape), dtype), [])
+        for entry in ring:
+            if not entry[2] and (entry[1] is None or entry[1].query()):
+                entry[2] = True
+                return entry
+        entry = [torch.empty(tuple(shape), dtype=dtype, pin_memory=True),
+                 None, True]
+        ring.append(entry)
+        return entry
+
+    def upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A device-OWNED copy of ``arr`` (later edits of the host array
+        do not reach it), copied without a stream sync."""
+        src = torch.from_numpy(np.ascontiguousarray(arr))
+        if not self.cuda:
+            return src.clone()
+        entry = self._acquire(src.shape, src.dtype)
+        entry[0].copy_(src)
+        out = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+        out.copy_(entry[0], non_blocking=True)
+        entry[1] = torch.cuda.Event()
+        entry[1].record()
+        entry[2] = False
+        return out
+
+    def download(self, t: torch.Tensor) -> _Copy:
+        """Start copying ``t`` to the host; the stream is not synced."""
+        if not self.cuda:
+            return _Copy([t.detach().clone(), None, True], None)
+        entry = self._acquire(t.shape, t.dtype)
+        entry[0].copy_(t, non_blocking=True)
+        entry[1] = torch.cuda.Event()
+        entry[1].record()
+        return _Copy(entry, entry[1])
+
+
 class LlamaEngine:
     """Continuous-batching decode engine over a paged KV pool: up to
     ``max_batch`` sequences share each forward, a scheduler thread admits
     waiting requests into free rows between ticks, prefill runs whole
     prompts (or ``prefill_chunk_tokens``-sized chunks) and decode runs in
     multi-step segments with on-device sampling — only sampled ids cross
-    to the host, once per segment.
+    to the host, once per segment, a tick later (the double-buffered
+    pipeline of :meth:`_loop_once`).
 
     ``kv_attention`` picks the attention implementation of the paged
     forwards: ``"gather"`` (the dense oracle over the gathered view) or
     ``"blocked"`` (the Hopper kernels on the card: the fused decode
-    kernel every decode step, the blocked kernel every prefill chunk).
-    ``params`` serves a given parameter tree (e.g. one carried over with
+    kernel every decode step, the blocked kernel every prefill chunk,
+    grafted-suffix prefill and speculative verify). ``prefix_cache_mb >
+    0`` keeps shared prompt prefixes as refcounted pool blocks
+    (:mod:`~kubedl_tpu_torch.serving.prefix_cache`); ``spec_k > 0``
+    decodes greedy rows by draft-k / verify-1 speculation
+    (:mod:`~kubedl_tpu_torch.serving.speculative`). ``params`` serves a
+    given parameter tree (e.g. one carried over with
     ``llama.params_from_numpy``) instead of the seeded random init."""
 
     #: allowed decode-segment sizes, largest first; segments shrink to 4
@@ -129,12 +220,18 @@ class LlamaEngine:
                  max_seq: int = 0, max_batch: int = 4,
                  quantize: str = "", mesh_axes: Optional[Dict] = None,
                  max_queue_depth: int = 64, max_queue_age_s: float = 30.0,
-                 prefix_cache_mb: float = 0.0,
+                 prefix_cache_mb: float = 64.0,
+                 prefix_min_len: int = 8,
                  kv_layout: str = "paged", kv_block_size: int = 16,
                  kv_blocks: int = 0, spec_k: int = 0,
+                 spec_draft: str = "ngram",
                  kv_attention: str = "gather",
+                 spec_candidates: int = 1,
+                 spec_draft_layers: int = 0,
+                 spec_tree: bool = False,
                  prefill_chunk_tokens: int = 0,
                  role: str = "colocated",
+                 advertise_prefix_len: int = 8,
                  model_version: str = "base",
                  device=None, seed: int = 0,
                  params: Optional[Dict] = None) -> None:
@@ -158,15 +255,25 @@ class LlamaEngine:
             raise _unported(f"quantize={quantize!r}", "int8 weight-only serving")
         if mesh_axes:
             raise _unported("mesh_axes", "sharded (mesh) serving")
-        if int(spec_k) > 0:
-            raise _unported("spec_k > 0", "speculative decoding")
-        if float(prefix_cache_mb) > 0:
-            raise _unported("prefix_cache_mb > 0", "the prefix cache")
         if ckpt_dir:
             raise _unported("ckpt_dir", "checkpoint restore")
+        self.spec_k = max(0, int(spec_k))
+        self.spec_draft = str(spec_draft)
+        if self.spec_k:
+            if self.spec_draft.startswith("zoo:"):
+                raise _unported(f"spec_draft={self.spec_draft!r}",
+                                "trained zoo drafts")
+            if self.spec_draft != "model":
+                make_draft(self.spec_draft)  # unknown names raise here
+        self.spec_candidates = max(1, int(spec_candidates))
+        #: tree speculation needs multi-candidate speculation to mean
+        #: anything: off otherwise (the reference's normalization)
+        self.spec_tree = (bool(spec_tree) and self.spec_k > 0
+                          and self.spec_candidates > 1)
         self.device = resolve_device(device)
         self.role = "colocated"
         self.kv_attention = kv_attention
+        self.advertise_prefix_len = int(advertise_prefix_len)
         self.cfg = llama.preset(preset)
         self.max_seq = max_seq or min(self.cfg.max_seq, 512)
         self.max_batch = max_batch
@@ -187,6 +294,13 @@ class LlamaEngine:
         self.params = params
         self._versions: Dict[str, object] = {self._default_version: params}
         mb = self.max_seq // bs
+        #: bytes one block holds across both pools and all layers — the
+        #: unit the prefix cache's budget is charged in
+        self._block_bytes = int(
+            2 * self.cfg.n_layers * bs * self.cfg.n_kv_heads
+            * self.cfg.head_dim
+            * torch.tensor([], dtype=self.cfg.dtype).element_size()
+        )
         if kv_blocks:
             nb = int(kv_blocks)
             if nb < mb + 1:
@@ -195,18 +309,46 @@ class LlamaEngine:
                     f"({mb} blocks + trash)"
                 )
         else:
-            # parity sizing: every batch row can reach max_seq
-            nb = 1 + self.max_batch * mb
+            # parity sizing: every batch row can reach max_seq, plus
+            # headroom for prefix-cache entries capped at one batch's worth
+            prefix_blocks = 0
+            if prefix_cache_mb > 0:
+                prefix_blocks = min(
+                    math.ceil(prefix_cache_mb * 1e6 / self._block_bytes),
+                    self.max_batch * mb,
+                )
+            nb = 1 + self.max_batch * mb + prefix_blocks
         self.kv_blocks = nb
         self._alloc = BlockAllocator(nb, bs)
         #: host-authoritative mirrors of the device cache's pos/bt —
-        #: uploaded (copied) before EVERY dispatch
+        #: uploaded (copied) before EVERY dispatch, so rollbacks
+        #: (speculative rejection, preemption, vacation) are mirror edits
         self._pos_host = np.zeros((self.max_batch,), np.int32)
         self._bt_host = np.zeros((self.max_batch, mb), np.int32)
         self._row_blocks: list = [[] for _ in range(self.max_batch)]
         self._cache = llama.init_paged_cache(
             self.cfg, self.max_batch, self.max_seq, nb, bs, self.device
         )
+        #: pinned staging for every host<->device copy (no stream syncs)
+        self._staging = _Staging(self.device)
+        if self.spec_k:
+            if self.spec_draft == "model":
+                # early-exit draft carved out of the target's own stacked
+                # weights (views, no copies); depth defaults to half
+                n_draft = int(spec_draft_layers) or max(
+                    1, self.cfg.n_layers // 2)
+                self._draft = ModelDraft.from_target(
+                    self.params, self.cfg, n_layers=n_draft,
+                    max_context=self.max_seq,
+                )
+            else:
+                self._draft = make_draft(self.spec_draft)
+            self._spec_stats: Optional[SpecStats] = SpecStats()
+            #: fixed trie node budget of tree verify
+            self._spec_tree_m = 1 + self.spec_candidates * self.spec_k
+        else:
+            self._draft = None
+            self._spec_stats = None
         #: sampling noise: one explicit generator on the engine's device
         self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
         #: running count of non-finite logits (device scalar, no host sync)
@@ -214,17 +356,48 @@ class LlamaEngine:
         self._slots: list = [None] * self.max_batch
         self._waiting: "deque[_Slot]" = deque()
         self._cv = threading.Condition()
+        #: device-resident prefix KV cache: admission shares the longest
+        #: cached prefix's blocks and prefills only the suffix; entries
+        #: hold block REFERENCES, which eviction hands back to the
+        #: allocator. 0 MB disables it.
+        self._pcache: Optional[PrefixCache] = (
+            PrefixCache(int(prefix_cache_mb * 1e6), min_len=prefix_min_len,
+                        on_evict=self._paged_entry_evicted)
+            if prefix_cache_mb > 0 else None
+        )
         self._stop = False
         self._draining = False
         self._requests: Dict[str, _Slot] = {}
+        #: device-chained feed between segments: (prefill_gen, rows, last
+        #: ids [B, 1] on the device), ``rows`` being the rows whose device
+        #: token is current; a prefill MERGES its sampled first ids in, so
+        #: the next segment's inputs never leave the device
+        self._chain: Optional[tuple] = None
+        self._prefill_gen = 0
+        #: device copy of the per-row temperatures, re-uploaded only when
+        #: they change
+        self._temps_cache: Optional[tuple] = None
+        #: the deferred in-flight decode segment (double buffering):
+        #: dispatched one tick, harvested the next
+        self._pending: Optional[Dict] = None
         self._stats = {"requests": 0, "tokens_out": 0, "tokens_in": 0,
                        "shed": 0, "drain_rejects": 0,
                        "kv_preemptions": 0, "kv_sheds": 0,
                        "started_at": time.time()}
-        self._pipe = {"ticks": 0, "segments": 0, "prefills": 0,
-                      "prefill_chunks": 0, "decode_steps": 0,
-                      "decode_tokens": 0, "decode_ms_sum": 0.0,
-                      "errors": 0}
+        #: per-tick pipeline accounting (the reference's keys) plus the
+        #: port's decode counters: ``decode_ms_sum`` is each segment's
+        #: stream time (CUDA events from its first launch to its last; on
+        #: the CPU, where ops run as they are called, its dispatch time)
+        self._pipe = {
+            "ticks": 0, "segments": 0, "deferred_harvests": 0,
+            "flushes": 0, "chain_rebuilds": 0, "errors": 0, "inflight": 0,
+            "dispatch_ms_sum": 0.0, "harvest_ms_sum": 0.0,
+            "host_ms_sum": 0.0, "tick_ms_sum": 0.0, "overlap_ms_sum": 0.0,
+            "prefills": 0, "prefill_chunks": 0, "decode_steps": 0,
+            "decode_tokens": 0, "decode_ms_sum": 0.0,
+            "spec_rounds": 0, "spec_ms_sum": 0.0, "verify_ms_sum": 0.0,
+        }
+        self._pipe_recent: "deque[tuple]" = deque(maxlen=2048)
         self.max_queue_depth = max(1, int(max_queue_depth))
         self.max_queue_age_s = float(max_queue_age_s)
         self._recent: "deque[float]" = deque(maxlen=100_000)
@@ -338,17 +511,20 @@ class LlamaEngine:
             if s is slot:
                 self._slots[i] = None
                 self._free_row_locked(i)
+        # a vacated row must not keep its prefix-cache entry pinned
+        self._release_prefix_locked(slot)
 
     def generate(self, prompt_ids, max_tokens: int = 16,
                  temperature: float = 0.0, timeout_s: float = 600.0,
-                 request_id: str = "", model_version: str = "") -> Dict:
+                 cache_prefix: bool = False, request_id: str = "",
+                 model_version: str = "") -> Dict:
         budget = self.max_seq - 1
         prompt = [int(t) for t in list(prompt_ids)[:budget]]
         if not prompt:
             prompt = [0]
         max_tokens = max(0, min(int(max_tokens), budget - len(prompt)))
         slot = _Slot(prompt, max_tokens, float(temperature),
-                     request_id=request_id)
+                     bool(cache_prefix), request_id=request_id)
         with self._cv:
             slot.version = self._resolve_version_locked(model_version)
             if self._draining:
@@ -403,7 +579,6 @@ class LlamaEngine:
         now = time.time()
         with self._cv:
             out = dict(self._stats)
-            pipe = dict(self._pipe)
             recent = sum(1 for t in self._recent if t > now - self.qps_window_s)
             shed_recent = sum(
                 1 for t in self._shed_recent if t > now - self.qps_window_s
@@ -429,30 +604,138 @@ class LlamaEngine:
         if qwait:
             out["queue_wait_ms_p50"] = _pct(qwait, 0.5)
             out["queue_wait_ms_p95"] = _pct(qwait, 0.95)
+        if self._pcache is not None:
+            out["prefix_cache"] = self._pcache.stats()
+            # digests of the cached prefixes, in the hash the router's
+            # ring keys on: the router steers repeats here
+            adv = set()
+            for key in self._pcache.prefix_keys():
+                d = prefix_digest(key, self.advertise_prefix_len)
+                if d is not None:
+                    adv.add(d)
+            out["prefix_cache"]["advertised"] = sorted(adv)
         out["kv_blocks"] = self._alloc.stats()
         out["kv_blocks"]["attention_kernel"] = self.kv_attention
         out["kv_blocks"]["role"] = self.role
-        pipe["harvest"] = "synchronous"
-        if pipe["decode_steps"]:
-            pipe["ms_per_decode_step"] = round(
-                pipe["decode_ms_sum"] / pipe["decode_steps"], 4
-            )
-        if pipe["decode_ms_sum"] > 0:
-            pipe["decode_tokens_per_s"] = round(
-                pipe["decode_tokens"] / (pipe["decode_ms_sum"] / 1e3), 3
-            )
-        out["pipeline"] = pipe
+        if self._spec_stats is not None:
+            out["speculative"] = self._spec_stats.snapshot()
+            out["speculative"]["draft_kind"] = getattr(
+                self._draft, "name", self.spec_draft)
+            out["speculative"]["candidates"] = self.spec_candidates
+        out["pipeline"] = self.pipeline_stats()
         out["kernel_launches"] = dict(paged_attention.LAUNCHES)
         out["nonfinite_logits"] = int(self._nonfinite.item())
         out["versions"] = self.versions()
         return out
 
+    def pipeline_stats(self) -> Dict:
+        """Decode-pipeline accounting with the reference's keys: per-tick
+        dispatch / harvest / host timings (avg, and p50 over the recent
+        window), the overlap ratio (host work done while a segment was in
+        flight, over tick time), lifetime segment / harvest counters; and
+        the port's decode counters (``decode_steps``, ``decode_tokens``,
+        ``ms_per_decode_step``, ``decode_tokens_per_s``, prefill and
+        speculation counts)."""
+        with self._cv:
+            p = dict(self._pipe)
+            recent = list(self._pipe_recent)
+            queued = len(self._waiting)
+        out = {k: p[k] for k in ("ticks", "segments", "deferred_harvests",
+                                 "flushes", "chain_rebuilds", "errors",
+                                 "inflight")}
+        out["queued"] = queued
+        if p["ticks"]:
+            n = p["ticks"]
+            out["dispatch_ms_avg"] = round(p["dispatch_ms_sum"] / n, 4)
+            out["harvest_ms_avg"] = round(p["harvest_ms_sum"] / n, 4)
+            out["host_ms_avg"] = round(p["host_ms_sum"] / n, 4)
+            out["tick_ms_avg"] = round(p["tick_ms_sum"] / n, 4)
+            out["overlap_ratio"] = round(
+                p["overlap_ms_sum"] / max(p["tick_ms_sum"], 1e-9), 4
+            )
+        if recent:
+            med = statistics.median
+            out["dispatch_ms_p50"] = round(med([r[0] for r in recent]), 4)
+            out["harvest_ms_p50"] = round(med([r[1] for r in recent]), 4)
+            out["host_ms_p50"] = round(med([r[2] for r in recent]), 4)
+            out["tick_ms_p50"] = round(med([r[3] for r in recent]), 4)
+        for k in ("prefills", "prefill_chunks", "decode_steps",
+                  "decode_tokens", "decode_ms_sum", "spec_rounds",
+                  "spec_ms_sum", "verify_ms_sum"):
+            out[k] = p[k]
+        if p["decode_steps"]:
+            out["ms_per_decode_step"] = round(
+                p["decode_ms_sum"] / p["decode_steps"], 4)
+        if p["decode_ms_sum"] > 0:
+            out["decode_tokens_per_s"] = round(
+                p["decode_tokens"] / (p["decode_ms_sum"] / 1e3), 3)
+        return out
+
+    # -- prefix cache ------------------------------------------------------
+
+    def _release_prefix_locked(self, slot: _Slot) -> None:
+        """Drop a slot's pin on its grafted prefix entry (finalize /
+        vacation / error recovery). Idempotent; caller holds cv."""
+        if slot.pinned is not None and self._pcache is not None:
+            self._pcache.unpin(slot.pinned)
+        slot.pinned = None
+
+    def _maybe_insert_prefix_locked(self, i: int, s: _Slot) -> None:
+        """After row ``i``'s prefill completes, store its prompt prefix
+        when traffic says it is shared (>= min_seen requests walked it)
+        or the request tagged itself cacheable. The entry SHARES the
+        row's full prefix blocks by reference; only the partial tail
+        block is copied (the row keeps appending inside its own tail).
+        The copy is queued on the stream before any later write into the
+        row, so it holds this prefill's output. Caller holds cv."""
+        if self._pcache is None:
+            return
+        cand = self._pcache.insert_candidate(s.prompt, s.cache_prefix)
+        # cap at len-1: a full-prompt entry can never match (a row needs
+        # >= 1 suffix token for last-token logits)
+        cand = min(cand, len(s.prompt) - 1)
+        if cand <= s.cached_len or cand < self._pcache.min_len:
+            return
+        bs = self.kv_block_size
+        full = cand // bs
+        row_blocks = self._row_blocks[i]
+        blocks = list(row_blocks[:full])
+        if cand % bs:
+            got = self._alloc.alloc(1)
+            if got is None:
+                return  # pool pressure: skip the insert
+            self._cache = llama.copy_kv_block(self._cache, row_blocks[full],
+                                              got[0])
+            blocks.append(got[0])
+        self._alloc.incref(blocks[:full])
+        ok = self._pcache.insert(
+            s.prompt[:cand], None, None, cand, blocks=tuple(blocks),
+            nbytes=len(blocks) * self._block_bytes,
+        )
+        if not ok:
+            self._alloc.free(blocks)  # duplicate/over-budget: undo
+
+    def _paged_entry_evicted(self, entry) -> None:
+        """PrefixCache eviction callback: hand the entry's block
+        references back to the allocator (its own lock; never cv)."""
+        blocks = getattr(entry, "blocks", None)
+        if blocks:
+            self._alloc.free(blocks)
+
+    def _reclaim_prefix_locked(self) -> bool:
+        """Evict unpinned prefix-cache entries to recover at least one
+        block; True when anything came back. Cache entries are an
+        optimization, resident rows are work."""
+        if self._pcache is None:
+            return False
+        return self._pcache.reclaim(self._block_bytes) > 0
+
     # -- paged KV bookkeeping (host mirrors + block lifecycle) -------------
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """Upload a host mirror as a device-OWNED copy (``torch.tensor``
-        copies; ``torch.from_numpy`` would alias the live mirror)."""
-        return torch.tensor(arr, device=self.device)
+        """Upload a host array as a device-OWNED copy (pinned staging, no
+        stream sync; later host edits never reach the device copy)."""
+        return self._staging.upload(arr)
 
     def _upload_mirrors(self) -> None:
         self._cache["pos"] = self._upload(self._pos_host)
@@ -460,7 +743,9 @@ class LlamaEngine:
 
     def _free_row_locked(self, i: int) -> None:
         """Return row ``i``'s blocks and point its table at the trash
-        block. Caller holds cv."""
+        block. An in-flight dispatch keeps writing through its own bt
+        snapshot, but the stream runs calls in order, so a later owner's
+        writes land last. Caller holds cv."""
         blocks = self._row_blocks[i]
         if blocks:
             self._alloc.free(blocks)
@@ -482,11 +767,24 @@ class LlamaEngine:
         blocks.extend(got)
         return True
 
+    def _trim_row_locked(self, i: int, n_tokens: int) -> None:
+        """Free row blocks beyond what ``n_tokens`` cached positions need
+        — how a rejected speculative suffix's KV is freed in place."""
+        keep = self._alloc.blocks_for(min(int(n_tokens), self.max_seq))
+        blocks = self._row_blocks[i]
+        if len(blocks) <= keep:
+            return
+        drop = blocks[keep:]
+        del blocks[keep:]
+        self._bt_host[i, keep:keep + len(drop)] = 0
+        self._alloc.free(drop)
+
     def _pick_victim_locked(self, held) -> Optional[int]:
-        """The YOUNGEST resident row not in ``held`` (least sunk work)."""
+        """The YOUNGEST resident row not in ``held`` with nothing in
+        flight (``pending`` rows owe tokens to the deferred harvest)."""
         best = None
         for j, s in enumerate(self._slots):
-            if s is None or j in held or not self._row_blocks[j]:
+            if s is None or j in held or s.pending or not self._row_blocks[j]:
                 continue
             if best is None or s.t0 > self._slots[best].t0:
                 best = j
@@ -500,17 +798,21 @@ class LlamaEngine:
         s = self._slots[j]
         self._slots[j] = None
         self._free_row_locked(j)
+        self._release_prefix_locked(s)
         s.fed = 0
+        s.cached_len = 0
         s.prefill_pos = -1
         s.out_ids = []
+        s.pending = 0
         self._waiting.appendleft(s)
         self._stats["kv_preemptions"] += 1
         log.warning("KV blocks exhausted: preempted row %d (requeued)", j)
 
     def _reserve_decode_locked(self, decoding, steps: int):
-        """Ensure every decoding row can cache ``steps`` more positions,
-        preempting victims when the pool runs dry; rows that still cannot
-        grow sit this dispatch out. Caller holds cv."""
+        """Ensure every decoding row can cache ``steps`` more positions:
+        on exhaustion evict unpinned prefix entries first, then preempt
+        victims; rows that still cannot grow sit this dispatch out.
+        Caller holds cv."""
         out = []
         for i, s in decoding:
             if self._slots[i] is not s:
@@ -520,6 +822,8 @@ class LlamaEngine:
                 if self._reserve_locked(i, need):
                     out.append((i, s))
                     break
+                if self._reclaim_prefix_locked():
+                    continue
                 victim = self._pick_victim_locked({i} | {j for j, _ in out})
                 if victim is None:
                     break
@@ -527,17 +831,60 @@ class LlamaEngine:
         return out
 
     def _admit_row_locked(self, i: int, slot: _Slot) -> bool:
-        """Admit ``slot`` into row ``i``: allocate blocks for the prompt
-        plus its first token (all-or-nothing). Caller holds cv."""
-        need = self._alloc.blocks_for(min(len(slot.prompt) + 1, self.max_seq))
-        got = self._alloc.alloc(need)
+        """Admit ``slot`` into row ``i``: match the prefix cache, SHARE
+        the entry's full blocks by reference (no device copy), copy the
+        partial tail block on write, and allocate fresh blocks for the
+        suffix plus its first token. All-or-nothing: on pool exhaustion
+        every side effect is rolled back and the slot stays queued.
+        Caller holds cv."""
+        a = self._alloc
+        bs = self.kv_block_size
+        need_total = a.blocks_for(min(len(slot.prompt) + 1, self.max_seq))
+        entry, mlen = None, 0
+        if self._pcache is not None:
+            self._pcache.observe(slot.prompt)
+            entry, mlen = self._pcache.match(slot.prompt)
+        entry_blocks = getattr(entry, "blocks", None) if entry else None
+        shared: list = []
+        tail_src = None
+        if entry_blocks:
+            full = mlen // bs
+            shared = list(entry_blocks[:full])
+            if mlen % bs:
+                tail_src = entry_blocks[full]
+        n_alloc = need_total - len(shared)
+        got = a.alloc(n_alloc)
+        if got is None and self._reclaim_prefix_locked():
+            got = a.alloc(n_alloc)
         if got is None:
+            if entry is not None:
+                self._pcache.unpin(entry)
             return False
-        self._row_blocks[i] = list(got)
+        a.incref(shared)
+        blocks = list(shared)
+        if tail_src is not None:
+            # copy-on-write: the entry's partial tail block is SHARED and
+            # this row's suffix prefill appends inside it
+            tail_copy = got.pop(0)
+            self._cache = llama.copy_kv_block(self._cache, tail_src,
+                                              tail_copy)
+            blocks.append(tail_copy)
+        blocks.extend(got)
+        self._row_blocks[i] = blocks
         self._bt_host[i, :] = 0
-        self._bt_host[i, :len(got)] = got
-        self._pos_host[i] = 0
+        self._bt_host[i, :len(blocks)] = blocks
+        self._pos_host[i] = mlen
         self._slots[i] = slot
+        if entry is None:
+            return True
+        slot.cached_len = mlen
+        slot.pinned = entry
+        if not entry_blocks:
+            # array-payload entry (a direct insert): scatter its K/V into
+            # the row's fresh blocks through the just-updated table
+            self._cache["bt"] = self._upload(self._bt_host)
+            self._cache = llama.paged_graft_prefix(
+                self._cache, entry.k, entry.v, i, mlen)
         return True
 
     def _admit_locked(self) -> None:
@@ -547,7 +894,7 @@ class LlamaEngine:
                     break  # below low watermark: hysteresis holds
                 head = self._waiting[0]
                 if not self._admit_row_locked(i, head):
-                    break  # pool dry: wait for frees
+                    break  # pool dry: wait for frees / preemption
                 self._waiting.popleft()
                 wait_ms = (time.perf_counter() - head.t0) * 1e3
                 self._queue_wait_recent.append(wait_ms)
@@ -567,6 +914,7 @@ class LlamaEngine:
                         if s is not None:
                             s.result = {"error": str(e)}
                             self._slots[i] = None
+                            self._release_prefix_locked(s)
                             s.done.set()
                     self._cache = llama.init_paged_cache(
                         self.cfg, self.max_batch, self.max_seq,
@@ -577,15 +925,47 @@ class LlamaEngine:
                     self._pos_host[:] = 0
                     self._bt_host[:] = 0
                     self._row_blocks = [[] for _ in range(self.max_batch)]
-                    self._pipe["errors"] += 1
+                    if self._pcache is not None:
+                        # every entry references the dead pool's blocks:
+                        # drop them all (no evict callbacks: the allocator
+                        # was just rebuilt)
+                        self._pcache.clear()
+                    self._reset_pipeline_locked()
+
+    def _reset_pipeline_locked(self) -> None:
+        """Drop every piece of pipeline state that may reference a failed
+        tick: the device chain, the temperature upload and the deferred
+        segment (discarded UNHARVESTED — its slots were failed, no tokens
+        are owed); latency accounting restarts so post-recovery stats
+        describe the recovered engine. Caller holds cv."""
+        self._chain = None
+        self._temps_cache = None
+        if self._pending is not None:
+            self._pending["toks"].discard()
+        self._pending = None
+        p = self._pipe
+        p["errors"] += 1
+        p["inflight"] = 0
+        p["ticks"] = 0
+        for k in ("dispatch_ms_sum", "harvest_ms_sum", "host_ms_sum",
+                  "tick_ms_sum", "overlap_ms_sum"):
+            p[k] = 0.0
+        self._pipe_recent.clear()
 
     def _rem(self, s: _Slot) -> int:
-        """Remaining token budget for a slot."""
-        done = len(s.out_ids)
+        """Remaining token budget for a slot, counting tokens already
+        dispatched but not yet harvested (``s.pending``): the pipeline
+        schedules from counts — values arrive a tick later."""
+        done = len(s.out_ids) + s.pending
         return min(s.max_tokens - done,
                    (self.max_seq - 1) - (len(s.prompt) + done))
 
     def _maybe_finalize_locked(self, i: int, s: _Slot) -> None:
+        """Completion is token-COUNT based; a slot with tokens still in
+        flight never finalizes (their values arrive at the next harvest).
+        Caller holds cv."""
+        if s.pending:
+            return
         if (len(s.out_ids) >= s.max_tokens
                 or len(s.prompt) + len(s.out_ids) >= self.max_seq - 1):
             ms = (time.perf_counter() - s.t0) * 1e3
@@ -596,13 +976,14 @@ class LlamaEngine:
                 "tokens_per_sec": round(
                     len(s.out_ids) / (ms / 1e3), 2
                 ) if ms > 0 else 0.0,
-                "cached_prefix_len": 0,
+                "cached_prefix_len": s.cached_len,
                 "model_version": s.version or self._default_version,
             }
             if s.ttft_ms is not None:
                 s.result["ttft_ms"] = round(s.ttft_ms, 3)
             self._slots[i] = None
             self._free_row_locked(i)
+            self._release_prefix_locked(s)
             s.done.set()
 
     def _prefill_bucket(self, max_len: int) -> int:
@@ -625,12 +1006,21 @@ class LlamaEngine:
             return up
         return next((b for b in buckets if b <= need), 1)
 
-    def _sample(self, logits: torch.Tensor, temps: np.ndarray) -> np.ndarray:
+    def _temps_dev(self, temps: np.ndarray) -> torch.Tensor:
+        """The per-row temperatures on the device, uploaded only when
+        they change."""
+        fp = temps.tobytes()
+        if self._temps_cache is None or self._temps_cache[0] != fp:
+            self._temps_cache = (fp, self._upload(temps))
+        return self._temps_cache[1]
+
+    def _sample_logits(self, logits: torch.Tensor,
+                       temps: np.ndarray) -> torch.Tensor:
         """First-token sampler on the device (greedy rows take argmax,
-        temp > 0 rows Gumbel-max); only the [B] ids cross to the host."""
+        temp > 0 rows Gumbel-max): the [B] int32 ids stay on the device."""
         self._nonfinite += (~torch.isfinite(logits)).sum()
-        t = torch.tensor(temps, device=self.device)
         if np.any(temps > 0.0):
+            t = self._upload(temps)
             g = -torch.log(torch.empty_like(logits).exponential_(
                 generator=self._gen))
             z = torch.where(t[:, None] > 0.0,
@@ -638,63 +1028,164 @@ class LlamaEngine:
                             logits)
         else:
             z = logits
-        return torch.argmax(z, dim=-1).to(torch.int32).cpu().numpy()
+        return torch.argmax(z, dim=-1).to(torch.int32)
 
-    def _first_tokens_locked(self, rows, ids: np.ndarray) -> None:
-        """Record prefill-sampled first tokens for rows whose prompt is
-        now fully cached. Caller holds cv."""
-        now = time.perf_counter()
-        for i, s in rows:
+    def _graft_chain(self, ids_dev: torch.Tensor, rows) -> None:
+        """Merge freshly prefilled rows' first ids into the device token
+        chain (``llama.merge_chain_tokens``): the next segment's inputs
+        stay on the device across admissions."""
+        self._prefill_gen += 1
+        rows = tuple(rows)
+        if self._chain is not None:
+            mask = np.zeros((self.max_batch,), bool)
+            mask[list(rows)] = True
+            merged = llama.merge_chain_tokens(
+                self._chain[2], ids_dev, self._upload(mask))
+            self._chain = (self._prefill_gen,
+                           tuple(sorted(set(self._chain[1]) | set(rows))),
+                           merged)
+        else:
+            self._chain = (self._prefill_gen, rows, ids_dev[:, None])
+
+    # -- pipeline stages ---------------------------------------------------
+
+    def _harvest_segment(self):
+        """Harvest the deferred in-flight decode segment: wait on its
+        copy's event, append the ids to each slot, finalize completed
+        requests and admit waiters. No-op when nothing is in flight.
+        Returns ``(blocked_ms, host_ms)``."""
+        pend, self._pending = self._pending, None
+        if pend is None:
+            return 0.0, 0.0
+        t0 = time.perf_counter()
+        rows = pend["toks"].wait()  # [B, k]
+        t1 = time.perf_counter()
+        if pend["ev"] is not None:
+            seg_ms = pend["ev"][0].elapsed_time(pend["ev"][1])
+        else:
+            seg_ms = pend["dispatch_ms"]
+        with self._cv:
+            p = self._pipe
+            p["inflight"] = 0
+            p["decode_steps"] += pend["k"]
+            p["decode_ms_sum"] += seg_ms
+            for i, s, take in pend["sched"]:
+                s.pending -= take
+                if self._slots[i] is not s:
+                    continue  # vacated (timeout/cancel) mid-segment
+                s.out_ids.extend(int(t) for t in rows[i][:take])
+                p["decode_tokens"] += take
+                self._maybe_finalize_locked(i, s)
+            self._admit_locked()
+            self._cv.notify_all()
+        return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+    def _harvest_prefill(self, pre, ids_copy):
+        """Harvest prefill's device-sampled first ids and record them
+        (first tokens, TTFT, prefix pins and inserts). Runs after the
+        next decode segment is dispatched, so the wait overlaps device
+        work. Returns ``(blocked_ms, host_ms)``."""
+        t0 = time.perf_counter()
+        ids = ids_copy.wait()
+        t1 = time.perf_counter()
+        with self._cv:
+            for i, s, budgeted in pre:
+                if budgeted:
+                    s.pending -= 1
+                if self._slots[i] is not s:
+                    continue  # vacated mid-prefill (pin already released)
+                if budgeted and s.ttft_ms is None:
+                    s.ttft_ms = (t1 - s.t0) * 1e3
+                    self._ttft_recent.append(s.ttft_ms)
+                if budgeted:
+                    s.out_ids.append(int(ids[i]))
+                # the row's prefix KV is self-contained now: the grafted
+                # entry no longer needs its pin
+                self._release_prefix_locked(s)
+                self._maybe_insert_prefix_locked(i, s)
+                self._maybe_finalize_locked(i, s)
+            self._admit_locked()
+            self._cv.notify_all()
+        return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+    def _pre_rows_locked(self, sched_final):
+        """Mark rows whose prompt is now fully dispatched as decoding rows
+        owing one first token. Caller holds cv."""
+        pre = []
+        for i, s in sched_final:
             if self._slots[i] is not s:
-                continue  # vacated (timeout/cancel) mid-prefill
+                continue  # vacated mid-prefill
             s.fed = len(s.prompt)
             budgeted = (s.max_tokens > 0 and len(s.prompt) + len(s.out_ids)
                         < self.max_seq - 1)
             if budgeted:
-                s.out_ids.append(int(ids[i]))
-                if s.ttft_ms is None:
-                    s.ttft_ms = (now - s.t0) * 1e3
-                    self._ttft_recent.append(s.ttft_ms)
-            self._maybe_finalize_locked(i, s)
+                s.pending += 1
+            pre.append((i, s, budgeted))
+        return pre
 
-    def _prefill_whole(self, todo) -> None:
-        """Whole prompts from position 0 in one forward (dense causal
-        attention over the fresh K/V, scatter into the row's blocks)."""
-        bucket = self._prefill_bucket(max(len(s.prompt) for _, s in todo))
+    def _prefill_whole(self, todo, acct: Dict):
+        """Whole prompts in one forward: rows without a grafted prefix go
+        through ``paged_prefill_batched`` (dense causal attention over the
+        fresh K/V); when any row rides a grafted prefix, every row goes
+        through the suffix prefill at ``starts = cached_len`` (the blocked
+        kernel on the card). First ids stay on the device and join the
+        chain. Returns ``(pre, ids_copy)`` for the deferred harvest."""
+        bucket = self._prefill_bucket(
+            max(len(s.prompt) - s.cached_len for _, s in todo))
         toks = np.zeros((self.max_batch, bucket), np.int32)
         lens = np.zeros((self.max_batch,), np.int32)
+        starts = np.zeros((self.max_batch,), np.int32)
         temps0 = np.zeros((self.max_batch,), np.float32)
         for i, s in todo:
-            toks[i, :len(s.prompt)] = s.prompt
-            lens[i] = len(s.prompt)
+            suffix = s.prompt[s.cached_len:]
+            toks[i, :len(suffix)] = suffix
+            lens[i] = len(suffix)
+            starts[i] = s.cached_len
             temps0[i] = max(float(s.temperature), 0.0)
         self._upload_mirrors()
-        logits, self._cache = llama.paged_prefill_batched(
-            self.params, self._cache, self._upload(toks), self._upload(lens),
-            self.cfg,
-        )
-        ids = self._sample(logits, temps0)
+        t0 = time.perf_counter()
+        if np.any(starts > 0):
+            logits, self._cache = llama.paged_prefill_from(
+                self.params, self._cache, self._upload(toks),
+                self._upload(lens), self._upload(starts), self.cfg,
+                kv_attention=self.kv_attention,
+            )
+            if self._pcache is not None:
+                self._pcache.add_tokens_saved(int(starts.sum()))
+        else:
+            logits, self._cache = llama.paged_prefill_batched(
+                self.params, self._cache, self._upload(toks),
+                self._upload(lens), self.cfg,
+            )
+        ids_dev = self._sample_logits(logits, temps0)
+        ids_copy = self._staging.download(ids_dev)
+        self._graft_chain(ids_dev, [i for i, _ in todo])
+        acct["dispatch_ms"] += (time.perf_counter() - t0) * 1e3
         with self._cv:
             self._pipe["prefills"] += 1
             for i, s in todo:
-                if self._slots[i] is s:
-                    self._pos_host[i] = min(len(s.prompt), self.max_seq - 1)
-            self._first_tokens_locked(todo, ids)
+                # mirror the device's pos update for dispatched rows
+                # (vacated rows get reset at readmission)
+                self._pos_host[i] = min(int(starts[i]) + int(lens[i]),
+                                        self.max_seq - 1)
+            pre = self._pre_rows_locked(todo)
+        return pre, ids_copy
 
-    def _prefill_chunks(self, todo) -> None:
+    def _prefill_chunks(self, todo, acct: Dict):
         """Chunked prefill: spend at most ``prefill_chunk_tokens`` prompt
         tokens this tick across the not-yet-prefilled rows, FIFO by
-        arrival. Every chunk runs the suffix prefill at the row's
-        committed position (the blocked kernel on the card); non-final
-        chunks are block-aligned. Only rows whose FINAL chunk lands this
-        tick sample a first token."""
+        arrival, from each row's committed position (its grafted prefix
+        on the first chunk). Every chunk runs the suffix prefill (the
+        blocked kernel on the card); non-final chunks are block-aligned.
+        Only rows whose FINAL chunk lands this tick sample a first id and
+        join the chain. Returns ``(pre, ids_copy)``."""
         bs = self.kv_block_size
         left = self.prefill_chunk_tokens
         sched = []  # (row, slot, base, take, final)
         for i, s in sorted(todo, key=lambda t: t[1].t0):
             if left <= 0:
                 break
-            base = max(s.prefill_pos, 0)
+            base = s.prefill_pos if s.prefill_pos >= 0 else s.cached_len
             rem = max(0, len(s.prompt) - base)
             take = min(rem, left)
             if take < rem:
@@ -704,112 +1195,417 @@ class LlamaEngine:
             sched.append((i, s, base, take, base + take >= len(s.prompt)))
             left -= take
         if not sched:
-            return
-        bucket = self._prefill_bucket(max(t for _i, _s, _b, t, _f in sched))
+            return [], None
+        bucket = self._prefill_bucket(
+            max(max(t for _i, _s, _b, t, _f in sched), 1))
         toks = np.zeros((self.max_batch, bucket), np.int32)
         lens = np.zeros((self.max_batch,), np.int32)
         starts = np.zeros((self.max_batch,), np.int32)
         temps0 = np.zeros((self.max_batch,), np.float32)
+        saved = 0
         for i, s, base, take, _final in sched:
             toks[i, :take] = s.prompt[base:base + take]
             lens[i] = take
             starts[i] = base
             temps0[i] = max(float(s.temperature), 0.0)
+            if s.prefill_pos < 0 and s.cached_len:
+                saved += s.cached_len  # first chunk rode a grafted prefix
         self._upload_mirrors()
+        t0 = time.perf_counter()
         logits, self._cache = llama.paged_prefill_from(
             self.params, self._cache, self._upload(toks), self._upload(lens),
             self._upload(starts), self.cfg, kv_attention=self.kv_attention,
         )
-        final = [(i, s) for i, s, _b, _t, f in sched if f]
-        ids = self._sample(logits, temps0) if final else None
+        if saved and self._pcache is not None:
+            self._pcache.add_tokens_saved(saved)
+        final_rows = [(i, s) for i, s, _b, _t, f in sched if f]
+        ids_copy = None
+        if final_rows:
+            ids_dev = self._sample_logits(logits, temps0)
+            ids_copy = self._staging.download(ids_dev)
+            self._graft_chain(ids_dev, [i for i, _ in final_rows])
+        acct["dispatch_ms"] += (time.perf_counter() - t0) * 1e3
         with self._cv:
             self._pipe["prefill_chunks"] += len(sched)
             for i, s, base, take, _final in sched:
-                if self._slots[i] is not s:
-                    continue  # vacated mid-chunk
                 self._pos_host[i] = min(base + take, self.max_seq - 1)
-                s.prefill_pos = base + take
-            if final:
-                self._first_tokens_locked(final, ids)
+                if self._slots[i] is s:
+                    s.prefill_pos = base + take
+            pre = self._pre_rows_locked(final_rows)
+        return pre, (ids_copy if pre else None)
 
-    def _decode(self, decoding) -> None:
-        """One multi-step decode segment over the decoding rows, sampled
-        on device; ids are harvested synchronously."""
-        need = max(self._rem(s) for _, s in decoding)
+    def _spec_tick(self, decoding, acct: Dict) -> None:
+        """One draft-k / verify-1 round over every greedy decoding row
+        (the reference's ``_spec_tick``): the draft proposes k tokens from
+        the host context, ``llama.paged_verify`` consumes ``[next_input,
+        d1..dk]`` in one forward and returns the target's greedy argmax
+        after each input; the longest agreeing prefix plus one bonus token
+        is emitted — every emitted token the target's own greedy choice,
+        so output is identical to plain decode. The pos mirror then
+        rewinds past the rejected suffix and its blocks are freed in
+        place. With ``spec_candidates > 1`` the read-only
+        ``paged_verify_multi`` (or, with ``spec_tree``, the trie scorer
+        ``paged_verify_tree``) picks the winning candidate first, and the
+        write-path verify runs on the winner alone."""
+        k = self.spec_k
+        S = k + 1
+        N = self.spec_candidates
+        multi = N > 1
+        tree = multi and self.spec_tree
+        t_round = time.perf_counter()
+        # phase 1 — snapshot contexts under the lock, draft outside it
         with self._cv:
-            cap = 4 if self._waiting else self.SEGMENT_BUCKETS[0]
-            k = self.segment_size(need, cap)
-            # block growth for the segment's k appends (preempting victims
-            # on exhaustion; rows that still cannot grow sit this one out)
-            decoding = self._reserve_decode_locked(decoding, k)
-        if not decoding:
+            cand = [
+                (i, s, list(s.prompt) + list(s.out_ids), s.next_input())
+                for i, s in decoding if self._slots[i] is s
+            ]
+        if not cand:
             return
-        temps = np.zeros((self.max_batch,), np.float32)
-        tokens = np.zeros((self.max_batch, 1), np.int32)
-        for i, s in decoding:
-            temps[i] = max(float(s.temperature), 0.0)
-            tokens[i, 0] = s.next_input()
-        greedy = not np.any(temps > 0.0)
+        t_d = time.perf_counter()
+        if multi:
+            cand_lists = [self._draft.propose_candidates(ctx, k, N)
+                          for _, _, ctx, _ in cand]
+        else:
+            cand_lists = [[p] for p in self._draft.propose_batch(
+                [ctx for _, _, ctx, _ in cand], k)]
+        self._spec_stats.record_draft_ms((time.perf_counter() - t_d) * 1e3)
+
+        def _pad(drafts, ctx):
+            d = [int(t) for t in drafts][:k]
+            if len(d) < k:
+                pad = d[-1] if d else int(ctx[-1])
+                d = d + [pad] * (k - len(d))
+            return d
+
+        toks = np.zeros((self.max_batch, S), np.int32)
+        lens = np.zeros((self.max_batch,), np.int32)
+        starts = np.zeros((self.max_batch,), np.int32)
+        cand_toks = (np.zeros((self.max_batch, N, S), np.int32)
+                     if multi else None)
+        with self._cv:
+            rows = []
+            for (i, s, ctx, nxt), clists in zip(cand, cand_lists):
+                if self._slots[i] is not s:
+                    continue
+                dl = [_pad(d, ctx) for d in clists[:N]]
+                if not dl:
+                    dl = [[int(ctx[-1])] * k]
+                while len(dl) < N:
+                    dl.append(dl[0])
+                toks[i, 0] = nxt
+                toks[i, 1:] = dl[0]
+                lens[i] = S
+                starts[i] = self._pos_host[i]
+                if multi:
+                    cand_toks[i, :, 0] = nxt
+                    for c_n, c_d in enumerate(dl):
+                        cand_toks[i, c_n, 1:] = c_d
+                rows.append((i, s, dl))
+            # coverage for S appends per row, preempting on exhaustion;
+            # rows the reserve drops sit this verify out
+            surviving = self._reserve_decode_locked(
+                [(i, s) for i, s, _ in rows], S)
+            dmap = {i: d for i, _, d in rows}
+            rows = [(i, s, dmap[i]) for i, s in surviving]
+            for i in set(dmap) - {i for i, _, _ in rows}:
+                lens[i] = 0
+        if not rows:
+            return
         self._upload_mirrors()
         t0 = time.perf_counter()
-        toks, _last, self._cache = llama.paged_decode_segment(
-            self.params, self._cache, self._upload(tokens),
-            self._upload(temps), self._gen, self.cfg, n_steps=k,
-            greedy=greedy, kv_attention=self.kv_attention,
-            nonfinite=self._nonfinite,
+        if tree:
+            # trie ranking pass (read-only): candidates sharing a prefix
+            # share nodes; the deepest accepted root path becomes the
+            # write-path verify's draft
+            M = self._spec_tree_m
+            toks_tr = np.zeros((self.max_batch, M), np.int32)
+            pos_tr = np.zeros((self.max_batch, M), np.int32)
+            mask_tr = np.zeros((self.max_batch, M, M), bool)
+            mask_tr[:, np.arange(M), np.arange(M)] = True  # inactive rows
+            lens_tr = np.zeros((self.max_batch,), np.int32)
+            trees = {}
+            for i, s, dl in rows:
+                tr = build_tree(int(toks[i, 0]), dl, k, M)
+                trees[i] = tr
+                t_toks, t_dep, t_mask = tr.arrays(M)
+                toks_tr[i] = t_toks
+                pos_tr[i] = int(starts[i]) + t_dep
+                mask_tr[i] = t_mask
+                lens_tr[i] = tr.size
+            ids_tree = llama.paged_verify_tree(
+                self.params, self._cache, self._upload(toks_tr),
+                self._upload(pos_tr), self._upload(mask_tr),
+                self._upload(lens_tr), self._upload(starts), self.cfg,
+                kv_attention=self.kv_attention,
+            ).cpu().numpy()  # [B, M]
+            for i, s, dl in rows:
+                path = trees[i].walk(ids_tree[i])
+                # the walk leaves the greedy chain only where that chain
+                # already mismatched: switching never shortens acceptance
+                switched = bool(path) and path != dl[0][:len(path)]
+                self._spec_stats.record_candidates(trees[i].size, switched)
+                if switched:
+                    dl[0] = _pad(path, [toks[i, 0]])
+                    toks[i, 1:] = dl[0]
+        elif multi:
+            ids_multi = llama.paged_verify_multi(
+                self.params, self._cache, self._upload(cand_toks),
+                self._upload(lens), self._upload(starts), self.cfg,
+                kv_attention=self.kv_attention,
+            ).cpu().numpy()  # [B, N, S]
+            for i, s, dl in rows:
+                best = 0
+                best_a = accept_length(dl[0], ids_multi[i, 0][:k])
+                for c_n in range(1, N):
+                    a_n = accept_length(dl[c_n], ids_multi[i, c_n][:k])
+                    if a_n > best_a:
+                        best, best_a = c_n, a_n
+                self._spec_stats.record_candidates(N, best != 0)
+                if best:
+                    dl[0] = dl[best]  # the accept loop reads dl[0]
+                    toks[i, 1:] = dl[0]
+        t_v = time.perf_counter()
+        ids_dev, self._cache = llama.paged_verify(
+            self.params, self._cache, self._upload(toks), self._upload(lens),
+            self._upload(starts), self.cfg, kv_attention=self.kv_attention,
         )
-        rows = toks.cpu().numpy()  # the synchronous harvest
-        dt_ms = (time.perf_counter() - t0) * 1e3
+        acct["dispatch_ms"] += (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        ids = ids_dev.cpu().numpy()  # [B, S]
+        t2 = time.perf_counter()
+        acct["harvest_ms"] += (t2 - t1) * 1e3
+        with self._cv:
+            for i, s, dl in rows:
+                drafts = dl[0]
+                a = accept_length(drafts, ids[i][:k])
+                if self._slots[i] is not s:
+                    continue  # vacated mid-verify; writes land in trash
+                take = min(a + 1, self._rem(s))
+                s.out_ids.extend(int(t) for t in ids[i][:take])
+                s.fed += take
+                # rewind past the rejected suffix: the device advanced pos
+                # by S, the mirror keeps only accepted history
+                self._pos_host[i] = min(int(starts[i]) + take,
+                                        self.max_seq - 1)
+                self._trim_row_locked(i, int(self._pos_host[i]))
+                self._spec_stats.record(k, a, take)
+                self._maybe_finalize_locked(i, s)
+            p = self._pipe
+            p["spec_rounds"] += 1
+            p["verify_ms_sum"] += (t2 - t_v) * 1e3
+            p["spec_ms_sum"] += (time.perf_counter() - t_round) * 1e3
+            self._admit_locked()
+            self._cv.notify_all()
+        # the verify consumed host-fed tokens: any device chain is stale
+        self._chain = None
+        acct["segments"] += 1
+        acct["host_ms"] += (time.perf_counter() - t2) * 1e3
+
+    def _commit_tick(self, acct: Dict, tick_ms: float) -> None:
+        """Fold one tick's accounting into the pipeline stats."""
+        overlap_ms = (acct["dispatch_ms"] + acct["host_ms"]
+                      if acct["overlapped"] else 0.0)
         with self._cv:
             p = self._pipe
-            p["segments"] += 1
-            p["decode_steps"] += k
-            p["decode_ms_sum"] += dt_ms
-            for i, s in decoding:
-                if self._slots[i] is not s:
-                    continue  # vacated (timeout/cancel) mid-segment
-                take = min(k, self._rem(s))
-                self._pos_host[i] = min(int(self._pos_host[i]) + k,
-                                        self.max_seq - 1)
-                s.fed += take
-                s.out_ids.extend(int(t) for t in rows[i][:take])
-                p["decode_tokens"] += take
-                self._maybe_finalize_locked(i, s)
+            p["ticks"] += 1
+            p["segments"] += acct["segments"]
+            p["deferred_harvests"] += acct["deferred"]
+            p["flushes"] += acct["flushes"]
+            p["chain_rebuilds"] += acct["rebuilds"]
+            p["dispatch_ms_sum"] += acct["dispatch_ms"]
+            p["harvest_ms_sum"] += acct["harvest_ms"]
+            p["host_ms_sum"] += acct["host_ms"]
+            p["tick_ms_sum"] += tick_ms
+            p["overlap_ms_sum"] += overlap_ms
+            self._pipe_recent.append(
+                (acct["dispatch_ms"], acct["harvest_ms"], acct["host_ms"],
+                 tick_ms))
 
     @torch.no_grad()
     def _loop_once(self) -> bool:
-        """One scheduler tick; returns True when the engine is stopping:
-        admit, prefill newly admitted rows (whole or one chunk budget),
-        then one decode segment over the decoding rows."""
+        """One tick of the DOUBLE-BUFFERED decode pipeline; returns True
+        when the engine is stopping. In steady state (segment N-1 in
+        flight on the device):
+
+            dispatch prefill (new rows)        } queued behind N-1, ids
+            dispatch decode segment N          } chained ON THE DEVICE
+            harvest segment N-1                — waits on N-1's copy ...
+            bookkeeping/finalize/admission     } ... then all of this
+            harvest prefill first ids          } overlaps N's device time
+
+        Freshly prefilled rows join segment N in the same tick: their
+        first ids are merged into the device chain
+        (``llama.merge_chain_tokens``). Nothing in the dispatch half reads
+        a device value: uploads go through pinned staging and harvests
+        wait on recorded events, on the one stream whose order keeps
+        segment N behind N-1 (the pools are updated in place). When
+        requests are waiting, the in-flight segment is harvested FIRST so
+        finished rows free up (bounded admission latency)."""
         with self._cv:
             self._admit_locked()
-            while not self._stop and not any(
-                s is not None for s in self._slots
-            ):
+            while (not self._stop and self._pending is None
+                   and not any(s is not None for s in self._slots)):
                 self._cv.wait(timeout=0.2)
                 self._admit_locked()
-            if self._stop:
-                return True
+            stop = self._stop
+            waiting = bool(self._waiting)
+        if stop:
+            self._harvest_segment()  # flush: deliver in-flight tokens
+            return True
+
+        t_tick = time.perf_counter()
+        acct = {"dispatch_ms": 0.0, "harvest_ms": 0.0, "host_ms": 0.0,
+                "overlapped": False, "segments": 0, "deferred": 0,
+                "flushes": 0, "rebuilds": 0}
+        if waiting and self._pending is not None:
+            h, b = self._harvest_segment()
+            acct["harvest_ms"] += h
+            acct["host_ms"] += b
+            acct["flushes"] += 1
+
+        with self._cv:
+            self._admit_locked()
             active = list(self._slots)
+
+        # ---- prefill DISPATCH (first ids sampled and kept on the device)
+        pre: list = []
+        ids_copy = None
         todo = [(i, s) for i, s in enumerate(active)
                 if s is not None and s.fed == 0]
         if todo and self.prefill_chunk_tokens:
-            self._prefill_chunks(todo)
+            pre, ids_copy = self._prefill_chunks(todo, acct)
         elif todo:
-            self._prefill_whole(todo)
-        with self._cv:
-            self._admit_locked()
-            decoding = [
-                (i, s) for i, s in enumerate(self._slots)
-                if s is not None and s.fed >= len(s.prompt)
-                and self._rem(s) > 0
-            ]
+            pre, ids_copy = self._prefill_whole(todo, acct)
+        if todo:
+            with self._cv:
+                active = list(self._slots)
+
+        if self.spec_k and pre:
+            # speculative ticks feed the verify window from HOST context:
+            # collect first ids now, so fresh rows join this tick's verify
+            h, b = self._harvest_prefill(pre, ids_copy)
+            acct["harvest_ms"] += h
+            acct["host_ms"] += b
+            pre, ids_copy = [], None
+            with self._cv:
+                active = list(self._slots)
+
+        decoding = [
+            (i, s) for i, s in enumerate(active)
+            if s is not None and s.fed >= len(s.prompt) and self._rem(s) > 0
+        ]
+
+        # ---- speculative verify: when every decoding row is greedy;
+        # mixed-temperature traffic takes the segment path unchanged
+        if decoding and self.spec_k and all(
+                float(s.temperature) <= 0.0 for _, s in decoding):
+            if self._pending is not None:
+                # the draft's host context needs the in-flight tokens
+                h, b = self._harvest_segment()
+                acct["harvest_ms"] += h
+                acct["host_ms"] += b
+                acct["flushes"] += 1
+                with self._cv:
+                    decoding = [(i, s) for i, s in decoding
+                                if self._slots[i] is s and self._rem(s) > 0]
+            if decoding:
+                self._spec_tick(decoding, acct)
+            decoding = []
+
+        new_pending = None
         if decoding:
-            self._decode(decoding)
-        with self._cv:
-            self._pipe["ticks"] += 1
-            self._admit_locked()
-            self._cv.notify_all()
+            need = max(self._rem(s) for _, s in decoding)
+            with self._cv:
+                cap = 4 if self._waiting else self.SEGMENT_BUCKETS[0]
+            k = self.segment_size(need, cap)
+            temps = np.zeros((self.max_batch,), np.float32)
+            for i, s in decoding:
+                temps[i] = max(float(s.temperature), 0.0)
+            greedy = not np.any(temps > 0.0)
+            # feed from the DEVICE chain whenever it covers the rows
+            chain_ok = (self._chain is not None
+                        and self._chain[0] == self._prefill_gen
+                        and {i for i, _ in decoding} <= set(self._chain[1]))
+            if chain_ok:
+                tokens_dev = self._chain[2]
+            else:
+                # stale or absent chain: rebuild the feed from HOST tokens;
+                # in-flight values must land first
+                h, b = self._harvest_segment()
+                acct["harvest_ms"] += h
+                acct["host_ms"] += b
+                if pre:
+                    h, b = self._harvest_prefill(pre, ids_copy)
+                    acct["harvest_ms"] += h
+                    acct["host_ms"] += b
+                    pre = []
+                acct["flushes"] += 1
+                acct["rebuilds"] += 1
+                decoding = [(i, s) for i, s in decoding
+                            if self._slots[i] is s and self._rem(s) > 0]
+                tokens = np.zeros((self.max_batch, 1), np.int32)
+                for i, s in decoding:
+                    tokens[i, 0] = s.next_input()
+                tokens_dev = self._upload(tokens)
+        if decoding:
+            # block growth for the segment's k appends; rows that cannot
+            # grow sit this dispatch out (their pos mirror stays put)
+            with self._cv:
+                decoding = self._reserve_decode_locked(decoding, k)
+        if decoding:
+            temps_dev = self._temps_dev(temps)
+            self._upload_mirrors()
+            t0 = time.perf_counter()
+            ev = None
+            if self.device.type == "cuda":
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            toks, last, self._cache = llama.paged_decode_segment(
+                self.params, self._cache, tokens_dev, temps_dev, self._gen,
+                self.cfg, n_steps=k, greedy=greedy,
+                kv_attention=self.kv_attention, nonfinite=self._nonfinite,
+            )
+            if ev is not None:
+                ev[1].record()
+            toks_copy = self._staging.download(toks)
+            dispatch_ms = (time.perf_counter() - t0) * 1e3
+            acct["dispatch_ms"] += dispatch_ms
+            self._chain = (self._prefill_gen,
+                           tuple(i for i, _ in decoding), last)
+            sched = []
+            with self._cv:
+                for i, s in decoding:
+                    take = min(k, self._rem(s))
+                    s.pending += take
+                    s.fed += take
+                    sched.append((i, s, take))
+                    # scheduled rows advance k steps on the device; rows
+                    # NOT scheduled keep their mirror
+                    self._pos_host[i] = min(int(self._pos_host[i]) + k,
+                                            self.max_seq - 1)
+                self._pipe["inflight"] = 1
+            new_pending = {"toks": toks_copy, "sched": sched, "k": k,
+                           "ev": ev, "dispatch_ms": dispatch_ms}
+            acct["segments"] += 1
+
+        # ---- harvest: segment N-1's ids (then prefill's first ids)
+        # while segment N runs on the device — the overlap window
+        if self._pending is not None:
+            if new_pending is not None:
+                acct["overlapped"] = True
+                acct["deferred"] += 1
+            else:
+                acct["flushes"] += 1  # the pipeline drains this tick
+            h, b = self._harvest_segment()
+            acct["harvest_ms"] += h
+            acct["host_ms"] += b
+        if pre:
+            h, b = self._harvest_prefill(pre, ids_copy)
+            acct["harvest_ms"] += h
+            acct["host_ms"] += b
+        self._pending = new_pending
+        self._commit_tick(acct, (time.perf_counter() - t_tick) * 1e3)
         return False
 
 
@@ -887,6 +1683,7 @@ def make_handler(engine: LlamaEngine, model_name: str):
                     int(req.get("max_tokens", 16)),
                     float(req.get("temperature", 0.0)),
                     timeout_s=timeout_s,
+                    cache_prefix=bool(req.get("cache_prefix", False)),
                     request_id=str(req.get("request_id", "")),
                     model_version=str(req.get("model_version", "")),
                 )
@@ -906,8 +1703,8 @@ def make_handler(engine: LlamaEngine, model_name: str):
 
 def engine_kwargs(cfg: Dict, ckpt_dir: str) -> Dict:
     """How KUBEDL_SERVE_CONFIG maps onto the engine — the reference's
-    keys and environment fallbacks. ``prefix_cache_mb`` defaults to 0
-    until the prefix cache is ported (the reference defaults to 64)."""
+    keys, defaults and environment fallbacks, plus the port's ``max_seq``,
+    ``device`` and ``seed``."""
     return {
         "preset": cfg.get(
             "preset", os.environ.get("KUBEDL_SERVE_PRESET", "tiny")
@@ -921,7 +1718,7 @@ def engine_kwargs(cfg: Dict, ckpt_dir: str) -> Dict:
         "mesh_axes": cfg.get("mesh") or None,
         "max_queue_depth": int(cfg.get("max_queue_depth", 64)),
         "max_queue_age_s": float(cfg.get("max_queue_age_s", 30.0)),
-        "prefix_cache_mb": float(cfg.get("prefix_cache_mb", 0.0)),
+        "prefix_cache_mb": float(cfg.get("prefix_cache_mb", 64.0)),
         "kv_layout": cfg.get(
             "kv_layout", os.environ.get("KUBEDL_SERVE_KV_LAYOUT", "paged")
         ),
@@ -930,9 +1727,25 @@ def engine_kwargs(cfg: Dict, ckpt_dir: str) -> Dict:
         "spec_k": int(
             cfg.get("spec_k", os.environ.get("KUBEDL_SERVE_SPEC_K", "0"))
         ),
+        "spec_draft": cfg.get(
+            "spec_draft", os.environ.get("KUBEDL_SERVE_SPEC_DRAFT", "ngram")
+        ),
         "kv_attention": cfg.get(
             "kv_attention",
             os.environ.get("KUBEDL_SERVE_KV_ATTENTION", "gather"),
+        ),
+        "spec_candidates": int(
+            cfg.get(
+                "spec_candidates",
+                os.environ.get("KUBEDL_SERVE_SPEC_CANDIDATES", "1"),
+            )
+        ),
+        "spec_draft_layers": int(cfg.get("spec_draft_layers", 0)),
+        "spec_tree": bool(
+            cfg.get(
+                "spec_tree",
+                os.environ.get("KUBEDL_SERVE_SPEC_TREE", "") == "1",
+            )
         ),
         "prefill_chunk_tokens": int(
             cfg.get(
@@ -943,6 +1756,7 @@ def engine_kwargs(cfg: Dict, ckpt_dir: str) -> Dict:
         "role": cfg.get(
             "role", os.environ.get("KUBEDL_SERVE_ROLE", "colocated")
         ),
+        "advertise_prefix_len": int(cfg.get("advertise_prefix_len", 8)),
         "model_version": cfg.get(
             "model_version",
             os.environ.get("KUBEDL_SERVE_MODEL_VERSION", "base"),

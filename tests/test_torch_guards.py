@@ -79,8 +79,10 @@ def test_resolve_device_rule(monkeypatch):
 @pytest.mark.parametrize("kw", [
     {"quantize": "int8"},
     {"mesh_axes": {"tensor": 2}},
-    {"spec_k": 4},
-    {"prefix_cache_mb": 64.0},
+    # speculation and the prefix cache are served now; what stays a later
+    # slice is a trained zoo draft and the contiguous engine's prefix cache
+    {"spec_k": 4, "spec_draft": "zoo:tiny"},
+    {"prefix_cache_mb": 64.0, "kv_layout": "contiguous"},
     {"kv_layout": "contiguous"},
     {"role": "prefill"},
     {"role": "decode"},
@@ -93,6 +95,35 @@ def test_unsupported_engine_knobs_raise(kw):
 
     with pytest.raises(ValueError):
         LlamaEngine(preset="tiny", device="cpu", max_seq=64, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"spec_k": 4},
+    {"spec_k": 4, "spec_draft": "repeat"},
+    {"spec_k": 2, "spec_draft": "model", "spec_draft_layers": 1},
+    {"spec_k": 3, "spec_candidates": 3, "spec_tree": True},
+    {"prefix_cache_mb": 64.0},
+    {"prefix_cache_mb": 0.0},
+], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+def test_ported_engine_knobs_are_accepted(kw):
+    from kubedl_tpu_torch.serving.server import LlamaEngine
+
+    eng = LlamaEngine(preset="tiny", device="cpu", max_seq=64, **kw)
+    try:
+        st = eng.stats()
+        assert ("prefix_cache" in st) == (kw.get("prefix_cache_mb", 64.0) > 0)
+        assert ("speculative" in st) == bool(kw.get("spec_k"))
+        assert eng.spec_tree == bool(kw.get("spec_tree"))
+    finally:
+        eng.close()
+
+
+def test_unknown_spec_draft_raises():
+    from kubedl_tpu_torch.serving.server import LlamaEngine
+
+    with pytest.raises(ValueError, match="unknown draft"):
+        LlamaEngine(preset="tiny", device="cpu", max_seq=64, spec_k=2,
+                    spec_draft="oracle")
 
 
 def test_hot_swap_raises_naming_later_slice():

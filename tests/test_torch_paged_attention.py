@@ -190,9 +190,12 @@ def test_blocks_per_chunk():
 
 @pytest.mark.parametrize("kw", ["self_k", "self_v", "self_mask"])
 def test_read_only_verify_modes_not_ported(kw):
+    """The read-only verify modes are ported now (held against the JAX
+    lax path in ``test_torch_speculative.py``); one of their tensors
+    alone is a malformed call and raises, as in the reference."""
     kp, vp, bt = _random_pool(0, 1, 2, 16, 2, 16)
     q = torch.zeros((1, 2, 4, 16))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tpa.paged_attention(q, _t(kp), _t(vp), _t(bt),
                             torch.zeros((1,), dtype=torch.int32),
                             **{kw: torch.zeros((1, 2, 2, 16))})
@@ -410,6 +413,11 @@ _BLOCKED_CASES = [
     ("tc-or-cc S100 hd128 bs32 g8", 2, 8, 32, 1, 8, 128, 100, [5, 200],
      (1,)),
     ("cc S16 hd256", 2, 8, 16, 1, 8, 256, 16, [0, 120], ()),
+    # speculative verify (S = k+1, group 4: R < 64) across block boundaries
+    ("split S2 hd128 verify", 4, 8, 16, 2, 8, 128, 2, [15, 31, 126, 0],
+     (3,)),
+    ("split S5 hd128 verify", 4, 8, 16, 2, 8, 128, 5, [14, 47, 125, 60],
+     (2,)),
 ]
 
 

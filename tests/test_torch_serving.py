@@ -31,6 +31,13 @@ PROMPTS = [[5, 9, 13], [7, 3, 3, 11, 2], [1], [2, 4, 6, 8, 10, 12, 14],
 MAX_TOKENS = 10
 #: chain length the fixture builds (the preemption case decodes longer)
 CHAIN_TOKENS = 40
+#: the keys of the reference's ``LlamaEngine.pipeline_stats()``
+#: (kubedl_tpu/serving/server.py:1056) once a tick has run
+PIPELINE_KEYS = ("ticks", "segments", "deferred_harvests", "flushes",
+                 "chain_rebuilds", "errors", "inflight", "queued",
+                 "dispatch_ms_avg", "harvest_ms_avg", "host_ms_avg",
+                 "tick_ms_avg", "overlap_ratio", "dispatch_ms_p50",
+                 "harvest_ms_p50", "host_ms_p50", "tick_ms_p50")
 ENGINE_KW = dict(preset="tiny", device="cpu", max_batch=2, max_seq=64,
                  kv_block_size=4, kv_blocks=40)
 
@@ -120,6 +127,75 @@ def test_concurrent_rows_and_preemption_keep_streams(ref):
     assert st["kv_blocks"]["used"] == 0
 
 
+def test_pipelined_streams_under_concurrent_admission(ref):
+    """Five requests into two rows at once, whole-prompt prefill: rows
+    finish and free while others decode, waiting requests are admitted
+    between segments (the flush-first rule), freshly prefilled rows join
+    the in-flight chain on the device, and segments are harvested a tick
+    late — with every stream the JAX chain's."""
+    params, chains = ref
+    eng = _engine(params, kv_attention="blocked")
+    outs = [None] * len(PROMPTS)
+    try:
+        def one(j):
+            outs[j] = eng.generate(PROMPTS[j], max_tokens=MAX_TOKENS + 2 * j)
+
+        ths = [threading.Thread(target=one, args=(j,))
+               for j in range(len(PROMPTS))]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=120)
+        st = eng.stats()
+    finally:
+        eng.close()
+    assert [o["token_ids"] for o in outs] == \
+        [c[:MAX_TOKENS + 2 * j] for j, c in enumerate(chains)]
+    pipe = st["pipeline"]
+    assert pipe["deferred_harvests"] >= 1  # a segment overlapped the next
+    assert pipe["flushes"] >= 1 and pipe["errors"] == 0
+    assert pipe["inflight"] == 0 and pipe["decode_tokens"] > 0
+    assert 0.0 < pipe["overlap_ratio"] <= 1.0
+    assert st["kv_blocks"]["used"] == 0
+
+
+def test_scheduler_error_resets_the_pipeline(ref, monkeypatch):
+    """A decode dispatch that raises fails the in-flight requests, drops
+    the pipeline state (deferred segment, device chain) and the prefix
+    cache with the rebuilt pool, and the engine keeps serving."""
+    params, chains = ref
+    eng = _engine(params, kv_attention="blocked")
+    real = srv.llama.paged_decode_segment
+    calls = {"n": 0}
+
+    def flaky(*a, **kw):
+        calls["n"] += 1
+        if calls["n"] == 1:
+            raise RuntimeError("injected decode fault")
+        return real(*a, **kw)
+
+    monkeypatch.setattr(srv.llama, "paged_decode_segment", flaky)
+    try:
+        bad = eng.generate(PROMPTS[0], max_tokens=MAX_TOKENS)
+        good = eng.generate(PROMPTS[1], max_tokens=MAX_TOKENS)
+        st = eng.stats()
+    finally:
+        eng.close()
+    assert bad == {"error": "injected decode fault"}
+    assert good["token_ids"] == chains[1][:MAX_TOKENS]
+    assert st["pipeline"]["errors"] == 1
+    assert eng._pending is None  # the stop flushed the last segment
+
+
+def test_staging_uploads_are_owned_copies():
+    stage = srv._Staging(torch.device("cpu"))
+    arr = np.arange(6, dtype=np.int32)
+    dev = stage.upload(arr)
+    arr[:] = -1  # a later edit of the host mirror must not reach it
+    assert dev.tolist() == list(range(6))
+    assert stage.download(dev).wait().tolist() == list(range(6))
+
+
 def _serve(eng):
     httpd = ThreadingHTTPServer(("127.0.0.1", 0),
                                 srv.make_handler(eng, "tiny"))
@@ -173,7 +249,9 @@ def test_http_concurrent_equals_sequential(ref):
         code, st = _get(base + "/v1/stats")
         assert code == 200 and st["requests"] == 8
         assert st["kv_blocks"]["attention_kernel"] == "blocked"
-        assert st["pipeline"]["harvest"] == "synchronous"
+        # the double-buffered pipeline reports the reference's keys
+        assert set(PIPELINE_KEYS) <= set(st["pipeline"])
+        assert st["pipeline"]["segments"] > 0
         assert "ttft_ms_p50" in st
     finally:
         httpd.shutdown()
@@ -258,8 +336,8 @@ def test_engine_kwargs_reads_serve_config():
     assert kw["preset"] == "llama3-8b" and kw["max_batch"] == 8
     assert kw["max_seq"] == 2048 and kw["prefill_chunk_tokens"] == 512
     assert kw["kv_attention"] == "blocked" and kw["kv_layout"] == "paged"
-    # the prefix cache is a later slice: off unless asked for (which raises)
-    assert kw["prefix_cache_mb"] == 0.0
+    # the reference's default: the prefix cache is on at 64 MB
+    assert kw["prefix_cache_mb"] == 64.0
     assert kw["device"] is None  # the engine's default: the card
 
 
