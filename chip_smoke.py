@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py                # every phase, one card
-    python3 chip_smoke.py --skip-engine  # without phases 5, 6 and 13-15
+    python3 chip_smoke.py --skip-engine  # without phases 5, 6 and 13-19
     python3 chip_smoke.py --skip-train   # without phases 8 to 12
 
 Phases (any failure exits non-zero before the final line):
@@ -117,7 +117,43 @@ Phases (any failure exits non-zero before the final line):
    the tree, and the model draft must each give greedy streams IDENTICAL
    to the plain engine's (no prefix cache, no speculation).
 
-Phases 13-15 run after phase 6 (they are skipped with ``--skip-engine``).
+16. W8A16 (weight-only int8 matmul, ``csrc/w8a16.cu``) against its plain
+   version at Llama-3-8B's shapes (K x N in 4096 x 4096, 4096 x 1024,
+   4096 x 14336, 14336 x 4096, 4096 x 128256; M in {1, 8, 40, 512}; bf16
+   and float32 h) and a tied [N, K] case at Gemma-2B widths, within
+   ``W8_TOL``; at the timed shapes the kernel, the plain version
+   (dequantize, then torch.matmul), the dequantize alone, cuBLAS bf16 on
+   the unquantized weight and the bound; the sums over a decode step.
+17. int8 engine: ``serve_main`` with ``quantize`` "int8" on phase 5's
+   config and requests (Llama-3-8B full width and depth); gates on every
+   response, 7 x 32 + 1 W8A16 launches a decode step, the paged kernels,
+   finite logits and resident weight bytes about half of phase 5's;
+   prints ms per decode step, TTFT and the W8A16 device ms a decode step
+   from a profiled window of pure decode. Then Llama-3-8B width, 2
+   layers, float32: the int8 engine's greedy streams with the kernel must
+   equal the same engine's with the plain version forced
+   (``forced_plain_w8a16``).
+18. checkpoints and hot swap: Llama-3-8B width, 4 layers, bf16: two seeds'
+   params written by the port's ``save_checkpoint``; ``serve_main`` with
+   ``KUBEDL_MODEL_PATH`` restores the first (gated: every restored tensor
+   and one prompt's logits equal the in-memory ones); /admin/load_version
+   loads the second beside it, requests name each version,
+   /admin/activate_version and /admin/retire_version run with rows in
+   flight (gated: those rows finish, the retired tree is evicted and
+   freed); prints save / load seconds and both fingerprints. Then 2
+   layers in float32: a base version and a checkpoint loaded as "v2"
+   give each version's greedy streams IDENTICAL to single-version
+   engines', interleaved and across activate / retire.
+19. disaggregated pair: two ``serve_main`` replicas on the card, role
+   prefill and role decode, Llama-3-8B full depth bf16; phase 5's greedy
+   requests go /v1/prefill -> KVH1 bytes -> /v1/adopt; gates on every
+   response, handoffs_out == handoffs_in and each pool's free blocks;
+   prints handoff ms and bytes and the bf16 agreement with phase 5's
+   streams (not gated). Then 2 layers in float32: disaggregated greedy
+   streams IDENTICAL to the colocated engine's.
+
+Phase 16 runs after phase 4; phases 13-15 and 17-19 after phase 6 (they
+are skipped with ``--skip-engine``).
 
 Output: the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -137,6 +173,7 @@ import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -1231,9 +1268,11 @@ def reset_counts(pa):
 
 
 @contextlib.contextmanager
-def serving(server_mod, serve_cfg):
-    """``serve_main`` on 127.0.0.1 with ``serve_cfg``; yields its base URL
-    and stops it (gracefully, through the cancel event) on exit."""
+def serving(server_mod, serve_cfg, env=None):
+    """``serve_main`` on 127.0.0.1 with ``serve_cfg`` (and ``env``, e.g.
+    ``KUBEDL_MODEL_PATH``); yields its base URL and stops it (gracefully,
+    through the cancel event) on exit. serve_main reads its config from
+    the process environment, so replicas start one after another."""
     port = free_port()
     cfg = dict(serve_cfg, port=port, host="127.0.0.1")
     cancel = threading.Event()
@@ -1241,7 +1280,8 @@ def serving(server_mod, serve_cfg):
 
     def serve():
         try:
-            server_mod.serve_main({"KUBEDL_SERVE_CONFIG": json.dumps(cfg),
+            server_mod.serve_main({**(env or {}),
+                                   "KUBEDL_SERVE_CONFIG": json.dumps(cfg),
                                    "_KUBEDL_CANCEL": cancel})
         except BaseException as e:  # surfaced by the health wait below
             box["error"] = repr(e)
@@ -1326,6 +1366,7 @@ def run_engine(pa, server_mod, llama_mod, summary):
         "ttft_ms_p50": st.get("ttft_ms_p50"),
         "ttft_ms_p95": st.get("ttft_ms_p95"),
         "max_memory_allocated_gib": peak / 2**30,
+        "weight_bytes": st["weights"]["bytes"],
         "launches": launches,
         "route_launches": routes,
         # the double-buffered tick (the reference's pipeline_stats keys)
@@ -1335,6 +1376,7 @@ def run_engine(pa, server_mod, llama_mod, summary):
     }
     print("engine (smoke run, not a benchmark): " + json.dumps(eng), flush=True)
     summary["launches"] = launches
+    summary["bf16_weight_bytes"] = st["weights"]["bytes"]
     blocked_tokens = [r[1]["token_ids"] for r in results[:6]]
     return blocked_tokens, reqs, serve_cfg
 
@@ -1706,12 +1748,735 @@ def run_f32_identity(server_mod, llama_mod):
           "engine (8 streams x 32 tokens): " + json.dumps(facts), flush=True)
 
 
+# ---- phases 16 to 19: int8 weights, checkpoints and versions, the pair -------
+
+#: the device phases 16-19 run on (the card; a CPU rehearsal sets "cpu")
+DEV = "cuda"
+W8_M = (1, 8, 40, 512)
+#: the kernels line's shape: the MLP's up projection at decode (M=8)
+W8_MAIN = (4096, 14336)
+#: the tied case: Gemma-2B's embedding as its head (K = dim, N = vocab)
+W8_TIED = (2048, 256000)
+#: the timed cases: the MLP's up projection and the head at decode (M=8)
+#: and verify (M=40) rows and a prefill chunk (M=512)
+W8_TIMED = {(4096, 14336), (4096, 128256)}
+W8_REPLACES = ("kubedl_tpu/models/llama.py:332 deq (convert+scale fused into "
+               "the consuming dot by XLA; no Pallas kernel)")
+#: Tolerances of the W8A16 kernel against its plain version, relative to
+#: the largest output: bf16 1e-2 (both sum in float32 and round once to
+#: bf16; cuBLAS may split K: ~2 bf16 ulps at the top of the range); float32
+#: 2e-5 (the same exact float32 weight, float32 sums reordered over K <=
+#: 14336: measured ~6e-6)
+W8_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
+
+
+@contextlib.contextmanager
+def forced_plain_w8a16(w8):
+    """The int8 matmul's plain version forced on CUDA tensors (the
+    identity gate's other side); the kernel is restored on exit."""
+    kernel = w8.w8a16_matmul
+    w8.w8a16_matmul = lambda h, q8, s8, transposed=False: \
+        w8.plain_w8a16_matmul(h, q8, s8, transposed)
+    try:
+        yield
+    finally:
+        w8.w8a16_matmul = kernel
+
+
+def w8_step_shapes(cfg) -> dict:
+    """The int8 weights a decode step reads, ``(K, N) -> launches``: each
+    layer's wq, wk, wv, wo, w_gate, w_up and w_down, then the head (for
+    Llama-3-8B 7 x 32 + 1 = 225 launches over five shapes)."""
+    D, F, L = cfg.dim, cfg.ffn_dim, cfg.n_layers
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    out: dict = {}
+    for kn in ((D, q), (D, kv), (D, kv), (q, D), (D, F), (D, F), (F, D)):
+        out[kn] = out.get(kn, 0) + L
+    out[(D, cfg.vocab_size)] = out.get((D, cfg.vocab_size), 0) + 1
+    return out
+
+
+def w8_per_step(cfg) -> int:
+    """W8A16 launches a decode step (and a prefill dispatch)."""
+    return sum(w8_step_shapes(cfg).values())
+
+
+def int8_weight_bytes(cfg) -> int:
+    """The bytes an int8 tree holds, from the config alone: a byte a
+    quantized weight and its bf16 scales (one an output column; one a
+    row for the embedding, which is the head when tied), and the norms
+    in the model's dtype."""
+    esz = torch.tensor([], dtype=cfg.dtype).element_size()
+    n = sum(c * (K * N + 2 * N) for (K, N), c in w8_step_shapes(cfg).items())
+    if not cfg.tie_embeddings:
+        n += cfg.vocab_size * cfg.dim + 2 * cfg.vocab_size
+    return n + (2 * cfg.n_layers + 1) * cfg.dim * esz
+
+
+def w8_bound(M, N, K, dtype):
+    """Least time for ``y = h @ deq(w)``: h, the int8 weight and its bf16
+    scales read once, y written once, against 2 M N K operations at the
+    peak rate of h's type."""
+    esz = torch.tensor([], dtype=dtype).element_size()
+    nbytes = M * K * esz + K * N + 2 * N + M * N * esz
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * M * N * K / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def w8_case(llama_mod, K, N, tied, seed):
+    """A Llama-scale weight N(0, 1/K) in float32, its int8 leaf (the
+    port's quantizer: per column, or per row for the tied [N, K]) and
+    its bf16 copy for cuBLAS."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    w = torch.randn((N, K) if tied else (K, N), generator=g, device=DEV)
+    w /= math.sqrt(K)
+    q = llama_mod._quant_leaf(w, axis=-1 if tied else -2)
+    wb = (w.T if tied else w).to(torch.bfloat16).contiguous()
+    del w
+    return q["q8"], q["s8"], wb
+
+
+def run_w8a16_kernels(w8, llama_mod):
+    """Phase 16: the W8A16 kernel against its plain version at Llama-3-8B's
+    shapes (M in {1, 8, 40, 512}, bf16 and float32 h) and one tied
+    [N, K] case at Gemma-2B widths; at the timed shapes the kernel, the
+    plain version (dequantize, then torch.matmul), cuBLAS bf16 on the
+    unquantized weight (the yardstick) and the bound."""
+    out, per_shape = {}, {}
+    shapes = w8_step_shapes(llama_mod.preset("llama3-8b"))
+    cases = [(K, N, False) for K, N in shapes] + [W8_TIED + (True,)]
+    for K, N, tied in cases:
+        q8, s8, wb = w8_case(llama_mod, K, N, tied, seed=K + N)
+        for M in W8_M:
+            for dtype in (torch.bfloat16, torch.float32):
+                g = torch.Generator(device=DEV).manual_seed(M)
+                h = torch.randn((M, K), generator=g, device=DEV).to(dtype)
+                before = w8.LAUNCHES["w8a16"]
+                y = w8.w8a16_matmul(h, q8, s8, tied)
+                torch.cuda.synchronize()
+                ref = w8.plain_w8a16_matmul(h, q8, s8, tied)
+                err = (y.float() - ref.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                if w8.LAUNCHES["w8a16"] != before + 1:
+                    fail(f"w8a16 {K}x{N} M={M} did not launch the kernel")
+                if not math.isfinite(err) or err > W8_TOL[dtype] * scale:
+                    fail(f"w8a16 {K}x{N} tied={tied} M={M} {dtype}: max abs "
+                         f"err {err} > {W8_TOL[dtype]} x {scale}")
+                key = f"{K}x{N}{' tied' if tied else ''} M={M} " \
+                      f"{str(dtype).split('.')[-1]}"
+                rec = {"max_abs_err": err, "max_abs_out": scale}
+                timed = dtype == torch.bfloat16 and (
+                    ((K, N) in W8_TIMED and M > 1) or (M == 8 and not tied))
+                if timed:
+                    kern = lambda: w8.w8a16_matmul(h, q8, s8, tied)  # noqa
+                    lib = lambda: h @ wb  # noqa: E731
+                    rec["ms"] = time_ms(kern)
+                    rec["call_ms"] = time_ms(kern, hide_host=False)
+                    rec["plain_ms"] = time_ms(
+                        lambda: w8.plain_w8a16_matmul(h, q8, s8, tied),
+                        reps=10, hide_host=False)
+                    rec["deq_ms"] = time_ms(
+                        lambda: w8.deq_weight(q8, s8, dtype, tied), reps=10,
+                        hide_host=False)
+                    rec["library_ms"] = time_ms(lib)
+                    rec["library_call_ms"] = time_ms(lib, hide_host=False)
+                    rec["bound_ms"], rec["bound_by"] = w8_bound(M, N, K,
+                                                                dtype)
+                    rec["ms_over_bound"] = rec["ms"] / rec["bound_ms"]
+                    rec["ms_over_library"] = rec["ms"] / rec["library_ms"]
+                    if M == 8 and not tied:
+                        per_shape[(K, N)] = rec
+                out[key] = rec
+                print(f"w8a16 {key}: " + json.dumps(rec), flush=True)
+                del h, y, ref
+        del q8, s8, wb
+        _free()
+    # a decode step's W8A16 work at M=8 in isolation: the sum over its
+    # launches, beside cuBLAS bf16 and the bound
+    step = {k: sum(per_shape[s][k] * n for s, n in shapes.items())
+            for k in ("ms", "library_ms", "bound_ms")}
+    print("w8a16 decode step at M=8, summed over its "
+          f"{sum(shapes.values())} launches: " + json.dumps(step), flush=True)
+    main = dict(per_shape[W8_MAIN],
+                shape=f"M=8 K={W8_MAIN[0]} N={W8_MAIN[1]} bf16")
+    main["step_sums_m8"] = step
+    main["table"] = {k: {f: v.get(f) for f in (
+        "ms", "call_ms", "bound_ms", "plain_ms", "library_ms",
+        "ms_over_library")} for k, v in out.items() if "ms" in v}
+    return main
+
+
+def engine_idle(base, what):
+    """The engine's stats once nothing is queued or in flight: every
+    dispatched segment harvested, so its launches and its decode steps
+    are both counted."""
+    deadline = time.perf_counter() + 60
+    while True:
+        _, st = http_json(base + "/v1/stats")
+        p = st["pipeline"]
+        if not p["inflight"] and not p["queued"] and not any(
+                st["versions"]["active_rows"].values()):
+            return st
+        if time.perf_counter() > deadline:
+            fail(f"{what}: the engine never went idle: {p}")
+        time.sleep(0.02)
+
+
+def w8_profile_window(w8, llama_mod, base, reqs, seconds=1.0):
+    """W8A16 launches and device time per decode step, measured in a
+    profiled window of pure decode on the serving engine in this
+    process. The requests are sent; the window opens once every request
+    holds a row and the engine has decoded 8 steps, and closes after at
+    least ``seconds`` and two decode segments (32 steps each when nothing
+    waits; the wave's 192 tokens leave three or more), or when the wave
+    ends. Each decode-segment dispatch that starts inside
+    the window records its steps and the launches made inside it (the
+    scheduler thread makes both), so launches per step is exact; device
+    ms per step is the profile's W8A16 ms over the decode steps its
+    kernels cover (kernels seen / launches per step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = {"open": False, "steps": 0, "launches": 0, "segments": 0}
+    real = llama_mod.paged_decode_segment
+
+    def counted(*a, **k):
+        if not seen["open"]:
+            return real(*a, **k)
+        n0 = w8.LAUNCHES["w8a16"]
+        out = real(*a, **k)
+        seen["launches"] += w8.LAUNCHES["w8a16"] - n0
+        seen["steps"] += int(k["n_steps"])
+        seen["segments"] += 1
+        return out
+
+    box = {}
+    th = threading.Thread(target=lambda: box.setdefault(
+        "res", post_all(base, reqs)), daemon=True)
+    _, st0 = http_json(base + "/v1/stats")
+    llama_mod.paged_decode_segment = counted
+    try:
+        th.start()
+        deadline = time.perf_counter() + 300
+        admitted = None  # decode steps when every request held a row
+        while True:
+            _, st1 = http_json(base + "/v1/stats")
+            steps = st1["pipeline"]["decode_steps"]
+            if admitted is None and not st1["pipeline"]["queued"] and sum(
+                    st1["versions"]["active_rows"].values()) == len(reqs):
+                admitted = steps
+            # two harvests after the last admission: its prefill is past
+            if admitted is not None and steps >= max(
+                    admitted + 2, st0["pipeline"]["decode_steps"] + 8):
+                break
+            if time.perf_counter() > deadline:
+                fail("w8a16 profile: the wave never reached decode")
+            time.sleep(0.02)
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        with prof:
+            seen["open"] = True
+            t_open = time.perf_counter()
+            while th.is_alive() and (
+                    seen["segments"] < 2
+                    or time.perf_counter() - t_open < seconds):
+                time.sleep(0.02)
+            seen["open"] = False
+            window_s = time.perf_counter() - t_open
+            torch.cuda.synchronize()
+        _, st2 = http_json(base + "/v1/stats")
+        th.join(timeout=600)
+    finally:
+        llama_mod.paged_decode_segment = real
+    if not seen["steps"] or st2["pipeline"]["prefills"] != \
+            st1["pipeline"]["prefills"]:
+        fail(f"w8a16 profile: not a pure-decode window: {seen}, "
+             f"{st2['pipeline']['prefills'] - st1['pipeline']['prefills']} "
+             "prefill dispatches")
+    ms = n = 0
+    cats = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        cat = "w8a16" if "w8a16" in e.key else _kernel_category(e.key)
+        cats[cat] = cats.get(cat, 0.0) + us / 1e3
+        if cat == "w8a16":
+            ms += us / 1e3
+            n += e.count
+    checked(box["res"][0], reqs[0]["max_tokens"], "w8a16 profiled wave")
+    per_step = seen["launches"] / seen["steps"]
+    return {"window_s": window_s, "segments": seen["segments"],
+            "decode_steps": seen["steps"], "launches": seen["launches"],
+            "launches_per_decode_step": per_step,
+            "kernels_seen": n, "device_ms": ms,
+            "ms_per_launch": ms / n if n else None,
+            "device_ms_per_decode_step": ms / (n / per_step) if n else None,
+            "by_category_ms": cats}
+
+
+def run_int8_engine(pa, w8, server_mod, llama_mod, serve_cfg, summary):
+    """Phase 17: serve_main with quantize int8 at Llama-3-8B full width
+    and depth on phase 5's requests. Gates: every response; W8A16
+    launches exactly 7 x 32 + 1 a decode step and a prefill dispatch;
+    both paged kernels; finite logits; resident weight bytes exactly the
+    int8 tree's, from the config."""
+    cfg8 = llama_mod.preset("llama3-8b")
+    reqs = make_requests(cfg8.vocab_size)
+    cfg = dict(serve_cfg, quantize="int8")
+    per_step = w8_per_step(cfg8)
+    with serving(server_mod, cfg) as base:
+        before = engine_idle(base, "int8 engine")
+        reset_counts(pa)
+        w8.LAUNCHES["w8a16"] = 0
+        results, wall = post_all(base, reqs)
+        st = engine_idle(base, "int8 engine")
+        n_w8 = w8.LAUNCHES["w8a16"]
+        launches = dict(pa.LAUNCHES)
+        rng = np.random.RandomState(17)
+        short = [{"prompt_ids": rng.randint(0, cfg8.vocab_size,
+                                            size=64).tolist(),
+                  "max_tokens": 192, "temperature": 0.0} for _ in range(8)]
+        prof = w8_profile_window(w8, llama_mod, base, short)
+    checked(results, 128, "int8 engine")
+    pipe, pipe0 = st["pipeline"], before["pipeline"]
+    steps = pipe["decode_steps"] - pipe0["decode_steps"]
+    dispatches = pipe["prefills"] - pipe0["prefills"]
+    if steps <= 0 or n_w8 != per_step * (steps + dispatches):
+        fail(f"w8a16 launches {n_w8} != {per_step} x ({steps} decode steps "
+             f"+ {dispatches} prefill dispatches)")
+    if launches["fused"] < cfg8.n_layers * steps or launches["blocked"] <= 0:
+        fail(f"int8 engine: paged launches {launches} for {steps} steps")
+    if prof["launches_per_decode_step"] != per_step:
+        fail(f"w8a16 window: {prof['launches']} launches in "
+             f"{prof['decode_steps']} decode steps, want {per_step} a step")
+    if st["nonfinite_logits"] != 0:
+        fail(f"int8 engine: {st['nonfinite_logits']} non-finite logits")
+    wb, bf16_wb = st["weights"]["bytes"], summary.get("bf16_weight_bytes")
+    want = int8_weight_bytes(cfg8)
+    if st["weights"]["quantize"] != "int8" or wb != want:
+        fail(f"int8 engine weights {st['weights']}: want {want} bytes")
+    dec_ms = pipe["decode_ms_sum"] - pipe0["decode_ms_sum"]
+    rec = {"requests": len(reqs), "wall_s": wall, "decode_steps": steps,
+           "prefill_dispatches": dispatches,
+           "prefill_chunks": pipe["prefill_chunks"] - pipe0["prefill_chunks"],
+           "w8a16_launches": n_w8,
+           "ms_per_decode_step": dec_ms / steps,
+           "decode_tokens_per_s": (pipe["decode_tokens"]
+                                   - pipe0["decode_tokens"]) / (dec_ms / 1e3),
+           "ttft_ms_p50": st.get("ttft_ms_p50"),
+           "ttft_ms_p95": st.get("ttft_ms_p95"),
+           "weight_bytes": wb, "bf16_weight_bytes": bf16_wb,
+           "weight_bytes_ratio": wb / bf16_wb if bf16_wb else None,
+           "paged_launches": launches,
+           "pipeline": {k: pipe.get(k) for k in PIPELINE_FIELDS},
+           "w8a16_profile": prof}
+    print("int8 engine (smoke run, not a benchmark): " + json.dumps(rec),
+          flush=True)
+    summary["w8a16_launches"] = n_w8
+    summary["w8a16_window"] = prof
+    summary.setdefault("paths", {})["int8"] = launches
+    return reqs
+
+
+def f32_2layer(llama_mod):
+    name = "llama3-8b-2layer-f32"
+    llama_mod.PRESETS.setdefault(name, dataclasses.replace(
+        llama_mod.preset("llama3-8b"), n_layers=2, dtype=torch.float32))
+    return name
+
+
+def run_int8_identity(w8, server_mod, llama_mod, reqs, serve_cfg):
+    """Phase 17's gate: Llama-3-8B width, 2 layers, float32, int8: the
+    engine's greedy streams with the kernel equal the same engine's with
+    the plain version forced."""
+    name = f32_2layer(llama_mod)
+    greedy = [dict(r, max_tokens=32) for r in reqs if r["temperature"] == 0.0]
+    kw = dict(serve_cfg, preset=name, quantize="int8", prefix_cache_mb=0.0)
+    n0 = w8.LAUNCHES["w8a16"]
+    kern = [(o or {}).get("token_ids")
+            for o in generate_all(server_mod, kw, greedy)]
+    n1 = w8.LAUNCHES["w8a16"]
+    with forced_plain_w8a16(w8):
+        plain = [(o or {}).get("token_ids")
+                 for o in generate_all(server_mod, kw, greedy)]
+    if w8.LAUNCHES["w8a16"] != n1 or n1 == n0:
+        fail(f"int8 identity: kernel launches {n1 - n0}, "
+             f"{w8.LAUNCHES['w8a16'] - n1} under the plain version")
+    if any(t is None or len(t) != 32 for t in kern) or kern != plain:
+        fail(f"f32 2-layer int8: kernel and plain greedy streams differ: "
+             f"{kern} vs {plain}")
+    print(f"f32 2-layer llama3-8b width int8: kernel == plain on "
+          f"{len(greedy)} greedy streams x 32 tokens", flush=True)
+
+
+def run_checkpoint_swap(server_mod, llama_mod, ck, summary):
+    """Phase 18: Llama-3-8B width cut to 4 layers, bf16: the port's
+    save_checkpoint writes two seeds' params; serve_main with
+    KUBEDL_MODEL_PATH restores the first (gated: every tensor and one
+    prompt's logits equal the in-memory ones), /admin/load_version loads
+    the second beside it, requests name each, /admin/activate_version
+    and /admin/retire_version run with rows in flight (gated: the rows
+    finish, the retired tree is evicted and its memory freed)."""
+    import shutil
+
+    name = "llama3-8b-4layer"
+    llama_mod.PRESETS.setdefault(name, dataclasses.replace(
+        llama_mod.preset("llama3-8b"), n_layers=4))
+    cfg = llama_mod.preset(name)
+    root = tempfile.mkdtemp(prefix="kdl-smoke-ckpt-")
+    out = {}
+    try:
+        params = {}
+        for v, seed in (("base", 0), ("v2", 1)):
+            p = llama_mod.llama_init(
+                cfg, torch.Generator(device=DEV).manual_seed(seed), DEV)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck.save_checkpoint(os.path.join(root, v), {"params": p}, 1)
+            out[f"save_s_{v}"] = time.perf_counter() - t0
+            params[v] = p
+        out["checkpoint_bytes"] = sum(
+            os.path.getsize(os.path.join(dp, f))
+            for dp, _, fs in os.walk(os.path.join(root, "base")) for f in fs)
+        out["fingerprint_base"] = ck.checkpoint_fingerprint(
+            os.path.join(root, "base"))
+        out["fingerprint_v2"] = ck.checkpoint_fingerprint(
+            os.path.join(root, "v2"))
+        engines = []
+        real = server_mod.LlamaEngine
+
+        class Recorded(real):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                engines.append(self)
+
+        serve_cfg = {"preset": name, "max_batch": 8, "max_seq": 2048,
+                     "kv_block_size": 16, "kv_attention": "blocked",
+                     "prefill_chunk_tokens": 512, "prefix_cache_mb": 0.0}
+        server_mod.LlamaEngine = Recorded
+        t0 = time.perf_counter()
+        try:
+            cm = serving(server_mod, serve_cfg,
+                         env={"KUBEDL_MODEL_PATH": os.path.join(root, "base")})
+            base = cm.__enter__()
+        finally:
+            server_mod.LlamaEngine = real
+        try:
+            out["restore_and_start_s"] = time.perf_counter() - t0
+            eng = engines[0]
+            for (k1, a), (k2, b) in zip(ck._leaf_items(eng.params),
+                                        ck._leaf_items(params["base"])):
+                if k1 != k2 or not torch.equal(a, b):
+                    fail(f"restored leaf {k1} differs from the saved {k2}")
+            toks = torch.tensor(make_requests(cfg.vocab_size, seed=18)[0]
+                                ["prompt_ids"][:256], device=DEV,
+                                dtype=torch.int32)[None]
+            lens = torch.tensor([toks.shape[1]], device=DEV,
+                                dtype=torch.int32)
+
+            def logits(p):
+                c = llama_mod.init_paged_cache(cfg, 1, 256, 17, 16, DEV)
+                c["bt"] = torch.arange(1, 17, dtype=torch.int32,
+                                       device=DEV)[None]
+                return llama_mod.paged_prefill_batched(p, c, toks, lens,
+                                                       cfg)[0]
+
+            with torch.no_grad():
+                same = torch.equal(logits(eng.params), logits(params["base"]))
+            if not same:
+                fail("restored engine's logits differ from in-memory params'")
+            del params
+            _free()
+            rng = np.random.RandomState(18)
+            reqs = [{"prompt_ids": rng.randint(0, cfg.vocab_size,
+                                               size=int(n)).tolist(),
+                     "max_tokens": 48, "temperature": 0.0}
+                    for n in rng.randint(64, 257, size=8)]
+            t0 = time.perf_counter()
+            code, inv = http_json(base + "/admin/load_version", {
+                "version": "v2", "ckpt_dir": os.path.join(root, "v2")})
+            out["load_version_s"] = time.perf_counter() - t0
+            if code != 200 or inv["loaded"] != ["base", "v2"]:
+                fail(f"load_version: {code} {inv}")
+            mem_two = torch.cuda.memory_allocated()
+            import weakref
+
+            base_leaves = []
+            llama_mod.map_leaves(
+                lambda a: base_leaves.append(weakref.ref(a)) or a,
+                eng._versions["base"])
+            named = [dict(r, model_version=("base", "v2")[j % 2])
+                     for j, r in enumerate(reqs)]
+            res = checked(post_all(base, named)[0], 48, "two versions")
+            out["versions_served"] = sorted({r["model_version"]
+                                             for r in res})
+            # rows of base in flight while base is fenced and evicted
+            box = {}
+            th = threading.Thread(target=lambda: box.setdefault(
+                "res", post_all(base, [dict(r, model_version="base",
+                                            max_tokens=96)
+                                       for r in reqs[:4]])))
+            th.start()
+            deadline = time.perf_counter() + 120
+            while not http_json(base + "/v1/stats")[1]["versions"][
+                    "active_rows"].get("base"):
+                if time.perf_counter() > deadline:
+                    fail("retire: no base row ever went in flight")
+                time.sleep(0.02)
+            code, a = http_json(base + "/admin/activate_version",
+                                {"version": "v2"})
+            code2, r = http_json(base + "/admin/retire_version",
+                                 {"version": "base"})
+            out["in_flight_at_retire"] = r["active_rows"]
+            if code != 200 or code2 != 200 or r["retiring"] != ["base"]:
+                fail(f"activate/retire: {code} {a} / {code2} {r}")
+            th.join(timeout=600)
+            checked(box["res"][0], 96, "rows in flight across retire")
+            deadline = time.perf_counter() + 60
+            while http_json(base + "/v1/stats")[1]["versions"][
+                    "loaded"] != ["v2"]:
+                if time.perf_counter() > deadline:
+                    fail("the retired version was never evicted")
+                time.sleep(0.05)
+            gc.collect()
+            out["freed_bytes"] = mem_two - torch.cuda.memory_allocated()
+            out["tree_bytes"] = cfg.num_params() * 2
+            alive = sum(r() is not None for r in base_leaves)
+            if alive:
+                fail(f"retired tree not freed: {alive} of "
+                     f"{len(base_leaves)} leaves still referenced")
+            code, res = http_json(base + "/v1/generate", reqs[5])
+            if code != 200 or res["model_version"] != "v2":
+                fail(f"after the swap: {code} {res}")
+        finally:
+            cm.__exit__(None, None, None)
+            os.environ.pop("KUBEDL_MODEL_PATH", None)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("checkpoint and hot swap (smoke run): " + json.dumps(out),
+          flush=True)
+
+
+def run_versions_identity(server_mod, llama_mod, ck):
+    """Phase 18's gate: Llama-3-8B width, 2 layers, float32: an engine
+    serving its init as "base" and a checkpoint (another seed) loaded as
+    "v2" gives each version's greedy streams IDENTICAL to single-version
+    engines on the same weights, with requests of both versions
+    interleaved, then across activate / retire."""
+    import shutil
+
+    name = f32_2layer(llama_mod)
+    cfg = llama_mod.preset(name)
+    kw = dict(preset=name, max_batch=8, max_seq=2048, kv_block_size=16,
+              kv_attention="blocked", prefill_chunk_tokens=512,
+              prefix_cache_mb=0.0)
+    reqs = [dict(r, max_tokens=32) for r in spec_requests(cfg.vocab_size,
+                                                          seed=19)]
+    root = tempfile.mkdtemp(prefix="kdl-smoke-ckpt-")
+    try:
+        p = llama_mod.llama_init(
+            cfg, torch.Generator(device=DEV).manual_seed(1), DEV)
+        ck.save_checkpoint(root, {"params": p}, 1)
+        del p
+        _free()
+        want = {}
+        for v, extra in (("base", {}), ("v2", {"ckpt_dir": root})):
+            eng = server_mod.LlamaEngine(**kw, **extra)
+            try:
+                want[v] = [o["token_ids"]
+                           for o in generate_concurrent(eng, reqs)]
+            finally:
+                eng.close()
+            del eng
+            _free()
+        def wave(eng, names):
+            """Each request twice at once, the copies naming ``names``;
+            returns each name's streams and the engine's pipeline."""
+            outs = [None] * (2 * len(reqs))
+
+            def one(j):
+                r = reqs[j // 2]
+                outs[j] = eng.generate(r["prompt_ids"], r["max_tokens"],
+                                       model_version=names[j % 2])
+
+            ths = [threading.Thread(target=one, args=(j,))
+                   for j in range(len(outs))]
+            for t in ths:
+                t.start()
+            for t in ths:
+                t.join(timeout=600)
+            return ([[outs[2 * i + k]["token_ids"] for i in range(len(reqs))]
+                     for k in range(2)], eng.pipeline_stats())
+
+        # the same load on one version: the pipeline's reading without
+        # the version round-robin
+        eng = server_mod.LlamaEngine(**kw)
+        try:
+            one_got, one_pipe = wave(eng, ("base", "base"))
+        finally:
+            eng.close()
+        del eng
+        _free()
+        if one_got != [want["base"]] * 2:
+            fail(f"f32 2-layer: one version at twice the load differs: "
+                 f"{one_got} vs {want['base']}")
+        eng = server_mod.LlamaEngine(**kw)
+        try:
+            eng.load_version("v2", root)
+            streams, two_pipe = wave(eng, ("base", "v2"))
+            got = dict(zip(("base", "v2"), streams))
+            eng.activate_version("v2")
+            eng.retire_version("base")
+            after = [o["token_ids"] for o in generate_concurrent(eng, reqs)]
+            loaded = eng.versions()["loaded"]
+            pipe = eng.pipeline_stats()
+        finally:
+            eng.close()
+        del eng
+        _free()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if got != want or after != want["v2"] or loaded != ["v2"]:
+        fail(f"f32 2-layer versions differ from single-version engines: "
+             f"{got} vs {want}; after swap {after}; loaded {loaded}")
+    print("f32 2-layer llama3-8b width: two co-resident versions == "
+          f"single-version engines on {len(reqs)} x 2 greedy streams x 32 "
+          "tokens, and after activate/retire; pipeline " + json.dumps(
+              {k: pipe.get(k) for k in PIPELINE_FIELDS}), flush=True)
+    print("pipeline at 16 requests into 8 rows, one version against two: "
+          + json.dumps({name: {k: p.get(k) for k in PIPELINE_FIELDS}
+                        for name, p in (("one_version", one_pipe),
+                                        ("two_versions", two_pipe))}),
+          flush=True)
+
+
+def _post_bytes(url, data, ctype, timeout=1200.0):
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": ctype})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.read()
+
+
+def run_disagg_pair(server_mod, llama_mod, reqs, serve_cfg, colocated):
+    """Phase 19: two serve_main replicas on the card, role prefill and
+    role decode, Llama-3-8B full depth bf16 (prefix cache off); phase
+    5's greedy requests go /v1/prefill -> KVH1 bytes -> /v1/adopt.
+    Gates: every response, handoffs_out == handoffs_in, each pool's free
+    blocks back where they began. Prints handoff ms and bytes, and bf16
+    agreement with phase 5's colocated streams (not gated)."""
+    greedy = [r for r in reqs if r["temperature"] == 0.0]
+    cfg = dict(serve_cfg, prefix_cache_mb=0.0)
+    legs = [None] * len(greedy)
+    with serving(server_mod, dict(cfg, role="prefill")) as pre, \
+            serving(server_mod, dict(cfg, role="decode")) as dec:
+        free0 = [http_json(b + "/v1/stats")[1]["kv_blocks"]["free"]
+                 for b in (pre, dec)]
+
+        def one(j):
+            t0 = time.perf_counter()
+            code, blob = _post_bytes(pre + "/v1/prefill",
+                                     json.dumps(greedy[j]).encode(),
+                                     "application/json")
+            t1 = time.perf_counter()
+            code2, body = _post_bytes(dec + "/v1/adopt", blob,
+                                      "application/octet-stream")
+            legs[j] = {"prefill_ms": (t1 - t0) * 1e3,
+                       "adopt_ms": (time.perf_counter() - t1) * 1e3,
+                       "bytes": len(blob), "codes": [code, code2],
+                       "result": json.loads(body)}
+
+        ths = [threading.Thread(target=one, args=(j,))
+               for j in range(len(greedy))]
+        t0 = time.perf_counter()
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=1500)
+        wall = time.perf_counter() - t0
+        sts = [http_json(b + "/v1/stats")[1] for b in (pre, dec)]
+    for j, leg in enumerate(legs):
+        if leg is None or leg["codes"] != [200, 200] or \
+                len(leg["result"].get("token_ids", [])) != 128:
+            fail(f"disagg request {j}: {str(leg)[:300]}")
+    if sts[0]["handoffs_out"] != sts[1]["handoffs_in"] or \
+            sts[0]["handoffs_out"] != len(greedy):
+        fail(f"handoffs out {sts[0]['handoffs_out']} in "
+             f"{sts[1]['handoffs_in']} for {len(greedy)} requests")
+    free1 = [st["kv_blocks"]["free"] for st in sts]
+    if free1 != free0:
+        fail(f"KV blocks not conserved: free {free0} -> {free1}")
+    streams = [leg["result"]["token_ids"] for leg in legs]
+    same = sum(a == b for x, y in zip(streams, colocated or [])
+               for a, b in zip(x, y))
+    rec = {"requests": len(greedy), "wall_s": wall,
+           "prompt_lens": [len(r["prompt_ids"]) for r in greedy],
+           "handoff_bytes": [leg["bytes"] for leg in legs],
+           "bytes_per_token": [leg["bytes"] / len(r["prompt_ids"])
+                               for leg, r in zip(legs, greedy)],
+           "prefill_leg_ms": [leg["prefill_ms"] for leg in legs],
+           "adopt_leg_ms": [leg["adopt_ms"] for leg in legs],
+           "ttft_ms": [leg["result"].get("ttft_ms") for leg in legs],
+           "handoffs": [sts[0]["handoffs_out"], sts[1]["handoffs_in"]],
+           "failures": [st["handoff_failures"] for st in sts],
+           "free_blocks": free0,
+           "greedy_tokens_equal_colocated": [same, 128 * len(greedy)]
+           if colocated else None}
+    print("disaggregated pair (smoke run, not a benchmark): "
+          + json.dumps(rec), flush=True)
+
+
+def run_disagg_identity(server_mod, llama_mod, reqs):
+    """Phase 19's gate: Llama-3-8B width, 2 layers, float32: greedy
+    streams through a prefill -> decode engine pair (the KVH1 bytes in
+    between) IDENTICAL to the colocated engine's."""
+    from kubedl_tpu_torch.serving.disagg import DisaggCoordinator
+
+    name = f32_2layer(llama_mod)
+    kw = dict(preset=name, max_batch=8, max_seq=2048, kv_block_size=16,
+              kv_attention="blocked", prefill_chunk_tokens=512,
+              prefix_cache_mb=0.0)
+    greedy = [dict(r, max_tokens=32) for r in reqs if r["temperature"] == 0.0]
+    colo = [o["token_ids"] for o in generate_all(server_mod, kw, greedy)]
+    pre = server_mod.LlamaEngine(**kw, role="prefill")
+    dec = server_mod.LlamaEngine(**kw, role="decode")
+    try:
+        co = DisaggCoordinator(pre, dec)
+        outs = [None] * len(greedy)
+
+        def one(j):
+            outs[j] = co.generate(greedy[j]["prompt_ids"], max_tokens=32)
+
+        ths = [threading.Thread(target=one, args=(j,))
+               for j in range(len(greedy))]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=600)
+        st = (pre.stats(), dec.stats())
+    finally:
+        pre.close()
+        dec.close()
+    del pre, dec
+    _free()
+    got = [(o or {}).get("token_ids") for o in outs]
+    if got != colo:
+        fail(f"f32 2-layer disaggregated streams differ from colocated: "
+             f"{got} vs {colo}")
+    print(f"f32 2-layer llama3-8b width: disaggregated == colocated on "
+          f"{len(greedy)} greedy streams x 32 tokens (handoffs "
+          f"{st[0]['handoffs_out']} -> {st[1]['handoffs_in']})", flush=True)
+
+
 # ---- main -------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--skip-engine", action="store_true",
-                    help="skip the serving engine (phases 5, 6, 13-15)")
+                    help="skip the serving engine (phases 5, 6, 13-15, "
+                    "17-19)")
     ap.add_argument("--skip-train", action="store_true",
                     help="skip the training phases (8 to 12)")
     args = ap.parse_args()
@@ -1723,7 +2488,9 @@ def main() -> int:
     from kubedl_tpu_torch.models import paged_attention as pa
     from kubedl_tpu_torch.ops import build
     from kubedl_tpu_torch.ops import flash_attention as fa
+    from kubedl_tpu_torch.ops import w8a16 as w8
     from kubedl_tpu_torch.serving import server as server_mod
+    from kubedl_tpu_torch.training import checkpoint as ck
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1790,6 +2557,9 @@ def main() -> int:
               f"{label} done", flush=True)
 
     stamp("phases 2-4")
+    with torch.no_grad():
+        kernels["w8a16_matmul"] = run_w8a16_kernels(w8, llama_mod)
+    stamp("phase 16")
     launches = {"blocked": None, "fused": None}
     summary = {"launches": launches}
     if not args.skip_engine:
@@ -1807,6 +2577,17 @@ def main() -> int:
         stamp("phase 14")
         run_f32_identity(server_mod, llama_mod)
         stamp("phase 15")
+        with torch.no_grad():
+            run_int8_engine(pa, w8, server_mod, llama_mod, serve_cfg, summary)
+            run_int8_identity(w8, server_mod, llama_mod, reqs, serve_cfg)
+            stamp("phase 17")
+            run_checkpoint_swap(server_mod, llama_mod, ck, summary)
+            run_versions_identity(server_mod, llama_mod, ck)
+            stamp("phase 18")
+            run_disagg_pair(server_mod, llama_mod, reqs, serve_cfg,
+                            blocked_tokens)
+            run_disagg_identity(server_mod, llama_mod, reqs)
+            stamp("phase 19")
 
     kernels.update(run_flash_kernels(fa))
     run_flash_long(fa, kernels)
@@ -1854,6 +2635,21 @@ def main() -> int:
         rec["launches_by_path"] = {
             path: counts[entry]
             for path, counts in summary.get("paths", {}).items()}
+    w8rec = record("w8a16_matmul", "kubedl_tpu_torch/csrc/w8a16.cu",
+                   W8_REPLACES, summary.get("w8a16_launches"),
+                   kernels["w8a16_matmul"],
+                   "tensor_core (mma.sync bf16); float32: cuda_core")
+    # measured in phase 17's pure-decode window, beside what the model
+    # implies
+    window = summary.get("w8a16_window") or {}
+    w8rec["launches_per_decode_step"] = window.get("launches_per_decode_step")
+    w8rec["device_ms_per_decode_step"] = window.get(
+        "device_ms_per_decode_step")
+    w8rec["expected_launches_per_decode_step"] = w8_per_step(
+        llama_mod.preset("llama3-8b"))
+    for key in ("step_sums_m8", "table"):
+        w8rec[key] = kernels["w8a16_matmul"][key]
+    line.append(w8rec)
     main_case = FLASH_CASES[0]  # the timed shape: llama3-1b training
     for name in FLASH_REPLACES:
         tc = fa.tensor_core_route(main_case[6], main_case[5])

@@ -38,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import re
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -46,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from kubedl_tpu_torch.models import paged_attention as blocked_attention
+from kubedl_tpu_torch.ops import w8a16
 
 Params = Dict[str, Any]
 
@@ -180,21 +182,12 @@ def _dense(shape, fan_in: int, cfg: LlamaConfig, generator: torch.Generator,
     return out
 
 
-def llama_init(cfg: LlamaConfig, generator: torch.Generator,
-               device) -> Params:
-    """Seeded random init with the reference's distributions and tree
-    (``llama.py:229-264``). ``generator`` must live on ``device``."""
+def _param_tree(cfg: LlamaConfig, dense, norm) -> Params:
+    """The reference's parameter tree (``llama.py:240-256``), each leaf
+    made by ``dense(shape, fan_in)`` or ``norm(shape)``."""
     hd = cfg.head_dim
     L, D, Fd, V = cfg.n_layers, cfg.dim, cfg.ffn_dim, cfg.vocab_size
     H, KV = cfg.n_heads, cfg.n_kv_heads
-
-    def dense(shape, fan_in):
-        return _dense(shape, fan_in, cfg, generator, device)
-
-    def norm(shape):
-        fill = torch.zeros if cfg.norm_plus_one else torch.ones
-        return fill(shape, dtype=cfg.dtype, device=device)
-
     params: Params = {
         "embed": dense((V, D), D),
         "layers": {
@@ -212,10 +205,36 @@ def llama_init(cfg: LlamaConfig, generator: torch.Generator,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense((D, V), D)
+    return params
+
+
+def llama_init(cfg: LlamaConfig, generator: torch.Generator,
+               device) -> Params:
+    """Seeded random init with the reference's distributions and tree
+    (``llama.py:229-264``). ``generator`` must live on ``device``."""
+
+    def dense(shape, fan_in):
+        return _dense(shape, fan_in, cfg, generator, device)
+
+    def norm(shape):
+        fill = torch.zeros if cfg.norm_plus_one else torch.ones
+        return fill(shape, dtype=cfg.dtype, device=device)
+
+    params = _param_tree(cfg, dense, norm)
     if cfg.zero_init_deep_from:
         for name in ("wo", "w_down"):
             params["layers"][name][cfg.zero_init_deep_from:] = 0
     return params
+
+
+def param_like(cfg: LlamaConfig, device="meta") -> Params:
+    """The parameter tree's shapes and dtypes as empty tensors (``meta``:
+    no memory) — what a checkpoint restore fills."""
+
+    def empty(shape, _fan_in=None):
+        return torch.empty(shape, dtype=cfg.dtype, device=device)
+
+    return _param_tree(cfg, empty, empty)
 
 
 def params_from_numpy(tree: Params, cfg: LlamaConfig, device) -> Params:
@@ -231,6 +250,118 @@ def params_from_numpy(tree: Params, cfg: LlamaConfig, device) -> Params:
         return t.to(device=device, dtype=cfg.dtype)
 
     return walk(tree)
+
+
+# ---- weight-only int8 (serving) ---------------------------------------------
+
+#: weights quantized for serving (norms stay float: tiny and sensitive)
+_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+#: elements a quantization pass takes at once (bounds its float32 copy)
+_QUANT_CHUNK_ELEMS = 1 << 26
+
+
+def is_quantized(w) -> bool:
+    return isinstance(w, dict) and "q8" in w
+
+
+def map_leaves(fn, tree):
+    """``fn`` over every tensor of a nested dict (an int8 leaf's q8 and
+    s8 included)."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _quant_block(a: torch.Tensor, axis: int):
+    a = a.float()
+    s = torch.amax(torch.abs(a), dim=axis, keepdim=True) / 127.0
+    s = torch.clamp(s, min=1e-8)
+    q = torch.clamp(torch.round(a / s), -127, 127).to(torch.int8)
+    return q, s.to(torch.bfloat16)
+
+
+def _quant_leaf(w: torch.Tensor, axis: int = -2) -> Dict[str, torch.Tensor]:
+    """Symmetric int8 with the scale reduced over ``axis`` (the
+    reference's ``_quant_leaf``): -2 for matmul weights (a per-output-
+    column scale over the contraction axis, which the W8A16 kernel folds
+    into the product), -1 for the embedding (per-token rows). ``q`` is
+    rounded from the float32 scale before that scale is cast to bf16, as
+    in the reference; round half to even in both. Done in slices along an
+    axis the reduction does not cross, so the float32 copy stays small."""
+    axis = axis % w.dim()
+    along = 0 if axis != 0 else w.dim() - 1
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    s_shape = list(w.shape)
+    s_shape[axis] = 1
+    s = torch.empty(s_shape, dtype=torch.bfloat16, device=w.device)
+    per = max(1, _QUANT_CHUNK_ELEMS // max(1, w.numel() // w.shape[along]))
+    for lo in range(0, w.shape[along], per):
+        hi = min(lo + per, w.shape[along])
+        qb, sb = _quant_block(w.narrow(along, lo, hi - lo), axis)
+        q.narrow(along, lo, hi - lo).copy_(qb)
+        s.narrow(along, lo, hi - lo).copy_(sb)
+    return {"q8": q, "s8": s}
+
+
+def quantize_params(params: Params, cfg: LlamaConfig) -> Params:
+    """Weight-only int8 for the serving paths: the embedding (per row),
+    the lm head and every layer matmul quantize; norms stay in their
+    float dtype. Training never sees quantized params."""
+    out: Params = dict(params)
+    out["embed"] = _quant_leaf(params["embed"], axis=-1)
+    if "lm_head" in params:
+        out["lm_head"] = _quant_leaf(params["lm_head"])
+    layers = dict(params["layers"])
+    for key in _QUANT_KEYS:
+        layers[key] = _quant_leaf(layers[key])
+    out["layers"] = layers
+    return out
+
+
+def quantize_leaf_at(key: str, t: torch.Tensor):
+    """:func:`quantize_params` for one leaf, by its tree path string
+    (``['params']['layers']['wq']``): what a checkpoint restore applies
+    to each leaf as it lands, so the float tree is never held whole."""
+    names = re.findall(r"\['([^']*)'\]", key)
+    if len(names) >= 2 and names[-2] == "layers" and names[-1] in _QUANT_KEYS:
+        return _quant_leaf(t)
+    if names and names[-1] == "embed":
+        return _quant_leaf(t, axis=-1)
+    if names and names[-1] == "lm_head":
+        return _quant_leaf(t)
+    return t
+
+
+def deq(w, dtype=None) -> torch.Tensor:
+    """Dequantize an int8 leaf (``{"q8", "s8"}``): the exact product
+    ``q8 * s8`` (float32 holds it exactly) rounded once to ``dtype``,
+    by default the scale's bf16 — the reference's ``deq``. Identity for
+    raw tensors.
+
+    A float32 consumer takes the product unrounded (``dtype`` float32):
+    that is what the reference computes where it runs compiled (its
+    engine jits every model function), because XLA's excess precision
+    (``xla_allow_excess_precision``, on by default) drops the bf16
+    rounding of ``deq``'s product when the next op widens it to float32
+    again — except through the tied head, see ``ops/w8a16.py``."""
+    if is_quantized(w):
+        return w8a16.deq_weight(w["q8"], w["s8"],
+                                w["s8"].dtype if dtype is None else dtype,
+                                bool(w.get("transposed", False)))
+    return w
+
+
+def params_nbytes(params: Params) -> int:
+    """Bytes the parameter tree holds on its device."""
+    n = 0
+
+    def add(t):
+        nonlocal n
+        n += t.numel() * t.element_size()
+        return t
+
+    map_leaves(add, params)
+    return n
 
 
 # ---- building blocks -------------------------------------------------------
@@ -313,36 +444,61 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, H, hd)
 
 
-def gather_embed(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return embed[tokens.long()]
+def gather_embed(embed, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Token embedding lookup; an int8 embed gathers q8 rows and their
+    per-row scales (the embed quantizes per row, see `_quant_leaf`) and
+    forms the product as :func:`deq` does, rounded once to ``dtype``
+    (default: the scale's bf16)."""
+    t = tokens.long()
+    if is_quantized(embed):
+        return deq({"q8": embed["q8"][t], "s8": embed["s8"][t]}, dtype)
+    return embed[t]
 
 
-def lm_head_of(params: Params, cfg: LlamaConfig) -> torch.Tensor:
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+def lm_head_of(params: Params, cfg: LlamaConfig):
+    """The head as :func:`_mm` takes it: ``[D, V]``, or an int8 leaf (a
+    tied int8 embed as ``{"q8", "s8", "transposed": True}``)."""
+    if not cfg.tie_embeddings:
+        return params["lm_head"]
+    e = params["embed"]
+    if is_quantized(e):
+        return {"q8": e["q8"], "s8": e["s8"], "transposed": True}
+    return e.T
+
+
+def _mm(h: torch.Tensor, w) -> torch.Tensor:
+    """Every weight consumer of the serving path: ``h @ w`` for a raw
+    tensor, ``h @ deq(w)`` for an int8 leaf — the W8A16 kernel on the
+    card, its plain version on the CPU (``ops/w8a16.py``)."""
+    if is_quantized(w):
+        return w8a16.w8a16_matmul(h, w["q8"], w["s8"],
+                                  bool(w.get("transposed", False)))
+    return h @ w
 
 
 def _embed_in(params: Params, tokens: torch.Tensor, cfg: LlamaConfig):
-    x = gather_embed(params["embed"], tokens).to(cfg.dtype)
+    x = gather_embed(params["embed"], tokens, cfg.dtype).to(cfg.dtype)
     if cfg.embed_scale:  # Gemma scales inputs by sqrt(dim)
         x = x * math.sqrt(cfg.dim)
     return x
 
 
 def _layer(params: Params, i: int) -> Params:
-    return {k: v[i] for k, v in params["layers"].items()}
+    return {k: map_leaves(lambda a: a[i], v)
+            for k, v in params["layers"].items()}
 
 
 def _mlp(x: torch.Tensor, lp: Params, cfg: LlamaConfig) -> torch.Tensor:
     h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps, cfg.norm_plus_one)
-    gate = _act(cfg)((h @ lp["w_gate"]).float()).to(h.dtype)
-    return x + (gate * (h @ lp["w_up"])) @ lp["w_down"]
+    gate = _act(cfg)(_mm(h, lp["w_gate"]).float()).to(h.dtype)
+    return x + _mm(gate * _mm(h, lp["w_up"]), lp["w_down"])
 
 
 def _last_logits(params, x, lengths, cfg):
     """Head matmul only at each row's last valid position (V is large)."""
     idx = torch.clamp(lengths.long() - 1, min=0)
     x_last = x[torch.arange(x.shape[0], device=x.device), idx]  # [B, D]
-    return (x_last @ lm_head_of(params, cfg)).float()
+    return _mm(x_last, lm_head_of(params, cfg)).float()
 
 
 # ---- training forward: remat policies, blocks, loss -------------------------
@@ -614,10 +770,10 @@ def paged_decode_step_batched(
         lp = _layer(params, i)
         ckp, cvp = cache["k"][i], cache["v"][i]
         h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps, cfg.norm_plus_one)
-        q = _rotate((h @ lp["wq"]).reshape(B, 1, cfg.n_heads, hd), cos_t, sin_t)
-        k = _rotate((h @ lp["wk"]).reshape(B, 1, cfg.n_kv_heads, hd),
+        q = _rotate(_mm(h, lp["wq"]).reshape(B, 1, cfg.n_heads, hd), cos_t, sin_t)
+        k = _rotate(_mm(h, lp["wk"]).reshape(B, 1, cfg.n_kv_heads, hd),
                     cos_t, sin_t)
-        v = (h @ lp["wv"]).reshape(B, 1, cfg.n_kv_heads, hd)
+        v = _mm(h, lp["wv"]).reshape(B, 1, cfg.n_kv_heads, hd)
         if kv_attention == "blocked":
             attn, _, _ = blocked_attention.paged_attention(
                 q, ckp, cvp, bt, pos, new_k=k[:, 0], new_v=v[:, 0]
@@ -627,10 +783,10 @@ def paged_decode_step_batched(
             cvp[blk, off] = v[:, 0]
             attn = attention(q, _paged_view(ckp, bt), _paged_view(cvp, bt),
                              causal=False, mask=mask)
-        x = x + attn.reshape(B, 1, cfg.n_heads * hd) @ lp["wo"]
+        x = x + _mm(attn.reshape(B, 1, cfg.n_heads * hd), lp["wo"])
         x = _mlp(x, lp, cfg)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps, cfg.norm_plus_one)
-    logits = (x[:, 0] @ lm_head_of(params, cfg)).float()
+    logits = _mm(x[:, 0], lm_head_of(params, cfg)).float()
     cache["pos"] = torch.clamp(pos + 1, max=max_s - 1).to(torch.int32)
     return logits, cache
 
@@ -750,10 +906,10 @@ def _paged_suffix_forward(
         lp = _layer(params, i)
         ckp, cvp = cache["k"][i], cache["v"][i]
         h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps, cfg.norm_plus_one)
-        q = _rotate((h @ lp["wq"]).reshape(B, S, cfg.n_heads, hd), cos_t, sin_t)
-        k = _rotate((h @ lp["wk"]).reshape(B, S, cfg.n_kv_heads, hd),
+        q = _rotate(_mm(h, lp["wq"]).reshape(B, S, cfg.n_heads, hd), cos_t, sin_t)
+        k = _rotate(_mm(h, lp["wk"]).reshape(B, S, cfg.n_kv_heads, hd),
                     cos_t, sin_t)
-        v = (h @ lp["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+        v = _mm(h, lp["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
         if not self_contained:
             ckp[blk, off] = k
             cvp[blk, off] = v
@@ -773,7 +929,7 @@ def _paged_suffix_forward(
         else:
             attn = attention(q, _paged_view(ckp, bt), _paged_view(cvp, bt),
                              causal=False, mask=mask)
-        x = x + attn.reshape(B, S, cfg.n_heads * hd) @ lp["wo"]
+        x = x + _mm(attn.reshape(B, S, cfg.n_heads * hd), lp["wo"])
         x = _mlp(x, lp, cfg)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps, cfg.norm_plus_one)
     if self_contained:
@@ -812,12 +968,12 @@ def paged_prefill_batched(
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps, cfg.norm_plus_one)
-        q = apply_rope((h @ lp["wq"]).reshape(B, S, cfg.n_heads, hd), cos, sin)
-        k = apply_rope((h @ lp["wk"]).reshape(B, S, cfg.n_kv_heads, hd),
+        q = apply_rope(_mm(h, lp["wq"]).reshape(B, S, cfg.n_heads, hd), cos, sin)
+        k = apply_rope(_mm(h, lp["wk"]).reshape(B, S, cfg.n_kv_heads, hd),
                        cos, sin)
-        v = (h @ lp["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+        v = _mm(h, lp["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
         attn = attention(q, k, v, causal=True)
-        x = x + attn.reshape(B, S, cfg.n_heads * hd) @ lp["wo"]
+        x = x + _mm(attn.reshape(B, S, cfg.n_heads * hd), lp["wo"])
         x = _mlp(x, lp, cfg)
         cache["k"][i][blk, off] = k
         cache["v"][i][blk, off] = v
@@ -863,7 +1019,7 @@ def paged_verify(
         params, cache, tokens, lengths, starts, cfg,
         kv_attention=kv_attention,
     )
-    logits = (x @ lm_head_of(params, cfg)).float()  # [B, S, V]
+    logits = _mm(x, lm_head_of(params, cfg)).float()  # [B, S, V]
     return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
 
@@ -890,7 +1046,7 @@ def paged_verify_multi(
         params, flat, tokens.reshape(B * N, S), rep(lengths), rep(starts),
         cfg, kv_attention=kv_attention, self_contained=True,
     )
-    logits = (x @ lm_head_of(params, cfg)).float()
+    logits = _mm(x, lm_head_of(params, cfg)).float()
     return torch.argmax(logits, dim=-1).to(torch.int32).reshape(B, N, S)
 
 
@@ -915,7 +1071,7 @@ def paged_verify_tree(
         kv_attention=kv_attention, self_contained=True,
         positions=positions, self_mask=tree_mask,
     )
-    logits = (x @ lm_head_of(params, cfg)).float()
+    logits = _mm(x, lm_head_of(params, cfg)).float()
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
@@ -949,6 +1105,37 @@ def paged_graft_prefix(cache: Params, k: torch.Tensor, v: torch.Tensor,
     cache["k"][:, blk, off] = k.to(cache["k"].dtype)
     cache["v"][:, blk, off] = v.to(cache["v"].dtype)
     cache["pos"][int(row)] = int(length)
+    return cache
+
+
+def export_kv_blocks(cache: Params,
+                     blocks) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gather ``blocks``' K/V payloads out of the pool for a disaggregated
+    handoff: (k, v) each [L, n_blocks, BS, KV, hd]. A fresh gather, not a
+    view: queued on the stream, it holds the blocks' contents as of this
+    point, whatever later writes or frees do to them."""
+    idx = torch.as_tensor(blocks, dtype=torch.long).to(cache["k"].device)
+    return cache["k"][:, idx], cache["v"][:, idx]
+
+
+def import_kv_blocks(cache: Params, k: torch.Tensor, v: torch.Tensor,
+                     blocks) -> Params:
+    """Write a handoff's K/V payloads ([L, n, BS, KV, hd]) into ``blocks``
+    of this pool, IN PLACE (an indexed write on the stream; the inverse
+    of :func:`export_kv_blocks`). The block ids come from the adopter's
+    own allocator: block numbering never survives the transfer, only the
+    payloads and the logical table order do. Host payloads reach the
+    card through pinned memory, without a stream sync."""
+    dev = cache["k"].device
+    idx = torch.as_tensor(blocks, dtype=torch.long).to(dev)
+
+    def onto(t):
+        if t.device != dev and dev.type == "cuda":
+            t = t.pin_memory().to(dev, non_blocking=True)
+        return t.to(device=dev, dtype=cache["k"].dtype)
+
+    cache["k"][:, idx] = onto(k)
+    cache["v"][:, idx] = onto(v)
     return cache
 
 
@@ -1001,17 +1188,17 @@ def decode_step_batched(params: Params, cache: Params, tokens: torch.Tensor,
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps, cfg.norm_plus_one)
-        q = _rotate((h @ lp["wq"]).reshape(B, 1, cfg.n_heads, hd), cos_t, sin_t)
-        k = _rotate((h @ lp["wk"]).reshape(B, 1, cfg.n_kv_heads, hd),
+        q = _rotate(_mm(h, lp["wq"]).reshape(B, 1, cfg.n_heads, hd), cos_t, sin_t)
+        k = _rotate(_mm(h, lp["wk"]).reshape(B, 1, cfg.n_kv_heads, hd),
                     cos_t, sin_t)
-        v = (h @ lp["wv"]).reshape(B, 1, cfg.n_kv_heads, hd)
+        v = _mm(h, lp["wv"]).reshape(B, 1, cfg.n_kv_heads, hd)
         ck = _row_update(cache["k"][i], k, pos)
         cv = _row_update(cache["v"][i], v, pos)
         attn = attention(q, ck, cv, causal=False, mask=mask)
-        x = x + attn.reshape(B, 1, cfg.n_heads * hd) @ lp["wo"]
+        x = x + _mm(attn.reshape(B, 1, cfg.n_heads * hd), lp["wo"])
         x = _mlp(x, lp, cfg)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps, cfg.norm_plus_one)
-    logits = (x[:, 0] @ lm_head_of(params, cfg)).float()
+    logits = _mm(x[:, 0], lm_head_of(params, cfg)).float()
     cache["pos"] = torch.clamp(pos + 1, max=max_s - 1).to(torch.int32)
     return logits, cache
 
@@ -1063,12 +1250,12 @@ def prefill_batched(params: Params, cache: Params, tokens: torch.Tensor,
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps, cfg.norm_plus_one)
-        q = apply_rope((h @ lp["wq"]).reshape(B, S, cfg.n_heads, hd), cos, sin)
-        k = apply_rope((h @ lp["wk"]).reshape(B, S, cfg.n_kv_heads, hd),
+        q = apply_rope(_mm(h, lp["wq"]).reshape(B, S, cfg.n_heads, hd), cos, sin)
+        k = apply_rope(_mm(h, lp["wk"]).reshape(B, S, cfg.n_kv_heads, hd),
                        cos, sin)
-        v = (h @ lp["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+        v = _mm(h, lp["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
         attn = attention(q, k, v, causal=True)
-        x = x + attn.reshape(B, S, cfg.n_heads * hd) @ lp["wo"]
+        x = x + _mm(attn.reshape(B, S, cfg.n_heads * hd), lp["wo"])
         x = _mlp(x, lp, cfg)
         sel = active[:, None, None, None]
         cache["k"][i][:, :S] = torch.where(sel, k, cache["k"][i][:, :S])
@@ -1091,5 +1278,7 @@ __all__ = [
     "paged_prefill_batched", "paged_prefill_from", "paged_verify",
     "paged_verify_multi", "paged_verify_tree", "copy_kv_block",
     "paged_graft_prefix", "init_batched_cache", "decode_step_batched",
-    "decode_segment", "prefill_batched",
+    "decode_segment", "prefill_batched", "param_like", "quantize_params",
+    "quantize_leaf_at", "deq", "is_quantized", "map_leaves",
+    "params_nbytes", "export_kv_blocks", "import_kv_blocks",
 ]

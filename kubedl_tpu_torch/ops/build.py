@@ -135,9 +135,20 @@ def _declare_flash_attention(lib) -> None:
         fn.restype = i
 
 
+def _declare_w8a16(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.kdl_w8a16_matmul.argtypes = [
+        p, p, p, p,  # h q8 s8 y
+        i, i, i, i, i,  # M N K tied dtype
+        p,  # stream
+    ]
+    lib.kdl_w8a16_matmul.restype = i
+
+
 _SOURCES = {
     "paged_attention": _declare_paged_attention,
     "flash_attention": _declare_flash_attention,
+    "w8a16": _declare_w8a16,
 }
 
 
@@ -173,6 +184,11 @@ def load_flash_kernels(verbose: bool = False):
     return _load("flash_attention", verbose)
 
 
+def load_w8a16_kernels(verbose: bool = False):
+    """The W8A16 weight-only int8 matmul library (built on first call)."""
+    return _load("w8a16", verbose)
+
+
 def check_launch(err: int, name: str) -> None:
     """Raise on the ``cudaGetLastError()`` code a C entry point returned:
     a refused launch (too many threads, too much shared memory) never
@@ -182,5 +198,6 @@ def check_launch(err: int, name: str) -> None:
 
 
 __all__ = ["build", "build_all", "load_kernels", "load_flash_kernels",
+           "load_w8a16_kernels",
            "check_launch", "find_nvcc", "BUILD_DIR", "BUILD_SECONDS",
            "BUILD_LOG"]

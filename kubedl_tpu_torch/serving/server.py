@@ -9,6 +9,10 @@ Port of ``kubedl_tpu/serving/server.py`` for ``kv_layout="paged"``:
                                "temperature": T, "cache_prefix": bool}
                               -> {"token_ids": [...], "latency_ms": ...}
 - POST /v1/cancel, /admin/drain
+- POST /admin/load_version {"version", "ckpt_dir"}, /admin/activate_version,
+  /admin/retire_version {"version"}  -> the version inventory
+- POST /v1/prefill  (generate's body) -> the KVH1 handoff (octet-stream)
+- POST /v1/adopt    (a KVH1 handoff)  -> generate's result
 
 The JSON bodies are the reference's, so the unchanged router can front a
 PyTorch replica. Runs as ``python -m kubedl_tpu_torch.serving.server``
@@ -23,10 +27,14 @@ cache (shared prompt prefixes kept as refcounted pool blocks, on by
 default at 64 MB), draft-k / verify-1 speculative decoding
 (``spec_k > 0``: n-gram, repeat and early-exit model drafts,
 multi-candidate and tree verify), preemption under block exhaustion,
-shedding, drain and cancel. Disaggregated roles, int8 weights, mesh
-sharding, checkpoint restore, weight hot-swap, trained zoo drafts and the
-contiguous layout are later slices: asking for them raises
-``ValueError`` rather than being ignored.
+shedding, drain and cancel; the model lifecycle (weights restored from
+a checkpoint in the reference's format, int8 weight-only quantization
+through the W8A16 kernel, versions loaded, activated and retired while
+serving) and disaggregated prefill/decode (a row's KV blocks exported
+as a ``KVHandoff`` and adopted by another engine). Mesh sharding,
+trained zoo drafts, the contiguous layout, remote model roots and the
+chaos sites are later slices: asking for them raises ``ValueError``
+rather than being ignored.
 
 The host pos/bt mirrors stay authoritative and are uploaded (copied,
 never shared with numpy) before every dispatch, through pinned staging
@@ -52,12 +60,14 @@ import torch
 from kubedl_tpu_torch import resolve_device
 from kubedl_tpu_torch.models import llama
 from kubedl_tpu_torch.models import paged_attention
+from kubedl_tpu_torch.serving.disagg import HandoffError, KVHandoff
 from kubedl_tpu_torch.serving.kv_blocks import BlockAllocator
 from kubedl_tpu_torch.serving.prefix_cache import PrefixCache
 from kubedl_tpu_torch.serving.router_policy import prefix_digest
 from kubedl_tpu_torch.serving.speculative import (
     ModelDraft, SpecStats, accept_length, build_tree, make_draft,
 )
+from kubedl_tpu_torch.training import checkpoint
 
 log = logging.getLogger("kubedl_tpu_torch.serving.server")
 
@@ -97,6 +107,11 @@ class _Slot:
         self.prefill_pos = -1
         self.pinned = None  # PrefixEntry pinned while this row uses it
         self.version = ""
+        #: prefill-role slot: ``{"max_tokens": N}``, the decode budget the
+        #: handoff carries (the row itself stops after its first token)
+        self.handoff: Optional[Dict] = None
+        #: decode-role slot: the ``KVHandoff`` it resumes from
+        self.adopt: Optional[KVHandoff] = None
         self.ttft_ms: Optional[float] = None
         self.out_ids: list = []
         self.done = threading.Event()
@@ -113,6 +128,25 @@ def _unported(knob: str, slice_name: str) -> ValueError:
         f"{knob} is not served by the PyTorch port yet ({slice_name} is a "
         "later port slice)"
     )
+
+
+def _host_payload(t: torch.Tensor):
+    """A host tensor as a handoff payload: ``(numpy array, dtype name)``,
+    bf16 as its uint16 bits named "bfloat16" (the KVH1 wire's dtype)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    return t.numpy(), ""
+
+
+def _payload_tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
+    """A handoff payload as a host tensor (the inverse of
+    :func:`_host_payload`)."""
+    a = np.ascontiguousarray(arr)
+    if not a.flags.writeable:  # a view of the wire bytes
+        a = a.copy()
+    if dtype_name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _pct(vals, q: float) -> float:
@@ -208,9 +242,15 @@ class LlamaEngine:
     0`` keeps shared prompt prefixes as refcounted pool blocks
     (:mod:`~kubedl_tpu_torch.serving.prefix_cache`); ``spec_k > 0``
     decodes greedy rows by draft-k / verify-1 speculation
-    (:mod:`~kubedl_tpu_torch.serving.speculative`). ``params`` serves a
-    given parameter tree (e.g. one carried over with
-    ``llama.params_from_numpy``) instead of the seeded random init."""
+    (:mod:`~kubedl_tpu_torch.serving.speculative`). ``ckpt_dir`` restores
+    the weights from a checkpoint (the reference's format, see
+    :mod:`~kubedl_tpu_torch.training.checkpoint`) over the seeded random
+    init; ``quantize="int8"`` serves weight-only int8 through the W8A16
+    kernel. ``params`` serves a given parameter tree (e.g. one carried
+    over with ``llama.params_from_numpy``) instead of the init and the
+    restore. ``role`` (prefill / decode / colocated) is advisory, as in
+    the reference: every engine serves ``generate``,
+    :meth:`prefill_handoff` and :meth:`adopt_handoff`."""
 
     #: allowed decode-segment sizes, largest first; segments shrink to 4
     #: whenever requests are waiting (admission latency <= 4 tokens)
@@ -232,6 +272,7 @@ class LlamaEngine:
                  prefill_chunk_tokens: int = 0,
                  role: str = "colocated",
                  advertise_prefix_len: int = 8,
+                 handoff_ttl_s: float = 30.0,
                  model_version: str = "base",
                  device=None, seed: int = 0,
                  params: Optional[Dict] = None) -> None:
@@ -239,9 +280,7 @@ class LlamaEngine:
             if kv_layout == "contiguous":
                 raise _unported("kv_layout='contiguous'", "the contiguous cache")
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
-        if role not in ("", "colocated"):
-            if role in ("prefill", "decode"):
-                raise _unported(f"role={role!r}", "disaggregated serving")
+        if role not in ("", "colocated", "prefill", "decode"):
             raise ValueError(
                 f"unknown serving role {role!r} "
                 "(have: colocated, prefill, decode)"
@@ -251,12 +290,11 @@ class LlamaEngine:
                 f"unknown kv_attention {kv_attention!r} "
                 "(have: gather, blocked)"
             )
-        if quantize:
-            raise _unported(f"quantize={quantize!r}", "int8 weight-only serving")
+        if quantize and quantize != "int8":
+            raise ValueError(f"unknown quantize mode {quantize!r}")
         if mesh_axes:
             raise _unported("mesh_axes", "sharded (mesh) serving")
-        if ckpt_dir:
-            raise _unported("ckpt_dir", "checkpoint restore")
+        self.quantize = quantize
         self.spec_k = max(0, int(spec_k))
         self.spec_draft = str(spec_draft)
         if self.spec_k:
@@ -271,7 +309,12 @@ class LlamaEngine:
         self.spec_tree = (bool(spec_tree) and self.spec_k > 0
                           and self.spec_candidates > 1)
         self.device = resolve_device(device)
-        self.role = "colocated"
+        #: fleet role, ADVISORY (the reference's): a prefill/decode engine
+        #: still serves the full generate path; the role tells the router
+        #: how to partition dispatch
+        self.role = role or "colocated"
+        self.preset_name = preset
+        self.handoff_ttl_s = float(handoff_ttl_s)
         self.kv_attention = kv_attention
         self.advertise_prefix_len = int(advertise_prefix_len)
         self.cfg = llama.preset(preset)
@@ -288,11 +331,22 @@ class LlamaEngine:
             max(bs, (pct // bs) * bs) if pct else 0
         )
         self._default_version = str(model_version) or "base"
+        self._seed = int(seed)
         if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(int(seed))
-            params = llama.llama_init(self.cfg, gen, self.device)
+            params = self._build_params(ckpt_dir)
+        elif self.quantize == "int8" and not llama.is_quantized(
+                params["embed"]):
+            params = llama.quantize_params(params, self.cfg)
         self.params = params
         self._versions: Dict[str, object] = {self._default_version: params}
+        #: each loaded tree's prefix-cache tag: a negative id that no token
+        #: takes, new at every load, put before the prompt in the cache's
+        #: keys so that no request grafts KV another tree computed
+        self._version_tags: Dict[str, int] = {self._default_version: -1}
+        self._next_tag = -2
+        #: versions fenced from new requests, evicted once drained
+        self._retiring: set = set()
+        self._vers_rr = 0
         mb = self.max_seq // bs
         #: bytes one block holds across both pools and all layers — the
         #: unit the prefix cache's budget is charged in
@@ -383,7 +437,16 @@ class LlamaEngine:
         self._stats = {"requests": 0, "tokens_out": 0, "tokens_in": 0,
                        "shed": 0, "drain_rejects": 0,
                        "kv_preemptions": 0, "kv_sheds": 0,
+                       "handoffs_out": 0, "handoffs_in": 0,
+                       "handoff_failures": 0,
                        "started_at": time.time()}
+        #: prefill-role handoffs parked until fetched (or the TTL), each
+        #: holding its own references on the row's blocks
+        self._handoffs: Dict[str, Dict] = {}
+        #: fetch requests for the scheduler thread: (hid, box, event)
+        self._export_q: "deque[tuple]" = deque()
+        #: exports whose device-to-host copies are in flight
+        self._exports: list = []
         #: per-tick pipeline accounting (the reference's keys) plus the
         #: port's decode counters: ``decode_ms_sum`` is each segment's
         #: stream time (CUDA events from its first launch to its last; on
@@ -460,33 +523,170 @@ class LlamaEngine:
     def draining(self) -> bool:
         return self._draining
 
-    # -- versions (hot-swap is a later slice) --------------------------------
+    # -- the parameter pipeline and versions (hot swap) -------------------
+
+    def _build_params(self, ckpt_dir: str, require_ckpt: bool = False):
+        """One servable parameter tree, end to end: checkpoint restore (or
+        the seeded random init) and int8 quantization. It runs off the
+        dispatch path (at init or in a hot-swap load) and commits nothing:
+        a failure leaves every serving version untouched. The restore
+        fills a ``meta`` tree leaf by leaf on the device, quantizing each
+        leaf as it lands, so the float tree is never held twice.
+
+        ``require_ckpt`` (hot-swap loads): a version whose artifact is
+        missing or torn beyond recovery fails the load — random weights
+        under a version id would be a silent model swap. Init keeps the
+        reference's permissive behaviour: no checkpoint serves the init."""
+        int8 = self.quantize == "int8"
+        step = checkpoint.latest_step(ckpt_dir) if ckpt_dir else None
+        if require_ckpt and step is None:
+            raise ValueError(f"no checkpoint found under {ckpt_dir!r}")
+        if step is not None:
+            state = checkpoint.restore_checkpoint(
+                ckpt_dir, {"params": llama.param_like(self.cfg)},
+                device=self.device,
+                leaf_fn=llama.quantize_leaf_at if int8 else None,
+            )
+            if state is not None:
+                log.info("restored checkpoint from %s", ckpt_dir)
+                return state["params"]
+            if require_ckpt:
+                raise ValueError(
+                    f"no complete checkpoint step under {ckpt_dir!r} "
+                    "(every step torn/incomplete)"
+                )
+        gen = torch.Generator(device=self.device).manual_seed(self._seed)
+        params = llama.llama_init(self.cfg, gen, self.device)
+        if int8:
+            params = llama.quantize_params(params, self.cfg)
+        return params
 
     def load_version(self, version: str, ckpt_dir: str) -> None:
-        raise _unported("weight hot-swap (load_version)", "the model lifecycle")
+        """Load another parameter tree beside the serving ones with no
+        downtime: the build runs on the caller's thread and only a whole
+        restored (and quantized) tree is committed, under the lock. A
+        failed load raises and the loaded versions keep serving.
+        Idempotent for a loaded version."""
+        version = str(version)
+        if not version:
+            raise ValueError("model version id must be non-empty")
+        with self._cv:
+            if version in self._retiring:
+                raise ValueError(
+                    f"version {version!r} is retiring; wait for eviction "
+                    "before reloading it"
+                )
+            if version in self._versions:
+                return
+        params = self._build_params(ckpt_dir, require_ckpt=True)
+        with self._cv:
+            self._versions[version] = params
+            self._version_tags[version] = self._next_tag
+            self._next_tag -= 1
+        log.info("hot-loaded model version %r from %s", version, ckpt_dir)
 
     def activate_version(self, version: str) -> str:
-        raise _unported("weight hot-swap (activate_version)",
-                        "the model lifecycle")
+        """Make a loaded version the default for requests that name none.
+        Returns the previous default."""
+        version = str(version)
+        with self._cv:
+            if version not in self._versions or version in self._retiring:
+                raise UnknownModelVersion(
+                    f"cannot activate {version!r} "
+                    f"(loaded: {sorted(self._versions)})"
+                )
+            prev, self._default_version = self._default_version, version
+            self.params = self._versions[version]
+        log.info("activated model version %r (was %r)", version, prev)
+        return prev
 
     def retire_version(self, version: str) -> bool:
-        raise _unported("weight hot-swap (retire_version)",
-                        "the model lifecycle")
+        """Fence a version from new requests and evict its tree once the
+        last row or queued request naming it drains, never mid-flight.
+        The default version cannot retire (activate another first).
+        Returns False for a version that was never loaded."""
+        version = str(version)
+        with self._cv:
+            if version == self._default_version:
+                raise ValueError(
+                    f"cannot retire the default version {version!r}; "
+                    "activate another version first"
+                )
+            if version not in self._versions:
+                return False
+            self._retiring.add(version)
+            self._maybe_evict_versions_locked()
+        return True
 
     def versions(self) -> Dict:
+        """The live version inventory (/v1/models, stats())."""
         with self._cv:
-            rows = sum(1 for s in self._slots if s is not None)
-        return {"default": self._default_version,
-                "loaded": sorted(self._versions), "retiring": [],
-                "active_rows": {self._default_version: rows} if rows else {}}
+            rows: Dict[str, int] = {}
+            for s in self._slots:
+                if s is not None:
+                    v = s.version or self._default_version
+                    rows[v] = rows.get(v, 0) + 1
+            return {
+                "default": self._default_version,
+                "loaded": sorted(self._versions),
+                "retiring": sorted(self._retiring),
+                "active_rows": rows,
+            }
 
     def _resolve_version_locked(self, requested: str) -> str:
+        """Admission-gate resolution: "" is the default; anything else
+        must be a loaded, non-retiring version. Caller holds cv."""
         v = str(requested or "") or self._default_version
-        if v not in self._versions:
+        if v not in self._versions or v in self._retiring:
             raise UnknownModelVersion(
-                f"unknown model version {v!r} (loaded: {sorted(self._versions)})"
+                f"unknown or retiring model version {v!r} "
+                f"(loaded: {sorted(set(self._versions) - self._retiring)})"
             )
         return v
+
+    def _version_refs_locked(self, version: str) -> int:
+        n = sum(
+            1 for s in self._slots
+            if s is not None and (s.version or self._default_version) == version
+        )
+        n += sum(
+            1 for s in self._waiting
+            if (s.version or self._default_version) == version
+        )
+        return n
+
+    def _maybe_evict_versions_locked(self) -> None:
+        """Drop retiring trees whose last referencing row or queue entry
+        is gone (drain, then evict). Hooked into admission, which follows
+        every row free. Caller holds cv."""
+        for v in list(self._retiring):
+            if v == self._default_version:
+                continue
+            if self._version_refs_locked(v) == 0:
+                self._versions.pop(v, None)
+                self._version_tags.pop(v, None)
+                self._retiring.discard(v)
+                log.info("evicted retired model version %r", v)
+
+    def _pick_tick_version_locked(self, active) -> str:
+        """One version per tick: a dispatch (prefill group, decode
+        segment, spec round) never mixes parameter trees. With versions
+        co-resident the tick alternates round-robin over those with live
+        rows; rows of the others sit the tick out, which is safe because
+        the host pos/bt mirrors are authoritative (uploaded before every
+        dispatch, so the skipped steps never happened for them) and their
+        device chain token is kept (see :meth:`_loop_once`). Caller holds
+        cv."""
+        vers = sorted({
+            (s.version or self._default_version)
+            for s in active if s is not None
+        })
+        if not vers:
+            return self._default_version
+        if len(vers) == 1:
+            return vers[0]
+        self._vers_rr = (self._vers_rr + 1) % len(vers)
+        return vers[self._vers_rr]
 
     # -- request path ------------------------------------------------------
 
@@ -525,8 +725,26 @@ class LlamaEngine:
         max_tokens = max(0, min(int(max_tokens), budget - len(prompt)))
         slot = _Slot(prompt, max_tokens, float(temperature),
                      bool(cache_prefix), request_id=request_id)
+        slot.version = str(model_version or "")
+        self._enqueue_slot_locked_checks(slot)
+        result = self._await_slot(slot, timeout_s)
         with self._cv:
-            slot.version = self._resolve_version_locked(model_version)
+            if request_id:
+                self._requests.pop(request_id, None)
+            self._stats["requests"] += 1
+            self._stats["tokens_in"] += len(prompt)
+            self._stats["tokens_out"] += len(result.get("token_ids", []))
+            self._recent.append(time.time())
+        return result
+
+    def _enqueue_slot_locked_checks(self, slot: _Slot) -> None:
+        """The admission gate generate(), prefill_handoff() and
+        adopt_handoff() share: the slot's version (``slot.version`` holds
+        the requested id on entry; unknown or retiring is a 400, not a
+        503), drain rejection, queue depth / age shedding and the KV
+        watermark, then the queue."""
+        with self._cv:
+            slot.version = self._resolve_version_locked(slot.version)
             if self._draining:
                 self._stats["drain_rejects"] += 1
                 raise EngineOverloaded("engine is draining",
@@ -555,24 +773,333 @@ class LlamaEngine:
                     retry_after_s=1.0,
                 )
             self._waiting.append(slot)
-            if request_id:
-                self._requests[request_id] = slot
+            if slot.request_id:
+                self._requests[slot.request_id] = slot
             self._cv.notify_all()
+
+    def _await_slot(self, slot: _Slot, timeout_s: float) -> Dict:
+        """Wait for a queued slot's result; an abandoned request must not
+        keep its queue place or batch row."""
         if not slot.done.wait(timeout=timeout_s):
-            # an abandoned request must not keep occupying a batch row
             with self._cv:
                 if slot in self._waiting:
                     self._waiting.remove(slot)
                 self._vacate_locked(slot)
-        result = slot.result or {"error": "timed out", "timed_out": True}
+        return slot.result or {"error": "timed out", "timed_out": True}
+
+    # -- disaggregated prefill/decode --------------------------------------
+
+    def _finalize_handoff_locked(self, i: int, s: _Slot) -> None:
+        """Park row ``i``'s blocks under a fresh handoff id: the handoff
+        takes its OWN reference on every block, so the row frees as
+        usual and the blocks stay alive until a fetch exports them (or the
+        TTL gives up on the transfer). Caller holds cv."""
+        import uuid
+
+        hid = uuid.uuid4().hex
+        blocks = list(self._row_blocks[i])
+        self._alloc.incref(blocks)
+        self._handoffs[hid] = {
+            "blocks": blocks,
+            "pos": int(self._pos_host[i]),
+            "prompt": list(s.prompt),
+            "first_token": int(s.out_ids[0]),
+            "max_tokens": int(s.handoff["max_tokens"]),
+            "temperature": float(s.temperature),
+            "cache_prefix": bool(s.cache_prefix),
+            "request_id": s.request_id,
+            "ttft_ms": s.ttft_ms,
+            # the adopter decodes on the version the prefill ran on
+            "model_version": s.version or self._default_version,
+            "t": time.time(),
+        }
+        ms = (time.perf_counter() - s.t0) * 1e3
+        s.result = {
+            "handoff_id": hid,
+            "first_token": int(s.out_ids[0]),
+            "prompt_len": len(s.prompt),
+            "pos": int(self._pos_host[i]),
+            "latency_ms": round(ms, 2),
+            "cached_prefix_len": s.cached_len,
+        }
+        if s.ttft_ms is not None:
+            s.result["ttft_ms"] = round(s.ttft_ms, 3)
+        self._stats["handoffs_out"] += 1
+        self._slots[i] = None
+        self._free_row_locked(i)
+        self._release_prefix_locked(s)
+        s.done.set()
+
+    def prefill_handoff(self, prompt_ids, max_tokens: int = 16,
+                        temperature: float = 0.0, timeout_s: float = 600.0,
+                        cache_prefix: bool = False, request_id: str = "",
+                        trace=None, model_version: str = "") -> KVHandoff:
+        """Prefill-pool entry: prefill the prompt and sample its first
+        token exactly as generate() does, then export the row's KV blocks
+        instead of decoding. Returns a :class:`KVHandoff` for a decode
+        engine's :meth:`adopt_handoff`; the seam is the colocated engine's
+        own prefill/decode seam, so disaggregated greedy output is the
+        colocated output. ``trace`` is taken for the coordinator's call
+        and not recorded (spans are a later slice)."""
+        budget = self.max_seq - 1
+        prompt = [int(t) for t in list(prompt_ids)[:budget]]
+        if not prompt:
+            prompt = [0]
+        max_tokens = max(0, min(int(max_tokens), budget - len(prompt)))
+        if max_tokens < 1:
+            raise ValueError(
+                "prompt leaves no token budget to hand off "
+                f"(len {len(prompt)} of max_seq {self.max_seq})"
+            )
+        # the prefill row produces only the FIRST token; the request's
+        # decode budget rides in the handoff
+        slot = _Slot(prompt, 1, float(temperature), bool(cache_prefix),
+                     request_id=request_id)
+        slot.handoff = {"max_tokens": max_tokens}
+        slot.version = str(model_version or "")
+        self._enqueue_slot_locked_checks(slot)
+        result = self._await_slot(slot, timeout_s)
         with self._cv:
             if request_id:
                 self._requests.pop(request_id, None)
             self._stats["requests"] += 1
             self._stats["tokens_in"] += len(prompt)
+            self._recent.append(time.time())
+        hid = result.get("handoff_id")
+        if hid is None:
+            raise HandoffError(result.get("error", "prefill failed"))
+        return self.fetch_handoff(hid, timeout_s=min(timeout_s, 60.0))
+
+    def fetch_handoff(self, hid: str, timeout_s: float = 30.0) -> KVHandoff:
+        """Export a parked handoff's blocks as a :class:`KVHandoff` and
+        release its block references. The gather runs on the scheduler
+        thread (the only one issuing device work); this call queues the
+        request and waits. Raises :class:`HandoffError` on failure — the
+        blocks are freed either way."""
+        ev = threading.Event()
+        box: Dict = {}
+        with self._cv:
+            if hid not in self._handoffs:
+                raise HandoffError(f"unknown or expired handoff {hid!r}")
+            self._export_q.append((hid, box, ev))
+            self._cv.notify_all()
+        if not ev.wait(timeout=timeout_s):
+            raise HandoffError(f"handoff export {hid} timed out")
+        if "error" in box:
+            raise HandoffError(box["error"])
+        return box["handoff"]
+
+    def _gc_handoffs_locked(self) -> None:
+        """Free the blocks of parked handoffs older than the TTL (a
+        transfer that never came). Caller holds cv."""
+        now = time.time()
+        for hid in [h for h, rec in self._handoffs.items()
+                    if now - rec["t"] > self.handoff_ttl_s]:
+            rec = self._handoffs.pop(hid)
+            self._alloc.free(rec["blocks"])
+            self._stats["handoff_failures"] += 1
+
+    def _device_to_host(self, t: torch.Tensor):
+        """``(host tensor, event)``: a non-blocking copy into pinned memory
+        and the event that marks it done (no stream sync)."""
+        if self.device.type != "cuda":
+            return t.clone(), None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return host, ev
+
+    def _service_exports(self) -> None:
+        """Scheduler-thread half of :meth:`fetch_handoff`, at the top of a
+        tick: GC expired handoffs, then for each queued fetch gather the
+        blocks on the stream (behind the segment that wrote them) and
+        start their copy to pinned host memory. The handoff's block
+        references go back at once: any later write to those blocks is
+        queued behind the gather. :meth:`_finish_exports` completes them
+        once the copies are done."""
+        with self._cv:
+            if not self._export_q and not self._handoffs:
+                return
+            self._gc_handoffs_locked()
+            work = []
+            while self._export_q:
+                hid, box, ev = self._export_q.popleft()
+                work.append((hid, box, ev, self._handoffs.pop(hid, None)))
+        for hid, box, ev, rec in work:
+            if rec is None:
+                box["error"] = f"unknown or expired handoff {hid!r}"
+                ev.set()
+                continue
+            try:
+                idx = self._upload(np.asarray(rec["blocks"], np.int64))
+                k, v = llama.export_kv_blocks(self._cache, idx)
+                self._exports.append((rec, box, ev, self._device_to_host(k),
+                                      self._device_to_host(v)))
+            except Exception as e:
+                box["error"] = f"handoff export failed: {e}"
+                with self._cv:
+                    self._stats["handoff_failures"] += 1
+                ev.set()
+            finally:
+                self._alloc.free(rec["blocks"])
+
+    def _finish_exports(self) -> None:
+        """Wait on each in-flight export's copies and hand the fetcher its
+        :class:`KVHandoff`. Runs after the tick's dispatch, so the wait
+        overlaps device work."""
+        done, self._exports = self._exports, []
+        for rec, box, ev, (k, kev), (v, vev) in done:
+            try:
+                for e in (kev, vev):
+                    if e is not None:
+                        e.synchronize()
+                kp, dtype = _host_payload(k)
+                vp, _ = _host_payload(v)
+                box["handoff"] = KVHandoff(
+                    model=self.preset_name,
+                    prompt_ids=rec["prompt"],
+                    first_token=rec["first_token"],
+                    pos=rec["pos"],
+                    block_size=self.kv_block_size,
+                    k=kp, v=vp,
+                    max_tokens=rec["max_tokens"],
+                    temperature=rec["temperature"],
+                    request_id=rec["request_id"],
+                    cache_prefix=rec["cache_prefix"],
+                    ttft_ms=rec["ttft_ms"],
+                    model_version=rec.get("model_version", ""),
+                    dtype=dtype,
+                )
+            except Exception as e:
+                box["error"] = f"handoff export failed: {e}"
+                with self._cv:
+                    self._stats["handoff_failures"] += 1
+            finally:
+                ev.set()
+
+    def adopt_handoff(self, h: KVHandoff, timeout_s: float = 600.0,
+                      request_id: str = "") -> Dict:
+        """Decode-pool entry: adopt a prefill engine's :class:`KVHandoff`
+        — allocate blocks from THIS pool (all-or-nothing, the same
+        watermark admission as generate), write the payloads in, and
+        resume decoding from the first token. Returns generate()'s result
+        shape; greedy streams equal a colocated engine's."""
+        if int(h.block_size) != self.kv_block_size:
+            raise ValueError(
+                f"handoff block_size {h.block_size} != engine "
+                f"{self.kv_block_size}"
+            )
+        pool = self._cache["k"].shape
+        if tuple(h.k.shape[0:1]) + tuple(h.k.shape[2:]) != (
+            pool[0], pool[2], pool[3], pool[4]
+        ):
+            raise ValueError(
+                f"handoff KV geometry {tuple(h.k.shape)} does not fit pool "
+                f"{tuple(pool)} (model mismatch? handoff model={h.model!r})"
+            )
+        prompt = [int(t) for t in h.prompt_ids]
+        budget = self.max_seq - 1
+        if len(prompt) >= budget:
+            raise ValueError(
+                f"handoff prompt len {len(prompt)} exceeds adopter budget "
+                f"{budget}"
+            )
+        max_tokens = max(1, min(int(h.max_tokens), budget - len(prompt)))
+        slot = _Slot(prompt, max_tokens, float(h.temperature),
+                     bool(h.cache_prefix),
+                     request_id=request_id or h.request_id)
+        slot.adopt = h
+        # version stickiness across the seam: decode on exactly the
+        # version that prefilled, or reject the adopt (400)
+        slot.version = str(getattr(h, "model_version", "") or "")
+        self._enqueue_slot_locked_checks(slot)
+        result = self._await_slot(slot, timeout_s)
+        with self._cv:
+            if slot.request_id:
+                self._requests.pop(slot.request_id, None)
+            self._stats["requests"] += 1
+            self._stats["tokens_in"] += len(prompt)
             self._stats["tokens_out"] += len(result.get("token_ids", []))
             self._recent.append(time.time())
         return result
+
+    def _admit_row_adopt_locked(self, i: int, slot: _Slot):
+        """Admit an adopted slot into row ``i``: allocate the handoff's
+        block count from this pool (sharing a prefix-cache match's FULL
+        blocks by reference instead of importing them), write the rest of
+        the payloads in, and seed the slot at the prefill/decode seam
+        (fed = prompt len, out_ids = [first_token], pos = handoff pos).
+        Returns True (admitted), None (pool dry: the slot stays queued) or
+        False (the import failed: the waiter gets an error, every block
+        reference taken here is returned). Caller holds cv."""
+        h = slot.adopt
+        a = self._alloc
+        bs = self.kv_block_size
+        n_blocks = int(h.k.shape[1])
+        entry, mlen = None, 0
+        if self._pcache is not None:
+            key = self._prefix_key_locked(slot)
+            self._pcache.observe(key)
+            entry, mlen = self._pcache.match(key)
+        entry_blocks = getattr(entry, "blocks", None) if entry else None
+        # only FULL matched blocks are shared: the partial tail comes in
+        # with the payload (cheaper than a copy-on-write block copy)
+        shared = list(entry_blocks[:mlen // bs]) if entry_blocks else []
+        shared = shared[:n_blocks]
+        n_alloc = n_blocks - len(shared)
+        got = a.alloc(n_alloc)
+        if got is None and self._reclaim_prefix_locked():
+            got = a.alloc(n_alloc)
+        if got is None:
+            if entry is not None:
+                self._pcache.unpin(entry)
+            return None
+        a.incref(shared)
+        blocks = shared + got
+        if got:
+            start = len(shared)
+            try:
+                # the port's class names bf16 bits; the reference's
+                # carries an ml_dtypes array, whose str is "bfloat16"
+                dtype = getattr(h, "dtype_name", "") or str(h.k.dtype)
+                self._cache = llama.import_kv_blocks(
+                    self._cache,
+                    _payload_tensor(h.k[:, start:n_blocks], dtype),
+                    _payload_tensor(h.v[:, start:n_blocks], dtype),
+                    self._upload(np.asarray(got, np.int64)),
+                )
+            except Exception as e:
+                a.free(blocks)
+                if entry is not None:
+                    self._pcache.unpin(entry)
+                self._stats["handoff_failures"] += 1
+                slot.result = {"error": f"handoff import failed: {e}",
+                               "handoff_failed": True}
+                slot.done.set()
+                return False
+        self._row_blocks[i] = blocks
+        self._bt_host[i, :] = 0
+        self._bt_host[i, :len(blocks)] = blocks
+        self._pos_host[i] = min(int(h.pos), self.max_seq - 1)
+        slot.fed = len(slot.prompt)
+        slot.out_ids = [int(h.first_token)]
+        slot.cached_len = len(shared) * bs
+        if slot.ttft_ms is None and h.ttft_ms is not None:
+            slot.ttft_ms = float(h.ttft_ms)
+        self._slots[i] = slot
+        # the adopted row's first decode input exists only on the host:
+        # a device chain left by the row's previous tenant would feed
+        # that tenant's token
+        self._chain = None
+        if entry is not None:
+            # the shares are increfed: no prefill reads through the entry
+            self._pcache.unpin(entry)
+        self._stats["handoffs_in"] += 1
+        # adopted prompts join this replica's prefix cache
+        self._maybe_insert_prefix_locked(i, slot)
+        self._maybe_finalize_locked(i, slot)
+        return True
 
     def stats(self) -> Dict:
         """Live serving counters (one snapshot under one lock)."""
@@ -588,9 +1115,14 @@ class LlamaEngine:
             ttft = list(self._ttft_recent)
             qwait = list(self._queue_wait_recent)
             draining = self._draining
+            parked_handoffs = len(self._handoffs)
+            versions = dict(self._versions)
+            default = self._default_version
+            tag = self._version_tags[default]
         up = max(now - out["started_at"], 1e-9)
         out.update({
             "role": self.role, "draining": draining,
+            "handoffs_parked": parked_handoffs,
             "uptime_s": round(up, 1),
             "qps": round(recent / max(min(self.qps_window_s, up), 1e-9), 3),
             "lifetime_qps": round(out["requests"] / up, 3),
@@ -606,11 +1138,14 @@ class LlamaEngine:
             out["queue_wait_ms_p95"] = _pct(qwait, 0.95)
         if self._pcache is not None:
             out["prefix_cache"] = self._pcache.stats()
-            # digests of the cached prefixes, in the hash the router's
-            # ring keys on: the router steers repeats here
+            # digests of the default version's cached prefixes (tag
+            # stripped), in the hash the router's ring keys on: the router
+            # steers repeats here
             adv = set()
             for key in self._pcache.prefix_keys():
-                d = prefix_digest(key, self.advertise_prefix_len)
+                if key[0] != tag:
+                    continue
+                d = prefix_digest(key[1:], self.advertise_prefix_len)
                 if d is not None:
                     adv.add(d)
             out["prefix_cache"]["advertised"] = sorted(adv)
@@ -626,6 +1161,12 @@ class LlamaEngine:
         out["kernel_launches"] = dict(paged_attention.LAUNCHES)
         out["nonfinite_logits"] = int(self._nonfinite.item())
         out["versions"] = self.versions()
+        out["weights"] = {
+            "quantize": self.quantize or "none",
+            "bytes": llama.params_nbytes(versions[default]),
+            "resident_bytes": sum(llama.params_nbytes(p)
+                                  for p in versions.values()),
+        }
         return out
 
     def pipeline_stats(self) -> Dict:
@@ -635,7 +1176,8 @@ class LlamaEngine:
         flight, over tick time), lifetime segment / harvest counters; and
         the port's decode counters (``decode_steps``, ``decode_tokens``,
         ``ms_per_decode_step``, ``decode_tokens_per_s``, prefill and
-        speculation counts)."""
+        speculation counts: ``prefills`` counts prefill dispatches, whole
+        or chunked, ``prefill_chunks`` the rows' chunks in them)."""
         with self._cv:
             p = dict(self._pipe)
             recent = list(self._pipe_recent)
@@ -680,6 +1222,14 @@ class LlamaEngine:
             self._pcache.unpin(slot.pinned)
         slot.pinned = None
 
+    def _prefix_key_locked(self, slot: _Slot) -> list:
+        """The prefix cache's key for ``slot``'s prompt: its version's
+        tag, then the tokens. Entries, observations and matches are per
+        loaded tree; an entry's ``length`` stays in prompt tokens.
+        Caller holds cv."""
+        v = slot.version or self._default_version
+        return [self._version_tags[v]] + list(slot.prompt)
+
     def _maybe_insert_prefix_locked(self, i: int, s: _Slot) -> None:
         """After row ``i``'s prefill completes, store its prompt prefix
         when traffic says it is shared (>= min_seen requests walked it)
@@ -690,7 +1240,9 @@ class LlamaEngine:
         row, so it holds this prefill's output. Caller holds cv."""
         if self._pcache is None:
             return
-        cand = self._pcache.insert_candidate(s.prompt, s.cache_prefix)
+        key = self._prefix_key_locked(s)
+        # the candidate's length counts the version tag: less one token
+        cand = self._pcache.insert_candidate(key, s.cache_prefix) - 1
         # cap at len-1: a full-prompt entry can never match (a row needs
         # >= 1 suffix token for last-token logits)
         cand = min(cand, len(s.prompt) - 1)
@@ -709,7 +1261,7 @@ class LlamaEngine:
             blocks.append(got[0])
         self._alloc.incref(blocks[:full])
         ok = self._pcache.insert(
-            s.prompt[:cand], None, None, cand, blocks=tuple(blocks),
+            key[:cand + 1], None, None, cand, blocks=tuple(blocks),
             nbytes=len(blocks) * self._block_bytes,
         )
         if not ok:
@@ -842,8 +1394,9 @@ class LlamaEngine:
         need_total = a.blocks_for(min(len(slot.prompt) + 1, self.max_seq))
         entry, mlen = None, 0
         if self._pcache is not None:
-            self._pcache.observe(slot.prompt)
-            entry, mlen = self._pcache.match(slot.prompt)
+            key = self._prefix_key_locked(slot)
+            self._pcache.observe(key)
+            entry, mlen = self._pcache.match(key)
         entry_blocks = getattr(entry, "blocks", None) if entry else None
         shared: list = []
         tail_src = None
@@ -888,11 +1441,23 @@ class LlamaEngine:
         return True
 
     def _admit_locked(self) -> None:
+        # retiring versions evict here: every row free is followed by an
+        # admission pass, which then sees the last reference gone
+        self._maybe_evict_versions_locked()
         for i in range(self.max_batch):
             if self._slots[i] is None and self._waiting:
                 if not self._alloc.admission_open():
                     break  # below low watermark: hysteresis holds
                 head = self._waiting[0]
+                if head.adopt is not None:
+                    r = self._admit_row_adopt_locked(i, head)
+                    if r is None:
+                        break  # pool dry: wait for frees
+                    self._waiting.popleft()
+                    if r:
+                        self._queue_wait_recent.append(
+                            (time.perf_counter() - head.t0) * 1e3)
+                    continue  # False: the waiter was failed and woken
                 if not self._admit_row_locked(i, head):
                     break  # pool dry: wait for frees / preemption
                 self._waiting.popleft()
@@ -930,6 +1495,16 @@ class LlamaEngine:
                         # drop them all (no evict callbacks: the allocator
                         # was just rebuilt)
                         self._pcache.clear()
+                    # parked handoffs reference the dead pool too: fail
+                    # every fetch waiting on one
+                    self._handoffs.clear()
+                    waiters = [(box, ev) for _h, box, ev in self._export_q]
+                    waiters += [(rec[1], rec[2]) for rec in self._exports]
+                    for box, ev in waiters:
+                        box["error"] = "engine recovered from a scheduler error"
+                        ev.set()
+                    self._export_q.clear()
+                    self._exports = []
                     self._reset_pipeline_locked()
 
     def _reset_pipeline_locked(self) -> None:
@@ -965,6 +1540,11 @@ class LlamaEngine:
         flight never finalizes (their values arrive at the next harvest).
         Caller holds cv."""
         if s.pending:
+            return
+        if s.handoff is not None and s.fed >= len(s.prompt) and s.out_ids:
+            # prefill-role slot: park the row's blocks for the handoff
+            # instead of decoding
+            self._finalize_handoff_locked(i, s)
             return
         if (len(s.out_ids) >= s.max_tokens
                 or len(s.prompt) + len(s.out_ids) >= self.max_seq - 1):
@@ -1123,7 +1703,7 @@ class LlamaEngine:
             pre.append((i, s, budgeted))
         return pre
 
-    def _prefill_whole(self, todo, acct: Dict):
+    def _prefill_whole(self, todo, acct: Dict, vp):
         """Whole prompts in one forward: rows without a grafted prefix go
         through ``paged_prefill_batched`` (dense causal attention over the
         fresh K/V); when any row rides a grafted prefix, every row goes
@@ -1146,7 +1726,7 @@ class LlamaEngine:
         t0 = time.perf_counter()
         if np.any(starts > 0):
             logits, self._cache = llama.paged_prefill_from(
-                self.params, self._cache, self._upload(toks),
+                vp, self._cache, self._upload(toks),
                 self._upload(lens), self._upload(starts), self.cfg,
                 kv_attention=self.kv_attention,
             )
@@ -1154,7 +1734,7 @@ class LlamaEngine:
                 self._pcache.add_tokens_saved(int(starts.sum()))
         else:
             logits, self._cache = llama.paged_prefill_batched(
-                self.params, self._cache, self._upload(toks),
+                vp, self._cache, self._upload(toks),
                 self._upload(lens), self.cfg,
             )
         ids_dev = self._sample_logits(logits, temps0)
@@ -1171,7 +1751,7 @@ class LlamaEngine:
             pre = self._pre_rows_locked(todo)
         return pre, ids_copy
 
-    def _prefill_chunks(self, todo, acct: Dict):
+    def _prefill_chunks(self, todo, acct: Dict, vp):
         """Chunked prefill: spend at most ``prefill_chunk_tokens`` prompt
         tokens this tick across the not-yet-prefilled rows, FIFO by
         arrival, from each row's committed position (its grafted prefix
@@ -1213,7 +1793,7 @@ class LlamaEngine:
         self._upload_mirrors()
         t0 = time.perf_counter()
         logits, self._cache = llama.paged_prefill_from(
-            self.params, self._cache, self._upload(toks), self._upload(lens),
+            vp, self._cache, self._upload(toks), self._upload(lens),
             self._upload(starts), self.cfg, kv_attention=self.kv_attention,
         )
         if saved and self._pcache is not None:
@@ -1226,6 +1806,7 @@ class LlamaEngine:
             self._graft_chain(ids_dev, [i for i, _ in final_rows])
         acct["dispatch_ms"] += (time.perf_counter() - t0) * 1e3
         with self._cv:
+            self._pipe["prefills"] += 1
             self._pipe["prefill_chunks"] += len(sched)
             for i, s, base, take, _final in sched:
                 self._pos_host[i] = min(base + take, self.max_seq - 1)
@@ -1234,7 +1815,7 @@ class LlamaEngine:
             pre = self._pre_rows_locked(final_rows)
         return pre, (ids_copy if pre else None)
 
-    def _spec_tick(self, decoding, acct: Dict) -> None:
+    def _spec_tick(self, decoding, acct: Dict, vp) -> None:
         """One draft-k / verify-1 round over every greedy decoding row
         (the reference's ``_spec_tick``): the draft proposes k tokens from
         the host context, ``llama.paged_verify`` consumes ``[next_input,
@@ -1333,7 +1914,7 @@ class LlamaEngine:
                 mask_tr[i] = t_mask
                 lens_tr[i] = tr.size
             ids_tree = llama.paged_verify_tree(
-                self.params, self._cache, self._upload(toks_tr),
+                vp, self._cache, self._upload(toks_tr),
                 self._upload(pos_tr), self._upload(mask_tr),
                 self._upload(lens_tr), self._upload(starts), self.cfg,
                 kv_attention=self.kv_attention,
@@ -1349,7 +1930,7 @@ class LlamaEngine:
                     toks[i, 1:] = dl[0]
         elif multi:
             ids_multi = llama.paged_verify_multi(
-                self.params, self._cache, self._upload(cand_toks),
+                vp, self._cache, self._upload(cand_toks),
                 self._upload(lens), self._upload(starts), self.cfg,
                 kv_attention=self.kv_attention,
             ).cpu().numpy()  # [B, N, S]
@@ -1366,7 +1947,7 @@ class LlamaEngine:
                     toks[i, 1:] = dl[0]
         t_v = time.perf_counter()
         ids_dev, self._cache = llama.paged_verify(
-            self.params, self._cache, self._upload(toks), self._upload(lens),
+            vp, self._cache, self._upload(toks), self._upload(lens),
             self._upload(starts), self.cfg, kv_attention=self.kv_attention,
         )
         acct["dispatch_ms"] += (time.perf_counter() - t0) * 1e3
@@ -1444,13 +2025,19 @@ class LlamaEngine:
         with self._cv:
             self._admit_locked()
             while (not self._stop and self._pending is None
+                   and not self._export_q and not self._exports
                    and not any(s is not None for s in self._slots)):
+                self._gc_handoffs_locked()
                 self._cv.wait(timeout=0.2)
                 self._admit_locked()
             stop = self._stop
             waiting = bool(self._waiting)
+        # handoff exports: gathers queued on the stream before this
+        # tick's dispatches, their host copies completed after them
+        self._service_exports()
         if stop:
             self._harvest_segment()  # flush: deliver in-flight tokens
+            self._finish_exports()
             return True
 
         t_tick = time.perf_counter()
@@ -1466,16 +2053,23 @@ class LlamaEngine:
         with self._cv:
             self._admit_locked()
             active = list(self._slots)
+            # one weight version per tick: every dispatch below uses this
+            # tree only; rows of co-resident versions sit the tick out
+            tick_version = self._pick_tick_version_locked(active)
+            vp = self._versions[tick_version]
+
+        def _mine(s: _Slot) -> bool:
+            return (s.version or self._default_version) == tick_version
 
         # ---- prefill DISPATCH (first ids sampled and kept on the device)
         pre: list = []
         ids_copy = None
         todo = [(i, s) for i, s in enumerate(active)
-                if s is not None and s.fed == 0]
+                if s is not None and s.fed == 0 and _mine(s)]
         if todo and self.prefill_chunk_tokens:
-            pre, ids_copy = self._prefill_chunks(todo, acct)
+            pre, ids_copy = self._prefill_chunks(todo, acct, vp)
         elif todo:
-            pre, ids_copy = self._prefill_whole(todo, acct)
+            pre, ids_copy = self._prefill_whole(todo, acct, vp)
         if todo:
             with self._cv:
                 active = list(self._slots)
@@ -1493,6 +2087,7 @@ class LlamaEngine:
         decoding = [
             (i, s) for i, s in enumerate(active)
             if s is not None and s.fed >= len(s.prompt) and self._rem(s) > 0
+            and _mine(s)
         ]
 
         # ---- speculative verify: when every decoding row is greedy;
@@ -1509,7 +2104,7 @@ class LlamaEngine:
                     decoding = [(i, s) for i, s in decoding
                                 if self._slots[i] is s and self._rem(s) > 0]
             if decoding:
-                self._spec_tick(decoding, acct)
+                self._spec_tick(decoding, acct, vp)
             decoding = []
 
         new_pending = None
@@ -1562,7 +2157,7 @@ class LlamaEngine:
                       torch.cuda.Event(enable_timing=True))
                 ev[0].record()
             toks, last, self._cache = llama.paged_decode_segment(
-                self.params, self._cache, tokens_dev, temps_dev, self._gen,
+                vp, self._cache, tokens_dev, temps_dev, self._gen,
                 self.cfg, n_steps=k, greedy=greedy,
                 kv_attention=self.kv_attention, nonfinite=self._nonfinite,
             )
@@ -1571,8 +2166,17 @@ class LlamaEngine:
             toks_copy = self._staging.download(toks)
             dispatch_ms = (time.perf_counter() - t0) * 1e3
             acct["dispatch_ms"] += dispatch_ms
-            self._chain = (self._prefill_gen,
-                           tuple(i for i, _ in decoding), last)
+            rows = tuple(i for i, _ in decoding)
+            if chain_ok and set(self._chain[1]) - set(rows):
+                # rows that sat this segment out (another version's, or
+                # rows the reserve dropped) keep their chain token, so the
+                # next tick need not rebuild the feed from the host
+                mask = np.zeros((self.max_batch,), bool)
+                mask[list(rows)] = True
+                last = llama.merge_chain_tokens(
+                    self._chain[2], last[:, 0], self._upload(mask))
+                rows = tuple(sorted(set(self._chain[1]) | set(rows)))
+            self._chain = (self._prefill_gen, rows, last)
             sched = []
             with self._cv:
                 for i, s in decoding:
@@ -1604,6 +2208,7 @@ class LlamaEngine:
             h, b = self._harvest_prefill(pre, ids_copy)
             acct["harvest_ms"] += h
             acct["host_ms"] += b
+        self._finish_exports()
         self._pending = new_pending
         self._commit_tick(acct, (time.perf_counter() - t_tick) * 1e3)
         return False
@@ -1653,6 +2258,101 @@ def make_handler(engine: LlamaEngine, model_name: str):
             length = int(self.headers.get("Content-Length", "0"))
             return json.loads(self.rfile.read(length) or b"{}")
 
+        def _deadline_s(self):
+            """(timeout_s, deadline header or None); None when an expired
+            X-Deadline-Ms was answered with 504 already."""
+            hdr = self.headers.get("X-Deadline-Ms")
+            if hdr is None:
+                return 600.0, None
+            timeout_s = float(hdr) / 1000.0
+            if timeout_s <= 0:
+                self._json(504, {"error": "deadline exceeded"})
+                return None, hdr
+            return timeout_s, hdr
+
+        def _admin(self) -> None:
+            """/admin/{load,activate,retire}_version: a failed load leaves
+            the serving versions untouched (400 for a bad request or a
+            missing / torn artifact, 500 for anything else)."""
+            try:
+                req = self._read_json()
+                version = str(req.get("version", ""))
+                if self.path == "/admin/load_version":
+                    try:
+                        engine.load_version(version,
+                                            str(req.get("ckpt_dir", "")))
+                    except ValueError as e:
+                        self._json(400, {"error": str(e),
+                                         "load_failed": True})
+                        return
+                    except Exception as e:
+                        self._json(500, {"error": str(e),
+                                         "load_failed": True})
+                        return
+                    self._json(200, engine.versions())
+                elif self.path == "/admin/activate_version":
+                    prev = engine.activate_version(version)
+                    self._json(200, dict(engine.versions(), previous=prev))
+                else:
+                    known = engine.retire_version(version)
+                    self._json(200, dict(engine.versions(), retired=known))
+            except Exception as e:
+                self._json(400, {"error": str(e)})
+
+        def _prefill(self) -> None:
+            """/v1/prefill: generate's body; answers with the KVH1 bytes."""
+            try:
+                req = self._read_json()
+                timeout_s, _hdr = self._deadline_s()
+                if timeout_s is None:
+                    return
+                h = engine.prefill_handoff(
+                    req.get("prompt_ids", []),
+                    int(req.get("max_tokens", 16)),
+                    float(req.get("temperature", 0.0)),
+                    timeout_s=timeout_s,
+                    cache_prefix=bool(req.get("cache_prefix", False)),
+                    request_id=str(req.get("request_id", "")),
+                    model_version=str(req.get("model_version", "")),
+                )
+                body = h.to_bytes()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/octet-stream")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+            except UnknownModelVersion as e:
+                self._json(400, {"error": str(e), "unknown_version": True})
+            except EngineOverloaded as e:
+                self._shed(e)
+            except HandoffError as e:
+                self._json(502, {"error": str(e), "handoff_failed": True})
+            except Exception as e:
+                self._json(400, {"error": str(e)})
+
+        def _adopt(self) -> None:
+            """/v1/adopt: a KVH1 body; answers with generate's result."""
+            try:
+                length = int(self.headers.get("Content-Length", "0"))
+                h = KVHandoff.from_bytes(self.rfile.read(length))
+                timeout_s, hdr = self._deadline_s()
+                if timeout_s is None:
+                    return
+                result = engine.adopt_handoff(h, timeout_s=timeout_s)
+                if result.get("handoff_failed"):
+                    self._json(502, result)
+                    return
+                if result.get("timed_out") and hdr is not None:
+                    self._json(504, {"error": "deadline exceeded"})
+                    return
+                self._json(200, result)
+            except UnknownModelVersion as e:
+                self._json(400, {"error": str(e), "unknown_version": True})
+            except EngineOverloaded as e:
+                self._shed(e)
+            except Exception as e:
+                self._json(400, {"error": str(e)})
+
         def do_POST(self):
             if self.path == "/v1/cancel":
                 try:
@@ -1666,18 +2366,24 @@ def make_handler(engine: LlamaEngine, model_name: str):
                 engine.drain()
                 self._json(200, {"draining": True})
                 return
+            if self.path in ("/admin/load_version", "/admin/activate_version",
+                             "/admin/retire_version"):
+                self._admin()
+                return
+            if self.path == "/v1/prefill":
+                self._prefill()
+                return
+            if self.path == "/v1/adopt":
+                self._adopt()
+                return
             if self.path != "/v1/generate":
                 self._json(404, {"error": "not found"})
                 return
             try:
                 req = self._read_json()
-                timeout_s = 600.0
-                deadline_hdr = self.headers.get("X-Deadline-Ms")
-                if deadline_hdr is not None:
-                    timeout_s = float(deadline_hdr) / 1000.0
-                    if timeout_s <= 0:
-                        self._json(504, {"error": "deadline exceeded"})
-                        return
+                timeout_s, deadline_hdr = self._deadline_s()
+                if timeout_s is None:
+                    return
                 result = engine.generate(
                     req.get("prompt_ids", []),
                     int(req.get("max_tokens", 16)),
@@ -1699,6 +2405,12 @@ def make_handler(engine: LlamaEngine, model_name: str):
                 self._json(400, {"error": str(e)})
 
     return Handler
+
+
+def is_remote_root(root: str) -> bool:
+    """A blob-store URL (the reference's ``remote/client.py`` test) rather
+    than a local directory."""
+    return root.startswith(("http://", "https://")) and "/blobs/" in root
 
 
 def engine_kwargs(cfg: Dict, ckpt_dir: str) -> Dict:
@@ -1780,6 +2492,9 @@ def serve_main(env: Optional[Dict] = None) -> int:
     if cfg.get("chaos"):
         raise _unported("chaos", "fault injection")
     ckpt = os.environ.get("KUBEDL_MODEL_PATH", "")
+    if is_remote_root(ckpt):
+        raise _unported(f"a remote model root ({ckpt})",
+                        "the remote artifact client")
     port = int(cfg.get("port", 8080))
     host = cfg.get("host") or os.environ.get("KUBEDL_SERVE_HOST", "127.0.0.1")
     kwargs = engine_kwargs(cfg, ckpt)

@@ -154,7 +154,8 @@ class ModelDraft(DraftModel):
 
     @property
     def device(self) -> torch.device:
-        return self.params["embed"].device
+        e = self.params["embed"]
+        return (e["q8"] if isinstance(e, dict) else e).device
 
     @classmethod
     def from_target(cls, params, cfg, n_layers: int,
@@ -162,10 +163,13 @@ class ModelDraft(DraftModel):
         """Early-exit draft: the target's first ``n_layers`` decoder
         layers (slices of the stacked [L, ...] tensors — views, no
         copies) with the shared embedding / final norm / lm head."""
+        from kubedl_tpu_torch.models.llama import map_leaves
+
         n = max(1, min(int(n_layers), cfg.n_layers))
         draft_params = {k: v for k, v in params.items() if k != "layers"}
-        draft_params["layers"] = {k: v[:n]
-                                  for k, v in params["layers"].items()}
+        # int8 leaves ({"q8", "s8"}) are sliced leaf by leaf
+        draft_params["layers"] = map_leaves(lambda a: a[:n],
+                                            params["layers"])
         return cls(draft_params, dataclasses.replace(cfg, n_layers=n),
                    **kwargs)
 

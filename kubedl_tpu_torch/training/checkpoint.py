@@ -1,0 +1,389 @@
+"""Checkpoint save (params) and restore in the reference's on-disk format.
+
+Port of the restore side of ``kubedl_tpu/training/checkpoint.py`` and of
+its single-process save, so that each package restores the other's
+checkpoints. The format (``checkpoint.py:10-23``)::
+
+    <ckpt_dir>/step-<N:08d>/
+        meta.json            step, process count and the global shape /
+                             dtype of every leaf, keyed by the JAX tree
+                             path string (``['params']['layers']['wq']``)
+        shards-p<pid>.npz    process pid's entries: a whole leaf under its
+                             path, a shard under "<path>@<offs>+<shape>"
+    <ckpt_dir>/latest        the marker, written last
+
+Leaves are torch tensors. :func:`_leaf_items` walks nested dicts, lists,
+tuples and named tuples in the order of ``jax.tree_util
+.tree_flatten_with_path`` (dict keys sorted) and yields the same strings
+as ``jax.tree_util.keystr``, so the manifest keys are the reference's.
+
+bf16 without ``ml_dtypes``: the reference's ``np.savez`` writes bf16
+leaves as two-byte void entries (``|V2``), and that is how they load in
+a process that never imported ``ml_dtypes``; the manifest's
+``"dtype": "bfloat16"`` is what says they are bf16. So the port reads
+such an entry as its bits (int16, then a bf16 view) and writes bf16 the
+same way.
+
+Restore places every leaf on the device one at a time, from the npz
+entry (or the shard entries) that hold it: the host never holds a copy
+of the whole tree. A ``like`` tree of ``meta`` tensors describes the
+target without allocating it.
+
+Left to later slices: the trainer's interval saves (``AsyncCheckpointer``,
+the peer push) and multi-process saves.
+"""
+
+from __future__ import annotations
+
+import glob
+import hashlib
+import json
+import logging
+import os
+import re
+import shutil
+import tempfile
+from pathlib import Path
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+log = logging.getLogger("kubedl_tpu_torch.training.checkpoint")
+
+
+# ---- tree paths --------------------------------------------------------------
+
+def _is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
+def _leaf_items(state, prefix: str = ""):
+    """``(keystr, leaf)`` for every leaf of ``state`` in JAX's flattening
+    order: dict keys sorted, ``['k']`` for a dict key, ``[i]`` for a list
+    or tuple index, ``.name`` for a named-tuple field; ``None`` and empty
+    containers hold no leaf."""
+    if state is None:
+        return
+    if isinstance(state, dict):
+        for k in sorted(state):
+            yield from _leaf_items(state[k], f"{prefix}[{k!r}]")
+    elif _is_namedtuple(state):
+        for name in state._fields:
+            yield from _leaf_items(getattr(state, name), f"{prefix}.{name}")
+    elif isinstance(state, (list, tuple)):
+        for i, v in enumerate(state):
+            yield from _leaf_items(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, state
+
+
+def _unflatten(like, leaves):
+    """Rebuild ``like``'s structure from ``leaves`` (an iterator in
+    :func:`_leaf_items` order)."""
+    if like is None:
+        return None
+    if isinstance(like, dict):
+        # fill in sorted order, then restore the original key order
+        filled = {k: _unflatten(like[k], leaves) for k in sorted(like)}
+        return {k: filled[k] for k in like}
+    if _is_namedtuple(like):
+        return type(like)(*(_unflatten(getattr(like, n), leaves)
+                            for n in like._fields))
+    if isinstance(like, (list, tuple)):
+        return type(like)(_unflatten(v, leaves) for v in like)
+    return next(leaves)
+
+
+def _shard_key(key: str, index, shape=None) -> str:
+    """"<path>@<offsets>[+<dims>]": the shard's global offset, plus its
+    shape so restore computes overlap without decompressing the entry."""
+    offs = ",".join(str(s.start or 0) for s in index)
+    if shape is None:
+        return f"{key}@{offs}"
+    return f"{key}@{offs}+" + "x".join(str(n) for n in shape)
+
+
+# ---- dtypes: torch <-> npz entries -------------------------------------------
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """The manifest's dtype string (numpy's name; "bfloat16" for bf16)."""
+    return str(dtype).replace("torch.", "")
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """An owned host copy of ``t`` as the reference writes it: bf16 as its
+    bits in a two-byte void array."""
+    t = t.detach().to("cpu").contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2").copy()
+    return t.numpy().copy()
+
+
+def _to_torch(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
+    """A host tensor from an npz entry; a two-byte void (or ``ml_dtypes``)
+    entry whose manifest says bfloat16 is read as bf16 bits."""
+    arr = np.ascontiguousarray(arr)
+    if dtype_name == "bfloat16" or arr.dtype.name == "bfloat16":
+        if arr.dtype.itemsize != 2:
+            raise ValueError(f"bfloat16 entry of itemsize {arr.dtype.itemsize}")
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+# ---- save (single process) ---------------------------------------------------
+
+def snapshot_state(state, process_index: int = 0):
+    """Device-to-host capture of ``state`` and its manifest: owned numpy
+    copies, one per leaf (rank 0 writes every leaf of a single-process
+    state; another rank writes none)."""
+    shards: Dict[str, np.ndarray] = {}
+    manifest: Dict[str, Any] = {}
+    for key, leaf in _leaf_items(state):
+        if isinstance(leaf, torch.Tensor):
+            manifest[key] = {"shape": list(leaf.shape),
+                             "dtype": _dtype_name(leaf.dtype)}
+            if process_index == 0:
+                shards[key] = _to_numpy(leaf)
+        else:
+            a = np.asarray(leaf)
+            manifest[key] = {"shape": list(a.shape), "dtype": str(a.dtype)}
+            if process_index == 0:
+                shards[key] = np.array(a)
+    return shards, manifest
+
+
+def write_snapshot(ckpt_dir: str, shards: Dict[str, np.ndarray],
+                   manifest: Dict[str, Any], step: int, pid: int,
+                   nprocs: int) -> str:
+    """Persist a snapshot: the shard file (written to a temporary name,
+    then renamed), then on rank 0 the manifest and the marker."""
+    d = Path(ckpt_dir) / f"step-{step:08d}"
+    d.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=str(d), suffix=".tmp.npz")
+    os.close(fd)
+    np.savez(tmp, **shards)
+    os.replace(tmp, d / f"shards-p{pid}.npz")
+    if pid == 0:
+        (d / "meta.json").write_text(
+            json.dumps({"step": step, "nprocs": nprocs, "leaves": manifest})
+        )
+        (Path(ckpt_dir) / "latest").write_text(d.name)
+    return str(d)
+
+
+def save_checkpoint(ckpt_dir: str, state, step: int,
+                    process_index: int = 0) -> str:
+    """Write ``state`` (a tree of tensors, e.g. ``{"params": params}``) as
+    step ``step`` of a single-process checkpoint."""
+    shards, manifest = snapshot_state(state, process_index)
+    return write_snapshot(ckpt_dir, shards, manifest, step, process_index, 1)
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    marker = Path(ckpt_dir) / "latest"
+    if not marker.exists():
+        return None
+    m = re.match(r"step-(\d+)", marker.read_text().strip())
+    return int(m.group(1)) if m else None
+
+
+def checkpoint_fingerprint(ckpt_dir: str, step: Optional[int] = None) -> str:
+    """Content fingerprint of one checkpoint step: sha256 over the
+    manifest bytes plus every shard file's (name, sha256), in sorted
+    order — the reference's function, byte for byte. Defaults to the step
+    the ``latest`` marker names; "" when that step is incomplete (no
+    manifest or no shard file)."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+    if step is None:
+        return ""
+    d = Path(ckpt_dir) / f"step-{step:08d}"
+    meta = d / "meta.json"
+    shard_files = sorted(glob.glob(str(d / "shards-p*.npz")))
+    if not meta.exists() or not shard_files:
+        return ""
+    h = hashlib.sha256()
+    h.update(meta.read_bytes())
+    for f in shard_files:
+        h.update(Path(f).name.encode())
+        fh = hashlib.sha256()
+        with open(f, "rb") as fp:
+            for chunk in iter(lambda: fp.read(1 << 20), b""):
+                fh.update(chunk)
+        h.update(fh.digest())
+    return h.hexdigest()
+
+
+# ---- restore -----------------------------------------------------------------
+
+class IncompleteCheckpoint(Exception):
+    """A step dir is missing shard data (e.g. preemption mid-save)."""
+
+
+class _ShardStore:
+    """Lazy view over every process's shard files for one step dir: npz
+    entries are read only when a leaf needs them."""
+
+    def __init__(self, d: Path) -> None:
+        self.files = [np.load(f)
+                      for f in sorted(glob.glob(str(d / "shards-p*.npz")))]
+        if not self.files:
+            raise FileNotFoundError(f"no shard files under {d}")
+        self.index: Dict[str, tuple] = {}
+        for i, f in enumerate(self.files):
+            for k in f.files:
+                self.index[k] = (i, k)
+
+    def close(self) -> None:
+        for f in self.files:
+            f.close()
+
+    def _pieces(self, key: str):
+        """``(offsets, shape or None, file, entry)`` of each shard entry of
+        ``key``."""
+        prefix = key + "@"
+        for skey, (i, k) in self.index.items():
+            if not skey.startswith(prefix):
+                continue
+            off_part, _, dim_part = skey[len(prefix):].partition("+")
+            offs = [int(x) for x in off_part.split(",")]
+            pshape = [int(x) for x in dim_part.split("x")] if dim_part \
+                else None
+            yield offs, pshape, i, k
+
+    def validate_coverage(self, key: str, shape) -> None:
+        """Global coverage from the shard keys alone (offsets and shapes
+        ride the keys): a torn save fails before any leaf is read."""
+        if key in self.index:
+            return
+        covered = 0
+        for _offs, pshape, i, k in self._pieces(key):
+            if pshape is None:  # legacy key without a shape: load it
+                pshape = list(self.files[i][k].shape)
+            covered += int(np.prod(pshape))
+        total = int(np.prod(shape))
+        if covered != total:
+            raise IncompleteCheckpoint(
+                f"leaf {key!r}: shards cover {covered} of {total} elements"
+            )
+
+    def full(self, key: str, shape) -> np.ndarray:
+        """The whole leaf in its stored dtype, assembled from its entry or
+        from the shard entries that cover it."""
+        if key in self.index:
+            i, k = self.index[key]
+            return self.files[i][k]
+        out = None
+        covered = 0
+        for offs, pshape, i, k in self._pieces(key):
+            piece = self.files[i][k]
+            if pshape is None:
+                pshape = list(piece.shape)
+            if out is None:
+                out = np.zeros(tuple(shape), dtype=piece.dtype)
+            dst = tuple(slice(o, o + n) for o, n in zip(offs, pshape))
+            out[dst] = piece
+            covered += int(np.prod(pshape))
+        if out is None or covered != out.size:
+            raise IncompleteCheckpoint(
+                f"leaf {key!r}: shards cover {covered} of "
+                f"{int(np.prod(shape))} elements"
+            )
+        return out
+
+
+def _available_steps(ckpt_dir: str):
+    steps = []
+    for p in Path(ckpt_dir).glob("step-*"):
+        m = re.match(r"step-(\d+)$", p.name)
+        if m:
+            steps.append(int(m.group(1)))
+    return sorted(steps, reverse=True)
+
+
+def restore_checkpoint(ckpt_dir: str, like, step: Optional[int] = None,
+                       gc_torn: bool = False, device=None,
+                       leaf_fn: Optional[Callable] = None):
+    """Load into the structure of ``like`` (a tree of tensors; ``meta``
+    tensors describe it without memory). Each leaf takes its ``like``
+    leaf's dtype and lands on ``device`` (default: the ``like`` leaf's
+    device); ``leaf_fn(key, tensor)``, when given, maps each leaf as it
+    lands (e.g. quantizes it), so the tree is never held twice. Returns
+    None when the dir holds no complete checkpoint.
+
+    With no explicit ``step``, tries the newest step dir first and falls
+    back to older ones (a save torn by preemption must not block a
+    resume); ``gc_torn=True`` deletes the torn newer dirs skipped over by
+    a successful fallback (single process only)."""
+    candidates = [step] if step is not None else _available_steps(ckpt_dir)
+    last_err: Optional[Exception] = None
+    torn: list = []
+    for cand in candidates:
+        try:
+            state = _restore_step(ckpt_dir, like, cand, device, leaf_fn)
+        except (IncompleteCheckpoint, FileNotFoundError, KeyError) as e:
+            if step is not None:
+                raise
+            last_err = e
+            torn.append(cand)
+            continue
+        if gc_torn and torn:
+            for t in torn:
+                shutil.rmtree(Path(ckpt_dir) / f"step-{t:08d}",
+                              ignore_errors=True)
+            log.warning("restored step %d; garbage-collected %d torn newer "
+                        "step dir(s): %s", cand, len(torn), torn)
+        return state
+    if last_err is not None:
+        log.warning("no complete checkpoint under %s (last error: %s)",
+                    ckpt_dir, last_err)
+    return None
+
+
+def _restore_step(ckpt_dir: str, like, step: int, device=None,
+                  leaf_fn: Optional[Callable] = None):
+    d = Path(ckpt_dir) / f"step-{step:08d}"
+    meta_file = d / "meta.json"
+    if not meta_file.exists():
+        raise IncompleteCheckpoint(f"{d} has no manifest")
+    meta = json.loads(meta_file.read_text())
+    store = _ShardStore(d)
+    try:
+        nprocs = int(meta.get("nprocs", 1))
+        if len(store.files) < nprocs:
+            raise IncompleteCheckpoint(
+                f"{d}: {len(store.files)} of {nprocs} process shard files "
+                "present"
+            )
+        leaves_meta = meta.get("leaves", {})
+        items = list(_leaf_items(like))
+        # coverage of every leaf first, from the keys alone: a torn save
+        # fails before anything is read or allocated
+        for key, leaf in items:
+            store.validate_coverage(key, tuple(leaf.shape))
+        out = []
+        for key, leaf in items:
+            arr = store.full(key, tuple(leaf.shape))
+            if tuple(arr.shape) != tuple(leaf.shape):
+                raise ValueError(
+                    f"leaf {key!r}: checkpoint shape {tuple(arr.shape)} != "
+                    f"{tuple(leaf.shape)}"
+                )
+            host = _to_torch(arr, leaves_meta.get(key, {}).get("dtype", ""))
+            del arr
+            if isinstance(leaf, torch.Tensor):
+                dev = device if device is not None else leaf.device
+                t = host.to(device=dev, dtype=leaf.dtype)
+            else:
+                t = host.to(dtype=_to_torch(np.asarray(leaf), "").dtype)
+            del host
+            out.append(leaf_fn(key, t) if leaf_fn is not None else t)
+    finally:
+        store.close()
+    return _unflatten(like, iter(out))
+
+
+__all__ = ["save_checkpoint", "snapshot_state", "write_snapshot",
+           "latest_step", "checkpoint_fingerprint", "restore_checkpoint",
+           "IncompleteCheckpoint"]

@@ -1,5 +1,5 @@
-"""Guards on the PyTorch port's boundaries: it never imports JAX, optax
-or the JAX package, it never falls back to the CPU on its own, and the
+"""Guards on the PyTorch port's boundaries: it never imports JAX, optax,
+ml_dtypes or the JAX package, it never falls back to the CPU on its own, and the
 engine and the trainer reject what the port does not run yet instead of
 ignoring it."""
 
@@ -35,15 +35,16 @@ def _imports(path: Path):
 def test_port_never_imports_jax_or_the_jax_package(path):
     for mod in _imports(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "kubedl_tpu", "flax", "optax"), \
-            f"{path.name} imports {mod}"
+        assert top not in ("jax", "jaxlib", "kubedl_tpu", "flax", "optax",
+                           "ml_dtypes"), f"{path.name} imports {mod}"
 
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"llama.py", "paged_attention.py", "server.py", "kv_blocks.py",
             "build.py", "chip_smoke.py", "flash_attention.py", "trainer.py",
-            "entry.py", "topology.py", "data.py"} <= names
+            "entry.py", "topology.py", "data.py", "checkpoint.py",
+            "disagg.py", "w8a16.py"} <= names
 
 
 def test_engine_without_device_raises_when_no_cuda(monkeypatch):
@@ -77,16 +78,14 @@ def test_resolve_device_rule(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    {"quantize": "int8"},
+    {"quantize": "int4"},
     {"mesh_axes": {"tensor": 2}},
     # speculation and the prefix cache are served now; what stays a later
     # slice is a trained zoo draft and the contiguous engine's prefix cache
     {"spec_k": 4, "spec_draft": "zoo:tiny"},
     {"prefix_cache_mb": 64.0, "kv_layout": "contiguous"},
     {"kv_layout": "contiguous"},
-    {"role": "prefill"},
-    {"role": "decode"},
-    {"ckpt_dir": "/nonexistent"},
+    {"role": "router"},
     {"kv_attention": "dense"},
     {"kv_layout": "ragged"},
 ], ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values()))))
@@ -104,6 +103,12 @@ def test_unsupported_engine_knobs_raise(kw):
     {"spec_k": 3, "spec_candidates": 3, "spec_tree": True},
     {"prefix_cache_mb": 64.0},
     {"prefix_cache_mb": 0.0},
+    # the model lifecycle and the disaggregated roles are served now; a
+    # missing checkpoint at init serves the init, as in the reference
+    {"quantize": "int8"},
+    {"role": "prefill"},
+    {"role": "decode"},
+    {"ckpt_dir": "/nonexistent"},
 ], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_ported_engine_knobs_are_accepted(kw):
     from kubedl_tpu_torch.serving.server import LlamaEngine
@@ -114,6 +119,9 @@ def test_ported_engine_knobs_are_accepted(kw):
         assert ("prefix_cache" in st) == (kw.get("prefix_cache_mb", 64.0) > 0)
         assert ("speculative" in st) == bool(kw.get("spec_k"))
         assert eng.spec_tree == bool(kw.get("spec_tree"))
+        assert st["weights"]["quantize"] == (kw.get("quantize") or "none")
+        assert st["role"] == kw.get("role", "colocated")
+        assert st["versions"]["loaded"] == ["base"]
     finally:
         eng.close()
 
@@ -126,18 +134,27 @@ def test_unknown_spec_draft_raises():
                     spec_draft="oracle")
 
 
-def test_hot_swap_raises_naming_later_slice():
+def test_hot_swap_raises_naming_later_slice(tmp_path):
+    """The three hot-swap calls are served now (load, activate, retire);
+    what still raises naming a later slice is the mesh-sharded engine
+    they would otherwise meet."""
     from kubedl_tpu_torch.serving.server import LlamaEngine
+    from kubedl_tpu_torch.training.checkpoint import save_checkpoint
 
     eng = LlamaEngine(preset="tiny", device="cpu", max_seq=64)
     try:
-        for call in (lambda: eng.load_version("v2", "/x"),
-                     lambda: eng.activate_version("v2"),
-                     lambda: eng.retire_version("v2")):
-            with pytest.raises(ValueError, match="later port slice"):
-                call()
+        save_checkpoint(str(tmp_path), {"params": eng.params}, 1)
+        eng.load_version("v2", str(tmp_path))
+        assert eng.activate_version("v2") == "base"
+        assert eng.retire_version("base") is True
+        assert eng.versions()["default"] == "v2"
+        with pytest.raises(ValueError):
+            eng.load_version("v3", str(tmp_path / "missing"))
     finally:
         eng.close()
+    with pytest.raises(ValueError, match="later port slice"):
+        LlamaEngine(preset="tiny", device="cpu", max_seq=64,
+                    mesh_axes={"tensor": 2})
 
 
 def test_serve_main_rejects_chaos(monkeypatch):
@@ -215,7 +232,8 @@ def _declared() -> dict:
 
 
 def test_every_declared_entry_point_exists_in_the_sources():
-    assert len(C_ENTRY_POINTS) >= 6
+    assert len(C_ENTRY_POINTS) >= 9
+    assert "kdl_w8a16_matmul" in C_ENTRY_POINTS
     assert set(_declared()) == set(C_ENTRY_POINTS)
 
 

@@ -124,7 +124,11 @@ def test_concurrent_rows_and_preemption_keep_streams(ref):
         eng.close()
     assert [o["token_ids"] for o in outs] == want[1:]
     assert st["kv_preemptions"] >= 1
-    assert st["kv_blocks"]["used"] == 0
+    # every block is back, save those a prefix-cache entry holds: a
+    # requeued request is observed again at re-admission, which may store
+    # its prompt (the reference's counting)
+    assert st["kv_blocks"]["used"] == \
+        st["prefix_cache"]["bytes"] // eng._block_bytes
 
 
 def test_pipelined_streams_under_concurrent_admission(ref):
