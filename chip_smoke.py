@@ -13,7 +13,10 @@ Phases (any failure exits non-zero before the final line):
    kernel (flash forward, fused backward, the split pair, paged
    prefill), its registers and spill bytes (ptxas) and its count of
    HGMMA instructions (``cuobjdump -sass``), failing if one has none or
-   if a split-pair kernel spills.
+   if a split-pair kernel spills; the same for the W8A16 kernels (the
+   decode route's instantiations and its split-K combine, the prefill
+   route's wgmma kernel), failing if one spills or the prefill kernel
+   has no HGMMA.
 3. blocked entry vs its plain PyTorch version at the serving shapes
    (Llama-3-8B: B=8, KV=8, group 4, hd 128, BS 16, MB 128; Gemma-2B:
    hd 256, KV 1, group 8) for S in {1, 64, 512}, ragged starts, block
@@ -119,20 +122,32 @@ Phases (any failure exits non-zero before the final line):
 
 16. W8A16 (weight-only int8 matmul, ``csrc/w8a16.cu``) against its plain
    version at Llama-3-8B's shapes (K x N in 4096 x 4096, 4096 x 1024,
-   4096 x 14336, 14336 x 4096, 4096 x 128256; M in {1, 8, 40, 512}; bf16
-   and float32 h) and a tied [N, K] case at Gemma-2B widths, within
-   ``W8_TOL``; at the timed shapes the kernel, the plain version
-   (dequantize, then torch.matmul), the dequantize alone, cuBLAS bf16 on
-   the unquantized weight and the bound; the sums over a decode step.
+   4096 x 14336, 14336 x 4096, 4096 x 128256; M in {1, 8, 40, 64, 512};
+   bf16 and float32 h) and a tied [N, K] case at Gemma-2B widths, within
+   ``W8_TOL``: bf16 through its static route (``w8a16_route``: decode up
+   to 64 rows, prefill above) and through each route forced at every M,
+   two calls bit-identical; float32 through the CUDA-core route. At the
+   timed cases each timed route's device and call time, the plain
+   version (dequantize, then torch.matmul), the dequantize alone, cuBLAS
+   bf16 on the unquantized weight and the bound (both routes at M = 40
+   and 64); the per-route sums over a decode step (M=8) and a verify
+   step (M=40); a MISS line where the decode step's sum is not below
+   cuBLAS's or M=512 4096 x 14336 is not below the plain version.
 17. int8 engine: ``serve_main`` with ``quantize`` "int8" on phase 5's
    config and requests (Llama-3-8B full width and depth); gates on every
-   response, 7 x 32 + 1 W8A16 launches a decode step, the paged kernels,
-   finite logits and resident weight bytes about half of phase 5's;
-   prints ms per decode step, TTFT and the W8A16 device ms a decode step
-   from a profiled window of pure decode. Then Llama-3-8B width, 2
-   layers, float32: the int8 engine's greedy streams with the kernel must
-   equal the same engine's with the plain version forced
-   (``forced_plain_w8a16``).
+   response, 7 x 32 + 1 W8A16 op calls a decode step, every decode
+   step's calls on the decode route and prefill chunks on the prefill
+   route, the paged kernels, finite logits and resident weight bytes
+   about half of phase 5's; prints ms per decode step and TTFT beside
+   phase 5's bf16 ones and beside phase 5's engine run on the same
+   requests right before and right after (the steps are host-bound and
+   the host's speed drifts within a call), and the W8A16 op calls and
+   device ms a decode step: calls counted in a window of pure decode,
+   device ms from a profile of the whole wave (the decode kernel at
+   M <= 8 and its split-K combine, over those calls). Then
+   Llama-3-8B width, 2 layers, float32: the int8 engine's greedy streams
+   with the kernel must equal the same engine's with the plain version
+   forced (``forced_plain_w8a16``).
 18. checkpoints and hot swap: Llama-3-8B width, 4 layers, bf16: two seeds'
    params written by the port's ``save_checkpoint``; ``serve_main`` with
    ``KUBEDL_MODEL_PATH`` restores the first (gated: every restored tensor
@@ -462,13 +477,13 @@ def tc_kernel_report(build) -> dict:
     return rep
 
 
-def _tc_source_report(build, src) -> dict:
+def _tc_source_report(build, src, key=_kernel_key) -> dict:
     rep, cur = {}, None
     for line in build.BUILD_LOG.get(src, "").splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for)"
                       r" '?(\w+)", line)
         if m:
-            cur = _kernel_key(m.group(1))
+            cur = key(m.group(1))
             continue
         if cur is None:
             continue
@@ -491,11 +506,52 @@ def _tc_source_report(build, src) -> dict:
     for line in sass.stdout.splitlines():
         m = re.search(r"Function : (\w+)", line)
         if m:
-            cur = _kernel_key(m.group(1))
+            cur = key(m.group(1))
             if cur:
                 rep.setdefault(cur, {})["hgmma"] = 0
         elif cur and "HGMMA" in line:
             rep[cur]["hgmma"] += 1
+    return rep
+
+
+#: the W8A16 kernels (csrc/w8a16.cu) phase 2 reports: the decode route's
+#: instantiations (n8 tiles of h rows, tied layout), its split-K combine and
+#: the prefill route's wgmma kernel; none may spill, and the prefill kernel
+#: must hold HGMMA
+W8_DECODE_TILES = (1, 2, 5, 8)
+W8_KERNELS = (
+    [f"w8a16_decode_kernel<{mt}, {t}>" for mt in W8_DECODE_TILES
+     for t in ("false", "true")]
+    + [f"w8a16_prefill_kernel<{bm}, {t}>" for bm in (128, 256)
+       for t in ("false", "true")]
+    + [f"w8a16_combine_kernel<{tag}>" for tag in (0,) + W8_DECODE_TILES])
+
+
+def _w8_key(mangled: str):
+    """``w8a16_decode_kernel<8, false>`` from a mangled name, or None."""
+    m = re.search(r"(w8a16_[a-z]+_kernel)(?:I(?:Li(\d+)E)?(?:Lb([01])E)?)?",
+                  mangled)
+    if m is None:
+        return None
+    args = [a for a in (m.group(2), {"0": "false", "1": "true"}.get(
+        m.group(3))) if a]
+    name = m.group(1) + (f"<{', '.join(args)}>" if args else "")
+    return name if name in W8_KERNELS else None
+
+
+def w8_kernel_report(build) -> dict:
+    """Registers, spill bytes and HGMMA count of the W8A16 kernels (this
+    run's ptxas -v and cuobjdump -sass). Fails if one was not found or
+    spills, or if the prefill kernel holds no HGMMA."""
+    rep = _tc_source_report(build, "w8a16.cu", key=_w8_key)
+    missing = [k for k in W8_KERNELS if "registers" not in rep.get(k, {})]
+    spills = {k: v for k, v in rep.items()
+              if v.get("spill_stores", 1) or v.get("spill_loads", 1)}
+    no_hgmma = [k for k in W8_KERNELS if k.startswith("w8a16_prefill")
+                and not rep.get(k, {}).get("hgmma")]
+    if missing or spills or no_hgmma:
+        fail(f"w8a16 kernels: missing {missing}, spilling {spills}, "
+             f"prefill without HGMMA {no_hgmma}: {rep}")
     return rep
 
 
@@ -1377,6 +1433,8 @@ def run_engine(pa, server_mod, llama_mod, summary):
     print("engine (smoke run, not a benchmark): " + json.dumps(eng), flush=True)
     summary["launches"] = launches
     summary["bf16_weight_bytes"] = st["weights"]["bytes"]
+    summary["bf16_ms_per_decode_step"] = eng["ms_per_decode_step"]
+    summary["bf16_ttft_ms_p50"] = eng["ttft_ms_p50"]
     blocked_tokens = [r[1]["token_ids"] for r in results[:6]]
     return blocked_tokens, reqs, serve_cfg
 
@@ -1752,13 +1810,15 @@ def run_f32_identity(server_mod, llama_mod):
 
 #: the device phases 16-19 run on (the card; a CPU rehearsal sets "cpu")
 DEV = "cuda"
-W8_M = (1, 8, 40, 512)
-#: the kernels line's shape: the MLP's up projection at decode (M=8)
+W8_M = (1, 8, 40, 64, 512)
+#: the kernels line's shapes: the MLP's up projection at decode (M=8, the
+#: decode route) and in a prefill chunk (M=512, the prefill route)
 W8_MAIN = (4096, 14336)
 #: the tied case: Gemma-2B's embedding as its head (K = dim, N = vocab)
 W8_TIED = (2048, 256000)
-#: the timed cases: the MLP's up projection and the head at decode (M=8)
-#: and verify (M=40) rows and a prefill chunk (M=512)
+#: the timed cases: every layer shape at decode (M=8) and verify (M=40)
+#: rows; these two also at M=64 (both routes apply at 40 and 64) and in a
+#: prefill chunk (M=512)
 W8_TIMED = {(4096, 14336), (4096, 128256)}
 W8_REPLACES = ("kubedl_tpu/models/llama.py:332 deq (convert+scale fused into "
                "the consuming dot by XLA; no Pallas kernel)")
@@ -1837,13 +1897,54 @@ def w8_case(llama_mod, K, N, tied, seed):
     return q["q8"], q["s8"], wb
 
 
+#: the case whose host cost a call phase 16 reads (the engine's decode
+#: step is host-bound: 225 calls a step)
+W8_HOST = (4096, 4096)
+
+
+def host_us_per_call(fn, calls=500):
+    """Host microseconds a call of ``fn`` takes to queue its work, over
+    ``calls`` calls issued back to back (the card runs them meanwhile)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def w8_timed_routes(w8, K, N, M, tied):
+    """The bf16 routes phase 16 times at a case: every layer shape at
+    decode rows (M=8: the decode route) and verify rows (M=40: both
+    routes, for each route's verify-step sum); ``W8_TIMED`` also at M=64
+    (both) and in a prefill chunk (M=512: the prefill route); the tied
+    head at M=8 only."""
+    if M == 8:
+        return (w8.DECODE,)
+    if tied:
+        return ()
+    if M == 40:
+        return (w8.DECODE, w8.PREFILL)
+    if (K, N) in W8_TIMED:
+        return {64: (w8.DECODE, w8.PREFILL), 512: (w8.PREFILL,)}.get(M, ())
+    return ()
+
+
 def run_w8a16_kernels(w8, llama_mod):
-    """Phase 16: the W8A16 kernel against its plain version at Llama-3-8B's
-    shapes (M in {1, 8, 40, 512}, bf16 and float32 h) and one tied
-    [N, K] case at Gemma-2B widths; at the timed shapes the kernel, the
-    plain version (dequantize, then torch.matmul), cuBLAS bf16 on the
-    unquantized weight (the yardstick) and the bound."""
-    out, per_shape = {}, {}
+    """Phase 16: the W8A16 kernels against their plain version at
+    Llama-3-8B's shapes (M in ``W8_M``, bf16 and float32 h) and one tied
+    [N, K] case at Gemma-2B widths: for bf16 h the static route, then each
+    route forced (decode and prefill, each at every M), each within
+    ``W8_TOL`` and each bit-identical over two calls (the decode route's
+    split-K sums are deterministic); for float32 the CUDA-core route. At
+    the timed cases each timed route's device and call time, the plain
+    version (dequantize, then torch.matmul), cuBLAS bf16 on the
+    unquantized weight (the yardstick) and the bound; the sums over a
+    decode step (M=8) and a verify step (M=40) per route."""
+    out, per_route, host = {}, {}, {}
     shapes = w8_step_shapes(llama_mod.preset("llama3-8b"))
     cases = [(K, N, False) for K, N in shapes] + [W8_TIED + (True,)]
     for K, N, tied in cases:
@@ -1852,58 +1953,115 @@ def run_w8a16_kernels(w8, llama_mod):
             for dtype in (torch.bfloat16, torch.float32):
                 g = torch.Generator(device=DEV).manual_seed(M)
                 h = torch.randn((M, K), generator=g, device=DEV).to(dtype)
-                before = w8.LAUNCHES["w8a16"]
-                y = w8.w8a16_matmul(h, q8, s8, tied)
-                torch.cuda.synchronize()
                 ref = w8.plain_w8a16_matmul(h, q8, s8, tied)
-                err = (y.float() - ref.float()).abs().max().item()
                 scale = ref.float().abs().max().item()
-                if w8.LAUNCHES["w8a16"] != before + 1:
-                    fail(f"w8a16 {K}x{N} M={M} did not launch the kernel")
-                if not math.isfinite(err) or err > W8_TOL[dtype] * scale:
-                    fail(f"w8a16 {K}x{N} tied={tied} M={M} {dtype}: max abs "
-                         f"err {err} > {W8_TOL[dtype]} x {scale}")
+                route = w8.w8a16_route(M, N, K, dtype, tied)
                 key = f"{K}x{N}{' tied' if tied else ''} M={M} " \
                       f"{str(dtype).split('.')[-1]}"
-                rec = {"max_abs_err": err, "max_abs_out": scale}
-                timed = dtype == torch.bfloat16 and (
-                    ((K, N) in W8_TIMED and M > 1) or (M == 8 and not tied))
+                rec = {"route": route, "max_abs_out": scale, "err": {}}
+                forced = (None, w8.DECODE, w8.PREFILL) \
+                    if dtype == torch.bfloat16 else (None,)
+                for fr in forced:
+                    before = dict(w8.LAUNCHES)
+                    y = w8.w8a16_matmul(h, q8, s8, tied, route=fr)
+                    torch.cuda.synchronize()
+                    took = fr or route
+                    if (w8.LAUNCHES["w8a16"] != before["w8a16"] + 1 or
+                            w8.LAUNCHES[f"w8a16_{took}"]
+                            != before[f"w8a16_{took}"] + 1):
+                        fail(f"w8a16 {key} route {took}: did not launch "
+                             "its kernel")
+                    err = (y.float() - ref.float()).abs().max().item()
+                    if not math.isfinite(err) or err > W8_TOL[dtype] * scale:
+                        fail(f"w8a16 {key} route {took}: max abs err {err} "
+                             f"> {W8_TOL[dtype]} x {scale}")
+                    if fr is not None:
+                        y2 = w8.w8a16_matmul(h, q8, s8, tied, route=fr)
+                        if not torch.equal(y, y2):
+                            fail(f"w8a16 {key} route {fr}: two calls on the "
+                                 "same inputs differ")
+                        del y2
+                    rec["err"][str(fr or "static")] = err
+                    del y
+                rec["max_abs_err"] = max(rec["err"].values())
+                timed = w8_timed_routes(w8, K, N, M, tied) \
+                    if dtype == torch.bfloat16 else ()
                 if timed:
-                    kern = lambda: w8.w8a16_matmul(h, q8, s8, tied)  # noqa
-                    lib = lambda: h @ wb  # noqa: E731
-                    rec["ms"] = time_ms(kern)
-                    rec["call_ms"] = time_ms(kern, hide_host=False)
                     rec["plain_ms"] = time_ms(
                         lambda: w8.plain_w8a16_matmul(h, q8, s8, tied),
                         reps=10, hide_host=False)
                     rec["deq_ms"] = time_ms(
                         lambda: w8.deq_weight(q8, s8, dtype, tied), reps=10,
                         hide_host=False)
+                    lib = lambda: h @ wb  # noqa: E731
                     rec["library_ms"] = time_ms(lib)
                     rec["library_call_ms"] = time_ms(lib, hide_host=False)
                     rec["bound_ms"], rec["bound_by"] = w8_bound(M, N, K,
                                                                 dtype)
-                    rec["ms_over_bound"] = rec["ms"] / rec["bound_ms"]
-                    rec["ms_over_library"] = rec["ms"] / rec["library_ms"]
-                    if M == 8 and not tied:
-                        per_shape[(K, N)] = rec
+                    rec["routes"] = {}
+                    for r in timed:
+                        kern = lambda: w8.w8a16_matmul(  # noqa: E731
+                            h, q8, s8, tied, route=r)
+                        ms = time_ms(kern)
+                        rec["routes"][r] = {
+                            "ms": ms, "call_ms": time_ms(kern, hide_host=False),
+                            "ms_over_bound": ms / rec["bound_ms"],
+                            "ms_over_library": ms / rec["library_ms"]}
+                        if not tied:
+                            per_route.setdefault((M, r), {})[(K, N)] = dict(
+                                rec, **rec["routes"][r])
+                    # the static route's numbers at the top of the record
+                    if route in rec["routes"]:
+                        rec.update({k: rec["routes"][route][k]
+                                    for k in ("ms", "call_ms")})
+                    if (K, N) == W8_HOST and M == 8:
+                        host["w8a16"] = host_us_per_call(
+                            lambda: w8.w8a16_matmul(h, q8, s8, tied))
+                        host["library"] = host_us_per_call(lib)
+                        rec["host_us_per_call"] = dict(host)
                 out[key] = rec
                 print(f"w8a16 {key}: " + json.dumps(rec), flush=True)
-                del h, y, ref
+                del h, ref
         del q8, s8, wb
         _free()
-    # a decode step's W8A16 work at M=8 in isolation: the sum over its
-    # launches, beside cuBLAS bf16 and the bound
-    step = {k: sum(per_shape[s][k] * n for s, n in shapes.items())
-            for k in ("ms", "library_ms", "bound_ms")}
-    print("w8a16 decode step at M=8, summed over its "
-          f"{sum(shapes.values())} launches: " + json.dumps(step), flush=True)
-    main = dict(per_shape[W8_MAIN],
-                shape=f"M=8 K={W8_MAIN[0]} N={W8_MAIN[1]} bf16")
-    main["step_sums_m8"] = step
-    main["table"] = {k: {f: v.get(f) for f in (
-        "ms", "call_ms", "bound_ms", "plain_ms", "library_ms",
-        "ms_over_library")} for k, v in out.items() if "ms" in v}
+    # a decode step's (M=8) and a verify step's (M=40) W8A16 work in
+    # isolation, per route: the sum over the step's launches, beside
+    # cuBLAS bf16 and the bound
+    sums = {}
+    for (M, r), recs in sorted(per_route.items()):
+        if M not in (8, 40) or set(recs) != set(shapes):
+            continue
+        sums[f"M={M} {r}"] = {
+            k: sum(recs[s][k] * n for s, n in shapes.items())
+            for k in ("ms", "call_ms", "library_ms", "bound_ms")}
+        print(f"w8a16 step at M={M}, route {r}, summed over its "
+              f"{sum(shapes.values())} launches: "
+              + json.dumps(sums[f"M={M} {r}"]), flush=True)
+    if "M=8 decode" not in sums:
+        fail(f"w8a16: no decode-step sums: {sorted(per_route)}")
+    step = sums["M=8 decode"]
+    if step["ms"] >= step["library_ms"]:
+        print(f"w8a16 MISS: the M=8 decode step's W8A16 sum {step['ms']} ms "
+              f"is not below cuBLAS bf16's {step['library_ms']} ms",
+              flush=True)
+    main = {}
+    for M, r in ((8, w8.DECODE), (512, w8.PREFILL)):
+        rec = per_route[(M, r)][W8_MAIN]
+        main[r] = dict({k: rec[k] for k in (
+            "max_abs_err", "ms", "call_ms", "plain_ms", "library_ms",
+            "library_call_ms", "bound_ms", "bound_by")},
+            shape=f"M={M} K={W8_MAIN[0]} N={W8_MAIN[1]} bf16")
+    big = main[w8.PREFILL]
+    if big["ms"] >= big["plain_ms"]:
+        print(f"w8a16 MISS: M=512 {W8_MAIN}: prefill route {big['ms']} ms "
+              f"is not below the plain version's {big['plain_ms']} ms",
+              flush=True)
+    main["step_sums"] = sums
+    main["host_us_per_call"] = host
+    main["table"] = {
+        f"{k} {r}": dict({f: v.get(f) for f in (
+            "bound_ms", "plain_ms", "library_ms")}, **rv)
+        for k, v in out.items() for r, rv in v.get("routes", {}).items()}
     return main
 
 
@@ -1923,30 +2081,41 @@ def engine_idle(base, what):
         time.sleep(0.02)
 
 
+#: a decode step's W8A16 kernels in a profile: the decode route's kernel
+#: at one n8 tile of rows (M <= 8: the decode steps of an 8-row batch) and
+#: the combine kernel that sums its split-K partials (demangled or not)
+W8_STEP_KERNELS = (re.compile(r"w8a16_decode_kernel(?:<1,|ILi1E)"),
+                   re.compile(r"w8a16_combine_kernel(?:<1>|ILi1E)"))
+
+
 def w8_profile_window(w8, llama_mod, base, reqs, seconds=1.0):
-    """W8A16 launches and device time per decode step, measured in a
-    profiled window of pure decode on the serving engine in this
-    process. The requests are sent; the window opens once every request
-    holds a row and the engine has decoded 8 steps, and closes after at
-    least ``seconds`` and two decode segments (32 steps each when nothing
-    waits; the wave's 192 tokens leave three or more), or when the wave
-    ends. Each decode-segment dispatch that starts inside
-    the window records its steps and the launches made inside it (the
-    scheduler thread makes both), so launches per step is exact; device
-    ms per step is the profile's W8A16 ms over the decode steps its
-    kernels cover (kernels seen / launches per step)."""
+    """W8A16 op calls and device time per decode step on the serving
+    engine in this process. Calls: a window of pure decode opens once
+    every request holds a row and the engine has decoded 8 steps, and
+    closes after at least ``seconds`` and two decode segments (32 steps
+    each when nothing waits), or when the wave ends; each decode-segment
+    dispatch that starts inside it records its steps and the op calls
+    made inside it, all and on the decode route (the scheduler thread
+    makes them), so calls per step is exact. Device time: the profiler
+    runs over the whole wave, started before it (one started inside the
+    window, while the scheduler thread launched, recorded no kernel on
+    the card), and a decode step's W8A16 ms
+    is the decode kernel's at M <= 8 plus the combine kernel that follows
+    it (``W8_STEP_KERNELS``), over those calls, times the calls a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    seen = {"open": False, "steps": 0, "launches": 0, "segments": 0}
+    seen = {"open": False, "steps": 0, "launches": 0, "decode_launches": 0,
+            "segments": 0}
     real = llama_mod.paged_decode_segment
 
     def counted(*a, **k):
         if not seen["open"]:
             return real(*a, **k)
-        n0 = w8.LAUNCHES["w8a16"]
+        n0, d0 = w8.LAUNCHES["w8a16"], w8.LAUNCHES["w8a16_decode"]
         out = real(*a, **k)
         seen["launches"] += w8.LAUNCHES["w8a16"] - n0
+        seen["decode_launches"] += w8.LAUNCHES["w8a16_decode"] - d0
         seen["steps"] += int(k["n_steps"])
         seen["segments"] += 1
         return out
@@ -1956,7 +2125,10 @@ def w8_profile_window(w8, llama_mod, base, reqs, seconds=1.0):
         "res", post_all(base, reqs)), daemon=True)
     _, st0 = http_json(base + "/v1/stats")
     llama_mod.paged_decode_segment = counted
+    prof = profile(activities=[ProfilerActivity.CUDA])
     try:
+        torch.cuda.synchronize()
+        prof.start()
         th.start()
         deadline = time.perf_counter() + 300
         admitted = None  # decode steps when every request held a row
@@ -1973,19 +2145,17 @@ def w8_profile_window(w8, llama_mod, base, reqs, seconds=1.0):
             if time.perf_counter() > deadline:
                 fail("w8a16 profile: the wave never reached decode")
             time.sleep(0.02)
-        prof = profile(activities=[ProfilerActivity.CUDA])
-        with prof:
-            seen["open"] = True
-            t_open = time.perf_counter()
-            while th.is_alive() and (
-                    seen["segments"] < 2
-                    or time.perf_counter() - t_open < seconds):
-                time.sleep(0.02)
-            seen["open"] = False
-            window_s = time.perf_counter() - t_open
-            torch.cuda.synchronize()
+        seen["open"] = True
+        t_open = time.perf_counter()
+        while th.is_alive() and (
+                seen["segments"] < 2 or time.perf_counter() - t_open < seconds):
+            time.sleep(0.02)
+        seen["open"] = False
+        window_s = time.perf_counter() - t_open
         _, st2 = http_json(base + "/v1/stats")
         th.join(timeout=600)
+        torch.cuda.synchronize()
+        prof.stop()
     finally:
         llama_mod.paged_decode_segment = real
     if not seen["steps"] or st2["pipeline"]["prefills"] != \
@@ -1993,8 +2163,8 @@ def w8_profile_window(w8, llama_mod, base, reqs, seconds=1.0):
         fail(f"w8a16 profile: not a pure-decode window: {seen}, "
              f"{st2['pipeline']['prefills'] - st1['pipeline']['prefills']} "
              "prefill dispatches")
-    ms = n = 0
-    cats = {}
+    step_ms = step_calls = 0
+    cats, by_kernel, count_by_kernel = {}, {}, {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -2003,43 +2173,81 @@ def w8_profile_window(w8, llama_mod, base, reqs, seconds=1.0):
             us = e.self_cuda_time_total
         cat = "w8a16" if "w8a16" in e.key else _kernel_category(e.key)
         cats[cat] = cats.get(cat, 0.0) + us / 1e3
-        if cat == "w8a16":
-            ms += us / 1e3
-            n += e.count
+        if cat != "w8a16":
+            continue
+        kern = next((k for k in ("decode", "combine", "prefill", "f32")
+                     if f"w8a16_{k}_kernel" in e.key), "other")
+        by_kernel[kern] = by_kernel.get(kern, 0.0) + us / 1e3
+        count_by_kernel[kern] = count_by_kernel.get(kern, 0) + e.count
+        main, comb = (p.search(e.key) for p in W8_STEP_KERNELS)
+        if main or comb:
+            step_ms += us / 1e3
+            step_calls += e.count if main else 0
     checked(box["res"][0], reqs[0]["max_tokens"], "w8a16 profiled wave")
+    if not step_calls:
+        fail(f"w8a16 profile: no decode-step kernel among {count_by_kernel} "
+             f"({cats})")
     per_step = seen["launches"] / seen["steps"]
     return {"window_s": window_s, "segments": seen["segments"],
             "decode_steps": seen["steps"], "launches": seen["launches"],
+            "decode_route_launches": seen["decode_launches"],
             "launches_per_decode_step": per_step,
-            "kernels_seen": n, "device_ms": ms,
-            "ms_per_launch": ms / n if n else None,
-            "device_ms_per_decode_step": ms / (n / per_step) if n else None,
-            "by_category_ms": cats}
+            "decode_step_calls_profiled": step_calls,
+            "ms_per_call": step_ms / step_calls,
+            "device_ms_per_decode_step": step_ms / step_calls * per_step,
+            "wave_w8a16_ms_by_kernel": by_kernel,
+            "wave_w8a16_kernels_by_name": count_by_kernel,
+            "wave_by_category_ms": cats}
+
+
+def bf16_wave(server_mod, serve_cfg, reqs):
+    """Phase 5's engine (bf16) on ``reqs``: ms a decode step, TTFT p50
+    and the wall time, the responses checked."""
+    with serving(server_mod, serve_cfg) as base:
+        before = engine_idle(base, "bf16 engine")
+        results, wall = post_all(base, reqs)
+        st = engine_idle(base, "bf16 engine")
+    checked(results, reqs[0]["max_tokens"], "bf16 engine")
+    pipe, pipe0 = st["pipeline"], before["pipeline"]
+    steps = pipe["decode_steps"] - pipe0["decode_steps"]
+    return {"ms_per_decode_step": (pipe["decode_ms_sum"]
+                                   - pipe0["decode_ms_sum"]) / steps,
+            "ttft_ms_p50": st.get("ttft_ms_p50"), "wall_s": wall}
 
 
 def run_int8_engine(pa, w8, server_mod, llama_mod, serve_cfg, summary):
     """Phase 17: serve_main with quantize int8 at Llama-3-8B full width
     and depth on phase 5's requests. Gates: every response; W8A16
-    launches exactly 7 x 32 + 1 a decode step and a prefill dispatch;
-    both paged kernels; finite logits; resident weight bytes exactly the
-    int8 tree's, from the config."""
+    launches exactly 7 x 32 + 1 a decode step and a prefill dispatch,
+    each decode step's on the decode route and prefill chunks on the
+    prefill route; both paged kernels; finite logits; resident weight
+    bytes exactly the int8 tree's, from the config. Prints the int8
+    decode step and TTFT beside phase 5's bf16 ones and beside the bf16
+    engine's on the same requests right before and right after it."""
     cfg8 = llama_mod.preset("llama3-8b")
     reqs = make_requests(cfg8.vocab_size)
     cfg = dict(serve_cfg, quantize="int8")
     per_step = w8_per_step(cfg8)
+    # the bf16 engine on the same requests right before and after: the
+    # host's speed drifts within a call, and both steps are host-bound
+    bracket = [bf16_wave(server_mod, serve_cfg, reqs)]
     with serving(server_mod, cfg) as base:
         before = engine_idle(base, "int8 engine")
         reset_counts(pa)
-        w8.LAUNCHES["w8a16"] = 0
+        for k in w8.LAUNCHES:
+            w8.LAUNCHES[k] = 0
         results, wall = post_all(base, reqs)
         st = engine_idle(base, "int8 engine")
         n_w8 = w8.LAUNCHES["w8a16"]
+        by_route = {r: w8.LAUNCHES[f"w8a16_{r}"]
+                    for r in (w8.DECODE, w8.PREFILL, w8.CUDA_CORE)}
         launches = dict(pa.LAUNCHES)
         rng = np.random.RandomState(17)
         short = [{"prompt_ids": rng.randint(0, cfg8.vocab_size,
                                             size=64).tolist(),
-                  "max_tokens": 192, "temperature": 0.0} for _ in range(8)]
+                  "max_tokens": 128, "temperature": 0.0} for _ in range(8)]
         prof = w8_profile_window(w8, llama_mod, base, short)
+    bracket.append(bf16_wave(server_mod, serve_cfg, reqs))
     checked(results, 128, "int8 engine")
     pipe, pipe0 = st["pipeline"], before["pipeline"]
     steps = pipe["decode_steps"] - pipe0["decode_steps"]
@@ -2049,9 +2257,16 @@ def run_int8_engine(pa, w8, server_mod, llama_mod, serve_cfg, summary):
              f"+ {dispatches} prefill dispatches)")
     if launches["fused"] < cfg8.n_layers * steps or launches["blocked"] <= 0:
         fail(f"int8 engine: paged launches {launches} for {steps} steps")
+    if (by_route[w8.DECODE] < per_step * steps or by_route[w8.PREFILL] <= 0
+            or by_route[w8.DECODE] + by_route[w8.PREFILL] != n_w8):
+        fail(f"w8a16 routes {by_route} over {steps} decode steps: every "
+             "step's calls on the decode route, prefill chunks on the "
+             "prefill route")
     if prof["launches_per_decode_step"] != per_step:
         fail(f"w8a16 window: {prof['launches']} launches in "
              f"{prof['decode_steps']} decode steps, want {per_step} a step")
+    if prof["decode_route_launches"] != prof["launches"]:
+        fail(f"w8a16 window: decode steps left the decode route: {prof}")
     if st["nonfinite_logits"] != 0:
         fail(f"int8 engine: {st['nonfinite_logits']} non-finite logits")
     wb, bf16_wb = st["weights"]["bytes"], summary.get("bf16_weight_bytes")
@@ -2063,11 +2278,21 @@ def run_int8_engine(pa, w8, server_mod, llama_mod, serve_cfg, summary):
            "prefill_dispatches": dispatches,
            "prefill_chunks": pipe["prefill_chunks"] - pipe0["prefill_chunks"],
            "w8a16_launches": n_w8,
+           "w8a16_launches_by_route": by_route,
            "ms_per_decode_step": dec_ms / steps,
+           "bf16_ms_per_decode_step": summary.get("bf16_ms_per_decode_step"),
+           "int8_over_bf16_step": (dec_ms / steps
+                                   / summary["bf16_ms_per_decode_step"]
+                                   if summary.get("bf16_ms_per_decode_step")
+                                   else None),
+           "bf16_bracket": bracket,
+           "int8_over_bf16_bracket": dec_ms / steps / statistics.mean(
+               b["ms_per_decode_step"] for b in bracket),
            "decode_tokens_per_s": (pipe["decode_tokens"]
                                    - pipe0["decode_tokens"]) / (dec_ms / 1e3),
            "ttft_ms_p50": st.get("ttft_ms_p50"),
            "ttft_ms_p95": st.get("ttft_ms_p95"),
+           "bf16_ttft_ms_p50": summary.get("bf16_ttft_ms_p50"),
            "weight_bytes": wb, "bf16_weight_bytes": bf16_wb,
            "weight_bytes_ratio": wb / bf16_wb if bf16_wb else None,
            "paged_launches": launches,
@@ -2076,6 +2301,7 @@ def run_int8_engine(pa, w8, server_mod, llama_mod, serve_cfg, summary):
     print("int8 engine (smoke run, not a benchmark): " + json.dumps(rec),
           flush=True)
     summary["w8a16_launches"] = n_w8
+    summary["w8a16_route_launches"] = by_route
     summary["w8a16_window"] = prof
     summary.setdefault("paths", {})["int8"] = launches
     return reqs
@@ -2507,6 +2733,8 @@ def main() -> int:
           f"({json.dumps(build.BUILD_SECONDS)})", flush=True)
     print("tensor-core kernels (ptxas -v, cuobjdump -sass): "
           + json.dumps(tc_kernel_report(build)), flush=True)
+    print("w8a16 kernels (ptxas -v, cuobjdump -sass): "
+          + json.dumps(w8_kernel_report(build)), flush=True)
 
     kernels = {}
     for name, shape in (("llama", LLAMA), ("gemma", GEMMA)):
@@ -2635,21 +2863,32 @@ def main() -> int:
         rec["launches_by_path"] = {
             path: counts[entry]
             for path, counts in summary.get("paths", {}).items()}
-    w8rec = record("w8a16_matmul", "kubedl_tpu_torch/csrc/w8a16.cu",
-                   W8_REPLACES, summary.get("w8a16_launches"),
-                   kernels["w8a16_matmul"],
-                   "tensor_core (mma.sync bf16); float32: cuda_core")
-    # measured in phase 17's pure-decode window, beside what the model
-    # implies
+    # the W8A16 routes: decode (mma.sync on the swapped product, split-K
+    # with its combine kernel) timed at M=8, prefill (wgmma, A from
+    # registers) at M=512; launches per route from phase 17's main path
+    w8k = kernels["w8a16_matmul"]
+    by_route = summary.get("w8a16_route_launches") or {}
     window = summary.get("w8a16_window") or {}
-    w8rec["launches_per_decode_step"] = window.get("launches_per_decode_step")
-    w8rec["device_ms_per_decode_step"] = window.get(
-        "device_ms_per_decode_step")
-    w8rec["expected_launches_per_decode_step"] = w8_per_step(
-        llama_mod.preset("llama3-8b"))
-    for key in ("step_sums_m8", "table"):
-        w8rec[key] = kernels["w8a16_matmul"][key]
-    line.append(w8rec)
+    for route, design in (
+            ("decode", "decode route: mma.sync m16n8k16 on y^T = W^T h^T, "
+             "split-K over a cp.async ring + combine kernel"),
+            ("prefill", "prefill route: wgmma m64n128k16, A (dequantized "
+             "W^T) from registers, h by TMA")):
+        rec = record(f"w8a16_matmul_{route}",
+                     "kubedl_tpu_torch/csrc/w8a16.cu", W8_REPLACES,
+                     by_route.get(route), w8k[route], design)
+        rec["step_sums"] = w8k["step_sums"]
+        rec["host_us_per_call"] = w8k["host_us_per_call"]
+        if route == "decode":
+            # phase 17's pure-decode window, beside what the model implies
+            rec["launches_per_decode_step"] = window.get(
+                "launches_per_decode_step")
+            rec["device_ms_per_decode_step"] = window.get(
+                "device_ms_per_decode_step")
+            rec["expected_launches_per_decode_step"] = w8_per_step(
+                llama_mod.preset("llama3-8b"))
+            rec["table"] = w8k["table"]
+        line.append(rec)
     main_case = FLASH_CASES[0]  # the timed shape: llama3-1b training
     for name in FLASH_REPLACES:
         tc = fa.tensor_core_route(main_case[6], main_case[5])

@@ -138,11 +138,14 @@ def _declare_flash_attention(lib) -> None:
 def _declare_w8a16(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.kdl_w8a16_matmul.argtypes = [
-        p, p, p, p,  # h q8 s8 y
+        p, p, p, p, p,  # h q8 s8 y ws
         i, i, i, i, i,  # M N K tied dtype
+        i, i, i,  # route splits k_slice
         p,  # stream
     ]
     lib.kdl_w8a16_matmul.restype = i
+    lib.kdl_w8a16_route.argtypes = [i] * 5  # M N K dtype tied
+    lib.kdl_w8a16_route.restype = i
 
 
 _SOURCES = {

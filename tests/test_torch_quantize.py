@@ -325,29 +325,84 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "f32"])
-@pytest.mark.parametrize("M,K,N,tied", [(1, 256, 512, False),
-                                        (37, 512, 256, False),
-                                        (130, 256, 384, True)])
-def test_cuda_w8a16_matches_plain(cuda, monkeypatch, dtype, M, K, N, tied):
-    """Kernel against its plain version on the same inputs. Tolerances
-    relative to the largest output: bf16 1e-2 (both sum in float32 and
-    round once to bf16: ~2 ulps), float32 2e-5 (the same exact weight,
-    float32 sums reordered over K)."""
-    rng = np.random.RandomState(M)
+#: (h dtype, route forced or None): bf16 through its static route and each
+#: bf16 route forced; float32 through its one (CUDA-core) route
+W8_ROUTES = [(torch.bfloat16, None), (torch.bfloat16, "decode"),
+             (torch.bfloat16, "prefill"), (torch.float32, None)]
+#: (K, N, tied): small shapes of both layouts, a K that is not a multiple
+#: of the kernels' k-steps, and Llama-3-8B's w_down / wk widths (K = 14336,
+#: N = 1024: the decode route splits K)
+W8_CASES = [(256, 512, False), (512, 256, False), (256, 384, True),
+            (2064, 1040, False), (2064, 1040, True), (14336, 1024, False)]
+
+
+def _w8_case(K, N, tied, M, dtype, cuda):
+    rng = np.random.RandomState(M + K + N)
     w = torch.tensor(rng.randn(K, N).astype(np.float32) / np.sqrt(K))
     q = tl._quant_leaf(w.T.contiguous(), axis=-1) if tied else \
         tl._quant_leaf(w)
-    q8, s8 = q["q8"].to(cuda), q["s8"].to(cuda)
     h = torch.tensor(rng.randn(M, K).astype(np.float32)).to(cuda, dtype)
+    return h, q["q8"].to(cuda), q["s8"].to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,route", W8_ROUTES,
+                         ids=["bf16", "bf16-decode", "bf16-prefill", "f32"])
+@pytest.mark.parametrize("M", [1, 8, 40, 64, 65, 130, 512])
+@pytest.mark.parametrize("K,N,tied", W8_CASES,
+                         ids=[f"{K}x{N}{'-tied' if t else ''}"
+                              for K, N, t in W8_CASES])
+def test_cuda_w8a16_matches_plain(cuda, monkeypatch, dtype, route, M, K, N,
+                                  tied):
+    """Each route's kernel (forced, or the static route) against its plain
+    version on the same inputs. Tolerances relative to the largest output:
+    bf16 1e-2 (both sum in float32 and round once to bf16: ~2 ulps),
+    float32 2e-5 (the same exact weight, float32 sums reordered over K)."""
+    h, q8, s8 = _w8_case(K, N, tied, M, dtype, cuda)
     want = w8a16.plain_w8a16_matmul(h, q8, s8, tied)
     monkeypatch.setattr(w8a16, "plain_w8a16_matmul", None)
-    before = w8a16.LAUNCHES["w8a16"]
-    got = w8a16.w8a16_matmul(h, q8, s8, tied)
+    took = route or w8a16.w8a16_route(M, N, K, dtype, tied)
+    before = dict(w8a16.LAUNCHES)
+    got = w8a16.w8a16_matmul(h, q8, s8, tied, route=route)
     torch.cuda.synchronize()
-    assert w8a16.LAUNCHES["w8a16"] == before + 1
+    assert w8a16.LAUNCHES["w8a16"] == before["w8a16"] + 1
+    assert w8a16.LAUNCHES[f"w8a16_{took}"] == before[f"w8a16_{took}"] + 1
     tol = (1e-2 if dtype == torch.bfloat16 else 2e-5) * \
         want.float().abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["decode", "prefill"])
+@pytest.mark.parametrize("M", [8, 40, 512])
+def test_cuda_w8a16_bit_identical_calls(cuda, route, M):
+    """Two calls on the same inputs give the same bits: the decode route's
+    split-K partials are summed in split order by a second kernel (no
+    float atomics). K = 14336, N = 1024 splits K at every M here."""
+    h, q8, s8 = _w8_case(14336, 1024, False, M, torch.bfloat16, cuda)
+    if route == "decode":
+        assert w8a16.w8a16_split_plan(M, 1024, 14336)[0] > 1
+    a = w8a16.w8a16_matmul(h, q8, s8, route=route)
+    b = w8a16.w8a16_matmul(h, q8, s8, route=route)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_w8a16_route_table_matches_source(cuda):
+    """The wrapper's static route against the source's ``route_of`` (the C
+    entry ``kdl_w8a16_route``), and a route the dtype cannot take raises."""
+    from kubedl_tpu_torch.ops.build import load_w8a16_kernels
+
+    lib = load_w8a16_kernels()
+    code = {"cuda_core": 0, "decode": 1, "prefill": 2}
+    for M in (1, 8, 40, 63, 64, 65, 512):
+        for dtype, d in ((torch.float32, 0), (torch.bfloat16, 1)):
+            for tied in (0, 1):
+                want = code[w8a16.w8a16_route(M, 4096, 4096, dtype, tied)]
+                assert lib.kdl_w8a16_route(M, 4096, 4096, d, tied) == want
+    h, q8, s8 = _w8_case(256, 512, False, 8, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        w8a16.w8a16_matmul(h, q8, s8, route="decode")
+    with pytest.raises(ValueError):
+        w8a16.w8a16_matmul(h.to(torch.bfloat16), q8, s8, route="cuda_core")
