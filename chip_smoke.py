@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py                # every phase, one card
     python3 chip_smoke.py --skip-engine  # without phases 5, 6 and 13-19
-    python3 chip_smoke.py --skip-train   # without phases 8 to 12
+    python3 chip_smoke.py --skip-train   # without phases 8 to 12 and 21
 
 Phases (any failure exits non-zero before the final line):
 
@@ -16,7 +16,9 @@ Phases (any failure exits non-zero before the final line):
    if a split-pair kernel spills; the same for the W8A16 kernels (the
    decode route's instantiations and its split-K combine, the prefill
    route's wgmma kernel), failing if one spills or the prefill kernel
-   has no HGMMA.
+   has no HGMMA; and the optimizer kernels' registers and spills
+   (``csrc/adamw.cu``: the norm, its finish, the update for each
+   parameter / first-moment type), failing if one spills.
 3. blocked entry vs its plain PyTorch version at the serving shapes
    (Llama-3-8B: B=8, KV=8, group 4, hd 128, BS 16, MB 128; Gemma-2B:
    hd 256, KV 1, group 8) for S in {1, 64, 512}, ragged starts, block
@@ -75,8 +77,10 @@ Phases (any failure exits non-zero before the final line):
 8. training: ``train_main`` with KUBEDL_TRAIN_CONFIG={"model":
    "llama3-1b", "global_batch": 4, "seq_len": 2048, "steps": 8} on the
    card, full width and depth, seeded random weights; gates on finite
-   losses and grad norms, attn_impl "flash", no sanity violations and 16
-   flash_fwd + 16 flash_bwd_fused launches per step. Then Trainer.fit on
+   losses and grad norms, attn_impl "flash", no sanity violations, 16
+   flash_fwd + 16 flash_bwd_fused launches per step and 11 + 1 + 11
+   optimizer launches per step (a norm and an update launch for each of
+   the 11 leaves, one finish); prints step ms and MFU. Then Trainer.fit on
    one repeated batch must end below its first loss; then two steps with
    the backward forced to the split pair (16 + 16 launches per step).
 9. f32 parity: llama3-1b width cut to 2 layers in float32 (TF32 off), one
@@ -84,8 +88,8 @@ Phases (any failure exits non-zero before the final line):
    route: losses within 1e-5 relative, gradients and updated params
    within the tolerances stated in ``run_train_f32_parity``.
 10. profile: two llama3-1b train steps under torch.profiler: device time
-   by category (flash fwd, flash bwd, the flash RoPE pre-pass, matmul,
-   other) and the busy share.
+   by category (flash fwd, flash bwd, the flash RoPE pre-pass, the
+   optimizer's kernels, matmul, other) and the busy share.
 11. long-context training: ``train_main`` with KUBEDL_TRAIN_CONFIG=
    {"model": "llama3-1b", "global_batch": 1, "seq_len": 32768, "steps": 4}
    (full width and depth; the trainer's long-context policy applies
@@ -167,8 +171,27 @@ Phases (any failure exits non-zero before the final line):
    streams (not gated). Then 2 layers in float32: disaggregated greedy
    streams IDENTICAL to the colocated engine's.
 
+20. the optimizer update (``csrc/adamw.cu``) against its plain version on
+   Llama-3.2-1B's 11 leaves (seeded, bf16 parameters, float32 first
+   moment) at a step that does not clip and one that clips, with the
+   gates stated in ``run_adamw_kernels``; prints its device and call ms,
+   the bound, the plain version's ms and the closest library calls'
+   (``clip_grad_norm_`` + ``torch.optim.AdamW(fused=True)``).
+21. the training job's lifecycle: ``train_main`` on Llama-3.2-1B (full
+   width and depth, b4 x s2048) with a seeded token file, a save every 2
+   steps (async), ``KUBEDL_FAULT_ONCE_AT_STEP`` 3 and
+   ``KUBEDL_MODEL_PATH``: the first run exits 137 leaving a complete
+   step-2 checkpoint, the second resumes at step 2, runs to step 6 and
+   publishes; ``serve_main`` restores the published parameters and
+   answers 4 greedy requests on the paged kernels; the beacon shows step
+   6; gates in ``run_lifecycle``; prints save, stall, restore and publish
+   seconds. Then the identity at 2 layers in float32: the resumed run
+   BIT-identical to an in-process chain of 2 steps, save, restore, 4
+   steps on a fresh iterator.
+
 Phase 16 runs after phase 4; phases 13-15 and 17-19 after phase 6 (they
-are skipped with ``--skip-engine``).
+are skipped with ``--skip-engine``); phase 20 after phase 7, phase 21
+after phase 12 (skipped with ``--skip-train``).
 
 Output: the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -184,6 +207,7 @@ import json
 import math
 import os
 import re
+import shutil
 import socket
 import statistics
 import subprocess
@@ -952,11 +976,13 @@ def train_main_run(fa, llama_mod, config, want_per_step, policy=""):
     """``train_main`` in-process on the card with ``config``. Gates:
     finite loss and grad norm at every step, attn_impl "flash", no sanity
     violations, the long-context policy string ``policy`` ("" = none
-    applied) and ``want_per_step`` x steps launches of each flash kernel
-    (counts set to 0 just before the run, read just after). Returns the
-    launches and the printed record."""
+    applied), ``want_per_step`` x steps launches of each flash kernel and
+    a norm and an update launch a leaf plus one finish a step of the
+    optimizer's kernels (counts set to 0 just before the run, read just
+    after). Returns the launches and the printed record."""
+    from kubedl_tpu_torch.ops import adamw
     from kubedl_tpu_torch.training import entry
-    from kubedl_tpu_torch.training.trainer import Trainer
+    from kubedl_tpu_torch.training.trainer import Trainer, tree_leaves
 
     metrics = []
     real_step = Trainer.train_step
@@ -968,12 +994,15 @@ def train_main_run(fa, llama_mod, config, want_per_step, policy=""):
 
     Trainer.train_step = recording_step
     _reset(fa)
+    for k in adamw.LAUNCHES:
+        adamw.LAUNCHES[k] = 0
     torch.cuda.reset_peak_memory_stats()
     try:
         rc = entry.train_main({"KUBEDL_TRAIN_CONFIG": json.dumps(config)})
     finally:
         Trainer.train_step = real_step
     launches = dict(fa.LAUNCHES)
+    opt_launches = dict(adamw.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     s = entry.LAST_SUMMARY
     steps = config["steps"]
@@ -992,6 +1021,14 @@ def train_main_run(fa, llama_mod, config, want_per_step, policy=""):
     if launches != want:
         fail(f"flash launches {launches} != {want} ({layers} layers x "
              f"{steps} steps)")
+    # the optimizer: a norm and an update launch a leaf, one finish, a step
+    n_leaves = len(tree_leaves(llama_mod.param_like(
+        llama_mod.preset(config["model"]))))
+    want_opt = {"adamw_norm": n_leaves * steps, "adamw_norm_finish": steps,
+                "adamw_update": n_leaves * steps}
+    if opt_launches != want_opt:
+        fail(f"optimizer launches {opt_launches} != {want_opt} ({n_leaves} "
+             f"leaves x {steps} steps)")
     rec = {"config": config, "losses": losses, "grad_norms": norms,
            "step_time_ms": s["step_time_ms"],
            "tokens_per_sec": s["tokens_per_sec"], "mfu": s["mfu"],
@@ -1001,6 +1038,7 @@ def train_main_run(fa, llama_mod, config, want_per_step, policy=""):
            "max_memory_allocated_gib": peak / 2**30,
            "launches": launches,
            "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "optimizer_launches": opt_launches,
            "sanity_violations": s["sanity_violations"]}
     _free()
     return launches, rec
@@ -1016,7 +1054,8 @@ def run_train_entry(fa, llama_mod):
          "flash_bwd_dkdv": 0})
     print("train_main llama3-1b (smoke run, not a benchmark): "
           + json.dumps(rec), flush=True)
-    return {k: launches[k] for k in ("flash_fwd", "flash_bwd_fused")}
+    return ({k: launches[k] for k in ("flash_fwd", "flash_bwd_fused")},
+            rec["optimizer_launches"])
 
 
 #: the long-context path: Llama-3.2-1B at 32k tokens (published with a
@@ -1108,6 +1147,8 @@ def run_train_bf16_routes(fa, llama_mod):
 
 
 def _kernel_group(name: str) -> str:
+    if "adamw_" in name:  # the optimizer update: norm, finish, update
+        return "adamw"
     if "flash_rope" in name:  # the pre-pass of both flash_fwd and the bwd
         return "flash_rope"
     # the split pair's kernels: the dq ones and the per-q-head dk/dv
@@ -1266,6 +1307,476 @@ def run_train_f32_parity(fa, llama_mod):
             fail(f"f32 parity {route} vs dense: {json.dumps(report)}")
     print("f32 2-layer llama3-1b width, kernels vs dense: "
           + json.dumps(report), flush=True)
+
+
+# ---- phase 20: the optimizer update -------------------------------------------
+
+ADAMW_REPLACES = ("kubedl_tpu/training/trainer.py:193 make_optimizer (the "
+                  "optax chain clip_by_global_norm -> adamw, fused by XLA "
+                  "into the jitted train step, :675-735; no Pallas kernel)")
+#: the optimizer kernels (csrc/adamw.cu) phase 2 reports; none may spill
+ADAMW_KERNELS = (("adamw_sumsq_kernel<true>", "adamw_sumsq_kernel<false>",
+                  "adamw_norm_finish_kernel")
+                 + tuple(f"adamw_update_kernel<{p}, {m}>"
+                         for p in ("true", "false") for m in ("true", "false")))
+#: gradient scales of phase 20's two steps: Llama-3.2-1B's 1.236e9
+#: N(0, s^2) gradients have a global norm of about 35,155 s, so 1.4e-5
+#: stays below the clip of 1.0 (about 0.49) and 1e-4 clips (about 3.5)
+ADAMW_GRAD_SCALE = {"keep": 1.4e-5, "clip": 1e-4}
+ADAMW_HP = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+
+def _adamw_key(mangled: str):
+    """``adamw_update_kernel<true, false>`` from a mangled name, or None."""
+    m = re.search(r"(adamw_[a-z_]+_kernel)(?:I((?:Lb[01]E)+)E)?", mangled)
+    if m is None:
+        return None
+    flags = re.findall(r"Lb([01])E", m.group(2) or "")
+    args = ", ".join("true" if f == "1" else "false" for f in flags)
+    name = m.group(1) + (f"<{args}>" if args else "")
+    return name if name in ADAMW_KERNELS else None
+
+
+def adamw_kernel_report(build) -> dict:
+    """Registers and spill bytes of the optimizer kernels (this run's
+    ptxas -v). Fails if one was not found or spills."""
+    rep = _tc_source_report(build, "adamw.cu", key=_adamw_key)
+    missing = [k for k in ADAMW_KERNELS if "registers" not in rep.get(k, {})]
+    spills = {k: v for k, v in rep.items()
+              if v.get("spill_stores", 1) or v.get("spill_loads", 1)}
+    if missing or spills:
+        fail(f"adamw kernels: missing {missing}, spilling {spills}: {rep}")
+    return {k: {f: v for f, v in r.items() if f != "hgmma"}
+            for k, r in rep.items()}
+
+
+def adamw_leaves(llama_mod, scale, seed):
+    """Llama-3.2-1B's 11 leaves, seeded on the card: bf16 parameters and
+    gradients, a float32 first moment, a bf16 second moment."""
+    from kubedl_tpu_torch.training.trainer import tree_leaves
+
+    shapes = [tuple(t.shape) for t in tree_leaves(
+        llama_mod.param_like(llama_mod.preset("llama3-1b")))]
+    g = torch.Generator(device=DEV).manual_seed(seed)
+
+    def rand(shape, std, dtype):
+        return (torch.randn(shape, generator=g, device=DEV) * std).to(dtype)
+
+    ps = [rand(s, 0.02, torch.bfloat16) for s in shapes]
+    gs = [rand(s, scale, torch.bfloat16) for s in shapes]
+    mus = [rand(s, 1e-4, torch.float32) for s in shapes]
+    nus = [(torch.rand(s, generator=g, device=DEV) * 1e-8).to(
+        torch.bfloat16) for s in shapes]
+    return gs, ps, mus, nus
+
+
+def adamw_bound(gs, ps, mus):
+    """(ms, "bytes" or "operations"): the norm reads g once; the update
+    reads p, g, mu, nu and writes p, mu, nu, each once; about 24 float32
+    operations an element (2 for the norm, 22 in the update) at the
+    CUDA cores' peak."""
+    n = sum(p.numel() for p in ps)
+    nbytes = sum(g.numel() * g.element_size() * 2 + p.numel() * p.element_size()
+                 * 4 + m.numel() * m.element_size() * 2
+                 for g, p, m in zip(gs, ps, mus))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 24 * n / PEAK_FLOPS[torch.float32] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def run_adamw_kernels(adamw_mod, llama_mod):
+    """Phase 20: the fused optimizer update on Llama-3.2-1B's 11 leaves
+    against its plain version, at a step that does not clip and one that
+    clips. Gates: where it does not clip, p, mu and nu BIT-identical to
+    the plain version's (the kernels do its float32 operations in its
+    order; that step never reads the norm); where it clips,
+    bit-identical if the two norms agree, else bf16 entries within one
+    bf16 ulp (2^-7 relative) and mu within 1e-5 relative (the norm's
+    float32 sums run in another order: a bf16 norm may round the other
+    way); at both, the norm within 1e-6 relative of the plain version's,
+    every leaf's float32 sum of squares within 1e-6 relative of its
+    float64 sum (the plain version's, in PyTorch's order, is printed
+    beside), and two kernel calls on the same inputs giving the same
+    bits. Then the update's device and call ms,
+    the plain version's, and the closest library call's:
+    ``clip_grad_norm_(foreach=True)`` then ``torch.optim.AdamW(fused=True)``
+    on the same leaves (what differs: it keeps both moments in bf16, the
+    parameters' type, takes the norm in float32 and decays every leaf
+    as the port does)."""
+    out = {}
+    step = dict(lr=3e-4, t=5, clip=1.0, **ADAMW_HP)
+    for case, scale in ADAMW_GRAD_SCALE.items():
+        gs, ps, mus, nus = adamw_leaves(llama_mod, scale, seed=20)
+        chain = adamw_mod._chain_dtype([g.dtype for g in gs])
+        scal = [adamw_mod.step_scalars(step["lr"], step["t"], 0.9, 0.95,
+                                       1e-8, 0.1, 1.0, p.dtype, m.dtype, chain)
+                for p, m in zip(ps, mus)]
+        runs = []
+        for impl in ("kernel", "kernel", "plain"):
+            p2, m2, v2 = ([t.clone() for t in x] for x in (ps, mus, nus))
+            if impl == "kernel":
+                stats = adamw_mod.adamw_update(gs, p2, m2, v2, **step)
+            else:
+                stats = adamw_mod.adamw_update_plain(gs, p2, m2, v2, scal)
+            torch.cuda.synchronize()
+            runs.append((stats, p2 + m2 + v2))
+            _free()
+        (sk, tk), (sk2, tk2), (sp, tp) = runs
+        clipped = float(sp[0]) >= 1.0
+        if clipped != (case == "clip") or clipped != (float(sk[0]) >= 1.0):
+            fail(f"adamw {case}: norms {float(sk[0])} / {float(sp[0])}")
+        exact = torch.stack([g.double().square().sum() for g in gs])
+        sums_rel = ((sk[1:].double() - exact).abs() / exact).max().item()
+        plain_sums_rel = ((sp[1:].double() - exact).abs() / exact).max().item()
+        norm_rel = abs(float(sk[0]) - float(sp[0])) / float(sp[0])
+        same_norm = torch.equal(sk[0], sp[0])
+        worst = {}
+        for a, b in zip(tk, tp):
+            d = ((a.float() - b.float()).abs()
+                 / b.float().abs().clamp_min(1e-30)).max().item()
+            worst[str(a.dtype)] = max(worst.get(str(a.dtype), 0.0), d)
+        bitwise = all(torch.equal(a, b) for a, b in zip(tk, tp))
+        repeat = torch.equal(sk, sk2) and all(
+            torch.equal(a, b) for a, b in zip(tk, tk2))
+        rec = {"norm_kernel": float(sk[0]), "norm_plain": float(sp[0]),
+               "norms_equal": same_norm, "norm_rel": norm_rel,
+               "leaf_sums_max_rel_vs_float64": sums_rel,
+               "plain_leaf_sums_max_rel_vs_float64": plain_sums_rel,
+               "bitwise": bitwise, "max_rel_err": worst,
+               "repeat_bitwise": repeat}
+        ok = norm_rel <= 1e-6 and sums_rel <= 1e-6 and repeat and (
+            bitwise if (case == "keep" or same_norm) else
+            worst.get("torch.bfloat16", 0) <= 2**-7
+            and worst.get("torch.float32", 0) <= 1e-5)
+        print(f"adamw llama3-1b leaves, {case} step: " + json.dumps(rec),
+              flush=True)
+        if not ok:
+            fail(f"adamw kernel vs plain at the {case} step: {rec}")
+        out[case] = rec
+        del runs, tk, tk2, tp, sk, sk2, sp
+        _free()
+        if case == "keep":
+            continue
+        # timed at the clipping step (the norm is read on every step)
+        bound_ms, bound_by = adamw_bound(gs, ps, mus)
+
+        def kernel():
+            adamw_mod.adamw_update(gs, ps, mus, nus, **step)
+
+        def plain():
+            adamw_mod.adamw_update_plain(gs, ps, mus, nus, scal)
+
+        ms = time_ms(kernel)
+        call_ms = time_ms(kernel, hide_host=False)
+        plain_ms = time_ms(plain, reps=3, warmup=1)
+        _free()
+        params = [torch.nn.Parameter(p.clone()) for p in ps]
+        for prm, g in zip(params, gs):
+            prm.grad = g.clone()
+        opt = torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
+                                weight_decay=0.1, fused=True)
+
+        def library():
+            torch.nn.utils.clip_grad_norm_(params, 1.0, foreach=True)
+            opt.step()
+
+        library_ms = time_ms(library, reps=10)
+        library_call_ms = time_ms(library, reps=10, hide_host=False)
+        del params, opt
+        _free()
+        out.update(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, library_call_ms=library_call_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   max_abs_err=max(worst.values()),
+                   leaves=len(ps), params=sum(p.numel() for p in ps))
+    print("adamw llama3-1b update (smoke run, not a benchmark): "
+          + json.dumps({k: out[k] for k in (
+              "ms", "call_ms", "plain_ms", "library_ms", "library_call_ms",
+              "bound_ms", "bound_by", "leaves", "params")}), flush=True)
+    return out
+
+
+# ---- phase 21: the training job's lifecycle -----------------------------------
+
+#: the job: Llama-3.2-1B at full width and depth, b4 x s2048, a seeded
+#: token file, a save every 2 steps (async), a fault after step index 3
+#: (before the step-4 save), published to KUBEDL_MODEL_PATH
+LIFECYCLE_CONFIG = {"model": "llama3-1b", "global_batch": 4, "seq_len": 2048,
+                    "steps": 6, "ckpt_every": 2, "ckpt_async": True,
+                    "token_bytes": 4, "log_every": 1}
+LIFECYCLE_TOKENS = 1 << 22
+
+
+class _Tee:
+    """stdout that is also kept: train_main's printed lines are gated."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, s):
+        self.lines.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _clear_job_env(entry):
+    for name in dir(entry):
+        if name.startswith("ENV_"):
+            os.environ.pop(getattr(entry, name), None)
+
+
+def lifecycle_job(root, config, vocab, seed):
+    tokens = os.path.join(root, "tokens.bin")
+    np.random.default_rng(seed).integers(
+        0, vocab, LIFECYCLE_TOKENS, dtype=np.int32).tofile(tokens)
+    cfg = dict(config, data_path=tokens)
+    return {"KUBEDL_TRAIN_CONFIG": json.dumps(cfg),
+            "KUBEDL_MODEL_PATH": os.path.join(root, "model"),
+            "KUBEDL_FAULT_ONCE_AT_STEP": "3",
+            "KUBEDL_FAULT_MARKER": os.path.join(root, "fault-marker"),
+            "KUBEDL_BEACON_FILE": os.path.join(root, "beacon", "w0.json"),
+            "KUBEDL_BEACON_INTERVAL": "0.2"}
+
+
+@contextlib.contextmanager
+def recorded_training(ck, entry):
+    """Records every fit's trainer and returned state, each step's loss
+    (device scalars), the wall seconds of every checkpoint write and of
+    the publish."""
+    from kubedl_tpu_torch.training.trainer import Trainer
+
+    rec = {"fits": [], "losses": [], "writes": [], "publish_s": []}
+    real_fit, real_step = Trainer.fit, Trainer.train_step
+    real_write, real_publish = ck.write_snapshot, entry._publish
+
+    def fit(self, *a, **kw):
+        state, s = real_fit(self, *a, **kw)
+        rec["fits"].append((self, state))
+        return state, s
+
+    def train_step(self, state, batch):
+        state, m = real_step(self, state, batch)
+        rec["losses"].append(m["loss"])
+        return state, m
+
+    def write(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real_write(*a, **kw)
+        finally:
+            rec["writes"].append(time.perf_counter() - t0)
+
+    def publish(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real_publish(*a, **kw)
+        finally:
+            rec["publish_s"].append(time.perf_counter() - t0)
+
+    Trainer.fit, Trainer.train_step = fit, train_step
+    ck.write_snapshot, entry._publish = write, publish
+    try:
+        yield rec
+    finally:
+        Trainer.fit, Trainer.train_step = real_fit, real_step
+        ck.write_snapshot, entry._publish = real_write, real_publish
+
+
+def run_job(entry, env):
+    """``train_main`` in-process: (exit code, seconds, printed text)."""
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            rc = entry.train_main(env)
+    except SystemExit as e:
+        rc = e.code
+    return rc, time.perf_counter() - t0, "".join(tee.lines)
+
+
+def run_lifecycle(fa, adamw_mod, pa, ck, llama_mod, server_mod):
+    """Phase 21: the training job's lifecycle at LIFECYCLE_CONFIG. Run 1
+    must exit 137 (the injected fault) leaving a complete step-2
+    checkpoint; run 2 must print resumed_from_step 2, train steps 3-6 on
+    the native token loader with 4 x (11 + 1 + 11) optimizer launches,
+    save at 4 and 6 and publish step 6, and leave the beacon at step 6;
+    serve_main must restore the published parameters (every tensor equal
+    to the trainer's final ones) and answer 4 greedy requests on the
+    paged kernels. Prints run, save, stall, restore and publish seconds."""
+    from kubedl_tpu_torch.training import entry
+    from kubedl_tpu_torch.training.trainer import tree_leaves
+    from kubedl_tpu_torch.watchdog.beacon import read_beacon
+
+    _clear_job_env(entry)
+    cfg = llama_mod.preset(LIFECYCLE_CONFIG["model"])
+    root = tempfile.mkdtemp(prefix="kdl-lifecycle-")
+    env = lifecycle_job(root, LIFECYCLE_CONFIG, cfg.vocab_size, seed=21)
+    out = env["KUBEDL_MODEL_PATH"]
+    ckdir = os.path.join(out, "checkpoints")
+    n_leaves = len(tree_leaves(llama_mod.param_like(cfg)))
+    report = {"config": LIFECYCLE_CONFIG}
+    try:
+        with recorded_training(ck, entry) as rec:
+            rc, report["run1_s"], _ = run_job(entry, env)
+            if rc != 137:
+                fail(f"lifecycle run 1 exited {rc}, not 137")
+            if ck.latest_step(ckdir) != 2 or not ck.checkpoint_fingerprint(
+                    ckdir):
+                fail(f"run 1 left no complete step-2 checkpoint in {ckdir}")
+            report["run1_writes_s"] = list(rec["writes"])
+            _reset(fa)
+            for k in adamw_mod.LAUNCHES:
+                adamw_mod.LAUNCHES[k] = 0
+            rc, report["run2_s"], text = run_job(entry, env)
+            launches = dict(adamw_mod.LAUNCHES)
+            s = entry.LAST_SUMMARY
+            if rc != 0 or '{"resumed_from_step": 2}' not in text.splitlines():
+                fail(f"lifecycle run 2: rc {rc}, no resumed_from_step 2")
+            want = {"adamw_norm": 4 * n_leaves, "adamw_norm_finish": 4,
+                    "adamw_update": 4 * n_leaves}
+            if (s["start_step"], s["steps"], s["data_loader"],
+                    s["ckpt_saves"]) != (2, 4, "native", 2) \
+                    or launches != want:
+                fail(f"lifecycle run 2: start {s['start_step']}, steps "
+                     f"{s['steps']}, loader {s['data_loader']}, saves "
+                     f"{s['ckpt_saves']}, optimizer launches {launches} "
+                     f"!= {want}")
+            if ck.latest_step(out) != 6 or ck.latest_step(ckdir) != 6:
+                fail("lifecycle: step 6 not published / not checkpointed")
+            beacon = read_beacon(env["KUBEDL_BEACON_FILE"]) or {}
+            if beacon.get("step") != 6.0:
+                fail(f"beacon {beacon} does not show step 6")
+            final = rec["fits"][-1][1]["params"]
+            losses = [float(x) for x in rec["losses"]]
+            report.update({
+                "losses": losses, "run2_summary": {k: s[k] for k in (
+                    "step_time_ms", "mfu", "ckpt_stall_s", "ckpt_saves",
+                    "data_loader", "start_step", "steps")},
+                "restore_s": s["startup_phases"]["state_init"],
+                "run2_writes_s": rec["writes"][len(report["run1_writes_s"]):],
+                "publish_s": rec["publish_s"],
+                "optimizer_launches": launches, "beacon": beacon,
+                "checkpoint_bytes": sum(
+                    os.path.getsize(os.path.join(ckdir, "step-00000006", f))
+                    for f in os.listdir(os.path.join(ckdir, "step-00000006")))})
+            if not all(math.isfinite(x) for x in losses):
+                fail(f"lifecycle losses not finite: {losses}")
+            del rec
+        shutil.rmtree(ckdir)  # the disk the serve leg does not need
+        _free()
+
+        engines = []
+        real = server_mod.LlamaEngine
+
+        class Recorded(real):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                engines.append(self)
+
+        serve_cfg = {"preset": LIFECYCLE_CONFIG["model"], "max_batch": 4,
+                     "max_seq": 1024, "kv_block_size": 16,
+                     "kv_attention": "blocked", "prefill_chunk_tokens": 512,
+                     "prefix_cache_mb": 0.0}
+        server_mod.LlamaEngine = Recorded
+        t0 = time.perf_counter()
+        try:
+            cm = serving(server_mod, serve_cfg,
+                         env={"KUBEDL_MODEL_PATH": out})
+            base = cm.__enter__()
+        finally:
+            server_mod.LlamaEngine = real
+        try:
+            report["serve_restore_and_start_s"] = time.perf_counter() - t0
+            for (k1, a), (k2, b) in zip(ck._leaf_items(engines[0].params),
+                                        ck._leaf_items(final)):
+                if k1 != k2 or not torch.equal(a, b):
+                    fail(f"served leaf {k1} differs from the trained {k2}")
+            del final
+            rng = np.random.RandomState(21)
+            reqs = [{"prompt_ids": rng.randint(0, cfg.vocab_size, size=int(
+                n)).tolist(), "max_tokens": 32, "temperature": 0.0}
+                for n in (64, 200, 511, 96)]
+            reset_counts(pa)
+            results, wall = post_all(base, reqs)
+            checked(results, 32, "lifecycle serve")
+            paged = dict(pa.LAUNCHES)
+            if not (paged["blocked"] > 0 and paged["fused"] > 0):
+                fail(f"lifecycle serve: paged launches {paged}")
+            report.update(serve_wall_s=wall, serve_paged_launches=paged)
+        finally:
+            cm.__exit__(None, None, None)
+            os.environ.pop("KUBEDL_MODEL_PATH", None)
+    finally:
+        _clear_job_env(entry)
+        shutil.rmtree(root, ignore_errors=True)
+        _free()
+    print("job lifecycle llama3-1b (smoke run, not a benchmark): "
+          + json.dumps(report), flush=True)
+    return report
+
+
+def run_lifecycle_identity(fa, ck, llama_mod):
+    """Phase 21's identity gate: Llama-3.2-1B width cut to 2 layers,
+    float32, the backward forced to the split pair (its dq is summed in
+    registers; the fused CUDA-core backward adds dq with float32 atomics,
+    whose order changes from run to run): the resumed run's losses and
+    final parameters must be BIT-identical to an in-process chain of 2
+    steps, save, restore, 4 steps on a fresh iterator (a resume restarts
+    the data stream, as the reference's does)."""
+    from kubedl_tpu_torch.data.native import TokenFileDataset
+    from kubedl_tpu_torch.training import entry
+    from kubedl_tpu_torch.training.trainer import Trainer, tree_leaves
+
+    name = "llama3-1b-2layer-f32"
+    llama_mod.PRESETS.setdefault(name, dataclasses.replace(
+        llama_mod.preset("llama3-1b"), n_layers=2, dtype=torch.float32))
+    _clear_job_env(entry)
+    root = tempfile.mkdtemp(prefix="kdl-identity-")
+    env = lifecycle_job(root, dict(LIFECYCLE_CONFIG, model=name),
+                        llama_mod.preset(name).vocab_size, seed=22)
+    env.pop("KUBEDL_BEACON_FILE")
+    data_path = json.loads(env["KUBEDL_TRAIN_CONFIG"])["data_path"]
+    try:
+        with forced_route(fa, "split"), recorded_training(ck, entry) as rec:
+            rc1 = run_job(entry, env)[0]
+            rc2 = run_job(entry, env)[0]
+            if (rc1, rc2) != (137, 0):
+                fail(f"identity job exited {rc1} then {rc2}")
+            tr, state = rec["fits"][-1]
+            resumed = [float(x) for x in rec["losses"][4:]]
+            resumed_params = [t.clone() for t in tree_leaves(state["params"])]
+            del state
+            chain = Trainer(tr.cfg)
+            del tr
+            data = TokenFileDataset(data_path, chain.cfg.global_batch,
+                                    chain.cfg.seq_len)
+            d = os.path.join(root, "chain")
+            state, _ = chain.fit(iter(data), steps=2, ckpt_dir=d)
+            data.close()
+            restored = ck.restore_checkpoint(d, ck.train_state_like(state),
+                                             device=chain.device)
+            del state
+            n0 = len(rec["losses"])
+            data = TokenFileDataset(data_path, chain.cfg.global_batch,
+                                    chain.cfg.seq_len)
+            state, _ = chain.fit(iter(data),
+                                 state=ck.train_state_from_tree(restored))
+            data.close()
+            chained = [float(x) for x in rec["losses"][n0:]]
+            same = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(state["params"]), resumed_params))
+        report = {"resumed_losses": resumed, "chained_losses": chained,
+                  "params_bitwise": same}
+        print("lifecycle identity, 2-layer f32 llama3-1b width: "
+              + json.dumps(report), flush=True)
+        if len(resumed) != 4 or resumed != chained or not same:
+            fail(f"resumed run differs from the in-process chain: {report}")
+    finally:
+        _clear_job_env(entry)
+        shutil.rmtree(root, ignore_errors=True)
+        _free()
 
 
 # ---- phase 5 ----------------------------------------------------------------
@@ -2704,7 +3215,7 @@ def main() -> int:
                     help="skip the serving engine (phases 5, 6, 13-15, "
                     "17-19)")
     ap.add_argument("--skip-train", action="store_true",
-                    help="skip the training phases (8 to 12)")
+                    help="skip the training phases (8 to 12, 21)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs a GPU", file=sys.stderr)
@@ -2712,6 +3223,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from kubedl_tpu_torch.models import llama as llama_mod
     from kubedl_tpu_torch.models import paged_attention as pa
+    from kubedl_tpu_torch.ops import adamw
     from kubedl_tpu_torch.ops import build
     from kubedl_tpu_torch.ops import flash_attention as fa
     from kubedl_tpu_torch.ops import w8a16 as w8
@@ -2735,6 +3247,8 @@ def main() -> int:
           + json.dumps(tc_kernel_report(build)), flush=True)
     print("w8a16 kernels (ptxas -v, cuobjdump -sass): "
           + json.dumps(w8_kernel_report(build)), flush=True)
+    print("adamw kernels (ptxas -v): "
+          + json.dumps(adamw_kernel_report(build)), flush=True)
 
     kernels = {}
     for name, shape in (("llama", LLAMA), ("gemma", GEMMA)):
@@ -2820,9 +3334,14 @@ def main() -> int:
     kernels.update(run_flash_kernels(fa))
     run_flash_long(fa, kernels)
     stamp("phase 7")
+    with torch.no_grad():
+        kernels["adamw_update"] = run_adamw_kernels(adamw, llama_mod)
+    stamp("phase 20")
     launches.update({name: None for name in FLASH_REPLACES})
+    opt_launches = {}
     if not args.skip_train:
-        launches.update(run_train_entry(fa, llama_mod))
+        flash_launches, opt_launches = run_train_entry(fa, llama_mod)
+        launches.update(flash_launches)
         run_overfit_and_split(fa, llama_mod)
         stamp("phase 8")
         run_train_f32_parity(fa, llama_mod)
@@ -2832,6 +3351,9 @@ def main() -> int:
         stamp("phase 11")
         run_train_bf16_routes(fa, llama_mod)
         stamp("phase 12")
+        run_lifecycle(fa, adamw, pa, ck, llama_mod, server_mod)
+        run_lifecycle_identity(fa, ck, llama_mod)
+        stamp("phase 21")
 
     def record(name, source, replaces, n, rec, design):
         lib = rec["library_ms"]
@@ -2889,6 +3411,15 @@ def main() -> int:
                 llama_mod.preset("llama3-8b"))
             rec["table"] = w8k["table"]
         line.append(rec)
+    # the optimizer update: its three kernels as one operator, launches
+    # from phase 8's main path, timed on Llama-3.2-1B's leaves (phase 20)
+    rec = record("adamw_update", "kubedl_tpu_torch/csrc/adamw.cu",
+                 ADAMW_REPLACES, sum(opt_launches.values()) or None,
+                 kernels["adamw_update"],
+                 "a float32 norm slot a CTA + a one-CTA finish, then one "
+                 "16-byte-vector update launch a leaf, in place")
+    rec["launches_by_kernel"] = opt_launches
+    line.append(rec)
     main_case = FLASH_CASES[0]  # the timed shape: llama3-1b training
     for name in FLASH_REPLACES:
         tc = fa.tensor_core_route(main_case[6], main_case[5])

@@ -148,10 +148,23 @@ def _declare_w8a16(lib) -> None:
     lib.kdl_w8a16_route.restype = i
 
 
+def _declare_adamw(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.kdl_adamw_norm_blocks.argtypes = [i]
+    lib.kdl_adamw_sumsq.argtypes = [p, i, i, i, p, p]  # g n bf16 vec slots
+    lib.kdl_adamw_norm_finish.argtypes = [p, p, p, i, p, p]  # slots offsets
+    # bf16 n_leaves out; then p g mu nu norm n p_bf16 mu_bf16 vec scalars
+    lib.kdl_adamw_update.argtypes = [p, p, p, p, p, i, i, i, i, p, p]
+    for fn in (lib.kdl_adamw_norm_blocks, lib.kdl_adamw_sumsq,
+               lib.kdl_adamw_norm_finish, lib.kdl_adamw_update):
+        fn.restype = i
+
+
 _SOURCES = {
     "paged_attention": _declare_paged_attention,
     "flash_attention": _declare_flash_attention,
     "w8a16": _declare_w8a16,
+    "adamw": _declare_adamw,
 }
 
 
@@ -192,6 +205,35 @@ def load_w8a16_kernels(verbose: bool = False):
     return _load("w8a16", verbose)
 
 
+def load_adamw_kernels(verbose: bool = False):
+    """The fused optimizer-update library (built on first call)."""
+    return _load("adamw", verbose)
+
+
+def stream_handle(device) -> int:
+    """The raw handle of ``device``'s current stream, without building a
+    Stream object (the public path costs several microseconds a call)."""
+    import torch
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def float_workspace(cache: dict, device, stream: int, numel: int):
+    """A float32 scratch tensor of at least ``numel`` elements for the
+    kernels on ``(device, stream)``, kept in ``cache`` and grown as
+    needed: the calls on one stream run in order, so each may reuse it."""
+    import torch
+
+    ws = cache.get((device, stream))
+    if ws is None or ws.numel() < numel:
+        ws = torch.empty(numel, dtype=torch.float32, device=device)
+        cache[(device, stream)] = ws
+    return ws
+
+
 def check_launch(err: int, name: str) -> None:
     """Raise on the ``cudaGetLastError()`` code a C entry point returned:
     a refused launch (too many threads, too much shared memory) never
@@ -201,6 +243,7 @@ def check_launch(err: int, name: str) -> None:
 
 
 __all__ = ["build", "build_all", "load_kernels", "load_flash_kernels",
-           "load_w8a16_kernels",
+           "load_w8a16_kernels", "load_adamw_kernels", "stream_handle",
+           "float_workspace",
            "check_launch", "find_nvcc", "BUILD_DIR", "BUILD_SECONDS",
            "BUILD_LOG"]

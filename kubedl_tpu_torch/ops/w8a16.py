@@ -56,7 +56,9 @@ import functools
 
 import torch
 
-from kubedl_tpu_torch.ops.build import check_launch, load_w8a16_kernels
+from kubedl_tpu_torch.ops.build import (
+    check_launch, float_workspace, load_w8a16_kernels, stream_handle,
+)
 
 #: op calls that launched a kernel (one per call), and per route, read by
 #: a run to show its main path went through them
@@ -164,27 +166,9 @@ def _check(h, q8, s8, transposed):
 
 
 _LIB: list = []  # the kernel library, once loaded
-#: the split-K workspace of each (device, stream), grown as needed: the
-#: calls on one stream run in order, so each may reuse it (one allocation
-#: less a call on the host-bound decode step)
+#: the split-K workspace of each (device, stream): one allocation less a
+#: call on the host-bound decode step
 _WS: dict = {}
-#: the current stream's raw handle without building a Stream object (the
-#: public path costs several microseconds a call)
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-
-
-def _stream(device) -> int:
-    if _raw_stream is not None:
-        return _raw_stream(device.index)
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _workspace(device, stream: int, numel: int) -> torch.Tensor:
-    ws = _WS.get((device, stream))
-    if ws is None or ws.numel() < numel:
-        ws = torch.empty(numel, dtype=torch.float32, device=device)
-        _WS[(device, stream)] = ws
-    return ws
 
 
 def _cuda_launch(h, q8, s8, transposed, route):
@@ -215,8 +199,8 @@ def _cuda_launch(h, q8, s8, transposed, route):
         raise ValueError(f"w8a16: route {route!r} cannot take {h.dtype} h")
     splits, k_slice, _ = ((1, K, None) if route == CUDA_CORE
                           else w8a16_split_plan(M, N, K, route))
-    stream = _stream(h.device)
-    ws = (_workspace(h.device, stream, splits * M * N).data_ptr()
+    stream = stream_handle(h.device)
+    ws = (float_workspace(_WS, h.device, stream, splits * M * N).data_ptr()
           if splits > 1 else None)
     if not _LIB:
         _LIB.append(load_w8a16_kernels())

@@ -60,6 +60,7 @@ import torch
 from kubedl_tpu_torch import resolve_device
 from kubedl_tpu_torch.models import llama
 from kubedl_tpu_torch.models import paged_attention
+from kubedl_tpu_torch.remote.client import is_remote_root
 from kubedl_tpu_torch.serving.disagg import HandoffError, KVHandoff
 from kubedl_tpu_torch.serving.kv_blocks import BlockAllocator
 from kubedl_tpu_torch.serving.prefix_cache import PrefixCache
@@ -2405,12 +2406,6 @@ def make_handler(engine: LlamaEngine, model_name: str):
                 self._json(400, {"error": str(e)})
 
     return Handler
-
-
-def is_remote_root(root: str) -> bool:
-    """A blob-store URL (the reference's ``remote/client.py`` test) rather
-    than a local directory."""
-    return root.startswith(("http://", "https://")) and "/blobs/" in root
 
 
 def engine_kwargs(cfg: Dict, ckpt_dir: str) -> Dict:

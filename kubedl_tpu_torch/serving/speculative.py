@@ -186,16 +186,22 @@ class ModelDraft(DraftModel):
         (dict keys sorted, as ``jax.tree_util.tree_leaves`` orders them),
         so the two packages read each other's files. bf16 leaves are
         written as float32 (exact)."""
+        from kubedl_tpu_torch.training.trainer import tree_leaves
+
         np.savez(path, **{
             f"leaf_{i}": leaf.detach().float().cpu().numpy()
             if leaf.dtype == torch.bfloat16 else leaf.detach().cpu().numpy()
-            for i, leaf in enumerate(_tree_leaves(self.params))
+            for i, leaf in enumerate(tree_leaves(self.params))
         })
 
     def load(self, path: str) -> None:
         """Restore :meth:`save` output into the existing param tree
         (shapes must match), as owned tensors on the draft's device."""
-        leaves = _tree_leaves(self.params)
+        from kubedl_tpu_torch.training.trainer import (
+            tree_leaves, tree_unflatten,
+        )
+
+        leaves = tree_leaves(self.params)
         new = []
         with np.load(path) as z:
             for i, old in enumerate(leaves):
@@ -207,7 +213,7 @@ class ModelDraft(DraftModel):
                     )
                 new.append(torch.tensor(np.asarray(arr, np.float32)).to(
                     device=old.device, dtype=old.dtype))
-        self.params = _tree_unflatten(self.params, iter(new))
+        self.params = tree_unflatten(self.params, new)
 
     def _prefill_padded(self, contexts: Sequence[Sequence[int]], k: int):
         """Left-truncate each context to the draft window, right-pad to
@@ -278,20 +284,6 @@ class ModelDraft(DraftModel):
             (Bp - n,), dtype=torch.int32, device=firsts.device)])
         ids = self._continue(cache, firsts_full, k)
         return [[int(t) for t in ids[i]] for i in range(n)]
-
-
-def _tree_leaves(tree) -> list:
-    """Leaves of a nested dict in ``jax.tree_util`` order (sorted keys)."""
-    if isinstance(tree, dict):
-        return [x for key in sorted(tree) for x in _tree_leaves(tree[key])]
-    return [tree]
-
-
-def _tree_unflatten(like, leaves):
-    if isinstance(like, dict):
-        return {key: _tree_unflatten(like[key], leaves)
-                for key in sorted(like)}
-    return next(leaves)
 
 
 class DraftTree:

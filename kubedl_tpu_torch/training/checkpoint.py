@@ -29,8 +29,20 @@ entry (or the shard entries) that hold it: the host never holds a copy
 of the whole tree. A ``like`` tree of ``meta`` tensors describes the
 target without allocating it.
 
-Left to later slices: the trainer's interval saves (``AsyncCheckpointer``,
-the peer push) and multi-process saves.
+The trainer's state is saved in the reference's tree
+(:func:`train_state_tree`): ``['params'][...]``,
+``['opt_state'][1][0].count`` / ``.mu[...]`` / ``.nu[...]`` (optax's
+``ScaleByAdamState``), ``['opt_state'][1][2].count`` (the schedule's
+``ScaleByScheduleState``) and ``['step']``, the counts int32 scalars, so
+a job resumes from either package's checkpoint. Interval saves run off
+the step loop (:class:`AsyncCheckpointer`: the device-to-host copy into
+reused host buffers on the caller, the files on a writer thread, an
+optional best-effort push to a peer's blob store), and a restart
+restores from the local directory or a replica
+(:func:`restore_from_best`).
+
+Left to a later slice: multi-process saves (every process writes its
+own shards).
 """
 
 from __future__ import annotations
@@ -43,8 +55,11 @@ import os
 import re
 import shutil
 import tempfile
+import threading
+import time
+from collections import namedtuple
 from pathlib import Path
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -111,15 +126,6 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    """An owned host copy of ``t`` as the reference writes it: bf16 as its
-    bits in a two-byte void array."""
-    t = t.detach().to("cpu").contiguous()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view("V2").copy()
-    return t.numpy().copy()
-
-
 def _to_torch(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     """A host tensor from an npz entry; a two-byte void (or ``ml_dtypes``)
     entry whose manifest says bfloat16 is read as bf16 bits."""
@@ -134,23 +140,11 @@ def _to_torch(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 # ---- save (single process) ---------------------------------------------------
 
 def snapshot_state(state, process_index: int = 0):
-    """Device-to-host capture of ``state`` and its manifest: owned numpy
-    copies, one per leaf (rank 0 writes every leaf of a single-process
-    state; another rank writes none)."""
-    shards: Dict[str, np.ndarray] = {}
-    manifest: Dict[str, Any] = {}
-    for key, leaf in _leaf_items(state):
-        if isinstance(leaf, torch.Tensor):
-            manifest[key] = {"shape": list(leaf.shape),
-                             "dtype": _dtype_name(leaf.dtype)}
-            if process_index == 0:
-                shards[key] = _to_numpy(leaf)
-        else:
-            a = np.asarray(leaf)
-            manifest[key] = {"shape": list(a.shape), "dtype": str(a.dtype)}
-            if process_index == 0:
-                shards[key] = np.array(a)
-    return shards, manifest
+    """Device-to-host capture of ``state`` and its manifest: owned host
+    copies, one per leaf, bf16 as its bits in a two-byte void array (rank
+    0 writes every leaf of a single-process state; another rank none)."""
+    shards, manifest = _Staging(pin=False).snapshot(state)
+    return (shards if process_index == 0 else {}), manifest
 
 
 def write_snapshot(ckpt_dir: str, shards: Dict[str, np.ndarray],
@@ -384,6 +378,215 @@ def _restore_step(ckpt_dir: str, like, step: int, device=None,
     return _unflatten(like, iter(out))
 
 
+# ---- the train state in the reference's tree ------------------------------------
+
+#: optax's state types, as the reference's tree holds them: the chain
+#: ``clip_by_global_norm -> adamw`` is ``(EmptyState(), (ScaleByAdamState,
+#: EmptyState(), ScaleByScheduleState))``
+EmptyState = namedtuple("EmptyState", [])
+ScaleByAdamState = namedtuple("ScaleByAdamState", ["count", "mu", "nu"])
+ScaleByScheduleState = namedtuple("ScaleByScheduleState", ["count"])
+
+
+def train_state_tree(state, leaf: Optional[Callable] = None):
+    """The port's train state (``{"params", "opt_state": {"count", "mu":
+    [...], "nu": [...]}, "step"}``) as the reference's tree, its tensors
+    mapped through ``leaf`` (default: the state's own tensors, to save
+    them; :func:`train_state_like` gives ``meta`` tensors, to restore).
+    The moments' lists follow ``tree_leaves(params)``, the reference's
+    order; the counts become int32 scalars."""
+    from kubedl_tpu_torch.training.trainer import tree_leaves, tree_unflatten
+
+    f = leaf or (lambda t: t)
+    params, opt = state["params"], state["opt_state"]
+    count = np.int32(opt["count"])
+    adam = ScaleByAdamState(
+        count,
+        tree_unflatten(params, [f(t) for t in opt["mu"]]),
+        tree_unflatten(params, [f(t) for t in opt["nu"]]))
+    return {
+        "params": tree_unflatten(params, [f(t) for t in tree_leaves(params)]),
+        "opt_state": (EmptyState(),
+                      (adam, EmptyState(), ScaleByScheduleState(count))),
+        "step": np.int32(state["step"]),
+    }
+
+
+def train_state_like(state):
+    """:func:`train_state_tree` of ``meta`` tensors: a restore template
+    that allocates nothing."""
+    return train_state_tree(
+        state, leaf=lambda t: torch.empty_like(t, device="meta"))
+
+
+def train_state_from_tree(tree):
+    """The inverse of :func:`train_state_tree` (e.g. on a restored tree)."""
+    from kubedl_tpu_torch.training.trainer import tree_leaves
+
+    adam = tree["opt_state"][1][0]
+    return {"params": tree["params"],
+            "opt_state": {"count": int(adam.count),
+                          "mu": tree_leaves(adam.mu),
+                          "nu": tree_leaves(adam.nu)},
+            "step": int(tree["step"])}
+
+
+# ---- asynchronous saves ---------------------------------------------------------
+
+class _Staging:
+    """Host buffers a snapshot lands in, one a leaf. An
+    :class:`AsyncCheckpointer` keeps its own across saves, pinned for
+    CUDA leaves (the copies run at the link's rate without a fresh
+    page-locked allocation each time), and reuses a buffer only after
+    the previous save's writer has finished with it: at most one save is
+    in flight. :func:`snapshot_state` takes fresh pageable ones."""
+
+    def __init__(self, pin: bool = True) -> None:
+        self.pin = pin
+        self.bufs: Dict[str, torch.Tensor] = {}
+
+    def snapshot(self, state):
+        shards: Dict[str, np.ndarray] = {}
+        manifest: Dict[str, Any] = {}
+        on_cuda = False
+        for key, leaf in _leaf_items(state):
+            if not isinstance(leaf, torch.Tensor):
+                a = np.asarray(leaf)
+                manifest[key] = {"shape": list(a.shape), "dtype": str(a.dtype)}
+                shards[key] = np.array(a)
+                continue
+            manifest[key] = {"shape": list(leaf.shape),
+                             "dtype": _dtype_name(leaf.dtype)}
+            buf = self.bufs.get(key)
+            if buf is None or buf.shape != leaf.shape or \
+                    buf.dtype != leaf.dtype:
+                buf = torch.empty(leaf.shape, dtype=leaf.dtype,
+                                  pin_memory=self.pin and leaf.is_cuda)
+                self.bufs[key] = buf
+            buf.copy_(leaf.detach(), non_blocking=buf.is_pinned())
+            on_cuda = on_cuda or leaf.is_cuda
+            shards[key] = (buf.view(torch.int16).numpy().view("V2")
+                           if buf.dtype == torch.bfloat16 else buf.numpy())
+        if on_cuda:
+            torch.cuda.synchronize()  # the copies have landed
+        return shards, manifest
+
+
+class AsyncCheckpointer:
+    """Interval saves off the step loop, with optional peer replication
+    (the reference's class, ``kubedl_tpu/training/checkpoint.py:391``).
+
+    ``save(state, step)`` blocks only for (a) the previous write to
+    finish (at most one save in flight: snapshots are host memory) and
+    (b) the device-to-host snapshot; the npz, manifest and marker writes
+    and the peer push run on a writer thread. ``wait_for_pending()`` is
+    the barrier a clean exit takes before trusting ``latest``; it
+    re-raises the writer's error. ``peer_url`` (a blob root,
+    ``http://host:port/blobs/...``) mirrors each completed step dir to
+    another host: best-effort, a dead peer degrades durability, never
+    training."""
+
+    def __init__(self, ckpt_dir: str, peer_url: str = "") -> None:
+        self.ckpt_dir = ckpt_dir
+        self.peer_url = peer_url.rstrip("/") if peer_url else ""
+        self._staging = _Staging()
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        #: step of the most recently ENQUEUED save
+        self.last_saved_step: Optional[int] = None
+        #: seconds save() blocked its caller, summed
+        self.stall_seconds = 0.0
+        self.saves = 0
+        self.peer_pushes = 0
+
+    def save(self, state, step: int) -> None:
+        t0 = time.perf_counter()
+        try:
+            self.wait_for_pending()  # backpressure; surfaces prior errors
+            shards, manifest = self._staging.snapshot(state)
+            self._thread = threading.Thread(
+                target=self._write, args=(shards, manifest, step),
+                daemon=True, name="kubedl-ckpt-writer")
+            self._thread.start()
+            self.last_saved_step = step
+            self.saves += 1
+        finally:
+            self.stall_seconds += time.perf_counter() - t0
+
+    def _write(self, shards, manifest, step) -> None:
+        try:
+            write_snapshot(self.ckpt_dir, shards, manifest, step, 0, 1)
+        except BaseException as e:  # noqa: BLE001 -- re-raised at the barrier
+            self._error = e
+            return
+        if self.peer_url:
+            self._push_to_peer(step)
+
+    def _push_to_peer(self, step: int) -> None:
+        from kubedl_tpu_torch.remote import client as remote
+
+        d = Path(self.ckpt_dir) / f"step-{step:08d}"
+        try:
+            remote.upload_tree(str(d), f"{self.peer_url}/{d.name}")
+            # the marker last, as locally: a reader following the
+            # replica's `latest` finds a fully uploaded step dir
+            base, prefix = remote._split(self.peer_url)
+            key = f"{prefix}/latest" if prefix else "latest"
+            remote.put_blob(base, key, d.name.encode())
+            self.peer_pushes += 1
+        except Exception as e:  # best-effort: degraded durability only
+            log.warning("peer replication of step %d to %s failed: %s",
+                        step, self.peer_url, e)
+
+    def wait_for_pending(self) -> None:
+        """Join the in-flight write; re-raise its failure (a save the
+        caller believes happened must not silently not exist)."""
+        t = self._thread
+        if t is not None:
+            t.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def __enter__(self) -> "AsyncCheckpointer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.wait_for_pending()
+
+
+def restore_from_best(ckpt_dir: str, like, sources: Sequence[str] = (),
+                      step: Optional[int] = None, device=None):
+    """Restore with the replica preference order: the local dir first,
+    then each remote source (a peer replica, a blob store) mirrored INTO
+    the local dir and retried. None only when every source is exhausted
+    (the reference's function, ``checkpoint.py:498``)."""
+    state = restore_checkpoint(ckpt_dir, like, step=step, device=device)
+    if state is not None:
+        return state
+    for src in sources:
+        if not src:
+            continue
+        from kubedl_tpu_torch.remote.client import download_tree
+
+        try:
+            n = download_tree(src, ckpt_dir)
+        except Exception as e:
+            log.warning("checkpoint source %s unreachable: %s", src, e)
+            continue
+        if n <= 0:
+            continue
+        state = restore_checkpoint(ckpt_dir, like, step=step, device=device)
+        if state is not None:
+            log.warning("restored from replica %s (%d files): the local "
+                        "checkpoint dir was missing or torn", src, n)
+            return state
+    return None
+
+
 __all__ = ["save_checkpoint", "snapshot_state", "write_snapshot",
            "latest_step", "checkpoint_fingerprint", "restore_checkpoint",
-           "IncompleteCheckpoint"]
+           "IncompleteCheckpoint", "train_state_tree", "train_state_like",
+           "train_state_from_tree", "AsyncCheckpointer",
+           "restore_from_best"]

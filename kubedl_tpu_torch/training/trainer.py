@@ -18,17 +18,22 @@ What a one-device port keeps of the reference, and how:
   ``lr = schedule(0)`` (0.0 with the trainer's warmup); the first moment
   ``mu`` is kept in ``opt_moment_dtype`` but the second moment ``nu`` in
   the PARAMETERS' dtype (bf16 for bf16 models); weight decay applies to
-  every leaf, norms included. The global norm is taken in float32.
+  every leaf, norms included. The update itself is one operator
+  (``ops/adamw.py``, a hand-written kernel on CUDA) that computes what
+  the reference's COMPILED step computes, bf16 roundings included.
 - ``fit`` keeps the reference's timing discipline: the clock after the
   first step and at the end stops on a scalar ``.item()`` of the loss, a
   true barrier; steps between logs issue no host sync. Summary keys with
   no counterpart here (``warm_compile_s`` and the other ahead-of-time
   compile keys, ``grad_buckets``, ``flash_trace_count``) are None;
   ``flash_launches`` carries the kernels' launch counts instead.
+- ``fit(ckpt_dir=...)`` saves the train state every ``ckpt_every`` steps
+  and at the end (asynchronously with ``ckpt_async``), in the reference's
+  tree and format, so either package resumes the other's job.
 
 What it rejects with a ValueError naming the later port slice, never
 silently: a mesh of more than one device (or any ``sp``/``pipe`` axis
-above 1), ``ckpt_every > 0``, ``fit(ckpt_dir=...)``, ``fit_ps`` and MoE.
+above 1), ``fit_ps`` and MoE.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import torch
 from kubedl_tpu_torch import resolve_device
 from kubedl_tpu_torch.models import llama
 from kubedl_tpu_torch.ops import flash_attention as fa
+from kubedl_tpu_torch.ops.adamw import adamw_update
 
 MULTI_CHIP = "the multi-chip port slice"
 LATER = "a later port slice"
@@ -108,7 +114,7 @@ class TrainConfig:
     attn_impl: str = "auto"
     context_parallel_impl: str = "ring"
     microbatches: int = 0
-    #: periodic checkpoints: not ported yet (must stay 0)
+    #: save the train state every N steps in ``fit`` (with a ckpt_dir)
     ckpt_every: int = 0
     ckpt_async: bool = True
     #: dtype of the adam FIRST moment (mu); nu keeps the params' dtype
@@ -156,21 +162,17 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 class AdamW:
     """``optax.chain(clip_by_global_norm(clip), adamw(schedule, b1, b2,
-    eps, weight_decay, mu_dtype))`` over a list of parameter tensors.
+    eps, weight_decay, mu_dtype))`` over a list of parameter tensors, as
+    the reference's jitted step computes it.
 
     State: ``{"count": int, "mu": [...], "nu": [...]}``. ``update``
-    rewrites the parameters (and the moments) in place and returns the
-    float32 global norm of the incoming gradients. Per leaf, with t the
-    number of updates before this one:
-
-        g   = clip(g)                       (in g's dtype)
-        mu  = (1 - b1) g + b1 mu            (promoted; stored as mu_dtype)
-        nu  = (1 - b2) g^2 + b2 nu          (in the params' dtype)
-        u   = mu / (1 - b1^(t+1)) / (sqrt(nu / (1 - b2^(t+1))) + eps)
-        p   = p - schedule(t) (u + weight_decay p)
-
-    so the first update, at schedule(0), moves nothing when the warmup
-    starts from 0."""
+    rewrites the parameters and the moments in place through
+    :func:`kubedl_tpu_torch.ops.adamw.adamw_update` (the fused kernels on
+    CUDA, their plain version on the CPU; its docstring states every
+    rounding) and returns the global norm of the incoming gradients (a
+    float32 device scalar holding the reference's value: bf16-rounded for
+    bf16 gradients). Update t+1 runs at ``schedule(t)``, so the first
+    moves nothing when the warmup starts from 0."""
 
     def __init__(self, schedule, grad_clip: float, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
@@ -189,42 +191,16 @@ class AdamW:
             "nu": [torch.zeros_like(p) for p in leaves],
         }
 
-    @staticmethod
-    def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-        return torch.sqrt(sum(g.float().square().sum() for g in grads))
-
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: Dict[str, Any],
                leaves: List[torch.Tensor]) -> torch.Tensor:
-        gnorm = self.global_norm(grads)
-        keep = gnorm < self.grad_clip  # stays on the device: no host sync
         lr = self.schedule(state["count"])
         state["count"] += 1
-        t = state["count"]
-        corrections: Dict[Tuple[float, torch.dtype], float] = {}
-
-        def bias_correction(decay: float, dtype: torch.dtype) -> float:
-            # optax: 1 - decay**t in float32, cast to the moment's dtype;
-            # kept a host scalar (a CPU tensor copied to the card would
-            # synchronise the stream at every leaf)
-            key = (decay, dtype)
-            if key not in corrections:
-                bc = 1.0 - torch.tensor(decay, dtype=torch.float32) ** t
-                corrections[key] = float(bc.to(dtype))
-            return corrections[key]
-
-        for i, (g, p) in enumerate(zip(grads, leaves)):
-            g = torch.where(keep, g, (g / gnorm.to(g.dtype)) * self.grad_clip)
-            mu = (1 - self.b1) * g + self.b1 * state["mu"][i]
-            nu = (1 - self.b2) * (g * g) + self.b2 * state["nu"][i]
-            mu_hat = mu / bias_correction(self.b1, mu.dtype)
-            nu_hat = nu / bias_correction(self.b2, nu.dtype)
-            u = mu_hat / (torch.sqrt(nu_hat) + self.eps)
-            u = u + self.weight_decay * p
-            p.copy_(p + u * (-lr))
-            state["mu"][i] = mu.to(self.mu_dtype)
-            state["nu"][i] = nu
-        return gnorm
+        stats = adamw_update(
+            grads, leaves, state["mu"], state["nu"], lr=lr,
+            t=state["count"], b1=self.b1, b2=self.b2, eps=self.eps,
+            weight_decay=self.weight_decay, clip=self.grad_clip)
+        return stats[0]
 
 
 def make_optimizer(cfg: TrainConfig) -> AdamW:
@@ -243,8 +219,11 @@ def make_optimizer(cfg: TrainConfig) -> AdamW:
 # ---- parameter trees (nested dicts of tensors) -------------------------------
 
 def tree_leaves(tree) -> List[torch.Tensor]:
+    """The leaves in the reference's tree order (dict keys sorted, as
+    ``jax.tree_util`` flattens): the optimizer's global norm sums them in
+    this order, and the moments' lists follow it."""
     if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
 
 
@@ -253,7 +232,8 @@ def tree_unflatten(tree, leaves):
 
     def walk(node):
         if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
+            filled = {k: walk(node[k]) for k in sorted(node)}
+            return {k: filled[k] for k in node}
         return next(it)
 
     return walk(tree)
@@ -290,9 +270,6 @@ class Trainer:
                 f"fsdp, tensor, sequence or pipeline axes) belongs to "
                 f"{MULTI_CHIP}"
             )
-        if cfg.ckpt_every > 0:
-            raise ValueError(f"ckpt_every={cfg.ckpt_every}: checkpointing "
-                             f"(training/checkpoint.py) belongs to {LATER}")
         if cfg.global_batch % cfg.grad_accum:
             raise ValueError(f"global_batch {cfg.global_batch} does not "
                              f"split into grad_accum={cfg.grad_accum}")
@@ -423,13 +400,31 @@ class Trainer:
         """Run the loop; returns (state, summary) with the reference's
         metrics (first-step latency, tokens/s, MFU, ...). ``steps`` is the
         TOTAL budget: a state whose step is already k trains steps-k
-        more."""
-        del ckpt_peer, warm_join_timeout
-        if ckpt_dir or ckpt_every:
-            raise ValueError(f"checkpoints (ckpt_dir={ckpt_dir!r}, "
-                             f"ckpt_every={ckpt_every}) belong to {LATER}")
+        more. ``ckpt_dir`` saves the train state (in the reference's tree,
+        ``checkpoint.train_state_tree``) every ``ckpt_every`` steps
+        (default ``cfg.ckpt_every``) and once at the end, asynchronously
+        when ``cfg.ckpt_async`` (the loop pays only the device-to-host
+        snapshot; the last write is joined before fit returns);
+        ``ckpt_peer`` mirrors completed saves to a peer blob root."""
+        from kubedl_tpu_torch.training.checkpoint import (
+            AsyncCheckpointer, save_checkpoint, train_state_tree,
+        )
+
+        del warm_join_timeout
         steps = steps or self.cfg.steps
         state = state or self.init_state()
+        ckpt_every = self.cfg.ckpt_every if ckpt_every is None else ckpt_every
+        checkpointer: Optional[AsyncCheckpointer] = None
+        if ckpt_dir and self.cfg.ckpt_async:
+            checkpointer = AsyncCheckpointer(ckpt_dir, peer_url=ckpt_peer)
+        last_saved_step: Optional[int] = None
+
+        def save(step: int) -> None:
+            if checkpointer is not None:
+                checkpointer.save(train_state_tree(state), step)
+            else:
+                save_checkpoint(ckpt_dir, train_state_tree(state), step)
+
         t_sync = time.perf_counter()
         self._sync()
         start = int(state["step"])
@@ -441,25 +436,47 @@ class Trainer:
         last_loss_arr = None
         first_loss = None
         first_step_s = 0.0
+        ckpt_overhead = 0.0
         t0 = time.perf_counter()
         t_run = t0
-        for i in range(start, steps):
-            state, metrics = self.train_step(state, next(data))
-            last_loss_arr = metrics["loss"]
-            steps_run += 1
-            if i == start:
-                first_loss = _fetch_scalar(metrics["loss"])
-                first_step_s = time.perf_counter() - t0
-                t_run = time.perf_counter()
-            elif log_every and (i + 1) % log_every == 0 and i + 1 < steps:
-                loss_log.append((i + 1, _fetch_scalar(metrics["loss"])))
-            if on_step is not None:
-                on_step(i, metrics)
-        if steps_run:
-            last_loss = _fetch_scalar(last_loss_arr)
-        else:
-            last_loss = first_loss = float("nan")
-        total = time.perf_counter() - t_run
+        try:
+            for i in range(start, steps):
+                state, metrics = self.train_step(state, next(data))
+                last_loss_arr = metrics["loss"]
+                steps_run += 1
+                if i == start:
+                    first_loss = _fetch_scalar(metrics["loss"])
+                    first_step_s = time.perf_counter() - t0
+                    t_run = time.perf_counter()
+                elif log_every and (i + 1) % log_every == 0 and i + 1 < steps:
+                    loss_log.append((i + 1, _fetch_scalar(metrics["loss"])))
+                if on_step is not None:
+                    on_step(i, metrics)
+                if ckpt_dir and ckpt_every and (i + 1) % ckpt_every == 0:
+                    t_ck = time.perf_counter()
+                    save(i + 1)
+                    last_saved_step = i + 1
+                    ckpt_overhead += time.perf_counter() - t_ck
+            if steps_run:
+                last_loss = _fetch_scalar(last_loss_arr)
+            else:
+                last_loss = first_loss = float("nan")
+        except BaseException:
+            # killed mid-loop (SystemExit 137 from a cancel, a preemption
+            # or an injected fault): let the dispatched steps finish, then
+            # make the in-flight save durable, so that the restart resumes
+            # from it; a secondary failure must not mask the kill
+            try:
+                self._sync()
+            except Exception:
+                pass
+            if checkpointer is not None:
+                try:
+                    checkpointer.wait_for_pending()
+                except Exception:
+                    pass
+            raise
+        total = time.perf_counter() - t_run - ckpt_overhead
         steady = steps_run - 1
         tps = tokens_per_step * steady / total if total > 0 and steady > 0 \
             else 0.0
@@ -495,7 +512,18 @@ class Trainer:
             "flash_launches": dict(fa.LAUNCHES),
         }
         summary["sanity_violations"] = self.sanity_check(summary)
-        summary["ckpt_async"] = False
+        if ckpt_dir and steps_run:
+            # labelled with the state's real step, not the budget; skipped
+            # when the last interval save already wrote that step
+            final_step = int(state["step"])
+            if last_saved_step != final_step:
+                save(final_step)
+        if checkpointer is not None:
+            # the clean-exit barrier: the caller may publish or exit now
+            checkpointer.wait_for_pending()
+            summary["ckpt_stall_s"] = checkpointer.stall_seconds
+            summary["ckpt_saves"] = checkpointer.saves
+        summary["ckpt_async"] = checkpointer is not None
         return state, summary
 
     def fit_ps(self, *args, **kwargs):

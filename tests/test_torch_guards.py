@@ -44,7 +44,8 @@ def test_port_files_found():
     assert {"llama.py", "paged_attention.py", "server.py", "kv_blocks.py",
             "build.py", "chip_smoke.py", "flash_attention.py", "trainer.py",
             "entry.py", "topology.py", "data.py", "checkpoint.py",
-            "disagg.py", "w8a16.py"} <= names
+            "disagg.py", "w8a16.py", "adamw.py", "client.py", "beacon.py",
+            "native.py"} <= names
 
 
 def test_engine_without_device_raises_when_no_cuda(monkeypatch):
