@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py                # every phase, one card
-    python3 chip_smoke.py --skip-engine  # without phases 5, 6 and 13-19
+    python3 chip_smoke.py --skip-engine  # without phases 5, 6, 13-19, 22
     python3 chip_smoke.py --skip-train   # without phases 8 to 12 and 21
 
 Phases (any failure exits non-zero before the final line):
@@ -11,26 +11,28 @@ Phases (any failure exits non-zero before the final line):
    nvcc for sm_90a (``-Xptxas -v``), one nvcc per source started
    together, and prints the build seconds; then, for each tensor-core
    kernel (flash forward, fused backward, the split pair, paged
-   prefill), its registers and spill bytes (ptxas) and its count of
-   HGMMA instructions (``cuobjdump -sass``), failing if one has none or
-   if a split-pair kernel spills; the same for the W8A16 kernels (the
+   prefill at hd 64, 128 and 256), its registers and spill bytes (ptxas)
+   and its count of HGMMA instructions (``cuobjdump -sass``), failing if
+   one has none or if a split-pair kernel spills; the same for the W8A16
+   kernels (the
    decode route's instantiations and its split-K combine, the prefill
    route's wgmma kernel), failing if one spills or the prefill kernel
    has no HGMMA; and the optimizer kernels' registers and spills
    (``csrc/adamw.cu``: the norm, its finish, the update for each
    parameter / first-moment type), failing if one spills.
 3. blocked entry vs its plain PyTorch version at the serving shapes
-   (Llama-3-8B: B=8, KV=8, group 4, hd 128, BS 16, MB 128; Gemma-2B:
-   hd 256, KV 1, group 8) for S in {1, 64, 512}, ragged starts, block
-   boundaries and an all-trash row, bf16 and f32, each case's route
-   printed (``paged_route``: split-K, tensor cores or CUDA cores); kernel,
-   plain and library (SDPA over the gathered view) times (see
-   ``time_ms``: "ms" is the call's device time with the host's queueing
-   hidden, "call_ms" one call with the queueing in it). Then speculative
-   verify's shapes: Llama-3-8B widths at S in {2, 5, 8} (R = S*group < 64:
-   the split-K route), bf16 and f32, starts that cross block boundaries
-   and clamp at max_s - 1 (``VERIFY_STARTS``), S=5 bf16 timed; and one
-   hd-64 case.
+   (Llama-3-8B: B=8, KV=8, group 4, hd 128, BS 16, MB 128, S in {1, 64,
+   512}; Gemma-2B: hd 256, KV 1, group 8, S in {1, 8, 64, 512}), ragged
+   starts, block boundaries, a poisoned trash block and an all-trash row,
+   bf16 and f32, two calls bit-identical, each case's route printed
+   (``paged_route``: split-K, tensor cores or CUDA cores); kernel, plain
+   and library (SDPA over the gathered view) times (see ``time_ms``: "ms"
+   is the call's device time with the host's queueing hidden, "call_ms"
+   one call with the queueing in it). Then speculative verify's shapes:
+   Llama-3-8B widths at S in {2, 5, 8} (R = S*group < 64: the split-K
+   route), bf16 and f32, starts that cross block boundaries and clamp at
+   max_s - 1 (``VERIFY_STARTS``), S=5 bf16 timed, and S=5 bf16 at
+   Gemma-2B's widths, timed; and one hd-64 case.
 4. fused decode entry (S=1, KV write fused, split-K) vs plain scatter +
    plain attention: pools bitwise equal outside the trash block, outputs
    within tolerance; the first call runs under
@@ -171,6 +173,19 @@ Phases (any failure exits non-zero before the final line):
    streams (not gated). Then 2 layers in float32: disaggregated greedy
    streams IDENTICAL to the colocated engine's.
 
+22. Gemma-2B: ``serve_main`` with ``GEMMA_SERVE`` (phase 5's config with
+   ``gemma-2b``: full width and depth, 18 layers, MQA at hd 256, seeded
+   random bf16 weights) on phase 5's kind of traffic; gates in
+   ``run_gemma_engine`` (every blocked call on the tensor-core route, the
+   hd-256 kernel; every fused call on split-K; no CUDA-core launch);
+   prints TTFT p50/p95, ms a decode step, the routes, and from a profiled
+   repeat of the wave the paged kernels' device ms a launch and their
+   share of device time. Then Gemma-2B width cut to 2 layers: in bf16,
+   ``paged_prefill_from`` over a 512-token chunk at ragged starts with
+   the kernel against the plain version forced (``GEMMA_LOGIT_TOL``); in
+   float32, the blocked engine's greedy streams identical to the gather
+   engine's.
+
 20. the optimizer update (``csrc/adamw.cu``) against its plain version on
    Llama-3.2-1B's 11 leaves (seeded, bf16 parameters, float32 first
    moment) at a step that does not clip and one that clips, with the
@@ -189,9 +204,9 @@ Phases (any failure exits non-zero before the final line):
    BIT-identical to an in-process chain of 2 steps, save, restore, 4
    steps on a fresh iterator.
 
-Phase 16 runs after phase 4; phases 13-15 and 17-19 after phase 6 (they
-are skipped with ``--skip-engine``); phase 20 after phase 7, phase 21
-after phase 12 (skipped with ``--skip-train``).
+Phase 16 runs after phase 4; phase 22, then phases 13-15 and 17-19 after
+phase 6 (they are skipped with ``--skip-engine``); phase 20 after phase
+7, phase 21 after phase 12 (skipped with ``--skip-train``).
 
 Output: the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -247,12 +262,18 @@ LONG_STARTS = [0, 15, 16, 47, 300, 4095, 8190, 0]
 #: (2045 + 8 > 2047); row 7 all-trash
 VERIFY_STARTS = [14, 15, 30, 47, 300, 1020, 2045, 0]
 
+#: the device phases 16-22 run on (the card; a CPU rehearsal sets "cpu")
+DEV = "cuda"
+
 REPLACES = {
     "paged_attention_blocked":
         "kubedl_tpu/models/paged_attention.py:181 _blocked_kernel",
     "paged_attention_fused":
         "kubedl_tpu/models/paged_attention.py:290 _fused_kernel",
 }
+#: a timed case's fields kept beside the kernels line's main case
+TIMED_KEYS = ("route", "max_abs_err", "ms", "call_ms", "plain_ms",
+              "library_ms", "bound_ms", "bound_by")
 
 
 def fail(msg: str) -> None:
@@ -349,6 +370,22 @@ def bound(shape, S, dtype, fused=False, starts=STARTS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def tc_copied_bytes(shape, S, starts=STARTS):
+    """Bytes the tensor-core route's CTAs copy into shared memory: each
+    CTA's Q tile, and every 64-key K/V tile up to its last visible key
+    (each CTA of a row reads the row's K/V again; the bound counts each
+    byte once). A CTA holds 128 folded query rows at hd 256, 192 below."""
+    B, KV, H, hd, BS, MB = (shape[k] for k in ("B", "KV", "H", "hd", "BS", "MB"))
+    group, bq = H // KV, 128 if shape["hd"] == 256 else 192
+    R, max_s = S * group, BS * MB
+    total = 0
+    for st in starts[:B]:
+        for r0 in range(0, R, bq):
+            n_keys = min(st + (min(r0 + bq, R) - 1) // group, max_s - 1) + 1
+            total += KV * 2 * hd * (bq + 2 * 64 * -(-n_keys // 64))
+    return total
+
+
 def sdpa_yardstick(q, kp, vp, bt, starts):
     """One PyTorch call computing the same attention: SDPA over the
     gathered view with the position mask (view built outside the timed
@@ -384,13 +421,16 @@ def check_blocked(pa, shape, S, dtype, timed: bool, start_list=STARTS):
     route = route_of(pa, shape, S, dtype)
     before = pa.ROUTE_LAUNCHES[route]
     out = pa.paged_attention(q, kp, vp, bt, starts)
+    again = pa.paged_attention(q, kp, vp, bt, starts)
     torch.cuda.synchronize()
     ref = pa.plain_paged_attention(q, kp, vp, bt, starts)
     err = (out.float() - ref.float()).abs().max().item()
     if not math.isfinite(err) or err > TOL[dtype]:
         fail(f"blocked kernel {shape} S={S} {dtype}: max abs err {err} "
              f"> {TOL[dtype]}")
-    if pa.ROUTE_LAUNCHES[route] != before + 1:
+    if not torch.equal(out, again):
+        fail(f"blocked kernel {shape} S={S} {dtype}: two calls differ")
+    if pa.ROUTE_LAUNCHES[route] != before + 2:
         fail(f"blocked {shape} S={S} {dtype} did not take route {route}")
     rec = {"route": route, "max_abs_err": err}
     if timed:
@@ -404,6 +444,8 @@ def check_blocked(pa, shape, S, dtype, timed: bool, start_list=STARTS):
         rec["library_call_ms"] = time_ms(lib, hide_host=False)
         rec["bound_ms"], rec["bound_by"] = bound(shape, S, dtype,
                                                  starts=start_list)
+        if route == pa.TENSOR_CORE:
+            rec["smem_fill_bytes"] = tc_copied_bytes(shape, S, start_list)
     return rec
 
 
@@ -492,6 +534,7 @@ def tc_kernel_report(build) -> dict:
         rep.update(_tc_source_report(build, src))
     want = {f"{k}<{hd}{flag}>" for k, (_, flags) in TC_KERNELS.items()
             for flag in flags for hd in (64, 128)}
+    want.add("paged_prefill_tc_kernel<256>")  # Gemma-2B's prefill
     if not want <= set(rep) or any(rep[k].get("hgmma", 0) == 0 for k in want):
         fail(f"tensor-core kernels missing or without HGMMA: {rep}")
     spills = {k: rep[k] for k in NO_SPILL
@@ -2106,9 +2149,9 @@ def shared_prefix_requests(vocab, new_tokens, seed=1):
 def profiled_paged(fn):
     """Run ``fn`` under torch.profiler; device ms and kernel count of the
     paged kernels by category (the blocked kernel's split-K launches
-    apart from its tensor-core ones). Device activity only: kernel times
-    are all this reads, and host ops would cost minutes of trace
-    processing."""
+    apart from its tensor-core ones), and of every kernel ("device").
+    Device activity only: kernel times are all this reads, and host ops
+    would cost minutes of trace processing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2122,13 +2165,12 @@ def profiled_paged(fn):
         cat = _kernel_category(e.key)
         if cat == "paged_attention_blocked" and "paged_split_kernel" in e.key:
             cat = "paged_attention_blocked_split"
-        if not cat.startswith("paged"):
-            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        ms, n = cats.get(cat, (0.0, 0))
-        cats[cat] = (ms + us / 1e3, n + e.count)
+        for key in {cat, "device"} if cat.startswith("paged") else {"device"}:
+            ms, n = cats.get(key, (0.0, 0))
+            cats[key] = (ms + us / 1e3, n + e.count)
     return {k: {"ms": ms, "kernels": n, "ms_per_kernel": ms / n if n else None}
             for k, (ms, n) in cats.items()}
 
@@ -2317,10 +2359,236 @@ def run_f32_identity(server_mod, llama_mod):
           "engine (8 streams x 32 tokens): " + json.dumps(facts), flush=True)
 
 
+# ---- phase 22: Gemma-2B through the port --------------------------------------
+
+#: phase 5's serving config with Gemma-2B: full width and depth (18 layers,
+#: MQA: one kv-head, group 8, hd 256; a 256,000-token tied vocabulary)
+GEMMA_SERVE = {"preset": "gemma-2b", "max_batch": 8, "max_seq": 2048,
+               "kv_block_size": 16, "kv_attention": "blocked",
+               "prefill_chunk_tokens": 512}
+#: the bf16 in-model gate's starts: phase 3's, each row on blocks of its own
+#: (the chunk's writes would collide in an all-trash row's block 0)
+GEMMA_GATE_STARTS = [0, 15, 16, 47, 300, 1023, 1500, 700]
+#: The bf16 in-model gate's tolerance: max |logit difference| over the plain
+#: run's largest |logit|. The two sides differ only in paged attention,
+#: whose outputs agree within about one bf16 ulp (2^-8 relative; the kernel
+#: also rounds P to bf16 before P.V, as the reference does). Such a
+#: perturbation of the hidden state passes through two layers of bf16
+#: matmuls with float32 sums and the final norm, each a relative map, so
+#: the logits move by a few 2^-8 of their scale at most: 2e-2 (about 5
+#: bf16 ulps) leaves room for two layers' roundings on top.
+GEMMA_LOGIT_TOL = 2e-2
+
+
+@contextlib.contextmanager
+def forced_plain_paged(pa):
+    """The blocked entry's plain version forced on CUDA tensors (the
+    in-model gate's other side); the kernel is restored on exit. Blocked
+    prefill calls only: a fused or read-only call raises."""
+    kernel = pa.paged_attention
+
+    def plain(q, k_pool, v_pool, bt, starts, **kw):
+        if any(v is not None for v in kw.values()):
+            raise ValueError(f"forced plain paged attention: {sorted(kw)}")
+        return pa.plain_paged_attention(q, k_pool, v_pool, bt, starts)
+
+    pa.paged_attention = plain
+    try:
+        yield
+    finally:
+        pa.paged_attention = kernel
+
+
+def run_gemma_engine(pa, server_mod, llama_mod, summary):
+    """Phase 22: serve_main with Gemma-2B (``GEMMA_SERVE``, seeded random
+    bf16 weights) on phase 5's kind of traffic (``make_requests``: 8
+    requests, prompts 64-1536, 128 new tokens, 6 greedy, 2 sampled). Gates:
+    every response; blocked launches, every one on the tensor-core route
+    (the hd-256 kernel); fused launches >= 18 x decode steps, every one on
+    split-K; no CUDA-core launch; finite logits; a deferred harvest. Then a
+    profiled repeat of the wave at 16 new tokens, the profiler spanning it
+    (one opened mid-wave records nothing): the paged kernels' device ms a
+    launch in the engine, their share of device time, the busy share."""
+    cfg = llama_mod.preset("gemma-2b")
+    reqs = make_requests(cfg.vocab_size)
+    with serving(server_mod, GEMMA_SERVE) as base:
+        before = engine_idle(base, "gemma engine")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(pa)
+        results, wall = post_all(base, reqs)
+        st = engine_idle(base, "gemma engine")
+        launches = dict(pa.LAUNCHES)
+        entry_routes = dict(pa.ENTRY_ROUTE_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        short, span = [dict(r, max_tokens=16) for r in reqs], {}
+
+        def wave():  # timed inside the profiler, before its processing
+            t0 = time.perf_counter()
+            checked(post_all(base, short)[0], 16, "gemma profiled wave")
+            torch.cuda.synchronize()
+            span["ms"] = (time.perf_counter() - t0) * 1e3
+
+        prof = profiled_paged(wave)
+        prof_wall_ms = span["ms"]
+    checked(results, 128, "gemma engine")
+    pipe, pipe0 = st["pipeline"], before["pipeline"]
+    steps = pipe["decode_steps"] - pipe0["decode_steps"]
+    if launches["blocked"] <= 0 or \
+            entry_routes["blocked/tensor_core"] != launches["blocked"]:
+        fail(f"gemma engine: blocked launches {launches['blocked']}, "
+             f"routes {entry_routes}: every prefill chunk on the tensor cores")
+    if steps <= 0 or launches["fused"] < cfg.n_layers * steps or \
+            entry_routes["fused/split_k"] != launches["fused"]:
+        fail(f"gemma engine: fused launches {launches['fused']} for "
+             f"{cfg.n_layers} x {steps} decode steps, routes {entry_routes}")
+    if pa.CUDA_CORE in {k.split("/")[1] for k, v in entry_routes.items() if v}:
+        fail(f"gemma engine: a CUDA-core launch {entry_routes}")
+    if st["nonfinite_logits"] != 0:
+        fail(f"gemma engine: {st['nonfinite_logits']} non-finite logits")
+    if pipe["deferred_harvests"] - pipe0["deferred_harvests"] <= 0:
+        fail(f"gemma engine: the decode pipeline never deferred a harvest: "
+             f"{pipe}")
+    dev_ms = prof.get("device", {}).get("ms", 0.0)
+    paged_ms = sum(v["ms"] for k, v in prof.items() if k != "device")
+    in_model = {  # device ms a launch; the merge follows each fused launch
+        "blocked": prof.get("paged_attention_blocked", {}).get(
+            "ms_per_kernel"),
+        "fused": prof.get("paged_attention_fused", {}).get("ms_per_kernel"),
+        "merge": prof.get("paged_attention_combine", {}).get("ms_per_kernel"),
+        "wall_ms": prof_wall_ms, "device_ms": dev_ms,
+        "busy_share": dev_ms / prof_wall_ms,
+        "paged_share": paged_ms / dev_ms if dev_ms else None,
+        "by_category": prof}
+    dec_tokens = pipe["decode_tokens"] - pipe0["decode_tokens"]
+    dec_ms = pipe["decode_ms_sum"] - pipe0["decode_ms_sum"]
+    rec = {
+        "requests": len(reqs), "wall_s": wall,
+        "prompt_lens": [len(r["prompt_ids"]) for r in reqs],
+        "tokens_out": sum(len(r[1]["token_ids"]) for r in results),
+        "decode_tokens_per_s": dec_tokens / (dec_ms / 1e3),
+        "ms_per_decode_step": dec_ms / steps,
+        "decode_steps": steps,
+        "prefill_chunks": pipe["prefill_chunks"] - pipe0["prefill_chunks"],
+        "ttft_ms_p50": st.get("ttft_ms_p50"),
+        "ttft_ms_p95": st.get("ttft_ms_p95"),
+        "max_memory_allocated_gib": peak / 2**30,
+        "weight_bytes": st["weights"]["bytes"],
+        "launches": launches,
+        "entry_routes": {k: v for k, v in entry_routes.items() if v},
+        "fused_per_decode_step": launches["fused"] / steps,
+        "pipeline": {k: pipe.get(k) for k in PIPELINE_FIELDS},
+        "profiled_wave": in_model,
+    }
+    print("gemma-2b engine (smoke run, not a benchmark): " + json.dumps(rec),
+          flush=True)
+    if dev_ms == 0.0:
+        print("gemma-2b profile: the profiler saw no device time", flush=True)
+    summary.setdefault("paths", {})["gemma"] = launches
+    summary["gemma_in_model"] = in_model
+
+
+def run_gemma_prefill_gate(pa, llama_mod):
+    """Phase 22's bf16 gate: Gemma-2B width cut to 2 layers, bf16, seeded
+    weights and pool history; ``paged_prefill_from`` (the chunked prefill's
+    model function) over a 512-token chunk for 8 rows at ragged starts,
+    once through the kernel (2 tensor-core launches) and once with the
+    plain version forced. Gates: the last-position logits within
+    ``GEMMA_LOGIT_TOL`` of the plain run's largest |logit|, and the argmax
+    equal on every row whose top-2 gap exceeds that tolerance."""
+    cfg = dataclasses.replace(llama_mod.preset("gemma-2b"), n_layers=2)
+    g = torch.Generator(device=DEV).manual_seed(22)
+    params = llama_mod.llama_init(cfg, g, DEV)
+    B, S, BS, max_seq = 8, 512, 16, 2048
+    MB = max_seq // BS
+    NB = 1 + B * MB
+    cache = llama_mod.init_paged_cache(cfg, B, max_seq, NB, BS, DEV)
+    cache["k"].normal_(generator=g)  # each row's history before its start
+    cache["v"].normal_(generator=g)
+    perm = torch.randperm(NB - 1, generator=g, device=DEV) + 1
+    cache["bt"] = perm.to(torch.int32).reshape(B, MB).contiguous()
+    starts = torch.tensor(GEMMA_GATE_STARTS, dtype=torch.int32, device=DEV)
+    cache["pos"] = starts.clone()
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                         device=DEV).to(torch.int32)
+    lens = torch.full((B,), S, dtype=torch.int32, device=DEV)
+
+    def prefill():
+        c = {k: v.clone() for k, v in cache.items()}
+        with torch.no_grad():
+            logits, _ = llama_mod.paged_prefill_from(
+                params, c, toks, lens, starts, cfg, kv_attention="blocked")
+        torch.cuda.synchronize()
+        return logits.float()
+
+    n0 = dict(pa.ENTRY_ROUTE_LAUNCHES)
+    kern = prefill()
+    n1 = dict(pa.ENTRY_ROUTE_LAUNCHES)
+    with forced_plain_paged(pa):
+        plain = prefill()
+    if n1["blocked/tensor_core"] - n0["blocked/tensor_core"] != cfg.n_layers \
+            or sum(n1.values()) - sum(n0.values()) != cfg.n_layers \
+            or pa.ENTRY_ROUTE_LAUNCHES != n1:
+        fail(f"gemma in-model gate: launches {n0} -> {n1} -> "
+             f"{pa.ENTRY_ROUTE_LAUNCHES}: want {cfg.n_layers} tensor-core "
+             "launches, then none under the plain version")
+    scale = plain.abs().max().item()
+    tol = GEMMA_LOGIT_TOL * scale
+    err = (kern - plain).abs().max().item()
+    top2 = plain.topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).tolist()
+    same = (kern.argmax(-1) == plain.argmax(-1)).tolist()
+    rec = {"max_abs_err": err, "max_abs_logit": scale, "tol": tol,
+           "err_over_scale": err / scale, "top2_gap": gap,
+           "argmax_equal": same}
+    print("gemma-2b 2-layer bf16, paged_prefill_from kernel vs forced "
+          "plain: " + json.dumps(rec), flush=True)
+    if not math.isfinite(err) or err > tol:
+        fail(f"gemma in-model gate: logits differ by {err} > {tol}")
+    if not all(ok for ok, d in zip(same, gap) if d > tol):
+        fail(f"gemma in-model gate: argmax differs on a row whose top-2 gap "
+             f"exceeds {tol}: {rec}")
+
+
+def run_gemma_f32_identity(pa, server_mod, llama_mod):
+    """Phase 22's f32 gate: Gemma-2B width cut to 2 layers, float32: the
+    blocked engine's greedy streams IDENTICAL to the gather engine's on the
+    shared-prefix requests in two waves (the second grafts the shared
+    prompt). It holds the Gemma-specific model code on the card (GeGLU
+    with tanh, (1+w) norms, the embedding scale, the tied head); the
+    float32 prefill takes the CUDA-core route, decode the split-K one."""
+    name = "gemma-2b-2layer-f32"
+    llama_mod.PRESETS.setdefault(name, dataclasses.replace(
+        llama_mod.preset("gemma-2b"), n_layers=2, dtype=torch.float32))
+    reqs = shared_prefix_requests(llama_mod.preset(name).vocab_size, 32,
+                                  seed=3)
+    streams, routes = {}, {}
+    for kern in ("blocked", "gather"):
+        eng = server_mod.LlamaEngine(**dict(GEMMA_SERVE, preset=name,
+                                            kv_attention=kern))
+        reset_counts(pa)
+        try:
+            outs = generate_concurrent(eng, reqs[:2]) \
+                + generate_concurrent(eng, reqs[2:])
+        finally:
+            eng.close()
+        routes[kern] = {k: v for k, v in pa.ENTRY_ROUTE_LAUNCHES.items() if v}
+        del eng
+        _free()
+        streams[kern] = [(o or {}).get("token_ids") for o in outs]
+    if any(t is None or len(t) != 32 for t in streams["blocked"]) or \
+            streams["blocked"] != streams["gather"]:
+        fail("f32 2-layer Gemma-2B: blocked and gather greedy streams "
+             f"differ: {streams}")
+    if not routes["blocked"].get("blocked/cuda_core") or \
+            not routes["blocked"].get("fused/split_k") or routes["gather"]:
+        fail(f"f32 2-layer Gemma-2B: paged routes {routes}")
+    print(f"f32 2-layer gemma-2b width: blocked == gather on {len(reqs)} "
+          f"greedy streams x 32 tokens; routes {json.dumps(routes)}",
+          flush=True)
+
+
 # ---- phases 16 to 19: int8 weights, checkpoints and versions, the pair -------
 
-#: the device phases 16-19 run on (the card; a CPU rehearsal sets "cpu")
-DEV = "cuda"
 W8_M = (1, 8, 40, 64, 512)
 #: the kernels line's shapes: the MLP's up projection at decode (M=8, the
 #: decode route) and in a prefill chunk (M=512, the prefill route)
@@ -3213,7 +3481,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--skip-engine", action="store_true",
                     help="skip the serving engine (phases 5, 6, 13-15, "
-                    "17-19)")
+                    "17-19, 22)")
     ap.add_argument("--skip-train", action="store_true",
                     help="skip the training phases (8 to 12, 21)")
     args = ap.parse_args()
@@ -3251,16 +3519,22 @@ def main() -> int:
           + json.dumps(adamw_kernel_report(build)), flush=True)
 
     kernels = {}
-    for name, shape in (("llama", LLAMA), ("gemma", GEMMA)):
-        for S in (1, 64, 512):
+    for name, shape, suffix in (("llama", LLAMA, ""),
+                                ("gemma", GEMMA, "_hd256")):
+        # Gemma-2B (group 8): S=8 is the tensor-core route's smallest R
+        sizes = (1, 64, 512) if name == "llama" else (1, 8, 64, 512)
+        subs = {}
+        for S in sizes:
             rec = check_blocked(pa, shape, S, torch.bfloat16, timed=True)
             print(f"blocked {name} S={S} bf16: " + json.dumps(rec), flush=True)
-            if name == "llama" and S == 512:
-                kernels["paged_attention_blocked"] = rec
+            subs[S] = rec
+        kernels["paged_attention_blocked" + suffix] = subs[512]
+        if name == "gemma":
+            for S in (8, 64):
+                subs[512][f"s{S}"] = {k: subs[S][k] for k in TIMED_KEYS}
         rec = check_fused(pa, shape, torch.bfloat16, timed=True)
         print(f"fused {name} bf16: " + json.dumps(rec), flush=True)
-        if name == "llama":
-            kernels["paged_attention_fused"] = rec
+        kernels["paged_attention_fused" + suffix] = rec
     rec = check_fused(pa, LONG, torch.bfloat16, timed=True,
                       start_list=LONG_STARTS)
     print("fused llama long-context MB=512 bf16: " + json.dumps(rec),
@@ -3285,9 +3559,13 @@ def main() -> int:
                   flush=True)
             if timed:
                 kernels["paged_attention_blocked"]["verify_s5"] = {
-                    k: rec[k] for k in ("route", "max_abs_err", "ms",
-                                        "call_ms", "plain_ms", "library_ms",
-                                        "bound_ms", "bound_by")}
+                    k: rec[k] for k in TIMED_KEYS}
+    # and at Gemma-2B's widths (R = 40: split-K)
+    rec = check_blocked(pa, GEMMA, 5, torch.bfloat16, timed=True,
+                        start_list=VERIFY_STARTS)
+    print("blocked verify gemma S=5 bf16: " + json.dumps(rec), flush=True)
+    kernels["paged_attention_blocked_hd256"]["verify_s5"] = {
+        k: rec[k] for k in TIMED_KEYS}
     rec = check_blocked(pa, small, 5, torch.bfloat16, timed=False,
                         start_list=VERIFY_STARTS)
     print("blocked verify hd=64 S=5 bf16: " + json.dumps(rec), flush=True)
@@ -3313,6 +3591,10 @@ def main() -> int:
         stamp("phase 5")
         run_profile(server_mod, reqs, serve_cfg)
         stamp("phase 6")
+        run_gemma_engine(pa, server_mod, llama_mod, summary)
+        run_gemma_prefill_gate(pa, llama_mod)
+        run_gemma_f32_identity(pa, server_mod, llama_mod)
+        stamp("phase 22")
         run_shared_prefix(pa, server_mod, llama_mod, summary)
         stamp("phase 13")
         run_speculative(pa, server_mod, llama_mod, serve_cfg, summary)
@@ -3370,18 +3652,30 @@ def main() -> int:
             # one call with the host's queueing in it
             "call_ms": rec["call_ms"], "library_call_ms": rec["library_call_ms"],
         }
-        for key in ("shape", "pair_ms", "fused_ms", "s2048", "verify_s5"):
+        for key in ("shape", "pair_ms", "fused_ms", "s2048", "verify_s5",
+                    "s8", "s64"):
             if key in rec:
                 out[key] = rec[key]
         return out
 
-    # each paged entry's design is the route its timed case took
-    line = [record(name, "kubedl_tpu_torch/csrc/paged_attention.cu",
-                   REPLACES[name], launches[name.rsplit("_", 1)[1]],
-                   kernels[name], kernels[name]["route"])
-            for name in ("paged_attention_blocked", "paged_attention_fused")]
+    # each paged entry's design is the route its timed case took; the
+    # Llama-3-8B entries count phase 5's launches, the hd-256 ones (Gemma-2B,
+    # timed at phase 3's GEMMA shape) phase 22's
+    gemma = summary.get("paths", {}).get("gemma", {})
+    line = []
+    for name in ("paged_attention_blocked", "paged_attention_fused"):
+        for suffix, counts in (("", launches), ("_hd256", gemma)):
+            rec = record(name + suffix,
+                         "kubedl_tpu_torch/csrc/paged_attention.cu",
+                         REPLACES[name], counts.get(name.rsplit("_", 1)[1]),
+                         kernels[name + suffix], kernels[name + suffix]["route"])
+            rec["shape"] = "gemma-2b" if suffix else "llama3-8b"
+            if suffix:  # device ms a launch in phase 22's profiled wave
+                rec["in_model_ms"] = summary.get("gemma_in_model", {}).get(
+                    name.rsplit("_", 1)[1])
+            line.append(rec)
     for rec in line:  # this slice's serving paths, each counted alone
-        entry = rec["name"].rsplit("_", 1)[1]
+        entry = rec["name"].split("_")[2]
         rec["launches_by_path"] = {
             path: counts[entry]
             for path, counts in summary.get("paths", {}).items()}

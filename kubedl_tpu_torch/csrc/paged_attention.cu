@@ -59,17 +59,28 @@
 //       a plain copy (bit-identical to a scatter). No other CTA of the row
 //       reads that slot; vacant rows all point at the trash block 0, where
 //       colliding writes are allowed.
-// (b) Tensor cores (paged_prefill_tc_kernel): bf16 at hd 64 and 128,
-//     R >= 64, BS a multiple of 8 dividing 64 and group dividing 64. A
-//     prefill chunk of 512 tokens (Llama-3-8B, B=8) does ~41 GFLOP against
-//     ~100 MB of q, out and attended K/V: 0.042 ms of bf16 operations
-//     against 0.029 ms of bytes, bound by OPERATIONS, which only wgmma
-//     reaches. The structure of flash_fwd_tc_kernel with the key stream
-//     gathered through the block table:
-//     - One CTA per (b, kv-head g, 192 folded query rows): three consumer
-//       warpgroups of 64 rows and one producer warp.
+// (b) Tensor cores (paged_prefill_tc_kernel<HD>): bf16 at hd 64, 128 and
+//     256, R >= 64, BS a multiple of 8 dividing 64 and group dividing 64.
+//     A prefill chunk of 512 tokens is bound by OPERATIONS, which only
+//     wgmma reaches: Llama-3-8B (B=8) ~41 GFLOP against ~100 MB of q, out
+//     and attended K/V (0.042 ms of bf16 operations, 0.029 ms of bytes);
+//     Gemma-2B (B=8, MQA, hd 256) ~21 GFLOP against ~41 MB (0.021 ms
+//     against 0.012). The structure of flash_fwd_tc_kernel with the key
+//     stream gathered through the block table:
+//     - One CTA per (b, kv-head g, BQ folded query rows): WGS consumer
+//       warpgroups of 64 rows and a producer. At hd 64 / 128, WGS = 3
+//       (BQ = 192) and the producer is one warp. At hd 256 a consumer
+//       thread holds O as 128 float32 registers beside the 32 of a score
+//       tile and the 16 of P's A fragments, more than the 152 a thread of
+//       416 gets (or the 168 of 288: registers are split between the SM's
+//       four quarters, warp by warp). So WGS = 2 (BQ = 128) and the
+//       producer is a whole warpgroup: launched at 168 registers a thread,
+//       it keeps 24 (setmaxnreg.dec) and the consumers take 240
+//       (setmaxnreg.inc). Shared memory at hd 256: 64 KB of Q and two
+//       stages of K and V at 32 KB each, 193 KB with the bt row; a third
+//       stage would not fit.
 //     - The Q tile is one TMA box per 64-column panel over q viewed as
-//       [B, S, H, hd]: (64 columns, the group's heads, 192/group
+//       [B, S, H, hd]: (64 columns, the group's heads, BQ/group
 //       positions), 128-byte swizzled; its lines land in row order r.
 //     - A 64-key K/V tile is 64/BS pool blocks; each block is one TMA copy
 //       per panel over a 4-D map of the layer's pool [NB, BS, KV, hd] (box
@@ -79,21 +90,27 @@
 //       row into shared memory first. The maps are encoded per call (a
 //       layer's pool is a view with its own base) and passed as
 //       __grid_constant__.
-//     - S = Q.K^T is a wgmma with a K-major B operand; the online softmax
-//       runs on the accumulator layout; P is rounded to bf16 straight
-//       into the register A operand of O += P.V (as the reference rounds
-//       p to v's type), V read MN-major. l sums the unrounded P.
+//     - S = Q.K^T is a wgmma m64n64k16 with a K-major B operand, hd/16
+//       steps across the hd/64 panels of Q and K; the online softmax runs
+//       on the accumulator layout; P is rounded to bf16 straight into the
+//       register A operand of O += P.V (as the reference rounds p to v's
+//       type), one wgmma m64n(hd)k16 a 16-key step with V read MN-major
+//       across its hd/64 panels (the descriptor's leading offset is the
+//       panel stride). l sums the unrounded P.
 //     - Tiles past the CTA's last visible key are never loaded (exact:
 //       every row sees key 0); tiles below the warpgroup's first row's
 //       position take no mask.
-// (c) CUDA cores (paged_attention_kernel): float32 prefill and hd 256
-//     prefill (R >= 64), and any BS or group the tensor-core route does
-//     not take. One CTA owns (row b, kv-head g, 64 query rows) and loops
-//     over the row's keys inside the CTA: 32 keys at a time staged in
-//     shared memory as float32, shared by all query rows of the CTA; a
-//     half-warp owns one query row at a time (each lane 2 staged keys in
-//     the score pass, hd/16 output dims in the P.V pass). It stops at the
-//     CTA's last needed key, exactly.
+//     - Grid (row tiles, B * KV), the row tiles in reverse: a (b, g)'s
+//       tiles that see the most keys start first, and a wave holds few
+//       (b, g) pairs, whose K/V stay in L2 while their tiles run.
+// (c) CUDA cores (paged_attention_kernel): float32 prefill (R >= 64), and
+//     any BS or group the tensor-core route does not take. One CTA owns
+//     (row b, kv-head g, 64 query rows) and loops over the row's keys
+//     inside the CTA: 32 keys at a time staged in shared memory as
+//     float32, shared by all query rows of the CTA; a half-warp owns one
+//     query row at a time (each lane 2 staged keys in the score pass,
+//     hd/16 output dims in the P.V pass). It stops at the CTA's last
+//     needed key, exactly.
 //
 // C interface (bound with ctypes): each entry point launches on the given
 // stream, allocates nothing (the split-K workspace comes from the caller)
@@ -123,8 +140,9 @@ constexpr int kTcTileKeys = 64;  // tensor-core route: keys per K/V tile
 
 int route_of(int dtype, int hd, int S, int group, int BS, bool fused) {
   if (fused || S * group < 64) return kSplitK;
-  if (dtype == 1 && (hd == 64 || hd == 128) && BS > 0 && BS % 8 == 0 &&
-      kTcTileKeys % BS == 0 && group > 0 && kTcTileKeys % group == 0)
+  if (dtype == 1 && (hd == 64 || hd == 128 || hd == 256) && BS > 0 &&
+      BS % 8 == 0 && kTcTileKeys % BS == 0 && group > 0 &&
+      kTcTileKeys % group == 0)
     return kTensorCore;
   return kCudaCore;
 }
@@ -503,10 +521,21 @@ cudaError_t launch_split(const SplitArgs<T>& a, int B, cudaStream_t st) {
 
 // ---- (b) tensor cores --------------------------------------------------------
 
-constexpr int kPfWGs = 3;                 // consumer warpgroups, 64 rows each
-constexpr int kPfBQ = 64 * kPfWGs;        // folded query rows a CTA
 constexpr int kPfBK = kTcTileKeys;        // keys a tile
 constexpr int kPfStages = 2;              // K/V tiles in flight
+
+// consumer warpgroups a CTA, 64 folded query rows each, and the threads
+// of the CTA: the consumers and a producer warp, or at hd 256 a producer
+// warpgroup that hands its registers to the consumers (see (b) above)
+template <int HD>
+__host__ __device__ constexpr int pf_wgs() { return HD == 256 ? 2 : 3; }
+template <int HD>
+__host__ __device__ constexpr int pf_threads() {
+  return pf_wgs<HD>() * 128 + (HD == 256 ? 128 : 32);
+}
+// hd 256: registers a producer / consumer thread keeps after the handover
+// (24 x 128 + 240 x 256 = 168 x 384, what the launch bounds allot)
+constexpr int kPfProducerRegs = 24, kPfConsumerRegs = 240;
 
 struct PagedMaps {
   CUtensorMap q, k, v;
@@ -522,15 +551,17 @@ struct TcArgs {
 
 template <int HD>
 constexpr size_t pf_smem_bytes() {
-  return 1024 + (size_t)kPfBQ * HD * 2 +
+  return 1024 + (size_t)64 * pf_wgs<HD>() * HD * 2 +
          2 * kPfStages * (size_t)kPfBK * HD * 2 + 64;
 }
 
-// CTA (row tile, b * KV + g): folded rows r0 .. r0 + 191 of kv-head g.
+// CTA (reversed row tile, b * KV + g): folded rows r0 .. r0 + BQ - 1 of
+// kv-head g.
 template <int HD>
-__global__ void __launch_bounds__(kPfWGs * 128 + 32, 1)
+__global__ void __launch_bounds__(pf_threads<HD>(), 1)
     paged_prefill_tc_kernel(const __grid_constant__ PagedMaps maps, const TcArgs a) {
-  constexpr int BQ = kPfBQ, BK = kPfBK, NP = HD / kPanel, ST = kPfStages;
+  constexpr int WGS = pf_wgs<HD>(), BQ = 64 * WGS, BK = kPfBK;
+  constexpr int NP = HD / kPanel, ST = kPfStages;
   constexpr uint32_t kQBytes = BQ * HD * 2, kKBytes = BK * HD * 2;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* sQ = align1024(smem_raw);  // [NP panels][BQ rows][128 B]
@@ -559,14 +590,15 @@ __global__ void __launch_bounds__(kPfWGs * 128 + 32, 1)
     mbar_init(bar_q, 1);
     for (int i = 0; i < ST; ++i) {
       mbar_init(&full[i], 1);
-      mbar_init(&empty[i], kPfWGs * 128);
+      mbar_init(&empty[i], WGS * 128);
     }
     fence_barrier_init();
   }
   for (int i = tid; i < nblk; i += blockDim.x) sbt[i] = a.bt[(size_t)b * a.MB + i];
   __syncthreads();
-  if (tid >= kPfWGs * 128) {  // the producer warp
-    if (tid == kPfWGs * 128) {
+  if (tid >= WGS * 128) {  // the producer warp (warpgroup at hd 256)
+    if constexpr (HD == 256) setmaxnreg_dec<kPfProducerRegs>();
+    if (tid == WGS * 128) {
       mbar_expect_tx(bar_q, kQBytes);
 #pragma unroll
       for (int pn = 0; pn < NP; ++pn)
@@ -590,6 +622,7 @@ __global__ void __launch_bounds__(kPfWGs * 128 + 32, 1)
     }
     return;
   }
+  if constexpr (HD == 256) setmaxnreg_inc<kPfConsumerRegs>();
   // this thread's accumulator rows (row0, row0 + 8 of its warpgroup's 64)
   // and columns (col0, col0 + 1 of every 8)
   const int row0 = 16 * warp + (lane >> 2), col0 = 2 * (lane & 3);
@@ -690,8 +723,9 @@ template <int HD>
 cudaError_t launch_prefill_tc(const void* q, const void* k_pool,
                               const void* v_pool, const TcArgs& a, int B,
                               int NB, cudaStream_t st) {
+  constexpr int BQ = 64 * pf_wgs<HD>();
   PagedMaps maps{};
-  if (!encode_map(&maps.q, q, B, a.S, a.H, HD, kPfBQ / a.group, a.group) ||
+  if (!encode_map(&maps.q, q, B, a.S, a.H, HD, BQ / a.group, a.group) ||
       !encode_map(&maps.k, k_pool, NB, a.BS, a.KV, HD, a.BS) ||
       !encode_map(&maps.v, v_pool, NB, a.BS, a.KV, HD, a.BS))
     return cudaErrorInvalidValue;
@@ -701,8 +735,8 @@ cudaError_t launch_prefill_tc(const void* q, const void* k_pool,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.R + kPfBQ - 1) / kPfBQ, B * a.KV);
-  kern<<<grid, kPfWGs * 128 + 32, smem, st>>>(maps, a);
+  const dim3 grid((a.R + BQ - 1) / BQ, B * a.KV);
+  kern<<<grid, pf_threads<HD>(), smem, st>>>(maps, a);
   return cudaGetLastError();
 }
 
@@ -935,7 +969,7 @@ cudaError_t run(const Call& c, int route, bool fused, cudaStream_t st) {
                  : launch_split<T, HD, false>(a, c.B, st);
   }
   if (route == kTensorCore) {
-    if constexpr (std::is_same<T, __nv_bfloat16>::value && HD != 256) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
       TcArgs a{static_cast<const int*>(c.bt), static_cast<const int*>(c.starts),
                static_cast<__nv_bfloat16*>(c.out), c.S, c.H, c.KV, c.BS, c.MB,
                group, c.S * group, scale_log2};

@@ -29,11 +29,12 @@ picked by where the tensors live — never by a fallback:
     and a second small kernel merges them (:func:`combine_splits` is the
     plain version of that merge). The plan depends on shapes only: the
     wrapper reads no device value, so a decode segment never syncs.
-  - ``"tensor_core"``: bf16 prefill at hd 64/128 with R >= 64, the block
-    size a multiple of 8 dividing 64 and the GQA group dividing 64: wgmma
-    on TMA-staged tiles, each 64-key tile gathered block by block.
-  - ``"cuda_core"``: the rest (float32 prefill, hd 256 prefill, other
-    block sizes or groups).
+  - ``"tensor_core"``: bf16 prefill at hd 64/128/256 with R >= 64, the
+    block size a multiple of 8 dividing 64 and the GQA group dividing 64:
+    wgmma on TMA-staged tiles, each 64-key tile gathered block by block
+    (two consumer warpgroups a CTA at hd 256, three below).
+  - ``"cuda_core"``: the rest (float32 prefill, other block sizes or
+    groups).
 
 Numerics contract (copied from the reference; the kernels keep it):
 
@@ -99,7 +100,7 @@ ENTRY_ROUTE_LAUNCHES = {f"{e}/{r}": 0 for e in LAUNCHES
 #: head dims the CUDA kernels are compiled for
 KERNEL_HEAD_DIMS = (64, 128, 256)
 #: head dims whose bf16 prefill takes the tensor-core kernel
-TENSOR_CORE_HEAD_DIMS = (64, 128)
+TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
 #: the tensor-core kernel's keys a K/V tile: whole pool blocks, so the
 #: block size divides it; the GQA group divides it too, so each 64-row
 #: query tile holds whole sequence positions
@@ -120,9 +121,9 @@ def paged_route(dtype, head_dim: int, S: int, group: int,
                 block_size: int, fused: bool = False) -> str:
     """The kernel a CUDA call takes: ``"split_k"`` for a fused decode call
     or fewer than 64 query rows a kv-head; ``"tensor_core"`` for bf16 at
-    hd 64/128 whose block size is a multiple of 8 dividing 64 and whose
-    group divides 64; ``"cuda_core"`` for the rest. Mirrors the source's
-    ``route_of``."""
+    hd 64/128/256 whose block size is a multiple of 8 dividing 64 and
+    whose group divides 64; ``"cuda_core"`` for the rest. Mirrors the
+    source's ``route_of``."""
     if fused or S * group < SPLIT_MAX_ROWS:
         return SPLIT_K
     if (dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS

@@ -230,7 +230,11 @@ BF, F32 = torch.bfloat16, torch.float32
     (BF, 64, 32, 2, 32, False, "tensor_core"),
     (BF, 128, 64, 8, 64, False, "tensor_core"),
     (F32, 128, 512, 4, 16, False, "cuda_core"),  # f32 prefill
-    (BF, 256, 64, 8, 16, False, "cuda_core"),  # hd 256 prefill
+    (BF, 256, 64, 8, 16, False, "tensor_core"),  # Gemma-2B's prefill
+    (BF, 256, 8, 8, 16, False, "tensor_core"),  # hd 256, R = 64
+    (BF, 256, 7, 8, 16, False, "split_k"),  # hd 256, R = 56
+    (F32, 256, 64, 8, 16, False, "cuda_core"),  # f32 prefill at hd 256
+    (BF, 256, 64, 8, 12, False, "cuda_core"),  # BS not a multiple of 8
     (BF, 128, 64, 4, 12, False, "cuda_core"),  # BS not a multiple of 8
     (BF, 128, 64, 4, 128, False, "cuda_core"),  # BS does not divide 64
     (BF, 128, 64, 3, 16, False, "cuda_core"),  # group does not divide 64
@@ -412,7 +416,12 @@ _BLOCKED_CASES = [
     ("tc-or-cc S40 hd64 bs32", 3, 8, 32, 2, 4, 64, 40, [31, 0, 230], ()),
     ("tc-or-cc S100 hd128 bs32 g8", 2, 8, 32, 1, 8, 128, 100, [5, 200],
      (1,)),
-    ("cc S16 hd256", 2, 8, 16, 1, 8, 256, 16, [0, 120], ()),
+    ("tc-or-cc S16 hd256", 2, 8, 16, 1, 8, 256, 16, [0, 120], ()),
+    # Gemma-2B's shape (MQA, group 8, hd 256, BS 16): R = 64 and R = 512
+    ("tc-or-cc S8 hd256 gemma", 4, 16, 16, 1, 8, 256, 8, [0, 17, 255, 100],
+     (3,)),
+    ("tc-or-cc S64 hd256 gemma", 3, 16, 16, 1, 8, 256, 64, [5, 200, 0],
+     (2,)),
     # speculative verify (S = k+1, group 4: R < 64) across block boundaries
     ("split S2 hd128 verify", 4, 8, 16, 2, 8, 128, 2, [15, 31, 126, 0],
      (3,)),
@@ -481,7 +490,7 @@ def test_cuda_route_table_matches_source(cuda):
     route_codes = {"split_k": 0, "tensor_core": 1, "cuda_core": 2}
     for dtype in codes:
         for hd in (64, 128, 256):
-            for S in (1, 3, 16, 512):
+            for S in (1, 3, 7, 8, 16, 64, 512):
                 for group in (1, 3, 4, 8, 64):
                     for bs in (8, 12, 16, 32, 64, 128):
                         for fused in (False, True):

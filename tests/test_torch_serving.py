@@ -1,8 +1,9 @@
 """The port's serving engine and HTTP surface
 (kubedl_tpu_torch.serving.server) on the CPU.
 
-The engine serves the reference's ``llama_init(PRNGKey(0))`` tiny
-parameters (carried over with ``params_from_numpy``); its greedy token
+The engine serves the reference's ``llama_init(PRNGKey(0))`` parameters
+of ``tiny`` and of ``tiny-gemma`` (MQA, GeGLU, (1+w) norms, scaled tied
+embeddings; carried over with ``params_from_numpy``); its greedy token
 streams must be IDENTICAL to a chain built from the JAX model functions
 (``paged_prefill_batched`` + ``paged_decode_step_batched`` with
 ``kv_attention="blocked"``, the lax kernel) — with and without chunked
@@ -38,19 +39,21 @@ PIPELINE_KEYS = ("ticks", "segments", "deferred_harvests", "flushes",
                  "dispatch_ms_avg", "harvest_ms_avg", "host_ms_avg",
                  "tick_ms_avg", "overlap_ratio", "dispatch_ms_p50",
                  "harvest_ms_p50", "host_ms_p50", "tick_ms_p50")
-ENGINE_KW = dict(preset="tiny", device="cpu", max_batch=2, max_seq=64,
-                 kv_block_size=4, kv_blocks=40)
+ENGINE_KW = dict(device="cpu", max_batch=2, max_seq=64, kv_block_size=4,
+                 kv_blocks=40)
 
 
-@pytest.fixture(scope="module")
-def ref():
-    """JAX params + greedy chains from the JAX model functions."""
+@pytest.fixture(scope="module", params=["tiny", "tiny-gemma"])
+def ref(request):
+    """JAX params + greedy chains from the JAX model functions, and the
+    preset's name."""
     import jax
     import jax.numpy as jnp
 
     from kubedl_tpu.models import llama as jl
 
-    cfg = jl.preset("tiny")
+    name = request.param
+    cfg = jl.preset(name)
     jp = jl.llama_init(jax.random.PRNGKey(0), cfg)
     mb = 64 // 4
     step = jax.jit(lambda c, t: jl.paged_decode_step_batched(
@@ -72,20 +75,22 @@ def ref():
         return out
 
     params = tl.params_from_numpy(jax.tree.map(np.asarray, jp),
-                                  tl.preset("tiny"), "cpu")
-    return params, [chain(p, CHAIN_TOKENS) for p in PROMPTS]
+                                  tl.preset(name), "cpu")
+    return params, [chain(p, CHAIN_TOKENS) for p in PROMPTS], name
 
 
-def _engine(params, **kw):
-    return srv.LlamaEngine(**{**ENGINE_KW, **kw}, params=params)
+def _engine(params, preset, **kw):
+    return srv.LlamaEngine(**{**ENGINE_KW, **kw}, preset=preset,
+                           params=params)
 
 
 @pytest.mark.parametrize("kern,chunk", [("blocked", 8), ("gather", 0),
                                         ("blocked", 0), ("gather", 8)])
 def test_greedy_streams_match_jax_chain(ref, kern, chunk):
-    params, chains = ref
+    params, chains, preset = ref
     want = [c[:MAX_TOKENS] for c in chains]
-    eng = _engine(params, kv_attention=kern, prefill_chunk_tokens=chunk)
+    eng = _engine(params, preset, kv_attention=kern,
+                  prefill_chunk_tokens=chunk)
     try:
         got = [eng.generate(p, max_tokens=MAX_TOKENS)["token_ids"]
                for p in PROMPTS]
@@ -106,9 +111,9 @@ def test_concurrent_rows_and_preemption_keep_streams(ref):
     little more than one max_seq row: rows share forwards, the pool runs
     dry, the youngest row is preempted and requeued — and greedy output
     stays the chain's."""
-    params, want = ref
-    eng = _engine(params, kv_attention="blocked", prefill_chunk_tokens=8,
-                  kv_blocks=18)
+    params, want, preset = ref
+    eng = _engine(params, preset, kv_attention="blocked",
+                  prefill_chunk_tokens=8, kv_blocks=18)
     outs = [None] * 4
     try:
         def one(j):
@@ -137,8 +142,8 @@ def test_pipelined_streams_under_concurrent_admission(ref):
     between segments (the flush-first rule), freshly prefilled rows join
     the in-flight chain on the device, and segments are harvested a tick
     late — with every stream the JAX chain's."""
-    params, chains = ref
-    eng = _engine(params, kv_attention="blocked")
+    params, chains, preset = ref
+    eng = _engine(params, preset, kv_attention="blocked")
     outs = [None] * len(PROMPTS)
     try:
         def one(j):
@@ -167,8 +172,8 @@ def test_scheduler_error_resets_the_pipeline(ref, monkeypatch):
     """A decode dispatch that raises fails the in-flight requests, drops
     the pipeline state (deferred segment, device chain) and the prefix
     cache with the rebuilt pool, and the engine keeps serving."""
-    params, chains = ref
-    eng = _engine(params, kv_attention="blocked")
+    params, chains, preset = ref
+    eng = _engine(params, preset, kv_attention="blocked")
     real = srv.llama.paged_decode_segment
     calls = {"n": 0}
 
@@ -200,9 +205,9 @@ def test_staging_uploads_are_owned_copies():
     assert stage.download(dev).wait().tolist() == list(range(6))
 
 
-def _serve(eng):
+def _serve(eng, preset):
     httpd = ThreadingHTTPServer(("127.0.0.1", 0),
-                                srv.make_handler(eng, "tiny"))
+                                srv.make_handler(eng, preset))
     th = threading.Thread(target=httpd.serve_forever, daemon=True)
     th.start()
     return httpd, f"http://127.0.0.1:{httpd.server_address[1]}"
@@ -224,10 +229,11 @@ def _get(url):
 
 
 def test_http_concurrent_equals_sequential(ref):
-    params, chains = ref
+    params, chains, preset = ref
     want = [c[:MAX_TOKENS] for c in chains]
-    eng = _engine(params, kv_attention="blocked", prefill_chunk_tokens=8)
-    httpd, base = _serve(eng)
+    eng = _engine(params, preset, kv_attention="blocked",
+                  prefill_chunk_tokens=8)
+    httpd, base = _serve(eng, preset)
     try:
         seq = [_post(base + "/v1/generate",
                      {"prompt_ids": p, "max_tokens": MAX_TOKENS})
@@ -249,7 +255,7 @@ def test_http_concurrent_equals_sequential(ref):
             [b["token_ids"] for _, _, b in seq] == want[:4]
         assert _get(base + "/healthz") == (200, {"status": "ok"})
         code, models = _get(base + "/v1/models")
-        assert code == 200 and models["models"][0]["name"] == "tiny"
+        assert code == 200 and models["models"][0]["name"] == preset
         code, st = _get(base + "/v1/stats")
         assert code == 200 and st["requests"] == 8
         assert st["kv_blocks"]["attention_kernel"] == "blocked"
@@ -264,9 +270,9 @@ def test_http_concurrent_equals_sequential(ref):
 
 
 def test_http_block_exhaustion_sheds_503(ref):
-    params, _ = ref
-    eng = _engine(params)
-    httpd, base = _serve(eng)
+    params, _, preset = ref
+    eng = _engine(params, preset)
+    httpd, base = _serve(eng, preset)
     try:
         held = eng._alloc.alloc(eng._alloc.free_count)
         code, headers, body = _post(base + "/v1/generate",
@@ -285,9 +291,9 @@ def test_http_block_exhaustion_sheds_503(ref):
 
 
 def test_http_drain_and_unknown_version(ref):
-    params, _ = ref
-    eng = _engine(params)
-    httpd, base = _serve(eng)
+    params, _, preset = ref
+    eng = _engine(params, preset)
+    httpd, base = _serve(eng, preset)
     try:
         code, _, body = _post(base + "/v1/generate",
                               {"prompt_ids": [1], "model_version": "v9"})
@@ -307,8 +313,8 @@ def test_http_drain_and_unknown_version(ref):
 
 
 def test_queue_depth_shed_and_cancel(ref):
-    params, _ = ref
-    eng = _engine(params, max_queue_depth=1)
+    params, _, preset = ref
+    eng = _engine(params, preset, max_queue_depth=1)
     try:
         with eng._cv:  # hold the scheduler so the queue cannot drain
             first = srv._Slot([1], 4, 0.0, request_id="r1")
