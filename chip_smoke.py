@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py                # every phase, one card
     python3 chip_smoke.py --skip-engine  # without phases 5, 6, 13-19, 22
-    python3 chip_smoke.py --skip-train   # without phases 8 to 12 and 21
+    python3 chip_smoke.py --skip-train   # without phases 8 to 12, 21, 23
 
 Phases (any failure exits non-zero before the final line):
 
@@ -10,10 +10,12 @@ Phases (any failure exits non-zero before the final line):
 2. build: compiles the port's CUDA sources (kubedl_tpu_torch/csrc) with
    nvcc for sm_90a (``-Xptxas -v``), one nvcc per source started
    together, and prints the build seconds; then, for each tensor-core
-   kernel (flash forward, fused backward, the split pair, paged
-   prefill at hd 64, 128 and 256), its registers and spill bytes (ptxas)
-   and its count of HGMMA instructions (``cuobjdump -sass``), failing if
-   one has none or if a split-pair kernel spills; the same for the W8A16
+   kernel (flash forward, fused backward and the split pair at hd 64 and
+   128, the forward and the fused backward at hd 256, paged prefill at
+   hd 64, 128 and 256), its registers and spill bytes (ptxas) and its
+   count of HGMMA instructions (``cuobjdump -sass``), failing if one has
+   none or if a split-pair or hd-256 flash kernel spills; the same for
+   the W8A16
    kernels (the
    decode route's instantiations and its split-K combine, the prefill
    route's wgmma kernel), failing if one spills or the prefill kernel
@@ -67,7 +69,11 @@ Phases (any failure exits non-zero before the final line):
    call time as in phase 3), the plain
    version's, its bound, and SDPA's forward / backward as the yardstick
    (SDPA's backward is also the split pair's: one call computes dq, dk and
-   dv, so it is held against the pair's dq + dk/dv + group sum). Then the
+   dv, so it is held against the pair's dq + dk/dv + group sum).
+   Gemma-2B's training shape (B=4, H=8, KV=1, S=2048, hd 256, bf16,
+   causal, Gemma's RoPE tables, theta 10000) is timed the same way: the
+   forward and the fused backward on the tensor cores, the split pair on
+   the CUDA cores; each case prints every operator's route. Then the
    split pair at the long-context training shape (B=1, H=32, KV=8,
    S=32768, hd 64, bf16, causal, RoPE), where ``bwd_route`` is "split":
    against the plain versions run head by head (one q-head with its
@@ -186,6 +192,18 @@ Phases (any failure exits non-zero before the final line):
    float32, the blocked engine's greedy streams identical to the gather
    engine's.
 
+23. Gemma-2B training: ``train_main`` with KUBEDL_TRAIN_CONFIG=
+   ``GEMMA_TRAIN_CONFIG`` (``gemma-2b``, full width and depth: 18
+   layers, 2,506,172,416 parameters, MQA at hd 256; b4 x s2048, 4 steps,
+   ``loss_chunk`` 512; seeded random weights); gates on finite losses and
+   grad norms, attn_impl "flash", no sanity violations, 18 flash_fwd + 18
+   flash_bwd_fused launches a step and none of the split pair (the
+   tensor-core forward and fused backward at hd 256), and phase 8's
+   optimizer counts; prints step ms, tokens/s, MFU (6N: attention left
+   out) and peak memory; then one step after one unprofiled step under
+   torch.profiler: flash's share of device time, its device ms a launch,
+   and the busy share.
+
 20. the optimizer update (``csrc/adamw.cu``) against its plain version on
    Llama-3.2-1B's 11 leaves (seeded, bf16 parameters, float32 first
    moment) at a step that does not clip and one that clips, with the
@@ -206,7 +224,8 @@ Phases (any failure exits non-zero before the final line):
 
 Phase 16 runs after phase 4; phase 22, then phases 13-15 and 17-19 after
 phase 6 (they are skipped with ``--skip-engine``); phase 20 after phase
-7, phase 21 after phase 12 (skipped with ``--skip-train``).
+7, then phase 23, and phase 21 after phase 12 (skipped with
+``--skip-train``).
 
 Output: the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -509,9 +528,15 @@ TC_KERNELS = {"flash_fwd_tc_kernel": ("flash_attention.cu", ("",)),
                                       (", true", ", false")),
               "flash_bwd_dq_tc_kernel": ("flash_attention.cu", ("",)),
               "paged_prefill_tc_kernel": ("paged_attention.cu", ("",))}
-#: the split pair's tensor-core kernels, which must not spill
+#: the hd-256 tensor-core kernels: Gemma-2B's prefill (serving) and its
+#: training path's forward and fused backward
+TC_KERNELS_HD256 = ("paged_prefill_tc_kernel<256>", "flash_fwd_tc_kernel<256>",
+                    "flash_bwd_tc_kernel<256, true>")
+#: the split pair's tensor-core kernels and the hd-256 flash kernels, which
+#: must not spill
 NO_SPILL = ("flash_bwd_tc_kernel<64, false>", "flash_bwd_tc_kernel<128, false>",
-            "flash_bwd_dq_tc_kernel<64>", "flash_bwd_dq_tc_kernel<128>")
+            "flash_bwd_dq_tc_kernel<64>", "flash_bwd_dq_tc_kernel<128>",
+            "flash_fwd_tc_kernel<256>", "flash_bwd_tc_kernel<256, true>")
 
 
 def _kernel_key(mangled: str):
@@ -528,19 +553,19 @@ def tc_kernel_report(build) -> dict:
     """Registers and spill bytes (ptxas -v, from this run's build) and
     HGMMA count (cuobjdump -sass of the built library) per tensor-core
     kernel instantiation. Fails if one was not found, has no HGMMA, or is
-    a split-pair kernel and spills."""
+    a split-pair or hd-256 flash kernel and spills."""
     rep = {}
     for src in sorted({src for src, _ in TC_KERNELS.values()}):
         rep.update(_tc_source_report(build, src))
     want = {f"{k}<{hd}{flag}>" for k, (_, flags) in TC_KERNELS.items()
             for flag in flags for hd in (64, 128)}
-    want.add("paged_prefill_tc_kernel<256>")  # Gemma-2B's prefill
+    want.update(TC_KERNELS_HD256)  # Gemma-2B's
     if not want <= set(rep) or any(rep[k].get("hgmma", 0) == 0 for k in want):
         fail(f"tensor-core kernels missing or without HGMMA: {rep}")
     spills = {k: rep[k] for k in NO_SPILL
               if rep[k].get("spill_stores", 1) or rep[k].get("spill_loads", 1)}
     if spills:
-        fail(f"split-pair kernels spill: {spills}")
+        fail(f"split-pair or hd-256 flash kernels spill: {spills}")
     return rep
 
 
@@ -631,12 +656,14 @@ FLASH_REPLACES = {
     "flash_bwd_dkdv": "kubedl_tpu/ops/flash_attention.py:393 _bwd_dkdv_kernel",
 }
 #: (label, B, H, KV, S, hd, dtype, causal, rope, timed). The first is the
-#: llama3-1b training shape (the main path's); then Llama-3-8B and
-#: Gemma-2B head widths, GQA groups 1 and 8 at both tensor-core widths
-#: with and without RoPE, causal and not, ragged lengths, and float32 at
-#: each hd. Every case runs all four kernels (the split pair too).
+#: llama3-1b training shape (the main path's); the second Gemma-2B's
+#: (phase 23's path: MQA at hd 256); then Llama-3-8B and Gemma-2B head
+#: widths, GQA groups 1 and 8 at both hd-64/128 tensor-core widths with
+#: and without RoPE, causal and not, ragged lengths, and float32 at each
+#: hd. Every case runs all four kernels (the split pair too).
 FLASH_CASES = [
     ("llama3-1b", 4, 32, 8, 2048, 64, torch.bfloat16, True, True, True),
+    ("gemma-2b train", 4, 8, 1, 2048, 256, torch.bfloat16, True, True, True),
     ("llama3-1b no-rope", 4, 32, 8, 2048, 64, torch.bfloat16, True, False,
      False),
     ("llama3-8b width", 1, 32, 8, 2048, 128, torch.bfloat16, True, True, False),
@@ -670,6 +697,9 @@ FLASH_TOL = {torch.bfloat16: {"out": 2e-2, "lse": 1e-4, "grad": 2e-2},
 
 #: the split backward pair: one SDPA backward is their joint yardstick
 PAIR = ("flash_bwd_dq", "flash_bwd_dkdv")
+#: RoPE theta by case label: Gemma's tables where a case is Gemma-2B's
+#: training shape, llama3's (500000) elsewhere
+FLASH_ROPE_THETA = {"gemma-2b train": 10000.0}
 
 
 @contextlib.contextmanager
@@ -686,7 +716,7 @@ def forced_route(fa, route):
         fa._FUSED_BWD_SCRATCH_BYTES = old
 
 
-def flash_inputs(B, H, KV, S, hd, dtype, rope, seed):
+def flash_inputs(B, H, KV, S, hd, dtype, rope, seed, theta=500000.0):
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
@@ -695,10 +725,10 @@ def flash_inputs(B, H, KV, S, hd, dtype, rope, seed):
     q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
     do = randn(B, S, H, hd)
     cos = sin = None
-    if rope:  # llama3's tables (theta 500000) at this head width
+    if rope:  # llama3's tables (theta 500000) unless told otherwise
         from kubedl_tpu_torch.models.llama import rope_table
 
-        cos, sin = rope_table(hd, 500000.0, S, device="cuda")
+        cos, sin = rope_table(hd, theta, S, device="cuda")
     return q, k, v, do, cos, sin
 
 
@@ -760,13 +790,21 @@ def sdpa_flash_yardsticks(q, k, v, do, cos, sin, fa):
     return fwd, bwd
 
 
+def flash_routes(fa, dtype, hd) -> dict:
+    """Each operator's route at (dtype, hd): tensor_core or cuda_core."""
+    return {op: "tensor_core" if fa.tensor_core_route(op, dtype, hd)
+            else "cuda_core" for op in fa.OPS}
+
+
 def check_flash_case(fa, case, records):
     """One FLASH_CASES entry: every kernel against its plain version, the
-    two backward routes against each other; timings when ``timed``."""
+    two backward routes against each other; timings when ``timed``,
+    recorded under each operator's name (with ``_hd256`` at hd 256)."""
     label, B, H, KV, S, hd, dtype, causal, rope, timed = case
     tol = FLASH_TOL[dtype]
-    q, k, v, do, cos, sin = flash_inputs(B, H, KV, S, hd, dtype, rope,
-                                         seed=S + hd)
+    q, k, v, do, cos, sin = flash_inputs(
+        B, H, KV, S, hd, dtype, rope, seed=S + hd,
+        theta=FLASH_ROPE_THETA.get(label, 500000.0))
     out, lse = fa.flash_fwd(q, k, v, cos, sin, causal)
     fused = fa.flash_bwd_fused(q, k, v, cos, sin, out, lse, do, causal)
     dq_s = fa.flash_bwd_dq(q, k, v, cos, sin, out, lse, do, causal)
@@ -797,8 +835,9 @@ def check_flash_case(fa, case, records):
     if bad:
         fail(f"flash {label} {dtype}: {bad} out of tolerance: "
              f"{json.dumps(errs)}")
+    routes = flash_routes(fa, dtype, hd)
     print(f"flash {label} {str(dtype)[6:]} causal={causal} rope={rope}: "
-          + json.dumps(errs), flush=True)
+          + json.dumps(errs) + " routes " + json.dumps(routes), flush=True)
     if not timed:
         return
     shape = (B, H, KV, S, hd, dtype, causal, rope)
@@ -841,8 +880,9 @@ def check_flash_case(fa, case, records):
             rec["pair_ms"] = pair_ms
         rec["shape"] = f"B={B} H={H} KV={KV} S={S} hd={hd} {str(dtype)[6:]}" \
                        f" causal={causal} rope={rope}"
-        records[name] = rec
-        print(f"{name} timed: " + json.dumps(rec), flush=True)
+        rec["route"] = routes[name]
+        records[name + ("_hd256" if hd == 256 else "")] = rec
+        print(f"{name} timed ({label}): " + json.dumps(rec), flush=True)
 
 
 def run_flash_kernels(fa):
@@ -1101,6 +1141,81 @@ def run_train_entry(fa, llama_mod):
             rec["optimizer_launches"])
 
 
+#: phase 23's path: Gemma-2B (18 layers, MQA at hd 256, a 256,000-token
+#: tied head) at full width and depth, random weights from the seed,
+#: synthetic tokens; ``loss_chunk`` (the reference's own knob) keeps the
+#: head from materializing [8192, 256000] float32 logits
+GEMMA_TRAIN_CONFIG = {"model": "gemma-2b", "global_batch": 4, "seq_len": 2048,
+                      "steps": 4, "log_every": 1, "loss_chunk": 512}
+#: the flash operators phase 23 runs at hd 256 (both on the tensor cores)
+GEMMA_TRAIN_OPS = ("flash_fwd", "flash_bwd_fused")
+#: each operator's profile category and its kernels a launch at hd 256
+#: (after the RoPE pre-pass, its own category): the forward kernel; the
+#: stats pre-pass, the fused kernel and the dq and dk/dv finishes
+GEMMA_PROFILE_KERNELS = {"flash_fwd": ("flash_fwd", 1),
+                         "flash_bwd_fused": ("flash_bwd", 4)}
+
+
+def run_gemma_train(fa, llama_mod):
+    """Phase 23: ``train_main`` at GEMMA_TRAIN_CONFIG: per step 18
+    flash_fwd and 18 flash_bwd_fused launches (the tensor-core kernels at
+    hd 256; ``bwd_route(2048, 256)`` is "fused") and none of the split
+    pair. Then one step (after one unprofiled) under torch.profiler:
+    flash's share of the device time and its device ms a launch. MFU is
+    the trainer's 6N flops a token, which leaves attention's flops out.
+    Returns the launches and the summary the kernels line reads."""
+    from kubedl_tpu_torch.training.data import SyntheticTokens
+    from kubedl_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    cfg = GEMMA_TRAIN_CONFIG
+    model = dataclasses.replace(llama_mod.preset(cfg["model"]),
+                                loss_chunk=cfg["loss_chunk"])
+    hd, B, S = model.head_dim, cfg["global_batch"], cfg["seq_len"]
+    routes = flash_routes(fa, model.dtype, hd)
+    if fa.bwd_route(S, hd) != "fused" or any(
+            routes[op] != "tensor_core" for op in GEMMA_TRAIN_OPS):
+        fail(f"gemma-2b: bwd_route {fa.bwd_route(S, hd)}, routes {routes}")
+    t0 = time.perf_counter()
+    launches, rec = train_main_run(
+        fa, llama_mod, cfg,
+        {"flash_fwd": 1, "flash_bwd_fused": 1, "flash_bwd_dq": 0,
+         "flash_bwd_dkdv": 0})
+    rec["routes"] = routes
+    print("train_main gemma-2b (smoke run, not a benchmark): "
+          + json.dumps(rec), flush=True)
+    tr = Trainer(TrainConfig(model=model, global_batch=B, seq_len=S,
+                             steps=2, warmup_steps=1, attn_impl="flash"))
+    state = tr.init_state()
+    batch = next(iter(SyntheticTokens(B, S, model.vocab_size, seed=4)))
+    state, _ = tr.train_step(state, batch)
+    _reset(fa)
+    state, prof = profile_train_steps(tr, state, batch, 1,
+                                      f"{cfg['model']} b{B} s{S}")
+    per_step = dict(fa.LAUNCHES)
+    del tr, state, batch
+    _free()
+    cats, counts = prof["by_category_ms"], prof["by_category_kernels"]
+    flash_ms = sum(v for k, v in cats.items() if k.startswith("flash"))
+    # device ms a launch in the profiled step, over the launches the
+    # profiler saw (it may miss the first kernels of its window); the RoPE
+    # pre-pass, which both operators run, on its own
+    in_model = {op: cats.get(cat, 0.0) / max(counts.get(cat, 0) // n, 1)
+                for op, (cat, n) in GEMMA_PROFILE_KERNELS.items()}
+    in_model["flash_rope_per_step"] = cats.get("flash_rope", 0.0)
+    summary = {"flash_ms": flash_ms,
+               "flash_share": flash_ms / prof["device_ms"]
+               if prof["device_ms"] else None,
+               "busy_share": prof["busy_share"],
+               "in_model_ms": in_model, "profiled_launches": per_step,
+               "step_time_ms": rec["step_time_ms"], "mfu": rec["mfu"],
+               "tokens_per_sec": rec["tokens_per_sec"],
+               "max_memory_allocated_gib": rec["max_memory_allocated_gib"],
+               "phase_seconds": time.perf_counter() - t0}
+    print("gemma-2b training, flash in the profiled step: "
+          + json.dumps(summary), flush=True)
+    return {k: launches[k] for k in GEMMA_TRAIN_OPS}, summary
+
+
 #: the long-context path: Llama-3.2-1B at 32k tokens (published with a
 #: 128k context), where the trainer's long-context policy applies and
 #: the backward takes the split pair on every layer
@@ -1203,7 +1318,8 @@ def _kernel_group(name: str) -> str:
         return "flash_bwd_dkdv"
     if "flash_fwd" in name:
         return "flash_fwd"
-    if "flash_bwd" in name or "flash_dq_finish" in name:
+    if "flash_bwd" in name or "flash_dq_finish" in name \
+            or "flash_dkv_finish" in name:
         return "flash_bwd"
     return _kernel_category(name)
 
@@ -1233,7 +1349,7 @@ def run_overfit_and_split(fa, llama_mod):
         "first_loss": s["first_loss"], "final_loss": s["final_loss"],
         "step_time_ms": s["step_time_ms"], "mfu": s["mfu"]}), flush=True)
 
-    state = profile_train_steps(tr, state, batch, 2,
+    state, _ = profile_train_steps(tr, state, batch, 2,
                                 f"{TRAIN_CONFIG['model']} b{B} s{S}")
 
     _reset(fa)
@@ -1258,7 +1374,7 @@ def profile_train_steps(tr, state, batch, steps, label):
     """``steps`` train steps under torch.profiler: device time by
     category (``_kernel_group`` of each kernel's name, the split pair's
     two kernels on their own), the top kernels and the device's busy share
-    of the wall time. Returns the state."""
+    of the wall time. Returns the state and the printed record."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1282,14 +1398,15 @@ def profile_train_steps(tr, state, batch, steps, label):
         top.append((us / 1e3, e.count, e.key[:90]))
     dev_ms = sum(cats.values())
     top.sort(reverse=True)
-    print(f"profile ({steps} train step(s), {label}): " + json.dumps({
-        "wall_ms": wall_ms, "device_ms": dev_ms,
-        "busy_share": dev_ms / wall_ms if wall_ms else None,
-        "by_category_ms": cats, "by_category_kernels": counts,
-        "top": [[n, ms, c] for ms, c, n in top[:10]]}), flush=True)
+    rec = {"wall_ms": wall_ms, "device_ms": dev_ms,
+           "busy_share": dev_ms / wall_ms if wall_ms else None,
+           "by_category_ms": cats, "by_category_kernels": counts,
+           "top": [[n, ms, c] for ms, c, n in top[:10]]}
+    print(f"profile ({steps} train step(s), {label}): " + json.dumps(rec),
+          flush=True)
     if dev_ms == 0.0:
         print("profile: the profiler saw no device time", flush=True)
-    return state
+    return state, rec
 
 
 def run_train_f32_parity(fa, llama_mod):
@@ -3483,7 +3600,7 @@ def main() -> int:
                     help="skip the serving engine (phases 5, 6, 13-15, "
                     "17-19, 22)")
     ap.add_argument("--skip-train", action="store_true",
-                    help="skip the training phases (8 to 12, 21)")
+                    help="skip the training phases (8 to 12, 21, 23)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs a GPU", file=sys.stderr)
@@ -3621,7 +3738,10 @@ def main() -> int:
     stamp("phase 20")
     launches.update({name: None for name in FLASH_REPLACES})
     opt_launches = {}
+    gemma_train, gemma_launches = {}, {}
     if not args.skip_train:
+        gemma_launches, gemma_train = run_gemma_train(fa, llama_mod)
+        stamp("phase 23")
         flash_launches, opt_launches = run_train_entry(fa, llama_mod)
         launches.update(flash_launches)
         run_overfit_and_split(fa, llama_mod)
@@ -3716,11 +3836,21 @@ def main() -> int:
     line.append(rec)
     main_case = FLASH_CASES[0]  # the timed shape: llama3-1b training
     for name in FLASH_REPLACES:
-        tc = fa.tensor_core_route(main_case[6], main_case[5])
+        tc = fa.tensor_core_route(name, main_case[6], main_case[5])
         line.append(record(name, "kubedl_tpu_torch/csrc/flash_attention.cu",
                            FLASH_REPLACES[name], launches[name],
                            kernels[name],
                            "tensor_core" if tc else "cuda_core"))
+    # Gemma-2B's training path (hd 256): timed at phase 7's Gemma-2B case,
+    # launches from phase 23's main path, device ms a launch from its
+    # profiled step
+    for name in GEMMA_TRAIN_OPS:
+        rec = record(name + "_hd256",
+                     "kubedl_tpu_torch/csrc/flash_attention.cu",
+                     FLASH_REPLACES[name], gemma_launches.get(name),
+                     kernels[name + "_hd256"], kernels[name + "_hd256"]["route"])
+        rec["in_model_ms"] = gemma_train.get("in_model_ms", {}).get(name)
+        line.append(rec)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

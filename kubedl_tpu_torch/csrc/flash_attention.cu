@@ -37,12 +37,13 @@
 // that is far above the card's ridge point: the kernels are bound by
 // operations, and the published 989 TFLOP/s bf16 is a tensor-core rate.
 //
-// Two designs, chosen statically by type and head width, the same for
-// all four operators (TcRoute below; ops/flash_attention.py's
-// tensor_core_route is the same table, and kdl_flash_route reports it).
-// There is no fallback between them: a refused launch returns its error.
+// Two designs, chosen statically per operator by type and head width
+// (TcRoute below; ops/flash_attention.py's tensor_core_route is the same
+// table, and kdl_flash_route reports it). There is no fallback between
+// them: a refused launch returns its error.
 //
-// 1. Tensor cores (bf16 at hd 64 and 128; flash_fwd_tc_kernel,
+// 1. Tensor cores (bf16 at hd 64 and 128 for all four operators, and at
+//    hd 256 for the forward and the fused backward; flash_fwd_tc_kernel,
 //    flash_bwd_tc_kernel<HD, kFused> for the fused backward and the split
 //    dk/dv, flash_bwd_dq_tc_kernel for the split dq, the fused route's dq
 //    finish, two pre-passes):
@@ -55,6 +56,8 @@
 //      is read MN-major (transposed B). The online softmax runs on the
 //      accumulator layout: the four lanes of a quad share a row, so row
 //      max and sum are two xor shuffles; exp2 is the MUFU's ex2.approx.
+//      At hd 256 the CTA has two warpgroups (128 q rows) and a producer
+//      warpgroup that hands its registers to them (fwd_tc_wgs below).
 //    - Fused backward: a CTA owns 128 keys of one kv-head (one warpgroup
 //      per 64) and walks the GQA group's q-heads and causal q tiles of 64,
 //      keeping dK/dV in float32 registers across the group (the
@@ -64,7 +67,11 @@
 //      and dQ = dS.K (both operands MN-major, each warpgroup half of hd)
 //      is staged as a float32 tile and added to a [B, H, Sq_pad, hd]
 //      workspace by ONE bulk reduce (cp.reduce.async.bulk .add.f32) per
-//      tile; flash_dq_finish_kernel casts (and inverse-rotates) it.
+//      tile; flash_dq_finish_kernel casts (and inverse-rotates) it. At hd
+//      256 dK and dV do not fit one warpgroup's registers: a CTA owns 64
+//      keys of one q-head, one warpgroup keeps dV and the other dK, and
+//      the group sum of dK/dV crosses CTAs through a float32 workspace
+//      (flash_bwd_tc_kernel<256, true> below says why and how).
 //    - The split pair (the reference's route when the fused kernel's
 //      whole-sequence scratch would not fit, i.e. long sequences: every
 //      backward of a 32k-token training step). dk/dv: the fused kernel's
@@ -109,9 +116,10 @@
 //    two score tiles in registers; ptxas serialised the wgmmas when that
 //    was tried, and it is left for a later change.
 // 2. CUDA cores (float32 at every hd, where TF32 tensor cores would break
-//    the float32 contract; bf16 at hd 256, where the forward's O alone
-//    takes 128 float32 registers a thread and the backward's dK/dV would
-//    need two warpgroups splitting hd), whose design follows:
+//    the float32 contract; the split pair at bf16 hd 256, whose dq kernel
+//    would need the forward's register handover for 128 dQ registers a
+//    thread, and whose dk/dv kernel would need the fused backward's split
+//    of dK and dV over two warpgroups), whose design follows:
 // - The TPU grid walked (q block, k block) tiles in order and carried
 //   the softmax state, and the fused backward's whole-sequence dk/dv, in
 //   VMEM scratch from one grid step to the next. Hopper blocks run in no
@@ -212,8 +220,11 @@ struct Params {
   void* q_rot;      // tensor cores with rope: rotated q / k workspaces
   void* k_rot;
   float* stats;     // tensor-core backward: {lse, D} [B, H, sq_pad, 2]
+  float* dkv_ws;    // tensor-core fused backward at hd 256: float32 group
+                    // sums of dk and dv, [2, B, KV, sk_pad, hd]
   int B, Sq, Sk, H, KV, group, causal, rope;
   int sq_pad;       // Sq rounded up to the tensor-core backward's q tile
+  int sk_pad;       // Sk rounded up to the hd-256 fused backward's key tile
   float scale;      // 1 / sqrt(hd)
 };
 
@@ -686,11 +697,19 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   }
 }
 
+// Column of element (row, col) in a float32 workspace row whose 8-float
+// chunks are XOR-swizzled by the row's position in its group of 8 rows:
+// eight consecutive rows' staging writes then fall on distinct banks.
+__host__ __device__ __forceinline__ int swizzled_col(int col, int row) {
+  return col ^ ((row & 7) << 3);
+}
+
 // The fused backward's epilogue for dq: inverse rotation (with rope) of
 // the float32 sums, then the cast. kHeadMajor: the tensor-core kernel's
-// [B, H, sq_pad, hd] workspace, else [B, Sq, H, hd]. blockIdx.x is the
+// [B, H, sq_pad, hd] workspace, else [B, Sq, H, hd]; kSwizzled: its
+// columns as swizzled_col (the hd-256 kernel's). blockIdx.x is the
 // position s, blockIdx.y the batch; threads cover the heads' hd/2 pairs.
-template <typename T, int HD, bool kHeadMajor>
+template <typename T, int HD, bool kHeadMajor, bool kSwizzled = false>
 __global__ void flash_dq_finish_kernel(Params p) {
   constexpr int H2 = HD / 2;
   const int s = blockIdx.x, b = blockIdx.y;
@@ -700,7 +719,9 @@ __global__ void flash_dq_finish_kernel(Params p) {
     const size_t row = ((size_t)b * p.Sq + s) * p.H + h;  // (b, s, h) of dq
     const size_t ws =
         kHeadMajor ? ((size_t)b * p.H + h) * p.sq_pad + s : row;
-    float x1 = p.dq_ws[ws * HD + d], x2 = p.dq_ws[ws * HD + d + H2];
+    const int c1 = kSwizzled ? swizzled_col(d, s) : d;
+    const int c2 = kSwizzled ? swizzled_col(d + H2, s) : d + H2;
+    float x1 = p.dq_ws[ws * HD + c1], x2 = p.dq_ws[ws * HD + c2];
     if (p.rope)
       rotate(x1, x2, p.cos[(size_t)s * H2 + d], p.sin[(size_t)s * H2 + d],
              true, x1, x2);
@@ -709,24 +730,56 @@ __global__ void flash_dq_finish_kernel(Params p) {
   }
 }
 
-// ---- tensor-core kernels (bf16, hd 64 and 128) ------------------------------
+// ---- tensor-core kernels (bf16) ---------------------------------------------
 
-// Static route: which (type, head width) takes the tensor-core kernels.
-template <typename T, int HD>
+enum Which { kFwd, kBwdFused, kBwdDq, kBwdDkdv };
+
+// Static route, per operator: the head widths whose bf16 kernels take the
+// tensor cores (ops/flash_attention.py's TENSOR_CORE_HEAD_DIMS is the same
+// table). At hd 256 only the forward and the fused backward have them;
+// the split pair there still runs the CUDA-core kernels.
+constexpr bool tc_head_dim(Which w, int hd) {
+  switch (w) {
+    case kFwd: return hd == 64 || hd == 128 || hd == 256;
+    case kBwdFused: return hd == 64 || hd == 128 || hd == 256;
+    case kBwdDq: return hd == 64 || hd == 128;
+    case kBwdDkdv: return hd == 64 || hd == 128;
+  }
+  return false;
+}
+
+template <Which W, typename T, int HD>
 struct TcRoute {
   static constexpr bool value =
-      std::is_same<T, __nv_bfloat16>::value && (HD == 64 || HD == 128);
+      std::is_same<T, __nv_bfloat16>::value && tc_head_dim(W, HD);
 };
 
 constexpr int kTcThreads = 256;  // backward: two consumer warpgroups
-constexpr int kTcFwdWGs = 3;     // forward: consumer warpgroups, 64 q rows each
-constexpr int kTcFwdBQ = 64 * kTcFwdWGs;
 constexpr int kTcFwdStages = 2;  // forward: K/V tiles in flight
+
+// Forward CTA shape: consumer warpgroups of 64 q rows each and a producer
+// that only issues the TMA loads. At hd 64 / 128, three warpgroups and a
+// producer warp. At hd 256 a consumer thread holds O as 128 float32
+// registers beside a 32-register score tile and P's 16 A-fragment
+// registers, more than the 152 a thread of 416 gets or the 168 of 288
+// (registers are split between the SM's four quarters warp by warp). So
+// two consumer warpgroups (BQ = 128) and a producer WARPGROUP: launched at
+// 168 registers a thread, it keeps 24 (setmaxnreg.dec) and the consumers
+// take 240 (setmaxnreg.inc), as paged_prefill_tc_kernel<256> does.
+template <int HD>
+__host__ __device__ constexpr int fwd_tc_wgs() { return HD == 256 ? 2 : 3; }
+template <int HD>
+__host__ __device__ constexpr int fwd_tc_threads() {
+  return fwd_tc_wgs<HD>() * 128 + (HD == 256 ? 128 : 32);
+}
+// hd 256: registers a producer / consumer thread keeps after the handover
+// (24 x 128 + 240 x 256 = 168 x 384, what the launch bounds allot)
+constexpr int kTcProducerRegs = 24, kTcConsumerRegs = 240;
 constexpr int kTcBwdBK = 128;    // backward: keys per CTA (64 per warpgroup)
 constexpr int kTcBwdBQ = 64;     // backward: q rows per tile
 
-// Forward keys per tile: 128 at hd 64; 64 at hd 128 (the O accumulator
-// doubles there, so S halves to keep registers under the cap).
+// Forward keys per tile: 128 at hd 64; 64 at hd 128 and 256 (the O
+// accumulator doubles at 128, so S halves to keep registers under the cap).
 template <int HD>
 struct TcFwdBK {
   static constexpr int value = HD == 64 ? 128 : 64;
@@ -760,20 +813,26 @@ __global__ void flash_rope_kernel(const T* x, T* y, const float* cos,
   }
 }
 
+// hd 256: 64 KB of Q and two stages of K and V at 32 KB each, 193 KB; a
+// third stage would not fit the 227 KB.
 template <int HD>
 constexpr size_t fwd_tc_smem_bytes() {
-  return 1024 + (size_t)kTcFwdBQ * HD * 2 +
+  return 1024 + (size_t)64 * fwd_tc_wgs<HD>() * HD * 2 +
          2 * kTcFwdStages * (size_t)TcFwdBK<HD>::value * HD * 2 + 64;
 }
 
-// Forward: one CTA per (kTcFwdBQ q rows, b, h). Warpgroup wg owns rows
-// 64 wg .. 64 wg + 63 and walks the visible k tiles; one more warp only
+// Forward: one CTA per (64 x WGS q rows, b, h). Warpgroup wg owns rows
+// 64 wg .. 64 wg + 63 and walks the visible k tiles; the producer only
 // issues the TMA loads, kTcFwdStages K/V tiles ahead, so the consumer
-// warpgroups never wait for each other.
+// warpgroups never wait for each other. At hd 256, Q.K^T steps through
+// Q's four 64-column panels and P.V is one m64n256k16 wgmma a 16-key step
+// across V's four panels (the descriptor's leading offset is the panel
+// stride).
 template <int HD>
-__global__ void __launch_bounds__(kTcFwdWGs * 128 + 32, 1)
+__global__ void __launch_bounds__(fwd_tc_threads<HD>(), 1)
     flash_fwd_tc_kernel(const __grid_constant__ TcMaps maps, Params p) {
-  constexpr int BQ = kTcFwdBQ, BK = TcFwdBK<HD>::value, NP = HD / kPanel;
+  constexpr int WGS = fwd_tc_wgs<HD>(), BQ = 64 * WGS;
+  constexpr int BK = TcFwdBK<HD>::value, NP = HD / kPanel;
   constexpr int ST = kTcFwdStages;
   constexpr uint32_t kQBytes = BQ * HD * 2, kKBytes = BK * HD * 2;
   extern __shared__ uint8_t smem_raw[];
@@ -801,13 +860,14 @@ __global__ void __launch_bounds__(kTcFwdWGs * 128 + 32, 1)
     mbar_init(bar_q, 1);
     for (int i = 0; i < ST; ++i) {
       mbar_init(&full[i], 1);
-      mbar_init(&empty[i], kTcFwdWGs * 128);
+      mbar_init(&empty[i], WGS * 128);
     }
     fence_barrier_init();
   }
   __syncthreads();
-  if (tid >= kTcFwdWGs * 128) {  // the producer warp
-    if (tid == kTcFwdWGs * 128) {
+  if (tid >= WGS * 128) {  // the producer warp (warpgroup at hd 256)
+    if constexpr (HD == 256) setmaxnreg_dec<kTcProducerRegs>();
+    if (tid == WGS * 128) {
       mbar_expect_tx(bar_q, kQBytes);
 #pragma unroll
       for (int pn = 0; pn < NP; ++pn)
@@ -826,6 +886,7 @@ __global__ void __launch_bounds__(kTcFwdWGs * 128 + 32, 1)
     }
     return;
   }
+  if constexpr (HD == 256) setmaxnreg_inc<kTcConsumerRegs>();
   // this thread's accumulator rows (row0, row0 + 8 of its warpgroup's 64)
   // and columns (col0, col0 + 1 of every 8)
   const int row0 = 16 * warp + (lane >> 2), col0 = 2 * (lane & 3);
@@ -1178,6 +1239,306 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 }
 
+// ---- the fused backward at hd 256 (tensor cores) ---------------------------
+//
+// flash_bwd_tc_kernel<hd, true>'s layout (a warpgroup per 64 keys, dK and
+// dV in its registers) would need 128 + 128 float32 registers a thread at
+// hd 256 before S^T or dP^T, over the 255 cap. So a CTA owns 64 keys of
+// ONE q-head, and its two warpgroups split the accumulators, not hd: WG0
+// computes S^T = K.Q^T and keeps dV += P^T.dO, WG1 computes dP^T = V.dO^T
+// and keeps dK += dS^T.Q, each [64 keys, 256] in 128 registers a thread, a
+// full row of hd per thread (so dK's inverse rotation pairs columns c and
+// c + 128 in registers at the end). WG0 hands P^T to WG1 as float32
+// through shared memory (16 KB; dS = P (dP - D) takes the unrounded P),
+// WG1 writes dS^T (bf16) for dQ = dS.K, which the two warpgroups split by
+// hd halves (m64n128k16, both operands MN-major). Each product runs once:
+// the five of the 10*hd bound, 2.5 a warpgroup. 256 threads and no
+// producer, so each keeps up to 255 registers without a handover: peak
+// 128 (dV or dK) + 64 (its dQ half) + addressing.
+//
+// The grid is (B * H q-heads, key tiles), the key tiles slow, so the
+// CTAs with the most q tiles (small k0, causal) start first. Spreading a
+// GQA group's q-heads over CTAs (an MQA group of 8 at B = 4 gives 32
+// heads x 32 key tiles, 1024 CTAs, where one CTA per kv-head would give
+// 128 CTAs whose first walks 256 q tiles and whose last 8) means the
+// group sum of dK and dV crosses CTAs: each CTA adds its float32 dV and
+// unscaled dK into a [2, B, KV, sk_pad, hd] workspace with one bulk
+// reduce each (cp.reduce.async.bulk .add.f32, as the dQ tiles), and
+// flash_dkv_finish_kernel scales, inverse-rotates and rounds once. The
+// reference's contract holds: the group sums in float32, rounded once;
+// only the order of the sum changes, as it already does for dq.
+//
+// Shared memory (217 KB of the 227): K and V 64 KB, two stages of Q and
+// dO 128 KB, dS^T 8 KB, P^T 16 KB, stats 1 KB. A float32 dQ staging tile
+// of 64 x 256 (64 KB) does not fit beside them. Of the ways out (a single Q/dO stage,
+// which serialises each tile's loads with its products; dQ staged a
+// warpgroup-half at a time, which serialises the two halves' reduces; dQ
+// reduced from registers with red.global.add.f32, 16K scattered float
+// atomics a tile), this kernel takes none: dQ = dS.K reads only dS^T and
+// K, so once both warpgroups are done with a tile's dV and dK products
+// that tile's 64 KB stage of Q and dO is dead and holds the dQ staging
+// tile. The next load into that stage (two tiles on) waits until the bulk
+// reduce has read it: one thread of WG1 issues every copy and reduce, and
+// in tile t + 1 it waits for tile t's reduce to have read its stage
+// (cp.async.bulk.wait_group.read 0), then issues tile t + 2's load, while
+// WG0 computes P (WG1 has nothing to do until P is in shared memory). Two
+// stages of loads and one bulk dQ reduce a tile are both kept. At the end
+// the two stages hold dV and dK for their reduces. Staged rows are 1 KB
+// apart, so a warp's writes of eight rows would meet one bank group eight
+// times over: the staging tiles' 8-float chunks are XOR-swizzled by row
+// (swizzled_col), the workspaces keep that order, and the finishing
+// kernels undo it.
+constexpr int kTc256BK = 64;  // keys a CTA
+constexpr uint32_t kTc256Stage = 2 * kTcBwdBQ * 256 * 2;  // Q + dO of a tile
+
+constexpr size_t bwd_tc256_smem_bytes() {
+  return 1024 + 2 * (size_t)kTc256BK * 256 * 2  // K, V
+         + 2 * (size_t)kTc256Stage               // Q, dO x 2 stages
+         + (size_t)kTc256BK * kTcBwdBQ * 2       // dS^T
+         + (size_t)kTc256BK * kTcBwdBQ * 4       // P^T, float32
+         + 2 * (size_t)kTcBwdBQ * 8 + 64;         // stats x 2, barriers
+}
+
+template <>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_bwd_tc_kernel<256, true>(const __grid_constant__ TcMaps maps,
+                                   Params p) {
+  constexpr int HD = 256, BK = kTc256BK, BQ = kTcBwdBQ, NP = HD / kPanel;
+  constexpr uint32_t kKBytes = BK * HD * 2, kQBytes = BQ * HD * 2;
+  constexpr uint32_t kStatBytes = BQ * 8;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = align1024(smem_raw);  // [NP][BK][128 B]
+  uint8_t* sV = sK + kKBytes;
+  uint8_t* sQ = sV + kKBytes;  // stage st at sQ + st * kTc256Stage: Q, then dO
+  uint8_t* sDS = sQ + 2 * kTc256Stage;  // dS^T [BK keys][BQ q], swizzled
+  float* sP = reinterpret_cast<float*>(sDS + BK * BQ * 2);  // [32][128]
+  uint8_t* sStat = reinterpret_cast<uint8_t*>(sP + (BQ / 2) * 128);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sStat + 2 * kStatBytes);
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, t128 = tid & 127;
+  const int b = blockIdx.x / p.H, h = blockIdx.x - b * p.H;
+  const int kvh = h / p.group;
+  const int k0 = blockIdx.y * BK;
+  const int n_q = (p.Sq + BQ - 1) / BQ;
+  const int qt0 = p.causal ? min(k0 / BQ, n_q) : 0;  // first tile with a row >= k0
+  const int n_tiles = n_q - qt0;
+  const float scale2 = p.scale * kLog2e;
+
+  auto load_q = [&](int t) {
+    const int st = t & 1, q0 = (qt0 + t) * BQ;
+    uint8_t* dst = sQ + st * kTc256Stage;
+    mbar_expect_tx(&bar[1 + st], 2 * kQBytes + kStatBytes);
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) {
+      tma_load(dst + pn * BQ * 128, &maps.q, &bar[1 + st], pn * kPanel, h, q0, b);
+      tma_load(dst + kQBytes + pn * BQ * 128, &maps.dout, &bar[1 + st],
+               pn * kPanel, h, q0, b);
+    }
+    bulk_load(sStat + st * kStatBytes,
+              p.stats + ((size_t)(b * p.H + h) * p.sq_pad + q0) * 2,
+              kStatBytes, &bar[1 + st]);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(&bar[i], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  // one thread of WG1 issues every copy and reduce: it waits for a dQ
+  // reduce's read while WG0 computes the next tile's P
+  const bool issuer = tid == 128;
+  if (issuer) {
+    mbar_expect_tx(&bar[0], 2 * kKBytes);
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) {
+      tma_load(sK + pn * BK * 128, &maps.k, &bar[0], pn * kPanel, kvh, k0, b);
+      tma_load(sV + pn * BK * 128, &maps.v, &bar[0], pn * kPanel, kvh, k0, b);
+    }
+    if (n_tiles > 0) load_q(0);
+  }
+  // accumulator rows: keys row0, row0 + 8 of the 64; columns col0, col0 + 1
+  // of every 8 (q in S^T / dP^T, hd in dV / dK)
+  const int row0 = 16 * warp + (lane >> 2), col0 = 2 * (lane & 3);
+  const int krow = k0 + row0;
+  float acc[HD / 2];  // WG0: dV, WG1: dK (unscaled)
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  // S^T from K (WG0), dP^T from V (WG1)
+  const uint8_t* ka = wg == 0 ? sK : sV;
+  // this warpgroup's half of dQ's columns (panels 2 wg, 2 wg + 1 of K), as
+  // the MN-major B operand
+  const uint8_t* kq = sK + 2 * wg * BK * 128;
+  mbar_wait(&bar[0], 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1, q0 = (qt0 + t) * BQ;
+    __syncthreads();  // tile t - 1 is done with sP and sDS, its dQ staged
+    mbar_wait(&bar[1 + st], (t >> 1) & 1);
+    uint8_t* qb = sQ + st * kTc256Stage;
+    const uint8_t* gb = qb + kQBytes;
+    const uint8_t* bq = wg == 0 ? qb : gb;  // Q^T for S^T, dO^T for dP^T
+    float s[BQ / 2];  // WG0: S^T, WG1: dP^T
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks)
+      wgmma_ss<0, 0>(s, sw128_desc(ka + (ks >> 2) * BK * 128 + (ks & 3) * 32, 16, 1024),
+                     sw128_desc(bq + (ks >> 2) * BQ * 128 + (ks & 3) * 32, 16, 1024),
+                     ks > 0);
+    wg_commit();
+    wg_wait_all();
+    pin(s);
+    const float2* stat = reinterpret_cast<const float2*>(sStat + st * kStatBytes);
+    const bool need_mask = q0 + BQ > p.Sq || k0 + BK > p.Sk ||
+                           (p.causal && q0 < k0 + BK - 1);
+    // bf16 A fragments: WG0 P^T (for dV), WG1 dS^T (for dK)
+    uint32_t fa[BQ / 16][4];
+    if (wg == 0) {
+      // P^T = exp2(s - lse): rounded to bf16 for dV, float32 to WG1
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        float pv[2][2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qc = 8 * j + col0 + c;
+          const float lse = stat[qc].x;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int x = 4 * j + 2 * i + c;
+            float pr = 0.f;
+            if (!need_mask || visible(p, q0 + qc, krow + 8 * i))
+              pr = exp2_approx(s[x] * scale2 - lse);
+            pv[i][c] = pr;
+            sP[x * 128 + t128] = pr;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          fa[j >> 1][(j & 1) * 2 + i] = pack_bf16(pv[i][0], pv[i][1]);
+      }
+    }
+    if (issuer) {
+      // stage st ^ 1 is free once tile t - 1's dQ reduce has read it
+      bulk_wait_read<0>();
+      if (t + 1 < n_tiles) load_q(t + 1);
+    }
+    __syncthreads();  // P^T is in sP
+    if (wg == 1) {
+      // dS^T = P^T (dP^T - D), rounded to bf16 for dK (registers) and dQ
+      // (shared memory); the same thread of WG0 held the same elements
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        float dsv[2][2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float d = stat[8 * j + col0 + c].y;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int x = 4 * j + 2 * i + c;
+            dsv[i][c] = sP[x * 128 + t128] * (s[x] - d);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const uint32_t d2 = pack_bf16(dsv[i][0], dsv[i][1]);
+          fa[j >> 1][(j & 1) * 2 + i] = d2;
+          const int r = row0 + 8 * i;  // key row of sDS
+          *reinterpret_cast<uint32_t*>(sDS + r * 128 + ((j ^ (r & 7)) << 4) +
+                                       col0 * 2) = d2;
+        }
+      }
+      fence_proxy_async();
+    }
+    // WG0: dV += P^T.dO; WG1: dK += dS^T.Q (register A, MN-major B across
+    // the four 64-column panels)
+    const uint8_t* bsrc = wg == 0 ? gb : qb;
+    pin(acc);
+    pin(fa);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rs<1>(acc, fa[kk], sw128_desc(bsrc + kk * 2048, BQ * 128, 1024), 1);
+    wg_commit();
+    wg_wait_all();
+    pin(acc);
+    __syncthreads();  // sDS holds dS^T; stage st's Q and dO are dead
+    float dq[HD / 4];  // dQ[:, 128 wg .. 128 wg + 127] = dS.K over the 64 keys
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_ss<1, 1>(dq, sw128_desc(sDS + kk * 2048, BQ * 128, 1024),
+                     sw128_desc(kq + kk * 2048, BK * 128, 1024), kk > 0);
+    wg_commit();
+    wg_wait_all();
+    pin(dq);
+    // staged as float32 [BQ][HD] in stage st (columns as swizzled_col,
+    // which the workspace keeps), then one bulk reduce-add
+    float* sdq = reinterpret_cast<float*>(qb);
+#pragma unroll
+    for (int j = 0; j < HD / 16; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = row0 + 8 * i;
+        *reinterpret_cast<float2*>(
+            sdq + r * HD + swizzled_col(wg * HD / 2 + 8 * j, r) + col0) =
+            make_float2(dq[4 * j + 2 * i] * p.scale,
+                        dq[4 * j + 2 * i + 1] * p.scale);
+      }
+    fence_proxy_async();
+    __syncthreads();
+    if (issuer)
+      bulk_reduce_add(p.dq_ws + ((size_t)(b * p.H + h) * p.sq_pad + q0) * HD,
+                      sdq, BQ * HD * 4);
+  }
+  if (issuer) bulk_wait_all();  // the last dQ reduce has read its stage
+  __syncthreads();
+  // this head's dV (WG0) and dK (WG1) as float32 [BK][HD] in stage wg
+  // (swizzled as dQ), each added to the group sum by one bulk reduce
+  float* sacc = reinterpret_cast<float*>(sQ + wg * kTc256Stage);
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + 8 * i;
+      *reinterpret_cast<float2*>(sacc + r * HD + swizzled_col(8 * j, r) +
+                                 col0) =
+          make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+    }
+  fence_proxy_async();
+  __syncthreads();
+  if (issuer) {
+    const size_t plane = (size_t)p.B * p.KV * p.sk_pad * HD;
+    const size_t rows = ((size_t)(b * p.KV + kvh) * p.sk_pad + k0) * HD;
+    bulk_reduce_add(p.dkv_ws + rows, sQ + kTc256Stage, BK * HD * 4);     // dK
+    bulk_reduce_add(p.dkv_ws + plane + rows, sQ, BK * HD * 4);          // dV
+    bulk_wait_all();
+  }
+}
+
+// The hd-256 fused backward's epilogue for dk / dv: the float32 group sums
+// of [2, B, KV, sk_pad, hd] (columns as swizzled_col), dk scaled and (with
+// rope) inverse-rotated, then each cast once. blockIdx.x is the position
+// s, blockIdx.y the batch; threads cover the kv-heads' hd/2 pairs.
+template <int HD>
+__global__ void flash_dkv_finish_kernel(Params p) {
+  constexpr int H2 = HD / 2;
+  const int s = blockIdx.x, b = blockIdx.y;
+  const size_t plane = (size_t)p.B * p.KV * p.sk_pad * HD;
+  __nv_bfloat16* dk = static_cast<__nv_bfloat16*>(p.dk);
+  __nv_bfloat16* dv = static_cast<__nv_bfloat16*>(p.dv);
+  for (int i = threadIdx.x; i < p.KV * H2; i += blockDim.x) {
+    const int g = i / H2, d = i - g * H2;
+    const size_t row = (((size_t)b * p.Sk + s) * p.KV + g) * HD;  // (b, s, g)
+    const size_t ws = (((size_t)b * p.KV + g) * p.sk_pad + s) * HD;
+    const int c1 = swizzled_col(d, s), c2 = swizzled_col(d + H2, s);
+    float x1 = p.dkv_ws[ws + c1] * p.scale, x2 = p.dkv_ws[ws + c2] * p.scale;
+    if (p.rope)
+      rotate(x1, x2, p.cos[(size_t)s * H2 + d], p.sin[(size_t)s * H2 + d],
+             true, x1, x2);
+    dk[row + d] = __float2bfloat16(x1);
+    dk[row + d + H2] = __float2bfloat16(x2);
+    dv[row + d] = __float2bfloat16(p.dkv_ws[plane + ws + c1]);
+    dv[row + d + H2] = __float2bfloat16(p.dkv_ws[plane + ws + c2]);
+  }
+}
+
 // Split dq: the q rows per CTA are 64 per consumer warpgroup: three at
 // hd 64, two at hd 128 (the dQ accumulator doubles there, so a third
 // warpgroup would push the registers a thread under what it needs).
@@ -1405,15 +1766,14 @@ cudaError_t launch_fwd_tc(const Params& p, cudaStream_t st) {
     const cudaError_t err = rope_prepass<HD>(p, st);
     if (err != cudaSuccess) return err;
   }
-  constexpr int BK = TcFwdBK<HD>::value;
+  constexpr int BQ = 64 * fwd_tc_wgs<HD>(), BK = TcFwdBK<HD>::value;
   TcMaps maps{};
-  if (!encode_map(&maps.q, p.rope ? p.q_rot : p.q, p.B, p.Sq, p.H, HD,
-                  kTcFwdBQ) ||
+  if (!encode_map(&maps.q, p.rope ? p.q_rot : p.q, p.B, p.Sq, p.H, HD, BQ) ||
       !encode_map(&maps.k, p.rope ? p.k_rot : p.k, p.B, p.Sk, p.KV, HD, BK) ||
       !encode_map(&maps.v, p.v, p.B, p.Sk, p.KV, HD, BK))
     return cudaErrorInvalidValue;
-  const dim3 grid((p.Sq + kTcFwdBQ - 1) / kTcFwdBQ, p.B * p.H);
-  return launch_tc(flash_fwd_tc_kernel<HD>, grid, kTcFwdWGs * 128 + 32,
+  const dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.H);
+  return launch_tc(flash_fwd_tc_kernel<HD>, grid, fwd_tc_threads<HD>(),
                    fwd_tc_smem_bytes<HD>(), st, maps, p);
 }
 
@@ -1453,6 +1813,31 @@ cudaError_t launch_bwd_fused_tc(const Params& p, cudaStream_t st) {
   if (err != cudaSuccess) return err;
   flash_dq_finish_kernel<__nv_bfloat16, HD, true>
       <<<dim3(p.Sq, p.B), pair_threads(p.H, HD), 0, st>>>(p);
+  return cudaGetLastError();
+}
+
+// hd 256: one CTA per (b, q-head, 64 keys), the dk / dv group sums in
+// p.dkv_ws (zeroed here), then both finishing kernels.
+template <>
+cudaError_t launch_bwd_fused_tc<256>(const Params& p, cudaStream_t st) {
+  using T = __nv_bfloat16;
+  if (p.dq_ws == nullptr || p.dkv_ws == nullptr ||
+      p.sk_pad / kTc256BK > 65535)
+    return cudaErrorInvalidValue;
+  TcMaps maps{};
+  cudaError_t err = bwd_tc_prepare<256>(p, st, maps, kTcBwdBQ, kTc256BK);
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(p.dkv_ws, 0,
+                        2 * (size_t)p.B * p.KV * p.sk_pad * 256 * 4, st);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.B * p.H, p.sk_pad / kTc256BK);
+  err = launch_tc(flash_bwd_tc_kernel<256, true>, grid, kTcThreads,
+                  bwd_tc256_smem_bytes(), st, maps, p);
+  if (err != cudaSuccess) return err;
+  flash_dq_finish_kernel<T, 256, true, true>
+      <<<dim3(p.Sq, p.B), pair_threads(p.H, 256), 0, st>>>(p);
+  flash_dkv_finish_kernel<256>
+      <<<dim3(p.Sk, p.B), pair_threads(p.KV, 256), 0, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -1522,41 +1907,51 @@ cudaError_t launch_bwd_dkdv(const Params& p, cudaStream_t st) {
                      bwd_smem_bytes<HD>(), st, p);
 }
 
-enum Which { kFwd, kBwdFused, kBwdDq, kBwdDkdv };
-
 template <typename T, int HD>
 cudaError_t launch(Which w, const Params& p, cudaStream_t st) {
   switch (w) {
     case kFwd:
-      if constexpr (TcRoute<T, HD>::value) return launch_fwd_tc<HD>(p, st);
+      if constexpr (TcRoute<kFwd, T, HD>::value) return launch_fwd_tc<HD>(p, st);
       else return launch_fwd<T, HD>(p, st);
     case kBwdFused:
-      if constexpr (TcRoute<T, HD>::value)
+      if constexpr (TcRoute<kBwdFused, T, HD>::value)
         return launch_bwd_fused_tc<HD>(p, st);
       else return launch_bwd_fused<T, HD>(p, st);
     case kBwdDq:
-      if constexpr (TcRoute<T, HD>::value) return launch_bwd_dq_tc<HD>(p, st);
+      if constexpr (TcRoute<kBwdDq, T, HD>::value)
+        return launch_bwd_dq_tc<HD>(p, st);
       else return launch_bwd_dq<T, HD>(p, st);
     case kBwdDkdv:
-      if constexpr (TcRoute<T, HD>::value)
+      if constexpr (TcRoute<kBwdDkdv, T, HD>::value)
         return launch_bwd_dkdv_tc<HD>(p, st);
       else return launch_bwd_dkdv<T, HD>(p, st);
   }
   return cudaErrorInvalidValue;
 }
 
-// 1 where the four operators launch their tensor-core kernels at (T, hd)
-// (each case of launch() reads TcRoute), 0 where their CUDA-core ones, -1
-// for a head width with no kernel.
+// 1 where operator w launches its tensor-core kernel at (T, HD) (its case
+// of launch() reads the same TcRoute), 0 where its CUDA-core one.
+template <typename T, int HD>
+int route_of(Which w) {
+  switch (w) {
+    case kFwd: return TcRoute<kFwd, T, HD>::value;
+    case kBwdFused: return TcRoute<kBwdFused, T, HD>::value;
+    case kBwdDq: return TcRoute<kBwdDq, T, HD>::value;
+    case kBwdDkdv: return TcRoute<kBwdDkdv, T, HD>::value;
+  }
+  return -1;
+}
+
+// -1 for a head width (or an operator) with no kernel.
 template <typename T>
-int route_hd(int hd) {
+int route_hd(Which w, int hd) {
   switch (hd) {
     case 64:
-      return TcRoute<T, 64>::value;
+      return route_of<T, 64>(w);
     case 128:
-      return TcRoute<T, 128>::value;
+      return route_of<T, 128>(w);
     case 256:
-      return TcRoute<T, 256>::value;
+      return route_of<T, 256>(w);
   }
   return -1;
 }
@@ -1621,14 +2016,16 @@ extern "C" int kdl_flash_fwd(const void* q, const void* k, const void* v,
 
 // Workspaces by route. Tensor cores: q_rot / k_rot (rope only, else null),
 // stats float32 [B, H, sq_pad, 2] and dq_ws float32 [B, H, sq_pad, hd],
-// sq_pad = Sq rounded up to 64, neither initialised. CUDA cores: q_rot,
-// k_rot and stats null, dq_ws float32 [B, Sq, H, hd] zeroed.
+// sq_pad = Sq rounded up to 64, neither initialised; at hd 256 also
+// dkv_ws float32 [2, B, KV, sk_pad, hd], sk_pad = Sk rounded up to 64,
+// not initialised (null at hd 64 / 128). CUDA cores: q_rot, k_rot, stats
+// and dkv_ws null, dq_ws float32 [B, Sq, H, hd] zeroed.
 extern "C" int kdl_flash_bwd_fused(
     const void* q, const void* k, const void* v, const void* cos,
     const void* sin, const void* out, const void* lse, const void* dout,
-    void* q_rot, void* k_rot, void* stats, void* dq_ws, void* dq, void* dk,
-    void* dv, int B, int Sq, int Sk, int H, int KV, int hd, int causal,
-    int rope, int dtype, void* stream) {
+    void* q_rot, void* k_rot, void* stats, void* dq_ws, void* dkv_ws,
+    void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
+    int hd, int causal, int rope, int dtype, void* stream) {
   Params p = make_params(q, k, v, cos, sin, B, Sq, Sk, H, KV, hd, causal, rope);
   p.out = out;
   p.lse = static_cast<const float*>(lse);
@@ -1637,7 +2034,9 @@ extern "C" int kdl_flash_bwd_fused(
   p.k_rot = k_rot;
   p.stats = static_cast<float*>(stats);
   p.sq_pad = (Sq + kTcBwdBQ - 1) / kTcBwdBQ * kTcBwdBQ;
+  p.sk_pad = (Sk + kTc256BK - 1) / kTc256BK * kTc256BK;
   p.dq_ws = static_cast<float*>(dq_ws);
+  p.dkv_ws = static_cast<float*>(dkv_ws);
   p.dq = dq;
   p.dk = dk;
   p.dv = dv;
@@ -1688,7 +2087,10 @@ extern "C" int kdl_flash_bwd_dkdv(const void* q, const void* k, const void* v,
 }
 
 // The static route table as the launches read it: 1 = tensor cores,
-// 0 = CUDA cores, -1 = no kernel; dtype: 1 bf16, 0 float32.
-extern "C" int kdl_flash_route(int dtype, int hd) {
-  return dtype == 1 ? route_hd<__nv_bfloat16>(hd) : route_hd<float>(hd);
+// 0 = CUDA cores, -1 = no kernel; op: 0 flash_fwd, 1 flash_bwd_fused,
+// 2 flash_bwd_dq, 3 flash_bwd_dkdv; dtype: 1 bf16, 0 float32.
+extern "C" int kdl_flash_route(int op, int dtype, int hd) {
+  if (op < kFwd || op > kBwdDkdv) return -1;
+  const Which w = static_cast<Which>(op);
+  return dtype == 1 ? route_hd<__nv_bfloat16>(w, hd) : route_hd<float>(w, hd);
 }

@@ -123,12 +123,12 @@ def _declare_flash_attention(lib) -> None:
     dims = [i] * 9 + [p]  # B Sq Sk H KV hd causal rope dtype, the stream
     # q k v cos sin out lse q_rot k_rot
     lib.kdl_flash_fwd.argtypes = [p] * 9 + dims
-    # q k v cos sin out lse dout q_rot k_rot stats, then dq_ws dq dk dv /
-    # dq / dk_h dv_h
-    lib.kdl_flash_bwd_fused.argtypes = [p] * 15 + dims
+    # q k v cos sin out lse dout q_rot k_rot stats, then dq_ws dkv_ws dq
+    # dk dv / dq / dk_h dv_h
+    lib.kdl_flash_bwd_fused.argtypes = [p] * 16 + dims
     lib.kdl_flash_bwd_dq.argtypes = [p] * 12 + dims
     lib.kdl_flash_bwd_dkdv.argtypes = [p] * 13 + dims
-    lib.kdl_flash_route.argtypes = [i] * 2  # dtype hd
+    lib.kdl_flash_route.argtypes = [i] * 3  # op dtype hd
     for fn in (lib.kdl_flash_fwd, lib.kdl_flash_bwd_fused,
                lib.kdl_flash_bwd_dq, lib.kdl_flash_bwd_dkdv,
                lib.kdl_flash_route):

@@ -27,12 +27,13 @@ op                  computes                                  replaces
 ``flash_bwd_dkdv``  per-q-head (dk_h, dv_h)                   ``_bwd_dkdv_kernel``
 ==================  ========================================  ===========
 
-Kernel design by route (:func:`tensor_core_route`, a static table, the
-same for all four operators): bf16 at hd 64 and 128 launches the
-tensor-core kernels (wgmma on TMA-staged bf16 tiles), for which the
-wrapper allocates the rotated-q/k and row-stats workspaces (and the
-fused route's dq sums); float32 at every hd and bf16 at hd 256 launch
-the CUDA-core kernels.
+Kernel design by route (:func:`tensor_core_route`, a static table per
+operator): bf16 at hd 64 and 128 launches the tensor-core kernels (wgmma
+on TMA-staged bf16 tiles) for all four operators, and at hd 256 for
+``flash_fwd`` and ``flash_bwd_fused``; for those the wrapper allocates
+the rotated-q/k and row-stats workspaces (and the fused route's dq sums,
+and at hd 256 its float32 dk/dv group sums). float32 at every hd and the
+split pair at hd 256 launch the CUDA-core kernels.
 
 Numerics contract (the reference's; kernels and plain versions keep it,
 and a kernel redesign must too):
@@ -86,12 +87,23 @@ LAUNCHES = {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dq": 0,
 
 #: head dims the CUDA kernels are compiled for
 KERNEL_HEAD_DIMS = (64, 128, 256)
-#: head dims whose bf16 kernels take the tensor cores (wgmma, TMA), for
-#: every operator; float32 at every hd and bf16 at hd 256 take the
-#: CUDA-core ones. The source's ``TcRoute`` is the same table.
-TENSOR_CORE_HEAD_DIMS = (64, 128)
+#: the four operators, in the order of the source's ``Which`` (the code
+#: ``kdl_flash_route`` takes)
+OPS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkdv")
+#: head dims whose bf16 kernels take the tensor cores (wgmma, TMA), per
+#: operator; float32 at every hd and the rest take the CUDA-core ones.
+#: The source's ``tc_head_dim`` is the same table.
+TENSOR_CORE_HEAD_DIMS = {"flash_fwd": (64, 128, 256),
+                         "flash_bwd_fused": (64, 128, 256),
+                         "flash_bwd_dq": (64, 128),
+                         "flash_bwd_dkdv": (64, 128)}
 #: the tensor-core backward's q tile: its workspaces pad Sq to a multiple
 _TC_BWD_BQ = 64
+#: head dims whose tensor-core fused backward spreads a GQA group's
+#: q-heads over CTAs, summing dk/dv in a float32 workspace whose Sk is
+#: padded to a multiple of its key tile
+_TC_DKV_SUM_HEAD_DIMS = (256,)
+_TC_DKV_BK = 64
 
 
 # ---- routing (copied from the reference: same shapes, same route) ----------
@@ -283,17 +295,17 @@ def _check_cuda_inputs(q, k, v, cos, sin, extra=()):
             raise TypeError(f"{name} is {t.dtype}, expected {want}")
 
 
-def tensor_core_route(dtype: torch.dtype, head_dim: int) -> bool:
-    """Whether the four operators launch their tensor-core kernels for
-    this input type and head width (a static table, not a fallback: each
-    route launches its kernel or raises)."""
-    return dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS
+def tensor_core_route(op: str, dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether operator ``op`` (one of :data:`OPS`) launches its
+    tensor-core kernel for this input type and head width (a static
+    table, not a fallback: each route launches its kernel or raises)."""
+    return dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS[op]
 
 
-def _rope_workspaces(q, k, cos):
-    """The tensor-core route's rotated q / k (written by the kernels'
-    RoPE pre-pass), or None where that route or rope is off."""
-    if cos is None or not tensor_core_route(q.dtype, q.shape[3]):
+def _rope_workspaces(op, q, k, cos):
+    """``op``'s tensor-core route's rotated q / k (written by the
+    kernels' RoPE pre-pass), or None where that route or rope is off."""
+    if cos is None or not tensor_core_route(op, q.dtype, q.shape[3]):
         return None, None
     return torch.empty_like(q), torch.empty_like(k)
 
@@ -323,7 +335,7 @@ def _cuda_fwd(q, k, v, cos, sin, causal):
     B, Sq, H, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq, 1), dtype=torch.float32, device=q.device)
-    q_rot, k_rot = _rope_workspaces(q, k, cos)
+    q_rot, k_rot = _rope_workspaces("flash_fwd", q, k, cos)
     _launch("kdl_flash_fwd", "flash_fwd", q, k, v, cos, sin, causal,
             (out, lse, q_rot, k_rot))
     return out, lse
@@ -338,12 +350,12 @@ def _check_bwd_inputs(q, k, v, cos, sin, out, lse, dout):
                        extra=(("out", out), ("lse", lse), ("dout", dout)))
 
 
-def _stats_workspace(q):
-    """The tensor-core backward's {lse, D} per q row, [B, H, Sq padded to
-    the q tile, 2] float32 (written whole by the kernels' pre-pass), or
-    None on the CUDA-core route."""
+def _stats_workspace(op, q):
+    """``op``'s tensor-core backward's {lse, D} per q row, [B, H, Sq
+    padded to the q tile, 2] float32 (written whole by the kernels'
+    pre-pass), or None on the CUDA-core route."""
     B, Sq, H, hd = q.shape
-    if not tensor_core_route(q.dtype, hd):
+    if not tensor_core_route(op, q.dtype, hd):
         return None
     sq_pad = -(-Sq // _TC_BWD_BQ) * _TC_BWD_BQ
     return torch.empty((B, H, sq_pad, 2), dtype=torch.float32,
@@ -354,23 +366,30 @@ def _cuda_bwd_fused(q, k, v, cos, sin, out, lse, dout, causal):
     _check_bwd_inputs(q, k, v, cos, sin, out, lse, dout)
     B, Sq, H, hd = q.shape
     f32 = dict(dtype=torch.float32, device=q.device)
-    q_rot, k_rot = _rope_workspaces(q, k, cos)
-    stats = _stats_workspace(q)
+    q_rot, k_rot = _rope_workspaces("flash_bwd_fused", q, k, cos)
+    stats = _stats_workspace("flash_bwd_fused", q)
+    dkv_ws = None
     if stats is not None:
         # zeroed by the pre-pass: the dq sums, [B, H, Sq padded, hd]
         dq_ws = torch.empty((B, H, stats.shape[2], hd), **f32)
+        if hd in _TC_DKV_SUM_HEAD_DIMS:
+            # zeroed by the launch: the dk / dv group sums
+            Sk, KV = k.shape[1], k.shape[2]
+            sk_pad = -(-Sk // _TC_DKV_BK) * _TC_DKV_BK
+            dkv_ws = torch.empty((2, B, KV, sk_pad, hd), **f32)
     else:
         dq_ws = torch.zeros(q.shape, **f32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _launch("kdl_flash_bwd_fused", "flash_bwd_fused", q, k, v, cos, sin,
-            causal, (out, lse, dout, q_rot, k_rot, stats, dq_ws, dq, dk, dv))
+            causal, (out, lse, dout, q_rot, k_rot, stats, dq_ws, dkv_ws, dq,
+                     dk, dv))
     return dq, dk, dv
 
 
 def _cuda_bwd_dq(q, k, v, cos, sin, out, lse, dout, causal):
     _check_bwd_inputs(q, k, v, cos, sin, out, lse, dout)
-    q_rot, k_rot = _rope_workspaces(q, k, cos)
-    stats = _stats_workspace(q)
+    q_rot, k_rot = _rope_workspaces("flash_bwd_dq", q, k, cos)
+    stats = _stats_workspace("flash_bwd_dq", q)
     dq = torch.empty_like(q)
     _launch("kdl_flash_bwd_dq", "flash_bwd_dq", q, k, v, cos, sin, causal,
             (out, lse, dout, q_rot, k_rot, stats, dq))
@@ -381,8 +400,8 @@ def _cuda_bwd_dkdv(q, k, v, cos, sin, out, lse, dout, causal):
     _check_bwd_inputs(q, k, v, cos, sin, out, lse, dout)
     B, Sk = k.shape[:2]
     shape = (B, Sk, q.shape[2], q.shape[3])
-    q_rot, k_rot = _rope_workspaces(q, k, cos)
-    stats = _stats_workspace(q)
+    q_rot, k_rot = _rope_workspaces("flash_bwd_dkdv", q, k, cos)
+    stats = _stats_workspace("flash_bwd_dkdv", q)
     dk_h = torch.empty(shape, dtype=k.dtype, device=q.device)
     dv_h = torch.empty(shape, dtype=v.dtype, device=q.device)
     _launch("kdl_flash_bwd_dkdv", "flash_bwd_dkdv", q, k, v, cos, sin,
@@ -555,6 +574,6 @@ def make_flash_attention(mesh=None, batch_axes=("replica", "data", "fsdp"),
 __all__ = [
     "flash_attention", "make_flash_attention", "flash_backward", "fit_block",
     "supports", "bwd_route", "mesh_axes", "mesh_size", "flash_fwd", "flash_bwd_fused",
-    "flash_bwd_dq", "flash_bwd_dkdv", "LAUNCHES", "KERNEL_HEAD_DIMS",
+    "flash_bwd_dq", "flash_bwd_dkdv", "LAUNCHES", "KERNEL_HEAD_DIMS", "OPS",
     "TENSOR_CORE_HEAD_DIMS", "tensor_core_route", "NEG_INF", "LOG2E",
 ]

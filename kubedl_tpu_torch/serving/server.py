@@ -251,20 +251,26 @@ class LlamaEngine:
     over with ``llama.params_from_numpy``) instead of the init and the
     restore. ``role`` (prefill / decode / colocated) is advisory, as in
     the reference: every engine serves ``generate``,
-    :meth:`prefill_handoff` and :meth:`adopt_handoff`."""
+    :meth:`prefill_handoff` and :meth:`adopt_handoff`. As in the
+    reference, a non-zero ``batch`` takes the place of ``max_batch``, and
+    ``kv_low_watermark`` / ``kv_high_watermark`` are the block
+    allocator's admission watermarks (kept when a failed tick rebuilds
+    it)."""
 
     #: allowed decode-segment sizes, largest first; segments shrink to 4
     #: whenever requests are waiting (admission latency <= 4 tokens)
     SEGMENT_BUCKETS = (32, 4, 1)
 
     def __init__(self, preset: str = "tiny", ckpt_dir: str = "",
-                 max_seq: int = 0, max_batch: int = 4,
+                 batch: int = 0, max_seq: int = 0, max_batch: int = 4,
                  quantize: str = "", mesh_axes: Optional[Dict] = None,
+                 metrics=None,
                  max_queue_depth: int = 64, max_queue_age_s: float = 30.0,
                  prefix_cache_mb: float = 64.0,
                  prefix_min_len: int = 8,
                  kv_layout: str = "paged", kv_block_size: int = 16,
-                 kv_blocks: int = 0, spec_k: int = 0,
+                 kv_blocks: int = 0, kv_low_watermark: float = 0.05,
+                 kv_high_watermark: float = 0.15, spec_k: int = 0,
                  spec_draft: str = "ngram",
                  kv_attention: str = "gather",
                  spec_candidates: int = 1,
@@ -295,6 +301,8 @@ class LlamaEngine:
             raise ValueError(f"unknown quantize mode {quantize!r}")
         if mesh_axes:
             raise _unported("mesh_axes", "sharded (mesh) serving")
+        if metrics is not None:
+            raise _unported("metrics", "the engine's Prometheus family")
         self.quantize = quantize
         self.spec_k = max(0, int(spec_k))
         self.spec_draft = str(spec_draft)
@@ -320,7 +328,7 @@ class LlamaEngine:
         self.advertise_prefix_len = int(advertise_prefix_len)
         self.cfg = llama.preset(preset)
         self.max_seq = max_seq or min(self.cfg.max_seq, 512)
-        self.max_batch = max_batch
+        self.max_batch = batch or max_batch
         bs = max(1, int(kv_block_size))
         self.kv_block_size = bs
         # the gathered view is [B, MB * BS]: max_seq rounds UP to whole blocks
@@ -374,7 +382,10 @@ class LlamaEngine:
                 )
             nb = 1 + self.max_batch * mb + prefix_blocks
         self.kv_blocks = nb
-        self._alloc = BlockAllocator(nb, bs)
+        #: the allocator's admission watermarks, kept for its rebuilds
+        self._kv_watermarks = dict(low_watermark=kv_low_watermark,
+                                   high_watermark=kv_high_watermark)
+        self._alloc = BlockAllocator(nb, bs, **self._kv_watermarks)
         #: host-authoritative mirrors of the device cache's pos/bt —
         #: uploaded (copied) before EVERY dispatch, so rollbacks
         #: (speculative rejection, preemption, vacation) are mirror edits
@@ -1487,7 +1498,8 @@ class LlamaEngine:
                         self.kv_blocks, self.kv_block_size, self.device,
                     )
                     self._alloc = BlockAllocator(self.kv_blocks,
-                                                 self.kv_block_size)
+                                                 self.kv_block_size,
+                                                 **self._kv_watermarks)
                     self._pos_host[:] = 0
                     self._bt_host[:] = 0
                     self._row_blocks = [[] for _ in range(self.max_batch)]

@@ -298,41 +298,59 @@ def test_long_context_lengths_take_the_split_pair():
     assert tfa.bwd_route(8192, 128) == "fused"
 
 
+#: the source's operator codes (``enum Which``), as ``kdl_flash_route``
+#: takes them
+_SOURCE_OPS = {"kFwd": "flash_fwd", "kBwdFused": "flash_bwd_fused",
+               "kBwdDq": "flash_bwd_dq", "kBwdDkdv": "flash_bwd_dkdv"}
+
+
 def _source_route_table():
-    """({(dtype, hd)} that the source's ``TcRoute`` sends to the tensor
-    cores, {operator: whether its case in ``launch`` reads TcRoute})."""
+    """({operator: {hd}} whose bf16 kernels the source's ``tc_head_dim``
+    sends to the tensor cores, whether ``TcRoute`` is that table for bf16
+    only, {operator: whether its case in ``launch`` reads its own
+    TcRoute})."""
     import re
     from pathlib import Path
 
     src = (Path(tfa.__file__).resolve().parents[1] / "csrc"
            / "flash_attention.cu").read_text()
-    m = re.search(r"struct TcRoute \{\s*static constexpr bool value =\s*"
-                  r"std::is_same<T, __nv_bfloat16>::value && "
-                  r"\(([^)]*)\);", src)
-    assert m, "TcRoute is no longer 'bf16 && (HD == a || HD == b ...)'"
-    pairs = {(torch.bfloat16, int(x))
-             for x in re.findall(r"HD == (\d+)", m.group(1))}
+    body = src[src.index("constexpr bool tc_head_dim(Which w, int hd)"):]
+    body = body[:body.index("\n}\n")]
+    table = {_SOURCE_OPS[case]: {int(x) for x in re.findall(r"hd == (\d+)",
+                                                             expr)}
+             for case, expr in re.findall(r"case (k\w+): return ([^;]*);",
+                                          body)}
+    bf16_only = re.search(
+        r"struct TcRoute \{\s*static constexpr bool value =\s*"
+        r"std::is_same<T, __nv_bfloat16>::value && tc_head_dim\(W, HD\);",
+        src) is not None
     launch = src[src.index("cudaError_t launch(Which w"):]
     launch = launch[:launch.index("\n}\n")]
-    ops = {"kFwd": "flash_fwd", "kBwdFused": "flash_bwd_fused",
-           "kBwdDq": "flash_bwd_dq", "kBwdDkdv": "flash_bwd_dkdv"}
-    reads = {ops[case]: "if constexpr (TcRoute<T, HD>::value)" in body
-             for case, body in re.findall(r"case (k\w+):(.*?)(?=case k|\Z)",
-                                          launch, re.S)}
-    return pairs, reads
+    reads = {_SOURCE_OPS[case]:
+             f"if constexpr (TcRoute<{case}, T, HD>::value)" in case_body
+             for case, case_body in re.findall(
+                 r"case (k\w+):(.*?)(?=case k|\Z)", launch, re.S)}
+    return table, bf16_only, reads
 
 
 def test_tensor_core_route_matches_source_table():
-    """tensor_core_route and the source's TcRoute name the same (type, hd)
-    pairs, and each of the four operators' launches reads that table."""
-    pairs, reads = _source_route_table()
-    assert reads == dict.fromkeys(
-        ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkdv"),
-        True)
-    for dtype in (torch.bfloat16, torch.float32):
-        for hd in tfa.KERNEL_HEAD_DIMS:
-            assert tfa.tensor_core_route(dtype, hd) == ((dtype, hd) in pairs)
-    assert pairs == {(torch.bfloat16, 64), (torch.bfloat16, 128)}
+    """tensor_core_route and the source's per-operator table agree for
+    every operator, type and head width, and each operator's launch reads
+    its own entry: bf16 at hd 64 and 128 on the tensor cores everywhere,
+    at hd 256 for the forward and the fused backward only (the split
+    pair stays on the CUDA cores there), float32 never."""
+    table, bf16_only, reads = _source_route_table()
+    assert bf16_only
+    assert reads == dict.fromkeys(tfa.OPS, True)
+    assert table == {op: set(tfa.TENSOR_CORE_HEAD_DIMS[op]) for op in tfa.OPS}
+    for op in tfa.OPS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for hd in tfa.KERNEL_HEAD_DIMS:
+                assert tfa.tensor_core_route(op, dtype, hd) == (
+                    dtype == torch.bfloat16 and hd in table[op])
+    assert table == {"flash_fwd": {64, 128, 256},
+                     "flash_bwd_fused": {64, 128, 256},
+                     "flash_bwd_dq": {64, 128}, "flash_bwd_dkdv": {64, 128}}
 
 
 def test_make_flash_attention_single_device_only():
@@ -521,12 +539,62 @@ def test_cuda_split_pair_matches_plain_versions(cuda, monkeypatch, case):
 @pytest.mark.cuda
 def test_cuda_route_table_matches_source(cuda):
     """The source's route (kdl_flash_route, the TcRoute every launch reads)
-    and tensor_core_route agree for every type and head width."""
+    and tensor_core_route agree for every operator, type and head width:
+    bf16 hd 256 on the tensor cores for the forward and the fused
+    backward, on the CUDA cores for the split pair."""
     from kubedl_tpu_torch.ops.build import load_flash_kernels
 
     lib = load_flash_kernels()
-    for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
-        for hd in tfa.KERNEL_HEAD_DIMS:
-            assert lib.kdl_flash_route(code, hd) == \
-                int(tfa.tensor_core_route(dtype, hd)), (dtype, hd)
-    assert lib.kdl_flash_route(1, 32) == -1
+    for code_op, op in enumerate(tfa.OPS):
+        for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+            for hd in tfa.KERNEL_HEAD_DIMS:
+                assert lib.kdl_flash_route(code_op, code, hd) == \
+                    int(tfa.tensor_core_route(op, dtype, hd)), (op, dtype, hd)
+    assert [lib.kdl_flash_route(i, 1, 256) for i in range(4)] == [1, 1, 0, 0]
+    assert lib.kdl_flash_route(0, 1, 32) == -1
+    assert lib.kdl_flash_route(4, 1, 64) == -1
+
+
+@pytest.mark.cuda
+def test_cuda_gemma_training_shape_matches_plain_versions(cuda):
+    """Gemma-2B's training shape (B=4, H=8, KV=1, S=2048, hd 256, bf16,
+    causal, Gemma's RoPE tables, theta 10000): the forward and the fused
+    backward on the tensor cores, the split pair on the CUDA cores, each
+    against its plain version (CARD_TOL bf16), with one launch each."""
+    from kubedl_tpu_torch.models.llama import rope_table
+
+    B, H, KV, S, hd = 4, 8, 1, 2048, 256
+    assert tfa.bwd_route(S, hd) == "fused"
+    assert [tfa.tensor_core_route(op, torch.bfloat16, hd)
+            for op in tfa.OPS] == [True, True, False, False]
+    tol = CARD_TOL["bfloat16"]
+    rng = np.random.RandomState(S + hd)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   .to(cuda, torch.bfloat16)
+                   for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd),
+                             (B, S, H, hd)))
+    cos, sin = rope_table(hd, 10000.0, S, device=cuda)
+    before = dict(tfa.LAUNCHES)
+    out, lse = tfa.flash_fwd(q, k, v, cos, sin, True)
+    args = (q, k, v, cos, sin, out, lse, do, True)
+    fused = tfa.flash_bwd_fused(*args)
+    dq_s = tfa.flash_bwd_dq(*args)
+    dk_h, dv_h = tfa.flash_bwd_dkdv(*args)
+    torch.cuda.synchronize()
+    assert {n: tfa.LAUNCHES[n] - before[n] for n in before} == \
+        dict.fromkeys(tfa.OPS, 1)
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    p_out, p_lse = tfa._plain_fwd(q, k, v, cos, sin, True)
+    assert (out.float() - p_out.float()).abs().max().item() <= tol["out"]
+    assert (lse - p_lse).abs().max().item() <= tol["lse"]
+    del p_out, p_lse
+    for a, b in zip(fused, tfa._plain_bwd_fused(*args)):
+        assert rel(a, b) <= tol["grad"]
+    assert rel(dq_s, tfa._plain_bwd_dq(*args)) <= tol["grad"]
+    p_dk_h, p_dv_h = tfa._plain_bwd_dkdv_per_head(*args)
+    assert rel(dk_h, p_dk_h) <= tol["grad"]
+    assert rel(dv_h, p_dv_h) <= tol["grad"]

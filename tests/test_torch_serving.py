@@ -136,6 +136,52 @@ def test_concurrent_rows_and_preemption_keep_streams(ref):
         st["prefix_cache"]["bytes"] // eng._block_bytes
 
 
+def test_reference_constructor_arguments_preempt_and_requeue(ref):
+    """The reference's exhaustion case
+    (``tests/test_kv_blocks.py::test_preempt_requeue_exhaustion``) with
+    its constructor arguments: ``kv_blocks=6`` at block 16 leaves 5
+    usable blocks, and two rows that each grow to 3 cannot both fit; the
+    watermarks at 0.0 keep admission open. A row whose growth fails
+    preempts a resident without pending tokens or, in the pipelined tick
+    where both rows have some, waits a tick (the reference asserts only
+    the streams, too). Greedy streams stay the chain's, the allocator
+    keeps the watermarks, and ``batch`` takes the place of
+    ``max_batch``."""
+    params, chains, preset = ref
+    eng = srv.LlamaEngine(preset=preset, max_batch=2, max_seq=64,
+                          kv_layout="paged", kv_blocks=6,
+                          kv_low_watermark=0.0, kv_high_watermark=0.0,
+                          prefix_cache_mb=0, device="cpu", params=params)
+    results = [None] * 2
+    try:
+        assert (eng._alloc.low_watermark, eng._alloc.high_watermark) == \
+            (0.0, 0.0)
+
+        def worker(i):
+            results[i] = eng.generate(PROMPTS[i], max_tokens=30,
+                                      timeout_s=120)
+
+        ths = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=180)
+        st = eng.stats()
+    finally:
+        eng.close()
+    assert [r["token_ids"] for r in results] == [c[:30] for c in chains[:2]]
+    assert st["kv_blocks"]["used"] == 0
+    wide = srv.LlamaEngine(preset=preset, batch=3, max_batch=2, max_seq=64,
+                           device="cpu", params=params)
+    try:
+        assert wide.max_batch == 3 and wide.stats()["max_batch"] == 3
+    finally:
+        wide.close()
+    with pytest.raises(ValueError, match="later port slice"):
+        srv.LlamaEngine(preset=preset, max_seq=64, device="cpu",
+                        params=params, metrics=object())
+
+
 def test_pipelined_streams_under_concurrent_admission(ref):
     """Five requests into two rows at once, whole-prompt prefill: rows
     finish and free while others decode, waiting requests are admitted

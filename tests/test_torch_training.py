@@ -178,7 +178,7 @@ def test_bf16_first_moment_option():
 
 # ---- trainer vs the JAX trainer ---------------------------------------------------
 
-def _jax_trainer(cfg_kw):
+def _jax_trainer(cfg_kw, preset="tiny"):
     import jax
 
     from kubedl_tpu.api.topology import MeshSpec
@@ -187,24 +187,35 @@ def _jax_trainer(cfg_kw):
     from kubedl_tpu.training import trainer as jt
 
     mesh = build_mesh(MeshSpec({"data": 1}), jax.devices()[:1])
-    model = dataclasses.replace(jl.TINY, **cfg_kw.pop("model", {}))
+    model = dataclasses.replace(jl.preset(preset), **cfg_kw.pop("model", {}))
     return jt.Trainer(jt.TrainConfig(model=model, attn_impl="dense",
                                      **cfg_kw), mesh)
 
 
-@pytest.mark.parametrize("accum,remat", [(1, False), (2, False), (1, True)],
-                         ids=["plain", "grad_accum2", "remat"])
-def test_trainer_reproduces_jax_trajectory(accum, remat):
-    """Six train steps on tiny from the same parameters and batches: the
-    JAX trainer (dense) and the port's (flash operators, CPU) agree on
-    every loss and grad norm within 1e-4 relative."""
+#: (preset, grad_accum, remat): tiny, and tiny-gemma (Gemma-2B's family:
+#: MQA, GeGLU, (1+w) norms, scaled tied embeddings) the same three ways
+TRAJECTORY_CASES = {
+    "plain": ("tiny", 1, False), "grad_accum2": ("tiny", 2, False),
+    "remat": ("tiny", 1, True),
+    "tiny-gemma-plain": ("tiny-gemma", 1, False),
+    "tiny-gemma-grad_accum2": ("tiny-gemma", 2, False),
+    "tiny-gemma-remat": ("tiny-gemma", 1, True),
+}
+
+
+@pytest.mark.parametrize("preset,accum,remat", list(TRAJECTORY_CASES.values()),
+                         ids=list(TRAJECTORY_CASES))
+def test_trainer_reproduces_jax_trajectory(preset, accum, remat):
+    """Six train steps on the preset from the same parameters and
+    batches: the JAX trainer (dense) and the port's (flash operators,
+    CPU) agree on every loss and grad norm within 1e-4 relative."""
     import jax
 
     kw = dict(global_batch=4, seq_len=64, steps=6, warmup_steps=2,
               learning_rate=1e-2, grad_accum=accum)
-    jtr = _jax_trainer(dict(kw, model={"remat": remat}))
+    jtr = _jax_trainer(dict(kw, model={"remat": remat}), preset)
     jstate = jtr.init_state()
-    model = dataclasses.replace(tl.TINY, remat=remat)
+    model = dataclasses.replace(tl.preset(preset), remat=remat)
     ttr = tt.Trainer(tt.TrainConfig(model=model, attn_impl="flash", **kw),
                      device="cpu")
     assert ttr.attn_impl == "flash"
@@ -212,7 +223,7 @@ def test_trainer_reproduces_jax_trajectory(accum, remat):
     tstate["params"] = tl.params_from_numpy(
         jax.tree.map(np.asarray, jstate["params"]), model, "cpu")
     tstate["opt_state"] = ttr.tx.init(tt.tree_leaves(tstate["params"]))
-    data = SyntheticTokens(4, 64, tl.TINY.vocab_size, seed=7)
+    data = SyntheticTokens(4, 64, model.vocab_size, seed=7)
     for _ in range(6):
         batch = next(data)
         jstate, jm = jtr.train_step(jstate, jtr.shard_batch(batch))
