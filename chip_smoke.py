@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py                # every phase, one card
     python3 chip_smoke.py --skip-engine  # without phases 5, 6, 13-19, 22
-    python3 chip_smoke.py --skip-train   # without phases 8 to 12, 21, 23
+    python3 chip_smoke.py --skip-train   # without phases 8 to 12, 21, 23, 24
 
 Phases (any failure exits non-zero before the final line):
 
@@ -10,9 +10,9 @@ Phases (any failure exits non-zero before the final line):
 2. build: compiles the port's CUDA sources (kubedl_tpu_torch/csrc) with
    nvcc for sm_90a (``-Xptxas -v``), one nvcc per source started
    together, and prints the build seconds; then, for each tensor-core
-   kernel (flash forward, fused backward and the split pair at hd 64 and
-   128, the forward and the fused backward at hd 256, paged prefill at
-   hd 64, 128 and 256), its registers and spill bytes (ptxas) and its
+   kernel (flash forward, fused backward and the split pair at hd 64,
+   128 and 256, paged prefill at hd 64, 128 and 256), its registers and
+   spill bytes (ptxas) and its
    count of HGMMA instructions (``cuobjdump -sass``), failing if one has
    none or if a split-pair or hd-256 flash kernel spills; the same for
    the W8A16
@@ -71,17 +71,24 @@ Phases (any failure exits non-zero before the final line):
    (SDPA's backward is also the split pair's: one call computes dq, dk and
    dv, so it is held against the pair's dq + dk/dv + group sum).
    Gemma-2B's training shape (B=4, H=8, KV=1, S=2048, hd 256, bf16,
-   causal, Gemma's RoPE tables, theta 10000) is timed the same way: the
-   forward and the fused backward on the tensor cores, the split pair on
-   the CUDA cores; each case prints every operator's route. Then the
-   split pair at the long-context training shape (B=1, H=32, KV=8,
-   S=32768, hd 64, bf16, causal, RoPE), where ``bwd_route`` is "split":
+   causal, Gemma's RoPE tables, theta 10000) is timed the same way, all
+   four operators on the tensor cores; each case prints every operator's
+   route. Then the split pair at the long-context training shape (B=1,
+   H=32, KV=8, S=32768, hd 64, bf16, causal, RoPE), where ``bwd_route``
+   is "split":
    against the plain versions run head by head (one q-head with its
    kv-head a call: one float32 score tensor of all 32 heads would be
    137 GB) and against the tensor-core fused kernel, with the same
    timings; and a head slice (H=4, KV=1, S=16384) through
    ``flash_backward`` with the split route forced, against the plain
-   versions run whole.
+   versions run whole. Then the split pair at Gemma-2B's 8192-token
+   context (B=1, H=8, KV=1, S=8192, hd 256, bf16, causal, theta 10000),
+   where ``bwd_route`` is "split": dq, dk_h, dv_h and the group-summed
+   dk/dv against the plain versions run head by head and against the
+   tensor-core fused kernel, timed against SDPA's backward and against
+   ``flash_backward`` with the fused route forced; at both Gemma-2B
+   shapes a MISS line (not a failure) where a kernel of the pair is over
+   6x its bound or the pair over 2.5x SDPA's backward.
 8. training: ``train_main`` with KUBEDL_TRAIN_CONFIG={"model":
    "llama3-1b", "global_batch": 4, "seq_len": 2048, "steps": 8} on the
    card, full width and depth, seeded random weights; gates on finite
@@ -109,9 +116,10 @@ Phases (any failure exits non-zero before the final line):
    tokens/s, MFU (6N flops a token: attention's flops left out), peak
    memory, and a one-step profile with the split pair's two kernels as
    their own categories.
-12. bf16 gate: llama3-1b width cut to 2 layers, bf16, B=1, S=32768: the
-   loss and every gradient leaf of one train step on the split route (the
-   route at this length) against the same step with the fused route
+12. bf16 gate: llama3-1b width cut to 2 layers, bf16, B=1, S=32768, and
+   Gemma-2B width cut to 2 layers, bf16, B=1, S=8192 (hd 256): the loss
+   and every gradient leaf of one train step on the split route (the
+   route at these lengths) against the same step with the fused route
    forced, within the tolerances stated in ``run_train_bf16_routes``.
 13. shared prefix: ``serve_main`` with Llama-3-8B bf16, full depth,
    ``prefix_cache_mb`` 512, whole-prompt prefill: 8 greedy requests share
@@ -204,6 +212,18 @@ Phases (any failure exits non-zero before the final line):
    torch.profiler: flash's share of device time, its device ms a launch,
    and the busy share.
 
+24. Gemma-2B at its published context: ``train_main`` with
+   KUBEDL_TRAIN_CONFIG=``GEMMA_LONG_TRAIN_CONFIG`` (``gemma-2b``, full
+   width and depth, b1 x s8192, 4 steps, seeded random weights; the
+   long-context policy ``loss_chunk=512,remat_policy=flash_rope``
+   applies); checked before the run: ``bwd_route(8192, 256)`` is "split"
+   and all four operators take the tensor cores at bf16 hd 256; gates as
+   phase 11's (18 flash_fwd, 18 flash_bwd_dq, 18 flash_bwd_dkdv and 0
+   flash_bwd_fused launches a step) and phase 8's optimizer counts;
+   prints step ms, tokens/s, MFU (6N) and peak memory, then from one step
+   after one unprofiled step the split pair's device ms a launch, its
+   share of device time and the busy share.
+
 20. the optimizer update (``csrc/adamw.cu``) against its plain version on
    Llama-3.2-1B's 11 leaves (seeded, bf16 parameters, float32 first
    moment) at a step that does not clip and one that clips, with the
@@ -224,7 +244,7 @@ Phases (any failure exits non-zero before the final line):
 
 Phase 16 runs after phase 4; phase 22, then phases 13-15 and 17-19 after
 phase 6 (they are skipped with ``--skip-engine``); phase 20 after phase
-7, then phase 23, and phase 21 after phase 12 (skipped with
+7, then phases 23 and 24, and phase 21 after phase 12 (skipped with
 ``--skip-train``).
 
 Output: the kernels' JSON line, then as the last line
@@ -529,14 +549,16 @@ TC_KERNELS = {"flash_fwd_tc_kernel": ("flash_attention.cu", ("",)),
               "flash_bwd_dq_tc_kernel": ("flash_attention.cu", ("",)),
               "paged_prefill_tc_kernel": ("paged_attention.cu", ("",))}
 #: the hd-256 tensor-core kernels: Gemma-2B's prefill (serving) and its
-#: training path's forward and fused backward
+#: training paths' forward, fused backward and split pair
 TC_KERNELS_HD256 = ("paged_prefill_tc_kernel<256>", "flash_fwd_tc_kernel<256>",
-                    "flash_bwd_tc_kernel<256, true>")
+                    "flash_bwd_tc_kernel<256, true>",
+                    "flash_bwd_dq_tc_kernel<256>",
+                    "flash_bwd_tc_kernel<256, false>")
 #: the split pair's tensor-core kernels and the hd-256 flash kernels, which
 #: must not spill
 NO_SPILL = ("flash_bwd_tc_kernel<64, false>", "flash_bwd_tc_kernel<128, false>",
             "flash_bwd_dq_tc_kernel<64>", "flash_bwd_dq_tc_kernel<128>",
-            "flash_fwd_tc_kernel<256>", "flash_bwd_tc_kernel<256, true>")
+            *TC_KERNELS_HD256[1:])
 
 
 def _kernel_key(mangled: str):
@@ -937,19 +959,25 @@ def group_sum(x, KV, dtype):
     return x.reshape(B, S, KV, H // KV, hd).sum(3).to(dtype)
 
 
-def run_flash_long(fa, records):
-    """Phase 7, long context: the split pair at LONG_FLASH against the
-    plain versions run head by head and against the tensor-core fused
-    kernel, timed as at S=2048 (plain: one call); then SLICE_FLASH through
-    ``flash_backward`` with the split route forced against the plain
-    versions run whole. The S=2048 records stay beside the new ones
-    under "s2048"."""
-    label, B, H, KV, S, hd, dtype, causal, rope = LONG_FLASH
-    if fa.bwd_route(S, hd) != "split":
-        fail(f"bwd_route({S}, {hd}) is not split")
+def long_pair_case(fa, records, case, suffix="", theta=500000.0):
+    """The split pair at a long-context ``case`` (bwd_route "split")
+    against the plain versions run head by head (one float32 score tensor
+    of all heads would not fit the card), its group-summed dk/dv against
+    the plain per-head versions' group sums and against the fused kernel
+    on the same inputs; then each kernel's time beside its bound, the
+    plain versions' (one call), SDPA's backward (the pair's yardstick),
+    the pair through ``flash_backward`` and the fused route forced
+    through it. The records replace ``records[name + suffix]``, whose
+    earlier (S=2048) fields stay under "s2048"."""
+    label, B, H, KV, S, hd, dtype, causal, rope = case
+    routes = flash_routes(fa, dtype, hd)
+    if fa.bwd_route(S, hd) != "split" or \
+            set(routes.values()) != {"tensor_core"}:
+        fail(f"flash {label}: bwd_route {fa.bwd_route(S, hd)}, routes "
+             f"{routes}")
     tol = FLASH_TOL[dtype]["grad"]
     q, k, v, do, cos, sin = flash_inputs(B, H, KV, S, hd, dtype, rope,
-                                         seed=S + hd)
+                                         seed=S + hd, theta=theta)
     out, lse = fa.flash_fwd(q, k, v, cos, sin, causal)
     args = (q, k, v, cos, sin, out, lse, do, causal)
     dq = fa.flash_bwd_dq(*args)
@@ -965,6 +993,8 @@ def run_flash_long(fa, records):
         "flash_bwd_dq": _grad_err(dq, p_dq),
         "flash_bwd_dkdv": max(_grad_err(dk_h, p_dk_h),
                               _grad_err(dv_h, p_dv_h)),
+        "group_sums": max(_grad_err(split[1], group_sum(p_dk_h, KV, dtype)),
+                          _grad_err(split[2], group_sum(p_dv_h, KV, dtype))),
         "split_vs_fused": max(_grad_err(a, b) for a, b in zip(split, fused)),
     }
     abs_errs = {"flash_bwd_dq": _max_err(dq, p_dq),
@@ -975,12 +1005,13 @@ def run_flash_long(fa, records):
     if not all(e <= tol for e in errs.values()):
         fail(f"flash {label}: out of tolerance {tol}: {json.dumps(errs)}")
     print(f"flash {label} bf16 causal rope (plain by head): "
-          + json.dumps(errs), flush=True)
+          + json.dumps(errs) + " routes " + json.dumps(routes), flush=True)
     _, sdpa_bwd = sdpa_flash_yardsticks(q, k, v, do, cos, sin, fa)
     lib_ms = time_ms(sdpa_bwd, reps=20)
     with forced_route(fa, "split"):
         pair_ms = time_ms(lambda: fa.flash_backward(*args), reps=20)
-    fused_ms = time_ms(lambda: fa.flash_bwd_fused(*args), reps=20)
+    with forced_route(fa, "fused"):
+        fused_ms = time_ms(lambda: fa.flash_backward(*args), reps=20)
     del sdpa_bwd
     _free()
     shape = (B, H, KV, S, hd, dtype, causal, rope)
@@ -990,24 +1021,33 @@ def run_flash_long(fa, records):
     for name, (kern, plain_ms) in calls.items():
         rec = {"max_abs_err": abs_errs[name],
                "max_err_over_max_grad": errs[name],
+               "group_sums": errs["group_sums"],
                "split_vs_fused": errs["split_vs_fused"],
                "ms": time_ms(kern, reps=20),
                "call_ms": time_ms(kern, reps=5, warmup=1, hide_host=False),
                "plain_ms": plain_ms, "plain_calls": H,
                "library_ms": lib_ms, "library_call_ms": None,
-               "pair_ms": pair_ms, "fused_ms": fused_ms}
+               "pair_ms": pair_ms, "fused_ms": fused_ms,
+               "route": routes[name]}
         rec["bound_ms"], rec["bound_by"] = flash_bound(name, *shape)
         rec["shape"] = f"B={B} H={H} KV={KV} S={S} hd={hd} bf16 " \
                        f"causal={causal} rope={rope}"
-        rec["s2048"] = {key: records[name].get(key) for key in (
+        rec["s2048"] = {key: records[name + suffix].get(key) for key in (
             "ms", "call_ms", "plain_ms", "library_ms", "pair_ms",
-            "bound_ms", "max_abs_err", "shape")}
-        records[name] = rec
-        print(f"{name} timed (long context): " + json.dumps(rec), flush=True)
+            "bound_ms", "max_abs_err", "shape", "route")}
+        records[name + suffix] = rec
+        print(f"{name} timed ({label}): " + json.dumps(rec), flush=True)
     del q, k, v, do, out, lse, dq, dk_h, dv_h, args
     _free()
 
+
+def run_flash_long(fa, records):
+    """Phase 7, long context: the split pair at LONG_FLASH
+    (``long_pair_case``); then SLICE_FLASH through ``flash_backward``
+    with the split route forced against the plain versions run whole."""
+    long_pair_case(fa, records, LONG_FLASH)
     label, B, H, KV, S, hd, dtype, causal, rope = SLICE_FLASH
+    tol = FLASH_TOL[dtype]["grad"]
     q, k, v, do, cos, sin = flash_inputs(B, H, KV, S, hd, dtype, rope,
                                          seed=S + hd)
     out, lse = fa.flash_fwd(q, k, v, cos, sin, causal)
@@ -1035,6 +1075,45 @@ def run_flash_long(fa, records):
         fail(f"flash {label}: out of tolerance {tol}: {json.dumps(errs)}")
     print(f"flash {label} bf16 causal rope, split forced (plain whole): "
           + json.dumps(errs), flush=True)
+
+
+#: Gemma-2B at its published 8192-token context (phase 24's shape):
+#: bwd_route(8192, 256) is "split", so every backward takes the pair
+GEMMA_LONG_FLASH = ("gemma-2b 8k", 1, 8, 1, 8192, 256, torch.bfloat16, True,
+                    True)
+#: the hd-256 split pair's aims: each kernel within this many times its
+#: bound, and the pair (dq + dk/dv + the group sum) within this many times
+#: SDPA's backward; a miss prints a MISS line and does not fail the run
+PAIR_AIMS = {"bound": 6.0, "library": 2.5}
+
+
+def pair_aims(label, recs):
+    """A MISS line for each of PAIR_AIMS that the split pair's timed
+    records ``recs`` (by operator) miss at one shape."""
+    for name, rec in recs.items():
+        if rec["ms"] > PAIR_AIMS["bound"] * rec["bound_ms"]:
+            print(f"MISS: {name} ({label}) {rec['ms']} ms = "
+                  f"{rec['ms'] / rec['bound_ms']:.2f}x its bound "
+                  f"{rec['bound_ms']} ms (aim {PAIR_AIMS['bound']}x)",
+                  flush=True)
+    rec = recs[PAIR[0]]
+    if rec["pair_ms"] > PAIR_AIMS["library"] * rec["library_ms"]:
+        print(f"MISS: the split pair ({label}) {rec['pair_ms']} ms = "
+              f"{rec['pair_ms'] / rec['library_ms']:.2f}x SDPA's backward "
+              f"{rec['library_ms']} ms (aim {PAIR_AIMS['library']}x)",
+              flush=True)
+
+
+def run_flash_gemma_long(fa, records):
+    """Phase 7, Gemma-2B's long context: the split pair at
+    GEMMA_LONG_FLASH (``long_pair_case``, Gemma's RoPE tables; all four
+    operators on the tensor cores), with a MISS line for each of
+    PAIR_AIMS missed at either Gemma-2B shape."""
+    pair_aims("gemma-2b train S=2048",
+              {name: records[name + "_hd256"] for name in PAIR})
+    long_pair_case(fa, records, GEMMA_LONG_FLASH, "_hd256", theta=10000.0)
+    pair_aims(GEMMA_LONG_FLASH[0],
+              {name: records[name + "_hd256"] for name in PAIR})
 
 
 # ---- phases 8 to 10: training ------------------------------------------------
@@ -1156,6 +1235,26 @@ GEMMA_PROFILE_KERNELS = {"flash_fwd": ("flash_fwd", 1),
                          "flash_bwd_fused": ("flash_bwd", 4)}
 
 
+def profile_one_step(fa, model, B, S, seed, label):
+    """One train step of ``model`` at B x S after one unprofiled step,
+    under torch.profiler (``profile_train_steps``): its record and the
+    flash launches of the profiled step."""
+    from kubedl_tpu_torch.training.data import SyntheticTokens
+    from kubedl_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    tr = Trainer(TrainConfig(model=model, global_batch=B, seq_len=S,
+                             steps=2, warmup_steps=1, attn_impl="flash"))
+    state = tr.init_state()
+    batch = next(iter(SyntheticTokens(B, S, model.vocab_size, seed=seed)))
+    state, _ = tr.train_step(state, batch)
+    _reset(fa)
+    _, prof = profile_train_steps(tr, state, batch, 1, label)
+    launches = dict(fa.LAUNCHES)
+    del tr, state, batch
+    _free()
+    return prof, launches
+
+
 def run_gemma_train(fa, llama_mod):
     """Phase 23: ``train_main`` at GEMMA_TRAIN_CONFIG: per step 18
     flash_fwd and 18 flash_bwd_fused launches (the tensor-core kernels at
@@ -1164,9 +1263,6 @@ def run_gemma_train(fa, llama_mod):
     flash's share of the device time and its device ms a launch. MFU is
     the trainer's 6N flops a token, which leaves attention's flops out.
     Returns the launches and the summary the kernels line reads."""
-    from kubedl_tpu_torch.training.data import SyntheticTokens
-    from kubedl_tpu_torch.training.trainer import TrainConfig, Trainer
-
     cfg = GEMMA_TRAIN_CONFIG
     model = dataclasses.replace(llama_mod.preset(cfg["model"]),
                                 loss_chunk=cfg["loss_chunk"])
@@ -1183,17 +1279,8 @@ def run_gemma_train(fa, llama_mod):
     rec["routes"] = routes
     print("train_main gemma-2b (smoke run, not a benchmark): "
           + json.dumps(rec), flush=True)
-    tr = Trainer(TrainConfig(model=model, global_batch=B, seq_len=S,
-                             steps=2, warmup_steps=1, attn_impl="flash"))
-    state = tr.init_state()
-    batch = next(iter(SyntheticTokens(B, S, model.vocab_size, seed=4)))
-    state, _ = tr.train_step(state, batch)
-    _reset(fa)
-    state, prof = profile_train_steps(tr, state, batch, 1,
+    prof, per_step = profile_one_step(fa, model, B, S, 4,
                                       f"{cfg['model']} b{B} s{S}")
-    per_step = dict(fa.LAUNCHES)
-    del tr, state, batch
-    _free()
     cats, counts = prof["by_category_ms"], prof["by_category_kernels"]
     flash_ms = sum(v for k, v in cats.items() if k.startswith("flash"))
     # device ms a launch in the profiled step, over the launches the
@@ -1222,6 +1309,12 @@ def run_gemma_train(fa, llama_mod):
 LONG_TRAIN_CONFIG = {"model": "llama3-1b", "global_batch": 1,
                      "seq_len": 32768, "steps": 4, "log_every": 1}
 LONG_POLICY = "loss_chunk=512,remat_policy=flash_rope"
+#: phase 24's path: Gemma-2B at full width and depth at its published
+#: 8192-token context, random weights from the seed, synthetic tokens;
+#: the trainer's long-context policy applies (``loss_chunk`` 512, remat
+#: "flash_rope") and ``bwd_route(8192, 256)`` is "split"
+GEMMA_LONG_TRAIN_CONFIG = {"model": "gemma-2b", "global_batch": 1,
+                           "seq_len": 8192, "steps": 4, "log_every": 1}
 
 
 def run_long_context_train(fa, llama_mod):
@@ -1230,9 +1323,6 @@ def run_long_context_train(fa, llama_mod):
     re-runs it), 16 flash_bwd_dq, 16 flash_bwd_dkdv, 0 flash_bwd_fused.
     Then one step (after one unprofiled) under torch.profiler. MFU is the
     trainer's 6N flops a token, which leaves attention's flops out."""
-    from kubedl_tpu_torch.training.data import SyntheticTokens
-    from kubedl_tpu_torch.training.trainer import TrainConfig, Trainer
-
     cfg = LONG_TRAIN_CONFIG
     model = llama_mod.preset(cfg["model"])
     if fa.bwd_route(cfg["seq_len"], model.head_dim) != "split":
@@ -1244,35 +1334,88 @@ def run_long_context_train(fa, llama_mod):
     print("train_main llama3-1b long context (smoke run, not a benchmark): "
           + json.dumps(rec), flush=True)
     B, S = cfg["global_batch"], cfg["seq_len"]
-    tr = Trainer(TrainConfig(model=model, global_batch=B, seq_len=S,
-                             steps=2, warmup_steps=1, attn_impl="flash"))
-    state = tr.init_state()
-    batch = next(iter(SyntheticTokens(B, S, model.vocab_size, seed=2)))
-    state, _ = tr.train_step(state, batch)
-    profile_train_steps(tr, state, batch, 1, f"{cfg['model']} b{B} s{S}")
-    del tr, state
-    _free()
+    profile_one_step(fa, model, B, S, 2, f"{cfg['model']} b{B} s{S}")
     return {k: launches[k] for k in PAIR}
 
 
-def run_train_bf16_routes(fa, llama_mod):
-    """Phase 12: llama3-1b width cut to 2 layers, bf16, B=1, S=32768, one
-    seeded init: the loss and gradients of one train step on the split
-    route (the route at this length) against the same step with the fused
-    route forced. Gates: the loss within 1e-5 relative (both routes run
-    the same forward kernels); every gradient leaf within 3e-2 of its max
-    |grad|. Why 3e-2: the two backward kernels round P and dS to bf16
-    from float32 scores summed in other orders, and the split route rounds
-    each q-head's dk/dv to bf16 before the group sum where the fused one
-    sums in float32 and rounds once, so dq, dk and dv differ by one or two
-    bf16 ulps (2^-8 relative) of the largest element; the weight
-    gradients round once more (bf16 products) and layer 0's pass through
-    layer 1's backward: about eight ulps of the largest gradient."""
+def run_gemma_long_train(fa, llama_mod):
+    """Phase 24: ``train_main`` at GEMMA_LONG_TRAIN_CONFIG (Gemma-2B at its
+    published 8192-token context). Checked before the run:
+    ``bwd_route(8192, 256)`` is "split" and all four operators take the
+    tensor cores at bf16 hd 256. Per step: 18 flash_fwd ("flash_rope"
+    saves the forward's outputs), 18 flash_bwd_dq, 18 flash_bwd_dkdv, 0
+    flash_bwd_fused; the long-context policy string. Then one step (after
+    one unprofiled) under torch.profiler: the split pair's device ms a
+    launch, its share of the device time, and the busy share. MFU is the
+    trainer's 6N flops a token, which leaves attention's flops out.
+    Returns the launches and the summary the kernels line reads."""
+    cfg = GEMMA_LONG_TRAIN_CONFIG
+    model = llama_mod.preset(cfg["model"])
+    hd, B, S = model.head_dim, cfg["global_batch"], cfg["seq_len"]
+    routes = flash_routes(fa, model.dtype, hd)
+    if fa.bwd_route(S, hd) != "split" or \
+            set(routes.values()) != {"tensor_core"}:
+        fail(f"gemma-2b s{S}: bwd_route {fa.bwd_route(S, hd)}, routes "
+             f"{routes}")
+    t0 = time.perf_counter()
+    launches, rec = train_main_run(
+        fa, llama_mod, cfg,
+        {"flash_fwd": 1, "flash_bwd_fused": 0, "flash_bwd_dq": 1,
+         "flash_bwd_dkdv": 1}, policy=LONG_POLICY)
+    rec["routes"] = routes
+    print("train_main gemma-2b long context (smoke run, not a benchmark): "
+          + json.dumps(rec), flush=True)
+    prof, per_step = profile_one_step(fa, model, B, S, 5,
+                                      f"{cfg['model']} b{B} s{S}")
+    cats, counts = prof["by_category_ms"], prof["by_category_kernels"]
+    # device ms a launch of each split kernel in the profiled step, over
+    # the launches the profiler saw (it may miss the first of its window)
+    in_model = {op: cats.get(op, 0.0) / max(counts.get(op, 0), 1)
+                for op in PAIR}
+    pair_ms = sum(cats.get(op, 0.0) for op in PAIR)
+    summary = {"pair_ms": pair_ms,
+               "pair_share": pair_ms / prof["device_ms"]
+               if prof["device_ms"] else None,
+               "busy_share": prof["busy_share"],
+               "in_model_ms": in_model, "profiled_launches": per_step,
+               "step_time_ms": rec["step_time_ms"], "mfu": rec["mfu"],
+               "tokens_per_sec": rec["tokens_per_sec"],
+               "max_memory_allocated_gib": rec["max_memory_allocated_gib"],
+               "phase_seconds": time.perf_counter() - t0}
+    print("gemma-2b long-context training, the split pair in the profiled "
+          "step: " + json.dumps(summary), flush=True)
+    return {k: launches[k] for k in PAIR}, summary
+
+
+#: phase 12's configurations: (preset, seq_len), phase 11's and phase
+#: 24's, each at a length where the split pair is the route (hd 64 and,
+#: MQA with a group of 8, hd 256)
+BF16_ROUTE_GATES = tuple((cfg["model"], cfg["seq_len"])
+                         for cfg in (LONG_TRAIN_CONFIG,
+                                     GEMMA_LONG_TRAIN_CONFIG))
+
+
+def run_train_bf16_routes(fa, llama_mod, preset, S):
+    """Phase 12: ``preset``'s width cut to 2 layers, bf16, B=1, ``S``
+    tokens, one seeded init: the loss and gradients of one train step on
+    the split route (the route at this length) against the same step with
+    the fused route forced. Gates: the loss within 1e-5 relative (both
+    routes run the same forward kernels); every gradient leaf within 3e-2
+    of its max |grad|. Why 3e-2: the two backward kernels round P and dS
+    to bf16 from float32 scores summed in other orders, and the split
+    route rounds each q-head's dk/dv to bf16 before the group sum where
+    the fused one sums in float32 and rounds once, so dq, dk and dv differ
+    by one or two bf16 ulps (2^-8 relative) of the largest element; the
+    weight gradients round once more (bf16 products) and layer 0's pass
+    through layer 1's backward: about eight ulps of the largest
+    gradient."""
     from kubedl_tpu_torch.training.data import SyntheticTokens
     from kubedl_tpu_torch.training.trainer import TrainConfig, Trainer
 
-    model = dataclasses.replace(llama_mod.preset("llama3-1b"), n_layers=2)
-    S = LONG_TRAIN_CONFIG["seq_len"]
+    model = dataclasses.replace(llama_mod.preset(preset), n_layers=2)
+    if fa.bwd_route(S, model.head_dim) != "split":
+        fail(f"bf16 routes {preset}: bwd_route({S}, {model.head_dim}) is "
+             f"not split")
     batch = next(iter(SyntheticTokens(1, S, model.vocab_size, seed=3)))
     runs = {}
     for route in ("split", "fused"):
@@ -1300,7 +1443,7 @@ def run_train_bf16_routes(fa, llama_mod):
         fail(f"bf16 routes did not run as forced: {json.dumps(report)}")
     if not (math.isfinite(l_s) and rel <= 1e-5 and gerr <= 3e-2):
         fail(f"bf16 2-layer split vs fused: {json.dumps(report)}")
-    print("bf16 2-layer llama3-1b width s32768, split vs fused: "
+    print(f"bf16 2-layer {preset} width s{S}, split vs fused: "
           + json.dumps(report), flush=True)
 
 
@@ -3600,7 +3743,7 @@ def main() -> int:
                     help="skip the serving engine (phases 5, 6, 13-15, "
                     "17-19, 22)")
     ap.add_argument("--skip-train", action="store_true",
-                    help="skip the training phases (8 to 12, 21, 23)")
+                    help="skip the training phases (8 to 12, 21, 23, 24)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs a GPU", file=sys.stderr)
@@ -3732,6 +3875,7 @@ def main() -> int:
 
     kernels.update(run_flash_kernels(fa))
     run_flash_long(fa, kernels)
+    run_flash_gemma_long(fa, kernels)
     stamp("phase 7")
     with torch.no_grad():
         kernels["adamw_update"] = run_adamw_kernels(adamw, llama_mod)
@@ -3739,9 +3883,12 @@ def main() -> int:
     launches.update({name: None for name in FLASH_REPLACES})
     opt_launches = {}
     gemma_train, gemma_launches = {}, {}
+    gemma_long, gemma_long_launches = {}, {}
     if not args.skip_train:
         gemma_launches, gemma_train = run_gemma_train(fa, llama_mod)
         stamp("phase 23")
+        gemma_long_launches, gemma_long = run_gemma_long_train(fa, llama_mod)
+        stamp("phase 24")
         flash_launches, opt_launches = run_train_entry(fa, llama_mod)
         launches.update(flash_launches)
         run_overfit_and_split(fa, llama_mod)
@@ -3751,7 +3898,8 @@ def main() -> int:
         # the split pair's main path: the long-context training run
         launches.update(run_long_context_train(fa, llama_mod))
         stamp("phase 11")
-        run_train_bf16_routes(fa, llama_mod)
+        for preset, seq_len in BF16_ROUTE_GATES:
+            run_train_bf16_routes(fa, llama_mod, preset, seq_len)
         stamp("phase 12")
         run_lifecycle(fa, adamw, pa, ck, llama_mod, server_mod)
         run_lifecycle_identity(fa, ck, llama_mod)
@@ -3841,15 +3989,19 @@ def main() -> int:
                            FLASH_REPLACES[name], launches[name],
                            kernels[name],
                            "tensor_core" if tc else "cuda_core"))
-    # Gemma-2B's training path (hd 256): timed at phase 7's Gemma-2B case,
-    # launches from phase 23's main path, device ms a launch from its
-    # profiled step
-    for name in GEMMA_TRAIN_OPS:
+    # Gemma-2B's training paths (hd 256): the forward and the fused
+    # backward timed at phase 7's Gemma-2B case, launches from phase 23's
+    # main path, device ms a launch from its profiled step; the split pair
+    # timed at phase 7's 8192-token case (its S=2048 times under "s2048"),
+    # launches and device ms a launch from phase 24's
+    for name, counts, path in (
+            [(n, gemma_launches, gemma_train) for n in GEMMA_TRAIN_OPS]
+            + [(n, gemma_long_launches, gemma_long) for n in PAIR]):
         rec = record(name + "_hd256",
                      "kubedl_tpu_torch/csrc/flash_attention.cu",
-                     FLASH_REPLACES[name], gemma_launches.get(name),
+                     FLASH_REPLACES[name], counts.get(name),
                      kernels[name + "_hd256"], kernels[name + "_hd256"]["route"])
-        rec["in_model_ms"] = gemma_train.get("in_model_ms", {}).get(name)
+        rec["in_model_ms"] = path.get("in_model_ms", {}).get(name)
         line.append(rec)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -42,11 +42,10 @@
 // table, and kdl_flash_route reports it). There is no fallback between
 // them: a refused launch returns its error.
 //
-// 1. Tensor cores (bf16 at hd 64 and 128 for all four operators, and at
-//    hd 256 for the forward and the fused backward; flash_fwd_tc_kernel,
-//    flash_bwd_tc_kernel<HD, kFused> for the fused backward and the split
-//    dk/dv, flash_bwd_dq_tc_kernel for the split dq, the fused route's dq
-//    finish, two pre-passes):
+// 1. Tensor cores (bf16 at hd 64, 128 and 256 for all four operators;
+//    flash_fwd_tc_kernel, flash_bwd_tc_kernel<HD, kFused> for the fused
+//    backward and the split dk/dv, flash_bwd_dq_tc_kernel for the split
+//    dq, the fused route's dq finish, two pre-passes):
 //    - Every product is a warpgroup wgmma.mma_async (sm_90a) on bf16
 //      tiles in 128-byte-swizzled shared memory, accumulating in float32
 //      registers. Forward: a CTA owns 192 q rows, three warpgroups of 64
@@ -82,14 +81,19 @@
 //      64 x TcDqWGs q rows of one q-head (a warpgroup per 64) and walks
 //      the visible K/V tiles of its kv-head, streamed by a producer warp
 //      through a two-stage ring against "empty" barriers, as the forward
-//      does; per tile S = Q.K^T and dP = dO.V^T from shared memory, P and
+//      does (at hd 256: 32-key tiles three deep, and a producer warpgroup
+//      that hands its registers to the consumers, as the forward's); per
+//      tile S = Q.K^T and dP = dO.V^T from shared memory, P and
 //      dS in registers (the {lse, D} of each thread's two rows read once),
 //      and dQ += dS.K with dS as the register A operand and K read
 //      MN-major. dQ lives in float32 registers for the whole loop and is
 //      written once, inverse-rotated in registers (a thread holds columns
 //      c and c + hd/2 of its rows): no workspace, no cross-CTA sum, no
 //      finishing kernel. Tiles above a warpgroup's diagonal are waited on
-//      and released, not multiplied.
+//      and released, not multiplied. At hd 256 the dk/dv kernel is the
+//      fused hd-256 kernel's layout (64 keys of one q-head a CTA, WG0 dV,
+//      WG1 dK) without its dQ work, writing dk_h / dv_h from registers
+//      (flash_bwd_tc_kernel<256, false> below).
 //    - Tiles arrive by TMA (cp.async.bulk.tensor, 4-D maps over
 //      [B, S, heads, hd] with 128-byte swizzle = one 64-wide bf16 panel,
 //      an mbarrier per stage), two stages: the next K/V (forward, issued
@@ -116,10 +120,7 @@
 //    two score tiles in registers; ptxas serialised the wgmmas when that
 //    was tried, and it is left for a later change.
 // 2. CUDA cores (float32 at every hd, where TF32 tensor cores would break
-//    the float32 contract; the split pair at bf16 hd 256, whose dq kernel
-//    would need the forward's register handover for 128 dQ registers a
-//    thread, and whose dk/dv kernel would need the fused backward's split
-//    of dK and dV over two warpgroups), whose design follows:
+//    the float32 contract), whose design follows:
 // - The TPU grid walked (q block, k block) tiles in order and carried
 //   the softmax state, and the fused backward's whole-sequence dk/dv, in
 //   VMEM scratch from one grid step to the next. Hopper blocks run in no
@@ -736,14 +737,14 @@ enum Which { kFwd, kBwdFused, kBwdDq, kBwdDkdv };
 
 // Static route, per operator: the head widths whose bf16 kernels take the
 // tensor cores (ops/flash_attention.py's TENSOR_CORE_HEAD_DIMS is the same
-// table). At hd 256 only the forward and the fused backward have them;
-// the split pair there still runs the CUDA-core kernels.
+// table): every width for all four operators; float32 stays on the CUDA
+// cores.
 constexpr bool tc_head_dim(Which w, int hd) {
   switch (w) {
     case kFwd: return hd == 64 || hd == 128 || hd == 256;
     case kBwdFused: return hd == 64 || hd == 128 || hd == 256;
-    case kBwdDq: return hd == 64 || hd == 128;
-    case kBwdDkdv: return hd == 64 || hd == 128;
+    case kBwdDq: return hd == 64 || hd == 128 || hd == 256;
+    case kBwdDkdv: return hd == 64 || hd == 128 || hd == 256;
   }
   return false;
 }
@@ -1288,30 +1289,43 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 // times over: the staging tiles' 8-float chunks are XOR-swizzled by row
 // (swizzled_col), the workspaces keep that order, and the finishing
 // kernels undo it.
+//
+// The split dk/dv at hd 256 (flash_bwd_tc_kernel<256, false>) is the same
+// kernel with the dQ work taken out: a CTA owns 64 keys against ONE
+// q-head's causal q tiles, WG0 keeps dV and WG1 dK as above, four
+// products a tile (S^T, dP^T, dV, dK; no dS^T staging, no dQ product or
+// reduce), and each CTA writes its head's dk_h / dv_h straight from
+// registers, rounded, dK scaled and inverse-rotated in float32 (columns c
+// and c + 128 of a row sit in one thread): no workspace, no finishing
+// kernel; the group sum stays outside, in flash_backward (the reference's
+// split contract). The generic flash_bwd_tc_kernel<HD, false> (128 keys a
+// CTA, dK and dV in one warpgroup's registers) would need 256
+// accumulator registers a thread here.
 constexpr int kTc256BK = 64;  // keys a CTA
 constexpr uint32_t kTc256Stage = 2 * kTcBwdBQ * 256 * 2;  // Q + dO of a tile
 
+template <bool kFused>
 constexpr size_t bwd_tc256_smem_bytes() {
-  return 1024 + 2 * (size_t)kTc256BK * 256 * 2  // K, V
-         + 2 * (size_t)kTc256Stage               // Q, dO x 2 stages
-         + (size_t)kTc256BK * kTcBwdBQ * 2       // dS^T
-         + (size_t)kTc256BK * kTcBwdBQ * 4       // P^T, float32
-         + 2 * (size_t)kTcBwdBQ * 8 + 64;         // stats x 2, barriers
+  return 1024 + 2 * (size_t)kTc256BK * 256 * 2       // K, V
+         + 2 * (size_t)kTc256Stage                    // Q, dO x 2 stages
+         + (kFused ? (size_t)kTc256BK * kTcBwdBQ * 2 : 0)  // dS^T
+         + (size_t)kTc256BK * kTcBwdBQ * 4            // P^T, float32
+         + 2 * (size_t)kTcBwdBQ * 8 + 64;              // stats x 2, barriers
 }
 
-template <>
-__global__ void __launch_bounds__(kTcThreads, 1)
-    flash_bwd_tc_kernel<256, true>(const __grid_constant__ TcMaps maps,
-                                   Params p) {
+template <bool kFused>
+__device__ __forceinline__ void bwd_tc256_body(const TcMaps& maps,
+                                               const Params& p) {
   constexpr int HD = 256, BK = kTc256BK, BQ = kTcBwdBQ, NP = HD / kPanel;
   constexpr uint32_t kKBytes = BK * HD * 2, kQBytes = BQ * HD * 2;
   constexpr uint32_t kStatBytes = BQ * 8;
+  constexpr uint32_t kDsBytes = kFused ? BK * BQ * 2 : 0;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sK = align1024(smem_raw);  // [NP][BK][128 B]
   uint8_t* sV = sK + kKBytes;
   uint8_t* sQ = sV + kKBytes;  // stage st at sQ + st * kTc256Stage: Q, then dO
   uint8_t* sDS = sQ + 2 * kTc256Stage;  // dS^T [BK keys][BQ q], swizzled
-  float* sP = reinterpret_cast<float*>(sDS + BK * BQ * 2);  // [32][128]
+  float* sP = reinterpret_cast<float*>(sDS + kDsBytes);  // [32][128]
   uint8_t* sStat = reinterpret_cast<uint8_t*>(sP + (BQ / 2) * 128);
   uint64_t* bar = reinterpret_cast<uint64_t*>(sStat + 2 * kStatBytes);
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
@@ -1343,8 +1357,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     fence_barrier_init();
   }
   __syncthreads();
-  // one thread of WG1 issues every copy and reduce: it waits for a dQ
-  // reduce's read while WG0 computes the next tile's P
+  // one thread of WG1 issues every copy and reduce: fused, it waits for a
+  // dQ reduce's read while WG0 computes the next tile's P
   const bool issuer = tid == 128;
   if (issuer) {
     mbar_expect_tx(&bar[0], 2 * kKBytes);
@@ -1364,9 +1378,6 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
   // S^T from K (WG0), dP^T from V (WG1)
   const uint8_t* ka = wg == 0 ? sK : sV;
-  // this warpgroup's half of dQ's columns (panels 2 wg, 2 wg + 1 of K), as
-  // the MN-major B operand
-  const uint8_t* kq = sK + 2 * wg * BK * 128;
   mbar_wait(&bar[0], 0);
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t & 1, q0 = (qt0 + t) * BQ;
@@ -1416,13 +1427,14 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     }
     if (issuer) {
       // stage st ^ 1 is free once tile t - 1's dQ reduce has read it
-      bulk_wait_read<0>();
+      if constexpr (kFused) bulk_wait_read<0>();
       if (t + 1 < n_tiles) load_q(t + 1);
     }
     __syncthreads();  // P^T is in sP
     if (wg == 1) {
-      // dS^T = P^T (dP^T - D), rounded to bf16 for dK (registers) and dQ
-      // (shared memory); the same thread of WG0 held the same elements
+      // dS^T = P^T (dP^T - D), rounded to bf16 for dK (registers) and,
+      // fused, dQ (shared memory); the same thread of WG0 held the same
+      // elements
 #pragma unroll
       for (int j = 0; j < BQ / 8; ++j) {
         float dsv[2][2];
@@ -1439,12 +1451,14 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         for (int i = 0; i < 2; ++i) {
           const uint32_t d2 = pack_bf16(dsv[i][0], dsv[i][1]);
           fa[j >> 1][(j & 1) * 2 + i] = d2;
-          const int r = row0 + 8 * i;  // key row of sDS
-          *reinterpret_cast<uint32_t*>(sDS + r * 128 + ((j ^ (r & 7)) << 4) +
-                                       col0 * 2) = d2;
+          if constexpr (kFused) {
+            const int r = row0 + 8 * i;  // key row of sDS
+            *reinterpret_cast<uint32_t*>(sDS + r * 128 +
+                                         ((j ^ (r & 7)) << 4) + col0 * 2) = d2;
+          }
         }
       }
-      fence_proxy_async();
+      if constexpr (kFused) fence_proxy_async();
     }
     // WG0: dV += P^T.dO; WG1: dK += dS^T.Q (register A, MN-major B across
     // the four 64-column panels)
@@ -1458,58 +1472,109 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     wg_commit();
     wg_wait_all();
     pin(acc);
-    __syncthreads();  // sDS holds dS^T; stage st's Q and dO are dead
-    float dq[HD / 4];  // dQ[:, 128 wg .. 128 wg + 127] = dS.K over the 64 keys
-    wg_fence();
+    if constexpr (kFused) {
+      __syncthreads();  // sDS holds dS^T; stage st's Q and dO are dead
+      // this warpgroup's half of dQ's columns (panels 2 wg, 2 wg + 1 of K),
+      // as the MN-major B operand
+      const uint8_t* kq = sK + 2 * wg * BK * 128;
+      float dq[HD / 4];  // dQ[:, 128 wg .. 128 wg + 127] = dS.K over the 64 keys
+      wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_ss<1, 1>(dq, sw128_desc(sDS + kk * 2048, BQ * 128, 1024),
-                     sw128_desc(kq + kk * 2048, BK * 128, 1024), kk > 0);
-    wg_commit();
-    wg_wait_all();
-    pin(dq);
-    // staged as float32 [BQ][HD] in stage st (columns as swizzled_col,
-    // which the workspace keeps), then one bulk reduce-add
-    float* sdq = reinterpret_cast<float*>(qb);
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_ss<1, 1>(dq, sw128_desc(sDS + kk * 2048, BQ * 128, 1024),
+                       sw128_desc(kq + kk * 2048, BK * 128, 1024), kk > 0);
+      wg_commit();
+      wg_wait_all();
+      pin(dq);
+      // staged as float32 [BQ][HD] in stage st (columns as swizzled_col,
+      // which the workspace keeps), then one bulk reduce-add
+      float* sdq = reinterpret_cast<float*>(qb);
 #pragma unroll
-    for (int j = 0; j < HD / 16; ++j)
+      for (int j = 0; j < HD / 16; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = row0 + 8 * i;
+          *reinterpret_cast<float2*>(
+              sdq + r * HD + swizzled_col(wg * HD / 2 + 8 * j, r) + col0) =
+              make_float2(dq[4 * j + 2 * i] * p.scale,
+                          dq[4 * j + 2 * i + 1] * p.scale);
+        }
+      fence_proxy_async();
+      __syncthreads();
+      if (issuer)
+        bulk_reduce_add(p.dq_ws + ((size_t)(b * p.H + h) * p.sq_pad + q0) * HD,
+                        sdq, BQ * HD * 4);
+    }
+  }
+  if constexpr (!kFused) {
+    // this head's dV (WG0) and dK (WG1, scaled and inverse-rotated) as
+    // dv_h / dk_h [B, Sk, H, hd], rounded once
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(wg == 0 ? p.dv : p.dk);
+    const float sc = wg == 0 ? 1.f : p.scale;
+    const bool rot = wg == 1 && p.rope;
+    constexpr int H2 = HD / 2, HJ = HD / 16;  // hd/2 is HJ blocks of 8
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int kj = krow + 8 * i;
+      if (kj >= p.Sk) continue;
+      const size_t base = ((size_t)(b * p.Sk + kj) * p.H + h) * HD;
+#pragma unroll
+      for (int j = 0; j < HJ; ++j) {
+        float x1[2], x2[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          x1[c] = acc[4 * j + 2 * i + c] * sc;
+          x2[c] = acc[4 * (j + HJ) + 2 * i + c] * sc;
+          if (rot) {
+            const size_t t = (size_t)kj * H2 + 8 * j + col0 + c;
+            rotate(x1[c], x2[c], p.cos[t], p.sin[t], true, x1[c], x2[c]);
+          }
+        }
+        *reinterpret_cast<uint32_t*>(out + base + 8 * j + col0) =
+            pack_bf16(x1[0], x1[1]);
+        *reinterpret_cast<uint32_t*>(out + base + H2 + 8 * j + col0) =
+            pack_bf16(x2[0], x2[1]);
+      }
+    }
+  } else {
+    if (issuer) bulk_wait_all();  // the last dQ reduce has read its stage
+    __syncthreads();
+    // this head's dV (WG0) and dK (WG1) as float32 [BK][HD] in stage wg
+    // (swizzled as dQ), each added to the group sum by one bulk reduce
+    float* sacc = reinterpret_cast<float*>(sQ + wg * kTc256Stage);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int r = row0 + 8 * i;
-        *reinterpret_cast<float2*>(
-            sdq + r * HD + swizzled_col(wg * HD / 2 + 8 * j, r) + col0) =
-            make_float2(dq[4 * j + 2 * i] * p.scale,
-                        dq[4 * j + 2 * i + 1] * p.scale);
+        *reinterpret_cast<float2*>(sacc + r * HD + swizzled_col(8 * j, r) +
+                                   col0) =
+            make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
       }
     fence_proxy_async();
     __syncthreads();
-    if (issuer)
-      bulk_reduce_add(p.dq_ws + ((size_t)(b * p.H + h) * p.sq_pad + q0) * HD,
-                      sdq, BQ * HD * 4);
-  }
-  if (issuer) bulk_wait_all();  // the last dQ reduce has read its stage
-  __syncthreads();
-  // this head's dV (WG0) and dK (WG1) as float32 [BK][HD] in stage wg
-  // (swizzled as dQ), each added to the group sum by one bulk reduce
-  float* sacc = reinterpret_cast<float*>(sQ + wg * kTc256Stage);
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = row0 + 8 * i;
-      *reinterpret_cast<float2*>(sacc + r * HD + swizzled_col(8 * j, r) +
-                                 col0) =
-          make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+    if (issuer) {
+      const size_t plane = (size_t)p.B * p.KV * p.sk_pad * HD;
+      const size_t rows = ((size_t)(b * p.KV + kvh) * p.sk_pad + k0) * HD;
+      bulk_reduce_add(p.dkv_ws + rows, sQ + kTc256Stage, BK * HD * 4);     // dK
+      bulk_reduce_add(p.dkv_ws + plane + rows, sQ, BK * HD * 4);          // dV
+      bulk_wait_all();
     }
-  fence_proxy_async();
-  __syncthreads();
-  if (issuer) {
-    const size_t plane = (size_t)p.B * p.KV * p.sk_pad * HD;
-    const size_t rows = ((size_t)(b * p.KV + kvh) * p.sk_pad + k0) * HD;
-    bulk_reduce_add(p.dkv_ws + rows, sQ + kTc256Stage, BK * HD * 4);     // dK
-    bulk_reduce_add(p.dkv_ws + plane + rows, sQ, BK * HD * 4);          // dV
-    bulk_wait_all();
   }
+}
+
+template <>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_bwd_tc_kernel<256, true>(const __grid_constant__ TcMaps maps,
+                                   Params p) {
+  bwd_tc256_body<true>(maps, p);
+}
+
+template <>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_bwd_tc_kernel<256, false>(const __grid_constant__ TcMaps maps,
+                                    Params p) {
+  bwd_tc256_body<false>(maps, p);
 }
 
 // The hd-256 fused backward's epilogue for dk / dv: the float32 group sums
@@ -1540,36 +1605,56 @@ __global__ void flash_dkv_finish_kernel(Params p) {
 }
 
 // Split dq: the q rows per CTA are 64 per consumer warpgroup: three at
-// hd 64, two at hd 128 (the dQ accumulator doubles there, so a third
-// warpgroup would push the registers a thread under what it needs).
+// hd 64, two at hd 128 and 256 (the dQ accumulator doubles at 128, so a
+// third warpgroup would push the registers a thread under what it needs).
 template <int HD>
 struct TcDqWGs {
   static constexpr int value = HD == 64 ? 3 : 2;
 };
-constexpr int kTcDqBK = 64;      // split dq: keys per K/V tile
-constexpr int kTcDqStages = 2;   // split dq: K/V tiles in flight
+// Keys per K/V tile and K/V tiles in flight: 64 x 2 at hd 64 / 128. At hd
+// 256, Q and dO of 128 rows take 128 KB, and two 64-key stages of K and V
+// another 128 KB, over the 227 KB a block may have: 32-key tiles, three
+// in flight (96 KB, 225 KB in all). One 64-key stage would serialise each
+// tile's loads with its products, and 64 q rows a CTA would load every
+// K/V tile twice as often with one consumer warpgroup an SM.
+template <int HD>
+struct TcDqBK {
+  static constexpr int value = HD == 256 ? 32 : 64;
+};
+template <int HD>
+struct TcDqStages {
+  static constexpr int value = HD == 256 ? 3 : 2;
+};
+// A producer warp issues the loads; at hd 256 a producer WARPGROUP that
+// hands its registers to the consumers, as the forward's (dQ is 128
+// float32 registers a thread beside S, dP and dS's A fragments).
+template <int HD>
+__host__ __device__ constexpr int dq_tc_threads() {
+  return TcDqWGs<HD>::value * 128 + (HD == 256 ? 128 : 32);
+}
 
 template <int HD>
 constexpr size_t dq_tc_smem_bytes() {
   return 1024 + 2 * (size_t)64 * TcDqWGs<HD>::value * HD * 2  // Q, dO
-         + 2 * kTcDqStages * (size_t)kTcDqBK * HD * 2         // K, V stages
+         + 2 * TcDqStages<HD>::value * (size_t)TcDqBK<HD>::value * HD * 2
          + 64;                                                  // barriers
 }
 
 // Split dq: one CTA per (64 x TcDqWGs q rows, b, q-head). Warpgroup wg
 // owns rows 64 wg .. 64 wg + 63 and walks the visible k tiles of kv-head
-// h / group, which one producer warp streams through a kTcDqStages ring
+// h / group, which the producer streams through a TcDqStages ring
 // against "empty" barriers (as the forward does). Per tile: S = Q.K^T and
 // dP = dO.V^T (shared memory), P = exp2(S - lse) and dS = P (dP - D) in
 // registers, dS rounded to bf16 where the accumulator fragment is already
-// the A operand of dQ += dS.K (K read MN-major). dQ stays in float32
-// registers across the whole loop and is written once (inverse-rotated
-// under rope): no workspace, no cross-CTA sum.
+// the A operand of dQ += dS.K (K read MN-major; at hd 256 one m64n256k16
+// a 16-key step across K's four panels). dQ stays in float32 registers
+// across the whole loop and is written once (inverse-rotated under rope):
+// no workspace, no cross-CTA sum.
 template <int HD>
-__global__ void __launch_bounds__(TcDqWGs<HD>::value * 128 + 32, 1)
+__global__ void __launch_bounds__(dq_tc_threads<HD>(), 1)
     flash_bwd_dq_tc_kernel(const __grid_constant__ TcMaps maps, Params p) {
-  constexpr int WGS = TcDqWGs<HD>::value, BQ = 64 * WGS, BK = kTcDqBK;
-  constexpr int NP = HD / kPanel, ST = kTcDqStages;
+  constexpr int WGS = TcDqWGs<HD>::value, BQ = 64 * WGS, BK = TcDqBK<HD>::value;
+  constexpr int NP = HD / kPanel, ST = TcDqStages<HD>::value;
   constexpr uint32_t kQBytes = BQ * HD * 2, kKBytes = BK * HD * 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = align1024(smem_raw);  // [NP panels][BQ rows][128 B]
@@ -1602,7 +1687,8 @@ __global__ void __launch_bounds__(TcDqWGs<HD>::value * 128 + 32, 1)
     fence_barrier_init();
   }
   __syncthreads();
-  if (tid >= WGS * 128) {  // the producer warp
+  if (tid >= WGS * 128) {  // the producer warp (warpgroup at hd 256)
+    if constexpr (HD == 256) setmaxnreg_dec<kTcProducerRegs>();
     if (tid == WGS * 128) {
       mbar_expect_tx(bar_q, 2 * kQBytes);
 #pragma unroll
@@ -1625,6 +1711,7 @@ __global__ void __launch_bounds__(TcDqWGs<HD>::value * 128 + 32, 1)
     }
     return;
   }
+  if constexpr (HD == 256) setmaxnreg_inc<kTcConsumerRegs>();
   // this thread's accumulator rows (row0, row0 + 8 of its warpgroup's 64)
   // and columns (col0, col0 + 1 of every 8: keys in S and dP, hd in dQ)
   const int row0 = 16 * warp + (lane >> 2), col0 = 2 * (lane & 3);
@@ -1832,7 +1919,7 @@ cudaError_t launch_bwd_fused_tc<256>(const Params& p, cudaStream_t st) {
   if (err != cudaSuccess) return err;
   const dim3 grid(p.B * p.H, p.sk_pad / kTc256BK);
   err = launch_tc(flash_bwd_tc_kernel<256, true>, grid, kTcThreads,
-                  bwd_tc256_smem_bytes(), st, maps, p);
+                  bwd_tc256_smem_bytes<true>(), st, maps, p);
   if (err != cudaSuccess) return err;
   flash_dq_finish_kernel<T, 256, true, true>
       <<<dim3(p.Sq, p.B), pair_threads(p.H, 256), 0, st>>>(p);
@@ -1843,12 +1930,13 @@ cudaError_t launch_bwd_fused_tc<256>(const Params& p, cudaStream_t st) {
 
 template <int HD>
 cudaError_t launch_bwd_dq_tc(const Params& p, cudaStream_t st) {
-  constexpr int WGS = TcDqWGs<HD>::value;
+  constexpr int BQ = 64 * TcDqWGs<HD>::value;
   TcMaps maps{};
-  const cudaError_t err = bwd_tc_prepare<HD>(p, st, maps, 64 * WGS, kTcDqBK);
+  const cudaError_t err =
+      bwd_tc_prepare<HD>(p, st, maps, BQ, TcDqBK<HD>::value);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + 64 * WGS - 1) / (64 * WGS), p.B * p.H);
-  return launch_tc(flash_bwd_dq_tc_kernel<HD>, grid, WGS * 128 + 32,
+  const dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.H);
+  return launch_tc(flash_bwd_dq_tc_kernel<HD>, grid, dq_tc_threads<HD>(),
                    dq_tc_smem_bytes<HD>(), st, maps, p);
 }
 
@@ -1861,6 +1949,20 @@ cudaError_t launch_bwd_dkdv_tc(const Params& p, cudaStream_t st) {
   const dim3 grid((p.Sk + kTcBwdBK - 1) / kTcBwdBK, p.B * p.H);
   return launch_tc(flash_bwd_tc_kernel<HD, false>, grid, kTcThreads,
                    bwd_tc_smem_bytes<HD, false>(), st, maps, p);
+}
+
+// hd 256: one CTA per (b, q-head, 64 keys), writing that head's dk_h /
+// dv_h itself (no workspace, no finishing kernel).
+template <>
+cudaError_t launch_bwd_dkdv_tc<256>(const Params& p, cudaStream_t st) {
+  const int key_tiles = (p.Sk + kTc256BK - 1) / kTc256BK;
+  if (key_tiles > 65535) return cudaErrorInvalidValue;
+  TcMaps maps{};
+  const cudaError_t err = bwd_tc_prepare<256>(p, st, maps, kTcBwdBQ, kTc256BK);
+  if (err != cudaSuccess) return err;
+  return launch_tc(flash_bwd_tc_kernel<256, false>,
+                   dim3(p.B * p.H, key_tiles), kTcThreads,
+                   bwd_tc256_smem_bytes<false>(), st, maps, p);
 }
 
 // ---- launchers -------------------------------------------------------------

@@ -28,12 +28,11 @@ op                  computes                                  replaces
 ==================  ========================================  ===========
 
 Kernel design by route (:func:`tensor_core_route`, a static table per
-operator): bf16 at hd 64 and 128 launches the tensor-core kernels (wgmma
-on TMA-staged bf16 tiles) for all four operators, and at hd 256 for
-``flash_fwd`` and ``flash_bwd_fused``; for those the wrapper allocates
-the rotated-q/k and row-stats workspaces (and the fused route's dq sums,
-and at hd 256 its float32 dk/dv group sums). float32 at every hd and the
-split pair at hd 256 launch the CUDA-core kernels.
+operator): bf16 at hd 64, 128 and 256 launches the tensor-core kernels
+(wgmma on TMA-staged bf16 tiles) for all four operators; for those the
+wrapper allocates the rotated-q/k and row-stats workspaces (and the
+fused route's dq sums, and at hd 256 its float32 dk/dv group sums).
+float32 at every hd launches the CUDA-core kernels.
 
 Numerics contract (the reference's; kernels and plain versions keep it,
 and a kernel redesign must too):
@@ -91,12 +90,9 @@ KERNEL_HEAD_DIMS = (64, 128, 256)
 #: ``kdl_flash_route`` takes)
 OPS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkdv")
 #: head dims whose bf16 kernels take the tensor cores (wgmma, TMA), per
-#: operator; float32 at every hd and the rest take the CUDA-core ones.
-#: The source's ``tc_head_dim`` is the same table.
-TENSOR_CORE_HEAD_DIMS = {"flash_fwd": (64, 128, 256),
-                         "flash_bwd_fused": (64, 128, 256),
-                         "flash_bwd_dq": (64, 128),
-                         "flash_bwd_dkdv": (64, 128)}
+#: operator; float32 at every hd takes the CUDA-core ones. The source's
+#: ``tc_head_dim`` is the same table.
+TENSOR_CORE_HEAD_DIMS = dict.fromkeys(OPS, (64, 128, 256))
 #: the tensor-core backward's q tile: its workspaces pad Sq to a multiple
 _TC_BWD_BQ = 64
 #: head dims whose tensor-core fused backward spreads a GQA group's

@@ -135,13 +135,10 @@ def test_fused_rope_matches_explicit_rope():
         np.testing.assert_allclose(a, b.numpy(), atol=GRAD_TOL, rtol=GRAD_TOL)
 
 
-def test_fused_rope_split_backward_path(monkeypatch):
-    """The reference's monkeypatch of the fused-scratch cap to 0 on both
-    sides: the split pair with in-kernel rope matches the reference's
-    split kernels, and the port's own fused route."""
-    case = CASES["rope-gqa"]
-    _, g_fused = _port_case(*case)
-    _, g_ref = _jax_case(*case, split=True)
+def _port_split_case(monkeypatch, case):
+    """``_port_case`` with the fused-scratch cap set to 0 (the reference's
+    own way to force the split route): each split operator's plain
+    version runs exactly once."""
     monkeypatch.setattr(tfa, "_FUSED_BWD_SCRATCH_BYTES", 0)
     assert tfa.bwd_route(case[2], case[5]) == "split"
     calls = {"dq": 0, "dkdv": 0}
@@ -157,11 +154,42 @@ def test_fused_rope_split_backward_path(monkeypatch):
 
     monkeypatch.setattr(tfa, "_plain_bwd_dq", dq)
     monkeypatch.setattr(tfa, "_plain_bwd_dkdv_per_head", dkdv)
-    _, g_split = _port_case(*case)
+    got = _port_case(*case)
     assert calls == {"dq": 1, "dkdv": 1}
+    return got
+
+
+def test_fused_rope_split_backward_path(monkeypatch):
+    """The reference's monkeypatch of the fused-scratch cap to 0 on both
+    sides: the split pair with in-kernel rope matches the reference's
+    split kernels, and the port's own fused route."""
+    case = CASES["rope-gqa"]
+    _, g_fused = _port_case(*case)
+    _, g_ref = _jax_case(*case, split=True)
+    _, g_split = _port_split_case(monkeypatch, case)
     for a, b, c in zip(g_split, g_ref, g_fused):
         np.testing.assert_allclose(a, b, atol=GRAD_TOL, rtol=GRAD_TOL)
         np.testing.assert_allclose(a, c, atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+#: split-route cases at Gemma-2B's head width (MQA, hd 256, RoPE): 2 x 2
+#: tiles of 128, so both sides run their flash kernels (the reference's
+#: interpret-mode split pair, the port's split operators)
+SPLIT_CASES = {"rope-mqa-hd256": (12, 1, 256, 4, 1, 256, True, 128, True)}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_backward_matches_reference_split_kernels(monkeypatch, case):
+    """The split route forced on both sides (the fused-scratch cap set to
+    0) at hd 256: the port's forward and gradients (its split operators'
+    plain versions, each run once) against the reference's interpret-mode
+    kernels on the split route, within FWD_TOL / GRAD_TOL."""
+    case = SPLIT_CASES[case]
+    o_ref, g_ref = _jax_case(*case, split=True)
+    o, g = _port_split_case(monkeypatch, case)
+    np.testing.assert_allclose(o, o_ref, atol=FWD_TOL, rtol=FWD_TOL)
+    for a, b in zip(g, g_ref):
+        np.testing.assert_allclose(a, b, atol=GRAD_TOL, rtol=GRAD_TOL)
 
 
 def test_lse_is_base2_and_matches_reference_fwd():
@@ -336,9 +364,8 @@ def _source_route_table():
 def test_tensor_core_route_matches_source_table():
     """tensor_core_route and the source's per-operator table agree for
     every operator, type and head width, and each operator's launch reads
-    its own entry: bf16 at hd 64 and 128 on the tensor cores everywhere,
-    at hd 256 for the forward and the fused backward only (the split
-    pair stays on the CUDA cores there), float32 never."""
+    its own entry: bf16 at hd 64, 128 and 256 on the tensor cores for all
+    four operators, float32 never."""
     table, bf16_only, reads = _source_route_table()
     assert bf16_only
     assert reads == dict.fromkeys(tfa.OPS, True)
@@ -348,9 +375,7 @@ def test_tensor_core_route_matches_source_table():
             for hd in tfa.KERNEL_HEAD_DIMS:
                 assert tfa.tensor_core_route(op, dtype, hd) == (
                     dtype == torch.bfloat16 and hd in table[op])
-    assert table == {"flash_fwd": {64, 128, 256},
-                     "flash_bwd_fused": {64, 128, 256},
-                     "flash_bwd_dq": {64, 128}, "flash_bwd_dkdv": {64, 128}}
+    assert table == dict.fromkeys(tfa.OPS, {64, 128, 256})
 
 
 def test_make_flash_attention_single_device_only():
@@ -484,7 +509,7 @@ def test_cuda_kernels_match_plain_versions(cuda, hd, dtype, rope, shape):
 
 
 #: the split pair on the card: (B, S, H, KV, hd, causal, rope) over GQA
-#: groups 1, 4 and 8, both tensor-core widths, RoPE on and off, causal
+#: groups 1, 4 and 8, every tensor-core width, RoPE on and off, causal
 #: and not, ragged lengths (not a multiple of any tile)
 SPLIT_CARD_CASES = {
     "hd64-g1-causal-rope": (1, 512, 4, 4, 64, True, True),
@@ -493,6 +518,10 @@ SPLIT_CARD_CASES = {
     "hd128-g1-noncausal-rope": (1, 512, 4, 4, 128, False, True),
     "hd128-g4-causal": (2, 384, 8, 2, 128, True, False),
     "hd128-g8-ragged-causal-rope": (1, 1000, 8, 1, 128, True, True),
+    "hd256-g1-causal-rope": (1, 512, 4, 4, 256, True, True),
+    "hd256-g4-noncausal": (2, 384, 8, 2, 256, False, False),
+    "hd256-g8-ragged-causal-rope": (1, 1000, 8, 1, 256, True, True),
+    "hd256-g8-ragged-noncausal": (1, 1000, 8, 1, 256, False, False),
 }
 
 
@@ -540,8 +569,7 @@ def test_cuda_split_pair_matches_plain_versions(cuda, monkeypatch, case):
 def test_cuda_route_table_matches_source(cuda):
     """The source's route (kdl_flash_route, the TcRoute every launch reads)
     and tensor_core_route agree for every operator, type and head width:
-    bf16 hd 256 on the tensor cores for the forward and the fused
-    backward, on the CUDA cores for the split pair."""
+    bf16 hd 256 on the tensor cores for all four operators."""
     from kubedl_tpu_torch.ops.build import load_flash_kernels
 
     lib = load_flash_kernels()
@@ -550,7 +578,8 @@ def test_cuda_route_table_matches_source(cuda):
             for hd in tfa.KERNEL_HEAD_DIMS:
                 assert lib.kdl_flash_route(code_op, code, hd) == \
                     int(tfa.tensor_core_route(op, dtype, hd)), (op, dtype, hd)
-    assert [lib.kdl_flash_route(i, 1, 256) for i in range(4)] == [1, 1, 0, 0]
+    assert [lib.kdl_flash_route(i, 1, 256) for i in range(4)] == [1, 1, 1, 1]
+    assert [lib.kdl_flash_route(i, 0, 256) for i in range(4)] == [0, 0, 0, 0]
     assert lib.kdl_flash_route(0, 1, 32) == -1
     assert lib.kdl_flash_route(4, 1, 64) == -1
 
@@ -558,15 +587,15 @@ def test_cuda_route_table_matches_source(cuda):
 @pytest.mark.cuda
 def test_cuda_gemma_training_shape_matches_plain_versions(cuda):
     """Gemma-2B's training shape (B=4, H=8, KV=1, S=2048, hd 256, bf16,
-    causal, Gemma's RoPE tables, theta 10000): the forward and the fused
-    backward on the tensor cores, the split pair on the CUDA cores, each
-    against its plain version (CARD_TOL bf16), with one launch each."""
+    causal, Gemma's RoPE tables, theta 10000): all four operators on the
+    tensor cores (the split pair too), each against its plain version
+    (CARD_TOL bf16), with one launch each."""
     from kubedl_tpu_torch.models.llama import rope_table
 
     B, H, KV, S, hd = 4, 8, 1, 2048, 256
     assert tfa.bwd_route(S, hd) == "fused"
     assert [tfa.tensor_core_route(op, torch.bfloat16, hd)
-            for op in tfa.OPS] == [True, True, False, False]
+            for op in tfa.OPS] == [True, True, True, True]
     tol = CARD_TOL["bfloat16"]
     rng = np.random.RandomState(S + hd)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))

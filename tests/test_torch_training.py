@@ -259,16 +259,21 @@ def plain_calls(monkeypatch):
     return counts
 
 
-def test_long_context_split_trajectory_matches_jax(plain_calls, monkeypatch):
-    """The long-context path on tiny: the policy applied by a lowered
-    threshold (seq_len 64 >= 32: "flash_rope" remat, a 512-token loss
-    chunk) and the backward forced to the split pair, as a 32k-token run
-    takes it. Four steps from the same parameters and batches: the JAX
-    trainer (dense attention, the same policy) and the port's (the split
-    operators' plain versions) agree on every loss and grad norm within
-    1e-4 relative. Per step the port runs each split operator once a
-    layer and the fused one never, and the forward once a layer: the
-    policy saves the forward's outputs, so remat does not re-run it."""
+@pytest.mark.parametrize("preset", ["tiny", "tiny-gemma"])
+def test_long_context_split_trajectory_matches_jax(plain_calls, monkeypatch,
+                                                   preset):
+    """The long-context path on tiny, and on tiny-gemma (Gemma-2B's
+    family: MQA, GeGLU, (1+w) norms, a scaled tied embedding; a Gemma-2B
+    run at its 8192-token context takes this route): the policy applied by
+    a lowered threshold (seq_len 64 >= 32: "flash_rope" remat, a 512-token
+    loss chunk) and the backward forced to the split pair, as a
+    long-context run takes it. Four steps from the same parameters and
+    batches: the JAX trainer (dense attention, the same policy) and the
+    port's (the split operators' plain versions) agree on every loss and
+    grad norm within 1e-4 relative. Per step the port runs each split
+    operator once a layer and the fused one never, and the forward once a
+    layer: the policy saves the forward's outputs, so remat does not
+    re-run it."""
     import jax
 
     from kubedl_tpu_torch.ops import flash_attention as tfa
@@ -276,10 +281,10 @@ def test_long_context_split_trajectory_matches_jax(plain_calls, monkeypatch):
     monkeypatch.setattr(tfa, "_FUSED_BWD_SCRATCH_BYTES", 0)
     kw = dict(global_batch=2, seq_len=64, steps=4, warmup_steps=1,
               learning_rate=1e-2, long_context_threshold=32)
-    jtr = _jax_trainer(dict(kw, model={"remat": True}))
+    jtr = _jax_trainer(dict(kw, model={"remat": True}), preset)
     assert jtr.long_context_policy_applied == LONG_POLICY
     jstate = jtr.init_state()
-    model = dataclasses.replace(tl.TINY, remat=True)
+    model = dataclasses.replace(tl.preset(preset), remat=True)
     ttr = tt.Trainer(tt.TrainConfig(model=model, attn_impl="flash", **kw),
                      device="cpu")
     assert ttr.long_context_policy_applied == LONG_POLICY
@@ -288,7 +293,7 @@ def test_long_context_split_trajectory_matches_jax(plain_calls, monkeypatch):
     tstate["params"] = tl.params_from_numpy(
         jax.tree.map(np.asarray, jstate["params"]), model, "cpu")
     tstate["opt_state"] = ttr.tx.init(tt.tree_leaves(tstate["params"]))
-    data = SyntheticTokens(2, 64, tl.TINY.vocab_size, seed=11)
+    data = SyntheticTokens(2, 64, model.vocab_size, seed=11)
     layers = model.n_layers
     for _ in range(4):
         before = dict(plain_calls)
@@ -301,6 +306,32 @@ def test_long_context_split_trajectory_matches_jax(plain_calls, monkeypatch):
         assert {op: plain_calls[op] - before[op] for op in plain_calls} == {
             "flash_fwd": layers, "flash_bwd_fused": 0,
             "flash_bwd_dq": layers, "flash_bwd_dkdv": layers}
+
+
+def test_gemma_2b_full_context_takes_the_split_route():
+    """Gemma-2B at its published 8192-token context (the configuration
+    chip_smoke.py trains through train_main): the trainer applies the
+    long-context policy, as the reference's trainer does for the same
+    config, and the backward at hd 256 takes the split pair (its
+    whole-sequence fused scratch, 8192 * 256 * 8 bytes, is over the 8 MiB
+    cap). Only the trainers are built, never Gemma-2B's parameters."""
+    from kubedl_tpu_torch.ops import flash_attention as tfa
+
+    kw = dict(global_batch=1, seq_len=tl.GEMMA_2B.max_seq, steps=4)
+    assert kw["seq_len"] == 8192
+    ttr = tt.Trainer(tt.TrainConfig(model=tl.GEMMA_2B, attn_impl="flash",
+                                    **kw), device="cpu")
+    assert ttr.long_context_policy_applied == LONG_POLICY
+    assert (ttr.cfg.model.remat_policy, ttr.cfg.model.loss_chunk) == \
+        ("flash_rope", 512)
+    assert ttr.attn_impl == "flash"
+    assert _jax_trainer(dict(kw), "gemma-2b").long_context_policy_applied \
+        == LONG_POLICY
+    hd = ttr.cfg.model.head_dim
+    assert hd == 256 and tfa.bwd_route(8192, hd) == "split"
+    # the lengths where Gemma-2B's backward turns: fused through 4096 keys
+    assert tfa.bwd_route(4096, hd) == "fused"
+    assert tfa.bwd_route(4097, hd) == "split"
 
 
 def test_train_main_long_context_policy(capsys, clean_env, monkeypatch,
