@@ -19,7 +19,10 @@ Phases (any failure exits non-zero before the final line):
    kernels (the
    decode route's instantiations and its split-K combine, the prefill
    route's wgmma kernel), failing if one spills or the prefill kernel
-   has no HGMMA; and the optimizer kernels' registers and spills
+   has no HGMMA; the tensor-core decode's instantiations
+   (``paged_decode_mma_kernel<RT>``, RT = 1..8 n8 tiles of query rows):
+   registers, spills and HMMA count, failing if one spills or holds no
+   HMMA; and the optimizer kernels' registers and spills
    (``csrc/adamw.cu``: the norm, its finish, the update for each
    parameter / first-moment type), failing if one spills.
 3. blocked entry vs its plain PyTorch version at the serving shapes
@@ -33,14 +36,18 @@ Phases (any failure exits non-zero before the final line):
    one call with the queueing in it). Then speculative verify's shapes:
    Llama-3-8B widths at S in {2, 5, 8} (R = S*group < 64: the split-K
    route), bf16 and f32, starts that cross block boundaries and clamp at
-   max_s - 1 (``VERIFY_STARTS``), S=5 bf16 timed, and S=5 bf16 at
-   Gemma-2B's widths, timed; and one hd-64 case.
-4. fused decode entry (S=1, KV write fused, split-K) vs plain scatter +
-   plain attention: pools bitwise equal outside the trash block, outputs
-   within tolerance; the first call runs under
+   max_s - 1 (``VERIFY_STARTS``), S=5 bf16 timed, and S=5 at Gemma-2B's
+   widths: bf16 on the tensor-core decode (R = 40), timed, and f32 on
+   split-K; and one hd-64 case.
+4. fused decode entry (S=1, KV write fused: split-K at Llama-3-8B's
+   widths and in f32, the tensor-core decode at Gemma-2B's bf16) vs
+   plain scatter + plain attention: pools bitwise equal outside the trash
+   block, outputs within tolerance, a second call on fresh pools
+   bit-identical; the first call runs under
    ``torch.cuda.set_sync_debug_mode("error")`` (the decode path must not
-   sync); a long-context case (MB=512, 8192 positions) where most splits
-   of the short rows are empty; the same timings.
+   sync); long-context cases (MB=512, 8192 positions) at both widths,
+   where the short rows use few splits and Gemma-2B's long rows walk the
+   tensor-core decode's ring; the same timings.
 5. the engine: ``serve_main`` serving Llama-3-8B (full width and depth,
    seeded random weights; the reference's defaults: the double-buffered
    tick, the prefix cache at 64 MB) on 127.0.0.1, 8 concurrent
@@ -191,10 +198,12 @@ Phases (any failure exits non-zero before the final line):
    ``gemma-2b``: full width and depth, 18 layers, MQA at hd 256, seeded
    random bf16 weights) on phase 5's kind of traffic; gates in
    ``run_gemma_engine`` (every blocked call on the tensor-core route, the
-   hd-256 kernel; every fused call on split-K; no CUDA-core launch);
+   hd-256 kernel; every fused call on the tensor-core decode; no
+   CUDA-core launch);
    prints TTFT p50/p95, ms a decode step, the routes, and from a profiled
-   repeat of the wave the paged kernels' device ms a launch and their
-   share of device time. Then Gemma-2B width cut to 2 layers: in bf16,
+   repeat of the wave the paged kernels' device ms a launch (the decode
+   merges in its own launch: no merge kernel) and their share of device
+   time. Then Gemma-2B width cut to 2 layers: in bf16,
    ``paged_prefill_from`` over a 512-token chunk at ragged starts with
    the kernel against the plain version forced (``GEMMA_LOGIT_TOL``); in
    float32, the blocked engine's greedy streams identical to the gather
@@ -294,9 +303,13 @@ TRASH_ROW = 7
 #: mostly short rows (most of their splits empty) beside two long ones
 LONG = dict(LLAMA, MB=512)
 LONG_STARTS = [0, 15, 16, 47, 300, 4095, 8190, 0]
+#: and at Gemma-2B's widths over its published 8192-token context (the
+#: tensor-core decode's ring: the long rows' ranges exceed two stages)
+GEMMA_LONG = dict(GEMMA, MB=512)
 
 #: speculative verify's blocked calls (S = k+1 <= 8, so R = S*group < 64:
-#: the split-K route): starts that cross block boundaries (14 + 5 > 16),
+#: split-K at Llama-3-8B's widths, the tensor-core decode at Gemma-2B's
+#: bf16): starts that cross block boundaries (14 + 5 > 16),
 #: sit on one (47 + 1 = 48), end deep in the table and clamp at max_s - 1
 #: (2045 + 8 > 2047); row 7 all-trash
 VERIFY_STARTS = [14, 15, 30, 47, 300, 1020, 2045, 0]
@@ -309,6 +322,14 @@ REPLACES = {
         "kubedl_tpu/models/paged_attention.py:181 _blocked_kernel",
     "paged_attention_fused":
         "kubedl_tpu/models/paged_attention.py:290 _fused_kernel",
+}
+#: the kernels line's design of a paged route, where a word is too short
+PAGED_DESIGNS = {
+    "mma_decode": "mma_decode: paged_decode_mma_kernel, one launch; "
+                  "mma.sync m16n8k16 on S^T = K.Q^T and O^T = V^T.P^T "
+                  "(P by movmatrix.trans), per-row key ranges cut on the "
+                  "device, merged in the launch: a cooperative launch whose "
+                  "CTAs of a row each merge a slice of its partials",
 }
 #: a timed case's fields kept beside the kernels line's main case
 TIMED_KEYS = ("route", "max_abs_err", "ms", "call_ms", "plain_ms",
@@ -503,17 +524,26 @@ def check_fused(pa, shape, dtype, timed: bool, start_list=STARTS):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    if pa.ROUTE_LAUNCHES[route] != before + 1:
-        fail(f"fused {shape} {dtype} did not take route {route}")
     if kk2.data_ptr() != kk.data_ptr():
         fail("fused kernel did not update the pools in place")
+    # a second call on fresh copies of the pools gives the same bits
+    again_k, again_v = kp.clone(), vp.clone()
+    again, _, _ = pa.paged_attention(q, again_k, again_v, bt, starts,
+                                     new_k=nk, new_v=nv)
+    torch.cuda.synchronize()
+    if pa.ROUTE_LAUNCHES[route] != before + 2:
+        fail(f"fused {shape} {dtype} did not take route {route}")
     kr, vr = kp.clone(), vp.clone()
     pa.plain_fused_write(kr, vr, bt, starts, nk, nv)
     # trash block 0 takes colliding garbage writes by contract
-    if not (torch.equal(kk[1:], kr[1:]) and torch.equal(vk[1:], vr[1:])):
-        fail(f"fused kernel pools differ from a scatter {shape} {dtype}")
-    ref = pa.plain_paged_attention(q, kr, vr, bt, starts)
+    for k_got, v_got in ((kk, vk), (again_k, again_v)):
+        if not (torch.equal(k_got[1:], kr[1:])
+                and torch.equal(v_got[1:], vr[1:])):
+            fail(f"fused kernel pools differ from a scatter {shape} {dtype}")
     own = [b for b in range(shape["B"]) if b != TRASH_ROW]
+    if not torch.equal(out[own], again[own]):
+        fail(f"fused kernel {shape} {dtype}: two calls differ")
+    ref = pa.plain_paged_attention(q, kr, vr, bt, starts)
     err = (out[own].float() - ref[own].float()).abs().max().item()
     if not math.isfinite(err) or err > TOL[dtype]:
         fail(f"fused kernel {shape} {dtype}: max abs err {err} > {TOL[dtype]}")
@@ -625,6 +655,35 @@ def _tc_source_report(build, src, key=_kernel_key) -> dict:
                 rep.setdefault(cur, {})["hgmma"] = 0
         elif cur and "HGMMA" in line:
             rep[cur]["hgmma"] += 1
+        elif cur and "HMMA" in line:
+            rep[cur]["hmma"] = rep[cur].get("hmma", 0) + 1
+    return rep
+
+
+#: the tensor-core decode's instantiations (RT n8 tiles of query rows),
+#: csrc/paged_attention.cu: both products on mma.sync, so each must hold
+#: HMMA, and none may spill
+MMA_KERNELS = tuple(f"paged_decode_mma_kernel<{rt}>" for rt in range(1, 9))
+
+
+def _mma_key(mangled: str):
+    """``paged_decode_mma_kernel<1>`` from a mangled name, or None."""
+    m = re.search(r"paged_decode_mma_kernelILi(\d+)E", mangled)
+    return None if m is None else f"paged_decode_mma_kernel<{m.group(1)}>"
+
+
+def mma_kernel_report(build) -> dict:
+    """Registers, spill bytes (ptxas -v) and HMMA count (cuobjdump -sass)
+    of each tensor-core decode instantiation. Fails if one was not found,
+    spills or holds no HMMA."""
+    rep = _tc_source_report(build, "paged_attention.cu", key=_mma_key)
+    missing = [k for k in MMA_KERNELS if "registers" not in rep.get(k, {})]
+    spills = {k: v for k, v in rep.items()
+              if v.get("spill_stores", 1) or v.get("spill_loads", 1)}
+    no_hmma = [k for k in MMA_KERNELS if not rep.get(k, {}).get("hmma")]
+    if missing or spills or no_hmma:
+        fail(f"tensor-core decode kernels: missing {missing}, spilling "
+             f"{spills}, without HMMA {no_hmma}: {rep}")
     return rep
 
 
@@ -2312,6 +2371,10 @@ def run_f32_parity(server_mod, llama_mod, reqs, serve_cfg):
 
 
 def _kernel_category(name: str) -> str:
+    # the tensor-core decode: one kernel for fused and blocked calls; the
+    # engine phases launch it for decode steps only (Gemma-2B's)
+    if "paged_decode_mma_kernel" in name:
+        return "paged_attention_fused"
     if "paged_split_kernel" in name:  # split-K: by its fused flag
         return "paged_attention_fused" if "true>" in name \
             else "paged_attention_blocked"
@@ -2665,7 +2728,8 @@ def run_gemma_engine(pa, server_mod, llama_mod, summary):
     requests, prompts 64-1536, 128 new tokens, 6 greedy, 2 sampled). Gates:
     every response; blocked launches, every one on the tensor-core route
     (the hd-256 kernel); fused launches >= 18 x decode steps, every one on
-    split-K; no CUDA-core launch; finite logits; a deferred harvest. Then a
+    the tensor-core decode; no CUDA-core launch; finite logits; a deferred
+    harvest. Then a
     profiled repeat of the wave at 16 new tokens, the profiler spanning it
     (one opened mid-wave records nothing): the paged kernels' device ms a
     launch in the engine, their share of device time, the busy share."""
@@ -2698,7 +2762,7 @@ def run_gemma_engine(pa, server_mod, llama_mod, summary):
         fail(f"gemma engine: blocked launches {launches['blocked']}, "
              f"routes {entry_routes}: every prefill chunk on the tensor cores")
     if steps <= 0 or launches["fused"] < cfg.n_layers * steps or \
-            entry_routes["fused/split_k"] != launches["fused"]:
+            entry_routes["fused/mma_decode"] != launches["fused"]:
         fail(f"gemma engine: fused launches {launches['fused']} for "
              f"{cfg.n_layers} x {steps} decode steps, routes {entry_routes}")
     if pa.CUDA_CORE in {k.split("/")[1] for k, v in entry_routes.items() if v}:
@@ -2710,7 +2774,8 @@ def run_gemma_engine(pa, server_mod, llama_mod, summary):
              f"{pipe}")
     dev_ms = prof.get("device", {}).get("ms", 0.0)
     paged_ms = sum(v["ms"] for k, v in prof.items() if k != "device")
-    in_model = {  # device ms a launch; the merge follows each fused launch
+    in_model = {  # device ms a launch; the tensor-core decode has no merge
+        # launch of its own (None), split-K's followed each fused launch
         "blocked": prof.get("paged_attention_blocked", {}).get(
             "ms_per_kernel"),
         "fused": prof.get("paged_attention_fused", {}).get("ms_per_kernel"),
@@ -3773,6 +3838,8 @@ def main() -> int:
           f"({json.dumps(build.BUILD_SECONDS)})", flush=True)
     print("tensor-core kernels (ptxas -v, cuobjdump -sass): "
           + json.dumps(tc_kernel_report(build)), flush=True)
+    print("tensor-core decode kernels (ptxas -v, cuobjdump -sass): "
+          + json.dumps(mma_kernel_report(build)), flush=True)
     print("w8a16 kernels (ptxas -v, cuobjdump -sass): "
           + json.dumps(w8_kernel_report(build)), flush=True)
     print("adamw kernels (ptxas -v): "
@@ -3799,6 +3866,12 @@ def main() -> int:
                       start_list=LONG_STARTS)
     print("fused llama long-context MB=512 bf16: " + json.dumps(rec),
           flush=True)
+    rec = check_fused(pa, GEMMA_LONG, torch.bfloat16, timed=True,
+                      start_list=LONG_STARTS)
+    print("fused gemma long-context MB=512 bf16: " + json.dumps(rec),
+          flush=True)
+    kernels["paged_attention_fused_hd256"]["long_8k"] = {
+        k: rec[k] for k in TIMED_KEYS}
     small = dict(LLAMA, hd=64)
     for shape, S in ((LLAMA, 64), (GEMMA, 64), (small, 8)):
         rec = check_blocked(pa, shape, S, torch.float32, timed=False)
@@ -3820,12 +3893,16 @@ def main() -> int:
             if timed:
                 kernels["paged_attention_blocked"]["verify_s5"] = {
                     k: rec[k] for k in TIMED_KEYS}
-    # and at Gemma-2B's widths (R = 40: split-K)
+    # and at Gemma-2B's widths (R = 40: the tensor-core decode in bf16,
+    # split-K in float32)
     rec = check_blocked(pa, GEMMA, 5, torch.bfloat16, timed=True,
                         start_list=VERIFY_STARTS)
     print("blocked verify gemma S=5 bf16: " + json.dumps(rec), flush=True)
     kernels["paged_attention_blocked_hd256"]["verify_s5"] = {
         k: rec[k] for k in TIMED_KEYS}
+    rec = check_blocked(pa, GEMMA, 5, torch.float32, timed=False,
+                        start_list=VERIFY_STARTS)
+    print("blocked verify gemma S=5 f32: " + json.dumps(rec), flush=True)
     rec = check_blocked(pa, small, 5, torch.bfloat16, timed=False,
                         start_list=VERIFY_STARTS)
     print("blocked verify hd=64 S=5 bf16: " + json.dumps(rec), flush=True)
@@ -3921,7 +3998,7 @@ def main() -> int:
             "call_ms": rec["call_ms"], "library_call_ms": rec["library_call_ms"],
         }
         for key in ("shape", "pair_ms", "fused_ms", "s2048", "verify_s5",
-                    "s8", "s64"):
+                    "s8", "s64", "long_8k"):
             if key in rec:
                 out[key] = rec[key]
         return out
@@ -3933,10 +4010,11 @@ def main() -> int:
     line = []
     for name in ("paged_attention_blocked", "paged_attention_fused"):
         for suffix, counts in (("", launches), ("_hd256", gemma)):
+            route = kernels[name + suffix]["route"]
             rec = record(name + suffix,
                          "kubedl_tpu_torch/csrc/paged_attention.cu",
                          REPLACES[name], counts.get(name.rsplit("_", 1)[1]),
-                         kernels[name + suffix], kernels[name + suffix]["route"])
+                         kernels[name + suffix], PAGED_DESIGNS.get(route, route))
             rec["shape"] = "gemma-2b" if suffix else "llama3-8b"
             if suffix:  # device ms a launch in phase 22's profiled wave
                 rec["in_model_ms"] = summary.get("gemma_in_model", {}).get(

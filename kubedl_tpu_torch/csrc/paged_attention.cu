@@ -21,12 +21,13 @@
 // tile (or an empty split) adds exact zeros; sums are float32; out =
 // acc / max(l, 1e-30) in q's dtype.
 //
-// Three designs, chosen statically (route_of below; the Python side's
+// Four designs, chosen statically (route_of below; the Python side's
 // models/paged_attention.py::paged_route mirrors it). There is no fallback
 // between them: a refused launch returns its error.
 //
 // (a) Split-K (paged_split_kernel + paged_combine_kernel): every fused
-//     decode call, and any blocked call with R < 64. Decode reads each
+//     decode call, and any blocked call with R < 64, that route (d) does
+//     not take (float32, hd 64 / 128). Decode reads each
 //     attended K/V position once and does 4*hd flops per (query head, key):
 //     it is bound by BYTES (Llama-3-8B, B=8: ~12 MB, 3.6 us at 3.35 TB/s,
 //     below one launch's latency). The fix is parallelism over the key
@@ -111,10 +112,60 @@
 //     query row at a time (each lane 2 staged keys in the score pass,
 //     hd/16 output dims in the P.V pass). It stops at the CTA's last
 //     needed key, exactly.
+// (d) Tensor-core decode (paged_decode_mma_kernel<RT>): bf16 at hd 256
+//     with R < 64, fused or not: every Gemma-2B decode step and the
+//     blocked calls of its speculative verify (S = 5: R = 40). Bound by
+//     BYTES (Gemma-2B, B=8, MB 128: 3.1 MB, 0.92 us at 3.35 TB/s), but one
+//     SM streams only a small share of that rate (traced on the card with
+//     scripts/paged_decode_trace.py's instrumentation), by 16-byte
+//     cp.async or by bulk copies (slower still at a 512-byte row each), so
+//     a row's keys must be spread over many SMs, and so must its merge:
+//     - Grid (nsplit, B * KV), nsplit fixed by the host from MB*BS and
+//       B*KV alone (about three CTAs an SM; no device read, so decode
+//       never syncs) and lowered by the launch to what the card holds at
+//       once. Row (b, g) has n = min(starts[b] + S - 1, MB*BS - 1) + 1
+//       keys, read on the device, and uses u = min(nsplit, ceil(n /
+//       split_keys)) CTAs: CTA i < u takes keys [i*n/u, (i+1)*n/u); a CTA
+//       past u exits at once and writes nothing.
+//     - K/V go through the block table with cp.async 16-byte copies (a
+//       warp a key row) into a ring of two 32-key stages, XOR-swizzled by
+//       16-byte chunk so that ldmatrix reads eight rows without bank
+//       conflicts; the block table row is read beside starts[b].
+//     - Both products on mma.sync m16n8k16 (bf16 in, float32 sums),
+//       swapped so that the R <= 64 query rows are the n8 side (RT n8
+//       tiles, R padded to 8*RT with zero rows). S^T[16 keys x 8RT] =
+//       K_tile . Q^T: each of a stage's two 16-key tiles is split over
+//       four warps by hd quarter (Q^T's fragments for the quarter held in
+//       registers up to RT = 4), the quarters summed through shared
+//       memory by the tile's owner. The stage's maximum is shared through
+//       shared memory, P = exp2(S - m) is rounded to bf16 (the reference rounds
+//       p to v's type; l sums the unrounded P) and moved from the
+//       accumulator layout to the B-operand layout by movmatrix.trans into
+//       a shared [8RT][32] tile. Then O^T[hd x 8RT] += V^T . P^T, V^T's
+//       fragments by ldmatrix.trans from V as staged: each of the eight
+//       warps owns 32 rows of O^T for all keys (8*RT float32 registers a
+//       thread), so no O is merged across warps. Splitting keys over
+//       warps instead would hold all 256 rows of O^T in every warp: 64*RT
+//       registers a thread, 320 at verify's R = 40. Fragment loads are
+//       issued a step ahead of their mma.
+//     - The merge is in the same launch. A row of one CTA writes out
+//       directly. Otherwise each CTA writes its partial (acc[hd], m, l;
+//       float32) to a workspace that persists per (device, stream) and
+//       arrives on the row's counter (a release); the launch is
+//       cooperative (all CTAs resident), so each CTA then waits for the
+//       row's u arrivals and merges 1/u of the row's output from all u
+//       partials with the -1e29 clamp (a thread folds its splits online,
+//       then the split groups are folded in order: an order fixed by the
+//       shapes, so deterministic). The last CTA to stop waiting resets
+//       the row's counters to 0 for the next launch. A single CTA merging
+//       all u partials would read them at one SM's rate.
+//     - Fused write: the CTA whose range holds starts[b] takes that
+//       position's K/V from new_k/new_v and writes the pool slot after its
+//       reads, as in (a).
 //
 // C interface (bound with ctypes): each entry point launches on the given
-// stream, allocates nothing (the split-K workspace comes from the caller)
-// and returns cudaGetLastError(), or cudaErrorInvalidValue for arguments
+// stream, allocates nothing (the split-K and tensor-core decode workspaces
+// come from the caller) and returns cudaGetLastError(), or cudaErrorInvalidValue for arguments
 // it refuses.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
@@ -134,11 +185,12 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // ---- the static route (mirrors models/paged_attention.py::paged_route) --------
 
-enum Route { kSplitK = 0, kTensorCore = 1, kCudaCore = 2 };
+enum Route { kSplitK = 0, kTensorCore = 1, kCudaCore = 2, kMmaDecode = 3 };
 
 constexpr int kTcTileKeys = 64;  // tensor-core route: keys per K/V tile
 
 int route_of(int dtype, int hd, int S, int group, int BS, bool fused) {
+  if (dtype == 1 && hd == 256 && S * group < 64) return kMmaDecode;
   if (fused || S * group < 64) return kSplitK;
   if (dtype == 1 && (hd == 64 || hd == 128 || hd == 256) && BS > 0 &&
       BS % 8 == 0 && kTcTileKeys % BS == 0 && group > 0 &&
@@ -928,11 +980,622 @@ cudaError_t launch_cuda_core(const CcArgs<T>& a, int B, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// ---- (d) tensor-core decode ---------------------------------------------------
+
+constexpr int kMdHD = 256;                   // the route's head width
+constexpr int kMdBK = 32;                    // keys a stage
+constexpr int kMdStages = 2;                 // stages in the ring
+constexpr int kMdTiles = kMdBK / 16;         // 16-key score tiles a stage
+constexpr int kMdWarps = 8;
+constexpr int kMdQuarters = kMdWarps / kMdTiles;  // hd slices of a tile's scores
+constexpr int kMdQStride = kMdHD + 8;        // bf16 a staged query row (528 B)
+constexpr int kMdPStride = kMdBK + 8;        // bf16 a staged P row (80 B)
+constexpr int kMdMaxSplits = 64;
+constexpr int kMdGroups = 8;  // the merge's most split groups a pass
+
+struct MdArgs {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k_pool;
+  const __nv_bfloat16* v_pool;
+  __nv_bfloat16* k_pool_w;
+  __nv_bfloat16* v_pool_w;
+  const int* bt;
+  const int* starts;
+  const __nv_bfloat16* new_k;
+  const __nv_bfloat16* new_v;
+  float* part_acc;  // [B*KV, nsplit, R, HD]
+  float* part_ml;   // [B*KV, nsplit, R, 2]: m (base 2), l
+  int* counters;    // [B*KV, 2]: arrivals, departures; 0 between launches
+  __nv_bfloat16* out;
+  int S, H, KV, BS, MB, group, R, nsplit, split_keys;
+  bool fused;
+  float scale_log2;
+};
+
+template <int RT>
+size_t md_smem_bytes(int MB) {
+  constexpr int RP = 8 * RT;
+  return 2 * (size_t)kMdStages * kMdBK * kMdHD * 2 +        // K, V ring
+         (size_t)RP * (kMdQStride + kMdPStride) * 2 +       // Q, P
+         sizeof(float) * (size_t)kMdWarps * RT * 4 * 32 +    // partial scores
+         sizeof(float) * (size_t)2 * kMdTiles * RP +         // maxima, l
+         sizeof(int) * (size_t)MB;                           // bt[b, :]
+}
+
+// element offset of (key row kk, 16-byte chunk ch) in a staged K/V tile:
+// chunks XOR-swizzled by the row's low three bits, so the eight rows an
+// ldmatrix reads at one logical chunk lie in eight different bank groups
+__device__ __forceinline__ int md_swz(int kk, int ch) {
+  return kk * kMdHD + ((ch ^ (kk & 7)) << 3);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+// the transpose of the 8x8 b16 matrix whose row lane/4, columns
+// 2*(lane%4) and +1, this thread holds (the same fragment layout out)
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void red_release_add(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// CTA (split, b * KV + g): keys [split*n/u, (split+1)*n/u) of row b,
+// kv-head g, against its R query rows (see (d) above). The fragment loads
+// of each product are issued one step ahead of its mma (the asm keeps
+// source order), so that their latency overlaps the previous step's.
+template <int RT>
+__global__ void __launch_bounds__(kMdWarps * 32)
+    paged_decode_mma_kernel(const MdArgs a) {
+  constexpr int RP = 8 * RT, HD = kMdHD, BK = kMdBK, ST = kMdStages;
+  constexpr int NW = kMdWarps, NT = NW * 32, CPK = HD / 8, D4 = HD / 4;
+  constexpr int KQ = HD / 16 / kMdQuarters;  // k16 steps of a warp's hd slice
+  constexpr int MT = HD / 16 / NW;           // 16-row tiles of O^T a warp
+  // Q^T's fragments for the warp's hd slice held in registers up to four
+  // n8 tiles; from five on loaded a step ahead with K's (or they spill)
+  constexpr bool kQRegs = RT <= 4;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [ST][BK][HD]
+  __nv_bfloat16* sV = sK + ST * BK * HD;                            // [ST][BK][HD]
+  __nv_bfloat16* sQ = sV + ST * BK * HD;       // [RP][kMdQStride]
+  __nv_bfloat16* sP = sQ + RP * kMdQStride;    // [RP][kMdPStride]
+  float* sS = reinterpret_cast<float*>(sP + RP * kMdPStride);  // [NW][RT*4][32]
+  float* sMax = sS + NW * RT * 4 * 32;                           // [tiles][RP]
+  float* sL = sMax + kMdTiles * RP;                              // [tiles][RP]
+  int* sbt = reinterpret_cast<int*>(sL + kMdTiles * RP);         // bt[b, :]
+
+  const int split = blockIdx.x, bg = blockIdx.y;
+  const int b = bg / a.KV, g = bg - b * a.KV;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;  // fragment row, column pair
+  // this warp's score tile of a stage and its slice of hd
+  const int tile = warp % kMdTiles, hq = warp / kMdTiles;
+  const int max_s = a.MB * a.BS;
+  const int start = a.starts[b];
+  // the row's block table, loaded beside starts[b] (it does not need it)
+  constexpr int kBatch = 4;
+  for (int i0 = 0; i0 < a.MB; i0 += kBatch * NT) {
+    int v[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = i0 + tid + j * NT;
+      v[j] = i < a.MB ? a.bt[(size_t)b * a.MB + i] : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      if (i0 + tid + j * NT < a.MB) sbt[i0 + tid + j * NT] = v[j];
+  }
+  const int n = min(start + a.S - 1, max_s - 1) + 1;
+  const int used = min(a.nsplit, (n + a.split_keys - 1) / a.split_keys);
+  if (split >= used) return;  // no keys: no partial, no arrival
+  const int lo = (int)((long long)split * n / used);
+  const int hi = (int)((long long)(split + 1) * n / used);
+  const int n_t = (hi - lo + BK - 1) / BK;
+  // the query rows (r = s*group + u: head g*group + u at position s),
+  // zeros past R
+  for (int c = tid; c < RP * CPK; c += NT) {
+    const int r = c / CPK, ch = c - r * CPK;
+    const int rr = min(r, a.R - 1), s = rr / a.group, u = rr - s * a.group;
+    cp_async16(sQ + r * kMdQStride + ch * 8,
+               a.q + (((size_t)b * a.S + s) * a.H + g * a.group + u) * HD + ch * 8,
+               r < a.R ? 16 : 0);
+  }
+  cp_async_commit();
+  __syncthreads();  // sbt
+
+  // stage kt: a warp copies one key row (32 x 16 bytes) at a time; keys
+  // past the range are zeros
+  const size_t new_off = ((size_t)b * a.KV + g) * HD;
+  auto issue = [&](int kt) {
+    const int t0 = lo + kt * BK;
+    __nv_bfloat16* dk = sK + (kt % ST) * BK * HD;
+    __nv_bfloat16* dv = sV + (kt % ST) * BK * HD;
+#pragma unroll
+    for (int i = 0; i < BK / NW; ++i) {
+      const int kk = warp + NW * i, t = t0 + kk;
+      const __nv_bfloat16* ks = a.k_pool;
+      const __nv_bfloat16* vs = a.v_pool;
+      int bytes = 0;
+      if (t < hi) {
+        bytes = 16;
+        if (a.fused && t == start) {
+          ks = a.new_k + new_off + lane * 8;
+          vs = a.new_v + new_off + lane * 8;
+        } else {
+          const size_t o =
+              (((size_t)sbt[t / a.BS] * a.BS + t % a.BS) * a.KV + g) * HD + lane * 8;
+          ks = a.k_pool + o;
+          vs = a.v_pool + o;
+        }
+      }
+      cp_async16(dk + md_swz(kk, lane), ks, bytes);
+      cp_async16(dv + md_swz(kk, lane), vs, bytes);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int kt = 0; kt < ST; ++kt) {
+    if (kt < n_t) issue(kt);
+    else cp_async_commit();
+  }
+
+  float o[MT][RT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < RT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][nt][e] = 0.f;
+  // running max and sum of this thread's columns 2tq, 2tq+1 of each tile:
+  // m is the same in every warp; l sums the warp's own score tiles
+  float m_r[RT][2], l_r[RT][2];
+#pragma unroll
+  for (int nt = 0; nt < RT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      m_r[nt][j] = kMaxFloor;
+      l_r[nt][j] = 0.f;
+    }
+  uint32_t qf[kQRegs ? KQ : 1][kQRegs ? RT : 1][2];  // Q^T's B fragments
+
+  for (int kt = 0; kt < n_t; ++kt) {
+    cp_async_wait<ST - 1>();
+    __syncthreads();  // stage kt (and the queries) landed for every thread
+    if (kQRegs && kt == 0)
+#pragma unroll
+      for (int nt = 0; nt < RT; ++nt)
+#pragma unroll
+        for (int j = 0; j < KQ; j += 2) {
+          uint32_t t4[4];
+          ldsm_x4(t4, sQ + (nt * 8 + (lane & 7)) * kMdQStride + (hq * KQ + j) * 16 +
+                          (lane >> 3) * 8);
+          if constexpr (kQRegs) {
+            qf[j][nt][0] = t4[0];
+            qf[j][nt][1] = t4[1];
+            qf[j + 1][nt][0] = t4[2];
+            qf[j + 1][nt][1] = t4[3];
+          }
+        }
+    const int t0 = lo + kt * BK;
+    const int n_tiles = min(kMdTiles, (hi - t0 + 15) / 16);
+    const __nv_bfloat16* tk = sK + (kt % ST) * BK * HD;
+    const __nv_bfloat16* tv = sV + (kt % ST) * BK * HD;
+    const bool scorer = tile < n_tiles;
+    float sc[RT][4];
+#pragma unroll
+    for (int nt = 0; nt < RT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+    if (scorer) {
+      // this warp's slice of S^T[16 keys][RP] = K_tile . Q^T
+      const int krow = tile * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      uint32_t kf[2][4], qs[2][kQRegs ? 1 : RT][2];
+      auto load_k = [&](int j, int buf) {
+        const int ks = hq * KQ + j;
+        ldsm_x4(kf[buf], tk + md_swz(krow, 2 * ks + (lane >> 4)));
+        if constexpr (!kQRegs)
+#pragma unroll
+          for (int nt = 0; nt < RT; ++nt)
+            ldsm_x2(qs[buf][nt], sQ + (nt * 8 + (lane & 7)) * kMdQStride + ks * 16 +
+                                     ((lane >> 3) & 1) * 8);
+      };
+      load_k(0, 0);
+#pragma unroll
+      for (int j = 0; j < KQ; ++j) {
+        if (j + 1 < KQ) load_k(j + 1, (j + 1) & 1);
+#pragma unroll
+        for (int nt = 0; nt < RT; ++nt) {
+          if constexpr (kQRegs) mma_16816(sc[nt], kf[j & 1], qf[j][nt][0], qf[j][nt][1]);
+          else mma_16816(sc[nt], kf[j & 1], qs[j & 1][nt][0], qs[j & 1][nt][1]);
+        }
+      }
+      if (hq != 0)
+#pragma unroll
+        for (int nt = 0; nt < RT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sS[(warp * RT * 4 + nt * 4 + e) * 32 + lane] = sc[nt][e];
+    }
+    __syncthreads();  // the slices' partial scores
+    const bool owner = scorer && hq == 0;
+    if (owner) {
+#pragma unroll
+      for (int q = 1; q < kMdQuarters; ++q)
+#pragma unroll
+        for (int nt = 0; nt < RT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[nt][e] += sS[((tile + q * kMdTiles) * RT * 4 + nt * 4 + e) * 32 + lane];
+      // scale into the base-2 domain; mask keys past the range and past
+      // each query's position; the tile's column maxima
+#pragma unroll
+      for (int nt = 0; nt < RT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = t0 + tile * 16 + gq + 8 * (e >> 1);
+          const int r = min(nt * 8 + 2 * tq + (e & 1), a.R - 1);
+          const int qpos = min(start + r / a.group, max_s - 1);
+          sc[nt][e] = key < hi && key <= qpos ? sc[nt][e] * a.scale_log2 : kNegInf;
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float v = fmaxf(sc[nt][j], sc[nt][2 + j]);
+          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
+          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
+          if (gq == 0) sMax[tile * RP + nt * 8 + 2 * tq + j] = v;
+        }
+      }
+    }
+    __syncthreads();  // the tiles' maxima
+    float corr[RT][2];
+#pragma unroll
+    for (int nt = 0; nt < RT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float mm = m_r[nt][j];
+        for (int w = 0; w < n_tiles; ++w) mm = fmaxf(mm, sMax[w * RP + nt * 8 + 2 * tq + j]);
+        mm = fmaxf(mm, kMaxFloor);
+        corr[nt][j] = exp2_approx(m_r[nt][j] - mm);
+        m_r[nt][j] = mm;
+        l_r[nt][j] *= corr[nt][j];
+      }
+    if (owner) {
+      // P rounded to bf16 into the shared [RP][keys] tile (B operand of
+      // P.V); l sums the unrounded P
+#pragma unroll
+      for (int nt = 0; nt < RT; ++nt) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[e] = sc[nt][e] <= kNegInf ? 0.f : exp2_approx(sc[nt][e] - m_r[nt][e & 1]);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float rs = p[j] + p[2 + j];
+          rs += __shfl_xor_sync(0xffffffffu, rs, 4);
+          rs += __shfl_xor_sync(0xffffffffu, rs, 8);
+          rs += __shfl_xor_sync(0xffffffffu, rs, 16);
+          l_r[nt][j] += rs;
+        }
+        uint32_t* prow = reinterpret_cast<uint32_t*>(
+            sP + (nt * 8 + gq) * kMdPStride + tile * 16 + 2 * tq);
+        prow[0] = movmatrix_trans(pack_bf16(p[0], p[1]));  // keys 2tq, +1
+        prow[4] = movmatrix_trans(pack_bf16(p[2], p[3]));  // keys 8 + 2tq, +1
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < RT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[mt][nt][e] *= corr[nt][e & 1];
+    __syncthreads();  // P landed
+    // O^T[this warp's hd rows][RP] += V^T . P^T over the stage's tiles
+    uint32_t pf[2][RT][2], vf[2][MT][4];
+    auto load_pv = [&](int kk, int buf) {
+#pragma unroll
+      for (int nt = 0; nt < RT; ++nt)
+        ldsm_x2(pf[buf][nt], sP + (nt * 8 + (lane & 7)) * kMdPStride + kk * 16 +
+                                 ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_x4_trans(vf[buf][mt], tv + md_swz(kk * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                               (warp * MT + mt) * 2 + ((lane >> 3) & 1)));
+    };
+    load_pv(0, 0);
+#pragma unroll
+    for (int kk = 0; kk < kMdTiles; ++kk) {
+      if (kk < n_tiles) {
+        if (kk + 1 < n_tiles) load_pv(kk + 1, (kk + 1) & 1);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < RT; ++nt)
+            mma_16816(o[mt][nt], vf[kk & 1][mt], pf[kk & 1][nt][0], pf[kk & 1][nt][1]);
+      }
+    }
+    __syncthreads();  // stage kt consumed: its buffers may be refilled
+    if (kt + ST < n_t) issue(kt + ST);
+    else cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  // l over the score tiles' owners
+  if (warp < kMdTiles && gq == 0)
+#pragma unroll
+    for (int nt = 0; nt < RT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) sL[warp * RP + nt * 8 + 2 * tq + j] = l_r[nt][j];
+  __syncthreads();
+  float lt[RT][2];
+#pragma unroll
+  for (int nt = 0; nt < RT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < kMdTiles; ++w) v += sL[w * RP + nt * 8 + 2 * tq + j];
+      lt[nt][j] = v;
+    }
+
+  if (used == 1) {  // the row's only CTA: out = acc / max(l, 1e-30)
+#pragma unroll
+    for (int nt = 0; nt < RT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = nt * 8 + 2 * tq + (e & 1);
+        if (r >= a.R) continue;
+        const int s = r / a.group, u = r - s * a.group;
+        __nv_bfloat16* orow = a.out + (((size_t)b * a.S + s) * a.H + g * a.group + u) * HD;
+        const float lc = fmaxf(lt[nt][e & 1], 1e-30f);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          orow[(warp * MT + mt) * 16 + gq + 8 * (e >> 1)] = __float2bfloat16(o[mt][nt][e] / lc);
+      }
+  } else {  // this CTA's partial
+    float* pacc = a.part_acc + ((size_t)bg * a.nsplit + split) * a.R * HD;
+#pragma unroll
+    for (int nt = 0; nt < RT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = nt * 8 + 2 * tq + (e & 1);
+        if (r >= a.R) continue;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          pacc[(size_t)r * HD + (warp * MT + mt) * 16 + gq + 8 * (e >> 1)] = o[mt][nt][e];
+      }
+    if (warp == 0 && gq == 0) {
+      float* pml = a.part_ml + ((size_t)bg * a.nsplit + split) * a.R * 2;
+#pragma unroll
+      for (int nt = 0; nt < RT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int r = nt * 8 + 2 * tq + j;
+          if (r < a.R) {
+            pml[2 * r] = m_r[nt][j];
+            pml[2 * r + 1] = lt[nt][j];
+          }
+        }
+    }
+  }
+
+  if (a.fused && start >= lo && start < hi && tid < CPK) {
+    // this CTA alone holds position `start`, and read it from new_k/new_v
+    const int blk = sbt[start / a.BS];
+    const size_t dst = (((size_t)blk * a.BS + start % a.BS) * a.KV + g) * HD + tid * 8;
+    *reinterpret_cast<uint4*>(a.k_pool_w + dst) =
+        *reinterpret_cast<const uint4*>(a.new_k + new_off + tid * 8);
+    *reinterpret_cast<uint4*>(a.v_pool_w + dst) =
+        *reinterpret_cast<const uint4*>(a.new_v + new_off + tid * 8);
+  }
+  if (used == 1) return;
+
+  // the row's CTAs wait for each other's partials (the launch is
+  // cooperative: they are all resident), then each merges a slice of out
+  // (arrival: a release, cumulative over the CTA's stores through the
+  // barrier; departure: counted as soon as the CTA stops polling, so its
+  // round trip overlaps the merge, and the last to depart resets both)
+  int* cnt = a.counters + 2 * bg;
+  __shared__ int s_departed;  // departures before this CTA's
+  __syncthreads();
+  if (tid == 0) {
+    red_release_add(cnt, 1);
+    while (ld_acquire(cnt) < used) __nanosleep(32);
+    s_departed = atomicAdd(cnt + 1, 1);
+  }
+  __syncthreads();  // thread 0's acquire, for the whole CTA
+  // this CTA's slice of the row's out, merged from all u partials in two
+  // levels: a thread folds its splits (online, as the softmax does), then
+  // the split groups are folded through shared memory in order; an order
+  // fixed by the shapes (deterministic). G split groups x E elements a
+  // pass: G = 1 and kEpt elements a thread a round for a wide slice of
+  // few splits, up to 8 groups for a narrow slice of many; a round's loads
+  // are issued together.
+  constexpr int kLoads = 8, kEpt = 2;
+  const int n_el = a.R * D4;  // float4 elements of the row's out
+  const int per = (n_el + used - 1) / used;
+  const int e_lo = split * per, e_hi = min(n_el, e_lo + per);
+  if (e_lo < e_hi) {
+    const float4* pacc = reinterpret_cast<const float4*>(a.part_acc) +
+                         (size_t)bg * a.nsplit * a.R * D4;
+    const float2* pml =
+        reinterpret_cast<const float2*>(a.part_ml) + (size_t)bg * a.nsplit * a.R;
+    const int G = max(1, min(kMdGroups, NT / (e_hi - e_lo))), E = NT / G;
+    const int k = tid / E, el = tid - k * E;
+    const int ept = (e_hi - e_lo + E - 1) / E;  // elements a thread
+    float mx[kEpt] = {}, ls[kEpt] = {};
+    float4 ac[kEpt] = {};
+    // fold (m, l, acc) into slot j's running state
+    auto fold = [&](int j, float2 ml, float4 v) {
+      const float mm = fmaxf(mx[j], ml.x), c = exp2_approx(mx[j] - mm);
+      const float w = exp2_approx(ml.x - mm);
+      mx[j] = mm;
+      ls[j] = ls[j] * c + w * ml.y;
+      ac[j].x = ac[j].x * c + w * v.x;
+      ac[j].y = ac[j].y * c + w * v.y;
+      ac[j].z = ac[j].z * c + w * v.z;
+      ac[j].w = ac[j].w * c + w * v.w;
+    };
+    const float2 kEmpty = make_float2(kMaxFloor, 0.f);
+    const float4 kZero = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j0 = 0; j0 < ept; j0 += kEpt) {  // kEpt elements a round
+#pragma unroll
+      for (int j = 0; j < kEpt; ++j) {
+        mx[j] = kMaxFloor;
+        ls[j] = 0.f;
+        ac[j] = kZero;
+      }
+      if (k < G && ept == 1) {  // one element, splits k, k + G, ... batched
+        const int e = min(e_lo + el, e_hi - 1), r = e / D4;
+        for (int i0 = k; i0 < used; i0 += G * kLoads) {
+          float2 ml[kLoads];
+          float4 v[kLoads];
+#pragma unroll
+          for (int j = 0; j < kLoads; ++j) {
+            const int i = i0 + G * j;
+            ml[j] = i < used ? __ldcg(pml + (size_t)i * a.R + r) : kEmpty;
+            v[j] = i < used ? __ldcg(pacc + (size_t)i * a.R * D4 + e) : kZero;
+          }
+#pragma unroll
+          for (int j = 0; j < kLoads; ++j) fold(0, ml[j], v[j]);
+        }
+      } else if (k < G) {  // G = 1: up to kEpt elements batched, splits in turn
+        for (int i = 0; i < used; ++i) {
+          float2 ml[kEpt];
+          float4 v[kEpt];
+#pragma unroll
+          for (int j = 0; j < kEpt; ++j) {
+            const int e = e_lo + el + E * (j0 + j);
+            const bool ok = j0 + j < ept && e < e_hi;
+            ml[j] = ok ? __ldcg(pml + (size_t)i * a.R + e / D4) : kEmpty;
+            v[j] = ok ? __ldcg(pacc + (size_t)i * a.R * D4 + e) : kZero;
+          }
+#pragma unroll
+          for (int j = 0; j < kEpt; ++j) fold(j, ml[j], v[j]);
+        }
+      }
+      if (G > 1) {  // the groups' states of each element, in the ring
+        float* sst = reinterpret_cast<float*>(smem_raw) + (size_t)tid * 6;  // m, l, acc
+        sst[0] = mx[0];
+        sst[1] = ls[0];
+        sst[2] = ac[0].x;
+        sst[3] = ac[0].y;
+        sst[4] = ac[0].z;
+        sst[5] = ac[0].w;
+        __syncthreads();
+        if (k == 0)
+          for (int q = 1; q < G; ++q) {
+            const float* o2 = reinterpret_cast<const float*>(smem_raw) + (size_t)(q * E + el) * 6;
+            fold(0, make_float2(o2[0], o2[1]), make_float4(o2[2], o2[3], o2[4], o2[5]));
+          }
+      }
+      if (k == 0)
+#pragma unroll
+        for (int j = 0; j < kEpt; ++j) {
+          const int e = e_lo + el + E * (j0 + j);
+          if (j0 + j >= ept || e >= e_hi) continue;
+          const int r = e / D4, d = (e - r * D4) * 4;
+          const int s = r / a.group, u = r - s * a.group;
+          const float lc = fmaxf(ls[j], 1e-30f);
+          uint32_t* dst = reinterpret_cast<uint32_t*>(
+              a.out + (((size_t)b * a.S + s) * a.H + g * a.group + u) * HD + d);
+          dst[0] = pack_bf16(ac[j].x / lc, ac[j].y / lc);
+          dst[1] = pack_bf16(ac[j].z / lc, ac[j].w / lc);
+        }
+    }
+  }
+  if (tid == 0 && s_departed == used - 1) {  // every CTA has stopped polling
+    cnt[0] = 0;
+    cnt[1] = 0;
+  }
+}
+
+template <int RT>
+cudaError_t launch_mma_decode_rt(MdArgs a, int B, cudaStream_t st) {
+  const size_t smem = md_smem_bytes<RT>(a.MB);
+  auto kern = paged_decode_mma_kernel<RT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  // a row's CTAs wait for each other before the merge, so all of them
+  // must be resident at once: no more splits than the card holds, and a
+  // cooperative launch, which refuses a grid it cannot hold
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kMdWarps * 32,
+                                                           smem)) != cudaSuccess)
+    return err;
+  const int rows = B * a.KV;
+  a.nsplit = max(1, min(a.nsplit, per_sm * sms / rows));
+  const dim3 grid(a.nsplit, rows);
+  if (a.nsplit == 1) {  // every row one CTA: nothing waits
+    kern<<<grid, kMdWarps * 32, smem, st>>>(a);
+    return cudaGetLastError();
+  }
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern), grid,
+                                    dim3(kMdWarps * 32), args, smem, st);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+cudaError_t launch_mma_decode(const MdArgs& a, int B, cudaStream_t st) {
+  if (a.part_acc == nullptr || a.counters == nullptr || a.nsplit < 1 ||
+      a.nsplit > kMdMaxSplits || a.split_keys < 1 || a.R < 1 || a.R > 64 ||
+      (long long)B * a.KV > 65535 ||
+      (a.fused && (a.new_k == nullptr || a.new_v == nullptr || a.S != 1)))
+    return cudaErrorInvalidValue;
+  switch ((a.R + 7) / 8) {
+    case 1: return launch_mma_decode_rt<1>(a, B, st);
+    case 2: return launch_mma_decode_rt<2>(a, B, st);
+    case 3: return launch_mma_decode_rt<3>(a, B, st);
+    case 4: return launch_mma_decode_rt<4>(a, B, st);
+    case 5: return launch_mma_decode_rt<5>(a, B, st);
+    case 6: return launch_mma_decode_rt<6>(a, B, st);
+    case 7: return launch_mma_decode_rt<7>(a, B, st);
+    case 8: return launch_mma_decode_rt<8>(a, B, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 // ---- dispatch ----------------------------------------------------------------
 
 struct Call {
   const void *q, *k_pool, *v_pool, *bt, *starts, *new_k, *new_v;
-  void *ws, *out;
+  void *ws, *counters, *out;
   int B, S, H, KV, hd, NB, BS, MB, nsplit, split_len;
 };
 
@@ -967,6 +1630,38 @@ cudaError_t run(const Call& c, int route, bool fused, cudaStream_t st) {
       return cudaErrorInvalidValue;
     return fused ? launch_split<T, HD, true>(a, c.B, st)
                  : launch_split<T, HD, false>(a, c.B, st);
+  }
+  if (route == kMmaDecode) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value && HD == kMdHD) {
+      MdArgs a{};
+      a.q = static_cast<const __nv_bfloat16*>(c.q);
+      a.k_pool = static_cast<const __nv_bfloat16*>(c.k_pool);
+      a.v_pool = static_cast<const __nv_bfloat16*>(c.v_pool);
+      a.k_pool_w = const_cast<__nv_bfloat16*>(a.k_pool);
+      a.v_pool_w = const_cast<__nv_bfloat16*>(a.v_pool);
+      a.bt = static_cast<const int*>(c.bt);
+      a.starts = static_cast<const int*>(c.starts);
+      a.new_k = static_cast<const __nv_bfloat16*>(c.new_k);
+      a.new_v = static_cast<const __nv_bfloat16*>(c.new_v);
+      a.S = c.S;
+      a.H = c.H;
+      a.KV = c.KV;
+      a.BS = c.BS;
+      a.MB = c.MB;
+      a.group = group;
+      a.R = c.S * group;
+      a.nsplit = c.nsplit;
+      a.split_keys = c.split_len;
+      a.part_acc = static_cast<float*>(c.ws);
+      a.part_ml = a.part_acc == nullptr ? nullptr
+                                        : a.part_acc + (size_t)c.B * c.KV * c.nsplit * a.R * HD;
+      a.counters = static_cast<int*>(c.counters);
+      a.out = static_cast<__nv_bfloat16*>(c.out);
+      a.fused = fused;
+      a.scale_log2 = scale_log2;
+      return launch_mma_decode(a, c.B, st);
+    }
+    return cudaErrorInvalidValue;
   }
   if (route == kTensorCore) {
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
@@ -1010,7 +1705,7 @@ int dispatch(const Call& c, int dtype, bool fused, void* stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. The route (0 split-K, 1 tensor cores,
-// 2 CUDA cores) of a call with these arguments.
+// 2 CUDA cores, 3 tensor-core decode) of a call with these arguments.
 extern "C" int kdl_paged_route(int dtype, int hd, int S, int group, int BS,
                                int fused) {
   return route_of(dtype, hd, S, group, BS, fused != 0);
@@ -1018,24 +1713,30 @@ extern "C" int kdl_paged_route(int dtype, int hd, int S, int group, int BS,
 
 // ws: the split-K route's float32 workspace [B, KV, nsplit, S*H/KV, hd + 2]
 // (not initialised), with nsplit * split_len >= MB * BS and split_len a
-// multiple of 32; null (and nsplit, split_len 0) on the other routes.
+// multiple of 32; or the tensor-core decode route's [B*KV*nsplit*R*(hd +
+// 2)] partials (not initialised) with `counters` [B*KV, 2] int32, zero
+// before the launch and zero after it, nsplit <= 64 and split_len the keys
+// a split takes at least (a row of n keys uses min(nsplit, ceil(n /
+// split_len)) CTAs; the launch may use fewer splits, to what the card
+// holds at once); null (and nsplit, split_len 0) on the other routes.
 extern "C" int kdl_paged_attention_blocked(
     const void* q, const void* k_pool, const void* v_pool, const void* bt,
-    const void* starts, void* ws, void* out, int B, int S, int H, int KV,
-    int hd, int NB, int BS, int MB, int nsplit, int split_len, int dtype,
-    void* stream) {
-  const Call c{q, k_pool, v_pool, bt, starts, nullptr, nullptr, ws, out,
-               B, S, H, KV, hd, NB, BS, MB, nsplit, split_len};
+    const void* starts, void* ws, void* counters, void* out, int B, int S,
+    int H, int KV, int hd, int NB, int BS, int MB, int nsplit, int split_len,
+    int dtype, void* stream) {
+  const Call c{q, k_pool, v_pool, bt, starts, nullptr, nullptr, ws, counters,
+               out, B, S, H, KV, hd, NB, BS, MB, nsplit, split_len};
   return dispatch(c, dtype, false, stream);
 }
 
-// The decode step: always the split-K route, with the fused write.
+// The decode step, with the fused write: the tensor-core decode route at
+// bf16 hd 256 with H/KV < 64, else split-K.
 extern "C" int kdl_paged_attention_fused(
     const void* q, void* k_pool, void* v_pool, const void* bt,
     const void* starts, const void* new_k, const void* new_v, void* ws,
-    void* out, int B, int H, int KV, int hd, int NB, int BS, int MB,
-    int nsplit, int split_len, int dtype, void* stream) {
-  const Call c{q, k_pool, v_pool, bt, starts, new_k, new_v, ws, out,
+    void* counters, void* out, int B, int H, int KV, int hd, int NB, int BS,
+    int MB, int nsplit, int split_len, int dtype, void* stream) {
+  const Call c{q, k_pool, v_pool, bt, starts, new_k, new_v, ws, counters, out,
                B, 1, H, KV, hd, NB, BS, MB, nsplit, split_len};
   return dispatch(c, dtype, true, stream);
 }

@@ -22,8 +22,18 @@ picked by where the tensors live — never by a fallback:
   ``route_of`` is the same table), with no fallback between routes: a
   CUDA tensor launches its route's kernel or raises.
 
-  - ``"split_k"``: every fused decode call, and any blocked call with
-    R = S*group < 64 query rows a kv-head. Keys are split into
+  - ``"mma_decode"``: bf16 at hd 256 with R = S*group < 64 query rows a
+    kv-head, fused or not (every Gemma-2B decode step and its verify):
+    one launch, both products on ``mma.sync``. Each row's keys are cut
+    on the device into :func:`mma_split_ranges` (at most
+    :func:`mma_plan` of them), one CTA each; a row of one range writes
+    its output directly, otherwise the range's float32 partial goes to a
+    workspace kept per (device, stream), and the row's CTAs, resident
+    together (a cooperative launch), each merge a slice of the output in
+    the same launch (:func:`plain_mma_partials` +
+    :func:`combine_splits` is the plain version of that partition).
+  - ``"split_k"``: every other fused decode call, and any other blocked
+    call with R < 64 (float32, hd 64 / 128). Keys are split into
     :func:`split_plan` ranges, one CTA each (flash decoding); the splits'
     float32 partials (m, l, acc) go to a workspace the wrapper allocates
     and a second small kernel merges them (:func:`combine_splits` is the
@@ -91,7 +101,8 @@ DEFAULT_TILE = 256
 LAUNCHES = {"blocked": 0, "fused": 0}
 #: the same op calls by the route they took (see :func:`paged_route`)
 SPLIT_K, TENSOR_CORE, CUDA_CORE = "split_k", "tensor_core", "cuda_core"
-ROUTE_LAUNCHES = {SPLIT_K: 0, TENSOR_CORE: 0, CUDA_CORE: 0}
+MMA_DECODE = "mma_decode"
+ROUTE_LAUNCHES = {SPLIT_K: 0, TENSOR_CORE: 0, CUDA_CORE: 0, MMA_DECODE: 0}
 #: the same op calls by entry point and route ("blocked/split_k": a
 #: speculative verify's S = k+1 call, say)
 ENTRY_ROUTE_LAUNCHES = {f"{e}/{r}": 0 for e in LAUNCHES
@@ -115,15 +126,31 @@ SM_COUNT = 132
 SPLIT_QUANTUM = 32
 #: ... and about this long when the key range, not the SM count, decides
 SPLIT_TARGET_KEYS = 256
+#: the head dim whose bf16 calls with R < 64 take the tensor-core decode
+MMA_HEAD_DIM = 256
+#: the tensor-core decode's keys a CTA takes at least (about): a row of n
+#: keys uses min(nsplit, ceil(n / MMA_SPLIT_KEYS)) CTAs, one 32-key stage
+#: each or more (one SM streams a small share of the card's rate, so a
+#: long row is spread wide)
+MMA_SPLIT_KEYS = 32
+#: ... its CTAs an SM that the grid aims at (three fit at one n8 tile of
+#: query rows; the launch lowers nsplit to what the card holds at once)
+MMA_CTAS_PER_SM = 3
+#: ... and its most CTAs a row (the source refuses more)
+MMA_MAX_SPLITS = 64
 
 
 def paged_route(dtype, head_dim: int, S: int, group: int,
                 block_size: int, fused: bool = False) -> str:
-    """The kernel a CUDA call takes: ``"split_k"`` for a fused decode call
-    or fewer than 64 query rows a kv-head; ``"tensor_core"`` for bf16 at
-    hd 64/128/256 whose block size is a multiple of 8 dividing 64 and
-    whose group divides 64; ``"cuda_core"`` for the rest. Mirrors the
-    source's ``route_of``."""
+    """The kernel a CUDA call takes: ``"mma_decode"`` for bf16 at hd 256
+    with fewer than 64 query rows a kv-head (fused or not);
+    ``"split_k"`` for any other fused decode call or fewer than 64 query
+    rows; ``"tensor_core"`` for bf16 at hd 64/128/256 whose block size is
+    a multiple of 8 dividing 64 and whose group divides 64;
+    ``"cuda_core"`` for the rest. Mirrors the source's ``route_of``."""
+    if (dtype == torch.bfloat16 and head_dim == MMA_HEAD_DIM
+            and S * group < SPLIT_MAX_ROWS):
+        return MMA_DECODE
     if fused or S * group < SPLIT_MAX_ROWS:
         return SPLIT_K
     if (dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS
@@ -144,6 +171,28 @@ def split_plan(max_s: int, rows_kv: int) -> tuple:
     split_len = max(SPLIT_QUANTUM,
                     max_s // want // SPLIT_QUANTUM * SPLIT_QUANTUM)
     return -(-max_s // split_len), split_len
+
+
+def mma_plan(max_s: int, rows_kv: int) -> int:
+    """The tensor-core decode's CTAs a row, ``nsplit``, for ``max_s =
+    MB*BS`` logical positions and ``rows_kv = B*KV`` (row, kv-head) pairs:
+    about ``MMA_CTAS_PER_SM`` CTAs an SM over the grid, no more than the
+    longest row could use, at most ``MMA_MAX_SPLITS`` (the launch lowers
+    it further to what the card holds at once: a row's CTAs wait for each
+    other). Shapes only, never data."""
+    return max(1, min(-(-MMA_CTAS_PER_SM * SM_COUNT // max(rows_kv, 1)),
+                      -(-max_s // MMA_SPLIT_KEYS), MMA_MAX_SPLITS))
+
+
+def mma_split_ranges(n_keys: int, nsplit: int,
+                     split_keys: int = MMA_SPLIT_KEYS) -> list:
+    """The key ranges ``[lo, hi)`` of a row with ``n_keys`` visible keys,
+    as the kernel cuts them on the device: ``u = min(nsplit, ceil(n_keys
+    / split_keys))`` CTAs, CTA i taking ``[i*n/u, (i+1)*n/u)``; CTAs past
+    ``u`` take none."""
+    used = min(nsplit, -(-n_keys // split_keys))
+    return [(i * n_keys // used, (i + 1) * n_keys // used)
+            for i in range(used)]
 
 
 def blocks_per_chunk(num_blocks: int, block_size: int,
@@ -302,8 +351,55 @@ def plain_split_partials(q, k_pool, v_pool, bt, starts, split_len: int):
     return (torch.stack(ms, -1), torch.stack(ls, -1), torch.stack(accs, -2))
 
 
+def plain_mma_partials(q, k_pool, v_pool, bt, starts, nsplit: int,
+                       split_keys: int = MMA_SPLIT_KEYS):
+    """The plain version of the tensor-core decode's partition: for each
+    row, the online-softmax state (m, l, acc) over each of its
+    :func:`mma_split_ranges`, in float32 and base e, laid out as
+    :func:`plain_split_partials` lays its splits out (``m``/``l`` [B, KV,
+    group, S, nsplit], ``acc`` [..., nsplit, hd]); the CTAs a row does not
+    use are the empty partial (-1e29, 0, 0). :func:`combine_splits` folds
+    them into the attention output."""
+    B, S, H, hd = q.shape
+    BS, KV = k_pool.shape[1], k_pool.shape[2]
+    max_s = bt.shape[1] * BS
+    group = H // KV
+    dev = q.device
+    qg = q.reshape(B, S, KV, group, hd).float()
+    posq = torch.clamp(
+        starts.long()[:, None] + torch.arange(S, device=dev)[None, :],
+        max=max_s - 1,
+    )
+    kf = k_pool[bt.long()].reshape(B, max_s, KV, hd).float()
+    vf = v_pool[bt.long()].reshape(B, max_s, KV, hd).float()
+    s = torch.einsum("bskgh,btkh->bkgst", qg, kf) / math.sqrt(hd)
+    t = torch.arange(max_s, device=dev)
+    visible = t[None, None, :] <= posq[:, :, None]  # [B, S, T]
+    lo = torch.zeros((B, nsplit), dtype=torch.long)
+    hi = torch.zeros((B, nsplit), dtype=torch.long)
+    for b, n in enumerate((posq[:, -1] + 1).tolist()):
+        for i, (a, z) in enumerate(mma_split_ranges(n, nsplit, split_keys)):
+            lo[b, i], hi[b, i] = a, z
+    lo, hi = lo.to(dev), hi.to(dev)
+    ms, ls, accs = [], [], []
+    for i in range(nsplit):
+        rng = (t[None, :] >= lo[:, i, None]) & (t[None, :] < hi[:, i, None])
+        valid = visible & rng[:, None, :]
+        si = torch.where(valid[:, None, None], s, NEG_INF)
+        m = torch.full((B, KV, group, S), M_FLOOR, dtype=torch.float32,
+                       device=dev)
+        m, l, acc = _online_fold(m, torch.zeros_like(m),
+                                 torch.zeros(m.shape + (hd,), device=dev),
+                                 si, vf)
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
+    return (torch.stack(ms, -1), torch.stack(ls, -1), torch.stack(accs, -2))
+
+
 def combine_splits(m, l, acc):
-    """The plain version of the split-K merge: partials ``m``/``l``
+    """The plain version of the split-K merge and of the tensor-core
+    decode's in-launch merge: partials ``m``/``l``
     [..., N] and ``acc`` [..., N, hd] (base e, as :func:`_online_fold`
     keeps them; the kernel's are base 2) folded into ``acc / max(l,
     1e-30)`` [..., hd] under the same -1e29 clamp, so an empty partial
@@ -371,11 +467,21 @@ def _dtype_code(dtype) -> int:
     return 1 if dtype == torch.bfloat16 else 0
 
 
+#: the tensor-core decode's partials and arrival counters, one each per
+#: (device, stream): calls on a stream run in order, and each launch
+#: leaves the counters at zero
+_MMA_PARTIALS: dict = {}
+_MMA_COUNTERS: dict = {}
+
+
 def _cuda_launch(q, k_pool, v_pool, bt, starts, new_k=None, new_v=None):
     """One op call on the card: the route's kernel (split-K: the split
-    kernel and the merge), launched on the current stream without a
-    device read; the fused call updates the pools in place."""
-    from kubedl_tpu_torch.ops.build import check_launch, load_kernels
+    kernel and the merge; the tensor-core decode: one launch), launched
+    on the current stream without a device read; the fused call updates
+    the pools in place."""
+    from kubedl_tpu_torch.ops.build import (check_launch, float_workspace,
+                                            int_counters, load_kernels,
+                                            stream_handle)
 
     fused = new_k is not None
     extra = (("new_k", new_k), ("new_v", new_v)) if fused else ()
@@ -383,6 +489,7 @@ def _cuda_launch(q, k_pool, v_pool, bt, starts, new_k=None, new_v=None):
     B, S, H, hd = q.shape
     NB, BS, KV, _ = k_pool.shape
     MB = bt.shape[1]
+    R = S * (H // KV)
     if fused and (new_k.shape != (B, KV, hd) or new_v.shape != (B, KV, hd)):
         raise ValueError(
             f"new_k/new_v must be [B, KV, hd] = {(B, KV, hd)}, got "
@@ -391,27 +498,35 @@ def _cuda_launch(q, k_pool, v_pool, bt, starts, new_k=None, new_v=None):
     route = paged_route(q.dtype, hd, S, H // KV, BS, fused)
     lib = load_kernels()
     out = torch.empty_like(q)
-    ws, nsplit, split_len = None, 0, 0
-    if route == SPLIT_K:
-        nsplit, split_len = split_plan(MB * BS, B * KV)
-        ws = torch.empty((B, KV, nsplit, S * (H // KV), hd + 2),
-                         dtype=torch.float32, device=q.device)
-    ws_ptr = None if ws is None else ws.data_ptr()
-    dims = (NB, BS, MB, nsplit, split_len, _dtype_code(q.dtype))
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = stream_handle(q.device)
+        ws = counters = None
+        nsplit = split_len = 0
+        if route == SPLIT_K:
+            nsplit, split_len = split_plan(MB * BS, B * KV)
+            ws = torch.empty((B, KV, nsplit, R, hd + 2), dtype=torch.float32,
+                             device=q.device)
+        elif route == MMA_DECODE:
+            nsplit, split_len = mma_plan(MB * BS, B * KV), MMA_SPLIT_KEYS
+            ws = float_workspace(_MMA_PARTIALS, q.device, stream,
+                                 B * KV * nsplit * R * (hd + 2))
+            counters = int_counters(_MMA_COUNTERS, q.device, stream,
+                                    2 * B * KV)
+        ws_ptr = None if ws is None else ws.data_ptr()
+        counters_ptr = None if counters is None else counters.data_ptr()
+        dims = (NB, BS, MB, nsplit, split_len, _dtype_code(q.dtype))
         if fused:
             err = lib.kdl_paged_attention_fused(
                 q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 bt.data_ptr(), starts.data_ptr(), new_k.data_ptr(),
-                new_v.data_ptr(), ws_ptr, out.data_ptr(),
+                new_v.data_ptr(), ws_ptr, counters_ptr, out.data_ptr(),
                 B, H, KV, hd, *dims, stream,
             )
         else:
             err = lib.kdl_paged_attention_blocked(
                 q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                bt.data_ptr(), starts.data_ptr(), ws_ptr, out.data_ptr(),
-                B, S, H, KV, hd, *dims, stream,
+                bt.data_ptr(), starts.data_ptr(), ws_ptr, counters_ptr,
+                out.data_ptr(), B, S, H, KV, hd, *dims, stream,
             )
     name = "fused" if fused else "blocked"
     check_launch(err, f"paged_attention_{name} ({route})")
@@ -478,6 +593,9 @@ __all__ = [
     "paged_attention",
     "paged_route",
     "split_plan",
+    "mma_plan",
+    "mma_split_ranges",
+    "plain_mma_partials",
     "plain_paged_attention",
     "read_only_paged_attention",
     "plain_split_partials",

@@ -102,7 +102,7 @@ def _declare_paged_attention(lib) -> None:
     lib.kdl_paged_route.argtypes = [i] * 6  # dtype hd S group BS fused
     lib.kdl_paged_route.restype = i
     lib.kdl_paged_attention_blocked.argtypes = [
-        p, p, p, p, p, p, p,  # q, k_pool, v_pool, bt, starts, ws, out
+        p, p, p, p, p, p, p, p,  # q k_pool v_pool bt starts ws counters out
         i, i, i, i, i, i, i, i,  # B S H KV hd NB BS MB
         i, i, i,  # nsplit split_len dtype
         p,  # stream
@@ -110,7 +110,7 @@ def _declare_paged_attention(lib) -> None:
     lib.kdl_paged_attention_blocked.restype = i
     lib.kdl_paged_attention_fused.argtypes = [
         p, p, p, p, p, p, p,  # q k_pool v_pool bt starts new_k new_v
-        p, p,  # ws out
+        p, p, p,  # ws counters out
         i, i, i, i, i, i, i,  # B H KV hd NB BS MB
         i, i, i,  # nsplit split_len dtype
         p,  # stream
@@ -234,6 +234,19 @@ def float_workspace(cache: dict, device, stream: int, numel: int):
     return ws
 
 
+def int_counters(cache: dict, device, stream: int, numel: int):
+    """An int32 tensor of at least ``numel`` zeros for the kernels on
+    ``(device, stream)``, kept in ``cache`` and grown as needed (a new one
+    is zeroed): each launch that counts in it leaves it at zero again."""
+    import torch
+
+    cnt = cache.get((device, stream))
+    if cnt is None or cnt.numel() < numel:
+        cnt = torch.zeros(numel, dtype=torch.int32, device=device)
+        cache[(device, stream)] = cnt
+    return cnt
+
+
 def check_launch(err: int, name: str) -> None:
     """Raise on the ``cudaGetLastError()`` code a C entry point returned:
     a refused launch (too many threads, too much shared memory) never
@@ -244,6 +257,6 @@ def check_launch(err: int, name: str) -> None:
 
 __all__ = ["build", "build_all", "load_kernels", "load_flash_kernels",
            "load_w8a16_kernels", "load_adamw_kernels", "stream_handle",
-           "float_workspace",
+           "float_workspace", "int_counters",
            "check_launch", "find_nvcc", "BUILD_DIR", "BUILD_SECONDS",
            "BUILD_LOG"]

@@ -31,10 +31,11 @@ shedding, drain and cancel; the model lifecycle (weights restored from
 a checkpoint in the reference's format, int8 weight-only quantization
 through the W8A16 kernel, versions loaded, activated and retired while
 serving) and disaggregated prefill/decode (a row's KV blocks exported
-as a ``KVHandoff`` and adopted by another engine). Mesh sharding,
-trained zoo drafts, the contiguous layout, remote model roots and the
-chaos sites are later slices: asking for them raises ``ValueError``
-rather than being ignored.
+as a ``KVHandoff`` and adopted by another engine); ``serve_main`` serves
+a local model root or mirrors a remote one (a blob prefix) first. Mesh
+sharding, trained zoo drafts, the contiguous layout and the chaos sites
+are later slices: asking for them raises ``ValueError`` rather than
+being ignored.
 
 The host pos/bt mirrors stay authoritative and are uploaded (copied,
 never shared with numpy) before every dispatch, through pinned staging
@@ -60,7 +61,7 @@ import torch
 from kubedl_tpu_torch import resolve_device
 from kubedl_tpu_torch.models import llama
 from kubedl_tpu_torch.models import paged_attention
-from kubedl_tpu_torch.remote.client import is_remote_root
+from kubedl_tpu_torch.remote.client import download_tree, is_remote_root
 from kubedl_tpu_torch.serving.disagg import HandoffError, KVHandoff
 from kubedl_tpu_torch.serving.kv_blocks import BlockAllocator
 from kubedl_tpu_torch.serving.prefix_cache import PrefixCache
@@ -2486,6 +2487,23 @@ def engine_kwargs(cfg: Dict, ckpt_dir: str) -> Dict:
     }
 
 
+def mirror_model_root(root: str) -> str:
+    """Mirror a remote model root (a blob prefix) into
+    ``<tmp>/kubedl-serve-cache-<uid>/<sha256(root)[:16]>`` and return that
+    directory, as the reference's ``serve_main`` does: a predictor may run
+    on another host than the trainer that published the version."""
+    import hashlib
+    import tempfile
+
+    cache = os.path.join(tempfile.gettempdir(),
+                         f"kubedl-serve-cache-{os.getuid()}",
+                         hashlib.sha256(root.encode()).hexdigest()[:16])
+    os.makedirs(cache, exist_ok=True)
+    n = download_tree(root, cache)
+    log.info("fetched %d blobs from %s", n, root)
+    return cache
+
+
 def serve_main(env: Optional[Dict] = None) -> int:
     """Container entrypoint: build the engine from ``KUBEDL_SERVE_CONFIG``
     and serve until SIGTERM (main thread) or the ``_KUBEDL_CANCEL``
@@ -2500,8 +2518,7 @@ def serve_main(env: Optional[Dict] = None) -> int:
         raise _unported("chaos", "fault injection")
     ckpt = os.environ.get("KUBEDL_MODEL_PATH", "")
     if is_remote_root(ckpt):
-        raise _unported(f"a remote model root ({ckpt})",
-                        "the remote artifact client")
+        ckpt = mirror_model_root(ckpt)
     port = int(cfg.get("port", 8080))
     host = cfg.get("host") or os.environ.get("KUBEDL_SERVE_HOST", "127.0.0.1")
     kwargs = engine_kwargs(cfg, ckpt)

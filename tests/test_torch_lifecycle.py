@@ -375,11 +375,56 @@ def test_train_main_fault_resume_publish_serve(tmp_path, clean_env, capsys,
         assert torch.allclose(a, b, rtol=1e-5, atol=1e-7)
 
 
+def _serve_greedy(monkeypatch, model_path, prompt, max_tokens):
+    """``serve_main`` (in a thread, on a free port) with
+    ``KUBEDL_MODEL_PATH=model_path``: one greedy request's token ids; the
+    replica is stopped through its cancel event."""
+    import socket
+    import urllib.request
+
+    from kubedl_tpu_torch.serving import server
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setenv("KUBEDL_SERVE_CONFIG", json.dumps(
+        {"preset": "tiny", "max_batch": 2, "max_seq": 64, "kv_block_size": 4,
+         "prefix_cache_mb": 0, "device": "cpu", "port": port}))
+    monkeypatch.setenv("KUBEDL_MODEL_PATH", model_path)
+    cancel = threading.Event()
+    th = threading.Thread(target=server.serve_main, daemon=True,
+                          args=({"_KUBEDL_CANCEL": cancel},))
+    th.start()
+    base = f"http://127.0.0.1:{port}"
+    try:
+        for _ in range(400):
+            try:
+                with urllib.request.urlopen(base + "/healthz", timeout=5):
+                    break
+            except OSError:
+                time.sleep(0.05)
+        req = urllib.request.Request(
+            base + "/v1/generate", method="POST",
+            data=json.dumps({"prompt_ids": prompt, "max_tokens": max_tokens,
+                             "temperature": 0.0}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())["token_ids"]
+    finally:
+        cancel.set()
+        th.join(timeout=30)
+        assert not th.is_alive()
+
+
 def test_train_main_publishes_to_a_blob_root(tmp_path, clean_env,
                                              monkeypatch):
     """A remote model root: interval saves go to the hashed temporary
     dir, the final state is uploaded through the blob client, and the
-    downloaded tree restores to the trained parameters."""
+    downloaded tree restores to the trained parameters. ``serve_main`` on
+    the URL mirrors it into ``<tmp>/kubedl-serve-cache-<uid>/<sha256[:16]>``
+    and serves the same greedy stream as on the local copy."""
+    import hashlib
+
     from kubedl_tpu.remote import RemoteStoreServer
     from kubedl_tpu_torch.remote.client import download_tree
     from kubedl_tpu_torch.training import entry
@@ -388,11 +433,20 @@ def test_train_main_publishes_to_a_blob_root(tmp_path, clean_env,
     os.makedirs(tmp_path / "tmp")
     cap = _Capture(monkeypatch)
     cfg = dict(CFG, steps=3, ckpt_every=0)
+    prompt = [5, 17, 3, 99, 42, 7, 1, 250]
     with RemoteStoreServer(str(tmp_path / "blobs")) as srv:
         root = f"{srv.base_url}/blobs/models/m1"
         assert entry.train_main({"KUBEDL_TRAIN_CONFIG": json.dumps(cfg),
                                  "KUBEDL_MODEL_PATH": root}) == 0
         n = download_tree(root, str(tmp_path / "pulled"))
+        remote_stream = _serve_greedy(monkeypatch, root, prompt, 8)
+    local_stream = _serve_greedy(monkeypatch, str(tmp_path / "pulled"),
+                                 prompt, 8)
+    assert len(remote_stream) == 8 and remote_stream == local_stream
+    cache = tmp_path / "tmp" / f"kubedl-serve-cache-{os.getuid()}" / \
+        hashlib.sha256(root.encode()).hexdigest()[:16]
+    assert sorted(p.name for p in cache.iterdir()) == \
+        sorted(p.name for p in (tmp_path / "pulled").iterdir())
     assert n == 3  # latest, meta.json, shards-p0.npz
     assert entry.LAST_SUMMARY["data_loader"] == "synthetic"
     final = cap.states[-1]

@@ -218,7 +218,10 @@ BF, F32 = torch.bfloat16, torch.float32
 
 @pytest.mark.parametrize("dtype,hd,S,group,BS,fused,want", [
     (BF, 128, 1, 4, 16, True, "split_k"),  # Llama-3-8B decode
-    (BF, 256, 1, 8, 16, True, "split_k"),  # Gemma-2B decode
+    # ids kept from the rows' split-K days: hd 256 bf16 with R < 64 now
+    # takes the tensor-core decode
+    pytest.param(BF, 256, 1, 8, 16, True, "mma_decode",  # Gemma-2B decode
+                 id="bfloat16-256-1-8-16-True-split_k"),
     (F32, 64, 1, 4, 16, True, "split_k"),
     (BF, 128, 1, 64, 16, True, "split_k"),  # fused is split-K at any R
     (BF, 128, 1, 4, 16, False, "split_k"),  # R = 4
@@ -232,7 +235,14 @@ BF, F32 = torch.bfloat16, torch.float32
     (F32, 128, 512, 4, 16, False, "cuda_core"),  # f32 prefill
     (BF, 256, 64, 8, 16, False, "tensor_core"),  # Gemma-2B's prefill
     (BF, 256, 8, 8, 16, False, "tensor_core"),  # hd 256, R = 64
-    (BF, 256, 7, 8, 16, False, "split_k"),  # hd 256, R = 56
+    pytest.param(BF, 256, 7, 8, 16, False, "mma_decode",  # hd 256, R = 56
+                 id="bfloat16-256-7-8-16-False-split_k"),
+    (BF, 256, 5, 8, 16, False, "mma_decode"),  # Gemma-2B's verify, R = 40
+    (BF, 256, 1, 8, 16, False, "mma_decode"),  # unfused S = 1
+    (BF, 256, 1, 64, 16, True, "split_k"),  # fused at R = 64
+    (F32, 256, 1, 8, 16, True, "split_k"),  # f32 decode at hd 256
+    (F32, 256, 5, 8, 16, False, "split_k"),  # f32 verify at hd 256
+    (BF, 128, 5, 8, 16, False, "split_k"),  # verify at hd 128
     (F32, 256, 64, 8, 16, False, "cuda_core"),  # f32 prefill at hd 256
     (BF, 256, 64, 8, 12, False, "cuda_core"),  # BS not a multiple of 8
     (BF, 128, 64, 4, 12, False, "cuda_core"),  # BS not a multiple of 8
@@ -254,6 +264,79 @@ def test_split_plan_covers_keys_and_fills_the_card(max_s, rows_kv):
     assert nsplit * rows_kv >= min(2 * tpa.SM_COUNT,
                                    rows_kv * (max_s // tpa.SPLIT_QUANTUM))
     assert length <= max(tpa.SPLIT_TARGET_KEYS, tpa.SPLIT_QUANTUM)
+
+
+@pytest.mark.parametrize("max_s,rows_kv", [(2048, 8), (8192, 8), (2048, 1),
+                                           (2048, 64), (64, 8), (16, 2)])
+def test_mma_plan_covers_every_key_once_in_about_one_wave(max_s, rows_kv):
+    """The tensor-core decode's grid: about one wave at three CTAs an SM
+    (never more than one CTA a pair past it), no more CTAs a row than the
+    longest row uses; every row's keys split into disjoint ranges that
+    cover them once, none shorter than half the split length."""
+    nsplit = tpa.mma_plan(max_s, rows_kv)
+    assert 1 <= nsplit <= tpa.MMA_MAX_SPLITS
+    waves = tpa.MMA_CTAS_PER_SM * tpa.SM_COUNT
+    assert nsplit * rows_kv < waves + rows_kv or nsplit == 1
+    assert nsplit <= -(-max_s // tpa.MMA_SPLIT_KEYS)
+    if max_s == 2048 and rows_kv == 8:  # Gemma-2B's decode, B = 8
+        assert nsplit == 50
+    for n in sorted({1, 2, 17, 31, 32, 33, 300, max_s // 2, max_s}):
+        ranges = tpa.mma_split_ranges(n, nsplit)
+        assert ranges[0][0] == 0 and ranges[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        assert len(ranges) == min(nsplit, -(-n // tpa.MMA_SPLIT_KEYS))
+        assert all(hi - lo >= min(n, tpa.MMA_SPLIT_KEYS // 2)
+                   for lo, hi in ranges)
+
+
+@pytest.mark.parametrize("starts,S,trash_rows", [
+    ([0, 95, 17, 127], 1, ()),  # a row of one key; a clamp at max_s - 1
+    ([32, 0, 64, 47], 1, (1,)),  # starts on block boundaries; a trash row
+    ([3, 40, 120, 125], 5, ()),  # verify's S = 5, clamped at max_s - 1
+    ([95, 1, 32, 0], 5, (3,)),  # verify: a trash row, boundaries
+])
+def test_mma_partition_matches_jax_lax_and_dense(starts, S, trash_rows):
+    """The tensor-core decode's partition at hd 256, group 8 (Gemma-2B's
+    MQA), 128 positions: each row cut into ranges of at least 16 keys over
+    at most 6 CTAs, so short rows use fewer CTAs than there are splits and
+    long ones all six; the ranges' plain partials merged by
+    ``combine_splits`` match the reference and the float64 oracle at
+    1e-5, and the unused CTAs are empty partials."""
+    import jax.numpy as jnp
+
+    from kubedl_tpu.models import paged_attention as pa
+
+    b, mb, bs, kv, h, hd, nsplit, keys = 4, 8, 16, 1, 8, 256, 6, 16
+    kp, vp, bt = _random_pool(23, b, mb, bs, kv, hd)
+    for r in trash_rows:
+        bt[r, :] = 0
+    q = np.random.RandomState(24).randn(b, S, h, hd).astype(np.float32)
+    st = np.asarray(starts, np.int32)
+    m, l, acc = tpa.plain_mma_partials(_t(q), _t(kp), _t(vp), _t(bt), _t(st),
+                                       nsplit, keys)
+    assert m.shape == (b, kv, h // kv, S, nsplit)
+    assert acc.shape[-2:] == (nsplit, hd)
+    out = tpa.combine_splits(m, l, acc)
+    got = out.permute(0, 3, 1, 2, 4).reshape(b, S, h, hd).numpy()
+    ref = _dense_reference(q, kp, vp, bt, st, mb * bs)
+    jax_out = np.asarray(pa.paged_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(st), kernel="lax",
+    ))
+    assert np.abs(got.astype(np.float64) - ref).max() < F32_TOL
+    assert np.abs(got - jax_out).max() < F32_TOL
+    n_keys = np.minimum(st + S - 1, mb * bs - 1) + 1
+    uses = []
+    for r in range(b):
+        used = len(tpa.mma_split_ranges(int(n_keys[r]), nsplit, keys))
+        uses.append(used)
+        assert torch.all(m[r, ..., used:] == tpa.M_FLOOR)
+        assert not l[r, ..., used:].any()
+        assert not acc[r, ..., used:, :].any()
+        only = tpa.combine_splits(m[r, ..., :used], l[r, ..., :used],
+                                  acc[r, ..., :used, :])
+        assert (only - out[r]).abs().max().item() < 1e-6
+    assert min(uses) < nsplit  # a row with fewer keys than splits
 
 
 @pytest.mark.parametrize("starts,S,trash_rows", [
@@ -466,13 +549,14 @@ def test_cuda_fused_split_k_matches_scatter(cuda, monkeypatch, dtype, hd, bs,
     kr, vr = kp.clone(), vp.clone()
     tpa.plain_fused_write(kr, vr, bt, st, nk, nv)
     ref = tpa.plain_paged_attention(q, kr, vr, bt, st)
+    route = tpa.paged_route(dtype, hd, 1, h // kv, bs, fused=True)
     monkeypatch.setattr(tpa, "plain_fused_write", None)
     monkeypatch.setattr(tpa, "plain_paged_attention", None)
     before = dict(tpa.ROUTE_LAUNCHES)
     out, ko, vo = tpa.paged_attention(q, kp, vp, bt, st, new_k=nk, new_v=nv)
     torch.cuda.synchronize()
     assert ko is kp and vo is vp
-    assert tpa.ROUTE_LAUNCHES["split_k"] == before["split_k"] + 1
+    assert tpa.ROUTE_LAUNCHES[route] == before[route] + 1
     # block 0 takes the trash row's (colliding) write
     assert torch.equal(kp[1:], kr[1:]) and torch.equal(vp[1:], vr[1:])
     own = [r for r in range(b) if r != trash]
@@ -487,7 +571,8 @@ def test_cuda_route_table_matches_source(cuda):
 
     lib = load_kernels()
     codes = {torch.float32: 0, torch.bfloat16: 1}
-    route_codes = {"split_k": 0, "tensor_core": 1, "cuda_core": 2}
+    route_codes = {"split_k": 0, "tensor_core": 1, "cuda_core": 2,
+                   "mma_decode": 3}
     for dtype in codes:
         for hd in (64, 128, 256):
             for S in (1, 3, 7, 8, 16, 64, 512):
@@ -500,3 +585,56 @@ def test_cuda_route_table_matches_source(cuda):
                                                       group, bs, int(fused))
                             assert got == want, (dtype, hd, S, group, bs,
                                                  fused)
+
+
+#: (id, b, mb, kv, h, S, starts, trash rows, fused): the tensor-core decode
+#: (bf16, hd 256, BS 16) over rows of one CTA and of many, the 8192-position
+#: ring, and every warp layout (R = 4, 8, 40, 56)
+_MMA_CASES = [
+    ("gemma decode", 8, 128, 1, 8, 1, [0, 15, 16, 47, 300, 1023, 1500, 0],
+     (7,), True),
+    ("gemma decode 8k", 8, 512, 1, 8, 1,
+     [0, 15, 16, 47, 300, 4095, 8190, 0], (7,), True),
+    ("group 4 decode", 4, 64, 2, 8, 1, [5, 700, 128, 1023], (), True),
+    ("gemma verify S5", 8, 128, 1, 8, 5,
+     [14, 15, 30, 47, 300, 1020, 2045, 0], (7,), False),
+    ("gemma verify S7", 4, 64, 1, 8, 7, [0, 500, 1017, 128], (), False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _MMA_CASES, ids=lambda c: c[0])
+def test_cuda_mma_decode_matches_plain(cuda, monkeypatch, case):
+    """One launch of the tensor-core decode against the plain version:
+    outputs within the bf16 tolerance, pools bit-identical to a scatter
+    outside the trash block, two calls bit-identical, and the arrival
+    counters back at zero after each launch."""
+    _, b, mb, kv, h, S, starts, trash, fused = case
+    bs, hd, dt = 16, 256, torch.bfloat16
+    q, kp, vp, bt, st, nk, nv = _card_case(51, b, mb, bs, kv, h, hd, S,
+                                           starts, trash, dt, cuda)
+    assert tpa.paged_route(dt, hd, S, h // kv, bs, fused) == "mma_decode"
+    kr, vr = kp.clone(), vp.clone()
+    if fused:
+        tpa.plain_fused_write(kr, vr, bt, st, nk, nv)
+    ref = tpa.plain_paged_attention(q, kr, vr, bt, st)
+    monkeypatch.setattr(tpa, "plain_fused_write", None)
+    monkeypatch.setattr(tpa, "plain_paged_attention", None)
+    outs = []
+    for _ in range(2):
+        before = tpa.ROUTE_LAUNCHES["mma_decode"]
+        kk, vk = kp.clone(), vp.clone()
+        if fused:
+            out, _, _ = tpa.paged_attention(q, kk, vk, bt, st, new_k=nk,
+                                            new_v=nv)
+        else:
+            out = tpa.paged_attention(q, kk, vk, bt, st)
+        torch.cuda.synchronize()
+        assert tpa.ROUTE_LAUNCHES["mma_decode"] == before + 1
+        assert torch.equal(kk[1:], kr[1:]) and torch.equal(vk[1:], vr[1:])
+        assert all(not c.any() for c in tpa._MMA_COUNTERS.values())
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
+    own = [r for r in range(b) if r not in trash]
+    err = (outs[0][own].float() - ref[own].float()).abs().max().item()
+    assert err < _CARD_TOL[dt], err

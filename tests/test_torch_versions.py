@@ -410,14 +410,23 @@ def test_serve_main_restores_model_path(ckpts, monkeypatch):
     assert not th.is_alive()
 
 
-def test_serve_main_rejects_a_remote_model_root(monkeypatch):
+def test_serve_main_rejects_a_remote_model_root(monkeypatch, tmp_path):
+    """A remote model root is mirrored before any engine is built, so one
+    that cannot be fetched fails serve_main with the blob client's error
+    (serving it is held in ``test_torch_lifecycle.py``)."""
+    from kubedl_tpu_torch.remote.client import RemoteError
+
     _clean_env(monkeypatch)
+    monkeypatch.setattr("tempfile.tempdir", str(tmp_path))
     monkeypatch.setenv("KUBEDL_SERVE_CONFIG",
                        json.dumps({"preset": "tiny", "device": "cpu"}))
     monkeypatch.setenv("KUBEDL_MODEL_PATH",
                        "http://127.0.0.1:1/blobs/models/m1")
-    with pytest.raises(ValueError, match="later port slice"):
+    built = []
+    monkeypatch.setattr(srv, "LlamaEngine", lambda **kw: built.append(kw))
+    with pytest.raises(RemoteError):
         srv.serve_main({})
+    assert built == []
     assert srv.is_remote_root("https://h:1/blobs/a")
     assert not srv.is_remote_root("/data/models/m1")
 
