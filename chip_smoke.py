@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py                # every phase, one card
     python3 chip_smoke.py --skip-engine  # without phases 5, 6, 13-19, 22
-    python3 chip_smoke.py --skip-train   # without phases 8 to 12, 21, 23, 24
+    python3 chip_smoke.py --skip-train   # without phases 8 to 12, 21, 23-25
 
 Phases (any failure exits non-zero before the final line):
 
@@ -95,7 +95,9 @@ Phases (any failure exits non-zero before the final line):
    tensor-core fused kernel, timed against SDPA's backward and against
    ``flash_backward`` with the fused route forced; at both Gemma-2B
    shapes a MISS line (not a failure) where a kernel of the pair is over
-   6x its bound or the pair over 2.5x SDPA's backward.
+   6x its bound or the pair over 2.5x SDPA's backward. And bench-moe's
+   training shape (B=8, H=16, KV=8, S=2048, hd 64, bf16, causal, theta
+   10000 RoPE: GQA group 2, phase 25's path), untimed.
 8. training: ``train_main`` with KUBEDL_TRAIN_CONFIG={"model":
    "llama3-1b", "global_batch": 4, "seq_len": 2048, "steps": 8} on the
    card, full width and depth, seeded random weights; gates on finite
@@ -233,6 +235,29 @@ Phases (any failure exits non-zero before the final line):
    after one unprofiled step the split pair's device ms a launch, its
    share of device time and the busy share.
 
+25. MoE training: ``train_main`` with KUBEDL_TRAIN_CONFIG=
+   ``MOE_TRAIN_CONFIG`` (``bench-moe``, full width and depth: 12 layers,
+   8 experts of ffn 2048, top-1 routing at capacity factor 1.25, GQA 16
+   q-heads over 8 kv-heads at hd 64, vocab 32768, bf16, remat
+   "dots_flash"; b8 x s2048, 6 steps; seeded random weights, synthetic
+   tokens); gates on finite losses and grad norms, attn_impl "flash", no
+   sanity violations, an empty long-context policy, 12 flash_fwd + 12
+   flash_bwd_fused launches a step and none of the split pair, and a norm
+   and an update launch for each of its 12 leaves plus one finish a step;
+   prints step ms, tokens/s, MFU (the reference's 6 x active parameters)
+   and peak memory. Then ``Trainer.fit`` on one repeated batch must end
+   below its first loss; one step after it under torch.profiler: device
+   ms by category (flash, matmul, the MoE index passes, the optimizer,
+   other), the busy share, and each layer's dropped-token share from one
+   forward. Then ``moe_ffn`` (index dispatch) against ``moe_ffn_plain``
+   (the reference's one-hot formula) at bench-moe width and 16,384
+   tokens: float32 forward bit-identical and gradients within the
+   tolerance stated in ``run_moe_dispatch``, bf16 outputs within one ulp,
+   both timed. Then bench-moe width cut to 2 layers, float32: one train
+   step on the flash route against the dense route with phase 9's gates.
+   Then the same bf16 full-depth step run twice from one state (split
+   route forced): bit-identical.
+
 20. the optimizer update (``csrc/adamw.cu``) against its plain version on
    Llama-3.2-1B's 11 leaves (seeded, bf16 parameters, float32 first
    moment) at a step that does not clip and one that clips, with the
@@ -253,7 +278,7 @@ Phases (any failure exits non-zero before the final line):
 
 Phase 16 runs after phase 4; phase 22, then phases 13-15 and 17-19 after
 phase 6 (they are skipped with ``--skip-engine``); phase 20 after phase
-7, then phases 23 and 24, and phase 21 after phase 12 (skipped with
+7, then phases 23, 24 and 25, and phase 21 after phase 12 (skipped with
 ``--skip-train``).
 
 Output: the kernels' JSON line, then as the last line
@@ -740,8 +765,9 @@ FLASH_REPLACES = {
 #: llama3-1b training shape (the main path's); the second Gemma-2B's
 #: (phase 23's path: MQA at hd 256); then Llama-3-8B and Gemma-2B head
 #: widths, GQA groups 1 and 8 at both hd-64/128 tensor-core widths with
-#: and without RoPE, causal and not, ragged lengths, and float32 at each
-#: hd. Every case runs all four kernels (the split pair too).
+#: and without RoPE, causal and not, ragged lengths, float32 at each hd,
+#: and bench-moe's training shape (phase 25's path: GQA group 2 at hd 64,
+#: untimed). Every case runs all four kernels (the split pair too).
 FLASH_CASES = [
     ("llama3-1b", 4, 32, 8, 2048, 64, torch.bfloat16, True, True, True),
     ("gemma-2b train", 4, 8, 1, 2048, 256, torch.bfloat16, True, True, True),
@@ -762,6 +788,8 @@ FLASH_CASES = [
     ("f32 hd128 ragged", 1, 4, 1, 1000, 128, torch.float32, False, False,
      False),
     ("f32 hd256", 1, 4, 2, 256, 256, torch.float32, True, True, False),
+    # phase 25's path: bench-moe, GQA group 2 at hd 64, theta-10000 RoPE
+    ("bench-moe", 8, 16, 8, 2048, 64, torch.bfloat16, True, True, False),
 ]
 #: Tolerances against the plain versions on the same inputs (N(0,1)):
 #: out: bf16 2e-2 max abs (both sides sum in float32 and round once to
@@ -778,9 +806,9 @@ FLASH_TOL = {torch.bfloat16: {"out": 2e-2, "lse": 1e-4, "grad": 2e-2},
 
 #: the split backward pair: one SDPA backward is their joint yardstick
 PAIR = ("flash_bwd_dq", "flash_bwd_dkdv")
-#: RoPE theta by case label: Gemma's tables where a case is Gemma-2B's
-#: training shape, llama3's (500000) elsewhere
-FLASH_ROPE_THETA = {"gemma-2b train": 10000.0}
+#: RoPE theta by case label: Gemma's and bench-moe's tables (10000) where
+#: a case is their training shape, llama3's (500000) elsewhere
+FLASH_ROPE_THETA = {"gemma-2b train": 10000.0, "bench-moe": 10000.0}
 
 
 @contextlib.contextmanager
@@ -1446,6 +1474,288 @@ def run_gemma_long_train(fa, llama_mod):
     return {k: launches[k] for k in PAIR}, summary
 
 
+# ---- phase 25: MoE training ---------------------------------------------------
+
+#: phase 25's path: bench-moe (12 layers, 8 experts of ffn 2048, top-1
+#: routing at capacity factor 1.25, GQA 16 q-heads over 8 kv-heads at hd
+#: 64, a 32,768-token vocabulary, bf16, remat "dots_flash") at full width
+#: and depth, random weights from the seed, synthetic tokens
+MOE_TRAIN_CONFIG = {"model": "bench-moe", "global_batch": 8, "seq_len": 2048,
+                    "steps": 6, "log_every": 1}
+#: the flash operators bench-moe runs (hd 64, S=2048: the fused backward)
+MOE_TRAIN_OPS = ("flash_fwd", "flash_bwd_fused")
+#: kernels of the MoE layer's index passes, by lower-case name (routing:
+#: argmax and the running count's scan; dispatch and combine: the index
+#: copies and the gathers of their backward); the embedding's lookup and
+#: its gradient (an index kernel and a sorted scatter) are counted here too
+MOE_INDEX_KERNELS = ("index", "argmax", "scan", "radixsort", "radix_sort")
+
+
+def _moe_kernel_group(name: str) -> str:
+    cat = _kernel_group(name)
+    if cat.startswith("flash"):
+        return "flash"
+    if cat == "other" and any(k in name.lower() for k in MOE_INDEX_KERNELS):
+        return "moe_index"
+    return cat
+
+
+def moe_drop_shares(moe_mod, tr, state, batch):
+    """Each layer's share of dropped tokens in one forward of ``state``'s
+    parameters on ``batch`` (``moe.route`` wrapped to record ``keep``)."""
+    shares = []
+    real = moe_mod.route
+
+    def recording(xt, router_w, cap):
+        out = real(xt, router_w, cap)
+        shares.append(1.0 - out[4].float().mean())
+        return out
+
+    moe_mod.route = recording
+    try:
+        with torch.no_grad():
+            tr.family.loss(state["params"], tr.shard_batch(batch),
+                           attn_fn=tr.attn_fn)
+    finally:
+        moe_mod.route = real
+    return [float(x) for x in shares]
+
+
+def run_moe_train(fa, moe_mod):
+    """Phase 25, parts 1-3: ``train_main`` at MOE_TRAIN_CONFIG: per step 12
+    flash_fwd and 12 flash_bwd_fused launches (the tensor-core kernels at
+    hd 64, GQA group 2; ``bwd_route(2048, 64)`` is "fused") and none of
+    the split pair, and phase 8's optimizer counts over bench-moe's 12
+    leaves; prints step ms, tokens/s, MFU (the reference's 6 x active
+    parameters a token) and peak memory. Then ``Trainer.fit`` on one
+    repeated batch must end below its first loss; then one step (after
+    the fit's) under torch.profiler: device ms by category (flash, matmul,
+    the MoE index passes, the optimizer, other), the busy share, and each
+    layer's dropped-token share from one forward. Returns the launches
+    and the summary the kernels line reads."""
+    import itertools
+
+    from kubedl_tpu_torch.training.data import SyntheticTokens
+    from kubedl_tpu_torch.training.trainer import (
+        TrainConfig, Trainer, tree_leaves,
+    )
+
+    cfg = MOE_TRAIN_CONFIG
+    model = moe_mod.preset(cfg["model"])
+    hd, B, S = model.head_dim, cfg["global_batch"], cfg["seq_len"]
+    routes = flash_routes(fa, model.dtype, hd)
+    n_leaves = len(tree_leaves(moe_mod.param_like(model)))
+    if fa.bwd_route(S, hd) != "fused" or n_leaves != 12 or any(
+            routes[op] != "tensor_core" for op in MOE_TRAIN_OPS):
+        fail(f"bench-moe: bwd_route {fa.bwd_route(S, hd)}, routes {routes}, "
+             f"{n_leaves} leaves")
+    t0 = time.perf_counter()
+    launches, rec = train_main_run(
+        fa, moe_mod, cfg,
+        {"flash_fwd": 1, "flash_bwd_fused": 1, "flash_bwd_dq": 0,
+         "flash_bwd_dkdv": 0})
+    rec["routes"] = routes
+    print("train_main bench-moe (smoke run, not a benchmark): "
+          + json.dumps(rec), flush=True)
+
+    tr = Trainer(TrainConfig(model=model, global_batch=B, seq_len=S,
+                             steps=8, warmup_steps=1, attn_impl="flash"))
+    batch = next(iter(SyntheticTokens(B, S, model.vocab_size, seed=25)))
+    state, s = tr.fit(itertools.repeat(batch))
+    if not (math.isfinite(s["final_loss"])
+            and s["final_loss"] < s["first_loss"]):
+        fail(f"bench-moe: repeated batch did not overfit: "
+             f"{s['first_loss']} -> {s['final_loss']}")
+    print("bench-moe overfit one batch, 8 steps: " + json.dumps({
+        "first_loss": s["first_loss"], "final_loss": s["final_loss"],
+        "step_time_ms": s["step_time_ms"], "mfu": s["mfu"]}), flush=True)
+    drops = moe_drop_shares(moe_mod, tr, state, batch)
+    _reset(fa)
+    state, prof = profile_train_steps(tr, state, batch, 1,
+                                      f"{cfg['model']} b{B} s{S}",
+                                      group=_moe_kernel_group)
+    per_step = dict(fa.LAUNCHES)
+    del tr, state
+    _free()
+    cats = prof["by_category_ms"]
+    summary = {"step_time_ms": rec["step_time_ms"],
+               "tokens_per_sec": rec["tokens_per_sec"], "mfu": rec["mfu"],
+               "max_memory_allocated_gib": rec["max_memory_allocated_gib"],
+               "n_params": rec["n_params"],
+               "active_flops_per_token": model.flops_per_token(),
+               "device_ms": prof["device_ms"],
+               "by_category_ms": cats,
+               "shares": {k: v / prof["device_ms"] for k, v in cats.items()}
+               if prof["device_ms"] else None,
+               "busy_share": prof["busy_share"],
+               "dropped_share_by_layer": drops,
+               "profiled_launches": per_step,
+               "phase_seconds": time.perf_counter() - t0}
+    print("bench-moe training, the profiled step: " + json.dumps(summary),
+          flush=True)
+    return {k: launches[k] for k in MOE_TRAIN_OPS}, summary
+
+
+def moe_ffn_inputs(model, B, S, dtype, seed):
+    """bench-moe's switch-layer operands at B x S tokens: x N(0, 1) plus
+    one shared N(0, 1) direction (hidden states share a mean direction,
+    which skews the routing as a trained model's is skewed, so queues
+    overflow and drop), weights fan-in scaled as the init draws them, and
+    a seeded upstream gradient for ``out``."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=DEV)
+
+    D, E, Fd = model.dim, model.n_experts, model.ffn_dim
+    x = randn(B, S, D) + randn(D)
+    ins = (x, randn(D, E) / math.sqrt(D), randn(E, D, Fd) / math.sqrt(D),
+           randn(E, Fd, D) / math.sqrt(Fd))
+    return [t.to(dtype) for t in ins], randn(B, S, D).to(dtype)
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp of each |x| (8 significant bits)."""
+    _, e = torch.frexp(x.float().abs().clamp(min=2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def run_moe_dispatch(moe_mod):
+    """Phase 25, part 4: ``moe_ffn`` (index dispatch) against
+    ``moe_ffn_plain`` (the reference's one-hot formula) at bench-moe width
+    and T = 8 x 2048 tokens. float32 (TF32 off): the forward BIT-identical
+    (every one-hot contraction element is one product plus exact zeros);
+    gradients to x, router, w_in and w_out within 1e-5 of each one's max
+    |grad|: w_in / w_out see the same products (float32 sums of up to
+    2,560 slots that cuBLAS may order differently for the two layouts of
+    the upstream gradient), and x / router take the gate's gradient,
+    summed over D = 1024 in another order. bf16: outputs within one bf16
+    ulp of |out|. Both timed in bf16 (device ms, median of 20): the
+    forward and forward + backward, the plain version's as the reference
+    formula's cost. Returns the printed record."""
+    model = moe_mod.preset("bench-moe")
+    B, S = MOE_TRAIN_CONFIG["global_batch"], MOE_TRAIN_CONFIG["seq_len"]
+    fns = {"index": moe_mod.moe_ffn, "plain": moe_mod.moe_ffn_plain}
+    rep = {"tokens": B * S,
+           "cap": moe_mod.capacity(model, B * S, model.n_experts)}
+
+    def run(fn, ins, w, cfg):
+        ins = [t.detach().requires_grad_(True) for t in ins]
+        out, aux = fn(*ins, cfg)
+        grads = torch.autograd.grad((out.float() * w.float()).sum()
+                                    + 3.0 * aux, ins)
+        return out.detach(), aux.detach(), grads
+
+    f32 = dataclasses.replace(model, dtype=torch.float32)
+    ins, w = moe_ffn_inputs(model, B, S, torch.float32, seed=250)
+    (o_i, a_i, g_i), (o_p, a_p, g_p) = (run(f, ins, w, f32)
+                                        for f in fns.values())
+    keep = moe_mod.route(ins[0].reshape(B * S, -1), ins[1], rep["cap"])[4]
+    rep["dropped_share"] = 1.0 - keep.float().mean().item()
+    rep["f32_forward_bitwise"] = bool(torch.equal(o_i, o_p)
+                                      and torch.equal(a_i, a_p))
+    rep["f32_grad_err_over_max"] = {
+        n: _grad_err(a, b)
+        for n, a, b in zip(("x", "router", "w_in", "w_out"), g_i, g_p)}
+    del o_i, o_p, g_i, g_p
+    _free()
+    ins, w = moe_ffn_inputs(model, B, S, torch.bfloat16, seed=251)
+    with torch.no_grad():
+        o_i, a_i = moe_mod.moe_ffn(*ins, model)
+        o_p, a_p = moe_mod.moe_ffn_plain(*ins, model)
+    rep["bf16_bitwise"] = bool(torch.equal(o_i, o_p))
+    rep["bf16_max_err_over_ulp"] = ((o_i.float() - o_p.float()).abs()
+                                    / _bf16_ulp(o_p)).max().item()
+    rep["bf16_aux_abs_err"] = abs(a_i.item() - a_p.item())
+    del o_i, o_p
+    ms = {}
+    for name, fn in fns.items():
+        with torch.no_grad():
+            ms[f"{name}_fwd_ms"] = time_ms(lambda: fn(*ins, model), reps=20)
+        ms[f"{name}_fwd_bwd_ms"] = time_ms(lambda: run(fn, ins, w, model),
+                                           reps=20)
+        _free()
+    rep.update(ms)
+    print("bench-moe switch layer, index dispatch vs the one-hot formula: "
+          + json.dumps(rep), flush=True)
+    errs = rep["f32_grad_err_over_max"]
+    if not (rep["f32_forward_bitwise"] and max(errs.values()) <= 1e-5
+            and rep["bf16_max_err_over_ulp"] <= 1.0
+            and rep["bf16_aux_abs_err"] <= 1e-6):
+        fail(f"bench-moe index dispatch vs one-hot: {json.dumps(rep)}")
+    del ins, w
+    _free()
+    return rep
+
+
+def _clone_state(state):
+    opt = state["opt_state"]
+    return {"params": {k: (v.clone() if isinstance(v, torch.Tensor) else
+                           {kk: vv.clone() for kk, vv in v.items()})
+                       for k, v in state["params"].items()},
+            "opt_state": {"count": opt["count"],
+                          "mu": [t.clone() for t in opt["mu"]],
+                          "nu": [t.clone() for t in opt["nu"]]},
+            "step": state["step"]}
+
+
+def run_moe_identity(fa, moe_mod):
+    """Phase 25, part 6: bench-moe at full width and depth, bf16: after
+    one step, the same train step run twice from one state is
+    BIT-identical (loss, grad norm, every parameter and moment). The
+    backward is forced to the split pair, whose dq stays in registers:
+    the fused tensor-core backward adds dq by bulk reduce-adds in
+    run-to-run order, which is not the MoE layer's to show."""
+    from kubedl_tpu_torch.training.data import SyntheticTokens
+    from kubedl_tpu_torch.training.trainer import (
+        TrainConfig, Trainer, tree_leaves,
+    )
+
+    model = moe_mod.preset("bench-moe")
+    B, S = MOE_TRAIN_CONFIG["global_batch"], MOE_TRAIN_CONFIG["seq_len"]
+    tr = Trainer(TrainConfig(model=model, global_batch=B, seq_len=S,
+                             steps=4, warmup_steps=1, attn_impl="flash"))
+    data = iter(SyntheticTokens(B, S, model.vocab_size, seed=26))
+    state, _ = tr.train_step(tr.init_state(), next(data))
+    batch = next(data)
+    snap = _clone_state(state)
+    del state
+    runs = []
+    with forced_route(fa, "split"):
+        for _ in range(2):
+            st, m = tr.train_step(_clone_state(snap), batch)
+            runs.append((m["loss"], m["grad_norm"], tree_leaves(st["params"])
+                         + st["opt_state"]["mu"] + st["opt_state"]["nu"]))
+            del st
+    (l1, n1, t1), (l2, n2, t2) = runs
+    same = all(torch.equal(a, b) for a, b in zip(t1, t2))
+    rep = {"loss": [l1.item(), l2.item()],
+           "grad_norm": [n1.item(), n2.item()],
+           "tensors": len(t1), "state_bitwise": same}
+    print("bench-moe step twice from one state (split route): "
+          + json.dumps(rep), flush=True)
+    if not (torch.equal(l1, l2) and torch.equal(n1, n2) and same):
+        fail(f"bench-moe step not reproducible: {json.dumps(rep)}")
+    del tr, snap, runs, t1, t2
+    _free()
+
+
+def run_moe_phase(fa, moe_mod):
+    """Phase 25: MoE training (see the module docstring). Returns the
+    flash launches of its main path and its summary."""
+    t0 = time.perf_counter()
+    launches, summary = run_moe_train(fa, moe_mod)
+    summary["dispatch"] = run_moe_dispatch(moe_mod)
+    f32_route_parity(fa, dataclasses.replace(
+        moe_mod.preset("bench-moe"), n_layers=2, dtype=torch.float32),
+        ("fused",), "bench-moe")
+    run_moe_identity(fa, moe_mod)
+    summary["phase_seconds"] = time.perf_counter() - t0
+    print(f"phase 25 (MoE training): {summary['phase_seconds']:.1f} s",
+          flush=True)
+    return launches, summary
+
+
 #: phase 12's configurations: (preset, seq_len), phase 11's and phase
 #: 24's, each at a length where the split pair is the route (hd 64 and,
 #: MQA with a group of 8, hd 256)
@@ -1572,11 +1882,12 @@ def run_overfit_and_split(fa, llama_mod):
     _free()
 
 
-def profile_train_steps(tr, state, batch, steps, label):
+def profile_train_steps(tr, state, batch, steps, label, group=None):
     """``steps`` train steps under torch.profiler: device time by
-    category (``_kernel_group`` of each kernel's name, the split pair's
-    two kernels on their own), the top kernels and the device's busy share
-    of the wall time. Returns the state and the printed record."""
+    category (``group`` of each kernel's name, by default
+    ``_kernel_group``: the split pair's two kernels on their own), the top
+    kernels and the device's busy share of the wall time. Returns the
+    state and the printed record."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1594,7 +1905,7 @@ def profile_train_steps(tr, state, batch, steps, label):
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        cat = _kernel_group(e.key)
+        cat = (group or _kernel_group)(e.key)
         cats[cat] = cats.get(cat, 0.0) + us / 1e3
         counts[cat] = counts.get(cat, 0) + e.count
         top.append((us / 1e3, e.count, e.key[:90]))
@@ -1614,25 +1925,31 @@ def profile_train_steps(tr, state, batch, steps, label):
 def run_train_f32_parity(fa, llama_mod):
     """Phase 9: llama3-1b width cut to 2 layers, float32, TF32 off, one
     seeded init: one train step on each kernel route (fused, split) and on
-    the plain route (dense attention). Gates: losses within 1e-5
-    relative; every gradient leaf within 1e-4 of max |grad| (float32 sums
-    reordered, the fused dq by atomics); updated params within 2.0001*lr
-    max abs (one Adam step moves an element by at most lr(1 + wd|p|); a
-    gradient near zero may flip sign between routes) and 1e-3*lr mean
-    abs."""
+    the plain route (dense attention), gated by ``f32_route_parity``."""
+    model = dataclasses.replace(llama_mod.preset("llama3-1b"), n_layers=2,
+                                dtype=torch.float32)
+    f32_route_parity(fa, model, ("fused", "split"), "llama3-1b")
+
+
+def f32_route_parity(fa, model, routes, label):
+    """One train step of ``model`` (float32, B=2, S=1024, one seeded init)
+    on each kernel route in ``routes`` against the dense route. Gates:
+    losses within 1e-5 relative; every gradient leaf within 1e-4 of max
+    |grad| (float32 sums reordered, the fused dq by atomics); updated
+    params within 2.0001*lr max abs (one Adam step moves an element by at
+    most lr(1 + wd|p|); a gradient near zero may flip sign between routes)
+    and 1e-3*lr mean abs."""
     from kubedl_tpu_torch.training.data import SyntheticTokens
     from kubedl_tpu_torch.training.trainer import (
         TrainConfig, Trainer, tree_leaves,
     )
 
-    model = dataclasses.replace(llama_mod.preset("llama3-1b"), n_layers=2,
-                                dtype=torch.float32)
     lr = 3e-4
     kw = dict(model=model, global_batch=2, seq_len=1024, steps=4,
               warmup_steps=0, learning_rate=lr)
     batch = next(iter(SyntheticTokens(2, 1024, model.vocab_size, seed=3)))
     runs = {}
-    for route in ("dense", "fused", "split"):
+    for route in ("dense",) + tuple(routes):
         tr = Trainer(TrainConfig(attn_impl="dense" if route == "dense"
                                  else "flash", **kw))
         state = tr.init_state()
@@ -1651,7 +1968,7 @@ def run_train_f32_parity(fa, llama_mod):
         _free()
     ref_loss, ref_grads, ref_params, _, _ = runs["dense"]
     report = {}
-    for route in ("fused", "split"):
+    for route in routes:
         loss, grads, params, step_loss, impl = runs[route]
         rel = abs(loss - ref_loss) / abs(ref_loss)
         gerr = max(_grad_err(a, b) for a, b in zip(grads, ref_grads))
@@ -1666,8 +1983,9 @@ def run_train_f32_parity(fa, llama_mod):
                                    and pmax <= 2.0001 * lr
                                    and pmean <= 1e-3 * lr
                                    and math.isfinite(step_loss)):
-            fail(f"f32 parity {route} vs dense: {json.dumps(report)}")
-    print("f32 2-layer llama3-1b width, kernels vs dense: "
+            fail(f"f32 parity {label} {route} vs dense: "
+                 f"{json.dumps(report)}")
+    print(f"f32 2-layer {label} width, kernels vs dense: "
           + json.dumps(report), flush=True)
 
 
@@ -3808,13 +4126,15 @@ def main() -> int:
                     help="skip the serving engine (phases 5, 6, 13-15, "
                     "17-19, 22)")
     ap.add_argument("--skip-train", action="store_true",
-                    help="skip the training phases (8 to 12, 21, 23, 24)")
+                    help="skip the training phases (8 to 12, 21, 23-25)")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs a GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from kubedl_tpu_torch.models import llama as llama_mod
+    from kubedl_tpu_torch.models import moe as moe_mod
     from kubedl_tpu_torch.models import paged_attention as pa
     from kubedl_tpu_torch.ops import adamw
     from kubedl_tpu_torch.ops import build
@@ -3961,11 +4281,14 @@ def main() -> int:
     opt_launches = {}
     gemma_train, gemma_launches = {}, {}
     gemma_long, gemma_long_launches = {}, {}
+    moe_launches = {}
     if not args.skip_train:
         gemma_launches, gemma_train = run_gemma_train(fa, llama_mod)
         stamp("phase 23")
         gemma_long_launches, gemma_long = run_gemma_long_train(fa, llama_mod)
         stamp("phase 24")
+        moe_launches, _ = run_moe_phase(fa, moe_mod)
+        stamp("phase 25")
         flash_launches, opt_launches = run_train_entry(fa, llama_mod)
         launches.update(flash_launches)
         run_overfit_and_split(fa, llama_mod)
@@ -4063,10 +4386,13 @@ def main() -> int:
     main_case = FLASH_CASES[0]  # the timed shape: llama3-1b training
     for name in FLASH_REPLACES:
         tc = fa.tensor_core_route(name, main_case[6], main_case[5])
-        line.append(record(name, "kubedl_tpu_torch/csrc/flash_attention.cu",
-                           FLASH_REPLACES[name], launches[name],
-                           kernels[name],
-                           "tensor_core" if tc else "cuda_core"))
+        rec = record(name, "kubedl_tpu_torch/csrc/flash_attention.cu",
+                     FLASH_REPLACES[name], launches[name], kernels[name],
+                     "tensor_core" if tc else "cuda_core")
+        if name in MOE_TRAIN_OPS:  # hd 64 also runs phase 25's path
+            rec["launches_by_path"] = {"llama3-1b": launches[name],
+                                       "bench-moe": moe_launches.get(name)}
+        line.append(rec)
     # Gemma-2B's training paths (hd 256): the forward and the fused
     # backward timed at phase 7's Gemma-2B case, launches from phase 23's
     # main path, device ms a launch from its profiled step; the split pair
@@ -4082,6 +4408,9 @@ def main() -> int:
         rec["in_model_ms"] = path.get("in_model_ms", {}).get(name)
         line.append(rec)
     print(f"card: {smi}", flush=True)
+    print(f"whole run: {time.perf_counter() - t_start:.1f} s "
+          f"({time.perf_counter() - t0:.1f} s since the build began)",
+          flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

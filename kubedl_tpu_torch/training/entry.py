@@ -148,10 +148,12 @@ def _publish(out: str, ckpt_dir: str, state) -> None:
 
 
 def _model_preset(name: str):
-    from kubedl_tpu_torch.models import llama
+    """A name containing "moe" is a switch-MoE preset, any other a Llama
+    one (the reference's rule); an unknown name raises ``KeyError``."""
+    from kubedl_tpu_torch.models import llama, moe
 
     if "moe" in name:
-        raise ValueError(f"model {name!r}: MoE belongs to the MoE port slice")
+        return moe.preset(name)
     return llama.preset(name)
 
 
@@ -182,7 +184,7 @@ def train_main(env: Optional[Dict[str, object]] = None) -> int:
     phases["imports"] = time.time() - t0
     model = _model_preset(opts.get("model", "tiny"))
     for knob in ("remat_policy", "loss_chunk"):
-        if knob in opts:
+        if knob in opts and hasattr(model, knob):
             model = dataclasses.replace(model, **{knob: opts[knob]})
     cfg = TrainConfig(
         model=model,

@@ -31,9 +31,13 @@ What a one-device port keeps of the reference, and how:
   and at the end (asynchronously with ``ckpt_async``), in the reference's
   tree and format, so either package resumes the other's job.
 
+Model families: dense Llama (``models/llama.py``) and switch-MoE
+(``models/moe.py``, one device: its expert and tensor parallelism belong
+to the multi-chip slice), through the same optimizer and flash operators.
+
 What it rejects with a ValueError naming the later port slice, never
 silently: a mesh of more than one device (or any ``sp``/``pipe`` axis
-above 1), ``fit_ps`` and MoE.
+above 1) and ``fit_ps``.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ import numpy as np
 import torch
 
 from kubedl_tpu_torch import resolve_device
-from kubedl_tpu_torch.models import llama
+from kubedl_tpu_torch.models import llama, moe
 from kubedl_tpu_torch.ops import flash_attention as fa
 from kubedl_tpu_torch.ops.adamw import adamw_update
 
@@ -82,18 +86,26 @@ def llama_family(cfg: llama.LlamaConfig) -> ModelFamily:
     )
 
 
-def moe_family(cfg) -> ModelFamily:
-    raise ValueError(f"MoE training is not ported yet: it belongs to the "
-                     f"MoE port slice ({type(cfg).__name__})")
+def moe_family(cfg: moe.MoEConfig) -> ModelFamily:
+    return ModelFamily(
+        name="moe",
+        init=lambda gen, device: moe.moe_init(cfg, gen, device),
+        loss=lambda params, batch, attn_fn=None: moe.moe_loss(
+            params, batch, cfg, attn_fn
+        ),
+        num_params=cfg.num_params(),
+        flops_per_token=cfg.flops_per_token(),
+        vocab_size=cfg.vocab_size,
+    )
 
 
 def family_for(model_cfg) -> ModelFamily:
     if isinstance(model_cfg, llama.LlamaConfig):
         return llama_family(model_cfg)
+    if isinstance(model_cfg, moe.MoEConfig):
+        return moe_family(model_cfg)
     if isinstance(model_cfg, ModelFamily):
         return model_cfg
-    if hasattr(model_cfg, "n_experts"):
-        return moe_family(model_cfg)
     raise TypeError(f"unknown model config type {type(model_cfg)!r}")
 
 
@@ -284,7 +296,8 @@ class Trainer:
     def _apply_long_context_policy(self, cfg: TrainConfig) -> TrainConfig:
         """At seq_len >= long_context_threshold a remat'ing Llama config is
         upgraded to the "flash_rope" policy and a chunked loss (the
-        reference's pass); what changed rides the fit summary."""
+        reference's pass; any other family is left as it is); what changed
+        rides the fit summary."""
         self.long_context_policy_applied = ""
         if (
             cfg.long_context_policy != "auto"

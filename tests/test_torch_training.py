@@ -410,7 +410,10 @@ def test_trainer_rejects_later_slices(kw):
 
 
 def test_fit_checkpoint_and_ps_raise(tmp_path):
-    """fit(ckpt_dir=...) saves (ported); fit_ps and MoE still raise."""
+    """fit(ckpt_dir=...) saves (ported); fit_ps still raises; an MoE
+    config builds the MoE family (ported)."""
+    from kubedl_tpu_torch.models import moe as tm
+
     tr = tt.Trainer(tt.TrainConfig(global_batch=2, seq_len=16, steps=1),
                     device="cpu")
     data = iter(SyntheticTokens(2, 16, 256))
@@ -418,8 +421,10 @@ def test_fit_checkpoint_and_ps_raise(tmp_path):
     assert summary["ckpt_saves"] == 1 and (tmp_path / "latest").exists()
     with pytest.raises(ValueError, match="slice"):
         tr.fit_ps(data, None, "w0")
-    with pytest.raises(ValueError, match="MoE"):
-        tt.moe_family(object())
+    fam = tt.moe_family(tm.TINY_MOE)
+    assert fam.name == "moe" and fam.vocab_size == tm.TINY_MOE.vocab_size
+    assert fam.num_params == tm.TINY_MOE.num_params()
+    assert tt.family_for(tm.TINY_MOE).name == "moe"
     # shard_update / overlap_comm are accepted no-ops on one device
     tr2 = tt.Trainer(tt.TrainConfig(global_batch=2, seq_len=16, steps=1,
                                     shard_update=False, overlap_comm=False),
@@ -474,7 +479,6 @@ def test_train_main_prints_worker_summary(capsys, clean_env):
     ({"KUBEDL_ELASTIC_BASE_DP": "2"}, {}),
     ({}, {"train_mode": "ps"}),
     ({}, {"chaos": {"trainer.step_stall": [{"nth": 1}]}}),
-    ({}, {"model": "moe-tiny"}),
 ], ids=lambda x: ",".join(f"{k}" for k in x) or "-")
 def test_train_main_rejects_what_this_slice_does_not_run(env, opts,
                                                        clean_env):
@@ -484,6 +488,25 @@ def test_train_main_rejects_what_this_slice_does_not_run(env, opts,
                **opts)
     with pytest.raises(ValueError, match="slice"):
         entry.train_main(dict(env, KUBEDL_TRAIN_CONFIG=json.dumps(cfg)))
+
+
+def test_train_main_moe_names_as_the_reference(capsys, clean_env):
+    """A model name containing "moe" is an MoE preset, as in the
+    reference: "moe-tiny" is none and raises KeyError there and here;
+    "tiny-moe" trains."""
+    from kubedl_tpu.training import entry as jentry
+    from kubedl_tpu_torch.training import entry
+
+    for mod in (entry, jentry):
+        with pytest.raises(KeyError):
+            mod._model_preset("moe-tiny")
+    cfg = {"model": "moe-tiny", "steps": 1, "seq_len": 16, "device": "cpu"}
+    with pytest.raises(KeyError):
+        entry.train_main({"KUBEDL_TRAIN_CONFIG": json.dumps(cfg)})
+    cfg["model"] = "tiny-moe"
+    assert entry.train_main({"KUBEDL_TRAIN_CONFIG": json.dumps(cfg)}) == 0
+    s = entry.LAST_SUMMARY
+    assert s["model_family"] == "moe" and np.isfinite(s["final_loss"])
 
 
 def test_train_main_device_from_env(monkeypatch, clean_env):
