@@ -1,8 +1,10 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py                # every phase, one card
-    python3 chip_smoke.py --skip-engine  # without phases 5, 6, 13-19, 22
-    python3 chip_smoke.py --skip-train   # without phases 8 to 12, 21, 23-25
+    python3 chip_smoke.py --skip-engine  # without phases 5, 6, 13-19, 22,
+                                         # 26, 27
+    python3 chip_smoke.py --skip-train   # without phases 8 to 12, 21,
+                                         # 23-25, 28
 
 Phases (any failure exits non-zero before the final line):
 
@@ -97,7 +99,9 @@ Phases (any failure exits non-zero before the final line):
    shapes a MISS line (not a failure) where a kernel of the pair is over
    6x its bound or the pair over 2.5x SDPA's backward. And bench-moe's
    training shape (B=8, H=16, KV=8, S=2048, hd 64, bf16, causal, theta
-   10000 RoPE: GQA group 2, phase 25's path), untimed.
+   10000 RoPE: GQA group 2, phase 25's path), untimed; and the zoo
+   draft's distillation shape (B=8, H=KV=32, S=128, hd 64, bf16, causal,
+   RoPE: MHA, group 1, phase 26's path), untimed.
 8. training: ``train_main`` with KUBEDL_TRAIN_CONFIG={"model":
    "llama3-1b", "global_batch": 4, "seq_len": 2048, "steps": 8} on the
    card, full width and depth, seeded random weights; gates on finite
@@ -146,8 +150,13 @@ Phases (any failure exits non-zero before the final line):
    emitted token, verify ms, and the verify launches' in-model time.
 15. f32 greedy identity: Llama-3-8B width cut to 2 layers, float32: the
    prefix cache, ``spec_k`` 4 n-gram, ``spec_k`` 4 with 3 candidates and
-   the tree, and the model draft must each give greedy streams IDENTICAL
-   to the plain engine's (no prefix cache, no speculation).
+   the tree, the model draft, a ``zoo:tiny`` draft distilled 64 steps
+   in float32 on the target's rollouts (``KUBEDL_SPEC_DRAFT_CKPT``;
+   gated on accepted proposals), and the contiguous layout without and
+   with the prefix cache (asked for ``prefill_chunk_tokens`` 512, which
+   that layout leaves to whole-prompt prefill) must each give greedy
+   streams IDENTICAL to the plain paged engine's (no prefix cache, no
+   speculation).
 
 16. W8A16 (weight-only int8 matmul, ``csrc/w8a16.cu``) against its plain
    version at Llama-3-8B's shapes (K x N in 4096 x 4096, 4096 x 1024,
@@ -263,7 +272,12 @@ Phases (any failure exits non-zero before the final line):
    moment) at a step that does not clip and one that clips, with the
    gates stated in ``run_adamw_kernels``; prints its device and call ms,
    the bound, the plain version's ms and the closest library calls'
-   (``clip_grad_norm_`` + ``torch.optim.AdamW(fused=True)``).
+   (``clip_grad_norm_`` + ``torch.optim.AdamW(fused=True)``). Then
+   ``optax.adam``'s configuration (``Adam``: weight decay 0, no clipping
+   stage and so no norm, moments in the parameters' type) on the same
+   leaves in bf16 and on a 2-layer cut of them in float32: BIT-identical
+   to the plain version, two calls identical, no norm launch; the bf16
+   update's device ms beside its bound.
 21. the training job's lifecycle: ``train_main`` on Llama-3.2-1B (full
    width and depth, b4 x s2048) with a seeded token file, a save every 2
    steps (async), ``KUBEDL_FAULT_ONCE_AT_STEP`` 3 and
@@ -276,10 +290,37 @@ Phases (any failure exits non-zero before the final line):
    BIT-identical to an in-process chain of 2 steps, save, restore, 4
    steps on a fresh iterator.
 
-Phase 16 runs after phase 4; phase 22, then phases 13-15 and 17-19 after
-phase 6 (they are skipped with ``--skip-engine``); phase 20 after phase
-7, then phases 23, 24 and 25, and phase 21 after phase 12 (skipped with
-``--skip-train``).
+26. a trained zoo draft: the ``zoo:llama-1b`` draft (16 layers, D 2048,
+   32 MHA heads at hd 64, ffn 8192, the target's 128,256-token
+   vocabulary: 1.6 B bf16 parameters, seed 0) distilled on the card by
+   ``distill_draft`` on Llama-3-8B's greedy rollouts of 8 seeded 64-token
+   prompts (``DISTILL``: 64 tokens each, then 64 steps of
+   ``optax.adam(1e-3)``; the target's weights are those ``serve_main``
+   builds from seed 0); gates on finite losses, the last below the
+   first, and flash and optimizer launches during it; prints the losses,
+   seconds and peak memory. Saved, it serves through ``serve_main``
+   (phase 5's config, ``spec_k`` 4, ``spec_draft`` "zoo:llama-1b",
+   ``KUBEDL_SPEC_DRAFT_CKPT``), then phase 14's n-gram and early-exit
+   drafts on the same requests: the 8 distillation prompts and 8
+   held-out ones, 64 greedy tokens each; gates on every response and on
+   verify rounds on the blocked kernel's split-K route; prints each
+   wave's acceptance, tokens per verify and ms per emitted token.
+27. the contiguous layout: ``serve_main`` with ``kv_layout``
+   "contiguous" on phase 5's config and requests (Llama-3-8B bf16, full
+   width and depth, a 2.15 GB contiguous K/V cache); gates on every
+   response, finite logits, no paged-kernel launch during the wave and
+   ``stats()`` without ``kv_blocks``; prints ms a decode step and TTFT
+   p50/p95 beside phase 5's paged engine.
+28. the convnet: ``convnet.fit`` at the reference's default config
+   (28x28x1, width 32, hidden 128, float32), batch 64, 200 steps on the
+   card; gates on held-out accuracy above 0.9 (the reference's bar),
+   the final loss below the first and the optimizer kernels' launches;
+   prints seconds and the step time.
+
+Phase 16 runs after phase 4; phase 22, then phases 13-15, 26, 27 and
+17-19 after phase 6 (they are skipped with ``--skip-engine``); phase 20
+after phase 7, then phases 23, 24, 25 and 28, and phase 21 after phase
+12 (skipped with ``--skip-train``).
 
 Output: the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -766,8 +807,10 @@ FLASH_REPLACES = {
 #: (phase 23's path: MQA at hd 256); then Llama-3-8B and Gemma-2B head
 #: widths, GQA groups 1 and 8 at both hd-64/128 tensor-core widths with
 #: and without RoPE, causal and not, ragged lengths, float32 at each hd,
-#: and bench-moe's training shape (phase 25's path: GQA group 2 at hd 64,
-#: untimed). Every case runs all four kernels (the split pair too).
+#: bench-moe's training shape (phase 25's path: GQA group 2 at hd 64,
+#: untimed) and the zoo draft's distillation shape (phase 26's path: group
+#: 1 at hd 64, S 128, untimed). Every case runs all four kernels (the
+#: split pair too).
 FLASH_CASES = [
     ("llama3-1b", 4, 32, 8, 2048, 64, torch.bfloat16, True, True, True),
     ("gemma-2b train", 4, 8, 1, 2048, 256, torch.bfloat16, True, True, True),
@@ -790,6 +833,10 @@ FLASH_CASES = [
     ("f32 hd256", 1, 4, 2, 256, 256, torch.float32, True, True, False),
     # phase 25's path: bench-moe, GQA group 2 at hd 64, theta-10000 RoPE
     ("bench-moe", 8, 16, 8, 2048, 64, torch.bfloat16, True, True, False),
+    # phase 26's path: the zoo:llama-1b draft's distillation, MHA (group
+    # 1) at hd 64 over the 128-token rollouts
+    ("zoo llama-1b draft", 8, 32, 32, 128, 64, torch.bfloat16, True, True,
+     False),
 ]
 #: Tolerances against the plain versions on the same inputs (N(0,1)):
 #: out: bf16 2e-2 max abs (both sides sum in float32 and round once to
@@ -2050,17 +2097,19 @@ def adamw_leaves(llama_mod, scale, seed):
     return gs, ps, mus, nus
 
 
-def adamw_bound(gs, ps, mus):
-    """(ms, "bytes" or "operations"): the norm reads g once; the update
-    reads p, g, mu, nu and writes p, mu, nu, each once; about 24 float32
-    operations an element (2 for the norm, 22 in the update) at the
-    CUDA cores' peak."""
+def adamw_bound(gs, ps, mus, norm=True):
+    """(ms, "bytes" or "operations"): the norm (where ``norm``: a
+    clipping stage) reads g once; the update reads p, g, mu, nu and
+    writes p, mu, nu, each once; about 22 float32 operations an element
+    in the update, 2 more for the norm, at the CUDA cores' peak."""
     n = sum(p.numel() for p in ps)
-    nbytes = sum(g.numel() * g.element_size() * 2 + p.numel() * p.element_size()
-                 * 4 + m.numel() * m.element_size() * 2
+    g_reads = 2 if norm else 1
+    nbytes = sum(g.numel() * g.element_size() * g_reads
+                 + p.numel() * p.element_size() * 4
+                 + m.numel() * m.element_size() * 2
                  for g, p, m in zip(gs, ps, mus))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 24 * n / PEAK_FLOPS[torch.float32] * 1e3
+    t_ops = (24 if norm else 22) * n / PEAK_FLOPS[torch.float32] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2173,6 +2222,91 @@ def run_adamw_kernels(adamw_mod, llama_mod):
           + json.dumps({k: out[k] for k in (
               "ms", "call_ms", "plain_ms", "library_ms", "library_call_ms",
               "bound_ms", "bound_by", "leaves", "params")}), flush=True)
+    return out
+
+
+#: optax.adam's configuration (the update of draft distillation and the
+#: convnet, ``ops/adamw.py::Adam``): no weight decay, no clipping stage
+#: (no norm), both moments in the parameter's type; checked on
+#: Llama-3.2-1B's leaves in bf16 and on a 2-layer cut of them in float32
+ADAM_CASES = (("bf16", torch.bfloat16, None), ("f32", torch.float32, 2))
+ADAM_STEP = dict(lr=1e-3, t=3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
+                 clip=None)
+
+
+def run_adam_configs(adamw_mod, llama_mod):
+    """Phase 20's second part: ``Adam``'s update (``adamw_update`` with
+    weight decay 0 and ``clip=None``, optax's b1 0.9, b2 0.999, eps 1e-8)
+    against its plain version, parameters with same-typed moments: bf16
+    (the zoo draft's bf16 distillation) and float32 (the convnet's).
+    Gates: p, mu and nu BIT-identical to the plain version's, two kernel
+    calls identical, no norm taken (no stats, no norm launches). The
+    bf16 update's device ms is printed beside its bound (no norm: g is
+    read once)."""
+    from kubedl_tpu_torch.training.trainer import tree_leaves
+
+    out = {}
+    for label, dtype, layers in ADAM_CASES:
+        cfg = llama_mod.preset("llama3-1b")
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        shapes = [tuple(t.shape) for t in tree_leaves(
+            llama_mod.param_like(cfg))]
+        g = torch.Generator(device=DEV).manual_seed(21)
+
+        def rand(shape, std):
+            return (torch.randn(shape, generator=g, device=DEV) * std).to(
+                dtype)
+
+        ps = [rand(sh, 0.02) for sh in shapes]
+        gs = [rand(sh, 1e-3) for sh in shapes]
+        mus = [rand(sh, 1e-4) for sh in shapes]
+        nus = [(torch.rand(sh, generator=g, device=DEV) * 1e-8).to(dtype)
+               for sh in shapes]
+        chain = adamw_mod._chain_dtype([x.dtype for x in gs])
+        scal = [adamw_mod.step_scalars(
+            ADAM_STEP["lr"], ADAM_STEP["t"], ADAM_STEP["b1"],
+            ADAM_STEP["b2"], ADAM_STEP["eps"], 0.0, None, p.dtype, m.dtype,
+            chain) for p, m in zip(ps, mus)]
+        runs, stats = [], []
+        for k in adamw_mod.LAUNCHES:
+            adamw_mod.LAUNCHES[k] = 0
+        for impl in ("kernel", "kernel", "plain"):
+            p2, m2, v2 = ([t.clone() for t in x] for x in (ps, mus, nus))
+            if impl == "kernel":
+                stats.append(adamw_mod.adamw_update(gs, p2, m2, v2,
+                                                    **ADAM_STEP))
+            else:
+                stats.append(adamw_mod.adamw_update_plain(
+                    gs, p2, m2, v2, scal, clip=False))
+            torch.cuda.synchronize()
+            runs.append(p2 + m2 + v2)
+        launches = dict(adamw_mod.LAUNCHES)
+        tk, tk2, tp = runs
+        bitwise = all(torch.equal(a, b) for a, b in zip(tk, tp))
+        repeat = all(torch.equal(a, b) for a, b in zip(tk, tk2))
+        moved = sum(int((a != b).sum()) for a, b in zip(tk[:len(ps)], ps))
+        rec = {"leaves": len(ps), "params": sum(p.numel() for p in ps),
+               "bitwise": bitwise, "repeat_bitwise": repeat,
+               "params_moved": moved, "launches": launches,
+               "moment_types": sorted({str(x.dtype) for x in mus + nus})}
+        no_norm = stats == [None] * 3 and launches == {
+            "adamw_norm": 0, "adamw_norm_finish": 0,
+            "adamw_update": 2 * len(ps)}
+        del runs, tk, tk2, tp
+        _free()
+        if label == "bf16":
+            rec["ms"] = time_ms(lambda: adamw_mod.adamw_update(
+                gs, ps, mus, nus, **ADAM_STEP))
+            rec["bound_ms"], rec["bound_by"] = adamw_bound(gs, ps, mus,
+                                                           norm=False)
+        print(f"adam ({label} parameters and moments, no decay, no clip): "
+              + json.dumps(rec), flush=True)
+        if not (bitwise and repeat and no_norm and moved > 0):
+            fail(f"adam {label}: kernel vs plain {rec}")
+        out[label] = rec
+        del ps, gs, mus, nus
+        _free()
     return out
 
 
@@ -2626,6 +2760,7 @@ def run_engine(pa, server_mod, llama_mod, summary):
     summary["bf16_weight_bytes"] = st["weights"]["bytes"]
     summary["bf16_ms_per_decode_step"] = eng["ms_per_decode_step"]
     summary["bf16_ttft_ms_p50"] = eng["ttft_ms_p50"]
+    summary["bf16_ttft_ms_p95"] = eng["ttft_ms_p95"]
     blocked_tokens = [r[1]["token_ids"] for r in results[:6]]
     return blocked_tokens, reqs, serve_cfg
 
@@ -2943,12 +3078,46 @@ def run_speculative(pa, server_mod, llama_mod, serve_cfg, summary):
           flush=True)
 
 
+#: phase 15's trained draft: the "tiny" zoo entry under the f32 2-layer
+#: target (its path is phase 26's at a size that keeps the f32 identity
+#: quick), distilled at the reference's rate 1e-2 on rollouts as long as
+#: the requests' 32 new tokens, long enough that the engine accepts some
+#: of its proposals: the identity then holds accepted tokens against the
+#: plain engine, not only rejections
+F32_ZOO = {"name": "tiny", "steps": 64, "lr": 1e-2, "gen_len": 32}
+
+
+def distilled_zoo_npz(llama_mod, preset, prompts, tmp):
+    """Distil ``zoo:<F32_ZOO name>`` on the greedy rollouts of the target
+    that an engine of ``preset`` builds (seed 0) and save it under
+    ``tmp``; returns the npz path and the losses."""
+    from kubedl_tpu_torch.serving import speculative as spec
+
+    cfg = llama_mod.preset(preset)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    target = llama_mod.llama_init(cfg, gen, DEV)
+    draft = spec.ModelDraft.from_zoo(F32_ZOO["name"], cfg, device=DEV)
+    losses = spec.distill_draft(draft, target, cfg, prompts,
+                                gen_len=F32_ZOO["gen_len"],
+                                steps=F32_ZOO["steps"], lr=F32_ZOO["lr"])
+    path = os.path.join(tmp, "f32_zoo.npz")
+    draft.save(path)
+    del target, draft
+    _free()
+    return path, losses
+
+
 def run_f32_identity(server_mod, llama_mod):
     """Phase 15: Llama-3-8B width cut to 2 layers, float32, blocked: the
     greedy streams with the prefix cache on, with spec_k 4 (n-gram), with
-    spec_k 4 + 3 candidates + the tree, and with the model draft must be
-    IDENTICAL to the plain engine's (prefix cache off, no speculation) on
-    the shared-prefix requests in two waves. A divergence fails the run."""
+    spec_k 4 + 3 candidates + the tree, with the model draft, with a
+    ``zoo:`` draft distilled in float32 (F32_ZOO), and on the contiguous
+    layout without and with the prefix cache (every variant asks for
+    ``prefill_chunk_tokens`` 512, which the contiguous layout leaves to
+    whole-prompt prefill) must be IDENTICAL to the plain paged engine's
+    (prefix cache off, no speculation) on the shared-prefix requests in
+    two waves. A divergence fails the run, and so does a zoo draft whose
+    proposals were never accepted."""
     name = "llama3-8b-2layer-f32"
     llama_mod.PRESETS.setdefault(name, dataclasses.replace(
         llama_mod.preset("llama3-8b"), n_layers=2, dtype=torch.float32))
@@ -2963,10 +3132,25 @@ def run_f32_identity(server_mod, llama_mod):
         "spec_tree": dict(prefix_cache_mb=0.0, spec_k=4, spec_candidates=3,
                           spec_tree=True),
         "spec_model": dict(prefix_cache_mb=0.0, spec_k=4, spec_draft="model"),
+        "spec_zoo": dict(prefix_cache_mb=0.0, spec_k=4,
+                         spec_draft=f"zoo:{F32_ZOO['name']}"),
+        "contiguous": dict(prefix_cache_mb=0.0, kv_layout="contiguous"),
+        "contiguous_prefix": dict(prefix_cache_mb=512.0,
+                                  kv_layout="contiguous"),
     }
+    tmp = tempfile.mkdtemp(prefix="kdl-f32-zoo-")
+    zoo_path, zoo_losses = distilled_zoo_npz(
+        llama_mod, name, [r["prompt_ids"] for r in reqs], tmp)
+    if not all(math.isfinite(x) for x in zoo_losses):
+        fail(f"f32 zoo draft distillation: losses {zoo_losses}")
     streams, facts = {}, {}
     for label, kw in variants.items():
-        eng = server_mod.LlamaEngine(**base_kw, **kw)
+        if label == "spec_zoo":
+            os.environ["KUBEDL_SPEC_DRAFT_CKPT"] = zoo_path
+        try:
+            eng = server_mod.LlamaEngine(**base_kw, **kw)
+        finally:
+            os.environ.pop("KUBEDL_SPEC_DRAFT_CKPT", None)
         try:
             outs = generate_concurrent(eng, reqs[:2]) \
                 + generate_concurrent(eng, reqs[2:])
@@ -2984,16 +3168,26 @@ def run_f32_identity(server_mod, llama_mod):
             "accepted": st.get("speculative", {}).get("accepted"),
             "candidates_scored": st.get("speculative", {}).get(
                 "candidates_scored"),
+            "kv_blocks": "kv_blocks" in st,
         }
+    shutil.rmtree(tmp, ignore_errors=True)
+    facts["spec_zoo"]["distill_losses"] = zoo_losses
     for label in variants:
         if streams[label] != streams["plain"]:
             fail(f"f32 2-layer Llama-3-8B: {label} greedy streams differ "
                  f"from the plain engine's: {streams[label]} vs "
                  f"{streams['plain']}")
-    if not facts["prefix"]["prefix_hits"]:
-        fail(f"f32 identity: the prefix variant never hit {facts}")
+    if not facts["prefix"]["prefix_hits"] or \
+            not facts["contiguous_prefix"]["prefix_hits"]:
+        fail(f"f32 identity: a prefix variant never hit {facts}")
+    if facts["contiguous"]["kv_blocks"] or \
+            facts["contiguous_prefix"]["kv_blocks"]:
+        fail(f"f32 identity: a contiguous engine has kv_blocks {facts}")
     if not all(facts[k]["verifies"] for k in variants if k.startswith("spec")):
         fail(f"f32 identity: a spec variant never verified {facts}")
+    if not facts["spec_zoo"]["accepted"]:
+        fail(f"f32 identity: the distilled zoo draft was never accepted "
+             f"{facts}")
     if not facts["spec_tree"]["candidates_scored"]:
         fail(f"f32 identity: the tree variant scored no candidate {facts}")
     print("f32 2-layer llama3-8b width, greedy identity with the plain "
@@ -4120,13 +4314,267 @@ def run_disagg_identity(server_mod, llama_mod, reqs):
 
 # ---- main -------------------------------------------------------------------
 
+# ---- phase 26: a trained zoo draft ---------------------------------------------
+
+#: phase 26's draft: the planner's "llama-1b" zoo entry under Llama-3-8B
+#: (16 layers, D 2048, 32 MHA heads at hd 64, ffn 8192, the target's
+#: 128,256-token vocabulary: 1,603,411,968 bf16 parameters)
+ZOO_DRAFT = "llama-1b"
+#: the distillation: 8 seeded 64-token prompts, 64-token greedy rollouts
+#: of the target, then ``steps`` of optax.adam(``lr``) on the 128-token
+#: sequences (bf16 weights and moments, as the reference's optax.adam
+#: keeps them: an update below half a bf16 ulp of a weight, ~6e-5 at the
+#: init's 0.022, rounds away, so the rate is 1e-3; 24 steps left the
+#: loss at 4.2 and still falling, hence 64)
+DISTILL = {"prompts": 8, "prompt_len": 64, "gen_len": 64, "steps": 64,
+           "lr": 1e-3}
+
+
+def zoo_prompts(vocab, seed, n=8, length=64):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, vocab, size=length).tolist() for _ in range(n)]
+
+
+def _spec_delta(after, before):
+    """A wave's speculation counters: the stats' difference."""
+    sa, sb = after["speculative"], before["speculative"]
+    d = {k: sa[k] - sb[k] for k in ("proposed", "accepted", "verifies",
+                                    "emitted")}
+    pa_, pb = after["pipeline"], before["pipeline"]
+    rounds = pa_["spec_rounds"] - pb["spec_rounds"]
+    spec_ms = pa_["spec_ms_sum"] - pb["spec_ms_sum"]
+    d["acceptance_rate"] = d["accepted"] / d["proposed"] if d["proposed"] \
+        else 0.0
+    d["tokens_per_verify"] = d["emitted"] / max(d["verifies"], 1)
+    d["spec_rounds"] = rounds
+    # a round verifies every decoding row at once: a row's ms per emitted
+    # token is a round over its tokens a verify
+    d["ms_per_token_per_row"] = spec_ms / max(rounds, 1) / max(
+        d["tokens_per_verify"], 1e-9)
+    d["batch_ms_per_emitted_token"] = spec_ms / max(d["emitted"], 1)
+    d["draft_ms_per_round"] = (sa["draft_ms_total"]
+                               - sb["draft_ms_total"]) / max(rounds, 1)
+    return d
+
+
+def run_zoo_draft(pa, fa, adamw_mod, server_mod, llama_mod, serve_cfg,
+                  summary):
+    """Phase 26: distil the ``zoo:llama-1b`` draft on Llama-3-8B's greedy
+    rollouts on the card (``distill_draft``: the target as a ModelDraft,
+    then DISTILL's steps of the flash operators and the optimizer kernels;
+    the target's weights are the ones ``serve_main`` builds from seed 0),
+    save it, and serve it through ``serve_main`` (``spec_k`` 4,
+    ``KUBEDL_SPEC_DRAFT_CKPT``) beside phase 14's n-gram and early-exit
+    drafts, each on the 8 distillation prompts and on 8 held-out prompts
+    (64 greedy tokens each). Gates: every loss finite and the last below
+    the first; flash and optimizer launches during the distillation;
+    every response complete; verify rounds on the blocked kernel's
+    split-K route. Acceptance and times are measurements."""
+    from kubedl_tpu_torch.serving import speculative as spec
+    from kubedl_tpu_torch.training.trainer import tree_leaves
+
+    cfg8 = llama_mod.preset("llama3-8b")
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    target = llama_mod.llama_init(cfg8, gen, DEV)
+    draft = spec.ModelDraft.from_zoo(ZOO_DRAFT, cfg8, device=DEV)
+    n_params = sum(t.numel() for t in tree_leaves(draft.params))
+    prompts = zoo_prompts(cfg8.vocab_size, seed=26, n=DISTILL["prompts"],
+                          length=DISTILL["prompt_len"])
+    held_out = zoo_prompts(cfg8.vocab_size, seed=27, n=DISTILL["prompts"],
+                           length=DISTILL["prompt_len"])
+    _reset(fa)
+    for k in adamw_mod.LAUNCHES:
+        adamw_mod.LAUNCHES[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = spec.distill_draft(draft, target, cfg8, prompts,
+                                gen_len=DISTILL["gen_len"],
+                                steps=DISTILL["steps"], lr=DISTILL["lr"])
+    torch.cuda.synchronize()
+    distill_s = time.perf_counter() - t0
+    flash_launches = dict(fa.LAUNCHES)
+    opt_launches = dict(adamw_mod.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"zoo draft distillation: losses {losses}")
+    if flash_launches["flash_fwd"] <= 0 or \
+            flash_launches["flash_bwd_fused"] <= 0 or \
+            opt_launches["adamw_update"] <= 0:
+        fail(f"zoo draft distillation off the kernels: flash "
+             f"{flash_launches}, optimizer {opt_launches}")
+    tmp = tempfile.mkdtemp(prefix="kdl-zoo-draft-")
+    path = os.path.join(tmp, "draft.npz")
+    t0 = time.perf_counter()
+    draft.save(path)
+    save_s = time.perf_counter() - t0
+    del target, draft
+    _free()
+    dist = {"draft": f"zoo:{ZOO_DRAFT}", "draft_params": n_params,
+            "config": DISTILL, "losses": losses, "distill_s": distill_s,
+            "save_s": save_s, "npz_bytes": os.path.getsize(path),
+            "max_memory_allocated_gib": peak / 2**30,
+            "flash_launches": flash_launches,
+            "optimizer_launches": opt_launches}
+    print("zoo draft distillation (smoke run): " + json.dumps(dist),
+          flush=True)
+    summary.setdefault("paths", {})
+    summary["distill_launches"] = {**flash_launches, **opt_launches}
+    waves = {"distilled": prompts, "held_out": held_out}
+    out = {}
+    try:
+        for draft_name, extra, env in (
+                (f"zoo:{ZOO_DRAFT}", {}, {"KUBEDL_SPEC_DRAFT_CKPT": path}),
+                ("ngram", {}, {}),
+                ("model", {"spec_draft_layers": 4}, {})):
+            cfg = dict(serve_cfg, spec_k=4, spec_draft=draft_name, **extra)
+            rec = {}
+            with serving(server_mod, cfg, env) as base:
+                for wave, ps in waves.items():
+                    reqs = [{"prompt_ids": p, "max_tokens": 64,
+                             "temperature": 0.0} for p in ps]
+                    _, before = http_json(base + "/v1/stats")
+                    reset_counts(pa)
+                    res, wall = post_all(base, reqs)
+                    launches = dict(pa.LAUNCHES)
+                    routes = dict(pa.ENTRY_ROUTE_LAUNCHES)
+                    checked(res, 64, f"spec {draft_name} {wave}")
+                    _, st = http_json(base + "/v1/stats")
+                    d = _spec_delta(st, before)
+                    if d["verifies"] <= 0 or routes["blocked/split_k"] <= 0:
+                        fail(f"spec {draft_name} {wave}: no verify on the "
+                             f"split-K route: {d} {routes}")
+                    d.update(wall_s=wall, launches=launches,
+                             entry_routes={k: v for k, v in routes.items()
+                                           if v})
+                    rec[wave] = d
+                    if draft_name.startswith("zoo:"):
+                        prev = summary["paths"].get("zoo_draft")
+                        summary["paths"]["zoo_draft"] = {
+                            k: v + (prev or {}).get(k, 0)
+                            for k, v in launches.items()}
+                rec["draft_kind"] = st["speculative"]["draft_kind"]
+            out[draft_name] = rec
+    finally:
+        os.environ.pop("KUBEDL_SPEC_DRAFT_CKPT", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["plain_ms_per_decode_step"] = summary.get("bf16_ms_per_decode_step")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    print("zoo draft vs phase 14's drafts (smoke run, not a benchmark): "
+          + json.dumps(out), flush=True)
+
+
+# ---- phase 27: the contiguous KV layout ------------------------------------------
+
+def run_contiguous_engine(pa, server_mod, serve_cfg, reqs, summary):
+    """Phase 27: ``serve_main`` with ``kv_layout`` "contiguous" on phase
+    5's config and requests (Llama-3-8B bf16, full width and depth,
+    ``max_batch`` 8, ``max_seq`` 2048: a 2.15 GB [32, 8, 2048, 8, 128]
+    K/V pair; the layout prefills whole prompts and attends with the
+    plain model functions' dense attention). Gates: every response
+    complete, finite logits, no paged-kernel launch during the wave,
+    ``stats()`` without ``kv_blocks``. Prints ms a decode step and TTFT
+    beside phase 5's paged engine."""
+    t0 = time.perf_counter()
+    cfg = dict(serve_cfg, kv_layout="contiguous")
+    with serving(server_mod, cfg) as base:
+        _, before = http_json(base + "/v1/stats")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(pa)
+        results, wall = post_all(base, reqs)
+        launches = dict(pa.LAUNCHES)
+        routes = dict(pa.ROUTE_LAUNCHES)
+        _, st = http_json(base + "/v1/stats")
+        peak = torch.cuda.max_memory_allocated()
+    checked(results, 128, "contiguous engine")
+    if any(launches.values()) or any(routes.values()):
+        fail(f"contiguous engine launched paged kernels: {launches} {routes}")
+    if st["nonfinite_logits"] != 0:
+        fail(f"contiguous engine: {st['nonfinite_logits']} non-finite logits")
+    if "kv_blocks" in st:
+        fail(f"contiguous engine reports kv_blocks: {st['kv_blocks']}")
+    pipe, pipe0 = st["pipeline"], before["pipeline"]
+    steps = pipe["decode_steps"] - pipe0["decode_steps"]
+    dec_ms = pipe["decode_ms_sum"] - pipe0["decode_ms_sum"]
+    rec = {"wall_s": wall, "decode_steps": steps,
+           "ms_per_decode_step": dec_ms / max(steps, 1),
+           "ttft_ms_p50": st.get("ttft_ms_p50"),
+           "ttft_ms_p95": st.get("ttft_ms_p95"),
+           "prefills": pipe["prefills"] - pipe0["prefills"],
+           "prefix_cache": {k: st["prefix_cache"].get(k)
+                            for k in ("hits", "misses", "inserts")},
+           "max_memory_allocated_gib": peak / 2**30,
+           "pipeline": {k: pipe.get(k) for k in PIPELINE_FIELDS},
+           "paged_ms_per_decode_step": summary.get("bf16_ms_per_decode_step"),
+           "paged_ttft_ms_p50": summary.get("bf16_ttft_ms_p50"),
+           "paged_ttft_ms_p95": summary.get("bf16_ttft_ms_p95"),
+           "phase_seconds": time.perf_counter() - t0}
+    summary.setdefault("paths", {})["contiguous"] = launches
+    print("contiguous engine vs phase 5's paged engine (smoke run, not a "
+          "benchmark): " + json.dumps(rec), flush=True)
+
+
+# ---- phase 28: the convnet ----------------------------------------------------------
+
+CONVNET_FIT = {"batch": 64, "steps": 200}
+
+
+def run_convnet(adamw_mod):
+    """Phase 28: ``convnet.fit`` at the reference's default config
+    (28x28x1, width 32, hidden 128, float32), batch 64, 200 steps on the
+    card, the data drawn there. Gate: held-out accuracy above 0.9 (the
+    reference's bar) on 256 draws of another seed, the final loss below
+    the first, an update launch a leaf a step of the optimizer's kernels
+    and no norm launch (``Adam``: no clipping stage). Prints seconds and the step time (a
+    second fit of 100 steps, timed whole)."""
+    from kubedl_tpu_torch.models import convnet
+
+    t_phase = time.perf_counter()
+    cfg = convnet.ConvNetConfig()
+    data = convnet.SyntheticDigits(cfg, batch=CONVNET_FIT["batch"],
+                                   device=DEV)
+    for k in adamw_mod.LAUNCHES:
+        adamw_mod.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    params, s = convnet.fit(cfg, iter(data), steps=CONVNET_FIT["steps"],
+                            device=DEV)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(adamw_mod.LAUNCHES)
+    imgs, labels = next(convnet.SyntheticDigits(cfg, 256, seed=7,
+                                                device=DEV))
+    acc = convnet.accuracy(params, imgs, labels, cfg)
+    n = CONVNET_FIT["steps"]
+    want = {"adamw_norm": 0, "adamw_norm_finish": 0, "adamw_update": 8 * n}
+    if not acc > 0.9 or not s["final_loss"] < s["first_loss"] \
+            or launches != want:
+        fail(f"convnet: accuracy {acc}, {s}, optimizer launches {launches} "
+             f"(want {want})")
+    t0 = time.perf_counter()
+    convnet.fit(cfg, iter(data), steps=100, seed=1, device=DEV)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 100 * 1e3
+    rec = {"config": {**dataclasses.asdict(cfg), "dtype": str(cfg.dtype)},
+           **CONVNET_FIT,
+           "accuracy": acc, "first_loss": s["first_loss"],
+           "final_loss": s["final_loss"], "fit_s": fit_s,
+           "step_ms": step_ms, "optimizer_launches": launches,
+           "phase_seconds": time.perf_counter() - t_phase}
+    print("convnet (smoke run, not a benchmark): " + json.dumps(rec),
+          flush=True)
+    _free()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--skip-engine", action="store_true",
                     help="skip the serving engine (phases 5, 6, 13-15, "
-                    "17-19, 22)")
+                    "17-19, 22, 26, 27)")
     ap.add_argument("--skip-train", action="store_true",
-                    help="skip the training phases (8 to 12, 21, 23-25)")
+                    help="skip the training phases (8 to 12, 21, 23-25, "
+                    "28)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4258,6 +4706,11 @@ def main() -> int:
         stamp("phase 14")
         run_f32_identity(server_mod, llama_mod)
         stamp("phase 15")
+        run_zoo_draft(pa, fa, adamw, server_mod, llama_mod, serve_cfg,
+                      summary)
+        stamp("phase 26")
+        run_contiguous_engine(pa, server_mod, serve_cfg, reqs, summary)
+        stamp("phase 27")
         with torch.no_grad():
             run_int8_engine(pa, w8, server_mod, llama_mod, serve_cfg, summary)
             run_int8_identity(w8, server_mod, llama_mod, reqs, serve_cfg)
@@ -4276,12 +4729,14 @@ def main() -> int:
     stamp("phase 7")
     with torch.no_grad():
         kernels["adamw_update"] = run_adamw_kernels(adamw, llama_mod)
+        kernels["adamw_update"]["adam"] = run_adam_configs(adamw, llama_mod)
     stamp("phase 20")
     launches.update({name: None for name in FLASH_REPLACES})
     opt_launches = {}
     gemma_train, gemma_launches = {}, {}
     gemma_long, gemma_long_launches = {}, {}
     moe_launches = {}
+    convnet_launches = {}
     if not args.skip_train:
         gemma_launches, gemma_train = run_gemma_train(fa, llama_mod)
         stamp("phase 23")
@@ -4289,6 +4744,8 @@ def main() -> int:
         stamp("phase 24")
         moe_launches, _ = run_moe_phase(fa, moe_mod)
         stamp("phase 25")
+        convnet_launches = run_convnet(adamw)
+        stamp("phase 28")
         flash_launches, opt_launches = run_train_entry(fa, llama_mod)
         launches.update(flash_launches)
         run_overfit_and_split(fa, llama_mod)
@@ -4382,6 +4839,14 @@ def main() -> int:
                  "a float32 norm slot a CTA + a one-CTA finish, then one "
                  "16-byte-vector update launch a leaf, in place")
     rec["launches_by_kernel"] = opt_launches
+    rec["adam"] = kernels["adamw_update"].get("adam")
+    # optax.adam's configuration: phase 26's distillation, phase 28's fit
+    rec["launches_by_path"] = {
+        "llama3-1b": sum(opt_launches.values()) or None,
+        "zoo_draft_distill": sum(
+            summary.get("distill_launches", {}).get(k, 0)
+            for k in adamw.LAUNCHES) or None,
+        "convnet": sum(convnet_launches.values()) or None}
     line.append(rec)
     main_case = FLASH_CASES[0]  # the timed shape: llama3-1b training
     for name in FLASH_REPLACES:
@@ -4389,9 +4854,12 @@ def main() -> int:
         rec = record(name, "kubedl_tpu_torch/csrc/flash_attention.cu",
                      FLASH_REPLACES[name], launches[name], kernels[name],
                      "tensor_core" if tc else "cuda_core")
-        if name in MOE_TRAIN_OPS:  # hd 64 also runs phase 25's path
-            rec["launches_by_path"] = {"llama3-1b": launches[name],
-                                       "bench-moe": moe_launches.get(name)}
+        if name in MOE_TRAIN_OPS:  # hd 64 also runs phases 25's, 26's paths
+            rec["launches_by_path"] = {
+                "llama3-1b": launches[name],
+                "bench-moe": moe_launches.get(name),
+                "zoo_draft_distill": summary.get(
+                    "distill_launches", {}).get(name)}
         line.append(rec)
     # Gemma-2B's training paths (hd 256): the forward and the fused
     # backward timed at phase 7's Gemma-2B case, launches from phase 23's

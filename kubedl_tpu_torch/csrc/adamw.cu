@@ -33,7 +33,8 @@
 //   norm from device memory (so "clip or not" never reaches the host),
 //   and updates p, mu and nu in place. Parameters bf16 or float32, the
 //   first moment float32 or bf16; the second moment has the parameters'
-//   type.
+//   type. With no norm (a null pointer: optax.adam, no clipping stage)
+//   the first two kernels are not launched and g is used as it is.
 //
 // Every kernel launches on the caller's stream and allocates nothing.
 
@@ -254,8 +255,10 @@ adamw_update_kernel(void* __restrict__ p, const void* __restrict__ g,
                     void* __restrict__ mu, void* __restrict__ nu,
                     const float* __restrict__ norm, int64_t n, bool vec,
                     Scalars c) {
-  const float nrm_chain = norm[0];
-  const bool keep = nrm_chain < c.clip_cmp;
+  // no norm: no clipping stage, every element keeps its gradient (a
+  // non-finite entry poisons only its own element)
+  const float nrm_chain = norm ? norm[0] : 0.0f;
+  const bool keep = !norm || nrm_chain < c.clip_cmp;
   // the reference divides by the norm cast to the leaf's type
   const float nrm = rnd<PB>(nrm_chain);
   const int64_t chunks = (n + kVec - 1) / kVec;
@@ -333,7 +336,8 @@ extern "C" int kdl_adamw_norm_finish(const float* slots, const int* offsets,
 }
 
 // p, g, nu: the leaf's type (p_bf16); mu: bf16 when mu_bf16, else float32.
-// norm: the device float the finish kernel wrote (out[0]). vec: every
+// norm: the device float the finish kernel wrote (out[0]), or null for
+// no clipping stage. vec: every
 // pointer 16-byte aligned. s: the 11 floats of Scalars, in order.
 extern "C" int kdl_adamw_update(void* p, const void* g, void* mu, void* nu,
                                 const float* norm, int n, int p_bf16,

@@ -1,1 +1,2 @@
-"""Model code of the port: the Llama decoder and paged attention."""
+"""Model code of the port: the Llama decoder, paged attention, the
+switch MoE and the convnet."""

@@ -1139,7 +1139,57 @@ def import_kv_blocks(cache: Params, k: torch.Tensor, v: torch.Tensor,
     return cache
 
 
-# ---- contiguous KV cache (the model draft's path) ---------------------------
+# ---- contiguous KV cache (the model drafts' path and kv_layout="contiguous") --
+
+def init_cache(cfg: LlamaConfig, batch: int, max_seq: int,
+               device="cpu") -> Params:
+    """Contiguous cache with ONE shared position (:func:`decode_step`'s):
+    K/V ``[L, B, max_seq, KV, hd]`` + a 0-d ``pos``."""
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
+                cfg: LlamaConfig) -> Tuple[torch.Tensor, Params]:
+    """One decode step of every row at the cache's shared ``pos``: tokens
+    [B, 1] -> (logits [B, V], cache). K/V go in at ``pos`` and the rows
+    attend ``t <= pos``; RoPE reads ``cfg.max_seq``'s table. ``pos``
+    clamps where the reference's dynamic slices clamp (the table at
+    ``max_seq - 1``, the write at ``T - 1``) and advances unclamped. The
+    cache is updated in place; nothing is read back to the host."""
+    B = tokens.shape[0]
+    hd = cfg.head_dim
+    dev = tokens.device
+    pos = cache["pos"].long()
+    max_s = cache["k"].shape[2]
+    x = _embed_in(params, tokens, cfg)
+    cos, sin = rope_freqs(cfg, cfg.max_seq, device=dev)
+    pt = torch.clamp(pos, 0, cfg.max_seq - 1).reshape(1)
+    cos_t, sin_t = cos[pt], sin[pt]  # [1, hd/2]
+    pw = torch.clamp(pos, 0, max_s - 1).reshape(1)
+    valid = (torch.arange(max_s, device=dev) <= pos)[None, None, None, :]
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps, cfg.norm_plus_one)
+        q = apply_rope(_mm(h, lp["wq"]).reshape(B, 1, cfg.n_heads, hd),
+                       cos_t, sin_t)
+        k = apply_rope(_mm(h, lp["wk"]).reshape(B, 1, cfg.n_kv_heads, hd),
+                       cos_t, sin_t)
+        v = _mm(h, lp["wv"]).reshape(B, 1, cfg.n_kv_heads, hd)
+        ck = cache["k"][i].index_copy_(1, pw, k)
+        cv = cache["v"][i].index_copy_(1, pw, v)
+        attn = attention(q, ck, cv, causal=False, mask=valid)
+        x = x + _mm(attn.reshape(B, 1, cfg.n_heads * hd), lp["wo"])
+        x = _mlp(x, lp, cfg)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps, cfg.norm_plus_one)
+    logits = _mm(x[:, 0], lm_head_of(params, cfg)).float()
+    cache["pos"] = (pos + 1).to(torch.int32)
+    return logits, cache
+
 
 def init_batched_cache(cfg: LlamaConfig, batch: int, max_seq: int,
                        device="cpu") -> Params:
@@ -1208,15 +1258,17 @@ def decode_segment(
     tokens: torch.Tensor,  # [B, 1] first input token per row
     temps: torch.Tensor,  # [B] sampling temperature; <= 0 = greedy
     generator: Optional[torch.Generator], cfg: LlamaConfig, n_steps: int,
-    greedy: bool = False,
+    greedy: bool = False, nonfinite: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Params]:
     """``n_steps`` contiguous decode steps with on-device sampling, as
-    :func:`paged_decode_segment` over the paged cache. Returns (ids
-    [B, n_steps], last ids [B, 1], cache)."""
+    :func:`paged_decode_segment` over the paged cache (``nonfinite`` as
+    there). Returns (ids [B, n_steps], last ids [B, 1], cache)."""
     toks = tokens
     out = []
     for _ in range(n_steps):
         logits, cache = decode_step_batched(params, cache, toks, cfg)
+        if nonfinite is not None:
+            nonfinite += (~torch.isfinite(logits)).sum()
         if greedy:
             z = logits
         else:
@@ -1268,6 +1320,85 @@ def prefill_batched(params: Params, cache: Params, tokens: torch.Tensor,
     return logits, cache
 
 
+# ---- prefix KV reuse on the contiguous cache --------------------------------
+
+def copy_prefix_into_row(cache: Params, k: torch.Tensor, v: torch.Tensor,
+                         row: int, length: int) -> Params:
+    """Graft a cached prefix's K/V (``[L, P, KV, hd]``, P >= ``length``
+    the entry's padded bucket) into batch row ``row`` at offset 0 and set
+    its ``pos`` to ``length``, IN PLACE. The pad tail lands at positions
+    >= pos, masked until later writes replace it (the garbage-beyond-pos
+    contract every contiguous prefill keeps)."""
+    P = k.shape[1]
+    cache["k"][:, row, :P] = k.to(cache["k"].dtype)
+    cache["v"][:, row, :P] = v.to(cache["v"].dtype)
+    cache["pos"][row] = int(length)
+    return cache
+
+
+def extract_prefix_from_row(cache: Params, row: int,
+                            p_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first ``p_len`` cached K/V positions of batch row ``row``, each
+    ``[L, p_len, KV, hd]``: a new prefix-cache entry. Copies (queued on
+    the stream behind the prefill that filled them), never views: the
+    live cache is updated in place afterwards."""
+    return (cache["k"][:, row, :p_len].clone(),
+            cache["v"][:, row, :p_len].clone())
+
+
+def prefill_batched_from(params: Params, cache: Params, tokens: torch.Tensor,
+                         lengths: torch.Tensor, starts: torch.Tensor,
+                         cfg: LlamaConfig) -> Tuple[torch.Tensor, Params]:
+    """Suffix prefill on the contiguous cache: row b's tokens take global
+    positions ``[starts[b], starts[b] + lengths[b])`` (RoPE there too),
+    their K/V go in at ``starts[b]`` (the start clamped to ``T - S``, as
+    the reference's ``dynamic_update_slice``), and the queries attend the
+    FULL cache row under the offset causal mask ``t <= starts[b] + s``,
+    so a grafted prefix is seen. ``starts == 0`` is whole-prompt prefill.
+    Rows with ``lengths[b] == 0`` keep their K/V and pos. Last-token
+    logits [B, V] + the cache (in place)."""
+    B, S = tokens.shape
+    hd = cfg.head_dim
+    dev = tokens.device
+    max_s = cache["k"].shape[2]
+    lengths_l = lengths.long()
+    active = lengths_l > 0
+    starts_l = starts.long()
+    x = _embed_in(params, tokens, cfg)
+    cos_full, sin_full = rope_freqs(cfg, max_s, device=dev)
+    posq = torch.clamp(starts_l[:, None] + torch.arange(S, device=dev)[None],
+                       max=max_s - 1)  # [B, S] global query positions
+    cos_t = cos_full[posq][:, :, None, :]
+    sin_t = sin_full[posq][:, :, None, :]
+    mask = (torch.arange(max_s, device=dev)[None, None, :]
+            <= posq[:, :, None])[:, None, None]  # [B, 1, 1, S, T]
+    sel = active[:, None, None, None]
+    rows = torch.arange(B, device=dev)[:, None]
+    idx = (torch.clamp(starts_l, 0, max_s - S)[:, None]
+           + torch.arange(S, device=dev)[None])  # [B, S] write positions
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps, cfg.norm_plus_one)
+        q = _rotate(_mm(h, lp["wq"]).reshape(B, S, cfg.n_heads, hd),
+                    cos_t, sin_t)
+        k = _rotate(_mm(h, lp["wk"]).reshape(B, S, cfg.n_kv_heads, hd),
+                    cos_t, sin_t)
+        v = _mm(h, lp["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+        ck, cv = cache["k"][i], cache["v"][i]
+        # inactive rows keep their K/V bit for bit (mid-decode neighbours)
+        ck[rows, idx] = torch.where(sel, k, ck[rows, idx])
+        cv[rows, idx] = torch.where(sel, v, cv[rows, idx])
+        attn = attention(q, ck, cv, causal=False, mask=mask)
+        x = x + _mm(attn.reshape(B, S, cfg.n_heads * hd), lp["wo"])
+        x = _mlp(x, lp, cfg)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps, cfg.norm_plus_one)
+    logits = _last_logits(params, x, lengths, cfg)
+    new_pos = torch.clamp(starts_l + lengths_l, max=max_s - 1)
+    cache["pos"] = torch.where(active, new_pos,
+                               cache["pos"].long()).to(torch.int32)
+    return logits, cache
+
+
 __all__ = [
     "LlamaConfig", "preset", "PRESETS", "llama_init", "params_from_numpy",
     "remat_policy_for", "checkpoint_name", "llama_hidden", "llama_forward",
@@ -1281,4 +1412,6 @@ __all__ = [
     "decode_segment", "prefill_batched", "param_like", "quantize_params",
     "quantize_leaf_at", "deq", "is_quantized", "map_leaves",
     "params_nbytes", "export_kv_blocks", "import_kv_blocks",
+    "init_cache", "decode_step", "copy_prefix_into_row",
+    "extract_prefix_from_row", "prefill_batched_from",
 ]

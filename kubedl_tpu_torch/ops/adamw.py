@@ -34,6 +34,8 @@ every other operation one float32 operation::
 
 with ``bc1 = R_Q(1 - b1^t)`` and ``bc2 = R_P(1 - b2^t)`` (``b^t`` in
 float32) and ``lr = schedule(t - 1)`` host scalars (:func:`step_scalars`).
+With ``clip=None`` there is no clipping stage at all: no norm is taken,
+``gc = g``, and ``stats`` is ``None`` (``optax.adam``; :class:`Adam`).
 
 Two implementations behind :func:`adamw_update`, picked by where the
 tensors live: CPU tensors take :func:`adamw_update_plain` (each line
@@ -52,7 +54,8 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import List, Sequence
+import math
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -62,7 +65,7 @@ from kubedl_tpu_torch.ops.build import (
 
 #: kernel launches, by kernel, read by a run to show its main path went
 #: through them: per step one "adamw_norm" and one "adamw_update" a leaf,
-#: one "adamw_norm_finish"
+#: one "adamw_norm_finish" (with ``clip=None`` only the updates)
 LAUNCHES = {"adamw_norm": 0, "adamw_norm_finish": 0, "adamw_update": 0}
 
 #: leaves one call takes (the finish kernel's table; the source's
@@ -112,13 +115,18 @@ class StepScalars:
 
 @functools.lru_cache(maxsize=64)
 def step_scalars(lr: float, t: int, b1: float, b2: float, eps: float,
-                 weight_decay: float, clip: float, p_dtype: torch.dtype,
+                 weight_decay: float, clip: Optional[float],
+                 p_dtype: torch.dtype,
                  mu_dtype: torch.dtype,
                  chain_dtype: torch.dtype) -> StepScalars:
     """The scalars of update ``t`` (1-based) of a leaf of type
     ``p_dtype`` with its first moment in ``mu_dtype``; ``chain_dtype``:
-    the norm's type (:func:`_chain_dtype`)."""
+    the norm's type (:func:`_chain_dtype`); ``clip`` None: no clipping
+    stage."""
     q = torch.promote_types(p_dtype, mu_dtype)
+
+    if clip is None:  # no clipping stage: clip_cmp and clip go unread
+        clip = math.inf
 
     def bias(decay, dtype):
         # optax: 1 - decay**count in float32, cast to the moment's type
@@ -168,13 +176,17 @@ def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
 
 
 def _leaf_plain(g, p, mu, nu, norm, c: StepScalars) -> None:
+    """One leaf's update; ``norm`` None: no clipping stage."""
     P, M = p.dtype, mu.dtype
     Q = torch.promote_types(P, M)
     gf, pf = g.float(), p.float()
     bc1, bc2 = _scalar(c.bc1, gf), _scalar(c.bc2, gf)
-    keep = norm < c.clip_cmp  # a device bool: no host sync
-    gc = torch.where(keep, gf,
-                     _rnd(_rnd(gf / _rnd(norm, P), P) * c.clip, P))
+    if norm is None:
+        gc = gf
+    else:
+        keep = norm < c.clip_cmp  # a device bool: no host sync
+        gc = torch.where(keep, gf,
+                         _rnd(_rnd(gf / _rnd(norm, P), P) * c.clip, P))
     t1 = _rnd(gc * c.a1, Q)
     t2 = _rnd(mu.float() * c.d1, Q)
     m = _rnd(t1 + t2, Q)
@@ -195,13 +207,15 @@ def _leaf_plain(g, p, mu, nu, norm, c: StepScalars) -> None:
 
 
 def adamw_update_plain(grads, params, mus, nus,
-                       scalars: Sequence[StepScalars]) -> torch.Tensor:
+                       scalars: Sequence[StepScalars],
+                       clip: bool = True) -> Optional[torch.Tensor]:
     """The plain PyTorch version: the module docstring's lines, one
     PyTorch operation each; updates ``params``, ``mus`` and ``nus`` in
-    place and returns ``stats``."""
-    stats = global_norm_plain(grads)
+    place and returns ``stats``. ``clip`` False: no clipping stage, no
+    norm, returns None."""
+    stats = global_norm_plain(grads) if clip else None
     for g, p, m, v, c in zip(grads, params, mus, nus, scalars):
-        _leaf_plain(g, p, m, v, stats[0], c)
+        _leaf_plain(g, p, m, v, None if stats is None else stats[0], c)
     return stats
 
 
@@ -219,11 +233,12 @@ def _aligned(*ts) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
-def _cuda_update(grads, params, mus, nus, scalars) -> torch.Tensor:
+def _cuda_update(grads, params, mus, nus, scalars,
+                 clip: bool) -> Optional[torch.Tensor]:
     dev = grads[0].device
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):  # the kernels launch on it
-            return _cuda_update(grads, params, mus, nus, scalars)
+            return _cuda_update(grads, params, mus, nus, scalars, clip)
     L = len(grads)
     if L > MAX_LEAVES:
         raise ValueError(f"adamw kernel takes at most {MAX_LEAVES} leaves, "
@@ -241,6 +256,24 @@ def _cuda_update(grads, params, mus, nus, scalars) -> torch.Tensor:
         _LIB.append(load_adamw_kernels())
     lib = _LIB[0]
     stream = stream_handle(dev)
+    stats = _cuda_norm(lib, grads, dev, stream) if clip else None
+    norm_ptr = 0 if stats is None else stats.data_ptr()  # NULL: no clip
+    for g, p, m, v, c in zip(grads, params, mus, nus, scalars):
+        err = lib.kdl_adamw_update(
+            p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+            norm_ptr, p.numel(), int(p.dtype == torch.bfloat16),
+            int(m.dtype == torch.bfloat16), int(_aligned(g, p, m, v)),
+            (ctypes.c_float * 11)(*c.as_floats()), stream)
+        if err:
+            check_launch(err, "adamw_update")
+        LAUNCHES["adamw_update"] += 1
+    return stats
+
+
+def _cuda_norm(lib, grads, dev, stream) -> torch.Tensor:
+    """``stats`` on the card: one sum-of-squares launch a leaf, then the
+    finish."""
+    L = len(grads)
     blocks = [norm_blocks(g.numel()) for g in grads]
     offsets = [0]
     for b in blocks:
@@ -262,27 +295,20 @@ def _cuda_update(grads, params, mus, nus, scalars) -> torch.Tensor:
     if err:
         check_launch(err, "adamw_norm_finish")
     LAUNCHES["adamw_norm_finish"] += 1
-    for g, p, m, v, c in zip(grads, params, mus, nus, scalars):
-        err = lib.kdl_adamw_update(
-            p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
-            stats.data_ptr(), p.numel(), int(p.dtype == torch.bfloat16),
-            int(m.dtype == torch.bfloat16), int(_aligned(g, p, m, v)),
-            (ctypes.c_float * 11)(*c.as_floats()), stream)
-        if err:
-            check_launch(err, "adamw_update")
-        LAUNCHES["adamw_update"] += 1
     return stats
 
 
 def adamw_update(grads: List[torch.Tensor], params: List[torch.Tensor],
                  mus: List[torch.Tensor], nus: List[torch.Tensor], *,
                  lr: float, t: int, b1: float, b2: float, eps: float,
-                 weight_decay: float, clip: float) -> torch.Tensor:
+                 weight_decay: float,
+                 clip: Optional[float]) -> Optional[torch.Tensor]:
     """Update ``t`` (1-based) of the leaves ``params`` with ``grads``:
     ``params``, ``mus`` and ``nus`` in place (see the module docstring);
     returns the float32 ``stats`` ``[norm, S_0, ...]`` on the
-    leaves' device. The kernels for CUDA tensors, the plain version for
-    CPU tensors."""
+    leaves' device, or None with ``clip=None`` (no clipping stage, no
+    norm). The kernels for CUDA tensors, the plain version for CPU
+    tensors."""
     if not (len(grads) == len(params) == len(mus) == len(nus)) or not grads:
         raise ValueError("adamw: grads, params, mu and nu must be equal, "
                          "non-empty lists")
@@ -303,12 +329,51 @@ def adamw_update(grads: List[torch.Tensor], params: List[torch.Tensor],
                for p, m in zip(params, mus)]
     dev = devices.pop()
     if dev.type == "cuda":
-        return _cuda_update(grads, params, mus, nus, scalars)
+        return _cuda_update(grads, params, mus, nus, scalars,
+                            clip is not None)
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
-    return adamw_update_plain(grads, params, mus, nus, scalars)
+    return adamw_update_plain(grads, params, mus, nus, scalars,
+                              clip is not None)
+
+
+# ---- optax.adam: the update outside the trainer -------------------------------
+
+class Adam:
+    """``optax.adam(lr)`` over a list of parameter tensors, updated in
+    place, the optimizer the reference uses outside its ``Trainer``
+    (draft distillation, the convnet): optax's defaults (b1 0.9, b2
+    0.999, eps 1e-8, ``eps_root`` 0) and ``mu_dtype`` None, so both
+    moments are zeros in each parameter's type.
+
+    ``step(grads)`` is :func:`adamw_update` with ``weight_decay=0`` and
+    ``clip=None``: no norm is taken, so a non-finite gradient entry
+    poisons only its own element, as in ``optax.adam``. ``optax.adamw``
+    differs from ``optax.adam`` only by ``add_decayed_weights``, which
+    here adds ``R_Q(p * 0)``, an exact zero, to a finite update: ``w =
+    R_Q(u + 0) = u``, and the lines of the module docstring reduce to the
+    jitted ``optax.adam``'s roundings (``tests/test_torch_zoo_draft.py``
+    holds 6 steps against a jitted ``optax.adam``: float32 within 1 ulp,
+    bf16 with bf16 moments bit for bit, and a non-finite gradient leaf
+    element for element)."""
+
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def __init__(self, leaves: Sequence[torch.Tensor], lr: float) -> None:
+        self.leaves = list(leaves)
+        self.lr = float(lr)
+        self.mu = [torch.zeros_like(p) for p in self.leaves]
+        self.nu = [torch.zeros_like(p) for p in self.leaves]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        self.count += 1
+        adamw_update([g.contiguous() for g in grads], self.leaves, self.mu,
+                     self.nu, lr=self.lr, t=self.count, b1=self.b1,
+                     b2=self.b2, eps=self.eps, weight_decay=0.0, clip=None)
 
 
 __all__ = ["adamw_update", "adamw_update_plain", "global_norm_plain",
            "step_scalars", "StepScalars", "norm_blocks", "LAUNCHES",
-           "MAX_LEAVES"]
+           "MAX_LEAVES", "Adam"]

@@ -1,6 +1,7 @@
-"""PyTorch inference server: the paged-KV serving engine and its HTTP surface.
+"""PyTorch inference server: the serving engine and its HTTP surface.
 
-Port of ``kubedl_tpu/serving/server.py`` for ``kv_layout="paged"``:
+Port of ``kubedl_tpu/serving/server.py``, both KV layouts
+(``kv_layout`` "paged", the default, and "contiguous"):
 
 - GET  /healthz            -> {"status": "ok"}
 - GET  /v1/models          -> model metadata
@@ -25,17 +26,21 @@ on-device sampling in the reference's double-buffered pipeline (segment
 N is dispatched before segment N-1's ids are harvested), the prefix
 cache (shared prompt prefixes kept as refcounted pool blocks, on by
 default at 64 MB), draft-k / verify-1 speculative decoding
-(``spec_k > 0``: n-gram, repeat and early-exit model drafts,
-multi-candidate and tree verify), preemption under block exhaustion,
-shedding, drain and cancel; the model lifecycle (weights restored from
-a checkpoint in the reference's format, int8 weight-only quantization
-through the W8A16 kernel, versions loaded, activated and retired while
-serving) and disaggregated prefill/decode (a row's KV blocks exported
-as a ``KVHandoff`` and adopted by another engine); ``serve_main`` serves
-a local model root or mirrors a remote one (a blob prefix) first. Mesh
-sharding, trained zoo drafts, the contiguous layout and the chaos sites
-are later slices: asking for them raises ``ValueError`` rather than
-being ignored.
+(``spec_k > 0``: n-gram, repeat, early-exit and trained zoo model
+drafts, multi-candidate and tree verify), preemption under block
+exhaustion, shedding, drain and cancel; the model lifecycle (weights
+restored from a checkpoint in the reference's format, int8 weight-only
+quantization through the W8A16 kernel, versions loaded, activated and
+retired while serving) and disaggregated prefill/decode (a row's KV
+blocks exported as a ``KVHandoff`` and adopted by another engine);
+``serve_main`` serves a local model root or mirrors a remote one (a blob
+prefix) first. The contiguous layout (a ``[L, B, max_seq, KV, hd]``
+cache, rows reset at admission, prefix entries as K/V copies, the plain
+model functions' dense attention) serves the same tick and prefix
+cache; speculation, hot swap and the disaggregated roles' handoffs need
+the paged layout and raise there, as in the reference. Mesh sharding
+and the chaos sites are later slices: asking for them raises
+``ValueError`` rather than being ignored.
 
 The host pos/bt mirrors stay authoritative and are uploaded (copied,
 never shared with numpy) before every dispatch, through pinned staging
@@ -256,7 +261,11 @@ class LlamaEngine:
     reference, a non-zero ``batch`` takes the place of ``max_batch``, and
     ``kv_low_watermark`` / ``kv_high_watermark`` are the block
     allocator's admission watermarks (kept when a failed tick rebuilds
-    it)."""
+    it). ``kv_layout="contiguous"`` keeps a ``[L, B, max_seq, KV, hd]``
+    cache instead of the pool (no allocator, whole-prompt prefill, the
+    dense attention, prefix entries as K/V copies), as the reference's
+    contiguous engine; speculation, hot swap and the handoffs raise
+    there."""
 
     #: allowed decode-segment sizes, largest first; segments shrink to 4
     #: whenever requests are waiting (admission latency <= 4 tokens)
@@ -284,9 +293,7 @@ class LlamaEngine:
                  model_version: str = "base",
                  device=None, seed: int = 0,
                  params: Optional[Dict] = None) -> None:
-        if kv_layout != "paged":
-            if kv_layout == "contiguous":
-                raise _unported("kv_layout='contiguous'", "the contiguous cache")
+        if kv_layout not in ("paged", "contiguous"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         if role not in ("", "colocated", "prefill", "decode"):
             raise ValueError(
@@ -305,14 +312,18 @@ class LlamaEngine:
         if metrics is not None:
             raise _unported("metrics", "the engine's Prometheus family")
         self.quantize = quantize
+        self.kv_layout = kv_layout
+        self._paged = kv_layout == "paged"
         self.spec_k = max(0, int(spec_k))
         self.spec_draft = str(spec_draft)
-        if self.spec_k:
-            if self.spec_draft.startswith("zoo:"):
-                raise _unported(f"spec_draft={self.spec_draft!r}",
-                                "trained zoo drafts")
-            if self.spec_draft != "model":
-                make_draft(self.spec_draft)  # unknown names raise here
+        if self.spec_k and not self._paged:
+            raise ValueError(
+                "speculative decoding requires kv_layout='paged' (the "
+                "verify rollback frees rejected-suffix blocks in place)"
+            )
+        if self.spec_k and self.spec_draft != "model" \
+                and not self.spec_draft.startswith("zoo:"):
+            make_draft(self.spec_draft)  # unknown names raise here
         self.spec_candidates = max(1, int(spec_candidates))
         #: tree speculation needs multi-candidate speculation to mean
         #: anything: off otherwise (the reference's normalization)
@@ -325,20 +336,26 @@ class LlamaEngine:
         self.role = role or "colocated"
         self.preset_name = preset
         self.handoff_ttl_s = float(handoff_ttl_s)
-        self.kv_attention = kv_attention
+        #: the paged forwards' attention; contiguous engines run the plain
+        #: model functions' dense attention (the reference's normalization)
+        self.kv_attention = kv_attention if self._paged else "gather"
         self.advertise_prefix_len = int(advertise_prefix_len)
         self.cfg = llama.preset(preset)
         self.max_seq = max_seq or min(self.cfg.max_seq, 512)
         self.max_batch = batch or max_batch
         bs = max(1, int(kv_block_size))
         self.kv_block_size = bs
-        # the gathered view is [B, MB * BS]: max_seq rounds UP to whole blocks
-        self.max_seq = ((self.max_seq + bs - 1) // bs) * bs
+        if self._paged:
+            # the gathered view is [B, MB * BS]: max_seq rounds UP to
+            # whole blocks
+            self.max_seq = ((self.max_seq + bs - 1) // bs) * bs
         pct = max(0, int(prefill_chunk_tokens))
         #: chunked prefill: > 0 caps the prompt tokens one tick prefills,
-        #: block-aligned so no KV block is written by two dispatches
+        #: block-aligned so no KV block is written by two dispatches.
+        #: Paged only, as in the reference (a contiguous engine prefills
+        #: whole prompts)
         self.prefill_chunk_tokens = (
-            max(bs, (pct // bs) * bs) if pct else 0
+            max(bs, (pct // bs) * bs) if pct and self._paged else 0
         )
         self._default_version = str(model_version) or "base"
         self._seed = int(seed)
@@ -365,7 +382,9 @@ class LlamaEngine:
             * self.cfg.head_dim
             * torch.tensor([], dtype=self.cfg.dtype).element_size()
         )
-        if kv_blocks:
+        if not self._paged:
+            nb = 0
+        elif kv_blocks:
             nb = int(kv_blocks)
             if nb < mb + 1:
                 raise ValueError(
@@ -386,16 +405,16 @@ class LlamaEngine:
         #: the allocator's admission watermarks, kept for its rebuilds
         self._kv_watermarks = dict(low_watermark=kv_low_watermark,
                                    high_watermark=kv_high_watermark)
-        self._alloc = BlockAllocator(nb, bs, **self._kv_watermarks)
-        #: host-authoritative mirrors of the device cache's pos/bt —
+        #: host-authoritative mirrors of the paged cache's pos/bt —
         #: uploaded (copied) before EVERY dispatch, so rollbacks
-        #: (speculative rejection, preemption, vacation) are mirror edits
+        #: (speculative rejection, preemption, vacation) are mirror edits.
+        #: A contiguous cache keeps its pos on the device (rows are reset
+        #: at admission) and has no allocator.
         self._pos_host = np.zeros((self.max_batch,), np.int32)
         self._bt_host = np.zeros((self.max_batch, mb), np.int32)
         self._row_blocks: list = [[] for _ in range(self.max_batch)]
-        self._cache = llama.init_paged_cache(
-            self.cfg, self.max_batch, self.max_seq, nb, bs, self.device
-        )
+        self._alloc: Optional[BlockAllocator] = None
+        self._cache = self._new_cache()
         #: pinned staging for every host<->device copy (no stream syncs)
         self._staging = _Staging(self.device)
         if self.spec_k:
@@ -407,6 +426,17 @@ class LlamaEngine:
                 self._draft = ModelDraft.from_target(
                     self.params, self.cfg, n_layers=n_draft,
                     max_context=self.max_seq,
+                )
+            elif self.spec_draft.startswith("zoo:"):
+                # a trained small draft shaped by the planner's model zoo;
+                # KUBEDL_SPEC_DRAFT_CKPT restores weights saved after
+                # distillation (fresh weights propose noise: harmless,
+                # just no acceptance)
+                ckpt = os.environ.get("KUBEDL_SPEC_DRAFT_CKPT", "")
+                self._draft = ModelDraft.from_zoo(
+                    self.spec_draft.split(":", 1)[1], self.cfg,
+                    ckpt_path=ckpt or None, max_context=self.max_seq,
+                    device=self.device,
                 )
             else:
                 self._draft = make_draft(self.spec_draft)
@@ -429,7 +459,8 @@ class LlamaEngine:
         #: allocator. 0 MB disables it.
         self._pcache: Optional[PrefixCache] = (
             PrefixCache(int(prefix_cache_mb * 1e6), min_len=prefix_min_len,
-                        on_evict=self._paged_entry_evicted)
+                        on_evict=(self._paged_entry_evicted if self._paged
+                                  else None))
             if prefix_cache_mb > 0 else None
         )
         self._stop = False
@@ -489,17 +520,36 @@ class LlamaEngine:
 
     # -- lifecycle ---------------------------------------------------------
 
+    def _new_cache(self) -> Dict:
+        """A fresh device cache of this engine's layout (and, paged, a
+        fresh block allocator: every block is free again)."""
+        if not self._paged:
+            return llama.init_batched_cache(self.cfg, self.max_batch,
+                                            self.max_seq, self.device)
+        self._alloc = BlockAllocator(self.kv_blocks, self.kv_block_size,
+                                     **self._kv_watermarks)
+        return llama.init_paged_cache(
+            self.cfg, self.max_batch, self.max_seq, self.kv_blocks,
+            self.kv_block_size, self.device)
+
     @torch.no_grad()
     def _warmup(self) -> None:
-        """One decode step over vacant rows (all writes land in the trash
-        block): builds the kernels and warms the allocator before the
-        first request. Host mirrors stay authoritative."""
+        """One decode step over vacant rows before the first request:
+        builds the kernels and warms the allocator. Paged, every write
+        lands in the trash block and the host mirrors stay authoritative;
+        contiguous, the rows' positions go back to 0 (admission resets
+        them anyway)."""
         tokens = torch.zeros((self.max_batch, 1), dtype=torch.int32,
                              device=self.device)
-        logits, self._cache = llama.paged_decode_step_batched(
-            self.params, self._cache, tokens, self.cfg,
-            kv_attention=self.kv_attention,
-        )
+        if self._paged:
+            logits, self._cache = llama.paged_decode_step_batched(
+                self.params, self._cache, tokens, self.cfg,
+                kv_attention=self.kv_attention,
+            )
+        else:
+            logits, self._cache = llama.decode_step_batched(
+                self.params, self._cache, tokens, self.cfg)
+            self._cache["pos"].zero_()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -579,7 +629,13 @@ class LlamaEngine:
         downtime: the build runs on the caller's thread and only a whole
         restored (and quantized) tree is committed, under the lock. A
         failed load raises and the loaded versions keep serving.
-        Idempotent for a loaded version."""
+        Idempotent for a loaded version. Paged only, as in the reference."""
+        if not self._paged:
+            raise ValueError(
+                "weight hot-swap requires kv_layout='paged' (per-row "
+                "block isolation is what lets rows of the other version "
+                "sit a dispatch out safely)"
+            )
         version = str(version)
         if not version:
             raise ValueError("model version id must be non-empty")
@@ -774,7 +830,7 @@ class LlamaEngine:
                     f"head age {head_age:.1f}s (budget {self.max_queue_age_s}s)",
                     retry_after_s=retry,
                 )
-            if not self._alloc.admission_open():
+            if self._paged and not self._alloc.admission_open():
                 # KV-pool pressure: below the low watermark a queued
                 # request cannot be admitted anyway — reject at the door
                 self._stats["shed"] += 1
@@ -854,6 +910,10 @@ class LlamaEngine:
         own prefill/decode seam, so disaggregated greedy output is the
         colocated output. ``trace`` is taken for the coordinator's call
         and not recorded (spans are a later slice)."""
+        if not self._paged:
+            raise ValueError(
+                "disaggregated prefill requires kv_layout='paged'"
+            )
         budget = self.max_seq - 1
         prompt = [int(t) for t in list(prompt_ids)[:budget]]
         if not prompt:
@@ -998,6 +1058,10 @@ class LlamaEngine:
         watermark admission as generate), write the payloads in, and
         resume decoding from the first token. Returns generate()'s result
         shape; greedy streams equal a colocated engine's."""
+        if not self._paged:
+            raise ValueError(
+                "adopting a KV handoff requires kv_layout='paged'"
+            )
         if int(h.block_size) != self.kv_block_size:
             raise ValueError(
                 f"handoff block_size {h.block_size} != engine "
@@ -1162,9 +1226,10 @@ class LlamaEngine:
                 if d is not None:
                     adv.add(d)
             out["prefix_cache"]["advertised"] = sorted(adv)
-        out["kv_blocks"] = self._alloc.stats()
-        out["kv_blocks"]["attention_kernel"] = self.kv_attention
-        out["kv_blocks"]["role"] = self.role
+        if self._paged:
+            out["kv_blocks"] = self._alloc.stats()
+            out["kv_blocks"]["attention_kernel"] = self.kv_attention
+            out["kv_blocks"]["role"] = self.role
         if self._spec_stats is not None:
             out["speculative"] = self._spec_stats.snapshot()
             out["speculative"]["draft_kind"] = getattr(
@@ -1261,6 +1326,13 @@ class LlamaEngine:
         cand = min(cand, len(s.prompt) - 1)
         if cand <= s.cached_len or cand < self._pcache.min_len:
             return
+        if not self._paged:
+            # the entry is a K/V copy of the row's prefix, padded to a
+            # prefill bucket (the pad is masked wherever it is grafted)
+            k, v = llama.extract_prefix_from_row(
+                self._cache, i, self._prefill_bucket(cand))
+            self._pcache.insert(key[:cand + 1], k, v, cand)
+            return
         bs = self.kv_block_size
         full = cand // bs
         row_blocks = self._row_blocks[i]
@@ -1290,8 +1362,8 @@ class LlamaEngine:
     def _reclaim_prefix_locked(self) -> bool:
         """Evict unpinned prefix-cache entries to recover at least one
         block; True when anything came back. Cache entries are an
-        optimization, resident rows are work."""
-        if self._pcache is None:
+        optimization, resident rows are work. Paged only."""
+        if self._pcache is None or not self._paged:
             return False
         return self._pcache.reclaim(self._block_bytes) > 0
 
@@ -1303,14 +1375,19 @@ class LlamaEngine:
         return self._staging.upload(arr)
 
     def _upload_mirrors(self) -> None:
-        self._cache["pos"] = self._upload(self._pos_host)
-        self._cache["bt"] = self._upload(self._bt_host)
+        """Paged: the host mirrors onto the device before a dispatch (a
+        contiguous cache's pos is the device's own)."""
+        if self._paged:
+            self._cache["pos"] = self._upload(self._pos_host)
+            self._cache["bt"] = self._upload(self._bt_host)
 
     def _free_row_locked(self, i: int) -> None:
         """Return row ``i``'s blocks and point its table at the trash
         block. An in-flight dispatch keeps writing through its own bt
         snapshot, but the stream runs calls in order, so a later owner's
-        writes land last. Caller holds cv."""
+        writes land last. Caller holds cv; no-op in contiguous mode."""
+        if not self._paged:
+            return
         blocks = self._row_blocks[i]
         if blocks:
             self._alloc.free(blocks)
@@ -1453,11 +1530,37 @@ class LlamaEngine:
                 self._cache, entry.k, entry.v, i, mlen)
         return True
 
+    def _admit_row_contiguous_locked(self, i: int, slot: _Slot) -> None:
+        """Admit ``slot`` into row ``i`` of a contiguous cache: reset the
+        row's position (stale K/V beyond it is masked) and graft the
+        longest cached prefix's K/V into the row now (pos := its length),
+        so the prefill dispatch consumes only the suffix. Both writes are
+        queued on the stream behind any segment in flight, and within a
+        tick prefill is dispatched before decode, so no decode step writes
+        inside the grafted span. Caller holds cv."""
+        self._slots[i] = slot
+        self._queue_wait_recent.append((time.perf_counter() - slot.t0) * 1e3)
+        self._cache["pos"][i] = 0
+        if self._pcache is None:
+            return
+        key = self._prefix_key_locked(slot)
+        self._pcache.observe(key)
+        entry, mlen = self._pcache.match(key)
+        if entry is None:
+            return
+        self._cache = llama.copy_prefix_into_row(self._cache, entry.k,
+                                                 entry.v, i, mlen)
+        slot.cached_len = mlen
+        slot.pinned = entry
+
     def _admit_locked(self) -> None:
         # retiring versions evict here: every row free is followed by an
         # admission pass, which then sees the last reference gone
         self._maybe_evict_versions_locked()
         for i in range(self.max_batch):
+            if self._slots[i] is None and self._waiting and not self._paged:
+                self._admit_row_contiguous_locked(i, self._waiting.popleft())
+                continue
             if self._slots[i] is None and self._waiting:
                 if not self._alloc.admission_open():
                     break  # below low watermark: hysteresis holds
@@ -1494,20 +1597,17 @@ class LlamaEngine:
                             self._slots[i] = None
                             self._release_prefix_locked(s)
                             s.done.set()
-                    self._cache = llama.init_paged_cache(
-                        self.cfg, self.max_batch, self.max_seq,
-                        self.kv_blocks, self.kv_block_size, self.device,
-                    )
-                    self._alloc = BlockAllocator(self.kv_blocks,
-                                                 self.kv_block_size,
-                                                 **self._kv_watermarks)
+                    # the cache (and, paged, the allocator) may hold a
+                    # failed tick's partial writes: start both afresh
+                    self._cache = self._new_cache()
                     self._pos_host[:] = 0
                     self._bt_host[:] = 0
                     self._row_blocks = [[] for _ in range(self.max_batch)]
-                    if self._pcache is not None:
+                    if self._paged and self._pcache is not None:
                         # every entry references the dead pool's blocks:
                         # drop them all (no evict callbacks: the allocator
-                        # was just rebuilt)
+                        # was just rebuilt). Contiguous entries are K/V
+                        # copies of finished prefills: they stay.
                         self._pcache.clear()
                     # parked handoffs reference the dead pool too: fail
                     # every fetch waiting on one
@@ -1723,9 +1823,24 @@ class LlamaEngine:
         fresh K/V); when any row rides a grafted prefix, every row goes
         through the suffix prefill at ``starts = cached_len`` (the blocked
         kernel on the card). First ids stay on the device and join the
-        chain. Returns ``(pre, ids_copy)`` for the deferred harvest."""
-        bucket = self._prefill_bucket(
-            max(len(s.prompt) - s.cached_len for _, s in todo))
+        chain. Returns ``(pre, ids_copy)`` for the deferred harvest.
+
+        Contiguous, ``prefill_batched`` / ``prefill_batched_from`` take
+        their place, and a graft whose start + bucket would spill past
+        ``max_seq`` is dropped (full prefill for that row, the bucket
+        recomputed): the write's start would clamp out of place. Paged
+        needs no such fix: pad writes go to the trash block."""
+        while True:
+            bucket = self._prefill_bucket(
+                max(len(s.prompt) - s.cached_len for _, s in todo))
+            bad = [s for _, s in todo if not self._paged and s.cached_len
+                   and s.cached_len + bucket > self.max_seq]
+            if not bad:
+                break
+            with self._cv:
+                for s in bad:
+                    s.cached_len = 0
+                    self._release_prefix_locked(s)
         toks = np.zeros((self.max_batch, bucket), np.int32)
         lens = np.zeros((self.max_batch,), np.int32)
         starts = np.zeros((self.max_batch,), np.int32)
@@ -1739,15 +1854,22 @@ class LlamaEngine:
         self._upload_mirrors()
         t0 = time.perf_counter()
         if np.any(starts > 0):
-            logits, self._cache = llama.paged_prefill_from(
-                vp, self._cache, self._upload(toks),
-                self._upload(lens), self._upload(starts), self.cfg,
-                kv_attention=self.kv_attention,
-            )
+            if self._paged:
+                logits, self._cache = llama.paged_prefill_from(
+                    vp, self._cache, self._upload(toks),
+                    self._upload(lens), self._upload(starts), self.cfg,
+                    kv_attention=self.kv_attention,
+                )
+            else:
+                logits, self._cache = llama.prefill_batched_from(
+                    vp, self._cache, self._upload(toks),
+                    self._upload(lens), self._upload(starts), self.cfg)
             if self._pcache is not None:
                 self._pcache.add_tokens_saved(int(starts.sum()))
         else:
-            logits, self._cache = llama.paged_prefill_batched(
+            prefill = (llama.paged_prefill_batched if self._paged
+                       else llama.prefill_batched)
+            logits, self._cache = prefill(
                 vp, self._cache, self._upload(toks),
                 self._upload(lens), self.cfg,
             )
@@ -2156,7 +2278,7 @@ class LlamaEngine:
                 for i, s in decoding:
                     tokens[i, 0] = s.next_input()
                 tokens_dev = self._upload(tokens)
-        if decoding:
+        if decoding and self._paged:
             # block growth for the segment's k appends; rows that cannot
             # grow sit this dispatch out (their pos mirror stays put)
             with self._cv:
@@ -2170,11 +2292,21 @@ class LlamaEngine:
                 ev = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
                 ev[0].record()
-            toks, last, self._cache = llama.paged_decode_segment(
-                vp, self._cache, tokens_dev, temps_dev, self._gen,
-                self.cfg, n_steps=k, greedy=greedy,
-                kv_attention=self.kv_attention, nonfinite=self._nonfinite,
-            )
+            if self._paged:
+                toks, last, self._cache = llama.paged_decode_segment(
+                    vp, self._cache, tokens_dev, temps_dev, self._gen,
+                    self.cfg, n_steps=k, greedy=greedy,
+                    kv_attention=self.kv_attention,
+                    nonfinite=self._nonfinite,
+                )
+            else:
+                # every row of the contiguous cache advances on the
+                # device; rows not decoding are reset at readmission
+                toks, last, self._cache = llama.decode_segment(
+                    vp, self._cache, tokens_dev, temps_dev, self._gen,
+                    self.cfg, n_steps=k, greedy=greedy,
+                    nonfinite=self._nonfinite,
+                )
             if ev is not None:
                 ev[1].record()
             toks_copy = self._staging.download(toks)

@@ -21,7 +21,10 @@ Drafts are pluggable (``propose(context, k) -> list[int]``):
 - :class:`ModelDraft` ("model"): greedy-decode k tokens from a smaller
   model in its own contiguous cache (one batched prefill + one decode
   segment a round); :meth:`ModelDraft.from_target` carves an early-exit
-  draft out of the target's first layers (views, no copies).
+  draft out of the target's first layers (views, no copies), and
+  :meth:`ModelDraft.from_zoo` builds a trainable draft of its own shaped
+  by the planner's model zoo ("zoo:<name>"), which :func:`distill_draft`
+  trains on the target's greedy rollouts.
 
 Multi-candidate verify (:meth:`DraftModel.propose_candidates`, scored by
 the read-only ``llama.paged_verify_multi``) and tree speculation
@@ -29,9 +32,6 @@ the read-only ``llama.paged_verify_multi``) and tree speculation
 only the winner through the write path, so emitted tokens stay the
 target's argmax.
 
-Later slices: ``ModelDraft.from_zoo`` (a trained small draft shaped by
-the planner's model zoo) and ``distill_draft`` (hard-label distillation
-with an optax optimizer) raise ``ValueError`` here.
 """
 
 from __future__ import annotations
@@ -175,11 +175,40 @@ class ModelDraft(DraftModel):
 
     @classmethod
     def from_zoo(cls, name: str, target_cfg, seed: int = 0,
-                 ckpt_path: Optional[str] = None, **kwargs) -> "ModelDraft":
-        raise ValueError(
-            f"zoo draft {name!r} is not served by the PyTorch port yet "
-            "(trained zoo drafts are a later port slice)"
+                 ckpt_path: Optional[str] = None, device=None,
+                 **kwargs) -> "ModelDraft":
+        """A *trainable* small draft shaped by the planner's MODEL_ZOO
+        entry ``name``: its own weights, not a slice of the target's.
+        Vocab / max_seq / dtype come from the target (the draft proposes
+        target tokens); depth and widths from the zoo entry, with
+        ``hidden // 64`` heads, as many kv-heads. Fresh weights (seeded
+        ``llama_init`` on ``device``, the card unless the caller asks for
+        the CPU) propose noise; ``ckpt_path`` restores a :meth:`save`
+        file (the reference's too), e.g. after :func:`distill_draft`."""
+        from kubedl_tpu_torch import resolve_device
+        from kubedl_tpu_torch.models import llama
+        from kubedl_tpu_torch.planner.costmodel import MODEL_ZOO
+
+        try:
+            desc = MODEL_ZOO[name]
+        except KeyError:
+            raise ValueError(
+                f"unknown zoo draft {name!r} (have: {sorted(MODEL_ZOO)})"
+            ) from None
+        heads = max(1, desc.hidden // 64)
+        cfg = llama.LlamaConfig(
+            vocab_size=target_cfg.vocab_size, dim=desc.hidden,
+            n_layers=desc.layers, n_heads=heads, n_kv_heads=heads,
+            ffn_dim=desc.ffn, max_seq=target_cfg.max_seq,
+            dtype=target_cfg.dtype, remat=False,
         )
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        draft = cls(llama.llama_init(cfg, gen, dev), cfg, **kwargs)
+        draft.name = f"zoo:{name}"
+        if ckpt_path:
+            draft.load(ckpt_path)
+        return draft
 
     def save(self, path: str) -> None:
         """Flat-npz draft checkpoint, leaves in the reference's tree order
@@ -385,12 +414,46 @@ def build_tree(
 def distill_draft(draft: "ModelDraft", target_params, target_cfg,
                   prompts: Sequence[Sequence[int]], gen_len: int = 16,
                   steps: int = 40, lr: float = 1e-2) -> List[float]:
-    """Hard-label distillation of a draft — a later port slice (it trains
-    a zoo draft with an optax optimizer in the reference)."""
-    raise ValueError(
-        "distill_draft is not served by the PyTorch port yet (draft "
-        "distillation is a later port slice)"
-    )
+    """Train ``draft`` to imitate the target's GREEDY rollouts: the
+    target (a :class:`ModelDraft` over its weights: one batched prefill
+    and one greedy segment) continues every prompt by ``gen_len`` tokens,
+    the sequences are cut to the shortest, and the draft takes ``steps``
+    of the next-token loss under ``optax.adam(lr)``
+    (:class:`~kubedl_tpu_torch.ops.adamw.Adam`: the optimizer kernels on
+    the card). Hard-label distillation is exactly the objective greedy
+    acceptance scores. Updates ``draft.params`` in place and returns the
+    per-step losses. On the card the loss takes the flash operators where
+    they tile the length, as the trainer's "auto" does; on the CPU the
+    plain attention, the reference's."""
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.ops import flash_attention as fa
+    from kubedl_tpu_torch.ops.adamw import Adam
+    from kubedl_tpu_torch.training.trainer import tree_leaves
+
+    teacher = ModelDraft(target_params, target_cfg,
+                         max_context=target_cfg.max_seq)
+    conts = teacher.propose_batch(prompts, gen_len)
+    del teacher
+    seqs = [list(map(int, p)) + c for p, c in zip(prompts, conts)]
+    L = min(len(s) for s in seqs)
+    dev = draft.device
+    toks = torch.tensor([s[:L] for s in seqs], dtype=torch.int32).to(dev)
+    attn_fn = (fa.make_flash_attention()
+               if dev.type == "cuda" and fa.supports(L) else None)
+    leaves = tree_leaves(draft.params)
+    opt = Adam(leaves, lr)
+    losses = []
+    try:
+        for p in leaves:
+            p.requires_grad_(True)
+        for _ in range(max(1, int(steps))):
+            loss = llama.llama_loss(draft.params, toks, draft.cfg, attn_fn)
+            opt.step(torch.autograd.grad(loss, leaves))
+            losses.append(loss.detach())
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return [float(x) for x in losses]
 
 
 _DRAFTS = {

@@ -45,7 +45,7 @@ def test_port_files_found():
             "build.py", "chip_smoke.py", "flash_attention.py", "trainer.py",
             "entry.py", "topology.py", "data.py", "checkpoint.py",
             "disagg.py", "w8a16.py", "adamw.py", "client.py", "beacon.py",
-            "native.py", "moe.py"} <= names
+            "native.py", "moe.py", "convnet.py", "costmodel.py"} <= names
 
 
 def test_engine_without_device_raises_when_no_cuda(monkeypatch):
@@ -81,11 +81,11 @@ def test_resolve_device_rule(monkeypatch):
 @pytest.mark.parametrize("kw", [
     {"quantize": "int4"},
     {"mesh_axes": {"tensor": 2}},
-    # speculation and the prefix cache are served now; what stays a later
-    # slice is a trained zoo draft and the contiguous engine's prefix cache
-    {"spec_k": 4, "spec_draft": "zoo:tiny"},
-    {"prefix_cache_mb": 64.0, "kv_layout": "contiguous"},
-    {"kv_layout": "contiguous"},
+    # trained zoo drafts and the contiguous layout are served now: what
+    # raises is a name the zoo lacks and speculation on the contiguous
+    # layout (the reference's rule: its rollback frees blocks)
+    {"spec_k": 4, "spec_draft": "zoo:no-such"},
+    {"kv_layout": "contiguous", "spec_k": 4},
     {"role": "router"},
     {"kv_attention": "dense"},
     {"kv_layout": "ragged"},
@@ -110,13 +110,20 @@ def test_unsupported_engine_knobs_raise(kw):
     {"role": "prefill"},
     {"role": "decode"},
     {"ckpt_dir": "/nonexistent"},
+    # a fresh zoo draft (no KUBEDL_SPEC_DRAFT_CKPT) and the contiguous
+    # layout, with and without its prefix cache
+    {"spec_k": 4, "spec_draft": "zoo:tiny"},
+    {"kv_layout": "contiguous"},
+    {"prefix_cache_mb": 64.0, "kv_layout": "contiguous"},
 ], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
-def test_ported_engine_knobs_are_accepted(kw):
+def test_ported_engine_knobs_are_accepted(kw, monkeypatch):
     from kubedl_tpu_torch.serving.server import LlamaEngine
 
+    monkeypatch.delenv("KUBEDL_SPEC_DRAFT_CKPT", raising=False)
     eng = LlamaEngine(preset="tiny", device="cpu", max_seq=64, **kw)
     try:
         st = eng.stats()
+        assert ("kv_blocks" in st) == (kw.get("kv_layout") != "contiguous")
         assert ("prefix_cache" in st) == (kw.get("prefix_cache_mb", 64.0) > 0)
         assert ("speculative" in st) == bool(kw.get("spec_k"))
         assert eng.spec_tree == bool(kw.get("spec_tree"))

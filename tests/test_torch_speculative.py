@@ -404,10 +404,15 @@ def test_model_draft_from_target_proposals_match_reference(tiny):
     assert td.propose_candidates(ctxs[1], 3, 3) == \
         jd.propose_candidates(ctxs[1], 3, 3)
     assert td.propose_batch([], 3) == []
-    with pytest.raises(ValueError, match="later port slice"):
-        tsp.ModelDraft.from_zoo("llama-125m", tcfg)
-    with pytest.raises(ValueError, match="later port slice"):
-        tsp.distill_draft(td, tp, tcfg, [[1, 2]])
+    # the zoo knows no "llama-125m" (the reference's message); a zoo
+    # draft distils (its own weights: distilling the early-exit draft
+    # would move the target's, which it views)
+    with pytest.raises(ValueError, match="unknown zoo draft 'llama-125m'"):
+        tsp.ModelDraft.from_zoo("llama-125m", tcfg, device="cpu")
+    zd = tsp.ModelDraft.from_zoo("tiny", tcfg, device="cpu")
+    losses = tsp.distill_draft(zd, tp, tcfg, [[1, 2], [3, 4, 5]], gen_len=3,
+                               steps=2)
+    assert len(losses) == 2 and np.isfinite(losses).all()
 
 
 def test_model_draft_checkpoints_cross_packages(tiny, tmp_path):
@@ -585,7 +590,8 @@ def test_sampled_rows_take_the_segment_path(chains):
 
 
 def test_contiguous_layout_still_raises():
-    with pytest.raises(ValueError, match="later port slice"):
+    """Speculation needs the paged layout: the reference's message."""
+    with pytest.raises(ValueError, match="requires kv_layout='paged'"):
         srv.LlamaEngine(preset="tiny", device="cpu", max_seq=64,
                         kv_layout="contiguous", spec_k=2)
 
