@@ -4,7 +4,7 @@
     python3 chip_smoke.py --skip-engine  # without phases 5, 6, 13-19, 22,
                                          # 26, 27
     python3 chip_smoke.py --skip-train   # without phases 8 to 12, 21,
-                                         # 23-25, 28
+                                         # 23-25, 28, 29
 
 Phases (any failure exits non-zero before the final line):
 
@@ -316,11 +316,34 @@ Phases (any failure exits non-zero before the final line):
    card; gates on held-out accuracy above 0.9 (the reference's bar),
    the final loss below the first and the optimizer kernels' launches;
    prints seconds and the step time.
+29. data-parallel training across processes (the ranks share this card,
+   so they talk over gloo, staged through pinned host buffers):
+   29a, the float32 identity: Llama-3.2-1B's width at 2 layers, b4 x
+   s512, 3 steps and a 4th batch's probe, as 2 rank processes
+   (``--dp-identity-rank``) in four configurations (replicated update,
+   sharded update, and grad_accum 2 with overlap_comm off and on; two
+   such jobs side by side, one for each grad_accum); rank 0 trains a
+   one-rank trainer on the same global batches beside it.
+   Gates: each step's loss and grad norm, and the probe's, within 1e-5
+   relative, params within ``DP_PARAM_TOL``, and the optimizer kernels'
+   sharded update (the norm's partial sums summed over the ranks) bit
+   for bit against its plain version where it does not clip. 29b,
+   ``train_main`` twice as subprocesses with the job's env
+   (``KUBEDL_NUM_PROCESSES=2``, ``KUBEDL_MESH_AXES=data=2``): Llama-3.2-1B
+   bf16 at full width and depth, b4 x s2048 (2 rows a
+   rank), 4 steps, the sharded update, async saves every 2 steps
+   (``shards-p0/p1.npz``, one ``latest``); then the world-1 restore of
+   step 4 against the saved entries bit for bit, and one ``train_main``
+   with ``KUBEDL_ELASTIC_BASE_WORLD=2`` resuming from the shards
+   (``elastic_grad_accum`` 2) for 2 more steps. Every rank has its own
+   timeout. Prints each rank's step ms, collective ms a step by
+   collective, optimizer bytes against one rank's, peak GiB, the
+   backend, the flash and optimizer launches, and the phase's seconds.
 
 Phase 16 runs after phase 4; phase 22, then phases 13-15, 26, 27 and
 17-19 after phase 6 (they are skipped with ``--skip-engine``); phase 20
-after phase 7, then phases 23, 24, 25 and 28, and phase 21 after phase
-12 (skipped with ``--skip-train``).
+after phase 7, then phases 23, 24, 25 and 28, and phases 21 and 29
+after phase 12 (skipped with ``--skip-train``).
 
 Output: the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -4567,6 +4590,413 @@ def run_convnet(adamw_mod):
     return launches
 
 
+# ---- phase 29: data-parallel training across processes -------------------------
+
+#: 29a: Llama-3.2-1B's width at 2 layers (an even depth: the stacked
+#: layer leaves split on dim 0, as at full depth), float32, b4 x s512, 3
+#: steps, then a 4th batch's loss and gradient norm (a probe: no update,
+#: no collective) that see the 3rd update; its four update
+#: configurations (name -> TrainConfig fields)
+DP_F32 = {"layers": 2, "global_batch": 4, "seq_len": 512, "steps": 3}
+DP_F32_CASES = {
+    "replicated": {"shard_update": False},
+    "sharded": {"shard_update": True},
+    "grad_accum2": {"shard_update": True, "grad_accum": 2,
+                    "overlap_comm": False},
+    "grad_accum2-overlap": {"shard_update": True, "grad_accum": 2,
+                            "overlap_comm": True},
+}
+#: 29a's gates: each step's loss and grad norm within 1e-5 relative of the
+#: one-rank trainer's on the same global batch (the gradient of a mean
+#: over 4 rows against the mean of two means over 2: float32 sums in
+#: another order), the probe's too; params after 3 steps within 2e-5
+#: absolute. The updates run at lr 0, 3e-5 and 6e-5, and an Adam step
+#: moves an element with a steady gradient by about lr: a skipped
+#: update, or a shard that missed an all-gather, is 3e-5 or more off.
+#: The float32 orders left the params 3.0e-6 apart after 3 steps at 2
+#: layers (5.1e-6 at 1 layer), 4.3e-6 after 4, on an H100
+DP_RTOL = 1e-5
+DP_PARAM_TOL = 2e-5
+#: 29b: Llama-3.2-1B bf16 at full width and depth through train_main as
+#: 2 processes (data=2: 2 rows a rank), the sharded update, async saves
+DP_JOB = {"model": "llama3-1b", "global_batch": 4, "seq_len": 2048,
+          "steps": 4, "shard_update": True, "ckpt_every": 2,
+          "ckpt_async": True}
+#: seconds a rank (or the resumed process) may run before the phase fails
+DP_RANK_TIMEOUT = 420
+
+
+def run_ranks(jobs, world, **extra):
+    """Each argv of ``jobs`` as ``world`` processes of a job of its own,
+    the jobs side by side, each process with its own timeout; fails the
+    phase if one exits non-zero or times out (all are killed then).
+    Returns, a job, each process's standard output."""
+    from kubedl_tpu_torch.parallel.launch import join_ranks, start_ranks
+
+    started = [start_ranks(argv, world, **extra) for argv in jobs]
+    try:
+        return [join_ranks(procs, DP_RANK_TIMEOUT) for procs in started]
+    except RuntimeError as e:
+        for p in sum(started, []):
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        fail(f"phase 29: {e}")
+
+
+def _json_lines(text, key):
+    return [json.loads(ln)[key] for ln in text.splitlines()
+            if ln.startswith("{") and key in json.loads(ln)]
+
+
+def dp_identity_rank(names):
+    """One rank of phase 29a (``--dp-identity-rank NAMES``, in the job's
+    env): the update configurations ``names`` on a data=2 mesh of two
+    processes on this card; rank 0 also trains a one-rank trainer on the
+    whole global batch beside it and compares. After the sharded case each rank holds
+    the optimizer kernels' sharded update against its plain version on
+    its shards (a gradient that does not clip). Prints one JSON line."""
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.ops import adamw
+    from kubedl_tpu_torch.parallel.mesh import build_mesh, initialize_from_env
+    from kubedl_tpu_torch.training.data import SyntheticTokens
+    from kubedl_tpu_torch.training.trainer import (
+        TrainConfig, Trainer, tree_leaves,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_from_env(timeout_s=DP_RANK_TIMEOUT / 2)
+    mesh = build_mesh(None, "cuda")
+    model = dataclasses.replace(llama.preset("llama3-1b"),
+                                n_layers=DP_F32["layers"], dtype=torch.float32)
+    kw = {k: v for k, v in DP_F32.items() if k != "layers"}
+    out = {"rank": mesh.rank, "backend": mesh.backend, "cases": {}}
+    one_rank = {}  # grad_accum -> (steps, params): the update layout
+    # does not change a one-rank trainer
+    for name in names:
+        cfg = TrainConfig(model=model, **kw, **DP_F32_CASES[name])
+        data = SyntheticTokens(cfg.global_batch, cfg.seq_len,
+                               model.vocab_size, seed=29)
+        batches = [next(data) for _ in range(cfg.steps + 1)]
+        probe = batches.pop()
+        tr = Trainer(cfg, mesh)
+        state = tr.init_state()
+        t0 = time.perf_counter()
+        got = []
+        for b in batches:
+            state, m = tr.train_step(state, b)
+            got.append([float(m["loss"]), float(m["grad_norm"])])
+        rec = {"steps": got, "seconds": time.perf_counter() - t0,
+               "shard_update": bool(tr.update_axes)}
+        if mesh.rank == 0:
+            if cfg.grad_accum not in one_rank:
+                one = Trainer(cfg, None, device=mesh.device)
+                ref = one.init_state()
+                want = []
+                for b in batches:
+                    ref, m = one.train_step(ref, b)
+                    want.append([float(m["loss"]), float(m["grad_norm"])])
+                one_rank[cfg.grad_accum] = (want, ref["params"],
+                                            _probe(one, ref, probe))
+                del one, ref
+            want, ref_params, want_probe = one_rank[cfg.grad_accum]
+            rec["one_rank"] = want
+            rec["probe"] = [_probe(tr, state, probe), want_probe]
+            rec["param_max_abs_diff"] = max(
+                (a - b).abs().max().item() for a, b in zip(
+                    tree_leaves(state["params"]), tree_leaves(ref_params)))
+        if name == "sharded":
+            rec["adamw_bitwise"] = _sharded_update_check(tr, state, adamw)
+        out["cases"][name] = rec
+        del tr, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"dp_identity": out}), flush=True)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def _probe(tr, state, batch):
+    """The loss and gradient norm of the whole ``batch`` at ``state``'s
+    params, on this process alone: what the next step would start from."""
+    loss, grads = tr.value_and_grad(state["params"],
+                                    torch.from_numpy(batch).to(tr.device))
+    return [float(loss), float(torch.stack(
+        [g.square().sum() for g in grads]).sum().sqrt())]
+
+
+def _sharded_update_check(tr, state, adamw):
+    """The optimizer kernels on this rank's shards against the plain
+    version on copies of the same tensors, the norm's partial sums summed
+    over the data axis by both: p, mu and nu bit for bit."""
+    from kubedl_tpu_torch.training.trainer import _local, tree_leaves
+
+    g = torch.Generator(device="cuda").manual_seed(7 + tr.mesh.rank)
+    specs = tr.shard_specs
+    p = [_local(x, s).contiguous() for x, s in
+         zip(tree_leaves(state["params"]), specs)]
+    # 1e-5 a gradient entry: a norm of ~0.2 over 323 M entries, no clip
+    grads = [torch.randn(x.shape, generator=g, device="cuda") * 1e-5
+             for x in p]
+    mu, nu = state["opt_state"]["mu"], state["opt_state"]["nu"]
+    sides = [[t.clone() for t in ts] for ts in (p, mu, nu) for _ in (0, 1)]
+    pk, pp, mk, mp, nk, np_ = sides
+    kw = dict(lr=3e-4, t=4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    stats_k = adamw.adamw_update(grads, pk, mk, nk, clip=1.0,
+                                 sum_partials=tr._sum_partials, **kw)
+    scalars = [adamw.step_scalars(kw["lr"], kw["t"], kw["b1"], kw["b2"],
+                                  kw["eps"], kw["weight_decay"], 1.0,
+                                  x.dtype, m.dtype, torch.float32)
+               for x, m in zip(pp, mp)]
+    stats_p = adamw.adamw_update_plain(grads, pp, mp, np_, scalars, True,
+                                       tr._sum_partials)
+    torch.cuda.synchronize()
+    norm_k, norm_p = float(stats_k[0]), float(stats_p[0])
+    same = all(torch.equal(a, b) for a, b in zip(pk + mk + nk, pp + mp + np_))
+    return {"bitwise": same, "norm": norm_k, "plain_norm": norm_p}
+
+
+def run_dp_identity():
+    """Phase 29a: ``dp_identity_rank`` as 2 processes on this card (gloo:
+    they share it), two such jobs side by side (their gloo work is on the
+    host), one for each ``grad_accum`` so that each trains its own
+    one-rank trainer; gates on the backend, every step's loss and grad
+    norm against the one-rank trainer's, the params, and the optimizer
+    kernels' sharded update bit for bit against its plain version."""
+    t0 = time.perf_counter()
+    groups: dict = {}
+    for name, over in DP_F32_CASES.items():
+        groups.setdefault(over.get("grad_accum", 1), []).append(name)
+    jobs = run_ranks([[sys.executable, os.path.abspath(__file__),
+                       "--dp-identity-rank", ",".join(names)]
+                      for names in groups.values()], 2)
+    ranks = [{"cases": {}} for _ in range(2)]
+    for outs in jobs:
+        for r, out in enumerate(outs):
+            got = _json_lines(out, "dp_identity")[0]
+            if got["backend"] != "gloo":
+                fail(f"two ranks on one card took {got['backend']}, not gloo")
+            ranks[r]["cases"].update(got["cases"])
+    for name in DP_F32_CASES:
+        a, b = (r["cases"][name] for r in ranks)
+        if a["steps"] != b["steps"]:
+            fail(f"29a {name}: the ranks disagree: {a['steps']} {b['steps']}")
+        for (l, n), (wl, wn) in zip(a["steps"] + a["probe"][:1],
+                                    a["one_rank"] + a["probe"][1:]):
+            if abs(l - wl) > DP_RTOL * abs(wl) or \
+                    abs(n - wn) > DP_RTOL * abs(wn):
+                fail(f"29a {name}: {a['steps']}, probe {a['probe'][0]} "
+                     f"against one rank's {a['one_rank']}, "
+                     f"{a['probe'][1]}")
+        if not a["param_max_abs_diff"] <= DP_PARAM_TOL:
+            fail(f"29a {name}: params {a['param_max_abs_diff']} apart")
+        if a["shard_update"] != DP_F32_CASES[name]["shard_update"]:
+            fail(f"29a {name}: shard_update {a['shard_update']}")
+    for r in ranks:
+        chk = r["cases"]["sharded"]["adamw_bitwise"]
+        if not chk["bitwise"] or not chk["norm"] < 1.0:
+            fail(f"29a: the sharded update's kernels against the plain "
+                 f"version: {chk}")
+        if abs(chk["norm"] - chk["plain_norm"]) > 1e-6 * chk["plain_norm"]:
+            fail(f"29a: sharded norms {chk}")
+    rec = {name: {k: ranks[0]["cases"][name][k] for k in
+                  ("steps", "one_rank", "probe", "param_max_abs_diff",
+                   "seconds")}
+           for name in DP_F32_CASES}
+    rec["adamw_bitwise"] = [r["cases"]["sharded"]["adamw_bitwise"]
+                            for r in ranks]
+    rec["phase_seconds"] = time.perf_counter() - t0
+    print("phase 29a (2 ranks vs 1, f32, llama3-1b width x 2 layers): "
+          + json.dumps(rec), flush=True)
+
+
+def _opt_bytes_one_rank(llama_mod, model):
+    """The one-rank trainer's ``opt_state_bytes_per_device``: float32 mu,
+    nu in the params' type, two int32 counts."""
+    n = model.num_params()
+    return 8 + n * 4 + n * torch.empty((), dtype=model.dtype).element_size()
+
+
+def _equal_to_saved(ck, restored, d):
+    """Every entry of every rank's shard file in step dir ``d`` against
+    the restored tree (on the card), byte for byte; the number of
+    entries."""
+    got = dict(ck._leaf_items(restored))
+    n = 0
+    for name in sorted(os.listdir(d)):
+        if not name.startswith("shards-p"):
+            continue
+        with np.load(os.path.join(d, name)) as f:
+            for key in f.files:
+                arr = f[key]
+                path, _, where = key.partition("@")
+                t = got[path]
+                if where:  # "<offs>+<shape>": this entry's region
+                    offs = [int(x) for x in where.split("+")[0].split(",")]
+                    t = t[tuple(slice(o, o + k)
+                                for o, k in zip(offs, arr.shape))]
+                saved = torch.from_numpy(np.ascontiguousarray(arr).reshape(-1)
+                                         .view(np.uint8)).to(t.device)
+                if not torch.equal(t.contiguous().reshape(-1)
+                                   .view(torch.uint8), saved):
+                    fail(f"29b: restored {key} differs from the saved entry")
+                n += 1
+    return n
+
+
+def run_dp_job(fa, adamw_mod, ck, llama_mod):
+    """Phase 29b: ``train_main`` as 2 processes from the job's env
+    (DP_JOB: data=2, the sharded update, async saves every 2 steps), then
+    ``train_main`` in this process resuming at world 1 with
+    KUBEDL_ELASTIC_BASE_WORLD=2.
+    Gates: each rank's run (finite losses, equal on both ranks; gloo;
+    the sharded update; 16 flash_fwd and 16 flash_bwd_fused launches a
+    step and no split pair; 11 norm + 2 finish + 11 update optimizer
+    launches a step), shards-p0/p1 and one ``latest`` in the checkpoint
+    dir, and the resume: what it restores (world 1: the moments whole)
+    equal to every saved entry of both ranks bit for bit, checked as the
+    restore returns; elastic_grad_accum 2, resumed from step 4, 2 steps at
+    grad_accum 2."""
+    t0 = time.perf_counter()
+    model = llama_mod.preset(DP_JOB["model"])
+    layers, steps = model.n_layers, DP_JOB["steps"]
+    root = tempfile.mkdtemp(prefix="kubedl-dp-")
+    ckpt = os.path.join(root, "checkpoints")
+    try:
+        _free()
+        outs, = run_ranks(
+            [[sys.executable, "-m", "kubedl_tpu_torch.training.entry"]], 2,
+            KUBEDL_MESH_AXES="data=2", KUBEDL_CKPT_DIR=ckpt,
+            KUBEDL_TRAIN_CONFIG=json.dumps(DP_JOB))
+        t_ranks = time.perf_counter() - t0
+        sums = [_json_lines(o, "worker_summary")[0] for o in outs]
+        want_fa = {"flash_fwd": layers * steps, "flash_bwd_fused":
+                   layers * steps, "flash_bwd_dq": 0, "flash_bwd_dkdv": 0}
+        want_opt = {"adamw_norm": 11 * steps, "adamw_norm_finish": 2 * steps,
+                    "adamw_update": 11 * steps}
+        for s in sums:
+            if s["steps"] != steps or s["dist_backend"] != "gloo" or \
+                    not s["shard_update"] or s["world"] != 2:
+                fail(f"29b rank summary: steps {s['steps']}, backend "
+                     f"{s['dist_backend']}, shard_update {s['shard_update']}")
+            if not (math.isfinite(s["first_loss"])
+                    and math.isfinite(s["final_loss"])):
+                fail(f"29b: non-finite loss {s['first_loss']} "
+                     f"{s['final_loss']}")
+            if s["flash_launches"] != want_fa:
+                fail(f"29b flash launches {s['flash_launches']} != {want_fa}")
+            if s["adamw_launches"] != want_opt:
+                fail(f"29b optimizer launches {s['adamw_launches']} != "
+                     f"{want_opt}")
+        if sums[0]["final_loss"] != sums[1]["final_loss"]:
+            fail(f"29b: the ranks' losses differ: {sums[0]['final_loss']} "
+                 f"{sums[1]['final_loss']}")
+        for step in (2, 4):
+            names = sorted(os.listdir(os.path.join(ckpt, f"step-{step:08d}")))
+            if names != ["meta.json", "shards-p0.npz", "shards-p1.npz"]:
+                fail(f"29b: step {step} holds {names}")
+        with open(os.path.join(ckpt, "latest")) as f:
+            if f.read() != "step-00000004":
+                fail("29b: latest is not step-00000004")
+        # the resume: one train_main process (this one, world 1); what it
+        # restores is held against the saved entries as it lands
+        from kubedl_tpu_torch.training import entry
+
+        checks = {}
+        real_restore = ck.restore_from_best
+
+        def checked_restore(*a, **kw):
+            restored = real_restore(*a, **kw)
+            t1 = time.perf_counter()
+            checks["entries"] = _equal_to_saved(
+                ck, restored, os.path.join(ckpt, "step-00000004"))
+            checks["seconds"] = time.perf_counter() - t1
+            return restored
+
+        _clear_job_env(entry)
+        _reset(fa)
+        for k in adamw_mod.LAUNCHES:
+            adamw_mod.LAUNCHES[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        ck.restore_from_best = checked_restore
+        try:
+            rc, t_resume, out = run_job(entry, {
+                "KUBEDL_ELASTIC_BASE_WORLD": "2", "KUBEDL_CKPT_DIR": ckpt,
+                "KUBEDL_TRAIN_CONFIG": json.dumps(dict(DP_JOB,
+                                                       steps=steps + 2))})
+        finally:
+            ck.restore_from_best = real_restore
+        if rc != 0 or "entries" not in checks:
+            fail(f"29b resume: rc {rc}, restore checked: {checks}")
+        n_entries, t_check = checks["entries"], checks["seconds"]
+        elastic = _json_lines(out, "elastic_grad_accum")
+        resumed = _json_lines(out, "resumed_from_step")
+        s1 = _json_lines(out, "worker_summary")[0]
+        if elastic != [2] or resumed != [4] or s1["steps"] != 2:
+            fail(f"29b resume: elastic {elastic}, resumed {resumed}, steps "
+                 f"{s1['steps']}")
+        want1 = {"flash_fwd": 2 * layers * 2, "flash_bwd_fused": 2 * layers * 2,
+                 "flash_bwd_dq": 0, "flash_bwd_dkdv": 0}
+        want1_opt = {"adamw_norm": 11 * 2, "adamw_norm_finish": 2,
+                     "adamw_update": 11 * 2}
+        if s1["flash_launches"] != want1 or s1["dist_backend"] is not None \
+                or s1["adamw_launches"] != want1_opt:
+            fail(f"29b resume: flash {s1['flash_launches']}, optimizer "
+                 f"{s1['adamw_launches']}, backend {s1['dist_backend']}")
+        if not math.isfinite(s1["final_loss"]):
+            fail(f"29b resume: loss {s1['final_loss']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        _free()
+    one = _opt_bytes_one_rank(llama_mod, model)
+    rec = {
+        "config": DP_JOB,
+        "step_time_ms": [s["step_time_ms"] for s in sums],
+        "first_step_seconds": [s["first_step_seconds"] for s in sums],
+        "collective_ms_per_step": [s["collective_ms"] for s in sums],
+        "opt_state_bytes_per_device": [s["opt_state_bytes_per_device"]
+                                       for s in sums],
+        "opt_state_bytes_one_rank": one,
+        "peak_gib": [s["peak_memory_bytes"] / 2**30 for s in sums],
+        "dist_backend": sums[0]["dist_backend"],
+        "losses": [[s["first_loss"], s["final_loss"]] for s in sums],
+        "flash_launches": sums[0]["flash_launches"],
+        "adamw_launches": sums[0]["adamw_launches"],
+        "grad_buckets": sums[0]["grad_buckets"],
+        "restored_entries_bitwise": n_entries,
+        "resume": {"elastic_grad_accum": elastic[0], "seconds": t_resume,
+                   "step_time_ms": s1["step_time_ms"],
+                   "final_loss": s1["final_loss"],
+                   "peak_gib": s1["peak_memory_bytes"] / 2**30,
+                   "flash_launches": s1["flash_launches"],
+                   "adamw_launches": s1["adamw_launches"]},
+        "seconds": {"ranks": t_ranks, "resume": t_resume,
+                    "restore_check_in_resume": t_check},
+        "phase_seconds": time.perf_counter() - t0,
+        "note": "both ranks share one card, which time-slices their "
+                "contexts, and gloo stages every collective through the "
+                "host: the step time is not a data-parallel speed-up",
+    }
+    for r, b in enumerate(rec["opt_state_bytes_per_device"]):
+        if not b < 0.6 * one:
+            fail(f"29b rank {r}: optimizer state {b} bytes against one "
+                 f"rank's {one}")
+    print("phase 29b (train_main x 2 ranks, llama3-1b bf16, data=2): "
+          + json.dumps(rec), flush=True)
+    return {"flash": sums[0]["flash_launches"],
+            "adamw": sums[0]["adamw_launches"]}
+
+
+def run_dp_phase(fa, adamw_mod, ck, llama_mod):
+    t0 = time.perf_counter()
+    run_dp_identity()
+    launches = run_dp_job(fa, adamw_mod, ck, llama_mod)
+    print(f"phase 29 (data-parallel training): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--skip-engine", action="store_true",
@@ -4574,13 +5004,18 @@ def main() -> int:
                     "17-19, 22, 26, 27)")
     ap.add_argument("--skip-train", action="store_true",
                     help="skip the training phases (8 to 12, 21, 23-25, "
-                    "28)")
+                    "28, 29)")
+    ap.add_argument("--dp-identity-rank", metavar="NAMES",
+                    help=argparse.SUPPRESS)  # one rank of phase 29a
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs a GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.dp_identity_rank:
+        dp_identity_rank(args.dp_identity_rank.split(","))
+        return 0
     from kubedl_tpu_torch.models import llama as llama_mod
     from kubedl_tpu_torch.models import moe as moe_mod
     from kubedl_tpu_torch.models import paged_attention as pa
@@ -4737,6 +5172,7 @@ def main() -> int:
     gemma_long, gemma_long_launches = {}, {}
     moe_launches = {}
     convnet_launches = {}
+    dp_launches = {"flash": {}, "adamw": {}}
     if not args.skip_train:
         gemma_launches, gemma_train = run_gemma_train(fa, llama_mod)
         stamp("phase 23")
@@ -4761,6 +5197,8 @@ def main() -> int:
         run_lifecycle(fa, adamw, pa, ck, llama_mod, server_mod)
         run_lifecycle_identity(fa, ck, llama_mod)
         stamp("phase 21")
+        dp_launches = run_dp_phase(fa, adamw, ck, llama_mod)
+        stamp("phase 29")
 
     def record(name, source, replaces, n, rec, design):
         lib = rec["library_ms"]
@@ -4846,7 +5284,9 @@ def main() -> int:
         "zoo_draft_distill": sum(
             summary.get("distill_launches", {}).get(k, 0)
             for k in adamw.LAUNCHES) or None,
-        "convnet": sum(convnet_launches.values()) or None}
+        "convnet": sum(convnet_launches.values()) or None,
+        # phase 29b: each rank's count, on its shards (two finishes a step)
+        "llama3-1b-dp2-rank": sum(dp_launches["adamw"].values()) or None}
     line.append(rec)
     main_case = FLASH_CASES[0]  # the timed shape: llama3-1b training
     for name in FLASH_REPLACES:
@@ -4859,7 +5299,9 @@ def main() -> int:
                 "llama3-1b": launches[name],
                 "bench-moe": moe_launches.get(name),
                 "zoo_draft_distill": summary.get(
-                    "distill_launches", {}).get(name)}
+                    "distill_launches", {}).get(name),
+                # phase 29b: each rank's count, on its own rows
+                "llama3-1b-dp2-rank": dp_launches["flash"].get(name)}
         line.append(rec)
     # Gemma-2B's training paths (hd 256): the forward and the fused
     # backward timed at phase 7's Gemma-2B case, launches from phase 23's

@@ -141,7 +141,8 @@ def fit(cfg: ConvNetConfig, data: Iterator, steps: int = 100,
         device=None) -> Tuple[Params, Dict[str, float]]:
     """The reference's minimal Adam loop: ``steps`` of
     :func:`convnet_loss` and ``optax.adam(learning_rate)`` over the tree
-    (dict keys sorted, the reference's leaf order), in place. Batches are
+    (dict keys sorted, the reference's leaf order): in place on its own
+    tree, on a copy of ``params`` when the caller passes them. Batches are
     moved to the parameters' device. Returns the parameters and the first
     and final losses."""
     from kubedl_tpu_torch.ops.adamw import Adam
@@ -150,6 +151,8 @@ def fit(cfg: ConvNetConfig, data: Iterator, steps: int = 100,
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = convnet_init(gen, cfg, dev)
+    else:  # the caller's tree stays as it was, as in the reference
+        params = {k: v.detach().clone() for k, v in params.items()}
     dev = params["head"].device
     leaves = [params[k] for k in sorted(params)]
     opt = Adam(leaves, learning_rate)

@@ -239,6 +239,7 @@ def moe_ffn(
     cfg: MoEConfig,
     ep_axis: Optional[str] = None,
     tp_axis: Optional[str] = None,
+    dp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-1 switch layer with index dispatch. Returns (out, aux_loss).
 
@@ -249,31 +250,75 @@ def moe_ffn(
     when dropped. Both moves are index copies into fresh zeros, every
     target distinct (spare rows past the real ones take a dropped
     token's row and an empty slot's), so their backward is a gather: no
-    scatter-add, whose runs of one repeated index serialize."""
+    scatter-add, whose runs of one repeated index serialize.
+
+    ``dp`` (a :class:`DataParallelRouting`): ``x`` is this rank's rows of
+    a microbatch split over data-parallel ranks, and the layer keeps the
+    reference's global semantics, as its data-sharded step computes them:
+    the capacity of the whole microbatch, each token's place in its
+    expert's queue counted over the ranks before this one (their rows
+    come first), and the aux loss's token fractions over every rank. The
+    aux loss returned is this rank's share, scaled so that the mean over
+    ranks is the global value and its gradient the global one."""
     _reject_parallel(ep_axis, tp_axis)
     B, S, D = x.shape
     E = router_w.shape[-1]
     T = B * S
-    cap = capacity(cfg, T, E)
+    cap = capacity(cfg, T * (dp.size if dp else 1), E)
     xt = x.reshape(T, D)
     probs, gate, choice, pos, keep = route(xt, router_w, cap)
+    c = cap
+    if dp is not None:
+        hits = torch.bincount(choice, minlength=E)
+        keep = pos + dp.before(hits)[choice] < cap
+        c = min(cap, T)  # a kept token's local place is below both
 
-    # token -> flat slot e*cap + c; a dropped token gets a spare row of
-    # its own past the E*cap real slots
-    n_slots = E * cap
+    # token -> flat slot e*c + place; a dropped token gets a spare row of
+    # its own past the E*c real slots
+    n_slots = E * c
     tok = torch.arange(T, device=x.device)
-    slot = torch.where(keep, choice * cap + pos, n_slots + tok)
+    slot = torch.where(keep, choice * c + pos, n_slots + tok)
     xe = xt.new_zeros(n_slots + T, D).index_copy_(0, slot, xt)[:n_slots]
     # the reference's float32 product rounded to cfg.dtype: a float
     # row widens exactly, so one cast rounds the same
-    ye = _experts(xe.view(E, cap, D).to(cfg.dtype), w_in, w_out, cfg.dtype)
+    ye = _experts(xe.view(E, c, D).to(cfg.dtype), w_in, w_out, cfg.dtype)
     # slot -> its token, or a spare row past T for an empty slot
     back = (T + torch.arange(n_slots + T, device=x.device)).index_copy(
         0, slot, tok)[:n_slots]
     yt = ye.new_zeros(T + n_slots, D).index_copy_(
         0, back, ye.view(n_slots, D))[:T]
     yt = yt.float() * gate[:, None]
-    return yt.reshape(B, S, D).to(x.dtype), _aux_loss(probs, choice)
+    if dp is None:
+        aux = _aux_loss(probs, choice)
+    else:
+        onehot = (choice[:, None] == torch.arange(E, device=x.device))
+        frac = dp.sum(onehot.sum(dim=0).float()) / (T * dp.size)
+        aux = E * torch.sum(frac * probs.sum(dim=0)) / T
+    return yt.reshape(B, S, D).to(x.dtype), aux
+
+
+class DataParallelRouting:
+    """What :func:`moe_ffn` needs of the data-parallel ranks that share a
+    microbatch: their count, and two collectives over them (``mesh``: a
+    :class:`~kubedl_tpu_torch.parallel.mesh.ProcessMesh`, ``axes``: the
+    data-like axes)."""
+
+    def __init__(self, mesh, axes) -> None:
+        self.mesh, self.axes = mesh, tuple(axes)
+        self.size = mesh.size(self.axes)
+        self.index = mesh.index(self.axes)
+
+    def before(self, hits: torch.Tensor) -> torch.Tensor:
+        """Per expert, the tokens the ranks before this one route to it."""
+        every = hits.new_empty(self.size * hits.numel())
+        self.mesh.all_gather(every, hits, self.axes)
+        return every.view(self.size, -1)[:self.index].sum(dim=0)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ranks (no gradient flows through it)."""
+        out = t.detach().clone()
+        self.mesh.all_reduce(out, self.axes)
+        return out
 
 
 def moe_ffn_plain(
@@ -322,10 +367,10 @@ def moe_ffn_plain(
 
 def _block(x: torch.Tensor, lp: Params, cfg: MoEConfig, cos, sin,
            attn_fn=None, tp_axis: Optional[str] = None,
-           ep_axis: Optional[str] = None):
+           ep_axis: Optional[str] = None, dp=None):
     """One decoder block: attention as the Llama block's (q/k PRE-rope
     with the tables into an ``attn_fn`` that has ``fused_rope``), then
-    the switch layer. Returns (x, aux)."""
+    the switch layer (``dp`` as in :func:`moe_ffn`). Returns (x, aux)."""
     _reject_parallel(ep_axis, tp_axis)
     B, S, _ = x.shape
     hd = cfg.head_dim
@@ -343,14 +388,15 @@ def _block(x: torch.Tensor, lp: Params, cfg: MoEConfig, cos, sin,
         attn = (attn_fn or attention)(q, k, v)
     x = x + attn.reshape(B, S, n_heads * hd) @ lp["wo"]
     h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-    ffn, aux = moe_ffn(h, lp["router"], lp["w_in"], lp["w_out"], cfg)
+    ffn, aux = moe_ffn(h, lp["router"], lp["w_in"], lp["w_out"], cfg, dp=dp)
     return x + ffn, aux
 
 
 def moe_forward(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
-                attn_fn=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                attn_fn=None, dp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (logits [B, S, V] float32, mean aux loss).
-    ``attn_fn`` swaps the attention implementation, as in llama_forward.
+    ``attn_fn`` swaps the attention implementation, as in llama_forward;
+    ``dp`` as in :func:`moe_ffn`.
     With ``cfg.remat`` each layer runs under the selective checkpoint of
     ``llama_hidden`` (``remat_policy_for(cfg.remat_policy)``)."""
     from torch.utils.checkpoint import (
@@ -366,12 +412,13 @@ def moe_forward(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
                                    remat_policy_for(cfg.remat_policy))
         for i in range(cfg.n_layers):
             x, aux = checkpoint(_block, x, _layer(params, i), cfg, cos, sin,
-                                attn_fn, use_reentrant=False,
+                                attn_fn, dp=dp, use_reentrant=False,
                                 context_fn=ctx_fn)
             auxes.append(aux)
     else:
         for i in range(cfg.n_layers):
-            x, aux = _block(x, _layer(params, i), cfg, cos, sin, attn_fn)
+            x, aux = _block(x, _layer(params, i), cfg, cos, sin, attn_fn,
+                            dp=dp)
             auxes.append(aux)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ params["lm_head"]).float()
@@ -379,13 +426,13 @@ def moe_forward(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
 
 
 def moe_loss(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
-             attn_fn=None) -> torch.Tensor:
-    logits, aux = moe_forward(params, tokens, cfg, attn_fn)
+             attn_fn=None, dp=None) -> torch.Tensor:
+    logits, aux = moe_forward(params, tokens, cfg, attn_fn, dp)
     return next_token_nll(logits, tokens) + cfg.aux_loss_weight * aux
 
 
 __all__ = [
     "MoEConfig", "TINY_MOE", "BENCH_MOE", "PRESETS", "preset", "moe_init",
     "param_like", "params_from_numpy", "capacity", "route", "moe_ffn",
-    "moe_ffn_plain", "moe_forward", "moe_loss",
+    "moe_ffn_plain", "moe_forward", "moe_loss", "DataParallelRouting",
 ]

@@ -55,13 +55,18 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
 from kubedl_tpu_torch.ops.build import (
     check_launch, float_workspace, load_adamw_kernels, stream_handle,
 )
+
+#: the sharded update's cross-rank sum of the norm's partial sums: float32
+#: ``[S_0, ..., S_{L-1}]`` of this rank's shards in, their sums over the
+#: ranks that share the update out (see :func:`adamw_update`)
+SumPartials = Callable[[torch.Tensor], torch.Tensor]
 
 #: kernel launches, by kernel, read by a run to show its main path went
 #: through them: per step one "adamw_norm" and one "adamw_update" a leaf,
@@ -157,15 +162,20 @@ def _rnd(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 # ---- the plain version ------------------------------------------------------
 
-def global_norm_plain(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``[norm, S_0, ...]`` (see the module docstring)."""
-    sums = [g.float().square().sum() for g in grads]
+def global_norm_plain(grads: Sequence[torch.Tensor],
+                      sum_partials: Optional[SumPartials] = None
+                      ) -> torch.Tensor:
+    """``[norm, S_0, ...]`` (see the module docstring); ``sum_partials``
+    as in :func:`adamw_update`."""
+    sums = torch.stack([g.float().square().sum() for g in grads])
+    if sum_partials is not None:
+        sums = sum_partials(sums)
     chain, cdt = _rnd(sums[0], grads[0].dtype), grads[0].dtype
     for g, s in zip(grads[1:], sums[1:]):
         cdt = torch.promote_types(cdt, g.dtype)
         chain = _rnd(chain + _rnd(s, g.dtype), cdt)
     norm = _rnd(torch.sqrt(chain), cdt)
-    return torch.stack([norm, *sums])
+    return torch.cat([norm[None], sums])
 
 
 def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -208,12 +218,14 @@ def _leaf_plain(g, p, mu, nu, norm, c: StepScalars) -> None:
 
 def adamw_update_plain(grads, params, mus, nus,
                        scalars: Sequence[StepScalars],
-                       clip: bool = True) -> Optional[torch.Tensor]:
+                       clip: bool = True,
+                       sum_partials: Optional[SumPartials] = None
+                       ) -> Optional[torch.Tensor]:
     """The plain PyTorch version: the module docstring's lines, one
     PyTorch operation each; updates ``params``, ``mus`` and ``nus`` in
     place and returns ``stats``. ``clip`` False: no clipping stage, no
     norm, returns None."""
-    stats = global_norm_plain(grads) if clip else None
+    stats = global_norm_plain(grads, sum_partials) if clip else None
     for g, p, m, v, c in zip(grads, params, mus, nus, scalars):
         _leaf_plain(g, p, m, v, None if stats is None else stats[0], c)
     return stats
@@ -233,12 +245,14 @@ def _aligned(*ts) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
-def _cuda_update(grads, params, mus, nus, scalars,
-                 clip: bool) -> Optional[torch.Tensor]:
+def _cuda_update(grads, params, mus, nus, scalars, clip: bool,
+                 sum_partials: Optional[SumPartials] = None
+                 ) -> Optional[torch.Tensor]:
     dev = grads[0].device
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):  # the kernels launch on it
-            return _cuda_update(grads, params, mus, nus, scalars, clip)
+            return _cuda_update(grads, params, mus, nus, scalars, clip,
+                                sum_partials)
     L = len(grads)
     if L > MAX_LEAVES:
         raise ValueError(f"adamw kernel takes at most {MAX_LEAVES} leaves, "
@@ -257,6 +271,10 @@ def _cuda_update(grads, params, mus, nus, scalars,
     lib = _LIB[0]
     stream = stream_handle(dev)
     stats = _cuda_norm(lib, grads, dev, stream) if clip else None
+    if stats is not None and sum_partials is not None:
+        # the finish again, on the summed partials: one slot a leaf
+        stats = _norm_finish(lib, sum_partials(stats[1:].clone()),
+                             list(range(L + 1)), grads, dev, stream)
     norm_ptr = 0 if stats is None else stats.data_ptr()  # NULL: no clip
     for g, p, m, v, c in zip(grads, params, mus, nus, scalars):
         err = lib.kdl_adamw_update(
@@ -279,7 +297,6 @@ def _cuda_norm(lib, grads, dev, stream) -> torch.Tensor:
     for b in blocks:
         offsets.append(offsets[-1] + b)
     slots = float_workspace(_WS, dev, stream, offsets[-1])
-    stats = torch.empty(1 + L, dtype=torch.float32, device=dev)
     base = slots.data_ptr()
     for g, off in zip(grads, offsets):
         err = lib.kdl_adamw_sumsq(g.data_ptr(), g.numel(),
@@ -288,8 +305,17 @@ def _cuda_norm(lib, grads, dev, stream) -> torch.Tensor:
         if err:
             check_launch(err, "adamw_sumsq")
         LAUNCHES["adamw_norm"] += 1
+    return _norm_finish(lib, slots, offsets, grads, dev, stream)
+
+
+def _norm_finish(lib, slots: torch.Tensor, offsets, grads, dev,
+                 stream) -> torch.Tensor:
+    """``stats`` from the float32 ``slots`` (leaf i's in
+    ``[offsets[i], offsets[i + 1])``): the finish kernel."""
+    L = len(grads)
+    stats = torch.empty(1 + L, dtype=torch.float32, device=dev)
     err = lib.kdl_adamw_norm_finish(
-        base, (ctypes.c_int * (L + 1))(*offsets),
+        slots.data_ptr(), (ctypes.c_int * (L + 1))(*offsets),
         (ctypes.c_int * L)(*[int(g.dtype == torch.bfloat16) for g in grads]),
         L, stats.data_ptr(), stream)
     if err:
@@ -302,13 +328,22 @@ def adamw_update(grads: List[torch.Tensor], params: List[torch.Tensor],
                  mus: List[torch.Tensor], nus: List[torch.Tensor], *,
                  lr: float, t: int, b1: float, b2: float, eps: float,
                  weight_decay: float,
-                 clip: Optional[float]) -> Optional[torch.Tensor]:
+                 clip: Optional[float],
+                 sum_partials: Optional[SumPartials] = None
+                 ) -> Optional[torch.Tensor]:
     """Update ``t`` (1-based) of the leaves ``params`` with ``grads``:
     ``params``, ``mus`` and ``nus`` in place (see the module docstring);
     returns the float32 ``stats`` ``[norm, S_0, ...]`` on the
     leaves' device, or None with ``clip=None`` (no clipping stage, no
     norm). The kernels for CUDA tensors, the plain version for CPU
-    tensors."""
+    tensors.
+
+    The sharded update passes each rank's shards of the leaves, and
+    ``sum_partials``: it takes the float32 per-leaf sums of squares of
+    this rank's shards and returns them summed over the ranks that share
+    the update (a leaf every rank holds whole counted once). Each leaf's
+    ``S_i`` in the lines above is then that sum, and the norm chains them
+    as before: the kernels take the finish again, one slot a leaf."""
     if not (len(grads) == len(params) == len(mus) == len(nus)) or not grads:
         raise ValueError("adamw: grads, params, mu and nu must be equal, "
                          "non-empty lists")
@@ -330,11 +365,11 @@ def adamw_update(grads: List[torch.Tensor], params: List[torch.Tensor],
     dev = devices.pop()
     if dev.type == "cuda":
         return _cuda_update(grads, params, mus, nus, scalars,
-                            clip is not None)
+                            clip is not None, sum_partials)
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return adamw_update_plain(grads, params, mus, nus, scalars,
-                              clip is not None)
+                              clip is not None, sum_partials)
 
 
 # ---- optax.adam: the update outside the trainer -------------------------------
@@ -376,4 +411,4 @@ class Adam:
 
 __all__ = ["adamw_update", "adamw_update_plain", "global_norm_plain",
            "step_scalars", "StepScalars", "norm_blocks", "LAUNCHES",
-           "MAX_LEAVES", "Adam"]
+           "MAX_LEAVES", "Adam", "SumPartials"]

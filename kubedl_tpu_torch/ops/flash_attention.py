@@ -546,15 +546,19 @@ def make_flash_attention(mesh=None, batch_axes=("replica", "data", "fsdp"),
                          head_axis: str = "tensor", block_q: int = 1024,
                          block_k: int = 1024,
                          interpret: Optional[bool] = None):
-    """The trainer's attention function on one device: :func:`flash_attention`
-    with ``.fused_rope = True`` (callers pass q/k PRE-rope plus the
-    tables). A mesh of more than one device raises: sharded attention
-    belongs to the multi-chip port slice."""
+    """The trainer's attention function: :func:`flash_attention` with
+    ``.fused_rope = True`` (callers pass q/k PRE-rope plus the tables).
+    On a ``replica`` / ``data`` mesh each rank calls it on its own rows,
+    so the direct operator is the whole function; a mesh axis that
+    shards heads or the sequence (``fsdp``, ``tensor``, ``sp``, ...)
+    above 1 raises: sharded attention belongs to a later port slice."""
     del batch_axes, head_axis, interpret
-    if mesh_size(mesh) > 1:
+    sharding = {a: n for a, n in mesh_axes(mesh).items()
+                if n > 1 and a not in ("replica", "data")}
+    if sharding:
         raise ValueError(
-            "a mesh of more than one device is not ported yet: sharded "
-            "flash attention belongs to the multi-chip port slice"
+            f"mesh axes {sharding} are not ported yet: sharded flash "
+            "attention belongs to the multi-chip port slice"
         )
 
     def direct(q, k, v, causal=True, mask=None, rope_cos=None,

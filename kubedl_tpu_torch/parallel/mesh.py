@@ -1,0 +1,393 @@
+"""Mesh construction and distributed bootstrap: the port of
+``kubedl_tpu/parallel/mesh.py``.
+
+The consumer side of the operator's env contract: a worker process calls
+:func:`initialize_from_env` (``torch.distributed`` from the ``KUBEDL_*``
+variables the reference's ``jax.distributed.initialize`` reads) and
+:func:`mesh_from_env` for the logical mesh the job asked for
+(``KUBEDL_MESH_AXES``), in :class:`MeshSpec`'s axis order: one rank a
+device, ranks laid out row-major over the ordered axes, as the reference
+reshapes its device list.
+
+**The backend is a rule, not a knob.** The first group is gloo (the
+rendezvous, and the exchange the rule needs). Then each rank names its
+(host, device UUID): NCCL when every rank has a card of its own, gloo on
+the CPU and when ranks share a card (NCCL refuses two ranks on one
+device). A NCCL group that fails to start raises; nothing falls back to
+gloo. Gloo on CUDA tensors is staged explicitly through pinned host
+buffers (device-to-host copy, the collective on the host, host-to-device
+copy): the compute stays on the card. That staging and the collective
+are timed on the host (:attr:`ProcessMesh.seconds`); a NCCL collective
+is not timed (reading its time would need a host sync inside the step).
+
+Only the data-like axes ``replica`` and ``data`` may be above 1 here.
+``fsdp``, ``tensor``, ``sp``, ``pipe`` and ``expert`` shard the model
+itself and raise ``ValueError`` naming the slice they belong to.
+"""
+
+from __future__ import annotations
+
+import datetime
+import itertools
+import math
+import os
+import socket
+import time
+from dataclasses import dataclass
+from typing import Dict, Mapping, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from kubedl_tpu_torch import resolve_device
+from kubedl_tpu_torch.api.topology import MeshSpec
+
+# the env names the bootstrap reads (its own copy of the reference's
+# kubedl_tpu/api/constants.py entries)
+ENV_COORDINATOR_ADDRESS = "KUBEDL_COORDINATOR_ADDRESS"
+ENV_NUM_PROCESSES = "KUBEDL_NUM_PROCESSES"
+ENV_PROCESS_ID = "KUBEDL_PROCESS_ID"
+ENV_MESH_AXES = "KUBEDL_MESH_AXES"
+
+#: Axes a batch dimension is sharded over (all data-parallel-like axes).
+DATA_AXES = ("replica", "data", "fsdp")
+MODEL_SHARDING = ("belongs to a later port slice (ROADMAP Queue A item 2, "
+                  "the multi-device compute path)")
+#: seconds a rendezvous or a collective may wait for its peers
+TIMEOUT_S = 300.0
+
+
+def initialize_from_env(environ: Optional[Mapping[str, str]] = None,
+                        timeout_s: float = TIMEOUT_S) -> bool:
+    """``torch.distributed.init_process_group`` over gloo from the
+    operator-injected env (``environ``, default ``os.environ``): the
+    coordinator's ``host:port``, the process count and this process's
+    id. A no-op (False) when the job is single-process."""
+    env = os.environ if environ is None else environ
+    n = int(env.get(ENV_NUM_PROCESSES, "1") or 1)
+    if n <= 1:
+        return False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{env[ENV_COORDINATOR_ADDRESS]}",
+        world_size=n, rank=int(env[ENV_PROCESS_ID]),
+        timeout=datetime.timedelta(seconds=timeout_s))
+    return True
+
+
+def world() -> Tuple[int, int]:
+    """``(rank, world size)``; ``(0, 1)`` without a process group."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def rank_device(device=None) -> torch.device:
+    """This rank's device: the CPU when asked for, else
+    ``cuda:<rank % device_count>`` (which becomes the current device)."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return dev
+    rank, _ = world()
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def collective_backend(device: torch.device) -> str:
+    """The rule: "nccl" when every rank has a card of its own, "gloo" on
+    the CPU or when ranks share a card (each rank's (host, device UUID),
+    gathered over the first gloo group)."""
+    _, n = world()
+    if device.type != "cuda" or n <= 1:
+        return "gloo"
+    me = (socket.gethostname(), str(torch.cuda.get_device_properties(
+        device).uuid))
+    everyone = [None] * n
+    dist.all_gather_object(everyone, me)
+    return "nccl" if len(set(everyone)) == n else "gloo"
+
+
+@dataclass(frozen=True)
+class ShardSpec:
+    """Where a rank's slice of a leaf sits: rows ``start:stop`` of
+    dimension ``dim`` of a leaf of global ``shape``. ``write``: this rank
+    saves the slice to a checkpoint (the slice's first replica, as the
+    reference's ``replica_id == 0``)."""
+
+    shape: Tuple[int, ...]
+    dim: int
+    start: int
+    stop: int
+    write: bool = True
+
+    @property
+    def index(self) -> Tuple[slice, ...]:
+        return tuple(slice(self.start, self.stop) if d == self.dim
+                     else slice(0, n) for d, n in enumerate(self.shape))
+
+    @property
+    def local_shape(self) -> Tuple[int, ...]:
+        return tuple(self.stop - self.start if d == self.dim else n
+                     for d, n in enumerate(self.shape))
+
+
+# torch 2.13 names the flat collectives ``*_single`` and deprecates the
+# older names, which are all that earlier releases (2.11, say) have
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
+    getattr(dist, "reduce_scatter_tensor", None)
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or \
+    getattr(dist, "all_gather_into_tensor", None)
+
+
+class _Pending:
+    """An asynchronous collective: ``wait()`` finishes it (and, when
+    staged, copies the host result back to the card)."""
+
+    def __init__(self, mesh: "ProcessMesh", kind: str, work, after=None):
+        self.mesh, self.kind, self.work, self.after = mesh, kind, work, after
+
+    def wait(self) -> None:
+        t0 = time.perf_counter()
+        self.work.wait()
+        if self.after is not None:
+            self.after()
+        self.mesh._account(self.kind, t0)
+
+
+class ProcessMesh:
+    """The logical mesh over the job's processes: the counterpart of the
+    reference's ``jax.sharding.Mesh`` (``axis_names``, ``shape``) that
+    holds the process group of each axis and runs the collectives the
+    trainer needs over a tuple of axes. One rank a device; a mesh of one
+    process has no groups and its collectives are the identity.
+    ``alone``: a mesh of this process only, whatever group the job has
+    (:func:`local_mesh`)."""
+
+    def __init__(self, spec: MeshSpec, device: torch.device,
+                 backend: str = "gloo", alone: bool = False) -> None:
+        self.rank, self.world = (0, 1) if alone else world()
+        ordered = spec.ordered()
+        self.axis_names = tuple(a for a, _ in ordered)
+        self.shape: Dict[str, int] = dict(ordered)
+        self.device = device
+        self.backend = backend if self.world > 1 else ""
+        sizes = [s for _, s in ordered]
+        self.coords = dict(zip(self.axis_names, _unravel(self.rank, sizes)))
+        self.seconds: Dict[str, float] = {}
+        self._pool: Dict[tuple, list] = {}
+        self._groups: Dict[Tuple[str, ...], object] = {}
+        if self.world > 1:
+            wanted = [(a,) for a in self.axis_names if self.shape[a] > 1]
+            data_like = self.active(DATA_AXES)
+            if len(data_like) > 1:
+                wanted.append(data_like)
+            for axes in wanted:
+                self._groups[axes] = self._new_groups(axes, backend)
+            # the checkpoint writers' barrier runs on threads of its own:
+            # a group of its own, so it never interleaves with the step's
+            self._barrier_group = dist.new_group(list(range(self.world)),
+                                                 backend="gloo")
+            if backend == "nccl":  # surface a NCCL that cannot start now
+                for g in set(self._groups.values()):
+                    probe = torch.ones(1, device=device)
+                    dist.all_reduce(probe, group=g)
+                torch.cuda.synchronize(device)
+
+    # ---- layout ---------------------------------------------------------------
+
+    def active(self, axes: Sequence[str]) -> Tuple[str, ...]:
+        """The axes of ``axes`` this mesh has above size 1, in mesh order."""
+        return tuple(a for a in self.axis_names
+                     if a in axes and self.shape[a] > 1)
+
+    def size(self, axes: Sequence[str]) -> int:
+        return math.prod(self.shape.get(a, 1) for a in axes)
+
+    def index(self, axes: Sequence[str]) -> int:
+        """This rank's row-major position along ``axes`` (mesh order)."""
+        i = 0
+        for a in self.axis_names:
+            if a in axes:
+                i = i * self.shape[a] + self.coords[a]
+        return i
+
+    def _new_groups(self, axes: Tuple[str, ...], backend: str):
+        """Every group of ranks that vary along ``axes`` (the other
+        coordinates fixed), made in one order on every rank as
+        ``new_group`` requires; returns this rank's."""
+        sizes = [self.shape[a] for a in self.axis_names]
+        fixed = [range(1) if a in axes else range(self.shape[a])
+                 for a in self.axis_names]
+        mine = None
+        for base in itertools.product(*fixed):
+            ranks = []
+            for along in itertools.product(*[range(self.shape[a])
+                                             for a in axes]):
+                c = dict(zip(self.axis_names, base))
+                c.update(zip(axes, along))
+                ranks.append(_ravel([c[a] for a in self.axis_names], sizes))
+            g = dist.new_group(sorted(ranks), backend=backend)
+            if self.rank in ranks:
+                mine = g
+        return mine
+
+    def _group(self, axes: Sequence[str]):
+        return self._groups[self.active(axes)]
+
+    # ---- collectives ----------------------------------------------------------
+
+    def _account(self, kind: str, t0: float) -> None:
+        if self.backend == "gloo":
+            self.seconds[kind] = self.seconds.get(kind, 0.0) + \
+                time.perf_counter() - t0
+
+    def _host(self, like: torch.Tensor) -> torch.Tensor:
+        """A pinned host buffer shaped as ``like``, from the pool (a
+        returned buffer is reused once its host-to-device copy is done)."""
+        free = self._pool.setdefault((like.dtype, like.numel()), [])
+        if free:
+            buf, done = free.pop()
+            done.synchronize()
+            return buf.view(like.shape)
+        return torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+
+    def _give(self, *bufs: torch.Tensor) -> None:
+        done = torch.cuda.Event()
+        done.record()
+        for b in bufs:
+            self._pool.setdefault((b.dtype, b.numel()), []).append(
+                (b.reshape(-1), done))
+
+    def _run(self, kind: str, fn, out: torch.Tensor, inp: torch.Tensor,
+             axes: Sequence[str], async_op: bool):
+        """``fn(out, inp, group, async_op)`` over the group of ``axes``;
+        staged through pinned host buffers for gloo on the card."""
+        t0 = time.perf_counter()
+        group = self._group(axes)
+        if not (self.backend == "gloo" and inp.is_cuda):
+            work = fn(out, inp, group, async_op)
+            if not async_op:
+                self._account(kind, t0)
+                return None
+            return _Pending(self, kind, work)
+        h_in = self._host(inp)
+        h_in.copy_(inp, non_blocking=True)
+        h_out = h_in if out is inp else self._host(out)
+        torch.cuda.current_stream(inp.device).synchronize()  # h_in landed
+        work = fn(h_out, h_in, group, True)
+
+        def after():
+            out.copy_(h_out, non_blocking=True)
+            self._give(*{id(b): b for b in (h_in, h_out)}.values())
+
+        pending = _Pending(self, kind, work, after)
+        self._account(kind, t0)
+        if async_op:
+            return pending
+        pending.wait()
+        return None
+
+    def all_reduce(self, t: torch.Tensor, axes: Sequence[str]) -> None:
+        """Sum ``t`` in place over the ranks along ``axes``."""
+        if self.size(self.active(axes)) > 1:
+            self._run("all_reduce",
+                      lambda o, i, g, a: dist.all_reduce(o, group=g,
+                                                         async_op=a),
+                      t, t, axes, False)
+
+    def reduce_scatter(self, out: torch.Tensor, inp: torch.Tensor,
+                       axes: Sequence[str], async_op: bool = False):
+        """``out`` (``inp.numel() / n`` elements) = this rank's block of
+        ``inp`` summed over the n ranks along ``axes``."""
+        return self._run("reduce_scatter",
+                         lambda o, i, g, a: _REDUCE_SCATTER(
+                             o, i, group=g, async_op=a),
+                         out, inp, axes, async_op)
+
+    def all_gather(self, out: torch.Tensor, inp: torch.Tensor,
+                   axes: Sequence[str], async_op: bool = False):
+        """``out`` = every rank's ``inp`` along ``axes``, in rank order."""
+        return self._run("all_gather",
+                         lambda o, i, g, a: _ALL_GATHER(
+                             o, i, group=g, async_op=a),
+                         out, inp, axes, async_op)
+
+    def barrier(self) -> None:
+        """Every rank has reached this point (on the checkpoint writers'
+        own group; callable from a writer thread)."""
+        if self.world > 1:
+            dist.barrier(group=self._barrier_group)
+
+
+def _unravel(i: int, sizes: Sequence[int]):
+    out = []
+    for s in reversed(sizes):
+        out.append(i % s)
+        i //= s
+    return tuple(reversed(out))
+
+
+def _ravel(coords: Sequence[int], sizes: Sequence[int]) -> int:
+    i = 0
+    for c, s in zip(coords, sizes):
+        i = i * s + c
+    return i
+
+
+def check_axes(spec: MeshSpec) -> None:
+    """Raise ``ValueError`` for an axis of the mesh this port does not
+    shard over yet: any but ``replica`` and ``data`` above 1."""
+    for a, s in spec.ordered():
+        if s > 1 and a not in ("replica", "data"):
+            raise ValueError(f"mesh axis {a}={s}: sharding the model "
+                             f"{MODEL_SHARDING}")
+
+
+def build_mesh(spec: Optional[MeshSpec] = None,
+               device=None) -> ProcessMesh:
+    """The :class:`ProcessMesh` of ``spec`` over this job's processes (one
+    a device). With no spec, every process becomes a 1-axis "data" mesh.
+    Axes of size 1 are kept so rules can always name them."""
+    _, n = world()
+    if spec is None or not spec.axes:
+        spec = MeshSpec({"data": n})
+    check_axes(spec)
+    if spec.size() != n:
+        raise ValueError(f"mesh {dict(spec.ordered())} needs {spec.size()} "
+                         f"devices, have {n}")
+    dev = rank_device(device)
+    return ProcessMesh(spec, dev, collective_backend(dev))
+
+
+def local_mesh(device=None) -> ProcessMesh:
+    """The one-process mesh on ``device``: this process alone, with no
+    collectives to run, also inside a job's process group."""
+    return ProcessMesh(MeshSpec({"data": 1}), resolve_device(device),
+                       alone=True)
+
+
+def mesh_from_env(device=None,
+                  environ: Optional[Mapping[str, str]] = None
+                  ) -> ProcessMesh:
+    env = os.environ if environ is None else environ
+    raw = env.get(ENV_MESH_AXES, "")
+    return build_mesh(MeshSpec.from_env(raw) if raw else None, device)
+
+
+def batch_axes(mesh) -> tuple:
+    """The tuple of mesh axes a batch dim shards over."""
+    names, shape = tuple(mesh.axis_names), dict(mesh.shape)
+    return tuple(a for a in DATA_AXES if a in names and shape[a] > 1) or (
+        tuple(a for a in DATA_AXES if a in names)[:1] or (None,)
+    )
+
+
+def axis_size(mesh, name: str) -> int:
+    return dict(mesh.shape).get(name, 1)
+
+
+__all__ = [
+    "initialize_from_env", "mesh_from_env", "build_mesh", "batch_axes",
+    "axis_size", "DATA_AXES", "ProcessMesh", "local_mesh",
+    "ShardSpec", "collective_backend", "rank_device", "check_axes", "world",
+]

@@ -421,14 +421,15 @@ def distill_draft(draft: "ModelDraft", target_params, target_cfg,
     of the next-token loss under ``optax.adam(lr)``
     (:class:`~kubedl_tpu_torch.ops.adamw.Adam`: the optimizer kernels on
     the card). Hard-label distillation is exactly the objective greedy
-    acceptance scores. Updates ``draft.params`` in place and returns the
-    per-step losses. On the card the loss takes the flash operators where
+    acceptance scores. Trains ``draft.params`` in place, after binding
+    copies of any leaf that shares storage with ``target_params`` (the
+    target is left as it was), and returns the per-step losses. On the card the loss takes the flash operators where
     they tile the length, as the trainer's "auto" does; on the CPU the
     plain attention, the reference's."""
     from kubedl_tpu_torch.models import llama
     from kubedl_tpu_torch.ops import flash_attention as fa
     from kubedl_tpu_torch.ops.adamw import Adam
-    from kubedl_tpu_torch.training.trainer import tree_leaves
+    from kubedl_tpu_torch.training.trainer import tree_leaves, tree_unflatten
 
     teacher = ModelDraft(target_params, target_cfg,
                          max_context=target_cfg.max_seq)
@@ -440,7 +441,14 @@ def distill_draft(draft: "ModelDraft", target_params, target_cfg,
     toks = torch.tensor([s[:L] for s in seqs], dtype=torch.int32).to(dev)
     attn_fn = (fa.make_flash_attention()
                if dev.type == "cuda" and fa.supports(L) else None)
-    leaves = tree_leaves(draft.params)
+    # the reference binds new arrays to draft.params and leaves the
+    # target as it was; an early-exit draft's leaves are the target's
+    # tensors (or views of them), so they are copied before training
+    shared = {t.untyped_storage().data_ptr()
+              for t in tree_leaves(target_params)}
+    leaves = [p.clone() if p.untyped_storage().data_ptr() in shared else p
+              for p in tree_leaves(draft.params)]
+    draft.params = tree_unflatten(draft.params, leaves)
     opt = Adam(leaves, lr)
     losses = []
     try:

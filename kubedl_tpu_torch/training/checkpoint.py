@@ -41,8 +41,15 @@ optional best-effort push to a peer's blob store), and a restart
 restores from the local directory or a replica
 (:func:`restore_from_best`).
 
-Left to a later slice: multi-process saves (every process writes its
-own shards).
+Multi-process saves: each rank writes its own ``shards-p<rank>.npz``. A
+leaf a rank holds a slice of (the sharded update's moments) rides the
+tree as :class:`Sharded` and is saved under the reference's shard key
+``"<path>@<offs>+<shape>"`` by the slice's first replica; rank 0 writes
+the whole leaves. After its shard file is in place each rank passes a
+barrier, and only then does rank 0 write the manifest (with ``nprocs``)
+and, last, the ``latest`` marker. A restore assembles each leaf from
+whatever shards cover it, and a :class:`Sharded` target reads only its
+own region, so a save restores at any world size.
 """
 
 from __future__ import annotations
@@ -64,10 +71,23 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from kubedl_tpu_torch.parallel.mesh import ShardSpec
+
 log = logging.getLogger("kubedl_tpu_torch.training.checkpoint")
 
 
 # ---- tree paths --------------------------------------------------------------
+
+class Sharded:
+    """A leaf of a state tree that this rank holds a slice of: ``local``
+    (the slice's tensor) and ``spec`` (where it sits in the global
+    leaf)."""
+
+    __slots__ = ("local", "spec")
+
+    def __init__(self, local, spec: ShardSpec) -> None:
+        self.local, self.spec = local, spec
+
 
 def _is_namedtuple(node) -> bool:
     return isinstance(node, tuple) and hasattr(node, "_fields")
@@ -137,27 +157,30 @@ def _to_torch(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
-# ---- save (single process) ---------------------------------------------------
+# ---- save --------------------------------------------------------------------
 
 def snapshot_state(state, process_index: int = 0):
-    """Device-to-host capture of ``state`` and its manifest: owned host
-    copies, one per leaf, bf16 as its bits in a two-byte void array (rank
-    0 writes every leaf of a single-process state; another rank none)."""
-    shards, manifest = _Staging(pin=False).snapshot(state)
-    return (shards if process_index == 0 else {}), manifest
+    """Device-to-host capture of what rank ``process_index`` saves of
+    ``state`` (its shards; on rank 0 also every whole leaf) and the
+    manifest: owned host copies, bf16 as its bits in a two-byte void
+    array."""
+    return _Staging(pin=False).snapshot(state, process_index)
 
 
 def write_snapshot(ckpt_dir: str, shards: Dict[str, np.ndarray],
                    manifest: Dict[str, Any], step: int, pid: int,
-                   nprocs: int) -> str:
+                   nprocs: int, barrier: Optional[Callable] = None) -> str:
     """Persist a snapshot: the shard file (written to a temporary name,
-    then renamed), then on rank 0 the manifest and the marker."""
+    then renamed); then ``barrier()`` (every rank's shard file is in
+    place past it); then on rank 0 the manifest and the marker."""
     d = Path(ckpt_dir) / f"step-{step:08d}"
     d.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=str(d), suffix=".tmp.npz")
     os.close(fd)
     np.savez(tmp, **shards)
     os.replace(tmp, d / f"shards-p{pid}.npz")
+    if barrier is not None:
+        barrier()
     if pid == 0:
         (d / "meta.json").write_text(
             json.dumps({"step": step, "nprocs": nprocs, "leaves": manifest})
@@ -166,12 +189,15 @@ def write_snapshot(ckpt_dir: str, shards: Dict[str, np.ndarray],
     return str(d)
 
 
-def save_checkpoint(ckpt_dir: str, state, step: int,
-                    process_index: int = 0) -> str:
-    """Write ``state`` (a tree of tensors, e.g. ``{"params": params}``) as
-    step ``step`` of a single-process checkpoint."""
+def save_checkpoint(ckpt_dir: str, state, step: int, process_index: int = 0,
+                    nprocs: int = 1, barrier: Optional[Callable] = None
+                    ) -> str:
+    """Write rank ``process_index``'s part of ``state`` (a tree of tensors,
+    e.g. ``{"params": params}``) as step ``step`` of a checkpoint of
+    ``nprocs`` processes (``barrier`` as in :func:`write_snapshot`)."""
     shards, manifest = snapshot_state(state, process_index)
-    return write_snapshot(ckpt_dir, shards, manifest, step, process_index, 1)
+    return write_snapshot(ckpt_dir, shards, manifest, step, process_index,
+                          nprocs, barrier)
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -265,24 +291,43 @@ class _ShardStore:
     def full(self, key: str, shape) -> np.ndarray:
         """The whole leaf in its stored dtype, assembled from its entry or
         from the shard entries that cover it."""
+        return self.region(key, shape, tuple(slice(0, n) for n in shape))
+
+    def region(self, key: str, shape, index) -> np.ndarray:
+        """The sub-array ``index`` (slices into the global ``shape``) in
+        its stored dtype, from the entries that overlap it: a rank reads
+        only the shard bytes it needs. Raises IncompleteCheckpoint unless
+        the pieces cover every element of the region."""
+        want = [(s.start or 0, n if s.stop is None else s.stop)
+                for s, n in zip(index, shape)]
         if key in self.index:
             i, k = self.index[key]
-            return self.files[i][k]
+            arr = self.files[i][k]
+            if all(a == 0 and b == n for (a, b), n in zip(want, shape)):
+                return arr
+            return arr[tuple(slice(a, b) for a, b in want)]
         out = None
         covered = 0
         for offs, pshape, i, k in self._pieces(key):
+            if pshape is None:  # legacy key without a shape: load it
+                pshape = list(self.files[i][k].shape)
+            lo = [max(o, a) for o, (a, _) in zip(offs, want)]
+            hi = [min(o + n, b) for o, n, (_, b) in zip(offs, pshape, want)]
+            if any(a >= b for a, b in zip(lo, hi)):
+                continue  # no overlap: the entry is never read
             piece = self.files[i][k]
-            if pshape is None:
-                pshape = list(piece.shape)
             if out is None:
-                out = np.zeros(tuple(shape), dtype=piece.dtype)
-            dst = tuple(slice(o, o + n) for o, n in zip(offs, pshape))
-            out[dst] = piece
-            covered += int(np.prod(pshape))
-        if out is None or covered != out.size:
+                out = np.zeros([b - a for a, b in want], dtype=piece.dtype)
+            src = tuple(slice(a - o, b - o) for a, b, o in zip(lo, hi, offs))
+            dst = tuple(slice(a - w, b - w)
+                        for a, b, (w, _) in zip(lo, hi, want))
+            out[dst] = piece[src]
+            covered += int(np.prod([b - a for a, b in zip(lo, hi)]))
+        size = int(np.prod([b - a for a, b in want]))
+        if out is None or covered != size:
             raise IncompleteCheckpoint(
-                f"leaf {key!r}: shards cover {covered} of "
-                f"{int(np.prod(shape))} elements"
+                f"leaf {key!r}: shards cover {covered} of {size} elements "
+                f"of region {want}"
             )
         return out
 
@@ -355,14 +400,22 @@ def _restore_step(ckpt_dir: str, like, step: int, device=None,
         # coverage of every leaf first, from the keys alone: a torn save
         # fails before anything is read or allocated
         for key, leaf in items:
-            store.validate_coverage(key, tuple(leaf.shape))
+            spec = leaf.spec if isinstance(leaf, Sharded) else None
+            store.validate_coverage(
+                key, spec.shape if spec else tuple(leaf.shape))
         out = []
         for key, leaf in items:
-            arr = store.full(key, tuple(leaf.shape))
-            if tuple(arr.shape) != tuple(leaf.shape):
+            spec = leaf.spec if isinstance(leaf, Sharded) else None
+            if spec is not None:  # this rank's region only
+                arr = store.region(key, spec.shape, spec.index)
+                leaf, want = leaf.local, spec.local_shape
+            else:
+                want = tuple(leaf.shape)
+                arr = store.full(key, want)
+            if tuple(arr.shape) != want:
                 raise ValueError(
                     f"leaf {key!r}: checkpoint shape {tuple(arr.shape)} != "
-                    f"{tuple(leaf.shape)}"
+                    f"{want}"
                 )
             host = _to_torch(arr, leaves_meta.get(key, {}).get("dtype", ""))
             del arr
@@ -372,7 +425,8 @@ def _restore_step(ckpt_dir: str, like, step: int, device=None,
             else:
                 t = host.to(dtype=_to_torch(np.asarray(leaf), "").dtype)
             del host
-            out.append(leaf_fn(key, t) if leaf_fn is not None else t)
+            t = leaf_fn(key, t) if leaf_fn is not None else t
+            out.append(t if spec is None else Sharded(t, spec))
     finally:
         store.close()
     return _unflatten(like, iter(out))
@@ -400,10 +454,14 @@ def train_state_tree(state, leaf: Optional[Callable] = None):
     f = leaf or (lambda t: t)
     params, opt = state["params"], state["opt_state"]
     count = np.int32(opt["count"])
-    adam = ScaleByAdamState(
-        count,
-        tree_unflatten(params, [f(t) for t in opt["mu"]]),
-        tree_unflatten(params, [f(t) for t in opt["nu"]]))
+    specs = opt.get("shards") or [None] * len(opt["mu"])
+
+    def moments(ts):  # a sharded moment rides the tree as Sharded
+        return tree_unflatten(params, [
+            f(t) if s is None else Sharded(f(t), s)
+            for t, s in zip(ts, specs)])
+
+    adam = ScaleByAdamState(count, moments(opt["mu"]), moments(opt["nu"]))
     return {
         "params": tree_unflatten(params, [f(t) for t in tree_leaves(params)]),
         "opt_state": (EmptyState(),
@@ -424,10 +482,14 @@ def train_state_from_tree(tree):
     from kubedl_tpu_torch.training.trainer import tree_leaves
 
     adam = tree["opt_state"][1][0]
-    return {"params": tree["params"],
-            "opt_state": {"count": int(adam.count),
-                          "mu": tree_leaves(adam.mu),
-                          "nu": tree_leaves(adam.nu)},
+    mu, nu = tree_leaves(adam.mu), tree_leaves(adam.nu)
+    specs = [m.spec if isinstance(m, Sharded) else None for m in mu]
+    opt = {"count": int(adam.count),
+           "mu": [m.local if s else m for m, s in zip(mu, specs)],
+           "nu": [v.local if s else v for v, s in zip(nu, specs)]}
+    if any(specs):
+        opt["shards"] = specs
+    return {"params": tree["params"], "opt_state": opt,
             "step": int(tree["step"])}
 
 
@@ -445,18 +507,33 @@ class _Staging:
         self.pin = pin
         self.bufs: Dict[str, torch.Tensor] = {}
 
-    def snapshot(self, state):
+    def snapshot(self, state, pid: int = 0):
+        """``(shards, manifest)`` of what rank ``pid`` saves: its
+        :class:`Sharded` slices that it writes, and on rank 0 every whole
+        leaf."""
         shards: Dict[str, np.ndarray] = {}
         manifest: Dict[str, Any] = {}
         on_cuda = False
         for key, leaf in _leaf_items(state):
-            if not isinstance(leaf, torch.Tensor):
+            if isinstance(leaf, Sharded):
+                spec, leaf = leaf.spec, leaf.local
+                manifest[key] = {"shape": list(spec.shape),
+                                 "dtype": _dtype_name(leaf.dtype)}
+                if not spec.write:
+                    continue
+                name = _shard_key(key, spec.index, spec.local_shape)
+            elif not isinstance(leaf, torch.Tensor):
                 a = np.asarray(leaf)
                 manifest[key] = {"shape": list(a.shape), "dtype": str(a.dtype)}
-                shards[key] = np.array(a)
+                if pid == 0:
+                    shards[key] = np.array(a)
                 continue
-            manifest[key] = {"shape": list(leaf.shape),
-                             "dtype": _dtype_name(leaf.dtype)}
+            else:
+                manifest[key] = {"shape": list(leaf.shape),
+                                 "dtype": _dtype_name(leaf.dtype)}
+                if pid != 0:
+                    continue
+                name = key
             buf = self.bufs.get(key)
             if buf is None or buf.shape != leaf.shape or \
                     buf.dtype != leaf.dtype:
@@ -465,8 +542,8 @@ class _Staging:
                 self.bufs[key] = buf
             buf.copy_(leaf.detach(), non_blocking=buf.is_pinned())
             on_cuda = on_cuda or leaf.is_cuda
-            shards[key] = (buf.view(torch.int16).numpy().view("V2")
-                           if buf.dtype == torch.bfloat16 else buf.numpy())
+            shards[name] = (buf.view(torch.int16).numpy().view("V2")
+                            if buf.dtype == torch.bfloat16 else buf.numpy())
         if on_cuda:
             torch.cuda.synchronize()  # the copies have landed
         return shards, manifest
@@ -484,11 +561,17 @@ class AsyncCheckpointer:
     re-raises the writer's error. ``peer_url`` (a blob root,
     ``http://host:port/blobs/...``) mirrors each completed step dir to
     another host: best-effort, a dead peer degrades durability, never
-    training."""
+    training. ``process_index`` / ``nprocs`` / ``barrier``: this rank's
+    part of a multi-process save (:func:`write_snapshot`); the barrier
+    runs on the writer thread, so it must be callable from there."""
 
-    def __init__(self, ckpt_dir: str, peer_url: str = "") -> None:
+    def __init__(self, ckpt_dir: str, peer_url: str = "",
+                 process_index: int = 0, nprocs: int = 1,
+                 barrier: Optional[Callable] = None) -> None:
         self.ckpt_dir = ckpt_dir
         self.peer_url = peer_url.rstrip("/") if peer_url else ""
+        self._pid, self._nprocs = process_index, nprocs
+        self._barrier = barrier
         self._staging = _Staging()
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -503,7 +586,7 @@ class AsyncCheckpointer:
         t0 = time.perf_counter()
         try:
             self.wait_for_pending()  # backpressure; surfaces prior errors
-            shards, manifest = self._staging.snapshot(state)
+            shards, manifest = self._staging.snapshot(state, self._pid)
             self._thread = threading.Thread(
                 target=self._write, args=(shards, manifest, step),
                 daemon=True, name="kubedl-ckpt-writer")
@@ -515,7 +598,8 @@ class AsyncCheckpointer:
 
     def _write(self, shards, manifest, step) -> None:
         try:
-            write_snapshot(self.ckpt_dir, shards, manifest, step, 0, 1)
+            write_snapshot(self.ckpt_dir, shards, manifest, step, self._pid,
+                           self._nprocs, self._barrier)
         except BaseException as e:  # noqa: BLE001 -- re-raised at the barrier
             self._error = e
             return
@@ -528,11 +612,12 @@ class AsyncCheckpointer:
         d = Path(self.ckpt_dir) / f"step-{step:08d}"
         try:
             remote.upload_tree(str(d), f"{self.peer_url}/{d.name}")
-            # the marker last, as locally: a reader following the
-            # replica's `latest` finds a fully uploaded step dir
-            base, prefix = remote._split(self.peer_url)
-            key = f"{prefix}/latest" if prefix else "latest"
-            remote.put_blob(base, key, d.name.encode())
+            if self._pid == 0:
+                # the marker last, as locally: a reader following the
+                # replica's `latest` finds a fully uploaded step dir
+                base, prefix = remote._split(self.peer_url)
+                key = f"{prefix}/latest" if prefix else "latest"
+                remote.put_blob(base, key, d.name.encode())
             self.peer_pushes += 1
         except Exception as e:  # best-effort: degraded durability only
             log.warning("peer replication of step %d to %s failed: %s",
@@ -589,4 +674,4 @@ __all__ = ["save_checkpoint", "snapshot_state", "write_snapshot",
            "latest_step", "checkpoint_fingerprint", "restore_checkpoint",
            "IncompleteCheckpoint", "train_state_tree", "train_state_like",
            "train_state_from_tree", "AsyncCheckpointer",
-           "restore_from_best"]
+           "restore_from_best", "Sharded"]

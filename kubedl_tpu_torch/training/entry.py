@@ -1,14 +1,25 @@
 """Worker entrypoint of the port: ``python -m kubedl_tpu_torch.training.entry``.
 
-The single-process path of ``kubedl_tpu/training/entry.py``, with the
-job lifecycle around it: reads the train config as JSON from
-``KUBEDL_TRAIN_CONFIG`` (the reference's keys and defaults), builds the
+The port of ``kubedl_tpu/training/entry.py``, with the job lifecycle
+around it: reads the train config as JSON from ``KUBEDL_TRAIN_CONFIG``
+(the reference's keys and defaults), joins the job's processes
+(``torch.distributed`` from ``KUBEDL_NUM_PROCESSES`` /
+``KUBEDL_PROCESS_ID`` / ``KUBEDL_COORDINATOR_ADDRESS``) and builds the
+mesh of ``KUBEDL_MESH_AXES`` (``parallel/mesh.py``), builds the
 :class:`Trainer`, restores from the latest checkpoint (a gang restart
 re-enters here and loses at most one save interval), trains with
 interval saves, and publishes the final state to ``KUBEDL_MODEL_PATH``
-(where serving and the ModelVersion build read it). Prints
+(where serving and the ModelVersion build read it). Every process does
+each of these for its part, as in the reference: it prints
 ``{"resumed_from_step": N}`` after a restore and one
-``{"worker_summary": ...}`` at the end.
+``{"worker_summary": ...}`` at the end, and saves its own shards.
+
+- Elastic resize: with ``KUBEDL_ELASTIC_BASE_WORLD`` (or
+  ``KUBEDL_ELASTIC_BASE_DP`` with a mesh) and a world that differs,
+  ``grad_accum`` is rescaled so the per-device microbatch stays as tuned
+  and the global batch, and the trajectory, do not change
+  (``elastic/resize.py``); prints ``{"elastic_grad_accum": ..., "world":
+  ..., "base_world": ...}``.
 
 - Checkpoints: ``KUBEDL_CKPT_DIR``, or ``<KUBEDL_MODEL_PATH>/checkpoints``
   when ``ckpt_every`` is set (for a remote model root a local temporary
@@ -31,12 +42,11 @@ interval saves, and publishes the final state to ``KUBEDL_MODEL_PATH``
 The device is ``KUBEDL_TRAIN_DEVICE``, else ``"device"`` in the config,
 else CUDA (with no card that raises; ask for ``"cpu"`` explicitly).
 
-Still rejected with a ValueError that names the later port slice: more
-than one process or device (``KUBEDL_NUM_PROCESSES``,
-``KUBEDL_MESH_AXES``), the parameter service (``KUBEDL_PS_ADDR``,
-``train_mode: "ps"``), elastic resize (``KUBEDL_ELASTIC_BASE_WORLD`` /
-``_BASE_DP``) and a chaos plan (``"chaos"`` in the config, e.g. the
-``trainer.step_stall`` site).
+Still rejected with a ValueError that names the later port slice: a mesh
+axis that shards the model (``fsdp``, ``tensor``, ``sp``, ``pipe``,
+``expert`` above 1 in ``KUBEDL_MESH_AXES``), the parameter service
+(``KUBEDL_PS_ADDR``, ``train_mode: "ps"``) and a chaos plan (``"chaos"``
+in the config, e.g. the ``trainer.step_stall`` site).
 """
 
 from __future__ import annotations
@@ -75,13 +85,6 @@ def _int(environ, name: str, default: int = 0) -> int:
     return int(environ.get(name, "") or default)
 
 
-def _mesh_devices(spec: str) -> int:
-    n = 1
-    for part in filter(None, (p.strip() for p in spec.split(","))):
-        n *= int(part.partition("=")[2])
-    return n
-
-
 def _reject_unported(environ: Dict[str, str], opts: dict) -> None:
     """Raise ``ValueError`` for a knob the port does not run yet, naming
     the slice it belongs to. The ``"chaos"`` key of the training config
@@ -90,20 +93,13 @@ def _reject_unported(environ: Dict[str, str], opts: dict) -> None:
     ``FaultPlan`` armed in-process (``chaos.arm``), which reaches no
     worker through its environment. The port has no chaos sites, so a
     caller that puts a plan in the config is told so rather than ignored."""
+    from kubedl_tpu_torch.api.topology import MeshSpec
+    from kubedl_tpu_torch.parallel.mesh import check_axes
+
     later = "belongs to a later port slice"
-    multi = "belongs to the multi-chip port slice"
     checks = [
-        (_int(environ, ENV_NUM_PROCESSES, 1) > 1,
-         f"{ENV_NUM_PROCESSES} > 1: multi-process training {multi}"),
-        (_mesh_devices(environ.get(ENV_MESH_AXES, "")) > 1,
-         f"{ENV_MESH_AXES}={environ.get(ENV_MESH_AXES)!r}: a mesh of more "
-         f"than one device {multi}"),
         (bool(environ.get(ENV_PS_ADDR)) or opts.get("train_mode") == "ps",
          f"parameter-service training {later}"),
-        (_int(environ, ENV_ELASTIC_BASE_WORLD) > 0
-         or _int(environ, ENV_ELASTIC_BASE_DP) > 0,
-         f"elastic resize ({ENV_ELASTIC_BASE_WORLD}/{ENV_ELASTIC_BASE_DP}) "
-         f"{later}"),
         (bool(opts.get("chaos")),
          f"a chaos plan (e.g. the trainer.step_stall site): fault "
          f"injection {later}"),
@@ -111,6 +107,7 @@ def _reject_unported(environ: Dict[str, str], opts: dict) -> None:
     for bad, msg in checks:
         if bad:
             raise ValueError(msg)
+    check_axes(MeshSpec.from_env(environ.get(ENV_MESH_AXES, "")))
 
 
 def _ckpt_dir(environ: Dict[str, str], out: str, ckpt_every: int) -> str:
@@ -129,22 +126,28 @@ def _ckpt_dir(environ: Dict[str, str], out: str, ckpt_every: int) -> str:
     return os.path.join(out, "checkpoints")
 
 
-def _publish(out: str, ckpt_dir: str, state) -> None:
+def _publish(out: str, ckpt_dir: str, state, mesh) -> None:
     """The final train state at the model path's root (serving and the
-    ModelVersion build read ``latest`` there)."""
+    ModelVersion build read ``latest`` there): this rank's part of it."""
     from kubedl_tpu_torch.remote.client import is_remote_root, upload_tree
     from kubedl_tpu_torch.training.checkpoint import (
         save_checkpoint, train_state_tree,
     )
 
     step = int(state["step"])
+    rank, nprocs = mesh.rank, mesh.world
     if is_remote_root(out):
         with tempfile.TemporaryDirectory(prefix="kubedl-publish-") as tmp:
-            save_checkpoint(tmp, train_state_tree(state), step)
+            save_checkpoint(tmp, train_state_tree(state), step, rank, nprocs)
+            if rank == 0:  # rank 0's files (the marker) go up last
+                mesh.barrier()
             n = upload_tree(tmp, out)
+            if rank != 0:
+                mesh.barrier()
             print(f"published {n} blobs to {out}", flush=True)
     elif os.path.abspath(ckpt_dir or "") != os.path.abspath(out):
-        save_checkpoint(out, train_state_tree(state), step)
+        save_checkpoint(out, train_state_tree(state), step, rank, nprocs,
+                        mesh.barrier)
 
 
 def _model_preset(name: str):
@@ -161,7 +164,6 @@ def train_main(env: Optional[Dict[str, object]] = None) -> int:
     """Train from ``KUBEDL_TRAIN_CONFIG``; ``env`` overrides the process
     environment (string values) and may carry ``_KUBEDL_CANCEL`` (an
     object with ``is_set()``: the loop then exits with SystemExit(137))."""
-    global LAST_SUMMARY
     t_start = time.time()
     environ = dict(os.environ)
     environ.update({k: v for k, v in (env or {}).items()
@@ -173,6 +175,25 @@ def train_main(env: Optional[Dict[str, object]] = None) -> int:
         phases["spawn_to_proc"] = max(t_start - spawn_ts, 0.0)
     opts = json.loads(environ.get(ENV_TRAIN_CONFIG, "{}") or "{}")
     _reject_unported(environ, opts)
+    from kubedl_tpu_torch.parallel.mesh import initialize_from_env
+
+    t0 = time.time()
+    joined = initialize_from_env(environ)
+    phases["dist_init"] = time.time() - t0
+    try:
+        return _train(environ, opts, cancel, phases, t_start, spawn_ts)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _train(environ: Dict[str, str], opts: dict, cancel,
+           phases: Dict[str, float], t_start: float, spawn_ts: float) -> int:
+    """The rest of :func:`train_main`, inside the job's process group."""
+    global LAST_SUMMARY
+    from kubedl_tpu_torch.parallel.mesh import mesh_from_env
 
     t0 = time.time()
     from kubedl_tpu_torch.training.checkpoint import (
@@ -205,9 +226,33 @@ def train_main(env: Optional[Dict[str, object]] = None) -> int:
         log_every=int(opts.get("log_every", 0)),
         long_context_policy=opts.get("long_context_policy", "auto"),
     )
+    # elastic resize: at a world other than the one the job was tuned at,
+    # grad accumulation is rescaled so the per-device microbatch keeps
+    # its tuned size; global_batch (and the loss trajectory) is unchanged
+    base_world = _int(environ, ENV_ELASTIC_BASE_WORLD)
+    world = _int(environ, ENV_NUM_PROCESSES, 1)
+    # planner-owned meshes: rescale in data-parallel units instead
+    base_dp = _int(environ, ENV_ELASTIC_BASE_DP)
+    mesh_axes = environ.get(ENV_MESH_AXES, "")
+    if base_dp > 0 and mesh_axes:
+        from kubedl_tpu_torch.api.topology import MeshSpec
+        from kubedl_tpu_torch.elastic.resize import data_parallel_world
+
+        base_world = base_dp
+        world = data_parallel_world(MeshSpec.from_env(mesh_axes))
+    if base_world > 0 and world != base_world:
+        from kubedl_tpu_torch.elastic.resize import grad_accum_for_world
+
+        accum = grad_accum_for_world(cfg.grad_accum, base_world, world,
+                                     cfg.global_batch)
+        if accum != cfg.grad_accum:
+            print(json.dumps({"elastic_grad_accum": accum, "world": world,
+                              "base_world": base_world}), flush=True)
+            cfg = dataclasses.replace(cfg, grad_accum=accum)
     device = environ.get(ENV_TRAIN_DEVICE) or opts.get("device") or None
     t0 = time.time()
-    trainer = Trainer(cfg, device=device)
+    mesh = mesh_from_env(device, environ)
+    trainer = Trainer(cfg, mesh)
     phases["trainer_build"] = time.time() - t0
 
     out = environ.get(ENV_MODEL_PATH, "")
@@ -291,7 +336,7 @@ def train_main(env: Optional[Dict[str, object]] = None) -> int:
     LAST_SUMMARY = summary
     print(json.dumps({"worker_summary": summary}), flush=True)
     if out:
-        _publish(out, ckpt_dir, state)
+        _publish(out, ckpt_dir, state, mesh)
     return 0
 
 

@@ -1,17 +1,14 @@
-"""Single-device trainer: the port of ``kubedl_tpu/training/trainer.py``.
+"""The trainer: the port of ``kubedl_tpu/training/trainer.py``.
 
-One device, eager PyTorch: the train step runs forward and backward
-through the model family's loss, then the optimizer updates the
+Eager PyTorch, one device a process: the train step runs forward and
+backward through the model family's loss, then the optimizer updates the
 parameters IN PLACE (the reference donates its state buffers to a jitted
 step; here the state dict keeps the same tensors and rewrites them).
 
-What a one-device port keeps of the reference, and how:
+What the port keeps of the reference, and how:
 
-- ``TrainConfig`` has every field of the reference. ``shard_update`` and
-  ``overlap_comm`` are accepted and are no-ops, as they are in the
-  reference on a one-device mesh (there is no data axis to scatter over);
-  ``grad_bucket_mb`` and ``init_rng_impl`` are accepted and unused (there
-  are no collectives, and a ``torch.Generator`` has one implementation).
+- ``TrainConfig`` has every field of the reference; ``init_rng_impl`` is
+  accepted and unused (a ``torch.Generator`` has one implementation).
 - :func:`make_optimizer` is a plain-PyTorch port of the optax chain
   ``clip_by_global_norm -> adamw(warmup_cosine_decay_schedule)``, step
   for step: optax counts from 0, so the FIRST update runs at
@@ -21,23 +18,40 @@ What a one-device port keeps of the reference, and how:
   every leaf, norms included. The update itself is one operator
   (``ops/adamw.py``, a hand-written kernel on CUDA) that computes what
   the reference's COMPILED step computes, bf16 roundings included.
+- Data parallelism over processes (a ``replica`` / ``data`` mesh from
+  ``parallel/mesh.py``, one rank a device): every rank reads the same
+  global batch and trains on its rows of each microbatch; the gradients
+  are reduced over the ranks. ``shard_update`` on a data axis above 1 is
+  the reference's ZeRO-style sharded update (``_update_shardings``):
+  reduce-scatter, the update of this rank's shard of params and moments
+  (which exist only as shards), all-gather; ``overlap_comm`` with
+  ``grad_accum > 1`` issues each microbatch's reduce-scatters
+  asynchronously, one a bucket of ``training/buckets.py``'s plan, as
+  soon as its backward is done. Otherwise the gradients are all-reduced
+  and every rank runs the full update. See :meth:`Trainer.train_step`.
 - ``fit`` keeps the reference's timing discipline: the clock after the
   first step and at the end stops on a scalar ``.item()`` of the loss, a
-  true barrier; steps between logs issue no host sync. Summary keys with
-  no counterpart here (``warm_compile_s`` and the other ahead-of-time
-  compile keys, ``grad_buckets``, ``flash_trace_count``) are None;
-  ``flash_launches`` carries the kernels' launch counts instead.
+  true barrier; steps between logs issue no host sync on one process
+  (the data-parallel step reduces its loss over the ranks every step,
+  and gloo on the card stages through the host). Summary keys with no
+  counterpart here (``warm_compile_s`` and the other ahead-of-time
+  compile keys, ``flash_trace_count``) are None; ``flash_launches`` and
+  ``adamw_launches`` carry the kernels' launch counts instead (a rank is
+  a process of its own), ``dist_backend`` and ``collective_ms`` the
+  collectives'.
 - ``fit(ckpt_dir=...)`` saves the train state every ``ckpt_every`` steps
   and at the end (asynchronously with ``ckpt_async``), in the reference's
-  tree and format, so either package resumes the other's job.
+  tree and format (each rank its shards), so either package resumes the
+  other's job.
 
 Model families: dense Llama (``models/llama.py``) and switch-MoE
-(``models/moe.py``, one device: its expert and tensor parallelism belong
-to the multi-chip slice), through the same optimizer and flash operators.
+(``models/moe.py``: data-parallel routing spans the ranks; expert and
+tensor parallelism belong to a later slice), through the same optimizer
+and flash operators.
 
 What it rejects with a ValueError naming the later port slice, never
-silently: a mesh of more than one device (or any ``sp``/``pipe`` axis
-above 1) and ``fit_ps``.
+silently: a mesh axis that shards the model (``fsdp``, ``tensor``,
+``sp``, ``pipe``, ``expert`` above 1) and ``fit_ps``.
 """
 
 from __future__ import annotations
@@ -51,10 +65,16 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from kubedl_tpu_torch import resolve_device
+from kubedl_tpu_torch.api.topology import MeshSpec
 from kubedl_tpu_torch.models import llama, moe
 from kubedl_tpu_torch.ops import flash_attention as fa
+from kubedl_tpu_torch.ops.adamw import LAUNCHES as adamw_launches
 from kubedl_tpu_torch.ops.adamw import adamw_update
+from kubedl_tpu_torch.parallel.mesh import (
+    DATA_AXES, ProcessMesh, ShardSpec, axis_size, build_mesh, check_axes,
+    local_mesh,
+)
+from kubedl_tpu_torch.training.buckets import plan_grad_buckets
 
 MULTI_CHIP = "the multi-chip port slice"
 LATER = "a later port slice"
@@ -71,6 +91,8 @@ class ModelFamily:
     num_params: int
     flops_per_token: float
     vocab_size: int
+    #: () -> the parameter tree as ``meta`` tensors (shapes and dtypes)
+    like: Callable[[], Any]
 
 
 def llama_family(cfg: llama.LlamaConfig) -> ModelFamily:
@@ -83,19 +105,24 @@ def llama_family(cfg: llama.LlamaConfig) -> ModelFamily:
         num_params=cfg.num_params(),
         flops_per_token=cfg.flops_per_token(),
         vocab_size=cfg.vocab_size,
+        like=lambda: llama.param_like(cfg),
     )
 
 
-def moe_family(cfg: moe.MoEConfig) -> ModelFamily:
+def moe_family(cfg: moe.MoEConfig, dp=None) -> ModelFamily:
+    """``dp``: the data-parallel ranks a microbatch is split over
+    (:class:`~kubedl_tpu_torch.models.moe.DataParallelRouting`), which
+    the switch layer's routing spans."""
     return ModelFamily(
         name="moe",
         init=lambda gen, device: moe.moe_init(cfg, gen, device),
         loss=lambda params, batch, attn_fn=None: moe.moe_loss(
-            params, batch, cfg, attn_fn
+            params, batch, cfg, attn_fn, dp
         ),
         num_params=cfg.num_params(),
         flops_per_token=cfg.flops_per_token(),
         vocab_size=cfg.vocab_size,
+        like=lambda: moe.param_like(cfg),
     )
 
 
@@ -205,13 +232,17 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: Dict[str, Any],
-               leaves: List[torch.Tensor]) -> torch.Tensor:
+               leaves: List[torch.Tensor],
+               sum_partials=None) -> torch.Tensor:
+        """``sum_partials``: the sharded update's cross-rank sum of the
+        norm's partial sums (``ops/adamw.py::adamw_update``)."""
         lr = self.schedule(state["count"])
         state["count"] += 1
         stats = adamw_update(
             grads, leaves, state["mu"], state["nu"], lr=lr,
             t=state["count"], b1=self.b1, b2=self.b2, eps=self.eps,
-            weight_decay=self.weight_decay, clip=self.grad_clip)
+            weight_decay=self.weight_decay, clip=self.grad_clip,
+            sum_partials=sum_partials)
         return stats[0]
 
 
@@ -251,6 +282,20 @@ def tree_unflatten(tree, leaves):
     return walk(tree)
 
 
+def _local(p: torch.Tensor, spec: Optional[ShardSpec]) -> torch.Tensor:
+    """This rank's slice of ``p`` (a view; ``p`` itself when the leaf is
+    not sharded)."""
+    if spec is None:
+        return p
+    return p.narrow(spec.dim, spec.start, spec.stop - spec.start)
+
+
+def _block(p: torch.Tensor, spec: ShardSpec, r: int) -> torch.Tensor:
+    """Data rank ``r``'s slice of the whole leaf ``p`` (a view)."""
+    k = spec.stop - spec.start
+    return p.narrow(spec.dim, r * k, k)
+
+
 #: count of host scalar fetches (each a device barrier), as in the reference
 SCALAR_FETCHES = 0
 
@@ -263,35 +308,84 @@ def _fetch_scalar(x: torch.Tensor) -> float:
 
 
 def state_bytes_per_device(state, key: str = "opt_state") -> int:
-    """Bytes of the optimizer moments (one device holds them all)."""
+    """Bytes of the optimizer state this device holds, as the reference
+    counts its tree: the moments (their shards under the sharded update)
+    and the Adam and schedule counts (an int32 scalar each)."""
     opt = state[key]
-    return sum(t.numel() * t.element_size() for t in opt["mu"] + opt["nu"])
+    return 2 * 4 + sum(t.numel() * t.element_size()
+                       for t in opt["mu"] + opt["nu"])
 
 
 class Trainer:
-    """The reference's ``Trainer`` on one device (see the module
-    docstring for what is ported and what raises)."""
+    """The reference's ``Trainer`` (see the module docstring for what is
+    ported and what raises)."""
 
     def __init__(self, cfg: TrainConfig, mesh=None, device=None) -> None:
-        self.device = resolve_device(device)
-        axes = fa.mesh_axes(mesh)
-        if fa.mesh_size(mesh) > 1 or any(
-                axes.get(a, 1) > 1 for a in ("sp", "pipe")):
-            raise ValueError(
-                f"mesh {axes}: training over more than one device (data, "
-                f"fsdp, tensor, sequence or pipeline axes) belongs to "
-                f"{MULTI_CHIP}"
-            )
+        if not isinstance(mesh, ProcessMesh):
+            # a mapping of axes (or None): model-sharding axes raise, a
+            # data-parallel mesh needs the job's process group, and a mesh
+            # of one device is this process alone
+            spec = MeshSpec(fa.mesh_axes(mesh))
+            check_axes(spec)
+            mesh = build_mesh(spec, device) if spec.size() > 1 \
+                else local_mesh(device)
+        self.mesh = mesh
+        self.device = mesh.device
+        #: the data-like axes above 1 and the ranks along them
+        self.dp_axes = mesh.active(DATA_AXES)
+        self.dp = mesh.size(self.dp_axes)
         if cfg.global_batch % cfg.grad_accum:
             raise ValueError(f"global_batch {cfg.global_batch} does not "
                              f"split into grad_accum={cfg.grad_accum}")
-        self.mesh = mesh
+        if cfg.global_batch % (cfg.grad_accum * self.dp):
+            # each rank's loss is the mean over its rows: the mean over
+            # ranks is the global mean only for equal token counts
+            raise ValueError(
+                f"global_batch {cfg.global_batch}: {cfg.grad_accum} "
+                f"microbatches do not split evenly over {self.dp} ranks")
         self.cfg = cfg
         cfg = self._apply_long_context_policy(cfg)
         self.family = family_for(cfg.model)
+        if self.dp > 1 and isinstance(cfg.model, moe.MoEConfig):
+            self.family = moe_family(
+                cfg.model, moe.DataParallelRouting(mesh, self.dp_axes))
         self.tx = make_optimizer(cfg)
+        like = tree_leaves(self.family.like())
+        self.grad_bucket_plan = plan_grad_buckets(
+            [t.numel() * t.element_size() for t in like],
+            int(cfg.grad_bucket_mb * 2**20))
+        #: per leaf (tree order): this rank's slice under the sharded
+        #: update, or None (the leaf's update is replicated)
+        self.shard_specs = self._shard_specs(like)
+        #: the axes the weight update shards over: ("data",) or none
+        self.update_axes = ("data",) if any(self.shard_specs) else ()
         self.attn_impl = "dense"
         self.attn_fn = self._select_attn()
+
+    def _shard_specs(self, like) -> List[Optional[ShardSpec]]:
+        """The reference's ``_update_shardings`` on a replica / data mesh:
+        a leaf the bucket plan scatters is split over the data axis on its
+        first dimension that divides evenly; the replica axis keeps whole
+        shards (the first replica saves them). None everywhere when the
+        update is replicated (``shard_update`` off or no data axis above
+        1)."""
+        pm = self.mesh
+        dsize = axis_size(pm, "data")
+        if not self.cfg.shard_update or dsize <= 1:
+            return [None] * len(like)
+        r = pm.coords["data"]
+        first = pm.coords.get("replica", 0) == 0
+        specs: List[Optional[ShardSpec]] = []
+        for t, scatter in zip(like, self.grad_bucket_plan.scatter):
+            shape = tuple(t.shape)
+            dim = next((d for d, n in enumerate(shape) if n % dsize == 0),
+                       None) if scatter else None
+            if dim is None:
+                specs.append(None)
+                continue
+            k = shape[dim] // dsize
+            specs.append(ShardSpec(shape, dim, r * k, (r + 1) * k, first))
+        return specs
 
     def _apply_long_context_policy(self, cfg: TrainConfig) -> TrainConfig:
         """At seq_len >= long_context_threshold a remat'ing Llama config is
@@ -343,19 +437,41 @@ class Trainer:
 
     def init_fn(self, generator: torch.Generator) -> Dict[str, Any]:
         """The whole train state from an explicit generator (on the
-        trainer's device): params, optimizer state, step 0."""
+        trainer's device): params, optimizer state, step 0. Every rank
+        draws the same params; under the sharded update the moments are
+        this rank's shards only (``opt_state["shards"]`` says where they
+        sit)."""
         params = self.family.init(generator, self.device)
-        return {"params": params,
-                "opt_state": self.tx.init(tree_leaves(params)), "step": 0}
+        opt = self.tx.init([_local(p, s) for p, s in
+                            zip(tree_leaves(params), self.shard_specs)])
+        if self.update_axes:
+            opt["shards"] = list(self.shard_specs)
+        return {"params": params, "opt_state": opt, "step": 0}
 
     def init_state(self) -> Dict[str, Any]:
         gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
         return self.init_fn(gen)
 
     def shard_batch(self, batch) -> torch.Tensor:
-        """A host batch (numpy) or tensor, on the trainer's device. A host
-        batch goes up from pinned memory without blocking, so the upload
-        does not wait for the previous step (as ``device_put`` does not)."""
+        """A host batch (numpy) or tensor, on the trainer's device: this
+        rank's rows of it. A host batch goes up from pinned memory without
+        blocking, so the upload does not wait for the previous step (as
+        ``device_put`` does not).
+
+        Every rank reads the same global batch; with more than one
+        data-parallel rank each keeps, of every microbatch (the batch as
+        ``[grad_accum, B / grad_accum, S]``), the contiguous block of rows
+        the reference's batch sharding gives its device: ``[grad_accum *
+        B / (grad_accum * dp), S]``, microbatch-major."""
+        if self.dp > 1:
+            n = self.cfg.grad_accum
+            B, S = batch.shape
+            b = B // (n * self.dp)
+            i = self.mesh.index(self.dp_axes)
+            batch = batch.reshape(n, B // n, S)[:, i * b:(i + 1) * b]
+            batch = batch.reshape(n * b, S)
+            batch = batch.contiguous() if isinstance(batch, torch.Tensor) \
+                else np.ascontiguousarray(batch)
         if isinstance(batch, torch.Tensor):
             return batch.to(self.device)
         host = torch.from_numpy(np.asarray(batch))
@@ -374,26 +490,166 @@ class Trainer:
         return loss.detach(), list(grads)
 
     def train_step(self, state: Dict[str, Any], batch):
-        """One optimizer step (with ``grad_accum`` microbatches); updates
-        ``state`` in place and returns it with ``{"loss", "grad_norm"}``
-        (device scalars: reading them is a host sync)."""
+        """One optimizer step on this rank's rows of ``batch`` (``[grad_accum
+        * b, S]`` of them), with ``grad_accum`` microbatches and the
+        gradients reduced over the data-parallel ranks; updates ``state``
+        in place and returns it with ``{"loss", "grad_norm"}`` (device
+        scalars: reading them is a host sync):
+
+        - replicated update: the gradients all-reduced (one collective a
+          bucket), their mean taken, the full update on every rank;
+        - sharded update: each scattered leaf's gradient reduce-scattered
+          over the data axis, the update on this rank's shard of params,
+          ``mu`` and ``nu`` (the norm's partial sums summed over the data
+          axis first), then the params all-gathered. A replicated leaf's
+          gradient is all-reduced and every rank updates it whole. With
+          ``overlap_comm`` and more than one microbatch, each
+          microbatch's reduce-scatters are issued, asynchronously and one
+          a bucket in backward-readiness order, right after its backward,
+          and land in the shard accumulator after the next backward.
+
+        The loss and the norm returned are the global ones, equal on
+        every rank. On one process every collective is the identity."""
         batch = self.shard_batch(batch)
+        cfg, pm, specs = self.cfg, self.mesh, self.shard_specs
         params = state["params"]
-        n = self.cfg.grad_accum
-        if n > 1:
-            micro = batch.reshape(n, batch.shape[0] // n, batch.shape[1])
-            loss, grads = self.value_and_grad(params, micro[0])
-            for mb in micro[1:]:
+        leaves = tree_leaves(params)
+        n = cfg.grad_accum
+        micro = batch.reshape(n, batch.shape[0] // n, batch.shape[1])
+        sharded = bool(self.update_axes)
+        loss = None
+        if sharded and cfg.overlap_comm and n > 1:
+            grads = [torch.zeros(s.local_shape, dtype=p.dtype,
+                                 device=p.device) if s else
+                     torch.zeros_like(p) for p, s in zip(leaves, specs)]
+            pending: list = []
+            for mb in micro:
                 l_i, g_i = self.value_and_grad(params, mb)
-                loss = loss + l_i
-                grads = [a + b for a, b in zip(grads, g_i)]
-            grads = [g / n for g in grads]
-            loss = loss / n
+                loss = l_i if loss is None else loss + l_i
+                issued = self._scatter(g_i)
+                for a, g, s in zip(grads, g_i, specs):
+                    if s is None:  # the replicated ones, reduced after
+                        a.add_(g)
+                self._absorb(pending, grads)
+                pending = issued
+            self._absorb(pending, grads)
         else:
-            loss, grads = self.value_and_grad(params, batch)
-        gnorm = self.tx.update(grads, state["opt_state"], tree_leaves(params))
+            for mb in micro:
+                l_i, g_i = self.value_and_grad(params, mb)
+                if loss is None:
+                    loss, grads = l_i, g_i
+                else:
+                    loss = loss + l_i
+                    grads = [a + b for a, b in zip(grads, g_i)]
+            if sharded:
+                full = grads
+                grads = [torch.zeros(s.local_shape, dtype=g.dtype,
+                                     device=g.device) if s else g
+                         for g, s in zip(full, specs)]
+                self._absorb(self._scatter(full), grads)
+                del full
+        if sharded:
+            self._all_reduce([g for g, s in zip(grads, specs) if s is None],
+                             ("data",))
+            self._all_reduce(grads, ("replica",))
+        else:
+            for idxs in self.grad_bucket_plan.buckets:
+                self._all_reduce([grads[i] for i in idxs], self.dp_axes)
+        if n * self.dp > 1:
+            for g in grads:
+                g.div_(n * self.dp)
+        loss = (loss / n).reshape(1)
+        pm.all_reduce(loss, self.dp_axes)
+        loss = loss[0] / self.dp
+        local = [_local(p, s) for p, s in zip(leaves, specs)]
+        upd = [t if t.is_contiguous() else t.contiguous() for t in local]
+        gnorm = self.tx.update(grads, state["opt_state"], upd,
+                               self._sum_partials if sharded else None)
+        for t, u in zip(local, upd):
+            if u is not t:
+                t.copy_(u)
+        if sharded:
+            self._gather(leaves)
         state["step"] += 1
         return state, {"loss": loss, "grad_norm": gnorm}
+
+    def _buckets(self) -> List[List[int]]:
+        """The bucket plan's buckets, in issue order, cut to the leaves
+        this rank updates a shard of."""
+        return [b for b in ([i for i in bucket if self.shard_specs[i]]
+                            for bucket in self.grad_bucket_plan.buckets) if b]
+
+    def _scatter(self, grads) -> list:
+        """Issue each bucket's reduce-scatter over the data axis
+        (asynchronous): its leaves' rank blocks laid out rank-major, so
+        rank r receives the sum of its shards."""
+        dsize, issued = axis_size(self.mesh, "data"), []
+        for idxs in self._buckets():
+            inp = torch.cat([_block(grads[i], self.shard_specs[i], r)
+                             .reshape(-1)
+                             for r in range(dsize) for i in idxs])
+            out = inp.new_empty(inp.numel() // dsize)
+            issued.append((self.mesh.reduce_scatter(out, inp, ("data",),
+                                                     async_op=True),
+                           out, idxs))
+        return issued
+
+    @staticmethod
+    def _absorb(pending: list, acc: List[torch.Tensor]) -> None:
+        """Wait for issued reduce-scatters and add them into the shard
+        accumulator."""
+        for work, out, idxs in pending:
+            work.wait()
+            off = 0
+            for i in idxs:
+                k = acc[i].numel()
+                acc[i].add_(out[off:off + k].view(acc[i].shape))
+                off += k
+
+    def _all_reduce(self, tensors: List[torch.Tensor], axes) -> None:
+        """Sum ``tensors`` in place over ``axes`` as one flat collective."""
+        if not tensors or self.mesh.size(self.mesh.active(axes)) <= 1:
+            return
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        self.mesh.all_reduce(flat, axes)
+        off = 0
+        for t in tensors:
+            t.copy_(flat[off:off + t.numel()].view(t.shape))
+            off += t.numel()
+
+    def _sum_partials(self, sums: torch.Tensor) -> torch.Tensor:
+        """The norm's per-leaf partial sums over the data axis: a
+        scattered leaf's shards add up, a replicated leaf (whole on every
+        rank) counts once, from the first data rank."""
+        first = float(self.mesh.coords["data"] == 0)
+        keep = torch.tensor([1.0 if s else first for s in self.shard_specs],
+                            device=sums.device)
+        out = (sums * keep).contiguous()
+        self.mesh.all_reduce(out, ("data",))
+        return out
+
+    def _gather(self, leaves: List[torch.Tensor]) -> None:
+        """All-gather the updated shards into every rank's params, one
+        collective a bucket."""
+        pm, dsize = self.mesh, axis_size(self.mesh, "data")
+        issued = []
+        for idxs in self._buckets():
+            mine = torch.cat([_local(leaves[i], self.shard_specs[i])
+                              .reshape(-1) for i in idxs])
+            out = mine.new_empty(dsize * mine.numel())
+            issued.append((pm.all_gather(out, mine, ("data",),
+                                         async_op=True), out, idxs))
+        for work, out, idxs in issued:
+            work.wait()
+            rows = out.view(dsize, -1)
+            for r in range(dsize):
+                off = 0
+                for i in idxs:
+                    s = self.shard_specs[i]
+                    k = math.prod(s.local_shape)
+                    _block(leaves[i], s, r).copy_(
+                        rows[r, off:off + k].view(s.local_shape))
+                    off += k
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -427,22 +683,29 @@ class Trainer:
         steps = steps or self.cfg.steps
         state = state or self.init_state()
         ckpt_every = self.cfg.ckpt_every if ckpt_every is None else ckpt_every
+        pm = self.mesh
+        rank, nprocs, barrier = pm.rank, pm.world, pm.barrier
         checkpointer: Optional[AsyncCheckpointer] = None
         if ckpt_dir and self.cfg.ckpt_async:
-            checkpointer = AsyncCheckpointer(ckpt_dir, peer_url=ckpt_peer)
+            checkpointer = AsyncCheckpointer(
+                ckpt_dir, peer_url=ckpt_peer, process_index=rank,
+                nprocs=nprocs, barrier=barrier)
         last_saved_step: Optional[int] = None
 
         def save(step: int) -> None:
             if checkpointer is not None:
                 checkpointer.save(train_state_tree(state), step)
             else:
-                save_checkpoint(ckpt_dir, train_state_tree(state), step)
+                save_checkpoint(ckpt_dir, train_state_tree(state), step,
+                                process_index=rank, nprocs=nprocs,
+                                barrier=barrier)
 
         t_sync = time.perf_counter()
         self._sync()
         start = int(state["step"])
         pre_loop_sync_s = time.perf_counter() - t_sync
         tokens_per_step = self.cfg.global_batch * self.cfg.seq_len
+        comm_before = dict(pm.seconds)
         log_every = self.cfg.log_every
         loss_log: List[Tuple[int, float]] = []
         steps_run = 0
@@ -505,24 +768,36 @@ class Trainer:
             "first_loss": first_loss,
             "final_loss": last_loss,
             "tokens_per_sec": tps,
-            "tokens_per_sec_per_chip": tps,
+            "tokens_per_sec_per_chip": tps / nprocs,
             "step_time_ms": total / steady * 1e3 if steady > 0 else 0.0,
-            "mfu": self._mfu(tps, 1),
+            "mfu": self._mfu(tps, nprocs),
             "hbm_floor_ms": self.hbm_floor_ms(),
             "attn_impl": self.attn_impl,
             "model_family": self.family.name,
             "n_params": self.family.num_params,
-            "shard_update": False,
-            "overlap_comm": False,
+            "shard_update": bool(self.update_axes),
+            "overlap_comm": bool(self.update_axes) and self.cfg.overlap_comm,
             "long_context_policy": self.long_context_policy_applied,
-            "grad_buckets": None,
+            "grad_buckets": self.grad_bucket_plan.n_buckets,
             "opt_state_bytes_per_device": state_bytes_per_device(state),
+            "world": nprocs,
+            "dist_backend": pm.backend or None,
+            # host ms a step in each collective, staging included (gloo);
+            # None where not timed (one process, or NCCL)
+            "collective_ms": {
+                k: (v - comm_before.get(k, 0.0)) / steps_run * 1e3
+                for k, v in pm.seconds.items()
+            } if pm.backend == "gloo" and steps_run
+            else None,
             "log_every": log_every,
             "loss_log": loss_log,
             "device": str(self.device),
             "device_kind": self._device_kind(),
             "flash_trace_count": None,
             "flash_launches": dict(fa.LAUNCHES),
+            "adamw_launches": dict(adamw_launches),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(self.device)
+            if self.device.type == "cuda" else None,
         }
         summary["sanity_violations"] = self.sanity_check(summary)
         if ckpt_dir and steps_run:

@@ -146,6 +146,27 @@ def test_fit_matches_reference_step_by_step():
         assert not tp[k].requires_grad
 
 
+def test_fit_leaves_the_callers_params_as_they_were():
+    """``fit(params=p)`` trains a copy: ``p`` is equal before and after,
+    the returned tree is another, and the losses are those of a run from
+    its own copy of the same start."""
+    cfg = tc.ConvNetConfig(width=8, hidden=32)
+    p = tc.convnet_init(torch.Generator().manual_seed(0), cfg, "cpu")
+    before = {k: v.clone() for k, v in p.items()}
+
+    def run(params):
+        data = tc.SyntheticDigits(cfg, 16, device="cpu")
+        return tc.fit(cfg, data, steps=3, params=params)
+
+    out, summary = run(p)
+    assert out is not p
+    for k, v in p.items():
+        assert torch.equal(v, before[k]), k
+        assert not torch.equal(out[k], v), k
+    _, again = run({k: v.clone() for k, v in before.items()})
+    assert summary == again
+
+
 def test_synthetic_digits_is_the_reference_task():
     cfg = tc.ConvNetConfig(width=8, hidden=32)
     a = tc.SyntheticDigits(cfg, batch=16, seed=0, device="cpu")

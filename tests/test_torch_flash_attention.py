@@ -379,11 +379,16 @@ def test_tensor_core_route_matches_source_table():
 
 
 def test_make_flash_attention_single_device_only():
+    """One device, or a replica / data mesh (each rank attends over its
+    own rows): the direct operator. An axis that shards heads or the
+    sequence raises."""
     fn = tfa.make_flash_attention(None)
     assert fn.fused_rope is True
     assert tfa.make_flash_attention({"data": 1}).fused_rope is True
-    with pytest.raises(ValueError, match="multi-chip"):
-        tfa.make_flash_attention({"data": 2})
+    assert tfa.make_flash_attention({"replica": 2, "data": 2}).fused_rope
+    for axis in ("fsdp", "tensor", "sp"):
+        with pytest.raises(ValueError, match="multi-chip"):
+            tfa.make_flash_attention({"data": 2, axis: 2})
 
 
 def test_kernel_wrapper_rejects_uninstantiated_head_dim():

@@ -13,12 +13,16 @@ reference on the CPU.
   and the port's (flash route on the CPU: the operators' plain versions)
   from the same parameters on the same ``SyntheticTokens`` batches; the
   six losses and grad norms agree within 1e-4 relative.
-- The entry point, and every knob this slice rejects.
+- The entry point, every knob this slice rejects, and what it runs:
+  multi-process jobs (two gloo ranks, ``tests/torch_dist_worker.py``)
+  and elastic resize.
 """
 
 import dataclasses
 import itertools
 import json
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -28,6 +32,9 @@ torch = pytest.importorskip("torch")
 from kubedl_tpu_torch.models import llama as tl  # noqa: E402
 from kubedl_tpu_torch.training import trainer as tt  # noqa: E402
 from kubedl_tpu_torch.training.data import SyntheticTokens  # noqa: E402
+
+sys.path.insert(0, os.path.dirname(__file__))
+import torch_dist_worker as w  # noqa: E402
 
 
 # ---- optimizer ------------------------------------------------------------------
@@ -403,7 +410,18 @@ def test_fit_log_every_and_summary_keys():
 @pytest.mark.parametrize("kw", [
     {"mesh": {"data": 2}}, {"mesh": {"sp": 2}}, {"mesh": {"pipe": 2}},
 ], ids=["data2", "sp2", "pipe2"])
-def test_trainer_rejects_later_slices(kw):
+def test_trainer_rejects_later_slices(kw, tmp_path):
+    """Model-sharding axes (sp, pipe) raise naming their slice. A data
+    axis is this slice's: two gloo ranks train on it, in step, with the
+    optimizer state sharded."""
+    if kw["mesh"] == {"data": 2}:
+        ranks = w.run_ranks({"train": {"model": "tiny", "global_batch": 2,
+                                       "seq_len": 16, "steps": 2},
+                             "mesh": kw["mesh"], "out": str(tmp_path / "r")})
+        assert ranks[0]["steps"] == ranks[1]["steps"]
+        assert all(np.isfinite(ranks[0]["steps"]).flat)
+        assert ranks[0]["shard_update"] and ranks[0]["world"] == 2
+        return
     cfg = tt.TrainConfig(**kw.get("cfg", {}))
     with pytest.raises(ValueError, match="slice"):
         tt.Trainer(cfg, mesh=kw.get("mesh"), device="cpu")
@@ -471,23 +489,62 @@ def test_train_main_prints_worker_summary(capsys, clean_env):
     assert s["steps"] == 3 and entry.LAST_SUMMARY["steps"] == 3
 
 
-@pytest.mark.parametrize("env,opts", [
-    ({"KUBEDL_NUM_PROCESSES": "2"}, {}),
-    ({"KUBEDL_MESH_AXES": "data=2"}, {}),
-    ({"KUBEDL_PS_ADDR": "localhost:1"}, {}),
-    ({"KUBEDL_ELASTIC_BASE_WORLD": "4"}, {}),
-    ({"KUBEDL_ELASTIC_BASE_DP": "2"}, {}),
-    ({}, {"train_mode": "ps"}),
-    ({}, {"chaos": {"trainer.step_stall": [{"nth": 1}]}}),
-], ids=lambda x: ",".join(f"{k}" for k in x) or "-")
-def test_train_main_rejects_what_this_slice_does_not_run(env, opts,
-                                                       clean_env):
+#: (env, config, runs): what train_main rejects naming its slice, and what
+#: this slice runs (2 processes for a data=2 job; elastic resize at world 1)
+ENTRY_CASES = {
+    "KUBEDL_NUM_PROCESSES--": ({"KUBEDL_NUM_PROCESSES": "2"}, {}, True),
+    "KUBEDL_MESH_AXES--": ({"KUBEDL_NUM_PROCESSES": "2",
+                            "KUBEDL_MESH_AXES": "data=2"}, {}, True),
+    "KUBEDL_PS_ADDR--": ({"KUBEDL_PS_ADDR": "localhost:1"}, {}, False),
+    "KUBEDL_ELASTIC_BASE_WORLD--": ({"KUBEDL_ELASTIC_BASE_WORLD": "4"}, {},
+                                    True),
+    "KUBEDL_ELASTIC_BASE_DP--": ({"KUBEDL_ELASTIC_BASE_DP": "2"}, {}, True),
+    "--train_mode": ({}, {"train_mode": "ps"}, False),
+    "--chaos": ({}, {"chaos": {"trainer.step_stall": [{"nth": 1}]}}, False),
+    "fsdp2": ({"KUBEDL_MESH_AXES": "data=2,fsdp=2"}, {}, False),
+    "tensor2": ({"KUBEDL_MESH_AXES": "tensor=2"}, {}, False),
+    "expert2": ({"KUBEDL_MESH_AXES": "expert=2"}, {}, False),
+    "sp2": ({"KUBEDL_MESH_AXES": "sp=2"}, {}, False),
+}
+
+
+@pytest.mark.parametrize("env,opts,runs", list(ENTRY_CASES.values()),
+                         ids=list(ENTRY_CASES))
+def test_train_main_rejects_what_this_slice_does_not_run(env, opts, runs,
+                                                       clean_env, capsys):
+    """The parameter service, a chaos plan and model-sharding mesh axes
+    raise naming their slice. Multi-process jobs and elastic resize are
+    this slice's: they train."""
+    import sys
+
     from kubedl_tpu_torch.training import entry
 
     cfg = dict({"model": "tiny", "steps": 1, "seq_len": 16, "device": "cpu"},
                **opts)
-    with pytest.raises(ValueError, match="slice"):
-        entry.train_main(dict(env, KUBEDL_TRAIN_CONFIG=json.dumps(cfg)))
+    if not runs:
+        with pytest.raises(ValueError, match="slice"):
+            entry.train_main(dict(env, KUBEDL_TRAIN_CONFIG=json.dumps(cfg)))
+        return
+    world = int(env.get("KUBEDL_NUM_PROCESSES", "1"))
+    if world > 1:
+        outs = w.join_ranks(w.start_ranks(
+            [sys.executable, "-m", "kubedl_tpu_torch.training.entry"], world,
+            KUBEDL_TRAIN_CONFIG=json.dumps(cfg),
+            **{k: v for k, v in env.items() if k != "KUBEDL_NUM_PROCESSES"}))
+    else:
+        assert entry.train_main(dict(env, KUBEDL_TRAIN_CONFIG=json.dumps(cfg))) == 0
+        outs = [capsys.readouterr().out]
+    lines = [json.loads(ln) for o in outs for ln in o.splitlines()
+             if ln.startswith("{")]
+    summaries = [x["worker_summary"] for x in lines if "worker_summary" in x]
+    assert len(summaries) == world
+    assert all(s["world"] == world and s["steps"] == 1 for s in summaries)
+    elastic = [x for x in lines if "elastic_grad_accum" in x]
+    # the reference's rule: base world 4 at world 1 quadruples the
+    # accumulation; a base DP degree without a mesh changes nothing
+    want = [{"elastic_grad_accum": 4, "world": 1, "base_world": 4}] \
+        if "KUBEDL_ELASTIC_BASE_WORLD" in env else []
+    assert elastic == want
 
 
 def test_train_main_moe_names_as_the_reference(capsys, clean_env):

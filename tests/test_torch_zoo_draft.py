@@ -286,6 +286,26 @@ def _leaves(tree):
     return tree_leaves(tree)
 
 
+def test_distill_draft_leaves_the_target_as_it_was(tiny):
+    """An early-exit draft is built from the target's own tensors (views
+    of its stacked layers); distilling it must leave every leaf of the
+    target equal, as the reference's does, with the losses unchanged."""
+    from kubedl_tpu.serving import speculative as jsp
+
+    _jl, jcfg, jp, tcfg, tp = tiny
+    prompts = [list(range(1, 9)), list(range(3, 11))]
+    before = [a.clone() for a in _leaves(tp)]
+    td = tsp.ModelDraft.from_target(tp, tcfg, 1)
+    got = tsp.distill_draft(td, tp, tcfg, prompts, gen_len=4, steps=2,
+                            lr=1e-2)
+    for a, b in zip(_leaves(tp), before):
+        assert torch.equal(a, b)
+    jd = jsp.ModelDraft.from_target(jp, jcfg, 1)
+    want = jsp.distill_draft(jd, jp, jcfg, prompts, gen_len=4, steps=2,
+                             lr=1e-2)
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+
+
 # ---- the engine ---------------------------------------------------------------
 
 MAX_TOKENS = 12
