@@ -4,7 +4,7 @@
     python3 chip_smoke.py --skip-engine  # without phases 5, 6, 13-19, 22,
                                          # 26, 27
     python3 chip_smoke.py --skip-train   # without phases 8 to 12, 21,
-                                         # 23-25, 28, 29
+                                         # 23-25, 28-30
 
 Phases (any failure exits non-zero before the final line):
 
@@ -63,7 +63,9 @@ Phases (any failure exits non-zero before the final line):
    random weights have near-ties); then Llama-3-8B width cut to 2 layers
    in float32, where the blocked and gather engines' greedy streams must
    be identical (gated: f32 leaves no near-ties at these logit gaps).
-6. profile: the blocked Llama-3-8B engine again, 32 new tokens per
+6. profile: the blocked Llama-3-8B engine again, at full width cut to 8
+   layers (the profiler's post-processing, ~470k events at 32 layers,
+   took most of the phase), 32 new tokens per
    request, under torch.profiler (device activity only): device time
    and kernel count by category (paged attention by entry point and the
    split-K merge, matmul, other) and the device's busy share of the wall
@@ -279,7 +281,8 @@ Phases (any failure exits non-zero before the final line):
    to the plain version, two calls identical, no norm launch; the bf16
    update's device ms beside its bound.
 21. the training job's lifecycle: ``train_main`` on Llama-3.2-1B (full
-   width and depth, b4 x s2048) with a seeded token file, a save every 2
+   width, cut to 4 layers, b4 x s2048) with a seeded token file, a save
+   every 2
    steps (async), ``KUBEDL_FAULT_ONCE_AT_STEP`` 3 and
    ``KUBEDL_MODEL_PATH``: the first run exits 137 leaving a complete
    step-2 checkpoint, the second resumes at step 2, runs to step 6 and
@@ -329,8 +332,9 @@ Phases (any failure exits non-zero before the final line):
    sharded update (the norm's partial sums summed over the ranks) bit
    for bit against its plain version where it does not clip. 29b,
    ``train_main`` twice as subprocesses with the job's env
-   (``KUBEDL_NUM_PROCESSES=2``, ``KUBEDL_MESH_AXES=data=2``): Llama-3.2-1B
-   bf16 at full width and depth, b4 x s2048 (2 rows a
+   (``KUBEDL_NUM_PROCESSES=2``, ``KUBEDL_MESH_AXES=data=2``; each rank
+   ``--entry-rank``, which registers the cut preset first): Llama-3.2-1B
+   bf16 at full width, cut to 4 layers, b4 x s2048 (2 rows a
    rank), 4 steps, the sharded update, async saves every 2 steps
    (``shards-p0/p1.npz``, one ``latest``); then the world-1 restore of
    step 4 against the saved entries bit for bit, and one ``train_main``
@@ -339,10 +343,28 @@ Phases (any failure exits non-zero before the final line):
    timeout. Prints each rank's step ms, collective ms a step by
    collective, optimizer bytes against one rank's, peak GiB, the
    backend, the flash and optimizer launches, and the phase's seconds.
+30. the Llama model sharded across processes (the ranks share this card
+   over gloo, as in phase 29; three 2-rank jobs side by side): 30a, the
+   float32 identity: Llama-3.2-1B's width at 2 layers, b4 x s1024, 3
+   steps, as 2 rank processes (``--mp-identity-rank``) on ``fsdp=2``,
+   ``tensor=2`` (flash on each rank's rows or heads), ``sp=2`` ring and
+   ``sp=2`` Ulysses (two jobs, two meshes each); rank 0 trains a
+   one-rank trainer on the same global batches and holds the params,
+   assembled from both ranks' shards, against it. Gates: each step's
+   loss and grad norm within 1e-5 relative, params within 2e-5, the
+   ranks in step, the flash launches (2 a step of #1 and #2 a rank on
+   the fsdp / tensor meshes, none on sp). 30b, ``train_main`` twice with
+   ``KUBEDL_MESH_AXES=fsdp=2``: Llama-3-8B bf16 at full width, cut to 2
+   layers, b2 x s2048 (1 row a rank), 2 steps, a final save; gates: the
+   flash tensor-core route at hd 128 (2 + 2 launches a step, no split
+   pair), each rank's optimizer bytes half of one rank's within 1 %,
+   two shard files, and the save restored at world 1 in this process
+   against every saved entry, bit for bit. Prints collective ms a step
+   by kind, peak GiB, launches and the phase's seconds.
 
 Phase 16 runs after phase 4; phase 22, then phases 13-15, 26, 27 and
 17-19 after phase 6 (they are skipped with ``--skip-engine``); phase 20
-after phase 7, then phases 23, 24, 25 and 28, and phases 21 and 29
+after phase 7, then phases 23, 24, 25 and 28, and phases 21, 29 and 30
 after phase 12 (skipped with ``--skip-train``).
 
 Output: the kernels' JSON line, then as the last line
@@ -860,6 +882,14 @@ FLASH_CASES = [
     # 1) at hd 64 over the 128-token rollouts
     ("zoo llama-1b draft", 8, 32, 32, 128, 64, torch.bfloat16, True, True,
      False),
+    # phase 30's paths: a tensor=2 rank's heads (H 16, KV 4): 30a's
+    # float32 llama3-1b width at hd 64, and llama3-8b's width at hd 128
+    ("tensor=2 llama3-1b heads f32", 4, 16, 4, 1024, 64, torch.float32,
+     True, True, False),
+    ("tensor=2 llama3-1b heads", 2, 16, 4, 2048, 64, torch.bfloat16, True,
+     True, False),
+    ("tensor=2 llama3-8b heads", 1, 16, 4, 2048, 128, torch.bfloat16, True,
+     True, False),
 ]
 #: Tolerances against the plain versions on the same inputs (N(0,1)):
 #: out: bf16 2e-2 max abs (both sides sum in float32 and round once to
@@ -2335,10 +2365,13 @@ def run_adam_configs(adamw_mod, llama_mod):
 
 # ---- phase 21: the training job's lifecycle -----------------------------------
 
-#: the job: Llama-3.2-1B at full width and depth, b4 x s2048, a seeded
-#: token file, a save every 2 steps (async), a fault after step index 3
-#: (before the step-4 save), published to KUBEDL_MODEL_PATH
-LIFECYCLE_CONFIG = {"model": "llama3-1b", "global_batch": 4, "seq_len": 2048,
+#: the job: Llama-3.2-1B at full width, cut to 4 layers (its saves,
+#: restores and publish scale with the parameters: 4.07 of the 9.89 GB
+#: of state at 16 layers), b4 x s2048, a seeded token file, a save every
+#: 2 steps (async), a fault after step index 3 (before the step-4 save),
+#: published to KUBEDL_MODEL_PATH
+LIFECYCLE_CONFIG = {"model": "llama3-1b-4l", "global_batch": 4,
+                    "seq_len": 2048,
                     "steps": 6, "ckpt_every": 2, "ckpt_async": True,
                     "token_bytes": 4, "log_every": 1}
 LIFECYCLE_TOKENS = 1 << 22
@@ -2447,7 +2480,7 @@ def run_lifecycle(fa, adamw_mod, pa, ck, llama_mod, server_mod):
     from kubedl_tpu_torch.watchdog.beacon import read_beacon
 
     _clear_job_env(entry)
-    cfg = llama_mod.preset(LIFECYCLE_CONFIG["model"])
+    cfg = register_cut(llama_mod, LIFECYCLE_CONFIG["model"])
     root = tempfile.mkdtemp(prefix="kdl-lifecycle-")
     env = lifecycle_job(root, LIFECYCLE_CONFIG, cfg.vocab_size, seed=21)
     out = env["KUBEDL_MODEL_PATH"]
@@ -2549,7 +2582,8 @@ def run_lifecycle(fa, adamw_mod, pa, ck, llama_mod, server_mod):
         _clear_job_env(entry)
         shutil.rmtree(root, ignore_errors=True)
         _free()
-    print("job lifecycle llama3-1b (smoke run, not a benchmark): "
+    print("job lifecycle llama3-1b width x 4 layers (smoke run, not a "
+          "benchmark): "
           + json.dumps(report), flush=True)
     return report
 
@@ -2869,11 +2903,17 @@ def _kernel_category(name: str) -> str:
 
 def run_profile(server_mod, reqs, serve_cfg):
     """Where the device time goes on the main path: device time of every
-    kernel in a profiled engine run, by category, and the busy share.
-    Device activity only: the kernel times are all it reads."""
+    kernel in a profiled engine run, by category, and the busy share, at
+    PROFILE_PRESET (Llama-3-8B's width, 8 of its 32 layers: the same
+    kernels a layer, a quarter of the events to post-process). Device
+    activity only: the kernel times are all it reads."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from kubedl_tpu_torch.models import llama
+
+    register_cut(llama, PROFILE_PRESET)
+    serve_cfg = dict(serve_cfg, preset=PROFILE_PRESET)
     short = [dict(r, max_tokens=32) for r in reqs]
     prof = profile(activities=[ProfilerActivity.CUDA])
     span = {}
@@ -2903,7 +2943,8 @@ def run_profile(server_mod, reqs, serve_cfg):
         top.append((us / 1e3, e.count, e.key[:90]))
     dev_ms = sum(cats.values())
     top.sort(reverse=True)
-    print("profile (8 concurrent requests x 32 tokens): " + json.dumps({
+    print("profile (8 concurrent requests x 32 tokens, llama3-8b width x 8 "
+          "layers): " + json.dumps({
         "wall_ms": wall_ms, "device_ms": dev_ms,
         "busy_share": dev_ms / wall_ms if wall_ms else None,
         "by_category_ms": cats,
@@ -4617,23 +4658,54 @@ DP_F32_CASES = {
 #: layers (5.1e-6 at 1 layer), 4.3e-6 after 4, on an H100
 DP_RTOL = 1e-5
 DP_PARAM_TOL = 2e-5
-#: 29b: Llama-3.2-1B bf16 at full width and depth through train_main as
-#: 2 processes (data=2: 2 rows a rank), the sharded update, async saves
-DP_JOB = {"model": "llama3-1b", "global_batch": 4, "seq_len": 2048,
+#: 29b: Llama-3.2-1B bf16 at full width, cut to 4 layers (its gloo
+#: reductions, saves and restore scale with the parameters: 1.236 B at 16
+#: layers, 0.508 B at 4), through train_main as 2 processes (data=2: 2
+#: rows a rank), the sharded update, async saves
+DP_JOB = {"model": "llama3-1b-4l", "global_batch": 4, "seq_len": 2048,
           "steps": 4, "shard_update": True, "ckpt_every": 2,
           "ckpt_async": True}
+#: presets cut in depth (phases 6, 21, 29b, 30b): name -> (published
+#: preset, layers); a process registers one before it names it (a
+#: ``--entry-rank NAME`` rank before it calls train_main)
+CUT_PRESETS = {"llama3-1b-4l": ("llama3-1b", 4),
+               "llama3-8b-2l": ("llama3-8b", 2),
+               "llama3-8b-8l": ("llama3-8b", 8)}
+#: phase 6's model
+PROFILE_PRESET = "llama3-8b-8l"
 #: seconds a rank (or the resumed process) may run before the phase fails
 DP_RANK_TIMEOUT = 420
 
 
+def register_cut(llama_mod, name):
+    """Register ``CUT_PRESETS[name]`` as a preset of this process."""
+    base, layers = CUT_PRESETS[name]
+    llama_mod.PRESETS[name] = dataclasses.replace(llama_mod.preset(base),
+                                                  n_layers=layers)
+    return llama_mod.PRESETS[name]
+
+
+def entry_rank(name):
+    """One rank of a ``train_main`` job (``--entry-rank NAME``, in the
+    job's env) on the cut preset ``name``."""
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.training import entry
+
+    register_cut(llama, name)
+    return entry.train_main()
+
+
 def run_ranks(jobs, world, **extra):
-    """Each argv of ``jobs`` as ``world`` processes of a job of its own,
-    the jobs side by side, each process with its own timeout; fails the
+    """Each job of ``jobs`` (an argv, or an ``(argv, env)`` pair whose env
+    adds to ``extra``) as ``world`` processes of a job of its own, the
+    jobs side by side, each process with its own timeout; fails the
     phase if one exits non-zero or times out (all are killed then).
     Returns, a job, each process's standard output."""
     from kubedl_tpu_torch.parallel.launch import join_ranks, start_ranks
 
-    started = [start_ranks(argv, world, **extra) for argv in jobs]
+    started = [start_ranks(job[0], world, **{**extra, **job[1]})
+               if isinstance(job, tuple) else start_ranks(job, world, **extra)
+               for job in jobs]
     try:
         return [join_ranks(procs, DP_RANK_TIMEOUT) for procs in started]
     except RuntimeError as e:
@@ -4730,12 +4802,11 @@ def _sharded_update_check(tr, state, adamw):
     """The optimizer kernels on this rank's shards against the plain
     version on copies of the same tensors, the norm's partial sums summed
     over the data axis by both: p, mu and nu bit for bit."""
-    from kubedl_tpu_torch.training.trainer import _local, tree_leaves
+    from kubedl_tpu_torch.training.trainer import tree_leaves
 
     g = torch.Generator(device="cuda").manual_seed(7 + tr.mesh.rank)
-    specs = tr.shard_specs
-    p = [_local(x, s).contiguous() for x, s in
-         zip(tree_leaves(state["params"]), specs)]
+    p = [tr._upd(x, i).contiguous() for i, x in
+         enumerate(tree_leaves(state["params"]))]
     # 1e-5 a gradient entry: a norm of ~0.2 over 323 M entries, no clip
     grads = [torch.randn(x.shape, generator=g, device="cuda") * 1e-5
              for x in p]
@@ -4818,16 +4889,17 @@ def _opt_bytes_one_rank(llama_mod, model):
     return 8 + n * 4 + n * torch.empty((), dtype=model.dtype).element_size()
 
 
-def _equal_to_saved(ck, restored, d):
+def _equal_to_saved(ck, restored, d, label="29b"):
     """Every entry of every rank's shard file in step dir ``d`` against
-    the restored tree (on the card), byte for byte; the number of
-    entries."""
+    the restored tree (on the card), byte for byte (a shard entry against
+    its region, in every dimension); the number of entries."""
     got = dict(ck._leaf_items(restored))
     n = 0
     for name in sorted(os.listdir(d)):
         if not name.startswith("shards-p"):
             continue
-        with np.load(os.path.join(d, name)) as f:
+        f = ck.MappedNpz(os.path.join(d, name))  # the restore's reader
+        try:
             for key in f.files:
                 arr = f[key]
                 path, _, where = key.partition("@")
@@ -4836,12 +4908,15 @@ def _equal_to_saved(ck, restored, d):
                     offs = [int(x) for x in where.split("+")[0].split(",")]
                     t = t[tuple(slice(o, o + k)
                                 for o, k in zip(offs, arr.shape))]
-                saved = torch.from_numpy(np.ascontiguousarray(arr).reshape(-1)
+                saved = torch.from_numpy(np.array(arr).reshape(-1)
                                          .view(np.uint8)).to(t.device)
                 if not torch.equal(t.contiguous().reshape(-1)
                                    .view(torch.uint8), saved):
-                    fail(f"29b: restored {key} differs from the saved entry")
+                    fail(f"{label}: restored {key} differs from the saved "
+                         f"entry")
                 n += 1
+        finally:
+            f.close()
     return n
 
 
@@ -4859,14 +4934,15 @@ def run_dp_job(fa, adamw_mod, ck, llama_mod):
     restore returns; elastic_grad_accum 2, resumed from step 4, 2 steps at
     grad_accum 2."""
     t0 = time.perf_counter()
-    model = llama_mod.preset(DP_JOB["model"])
+    model = register_cut(llama_mod, DP_JOB["model"])
     layers, steps = model.n_layers, DP_JOB["steps"]
     root = tempfile.mkdtemp(prefix="kubedl-dp-")
     ckpt = os.path.join(root, "checkpoints")
     try:
         _free()
         outs, = run_ranks(
-            [[sys.executable, "-m", "kubedl_tpu_torch.training.entry"]], 2,
+            [[sys.executable, os.path.abspath(__file__), "--entry-rank",
+              DP_JOB["model"]]], 2,
             KUBEDL_MESH_AXES="data=2", KUBEDL_CKPT_DIR=ckpt,
             KUBEDL_TRAIN_CONFIG=json.dumps(DP_JOB))
         t_ranks = time.perf_counter() - t0
@@ -4982,7 +5058,8 @@ def run_dp_job(fa, adamw_mod, ck, llama_mod):
         if not b < 0.6 * one:
             fail(f"29b rank {r}: optimizer state {b} bytes against one "
                  f"rank's {one}")
-    print("phase 29b (train_main x 2 ranks, llama3-1b bf16, data=2): "
+    print("phase 29b (train_main x 2 ranks, llama3-1b width x 4 layers bf16, "
+          "data=2): "
           + json.dumps(rec), flush=True)
     return {"flash": sums[0]["flash_launches"],
             "adamw": sums[0]["adamw_launches"]}
@@ -4997,6 +5074,283 @@ def run_dp_phase(fa, adamw_mod, ck, llama_mod):
     return launches
 
 
+# ---- phase 30: the model sharded across processes ----------------------------------
+
+#: 30a: Llama-3.2-1B's width at 2 layers, float32, b4 x s1024, 3 steps,
+#: the model split over 2 processes on this card by each mesh below,
+#: against a one-rank trainer on the same global batches (rank 0's)
+MP_F32 = {"layers": 2, "global_batch": 4, "seq_len": 1024, "steps": 3}
+#: name -> (mesh, TrainConfig fields)
+MP_F32_CASES = {
+    "fsdp2": ({"fsdp": 2}, {}),
+    "tensor2": ({"tensor": 2}, {}),
+    "sp2-ring": ({"sp": 2}, {"context_parallel_impl": "ring"}),
+    "sp2-ulysses": ({"sp": 2}, {"context_parallel_impl": "ulysses"}),
+}
+#: the 2-rank jobs 30a runs side by side, each with its cases in turn
+MP_F32_JOBS = (("fsdp2", "tensor2"), ("sp2-ring", "sp2-ulysses"))
+#: 30a's gates are 29a's: each step's loss and grad norm within 1e-5
+#: relative of the one-rank trainer's, the params within 2e-5 after 3
+#: steps (updates at lr 0, 3e-5 and 6e-5)
+MP_RTOL = DP_RTOL
+MP_PARAM_TOL = DP_PARAM_TOL
+#: 30b: Llama-3-8B at full width, cut to 2 layers, bf16, through
+#: train_main as 2 processes at fsdp=2 (1 row of 2048 tokens a rank), 2
+#: steps, the final save's shards
+MP_JOB = {"model": "llama3-8b-2l", "global_batch": 2, "seq_len": 2048,
+          "steps": 2, "ckpt_every": 2, "ckpt_async": True}
+
+
+def mp_identity_rank(names):
+    """One rank of phase 30a (``--mp-identity-rank NAMES``, in the job's
+    env): each case of ``names`` on its mesh of the two processes; rank 0
+    also trains a one-rank trainer on the same global batches (once) and
+    holds the params, assembled from both ranks' shards, against it.
+    Prints one JSON line."""
+    import torch.distributed as dist
+
+    from kubedl_tpu_torch.api.topology import MeshSpec
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.ops import flash_attention as fa
+    from kubedl_tpu_torch.parallel.mesh import build_mesh, initialize_from_env
+    from kubedl_tpu_torch.training.data import SyntheticTokens
+    from kubedl_tpu_torch.training.trainer import (
+        TrainConfig, Trainer, state_bytes_per_device, tree_leaves,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_from_env(timeout_s=DP_RANK_TIMEOUT / 2)
+    model = dataclasses.replace(llama.preset("llama3-1b"),
+                                n_layers=MP_F32["layers"], dtype=torch.float32)
+    kw = {k: v for k, v in MP_F32.items() if k != "layers"}
+    data = SyntheticTokens(kw["global_batch"], kw["seq_len"],
+                           model.vocab_size, seed=30)
+    batches = [next(data) for _ in range(kw["steps"])]
+    rank = dist.get_rank()
+    out = {"rank": rank, "cases": {}}
+    want, ref_params = None, None
+    if rank == 0:
+        one = Trainer(TrainConfig(model=model, **kw), None,
+                      device=torch.device("cuda", 0))
+        ref = one.init_state()
+        want = []
+        for b in batches:
+            ref, m = one.train_step(ref, b)
+            want.append([float(m["loss"]), float(m["grad_norm"])])
+        ref_params = ref["params"]
+        del one, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in names:
+        axes, over = MP_F32_CASES[name]
+        mesh = build_mesh(MeshSpec(axes), "cuda")
+        tr = Trainer(TrainConfig(model=model, **kw, **over), mesh)
+        _reset(fa)
+        sec0, calls0 = dict(mesh.seconds), dict(mesh.calls)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = tr.init_state()
+        got = []
+        for b in batches:
+            state, m = tr.train_step(state, b)
+            got.append([float(m["loss"]), float(m["grad_norm"])])
+        seconds = time.perf_counter() - t0
+        steps = len(batches)
+        rec = {"steps": got, "seconds": seconds, "backend": mesh.backend,
+               "attn_impl": tr.attn_impl, "mesh": dict(mesh.shape),
+               "flash_launches": dict(fa.LAUNCHES),
+               "collective_ms_per_step": {
+                   k: (v - sec0.get(k, 0.0)) / steps * 1e3
+                   for k, v in mesh.seconds.items()},
+               "collectives_per_step": {
+                   k: (v - calls0.get(k, 0)) / steps
+                   for k, v in mesh.calls.items()},
+               "opt_state_bytes_per_device": state_bytes_per_device(state),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        whole = tr.shard.assemble(state["params"])
+        if rank == 0:
+            rec["one_rank"] = want
+            rec["param_max_abs_diff"] = max(
+                (a - b).abs().max().item() for a, b in zip(
+                    tree_leaves(whole), tree_leaves(ref_params)))
+        out["cases"][name] = rec
+        del tr, state, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"mp_identity": out}), flush=True)
+    dist.destroy_process_group()
+
+
+def mp_identity_jobs():
+    """30a's jobs: ``mp_identity_rank`` as 2 processes, one job a group
+    of MP_F32_JOBS."""
+    return [[sys.executable, os.path.abspath(__file__), "--mp-identity-rank",
+             ",".join(names)] for names in MP_F32_JOBS]
+
+
+def check_mp_identity(jobs, seconds):
+    """Phase 30a's gates on its jobs' outputs: the backend, the route, each
+    step's loss and grad norm against the one-rank trainer's, the ranks
+    in step, the params, the flash launches."""
+    ranks = [{} for _ in range(2)]
+    for outs in jobs:
+        for r, out in enumerate(outs):
+            ranks[r].update(_json_lines(out, "mp_identity")[0]["cases"])
+    want_route = {"fsdp2": "flash", "tensor2": "flash",
+                  "sp2-ring": "context-ring",
+                  "sp2-ulysses": "context-ulysses"}
+    layers, steps = MP_F32["layers"], MP_F32["steps"]
+    for name in MP_F32_CASES:
+        a, b = ranks[0][name], ranks[1][name]
+        if a["backend"] != "gloo" or a["attn_impl"] != want_route[name]:
+            fail(f"30a {name}: backend {a['backend']}, attn_impl "
+                 f"{a['attn_impl']}")
+        if a["steps"] != b["steps"]:
+            fail(f"30a {name}: the ranks disagree: {a['steps']} {b['steps']}")
+        for (l, n), (wl, wn) in zip(a["steps"], a["one_rank"]):
+            if abs(l - wl) > MP_RTOL * abs(wl) or \
+                    abs(n - wn) > MP_RTOL * abs(wn):
+                fail(f"30a {name}: {a['steps']} against one rank's "
+                     f"{a['one_rank']}")
+        if not a["param_max_abs_diff"] <= MP_PARAM_TOL:
+            fail(f"30a {name}: params {a['param_max_abs_diff']} apart")
+        flash = layers * steps if want_route[name] == "flash" else 0
+        want_fa = {"flash_fwd": flash, "flash_bwd_fused": flash,
+                   "flash_bwd_dq": 0, "flash_bwd_dkdv": 0}
+        for r in (a, b):
+            if r["flash_launches"] != want_fa:
+                fail(f"30a {name}: flash launches {r['flash_launches']} != "
+                     f"{want_fa}")
+    rec = {name: {k: ranks[0][name][k] for k in
+                  ("steps", "one_rank", "param_max_abs_diff", "seconds",
+                   "attn_impl", "flash_launches", "collective_ms_per_step",
+                   "collectives_per_step", "opt_state_bytes_per_device",
+                   "peak_gib")}
+           for name in MP_F32_CASES}
+    rec["jobs_seconds"] = seconds
+    print("phase 30a (2 ranks vs 1, f32, llama3-1b width x 2 layers, "
+          "b4 x s1024): " + json.dumps(rec), flush=True)
+    return {name: ranks[0][name]["flash_launches"] for name in MP_F32_CASES}
+
+
+def _world1_like(ck, llama_mod, model):
+    """A world-1 train state of ``model`` as ``meta`` tensors (float32
+    mu, nu in the params' type): what a restore at world 1 fills."""
+    from kubedl_tpu_torch.training.trainer import tree_leaves
+
+    params = llama_mod.param_like(model)
+    leaves = tree_leaves(params)
+    return ck.train_state_like({
+        "params": params, "step": 0,
+        "opt_state": {"count": 0,
+                      "mu": [torch.empty_like(t, dtype=torch.float32)
+                             for t in leaves],
+                      "nu": [torch.empty_like(t) for t in leaves]}})
+
+
+def mp_job(ckpt):
+    """30b's job: ``train_main`` on MP_JOB at fsdp=2, saving to
+    ``ckpt``."""
+    return ([sys.executable, os.path.abspath(__file__), "--entry-rank",
+             MP_JOB["model"]],
+            {"KUBEDL_MESH_AXES": "fsdp=2", "KUBEDL_CKPT_DIR": ckpt,
+             "KUBEDL_TRAIN_CONFIG": json.dumps(MP_JOB)})
+
+
+def check_mp_job(ck, llama_mod, model, outs, ckpt, seconds):
+    """Phase 30b's gates on its ranks' outputs (finite losses, equal on
+    both ranks; gloo; the fsdp mesh; flash on the tensor cores at hd 128,
+    2 flash_fwd and 2 flash_bwd_fused launches a step and no split pair;
+    each rank's optimizer bytes half of one rank's within 1 %; the shard
+    files), then the final save restored at world 1 in this process
+    against every saved entry of both ranks, bit for bit."""
+    layers, steps = model.n_layers, MP_JOB["steps"]
+    sums = [_json_lines(o, "worker_summary")[0] for o in outs]
+    want_fa = {"flash_fwd": layers * steps, "flash_bwd_fused":
+               layers * steps, "flash_bwd_dq": 0, "flash_bwd_dkdv": 0}
+    one = _opt_bytes_one_rank(llama_mod, model)
+    for r, s in enumerate(sums):
+        if s["steps"] != steps or s["dist_backend"] != "gloo" or \
+                s["world"] != 2 or s["mesh"] != {"fsdp": 2} or \
+                s["attn_impl"] != "flash":
+            fail(f"30b rank {r}: steps {s['steps']}, backend "
+                 f"{s['dist_backend']}, mesh {s['mesh']}, attn_impl "
+                 f"{s['attn_impl']}")
+        if not (math.isfinite(s["first_loss"])
+                and math.isfinite(s["final_loss"])):
+            fail(f"30b: non-finite loss {s['first_loss']} {s['final_loss']}")
+        if s["flash_launches"] != want_fa:
+            fail(f"30b flash launches {s['flash_launches']} != {want_fa}")
+        if abs(s["opt_state_bytes_per_device"] - one / 2) > 0.01 * one / 2:
+            fail(f"30b rank {r}: optimizer state "
+                 f"{s['opt_state_bytes_per_device']} bytes against one "
+                 f"rank's {one}")
+    if sums[0]["final_loss"] != sums[1]["final_loss"]:
+        fail(f"30b: the ranks' losses differ: {sums[0]['final_loss']} "
+             f"{sums[1]['final_loss']}")
+    d = os.path.join(ckpt, f"step-{steps:08d}")
+    names = sorted(os.listdir(d))
+    if names != ["meta.json", "shards-p0.npz", "shards-p1.npz"]:
+        fail(f"30b: step {steps} holds {names}")
+    t1 = time.perf_counter()
+    restored = ck.restore_checkpoint(
+        ckpt, _world1_like(ck, llama_mod, model), device="cuda")
+    t_restore = time.perf_counter() - t1
+    if restored is None:
+        fail("30b: the world-1 restore found no checkpoint")
+    t1 = time.perf_counter()
+    n_entries = _equal_to_saved(ck, restored, d, "30b")
+    t_check = time.perf_counter() - t1
+    del restored
+    rec = {
+        "config": MP_JOB, "mesh": sums[0]["mesh"],
+        "step_time_ms": [s["step_time_ms"] for s in sums],
+        "first_step_seconds": [s["first_step_seconds"] for s in sums],
+        "collective_ms_per_step": [s["collective_ms"] for s in sums],
+        "opt_state_bytes_per_device": [s["opt_state_bytes_per_device"]
+                                       for s in sums],
+        "opt_state_bytes_one_rank": one,
+        "peak_gib": [s["peak_memory_bytes"] / 2**30 for s in sums],
+        "losses": [[s["first_loss"], s["final_loss"]] for s in sums],
+        "flash_launches": sums[0]["flash_launches"],
+        "flash_launches_per_step": {k: v / steps for k, v in
+                                    sums[0]["flash_launches"].items()},
+        "adamw_launches": sums[0]["adamw_launches"],
+        "restored_entries_bitwise": n_entries,
+        "seconds": {"ranks": seconds, "world1_restore": t_restore,
+                    "restore_check": t_check},
+        "note": "both ranks share one card, which time-slices their "
+                "contexts, and gloo stages every collective through the "
+                "host: the step time is not a speed-up",
+    }
+    print("phase 30b (train_main x 2 ranks, llama3-8b width x 2 layers "
+          "bf16, fsdp=2): " + json.dumps(rec), flush=True)
+    return sums[0]["flash_launches"]
+
+
+def run_mp_phase(fa, ck, llama_mod):
+    """Phase 30: 30b's ranks and 30a's two jobs side by side (six
+    processes on the card: their collectives run on the host), then each
+    part's gates."""
+    t0 = time.perf_counter()
+    model = register_cut(llama_mod, MP_JOB["model"])
+    root = tempfile.mkdtemp(prefix="kubedl-mp-")
+    ckpt = os.path.join(root, "checkpoints")
+    try:
+        _free()
+        outs = run_ranks([mp_job(ckpt)] + mp_identity_jobs(), 2)
+        t_ranks = time.perf_counter() - t0
+        f32 = check_mp_identity(outs[1:], t_ranks)
+        bf16 = check_mp_job(ck, llama_mod, model, outs[0], ckpt, t_ranks)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        _free()
+    print(f"phase 30 (the model sharded across processes): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"f32": f32, "bf16": bf16}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--skip-engine", action="store_true",
@@ -5004,9 +5358,13 @@ def main() -> int:
                     "17-19, 22, 26, 27)")
     ap.add_argument("--skip-train", action="store_true",
                     help="skip the training phases (8 to 12, 21, 23-25, "
-                    "28, 29)")
+                    "28-30)")
     ap.add_argument("--dp-identity-rank", metavar="NAMES",
                     help=argparse.SUPPRESS)  # one rank of phase 29a
+    ap.add_argument("--mp-identity-rank", metavar="NAMES",
+                    help=argparse.SUPPRESS)  # one rank of phase 30a
+    ap.add_argument("--entry-rank", metavar="PRESET",
+                    help=argparse.SUPPRESS)  # a train_main rank, 29b / 30b
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5016,6 +5374,11 @@ def main() -> int:
     if args.dp_identity_rank:
         dp_identity_rank(args.dp_identity_rank.split(","))
         return 0
+    if args.mp_identity_rank:
+        mp_identity_rank(args.mp_identity_rank.split(","))
+        return 0
+    if args.entry_rank:
+        return entry_rank(args.entry_rank)
     from kubedl_tpu_torch.models import llama as llama_mod
     from kubedl_tpu_torch.models import moe as moe_mod
     from kubedl_tpu_torch.models import paged_attention as pa
@@ -5173,6 +5536,7 @@ def main() -> int:
     moe_launches = {}
     convnet_launches = {}
     dp_launches = {"flash": {}, "adamw": {}}
+    mp_launches = {"f32": {}, "bf16": {}}
     if not args.skip_train:
         gemma_launches, gemma_train = run_gemma_train(fa, llama_mod)
         stamp("phase 23")
@@ -5199,6 +5563,8 @@ def main() -> int:
         stamp("phase 21")
         dp_launches = run_dp_phase(fa, adamw, ck, llama_mod)
         stamp("phase 29")
+        mp_launches = run_mp_phase(fa, ck, llama_mod)
+        stamp("phase 30")
 
     def record(name, source, replaces, n, rec, design):
         lib = rec["library_ms"]
@@ -5301,7 +5667,15 @@ def main() -> int:
                 "zoo_draft_distill": summary.get(
                     "distill_launches", {}).get(name),
                 # phase 29b: each rank's count, on its own rows
-                "llama3-1b-dp2-rank": dp_launches["flash"].get(name)}
+                "llama3-1b-dp2-rank": dp_launches["flash"].get(name),
+                # phase 30: each rank's count on its rows (fsdp) or its
+                # heads (tensor); 30a float32 (the CUDA-core kernels),
+                # 30b bf16 at hd 128 (the tensor cores)
+                "llama3-1b-f32-fsdp2-rank": mp_launches["f32"].get(
+                    "fsdp2", {}).get(name),
+                "llama3-1b-f32-tensor2-rank": mp_launches["f32"].get(
+                    "tensor2", {}).get(name),
+                "llama3-8b-fsdp2-rank": mp_launches["bf16"].get(name)}
         line.append(rec)
     # Gemma-2B's training paths (hd 256): the forward and the fused
     # backward timed at phase 7's Gemma-2B case, launches from phase 23's

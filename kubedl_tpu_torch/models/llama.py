@@ -48,6 +48,9 @@ import torch.nn.functional as F
 
 from kubedl_tpu_torch.models import paged_attention as blocked_attention
 from kubedl_tpu_torch.ops import w8a16
+from kubedl_tpu_torch.parallel.mesh import (
+    ShardSpec, copy_to, gather_dim, gather_replicated, reduce_from,
+)
 
 Params = Dict[str, Any]
 
@@ -184,41 +187,47 @@ def _dense(shape, fan_in: int, cfg: LlamaConfig, generator: torch.Generator,
 
 def _param_tree(cfg: LlamaConfig, dense, norm) -> Params:
     """The reference's parameter tree (``llama.py:240-256``), each leaf
-    made by ``dense(shape, fan_in)`` or ``norm(shape)``."""
+    made by ``dense(name, shape, fan_in)`` or ``norm(name, shape)`` in the
+    reference's order (``name``: the leaf's path, ``"layers/wq"``)."""
     hd = cfg.head_dim
     L, D, Fd, V = cfg.n_layers, cfg.dim, cfg.ffn_dim, cfg.vocab_size
     H, KV = cfg.n_heads, cfg.n_kv_heads
     params: Params = {
-        "embed": dense((V, D), D),
+        "embed": dense("embed", (V, D), D),
         "layers": {
-            "attn_norm": norm((L, D)),
-            "wq": dense((L, D, H * hd), D),
-            "wk": dense((L, D, KV * hd), D),
-            "wv": dense((L, D, KV * hd), D),
-            "wo": dense((L, H * hd, D), H * hd),
-            "mlp_norm": norm((L, D)),
-            "w_gate": dense((L, D, Fd), D),
-            "w_up": dense((L, D, Fd), D),
-            "w_down": dense((L, Fd, D), Fd),
+            "attn_norm": norm("layers/attn_norm", (L, D)),
+            "wq": dense("layers/wq", (L, D, H * hd), D),
+            "wk": dense("layers/wk", (L, D, KV * hd), D),
+            "wv": dense("layers/wv", (L, D, KV * hd), D),
+            "wo": dense("layers/wo", (L, H * hd, D), H * hd),
+            "mlp_norm": norm("layers/mlp_norm", (L, D)),
+            "w_gate": dense("layers/w_gate", (L, D, Fd), D),
+            "w_up": dense("layers/w_up", (L, D, Fd), D),
+            "w_down": dense("layers/w_down", (L, Fd, D), Fd),
         },
-        "final_norm": norm((D,)),
+        "final_norm": norm("final_norm", (D,)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense((D, V), D)
+        params["lm_head"] = dense("lm_head", (D, V), D)
     return params
 
 
 def llama_init(cfg: LlamaConfig, generator: torch.Generator,
-               device) -> Params:
+               device, shard: Optional["TrainShard"] = None) -> Params:
     """Seeded random init with the reference's distributions and tree
-    (``llama.py:229-264``). ``generator`` must live on ``device``."""
+    (``llama.py:229-264``). ``generator`` must live on ``device``. With a
+    ``shard``, each leaf is cut to this rank's region as it is drawn (the
+    stream, and so every value, is the one-rank init's)."""
 
-    def dense(shape, fan_in):
-        return _dense(shape, fan_in, cfg, generator, device)
+    def keep(name, t):
+        return t if shard is None else shard.local(name, t)
 
-    def norm(shape):
+    def dense(name, shape, fan_in):
+        return keep(name, _dense(shape, fan_in, cfg, generator, device))
+
+    def norm(name, shape):
         fill = torch.zeros if cfg.norm_plus_one else torch.ones
-        return fill(shape, dtype=cfg.dtype, device=device)
+        return keep(name, fill(shape, dtype=cfg.dtype, device=device))
 
     params = _param_tree(cfg, dense, norm)
     if cfg.zero_init_deep_from:
@@ -231,7 +240,7 @@ def param_like(cfg: LlamaConfig, device="meta") -> Params:
     """The parameter tree's shapes and dtypes as empty tensors (``meta``:
     no memory) — what a checkpoint restore fills."""
 
-    def empty(shape, _fan_in=None):
+    def empty(_name, shape, _fan_in=None):
         return torch.empty(shape, dtype=cfg.dtype, device=device)
 
     return _param_tree(cfg, empty, empty)
@@ -488,10 +497,16 @@ def _layer(params: Params, i: int) -> Params:
             for k, v in params["layers"].items()}
 
 
-def _mlp(x: torch.Tensor, lp: Params, cfg: LlamaConfig) -> torch.Tensor:
+def _mlp(x: torch.Tensor, lp: Params, cfg: LlamaConfig,
+         tp=None) -> torch.Tensor:
+    """The MLP half of a block. ``tp``: ``(mesh, axes)`` of a tensor split
+    (this rank's ffn columns; Megatron's f before, g after)."""
     h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps, cfg.norm_plus_one)
+    if tp:
+        h = copy_to(h, *tp)
     gate = _act(cfg)(_mm(h, lp["w_gate"]).float()).to(h.dtype)
-    return x + _mm(gate * _mm(h, lp["w_up"]), lp["w_down"])
+    out = _mm(gate * _mm(h, lp["w_up"]), lp["w_down"])
+    return x + (reduce_from(out, *tp) if tp else out)
 
 
 def _last_logits(params, x, lengths, cfg):
@@ -572,15 +587,22 @@ def _tag(x: torch.Tensor, name: str, names) -> torch.Tensor:
 
 
 def _block(x: torch.Tensor, lp: Params, cfg: LlamaConfig, cos, sin,
-           attn_fn=None, names=()) -> torch.Tensor:
-    """One decoder block (the reference's ``_block`` on one device). With
-    an ``attn_fn`` that has ``fused_rope``, q/k go in PRE-rope with the
+           attn_fn=None, names=(), tp=None) -> torch.Tensor:
+    """One decoder block (the reference's ``_block``). With an
+    ``attn_fn`` that has ``fused_rope``, q/k go in PRE-rope with the
     tables; otherwise RoPE is applied here. ``names`` are the tags the
-    active remat policy saves."""
+    active remat policy saves. Head and ffn counts come from the WEIGHT
+    shapes, so under a tensor split (``tp``: ``(mesh, axes)``, the
+    reference's ``tp_axis``) the block runs this rank's H/tp query heads,
+    KV/tp KV heads and ffn/tp columns, and the outputs of ``wo`` and
+    ``w_down`` are all-reduced over the axes (the reference's psums at
+    ``llama.py:478`` and ``:492``)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     po = cfg.norm_plus_one
     h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps, po)
+    if tp:
+        h = copy_to(h, *tp)
     n_heads = lp["wq"].shape[-1] // hd
     n_kv = lp["wk"].shape[-1] // hd
     if cfg.fuse_projections:
@@ -605,9 +627,10 @@ def _block(x: torch.Tensor, lp: Params, cfg: LlamaConfig, cos, sin,
         v = _tag(v, "attn_v", names)
         attn = (attn_fn or attention)(q, k, v)
     attn = _tag(attn.reshape(B, S, n_heads * hd), "attn_out", names)
-    x = x + attn @ lp["wo"]
+    attn_out = attn @ lp["wo"]  # row-parallel: partial sums under tp
+    x = x + (reduce_from(attn_out, *tp) if tp else attn_out)
     if not cfg.fuse_projections:
-        return _mlp(x, lp, cfg)
+        return _mlp(x, lp, cfg, tp)
     h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps, po)
     Fd = lp["w_gate"].shape[-1]
     g_u = h @ torch.cat([lp["w_gate"], lp["w_up"]], dim=1)
@@ -690,6 +713,241 @@ def chunked_next_token_nll(x: torch.Tensor, head: torch.Tensor,
                                    tokens[:, c0 + 1:c1 + 1],
                                    use_reentrant=False)
     return total / (B * n_pos)
+
+
+# ---- model sharding: fsdp, the Megatron tensor split, sp ---------------------
+
+def param_pspecs(cfg: LlamaConfig) -> Params:
+    """Megatron tensor split + fsdp, stacked-layer aware: the reference's
+    rules (``llama.py:267``) as a tree of tuples, one mesh-axis name (or
+    None) a dimension. Column-parallel (output dim on "tensor"): wq/wk/wv,
+    w_gate/w_up; row-parallel (input dim on "tensor"): wo, w_down; fsdp
+    shards the other matmul dim. Embedding: vocab on tensor, dim on fsdp;
+    the untied head: dim on fsdp, vocab on tensor."""
+    specs: Params = {
+        "embed": ("tensor", "fsdp"),
+        "layers": {
+            "attn_norm": (None, None),
+            "wq": (None, "fsdp", "tensor"),
+            "wk": (None, "fsdp", "tensor"),
+            "wv": (None, "fsdp", "tensor"),
+            "wo": (None, "tensor", "fsdp"),
+            "mlp_norm": (None, None),
+            "w_gate": (None, "fsdp", "tensor"),
+            "w_up": (None, "fsdp", "tensor"),
+            "w_down": (None, "tensor", "fsdp"),
+        },
+        "final_norm": (None,),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("fsdp", "tensor")
+    return specs
+
+
+def _at(tree, name: str):
+    for part in name.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def named_leaves(tree, prefix: str = ""):
+    """``(path, leaf)`` of a nested dict, keys sorted (the reference's
+    tree order); a path joins the keys with "/" (``"layers/wq"``)."""
+    for k in sorted(tree):
+        name = f"{prefix}{k}"
+        if isinstance(tree[k], dict):
+            yield from named_leaves(tree[k], name + "/")
+        else:
+            yield name, tree[k]
+
+
+def pruned_specs(cfg: LlamaConfig, names) -> Dict[str, tuple]:
+    """:func:`param_pspecs` by leaf path, an axis the mesh does not name
+    (``names``) dropped (the reference's ``_prune_spec``)."""
+    return {path: tuple(a if a in names else None for a in spec)
+            for path, spec in named_leaves(param_pspecs(cfg))}
+
+
+class TrainShard:
+    """This rank's part of a Llama model sharded over the ``fsdp``,
+    ``tensor`` and ``sp`` axes of a ``ProcessMesh``, and the training loss
+    that runs on it.
+
+    Each leaf is held as the region :func:`param_pspecs` gives this rank's
+    coordinates (axes the mesh does not name are dropped, as the
+    reference's ``_prune_spec`` does). The forward gathers each stacked
+    layer's fsdp shards when its block runs (inside the layer's remat, so
+    a recompute gathers them again; the gradient is reduce-scattered back
+    to the shard), runs this rank's heads and ffn columns with the
+    Megatron all-reduces (``_block``'s ``tp``), and, with ``sp``, this
+    rank's block of the sequence with RoPE at global positions through
+    the context attention (``parallel/ring.py``). The embedding and the
+    head are GATHERED whole (fsdp, then the vocab over tensor, whose
+    gradient is this rank's block: every tensor rank runs the same
+    head on the same inputs), so the loss is the plain log-softmax over
+    the whole vocabulary; no vocab-parallel logsumexp.
+
+    :meth:`loss` returns this rank's share of the global mean: the sum of
+    its valid positions' NLL over the mean count a batch rank scores
+    (``rows * (S - 1) / sp``), so the mean over the batch-like ranks
+    (replica x data x fsdp x sp) of these is the reference's loss and
+    the sum of their gradients, over that count, its gradient."""
+
+    def __init__(self, cfg: LlamaConfig, mesh) -> None:
+        self.cfg, self.mesh = cfg, mesh
+        #: leaf path -> its pruned spec
+        self.specs = pruned_specs(cfg, set(mesh.axis_names))
+        on = lambda a: mesh.shape.get(a, 1) > 1  # noqa: E731
+        #: ``(mesh, axes)`` of the tensor split, or None
+        self.tp = (mesh, ("tensor",)) if on("tensor") else None
+        self.fsdp = on("fsdp")
+        self.sp = mesh.shape.get("sp", 1)
+        for axis, attrs in (("tensor", ("n_heads", "n_kv_heads", "ffn_dim",
+                                        "vocab_size")),
+                            ("fsdp", ("dim",))):
+            n = mesh.shape.get(axis, 1)
+            for attr in attrs:
+                val = getattr(cfg, attr)
+                if n > 1 and val % n:
+                    raise ValueError(f"{attr}={val} not divisible by "
+                                     f"{axis}={n}")
+
+    # ---- layout ---------------------------------------------------------------
+
+    def region(self, name: str, shape) -> Optional[ShardSpec]:
+        """Where this rank's shard of leaf ``name`` (global ``shape``)
+        sits; None for a leaf no axis above 1 splits. ``write``: the
+        shard's first replica (coordinate 0 on every axis above 1 that
+        does not split the leaf) saves it."""
+        mesh, spec = self.mesh, self.specs[name]
+        split = [a for a in spec if a and mesh.shape.get(a, 1) > 1]
+        if not split:
+            return None
+        starts, stops = [], []
+        for a, n in zip(spec, shape):
+            k = n // mesh.shape[a] if a in split else n
+            c = mesh.coords[a] if a in split else 0
+            starts.append(c * k)
+            stops.append((c + 1) * k)
+        write = all(mesh.coords[a] == 0 for a in mesh.active(mesh.axis_names)
+                    if a not in split)
+        return ShardSpec(tuple(shape), tuple(starts), tuple(stops), write)
+
+    def regions(self, like: Params) -> list:
+        """:meth:`region` of every leaf of ``like``, in tree order."""
+        return [self.region(name, tuple(t.shape)) for name, t in named_leaves(like)]
+
+    def local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the whole leaf ``t`` (an owned copy)."""
+        r = self.region(name, tuple(t.shape))
+        return t if r is None else r.take(t).clone()
+
+    def shard(self, params: Params) -> Params:
+        """A global parameter tree to this rank's shards."""
+        return _map_named(params, self.local)
+
+    def assemble(self, params: Params) -> Params:
+        """This rank's shards back to the global tree (every rank calls
+        it: the shards are all-gathered)."""
+        from kubedl_tpu_torch.parallel.mesh import _gather
+
+        def whole(name, t):
+            for d, a in enumerate(self.specs[name]):
+                if a and self.mesh.shape.get(a, 1) > 1:
+                    t = _gather(self.mesh, t, (a,), d)
+            return t.contiguous()
+
+        with torch.no_grad():
+            return _map_named(params, whole)
+
+    # ---- the forward ----------------------------------------------------------
+
+    def gather_whole(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """A non-layer leaf (embedding, head) whole: fsdp gathered, then
+        the tensor split gathered for a computation every tensor rank
+        repeats."""
+        spec = self.specs[name]
+        for d, a in enumerate(spec):
+            if a == "fsdp" and self.fsdp:
+                t = gather_dim(t, self.mesh, ("fsdp",), d)
+        for d, a in enumerate(spec):
+            if a == "tensor" and self.tp:
+                t = gather_replicated(t, self.mesh, ("tensor",), d)
+        return t
+
+    def gather_layer(self, lp: Params) -> Params:
+        """One layer's slices, each fsdp-gathered (tensor stays split)."""
+        if not self.fsdp:
+            return lp
+        out = {}
+        for key, t in lp.items():
+            spec = self.specs[f"layers/{key}"][1:]
+            out[key] = gather_dim(t, self.mesh, ("fsdp",), spec.index("fsdp")) \
+                if "fsdp" in spec else t
+        return out
+
+    def _layer_block(self, x, lp, cos, sin, attn_fn, names):
+        return _block(x, self.gather_layer(lp), self.cfg, cos, sin, attn_fn,
+                      names, self.tp)
+
+    def loss(self, params: Params, tokens: torch.Tensor,
+             attn_fn=None) -> torch.Tensor:
+        """This rank's share of the mean next-token NLL (see the class
+        docstring). ``tokens``: this rank's rows; with sp, its block of
+        the sequence and one more column, the next block's first token
+        (a pad on the last block, whose last position scores nothing)."""
+        from torch.utils.checkpoint import (
+            checkpoint, create_selective_checkpoint_contexts,
+        )
+
+        cfg = self.cfg
+        rows = tokens.shape[0]
+        if self.sp > 1:
+            inp, tgt = tokens[:, :-1], tokens[:, 1:]
+            Sl = inp.shape[1]
+            S = Sl * self.sp
+            off = self.mesh.coords["sp"] * Sl
+            valid = Sl - (off + Sl == S)
+        else:
+            inp, tgt = tokens, tokens[:, 1:]
+            Sl = S = inp.shape[1]
+            off, valid = 0, S - 1
+        embed = self.gather_whole(params["embed"], "embed")
+        x = embed[inp.long()].to(cfg.dtype)
+        if cfg.embed_scale:
+            x = x * math.sqrt(cfg.dim)
+        cos, sin = rope_freqs(cfg, off + Sl, device=x.device)
+        cos, sin = cos[off:], sin[off:]
+        if cfg.remat:
+            policy = remat_policy_for(cfg.remat_policy)
+            ctx_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       policy)
+            for i in range(cfg.n_layers):
+                x = checkpoint(self._layer_block, x, _layer(params, i), cos,
+                               sin, attn_fn, policy.names,
+                               use_reentrant=False, context_fn=ctx_fn)
+        else:
+            for i in range(cfg.n_layers):
+                x = self._layer_block(x, _layer(params, i), cos, sin,
+                                      attn_fn, ())
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps, cfg.norm_plus_one)
+        head = embed.T if cfg.tie_embeddings else \
+            self.gather_whole(params["lm_head"], "lm_head")
+        xs, ts = x[:, :valid], tgt[:, :valid]
+        if cfg.loss_chunk:  # chunks within this rank's block
+            total = torch.zeros((), dtype=torch.float32, device=x.device)
+            for c0 in range(0, valid, cfg.loss_chunk):
+                c1 = min(c0 + cfg.loss_chunk, valid)
+                total = total + checkpoint(_chunk_nll_sum, xs[:, c0:c1], head,
+                                           ts[:, c0:c1], use_reentrant=False)
+        else:
+            total = _chunk_nll_sum(xs, head, ts)
+        return total / (rows * (S - 1) / self.sp)
+
+
+def _map_named(tree: Params, fn, prefix: str = "") -> Params:
+    return {k: _map_named(v, fn, f"{prefix}{k}/") if isinstance(v, dict)
+            else fn(f"{prefix}{k}", v) for k, v in tree.items()}
 
 
 # ---- paged KV (block-table serving path) -----------------------------------

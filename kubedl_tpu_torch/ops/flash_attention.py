@@ -548,17 +548,23 @@ def make_flash_attention(mesh=None, batch_axes=("replica", "data", "fsdp"),
                          interpret: Optional[bool] = None):
     """The trainer's attention function: :func:`flash_attention` with
     ``.fused_rope = True`` (callers pass q/k PRE-rope plus the tables).
-    On a ``replica`` / ``data`` mesh each rank calls it on its own rows,
-    so the direct operator is the whole function; a mesh axis that
-    shards heads or the sequence (``fsdp``, ``tensor``, ``sp``, ...)
-    above 1 raises: sharded attention belongs to a later port slice."""
+    On a mesh whose ``replica`` / ``data`` / ``fsdp`` axes split the batch
+    and whose ``tensor`` axis splits the heads, each rank holds only its
+    own rows and heads, so the direct operator on them is the whole
+    function (the reference's ``shard_map`` over the batch and head axes
+    needs no collective in its body either): the kernels on CUDA, no
+    plain fallback there. A mesh axis this function cannot take raises:
+    ``sp`` (the sequence split belongs to ``parallel/ring.py``'s
+    ``make_context_attention``), ``pipe`` and ``expert`` (later port
+    slices)."""
     del batch_axes, head_axis, interpret
     sharding = {a: n for a, n in mesh_axes(mesh).items()
-                if n > 1 and a not in ("replica", "data")}
+                if n > 1 and a not in ("replica", "data", "fsdp", "tensor")}
     if sharding:
         raise ValueError(
-            f"mesh axes {sharding} are not ported yet: sharded flash "
-            "attention belongs to the multi-chip port slice"
+            f"mesh axes {sharding}: flash attention does not split the "
+            "sequence (an sp axis takes make_context_attention); pipe and "
+            "expert belong to a later port slice"
         )
 
     def direct(q, k, v, causal=True, mask=None, rope_cos=None,

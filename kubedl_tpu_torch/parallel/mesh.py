@@ -17,16 +17,36 @@ device). A NCCL group that fails to start raises; nothing falls back to
 gloo. Gloo on CUDA tensors is staged explicitly through pinned host
 buffers (device-to-host copy, the collective on the host, host-to-device
 copy): the compute stays on the card. That staging and the collective
-are timed on the host (:attr:`ProcessMesh.seconds`); a NCCL collective
-is not timed (reading its time would need a host sync inside the step).
+are timed on the host (:attr:`ProcessMesh.seconds`; the staging's sync
+also waits for the device work queued before it); a NCCL collective is
+not timed (reading its time would need a host sync inside the step).
 
-Only the data-like axes ``replica`` and ``data`` may be above 1 here.
-``fsdp``, ``tensor``, ``sp``, ``pipe`` and ``expert`` shard the model
-itself and raise ``ValueError`` naming the slice they belong to.
+The model-sharding axes ``fsdp``, ``tensor`` and ``sp`` run (the Llama
+family, ``models/llama.py``'s :class:`~kubedl_tpu_torch.models.llama.
+TrainShard`); ``pipe`` and ``expert`` above 1 still raise ``ValueError``
+naming the slice they belong to (:func:`check_axes`).
+
+The collectives the reference's ``shard_map`` bodies use, each over a
+tuple of axes: ``all_reduce``, ``all_gather`` and ``reduce_scatter``
+(flat, in place of ``psum`` / ``all_gather`` / ``psum_scatter``),
+``ppermute`` (a ring shift, paired ``isend`` / ``irecv``) and
+``all_to_all``. Each has a ``torch.autograd.Function`` whose backward is
+its transpose (:func:`gather_dim`, whose backward reduce-scatters;
+Megatron's :func:`copy_to` / :func:`reduce_from`;
+:func:`gather_replicated`; :func:`shift`; :func:`all_to_all`). They run their collective with the
+dispatch modes off, so a selective-checkpoint policy neither saves nor
+skips it: a remat'ed layer runs its collectives again when it is
+recomputed (an fsdp layer's weights are gathered again, not held).
+``ProcessMesh`` stays in place of ``DeviceMesh`` / FSDP2: two ranks that
+share a card must use gloo, which has no ``all_gather_into_tensor`` /
+``reduce_scatter_tensor`` on CUDA tensors, so every collective is staged
+through the pooled pinned buffers here.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import datetime
 import itertools
 import math
@@ -51,8 +71,14 @@ ENV_MESH_AXES = "KUBEDL_MESH_AXES"
 
 #: Axes a batch dimension is sharded over (all data-parallel-like axes).
 DATA_AXES = ("replica", "data", "fsdp")
+#: The sequence/context-parallel mesh axis (ring attention shards over it).
+SEQUENCE_AXIS = "sp"
+#: what the axes that still raise (``pipe``, ``expert``) belong to
 MODEL_SHARDING = ("belongs to a later port slice (ROADMAP Queue A item 2, "
                   "the multi-device compute path)")
+#: the mesh axes this port shards over (a ``pipe`` or ``expert`` axis above
+#: 1 raises: see :func:`check_axes`)
+PORTED_AXES = ("replica", "data", "fsdp", "sp", "tensor")
 #: seconds a rendezvous or a collective may wait for its peers
 TIMEOUT_S = 300.0
 
@@ -109,26 +135,39 @@ def collective_backend(device: torch.device) -> str:
 
 @dataclass(frozen=True)
 class ShardSpec:
-    """Where a rank's slice of a leaf sits: rows ``start:stop`` of
-    dimension ``dim`` of a leaf of global ``shape``. ``write``: this rank
-    saves the slice to a checkpoint (the slice's first replica, as the
-    reference's ``replica_id == 0``)."""
+    """Where a rank's slice of a leaf sits: the region ``starts[d]:
+    stops[d]`` of every dimension d of a leaf of global ``shape``.
+    ``write``: this rank saves the slice to a checkpoint (the slice's first
+    replica, as the reference's ``replica_id == 0``)."""
 
     shape: Tuple[int, ...]
-    dim: int
-    start: int
-    stop: int
+    starts: Tuple[int, ...]
+    stops: Tuple[int, ...]
     write: bool = True
 
     @property
     def index(self) -> Tuple[slice, ...]:
-        return tuple(slice(self.start, self.stop) if d == self.dim
-                     else slice(0, n) for d, n in enumerate(self.shape))
+        return tuple(slice(a, b) for a, b in zip(self.starts, self.stops))
 
     @property
     def local_shape(self) -> Tuple[int, ...]:
-        return tuple(self.stop - self.start if d == self.dim else n
-                     for d, n in enumerate(self.shape))
+        return tuple(b - a for a, b in zip(self.starts, self.stops))
+
+    def narrow(self, dim: int, start: int, length: int) -> "ShardSpec":
+        """The sub-region rows ``start:start + length`` (local to this
+        region) of dimension ``dim``."""
+        starts, stops = list(self.starts), list(self.stops)
+        starts[dim] += start
+        stops[dim] = starts[dim] + length
+        return dataclasses.replace(self, starts=tuple(starts),
+                                   stops=tuple(stops))
+
+    def take(self, t):
+        """This region of the whole leaf ``t`` (a view)."""
+        for d, (a, b) in enumerate(zip(self.starts, self.stops)):
+            if (a, b) != (0, self.shape[d]):
+                t = t.narrow(d, a, b - a)
+        return t
 
 
 # torch 2.13 names the flat collectives ``*_single`` and deprecates the
@@ -174,15 +213,18 @@ class ProcessMesh:
         sizes = [s for _, s in ordered]
         self.coords = dict(zip(self.axis_names, _unravel(self.rank, sizes)))
         self.seconds: Dict[str, float] = {}
+        #: collectives issued, by kind
+        self.calls: Dict[str, int] = {}
         self._pool: Dict[tuple, list] = {}
         self._groups: Dict[Tuple[str, ...], object] = {}
         if self.world > 1:
-            wanted = [(a,) for a in self.axis_names if self.shape[a] > 1]
-            data_like = self.active(DATA_AXES)
-            if len(data_like) > 1:
-                wanted.append(data_like)
-            for axes in wanted:
-                self._groups[axes] = self._new_groups(axes, backend)
+            # a group for every set of axes above 1 (mesh order): the
+            # trainer reduces over the batch axes, the sequence axis and
+            # the axes a leaf is not sharded over, in their combinations
+            on = self.active(self.axis_names)
+            for n in range(1, len(on) + 1):
+                for axes in itertools.combinations(on, n):
+                    self._groups[axes] = self._new_groups(axes, backend)
             # the checkpoint writers' barrier runs on threads of its own:
             # a group of its own, so it never interleaves with the step's
             self._barrier_group = dist.new_group(list(range(self.world)),
@@ -234,6 +276,14 @@ class ProcessMesh:
     def _group(self, axes: Sequence[str]):
         return self._groups[self.active(axes)]
 
+    def peer(self, axis: str, shift: int) -> int:
+        """The global rank ``shift`` places along ``axis`` from this one
+        (cyclic), the other coordinates fixed."""
+        c = dict(self.coords)
+        c[axis] = (c[axis] + shift) % self.shape[axis]
+        return _ravel([c[a] for a in self.axis_names],
+                      [self.shape[a] for a in self.axis_names])
+
     # ---- collectives ----------------------------------------------------------
 
     def _account(self, kind: str, t0: float) -> None:
@@ -263,6 +313,7 @@ class ProcessMesh:
         """``fn(out, inp, group, async_op)`` over the group of ``axes``;
         staged through pinned host buffers for gloo on the card."""
         t0 = time.perf_counter()
+        self.calls[kind] = self.calls.get(kind, 0) + 1
         group = self._group(axes)
         if not (self.backend == "gloo" and inp.is_cuda):
             work = fn(out, inp, group, async_op)
@@ -312,11 +363,258 @@ class ProcessMesh:
                              o, i, group=g, async_op=a),
                          out, inp, axes, async_op)
 
+    def ppermute(self, t: torch.Tensor, axis: str,
+                 shift: int = 1) -> torch.Tensor:
+        """The ``t`` of the rank ``shift`` places back along ``axis``
+        (this rank's goes ``shift`` places on): the reference's
+        ``lax.ppermute`` over the ring ``i -> i + shift``, as a paired
+        ``isend`` / ``irecv``."""
+        if self.shape.get(axis, 1) <= 1:
+            return t
+        t0 = time.perf_counter()
+        self.calls["ppermute"] = self.calls.get("ppermute", 0) + 1
+        group = self._group((axis,))
+        dst, src = self.peer(axis, shift), self.peer(axis, -shift)
+        out = torch.empty_like(t)
+        send, recv = t.contiguous(), out
+        if self.backend == "gloo" and t.is_cuda:
+            send, recv = self._host(t), self._host(t)
+            send.copy_(t, non_blocking=True)
+            torch.cuda.current_stream(t.device).synchronize()
+        ops = [dist.P2POp(dist.isend, send, dst, group),
+               dist.P2POp(dist.irecv, recv, src, group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        if recv is not out:
+            out.copy_(recv, non_blocking=True)
+            self._give(send, recv)
+        self._account("ppermute", t0)
+        return out
+
+    def all_to_all(self, t: torch.Tensor, axis: str, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """The reference's tiled ``lax.all_to_all``: ``t`` cut into n
+        blocks along ``split_dim``, block j sent to the j-th rank along
+        ``axis``, and the n blocks received concatenated along
+        ``concat_dim`` in rank order."""
+        n = self.shape.get(axis, 1)
+        if n <= 1:
+            return t
+        k = t.shape[split_dim] // n
+        # [n, ...]: block j of the split dimension first
+        blocks = t.unflatten(split_dim, (n, k)).movedim(split_dim, 0)
+        inp = blocks.contiguous()
+        out = torch.empty_like(inp)
+        self._run("all_to_all",
+                  lambda o, i, g, a: dist.all_to_all_single(
+                      o, i, group=g, async_op=a),
+                  out, inp, (axis,), False)
+        # out[j] is rank j's block (shaped as t with k at split_dim):
+        # concatenated along concat_dim, block j at j
+        return out.movedim(0, concat_dim).flatten(concat_dim, concat_dim + 1)
+
     def barrier(self) -> None:
         """Every rank has reached this point (on the checkpoint writers'
         own group; callable from a writer thread)."""
         if self.world > 1:
             dist.barrier(group=self._barrier_group)
+
+
+# ---- the collectives as autograd functions ---------------------------------------
+
+@contextlib.contextmanager
+def _modes_off():
+    """Run a collective outside any dispatch mode: a selective-checkpoint
+    policy then neither saves its result nor skips it, so a recomputed
+    layer runs it again."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        yield
+
+
+def _n(mesh: ProcessMesh, axes: Sequence[str]) -> int:
+    return mesh.size(mesh.active(axes))
+
+
+def _gather(mesh: ProcessMesh, t: torch.Tensor, axes, dim: int):
+    """Every rank's ``t`` along ``axes``, concatenated along ``dim`` in
+    rank order."""
+    n = _n(mesh, axes)
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    with _modes_off():
+        mesh.all_gather(out.view(-1), x.view(-1), axes)
+    return out.movedim(0, dim)
+
+
+def _scatter(mesh: ProcessMesh, t: torch.Tensor, axes, dim: int):
+    """This rank's block along ``dim`` of ``t`` summed over ``axes``."""
+    n = _n(mesh, axes)
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+    with _modes_off():
+        mesh.reduce_scatter(out.view(-1), x.view(-1), axes)
+    # a gradient in the shard's own layout (the optimizer kernels take
+    # contiguous leaves)
+    return out.movedim(0, dim).contiguous()
+
+
+def _summed(mesh: ProcessMesh, t: torch.Tensor, axes):
+    out = t.clone(memory_format=torch.contiguous_format)
+    with _modes_off():
+        mesh.all_reduce(out, axes)
+    return out
+
+
+def _own(mesh: ProcessMesh, t: torch.Tensor, axes, dim: int):
+    """This rank's block along ``dim`` of ``t`` (a copy)."""
+    k = t.shape[dim] // _n(mesh, axes)
+    return t.narrow(dim, mesh.index(mesh.active(axes)) * k, k).contiguous()
+
+
+class _GatherDim(torch.autograd.Function):
+    """All-gather along a dimension; backward: reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return _gather(mesh, t, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter(ctx.args[0], g, *ctx.args[1:]), None, None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    """All-gather along a dimension for a computation every rank of
+    ``axes`` repeats on the same inputs; backward: this rank's block
+    of the (equal) gradients."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return _gather(mesh, t, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own(ctx.args[0], g, *ctx.args[1:]), None, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    """Megatron's f: identity; backward: all-reduce."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.args = (mesh, axes)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(ctx.args[0], g, ctx.args[1]), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Megatron's g: all-reduce; backward: identity."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        return _summed(mesh, t, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Shift(torch.autograd.Function):
+    """``ppermute`` by ``shift`` along an axis; backward: the inverse
+    shift."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, shift):
+        ctx.args = (mesh, axis, shift)
+        with _modes_off():
+            return mesh.ppermute(t, axis, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, shift = ctx.args
+        with _modes_off():
+            return mesh.ppermute(g, axis, -shift), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all`` (split one dimension, concatenate another);
+    backward: the inverse ``all_to_all``."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, split_dim, concat_dim):
+        ctx.args = (mesh, axis, split_dim, concat_dim)
+        with _modes_off():
+            return mesh.all_to_all(t, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split_dim, concat_dim = ctx.args
+        with _modes_off():
+            return (mesh.all_to_all(g, axis, concat_dim, split_dim), None,
+                    None, None, None)
+
+
+def gather_dim(t: torch.Tensor, mesh: ProcessMesh, axes: Sequence[str],
+               dim: int) -> torch.Tensor:
+    """``t`` of every rank along ``axes`` concatenated along ``dim`` (an
+    fsdp shard gathered to the whole weight); its gradient is
+    reduce-scattered back to the shard."""
+    if _n(mesh, axes) <= 1:
+        return t
+    return _GatherDim.apply(t, mesh, tuple(axes), dim)
+
+
+def gather_replicated(t: torch.Tensor, mesh: ProcessMesh,
+                      axes: Sequence[str], dim: int) -> torch.Tensor:
+    """As :func:`gather_dim`, for a value every rank along ``axes`` then
+    uses in the same computation (a vocab-sharded head or embedding under
+    tensor parallelism): the gradient is this rank's block, not a sum."""
+    if _n(mesh, axes) <= 1:
+        return t
+    return _GatherReplicated.apply(t, mesh, tuple(axes), dim)
+
+
+def copy_to(t: torch.Tensor, mesh: ProcessMesh,
+            axes: Sequence[str]) -> torch.Tensor:
+    """Megatron's f before a column-parallel product: identity, the
+    gradient all-reduced over ``axes``."""
+    if _n(mesh, axes) <= 1:
+        return t
+    return _CopyTo.apply(t, mesh, tuple(axes))
+
+
+def reduce_from(t: torch.Tensor, mesh: ProcessMesh,
+                axes: Sequence[str]) -> torch.Tensor:
+    """Megatron's g after a row-parallel product: the partial sums
+    all-reduced over ``axes`` (the reference's ``lax.psum``); the
+    gradient passes through."""
+    if _n(mesh, axes) <= 1:
+        return t
+    return _ReduceFrom.apply(t, mesh, tuple(axes))
+
+
+def shift(t: torch.Tensor, mesh: ProcessMesh, axis: str,
+          by: int = 1) -> torch.Tensor:
+    """The reference's ``lax.ppermute(t, axis, [(i, i + by)])``,
+    differentiable."""
+    if mesh.shape.get(axis, 1) <= 1:
+        return t
+    return _Shift.apply(t, mesh, axis, by)
+
+
+def all_to_all(t: torch.Tensor, mesh: ProcessMesh, axis: str,
+               split_dim: int, concat_dim: int) -> torch.Tensor:
+    """The reference's tiled ``lax.all_to_all``, differentiable."""
+    if mesh.shape.get(axis, 1) <= 1:
+        return t
+    return _AllToAll.apply(t, mesh, axis, split_dim, concat_dim)
 
 
 def _unravel(i: int, sizes: Sequence[int]):
@@ -336,9 +634,10 @@ def _ravel(coords: Sequence[int], sizes: Sequence[int]) -> int:
 
 def check_axes(spec: MeshSpec) -> None:
     """Raise ``ValueError`` for an axis of the mesh this port does not
-    shard over yet: any but ``replica`` and ``data`` above 1."""
+    shard over yet: ``pipe`` (GPipe stages with the families'
+    ``pipeline_hooks``) or ``expert`` (MoE's expert axis) above 1."""
     for a, s in spec.ordered():
-        if s > 1 and a not in ("replica", "data"):
+        if s > 1 and a not in PORTED_AXES:
             raise ValueError(f"mesh axis {a}={s}: sharding the model "
                              f"{MODEL_SHARDING}")
 
@@ -390,4 +689,6 @@ __all__ = [
     "initialize_from_env", "mesh_from_env", "build_mesh", "batch_axes",
     "axis_size", "DATA_AXES", "ProcessMesh", "local_mesh",
     "ShardSpec", "collective_backend", "rank_device", "check_axes", "world",
+    "SEQUENCE_AXIS", "PORTED_AXES", "gather_dim", "gather_replicated",
+    "copy_to", "reduce_from", "shift", "all_to_all",
 ]

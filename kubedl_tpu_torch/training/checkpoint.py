@@ -42,9 +42,11 @@ restores from the local directory or a replica
 (:func:`restore_from_best`).
 
 Multi-process saves: each rank writes its own ``shards-p<rank>.npz``. A
-leaf a rank holds a slice of (the sharded update's moments) rides the
-tree as :class:`Sharded` and is saved under the reference's shard key
-``"<path>@<offs>+<shape>"`` by the slice's first replica; rank 0 writes
+leaf a rank holds a region of (a parameter split over fsdp / tensor, a
+moment of it or of the sharded update) rides the tree as :class:`Sharded`
+and is saved under the reference's shard key ``"<path>@<offs>+<shape>"``
+(offsets and shape in every dimension) by the region's first replica;
+rank 0 writes
 the whole leaves. After its shard file is in place each rank passes a
 barrier, and only then does rank 0 write the manifest (with ``nprocs``)
 and, last, the ``latest`` marker. A restore assembles each leaf from
@@ -148,13 +150,67 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 def _to_torch(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     """A host tensor from an npz entry; a two-byte void (or ``ml_dtypes``)
-    entry whose manifest says bfloat16 is read as bf16 bits."""
-    arr = np.ascontiguousarray(arr)
+    entry whose manifest says bfloat16 is read as bf16 bits. An array
+    that owns its contiguous data (a region assembled from shards) is
+    wrapped; any other (a view of a mapped file) is copied, so no tensor
+    keeps a file mapped."""
+    if not (arr.flags.c_contiguous and arr.flags.owndata):
+        arr = np.array(arr, order="C")
     if dtype_name == "bfloat16" or arr.dtype.name == "bfloat16":
         if arr.dtype.itemsize != 2:
             raise ValueError(f"bfloat16 entry of itemsize {arr.dtype.itemsize}")
-        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(arr.copy())
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+class MappedNpz:
+    """The arrays of an uncompressed ``.npz`` (``np.savez``'s) as views
+    of one read-only mapping of the file: an entry is read at the
+    page cache's rate when it is touched, with no per-entry stream and
+    no CRC pass (``np.load`` reads a member in 256 KB chunks and checks
+    its CRC). A compressed member falls back to ``np.load``. Has
+    ``np.load``'s ``files``, ``[name]`` and ``close()``."""
+
+    def __init__(self, path) -> None:
+        import zipfile
+        from numpy.lib import format as npformat
+
+        self._mm = np.memmap(path, dtype=np.uint8, mode="r")
+        self._arrays: Dict[str, np.ndarray] = {}
+        self._fallback = None
+        with zipfile.ZipFile(path) as zf, open(path, "rb") as fh:
+            for info in zf.infolist():
+                name = info.filename[:-4] if info.filename.endswith(".npy") \
+                    else info.filename
+                if info.compress_type != zipfile.ZIP_STORED:
+                    self._fallback = np.load(path)
+                    self._arrays = {}
+                    break
+                # the local header: 30 bytes, then the name and the extra
+                fh.seek(info.header_offset + 26)
+                n_name, n_extra = np.frombuffer(fh.read(4), "<u2")
+                fh.seek(info.header_offset + 30 + int(n_name) + int(n_extra))
+                major, _ = npformat.read_magic(fh)
+                read = npformat.read_array_header_1_0 if major == 1 \
+                    else npformat.read_array_header_2_0
+                shape, fortran, dtype = read(fh)
+                start = fh.tell()
+                n = int(np.prod(shape)) * dtype.itemsize
+                arr = self._mm[start:start + n].view(dtype)
+                self._arrays[name] = arr.reshape(
+                    shape, order="F" if fortran else "C")
+        self.files = list(self._fallback.files if self._fallback is not None
+                          else self._arrays)
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        if self._fallback is not None:
+            return self._fallback[name]
+        return self._arrays[name]
+
+    def close(self) -> None:
+        if self._fallback is not None:
+            self._fallback.close()
+        self._arrays, self._mm = {}, None
 
 
 # ---- save --------------------------------------------------------------------
@@ -246,7 +302,7 @@ class _ShardStore:
     entries are read only when a leaf needs them."""
 
     def __init__(self, d: Path) -> None:
-        self.files = [np.load(f)
+        self.files = [MappedNpz(f)
                       for f in sorted(glob.glob(str(d / "shards-p*.npz")))]
         if not self.files:
             raise FileNotFoundError(f"no shard files under {d}")
@@ -444,7 +500,8 @@ ScaleByScheduleState = namedtuple("ScaleByScheduleState", ["count"])
 
 def train_state_tree(state, leaf: Optional[Callable] = None):
     """The port's train state (``{"params", "opt_state": {"count", "mu":
-    [...], "nu": [...]}, "step"}``) as the reference's tree, its tensors
+    [...], "nu": [...], "shards"?}, "step", "param_shards"?}``) as the
+    reference's tree, a shard as :class:`Sharded`, its tensors
     mapped through ``leaf`` (default: the state's own tensors, to save
     them; :func:`train_state_like` gives ``meta`` tensors, to restore).
     The moments' lists follow ``tree_leaves(params)``, the reference's
@@ -454,16 +511,17 @@ def train_state_tree(state, leaf: Optional[Callable] = None):
     f = leaf or (lambda t: t)
     params, opt = state["params"], state["opt_state"]
     count = np.int32(opt["count"])
-    specs = opt.get("shards") or [None] * len(opt["mu"])
 
-    def moments(ts):  # a sharded moment rides the tree as Sharded
+    def tree(ts, specs):  # a shard rides the tree as Sharded
+        specs = specs or [None] * len(ts)
         return tree_unflatten(params, [
             f(t) if s is None else Sharded(f(t), s)
             for t, s in zip(ts, specs)])
 
-    adam = ScaleByAdamState(count, moments(opt["mu"]), moments(opt["nu"]))
+    adam = ScaleByAdamState(count, tree(opt["mu"], opt.get("shards")),
+                            tree(opt["nu"], opt.get("shards")))
     return {
-        "params": tree_unflatten(params, [f(t) for t in tree_leaves(params)]),
+        "params": tree(tree_leaves(params), state.get("param_shards")),
         "opt_state": (EmptyState(),
                       (adam, EmptyState(), ScaleByScheduleState(count))),
         "step": np.int32(state["step"]),
@@ -479,18 +537,24 @@ def train_state_like(state):
 
 def train_state_from_tree(tree):
     """The inverse of :func:`train_state_tree` (e.g. on a restored tree)."""
-    from kubedl_tpu_torch.training.trainer import tree_leaves
+    from kubedl_tpu_torch.training.trainer import tree_leaves, tree_unflatten
+
+    def local(ts):  # (this rank's tensors, their Sharded specs)
+        specs = [t.spec if isinstance(t, Sharded) else None for t in ts]
+        return [t.local if s else t for t, s in zip(ts, specs)], specs
 
     adam = tree["opt_state"][1][0]
-    mu, nu = tree_leaves(adam.mu), tree_leaves(adam.nu)
-    specs = [m.spec if isinstance(m, Sharded) else None for m in mu]
-    opt = {"count": int(adam.count),
-           "mu": [m.local if s else m for m, s in zip(mu, specs)],
-           "nu": [v.local if s else v for v, s in zip(nu, specs)]}
+    mu, specs = local(tree_leaves(adam.mu))
+    nu, _ = local(tree_leaves(adam.nu))
+    p, pspecs = local(tree_leaves(tree["params"]))
+    opt = {"count": int(adam.count), "mu": mu, "nu": nu}
     if any(specs):
         opt["shards"] = specs
-    return {"params": tree["params"], "opt_state": opt,
-            "step": int(tree["step"])}
+    state = {"params": tree_unflatten(tree["params"], p), "opt_state": opt,
+             "step": int(tree["step"])}
+    if any(pspecs):
+        state["param_shards"] = pspecs
+    return state
 
 
 # ---- asynchronous saves ---------------------------------------------------------
@@ -674,4 +738,4 @@ __all__ = ["save_checkpoint", "snapshot_state", "write_snapshot",
            "latest_step", "checkpoint_fingerprint", "restore_checkpoint",
            "IncompleteCheckpoint", "train_state_tree", "train_state_like",
            "train_state_from_tree", "AsyncCheckpointer",
-           "restore_from_best", "Sharded"]
+           "restore_from_best", "Sharded", "MappedNpz"]

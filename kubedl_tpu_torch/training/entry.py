@@ -42,9 +42,13 @@ each of these for its part, as in the reference: it prints
 The device is ``KUBEDL_TRAIN_DEVICE``, else ``"device"`` in the config,
 else CUDA (with no card that raises; ask for ``"cpu"`` explicitly).
 
-Still rejected with a ValueError that names the later port slice: a mesh
-axis that shards the model (``fsdp``, ``tensor``, ``sp``, ``pipe``,
-``expert`` above 1 in ``KUBEDL_MESH_AXES``), the parameter service
+The mesh: ``KUBEDL_MESH_AXES`` may put ``replica``, ``data``, ``fsdp``,
+``tensor`` and ``sp`` above 1 (a Llama model sharded over the last three,
+``context_parallel_impl`` in the config picking ring or Ulysses
+attention for ``sp``).
+
+Still rejected with a ValueError that names the later port slice: a
+``pipe`` or ``expert`` mesh axis above 1, the parameter service
 (``KUBEDL_PS_ADDR``, ``train_mode: "ps"``) and a chaos plan (``"chaos"``
 in the config, e.g. the ``trainer.step_stall`` site).
 """
@@ -87,7 +91,8 @@ def _int(environ, name: str, default: int = 0) -> int:
 
 def _reject_unported(environ: Dict[str, str], opts: dict) -> None:
     """Raise ``ValueError`` for a knob the port does not run yet, naming
-    the slice it belongs to. The ``"chaos"`` key of the training config
+    the slice it belongs to: the parameter service, a chaos plan, and a
+    ``pipe`` or ``expert`` mesh axis above 1. The ``"chaos"`` key of the training config
     is the port's own stand-in, not the reference's interface: the
     reference arms its ``trainer.step_stall`` site only through a
     ``FaultPlan`` armed in-process (``chaos.arm``), which reaches no

@@ -44,14 +44,24 @@ What the port keeps of the reference, and how:
   tree and format (each rank its shards), so either package resumes the
   other's job.
 
+- The model sharded across processes (Llama): on a mesh whose ``fsdp``,
+  ``tensor`` or ``sp`` axes are above 1 (alone or with ``data`` /
+  ``replica``) each rank holds its shards of every leaf by the
+  reference's ``param_pspecs`` (``models/llama.py::TrainShard``, which
+  also runs the sharded forward: fsdp gathers, the Megatron split,
+  ring / Ulysses attention over ``sp``), its moments are shards of those
+  (cut again over ``data`` by the reference's update rule), the
+  gradients are summed over the ranks that hold other tokens, and the
+  global norm counts a leaf that several ranks hold alike once.
+
 Model families: dense Llama (``models/llama.py``) and switch-MoE
 (``models/moe.py``: data-parallel routing spans the ranks; expert and
 tensor parallelism belong to a later slice), through the same optimizer
 and flash operators.
 
 What it rejects with a ValueError naming the later port slice, never
-silently: a mesh axis that shards the model (``fsdp``, ``tensor``,
-``sp``, ``pipe``, ``expert`` above 1) and ``fit_ps``.
+silently: a ``pipe`` or ``expert`` mesh axis above 1, MoE on a
+model-sharding axis, and ``fit_ps``.
 """
 
 from __future__ import annotations
@@ -71,8 +81,8 @@ from kubedl_tpu_torch.ops import flash_attention as fa
 from kubedl_tpu_torch.ops.adamw import LAUNCHES as adamw_launches
 from kubedl_tpu_torch.ops.adamw import adamw_update
 from kubedl_tpu_torch.parallel.mesh import (
-    DATA_AXES, ProcessMesh, ShardSpec, axis_size, build_mesh, check_axes,
-    local_mesh,
+    DATA_AXES, MODEL_SHARDING, SEQUENCE_AXIS, ProcessMesh, ShardSpec,
+    axis_size, build_mesh, check_axes, local_mesh,
 )
 from kubedl_tpu_torch.training.buckets import plan_grad_buckets
 
@@ -95,7 +105,18 @@ class ModelFamily:
     like: Callable[[], Any]
 
 
-def llama_family(cfg: llama.LlamaConfig) -> ModelFamily:
+def llama_family(cfg: llama.LlamaConfig,
+                 shard: Optional[llama.TrainShard] = None) -> ModelFamily:
+    """``shard``: the model split over the mesh's fsdp / tensor / sp axes
+    (:class:`~kubedl_tpu_torch.models.llama.TrainShard`): init draws this
+    rank's shards and the loss is this rank's share of the global one."""
+    if shard is not None:
+        return dataclasses.replace(
+            llama_family(cfg),
+            init=lambda gen, device: llama.llama_init(cfg, gen, device,
+                                                      shard),
+            loss=lambda params, batch, attn_fn=None: shard.loss(
+                params, batch, attn_fn))
     return ModelFamily(
         name="llama",
         init=lambda gen, device: llama.llama_init(cfg, gen, device),
@@ -282,20 +303,6 @@ def tree_unflatten(tree, leaves):
     return walk(tree)
 
 
-def _local(p: torch.Tensor, spec: Optional[ShardSpec]) -> torch.Tensor:
-    """This rank's slice of ``p`` (a view; ``p`` itself when the leaf is
-    not sharded)."""
-    if spec is None:
-        return p
-    return p.narrow(spec.dim, spec.start, spec.stop - spec.start)
-
-
-def _block(p: torch.Tensor, spec: ShardSpec, r: int) -> torch.Tensor:
-    """Data rank ``r``'s slice of the whole leaf ``p`` (a view)."""
-    k = spec.stop - spec.start
-    return p.narrow(spec.dim, r * k, k)
-
-
 #: count of host scalar fetches (each a device barrier), as in the reference
 SCALAR_FETCHES = 0
 
@@ -322,9 +329,9 @@ class Trainer:
 
     def __init__(self, cfg: TrainConfig, mesh=None, device=None) -> None:
         if not isinstance(mesh, ProcessMesh):
-            # a mapping of axes (or None): model-sharding axes raise, a
-            # data-parallel mesh needs the job's process group, and a mesh
-            # of one device is this process alone
+            # a mapping of axes (or None): pipe / expert raise, a mesh of
+            # many devices needs the job's process group, and a mesh of
+            # one device is this process alone
             spec = MeshSpec(fa.mesh_axes(mesh))
             check_axes(spec)
             mesh = build_mesh(spec, device) if spec.size() > 1 \
@@ -334,6 +341,12 @@ class Trainer:
         #: the data-like axes above 1 and the ranks along them
         self.dp_axes = mesh.active(DATA_AXES)
         self.dp = mesh.size(self.dp_axes)
+        #: the axes whose ranks hold distinct tokens (rows, or blocks of
+        #: the sequence) and how many ranks that is: a gradient is summed
+        #: over them, a loss averaged
+        self.batch_axes = mesh.active(DATA_AXES + (SEQUENCE_AXIS,))
+        self.batch_ranks = mesh.size(self.batch_axes)
+        self.sp = axis_size(mesh, SEQUENCE_AXIS)
         if cfg.global_batch % cfg.grad_accum:
             raise ValueError(f"global_batch {cfg.global_batch} does not "
                              f"split into grad_accum={cfg.grad_accum}")
@@ -343,49 +356,143 @@ class Trainer:
             raise ValueError(
                 f"global_batch {cfg.global_batch}: {cfg.grad_accum} "
                 f"microbatches do not split evenly over {self.dp} ranks")
+        if cfg.seq_len % self.sp:
+            raise ValueError(f"seq_len={cfg.seq_len} not divisible by "
+                             f"sp={self.sp}")
+        model_axes = mesh.active(("fsdp", "tensor", SEQUENCE_AXIS))
+        if getattr(cfg.model, "fuse_projections", False) and \
+                axis_size(mesh, "tensor") > 1:
+            # concat-at-use along the column-split dim: the reference
+            # turns the fusion off on a tensor-parallel mesh
+            cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, fuse_projections=False))
         self.cfg = cfg
         cfg = self._apply_long_context_policy(cfg)
-        self.family = family_for(cfg.model)
+        #: this rank's part of a model sharded over fsdp / tensor / sp
+        self.shard: Optional[llama.TrainShard] = None
+        if model_axes:
+            if not isinstance(cfg.model, llama.LlamaConfig):
+                kind = type(cfg.model).__name__
+                raise ValueError(f"mesh axes {model_axes}: sharding the "
+                                 f"{kind} model {MODEL_SHARDING}")
+            self.shard = llama.TrainShard(cfg.model, mesh)
+        self.family = family_for(cfg.model) if self.shard is None \
+            else llama_family(cfg.model, self.shard)
         if self.dp > 1 and isinstance(cfg.model, moe.MoEConfig):
             self.family = moe_family(
                 cfg.model, moe.DataParallelRouting(mesh, self.dp_axes))
         self.tx = make_optimizer(cfg)
-        like = tree_leaves(self.family.like())
+        like_tree = self.family.like()
+        like = tree_leaves(like_tree)
+        self.leaf_paths = [name for name, _ in llama.named_leaves(like_tree)]
         self.grad_bucket_plan = plan_grad_buckets(
             [t.numel() * t.element_size() for t in like],
             int(cfg.grad_bucket_mb * 2**20))
-        #: per leaf (tree order): this rank's slice under the sharded
-        #: update, or None (the leaf's update is replicated)
-        self.shard_specs = self._shard_specs(like)
+        #: per leaf (tree order): where this rank's parameter shard sits in
+        #: the global leaf, or None (the leaf is whole here)
+        self.param_specs: List[Optional[ShardSpec]] = (
+            self.shard.regions(like_tree) if self.shard is not None
+            else [None] * len(like))
+        #: per leaf: the dimension of this rank's parameter tensor the
+        #: sharded update splits over the data axis, or None
+        self.update_dims = self._update_dims(like)
         #: the axes the weight update shards over: ("data",) or none
-        self.update_axes = ("data",) if any(self.shard_specs) else ()
+        self.update_axes = ("data",) if any(
+            d is not None for d in self.update_dims) else ()
+        #: per leaf: where this rank's optimizer moments sit in the global
+        #: leaf (the parameter shard, cut again by the update), or None
+        self.shard_specs = [self._moment_spec(i, tuple(t.shape))
+                            for i, t in enumerate(like)]
+        #: per leaf: the axes its gradient is all-reduced over after the
+        #: backward (the batch axes, less fsdp where the backward's
+        #: reduce-scatter summed it, less data where the update's does)
+        self.sum_axes = [self._sum_axes(i) for i in range(len(like))]
+        #: per leaf: 1.0 where this rank's slice counts in the global
+        #: norm (the first of the ranks that hold it alike), else 0.0
+        self._norm_keep = [
+            float(all(mesh.coords[a] == 0
+                      for a in mesh.active(mesh.axis_names)
+                      if a not in self._split_axes(i, moments=True)))
+            for i in range(len(like))]
         self.attn_impl = "dense"
         self.attn_fn = self._select_attn()
 
-    def _shard_specs(self, like) -> List[Optional[ShardSpec]]:
-        """The reference's ``_update_shardings`` on a replica / data mesh:
-        a leaf the bucket plan scatters is split over the data axis on its
-        first dimension that divides evenly; the replica axis keeps whole
-        shards (the first replica saves them). None everywhere when the
-        update is replicated (``shard_update`` off or no data axis above
-        1)."""
+    def _split_axes(self, i: int, moments: bool = False) -> Tuple[str, ...]:
+        """The axes above 1 that split leaf ``i`` (its moments: also the
+        update's data axis)."""
+        axes = set()
+        if self.param_specs[i] is not None:
+            axes = {a for a in self.shard.specs[self.leaf_paths[i]]
+                    if a and axis_size(self.mesh, a) > 1}
+        if moments and self.update_dims[i] is not None:
+            axes.add("data")
+        return self.mesh.active(tuple(axes))
+
+    def _update_dims(self, like) -> List[Optional[int]]:
+        """The reference's ``_update_shardings`` (``trainer.py:332``): a
+        leaf the bucket plan scatters is split over the data axis on its
+        first dimension that divides evenly and that its (pruned) spec
+        leaves whole. When the model itself is sharded (fsdp, tensor, sp),
+        only the leading, stacked-layer dimension of a ``layers`` leaf may
+        take it (the reference's rule against its partitioner's
+        miscompile), and the embedding and head none. The replica axis
+        keeps whole shards. None everywhere when the update is replicated
+        (``shard_update`` off, no data axis above 1, or nothing
+        divides)."""
         pm = self.mesh
         dsize = axis_size(pm, "data")
         if not self.cfg.shard_update or dsize <= 1:
             return [None] * len(like)
-        r = pm.coords["data"]
-        first = pm.coords.get("replica", 0) == 0
-        specs: List[Optional[ShardSpec]] = []
-        for t, scatter in zip(like, self.grad_bucket_plan.scatter):
+        model_sharded = bool(pm.active(("fsdp", "tensor", SEQUENCE_AXIS,
+                                        "expert")))
+        names = set(pm.axis_names)
+        specs = llama.pruned_specs(self.cfg.model, names) \
+            if isinstance(self.cfg.model, llama.LlamaConfig) else None
+        paths = self.leaf_paths
+        dims: List[Optional[int]] = []
+        for i, (t, scatter) in enumerate(zip(like,
+                                             self.grad_bucket_plan.scatter)):
             shape = tuple(t.shape)
-            dim = next((d for d, n in enumerate(shape) if n % dsize == 0),
-                       None) if scatter else None
-            if dim is None:
-                specs.append(None)
-                continue
-            k = shape[dim] // dsize
-            specs.append(ShardSpec(shape, dim, r * k, (r + 1) * k, first))
-        return specs
+            spec = specs[paths[i]] if specs else (None,) * len(shape)
+            free = [d for d, a in enumerate(spec) if not a]
+            if model_sharded:
+                free = free[:1] if paths[i].startswith("layers/") and \
+                    0 in free else []
+            dims.append(next((d for d in free if shape[d] % dsize == 0),
+                             None) if scatter else None)
+        return dims
+
+    def _moment_spec(self, i: int, shape) -> Optional[ShardSpec]:
+        spec, d = self.param_specs[i], self.update_dims[i]
+        if spec is None and d is None:
+            return None
+        if spec is None:
+            spec = ShardSpec(shape, (0,) * len(shape), shape)
+        if d is not None:
+            k = spec.local_shape[d] // axis_size(self.mesh, "data")
+            spec = spec.narrow(d, self.mesh.coords["data"] * k, k)
+        split = self._split_axes(i, moments=True)
+        return dataclasses.replace(spec, write=all(
+            self.mesh.coords[a] == 0
+            for a in self.mesh.active(self.mesh.axis_names)
+            if a not in split))
+
+    def _sum_axes(self, i: int) -> Tuple[str, ...]:
+        skip = {"fsdp"} & set(self._split_axes(i))
+        if self.update_dims[i] is not None:
+            skip.add("data")
+        return tuple(a for a in self.batch_axes if a not in skip)
+
+    def _upd(self, p: torch.Tensor, i: int, r: Optional[int] = None):
+        """Data rank ``r``'s (default: this rank's) slice of leaf ``i``'s
+        parameter-shaped tensor ``p`` under the sharded update (a view;
+        ``p`` itself when the leaf's update is not split)."""
+        d = self.update_dims[i]
+        if d is None:
+            return p
+        k = p.shape[d] // axis_size(self.mesh, "data")
+        r = self.mesh.coords["data"] if r is None else r
+        return p.narrow(d, r * k, k)
 
     def _apply_long_context_policy(self, cfg: TrainConfig) -> TrainConfig:
         """At seq_len >= long_context_threshold a remat'ing Llama config is
@@ -415,10 +522,20 @@ class Trainer:
         return cfg
 
     def _select_attn(self):
-        """Pick the attention path once: "auto" is flash on CUDA and dense
-        on the CPU; "flash" forces the kernel route (on the CPU its
-        operators run their plain versions)."""
+        """Pick the attention path once (the reference's order): context
+        attention on a mesh with an ``sp`` axis above 1 (ring or Ulysses,
+        ``cfg.context_parallel_impl``); else "auto" is flash on CUDA and
+        dense on the CPU, and "flash" forces the kernel route (on the CPU
+        its operators run their plain versions). Flash runs each rank's
+        rows and heads."""
         cfg = self.cfg
+        from kubedl_tpu_torch.parallel.ring import make_context_attention
+
+        ctx = make_context_attention(self.mesh,
+                                     impl=cfg.context_parallel_impl)
+        if ctx is not None:
+            self.attn_impl = f"context-{cfg.context_parallel_impl}"
+            return ctx
         if cfg.attn_impl == "dense":
             return None
         on_cuda = self.device.type == "cuda"
@@ -438,15 +555,19 @@ class Trainer:
     def init_fn(self, generator: torch.Generator) -> Dict[str, Any]:
         """The whole train state from an explicit generator (on the
         trainer's device): params, optimizer state, step 0. Every rank
-        draws the same params; under the sharded update the moments are
-        this rank's shards only (``opt_state["shards"]`` says where they
-        sit)."""
+        draws the one-rank init's stream and keeps its shards of the
+        params (``state["param_shards"]`` says where they sit, when the
+        model is sharded); the moments are its shards of the update
+        (``opt_state["shards"]``)."""
         params = self.family.init(generator, self.device)
-        opt = self.tx.init([_local(p, s) for p, s in
-                            zip(tree_leaves(params), self.shard_specs)])
-        if self.update_axes:
+        opt = self.tx.init([self._upd(p, i) for i, p in
+                            enumerate(tree_leaves(params))])
+        state = {"params": params, "opt_state": opt, "step": 0}
+        if any(self.shard_specs):
             opt["shards"] = list(self.shard_specs)
-        return {"params": params, "opt_state": opt, "step": 0}
+        if any(self.param_specs):
+            state["param_shards"] = list(self.param_specs)
+        return state
 
     def init_state(self) -> Dict[str, Any]:
         gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
@@ -454,7 +575,7 @@ class Trainer:
 
     def shard_batch(self, batch) -> torch.Tensor:
         """A host batch (numpy) or tensor, on the trainer's device: this
-        rank's rows of it. A host batch goes up from pinned memory without
+        rank's part of it. A host batch goes up from pinned memory without
         blocking, so the upload does not wait for the previous step (as
         ``device_put`` does not).
 
@@ -462,7 +583,10 @@ class Trainer:
         data-parallel rank each keeps, of every microbatch (the batch as
         ``[grad_accum, B / grad_accum, S]``), the contiguous block of rows
         the reference's batch sharding gives its device: ``[grad_accum *
-        B / (grad_accum * dp), S]``, microbatch-major."""
+        B / (grad_accum * dp), S]``, microbatch-major. With an ``sp`` axis
+        each keeps its block of the sequence, S / sp columns, and the
+        next-token column after it (the next block's first token; a 0 on
+        the last block, which scores one position fewer)."""
         if self.dp > 1:
             n = self.cfg.grad_accum
             B, S = batch.shape
@@ -470,8 +594,18 @@ class Trainer:
             i = self.mesh.index(self.dp_axes)
             batch = batch.reshape(n, B // n, S)[:, i * b:(i + 1) * b]
             batch = batch.reshape(n * b, S)
-            batch = batch.contiguous() if isinstance(batch, torch.Tensor) \
-                else np.ascontiguousarray(batch)
+        if self.sp > 1:
+            Sl = batch.shape[1] // self.sp
+            c = self.mesh.coords[SEQUENCE_AXIS]
+            if isinstance(batch, torch.Tensor):
+                pad = batch.new_zeros((batch.shape[0], 1))
+                batch = torch.cat([batch, pad], dim=1)
+            else:
+                pad = np.zeros((batch.shape[0], 1), batch.dtype)
+                batch = np.concatenate([batch, pad], axis=1)
+            batch = batch[:, c * Sl:(c + 1) * Sl + 1]
+        batch = batch.contiguous() if isinstance(batch, torch.Tensor) \
+            else np.ascontiguousarray(batch)
         if isinstance(batch, torch.Tensor):
             return batch.to(self.device)
         host = torch.from_numpy(np.asarray(batch))
@@ -490,45 +624,53 @@ class Trainer:
         return loss.detach(), list(grads)
 
     def train_step(self, state: Dict[str, Any], batch):
-        """One optimizer step on this rank's rows of ``batch`` (``[grad_accum
-        * b, S]`` of them), with ``grad_accum`` microbatches and the
-        gradients reduced over the data-parallel ranks; updates ``state``
-        in place and returns it with ``{"loss", "grad_norm"}`` (device
-        scalars: reading them is a host sync):
+        """One optimizer step on this rank's part of ``batch`` (``[grad_accum
+        * b, S]`` rows; with sp its block of the sequence), with
+        ``grad_accum`` microbatches and the gradients reduced over the
+        ranks that hold other tokens; updates ``state`` in place and
+        returns it with ``{"loss", "grad_norm"}`` (device scalars: reading
+        them is a host sync):
 
-        - replicated update: the gradients all-reduced (one collective a
-          bucket), their mean taken, the full update on every rank;
+        - the backward itself reduce-scatters an fsdp-split leaf's
+          gradient to its shard (``TrainShard``'s gathers), and sums
+          nothing over ``tensor`` (a tensor-replicated leaf's gradient is
+          the same on every tensor rank);
+        - replicated update: every leaf's gradient all-reduced over the
+          rest of its batch axes (``sum_axes``: one collective a bucket
+          and axes set), their mean taken, the full update of this rank's
+          shard of every leaf;
         - sharded update: each scattered leaf's gradient reduce-scattered
-          over the data axis, the update on this rank's shard of params,
-          ``mu`` and ``nu`` (the norm's partial sums summed over the data
-          axis first), then the params all-gathered. A replicated leaf's
-          gradient is all-reduced and every rank updates it whole. With
-          ``overlap_comm`` and more than one microbatch, each
-          microbatch's reduce-scatters are issued, asynchronously and one
-          a bucket in backward-readiness order, right after its backward,
-          and land in the shard accumulator after the next backward.
+          over the data axis, the update on this rank's slice of params,
+          ``mu`` and ``nu`` (the norm's partial sums summed over the mesh
+          first), then the params all-gathered. The other axes are
+          all-reduced as above. With ``overlap_comm`` and more than one
+          microbatch, each microbatch's reduce-scatters are issued,
+          asynchronously and one a bucket in backward-readiness order,
+          right after its backward, and land in the shard accumulator
+          after the next backward.
 
+        The global norm counts a leaf that several ranks hold alike once.
         The loss and the norm returned are the global ones, equal on
         every rank. On one process every collective is the identity."""
         batch = self.shard_batch(batch)
-        cfg, pm, specs = self.cfg, self.mesh, self.shard_specs
+        cfg, pm = self.cfg, self.mesh
         params = state["params"]
         leaves = tree_leaves(params)
+        upd = [d is not None for d in self.update_dims]
         n = cfg.grad_accum
         micro = batch.reshape(n, batch.shape[0] // n, batch.shape[1])
         sharded = bool(self.update_axes)
         loss = None
         if sharded and cfg.overlap_comm and n > 1:
-            grads = [torch.zeros(s.local_shape, dtype=p.dtype,
-                                 device=p.device) if s else
-                     torch.zeros_like(p) for p, s in zip(leaves, specs)]
+            grads = [torch.zeros_like(self._upd(p, i))
+                     for i, p in enumerate(leaves)]
             pending: list = []
             for mb in micro:
                 l_i, g_i = self.value_and_grad(params, mb)
                 loss = l_i if loss is None else loss + l_i
                 issued = self._scatter(g_i)
-                for a, g, s in zip(grads, g_i, specs):
-                    if s is None:  # the replicated ones, reduced after
+                for a, g, u in zip(grads, g_i, upd):
+                    if not u:  # the replicated ones, reduced after
                         a.add_(g)
                 self._absorb(pending, grads)
                 pending = issued
@@ -543,29 +685,28 @@ class Trainer:
                     grads = [a + b for a, b in zip(grads, g_i)]
             if sharded:
                 full = grads
-                grads = [torch.zeros(s.local_shape, dtype=g.dtype,
-                                     device=g.device) if s else g
-                         for g, s in zip(full, specs)]
+                grads = [torch.zeros_like(self._upd(g, i)) if u else g
+                         for i, (g, u) in enumerate(zip(full, upd))]
                 self._absorb(self._scatter(full), grads)
                 del full
         if sharded:
-            self._all_reduce([g for g, s in zip(grads, specs) if s is None],
-                             ("data",))
-            self._all_reduce(grads, ("replica",))
+            self._all_reduce_by_axes(grads, range(len(grads)))
         else:
             for idxs in self.grad_bucket_plan.buckets:
-                self._all_reduce([grads[i] for i in idxs], self.dp_axes)
-        if n * self.dp > 1:
+                self._all_reduce_by_axes(grads, idxs)
+        grads = [g if g.is_contiguous() else g.contiguous() for g in grads]
+        if n * self.batch_ranks > 1:
             for g in grads:
-                g.div_(n * self.dp)
+                g.div_(n * self.batch_ranks)
         loss = (loss / n).reshape(1)
-        pm.all_reduce(loss, self.dp_axes)
-        loss = loss[0] / self.dp
-        local = [_local(p, s) for p, s in zip(leaves, specs)]
-        upd = [t if t.is_contiguous() else t.contiguous() for t in local]
-        gnorm = self.tx.update(grads, state["opt_state"], upd,
-                               self._sum_partials if sharded else None)
-        for t, u in zip(local, upd):
+        pm.all_reduce(loss, self.batch_axes)
+        loss = loss[0] / self.batch_ranks
+        local = [self._upd(p, i) for i, p in enumerate(leaves)]
+        contig = [t if t.is_contiguous() else t.contiguous() for t in local]
+        spread = sharded or self.shard is not None
+        gnorm = self.tx.update(grads, state["opt_state"], contig,
+                               self._sum_partials if spread else None)
+        for t, u in zip(local, contig):
             if u is not t:
                 t.copy_(u)
         if sharded:
@@ -575,18 +716,18 @@ class Trainer:
 
     def _buckets(self) -> List[List[int]]:
         """The bucket plan's buckets, in issue order, cut to the leaves
-        this rank updates a shard of."""
-        return [b for b in ([i for i in bucket if self.shard_specs[i]]
+        this rank updates a slice of."""
+        return [b for b in ([i for i in bucket
+                             if self.update_dims[i] is not None]
                             for bucket in self.grad_bucket_plan.buckets) if b]
 
     def _scatter(self, grads) -> list:
         """Issue each bucket's reduce-scatter over the data axis
         (asynchronous): its leaves' rank blocks laid out rank-major, so
-        rank r receives the sum of its shards."""
+        rank r receives the sum of its slices."""
         dsize, issued = axis_size(self.mesh, "data"), []
         for idxs in self._buckets():
-            inp = torch.cat([_block(grads[i], self.shard_specs[i], r)
-                             .reshape(-1)
+            inp = torch.cat([self._upd(grads[i], i, r).reshape(-1)
                              for r in range(dsize) for i in idxs])
             out = inp.new_empty(inp.numel() // dsize)
             issued.append((self.mesh.reduce_scatter(out, inp, ("data",),
@@ -606,6 +747,15 @@ class Trainer:
                 acc[i].add_(out[off:off + k].view(acc[i].shape))
                 off += k
 
+    def _all_reduce_by_axes(self, grads: List[torch.Tensor], idxs) -> None:
+        """Sum the gradients ``idxs`` in place, each over its
+        ``sum_axes``: one flat collective for each set of axes."""
+        by_axes: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+        for i in idxs:
+            by_axes.setdefault(self.sum_axes[i], []).append(grads[i])
+        for axes, tensors in by_axes.items():
+            self._all_reduce(tensors, axes)
+
     def _all_reduce(self, tensors: List[torch.Tensor], axes) -> None:
         """Sum ``tensors`` in place over ``axes`` as one flat collective."""
         if not tensors or self.mesh.size(self.mesh.active(axes)) <= 1:
@@ -618,24 +768,24 @@ class Trainer:
             off += t.numel()
 
     def _sum_partials(self, sums: torch.Tensor) -> torch.Tensor:
-        """The norm's per-leaf partial sums over the data axis: a
-        scattered leaf's shards add up, a replicated leaf (whole on every
-        rank) counts once, from the first data rank."""
-        first = float(self.mesh.coords["data"] == 0)
-        keep = torch.tensor([1.0 if s else first for s in self.shard_specs],
-                            device=sums.device)
-        out = (sums * keep).contiguous()
-        self.mesh.all_reduce(out, ("data",))
+        """The norm's per-leaf partial sums over the mesh: each leaf's
+        distinct slices add up, and a slice that several ranks hold alike
+        (a leaf whole on every data rank, a norm on every tensor rank,
+        any leaf along sp) counts once, from the first of them."""
+        pm = self.mesh
+        out = (sums * torch.tensor(self._norm_keep,
+                                   device=sums.device)).contiguous()
+        pm.all_reduce(out, pm.axis_names)
         return out
 
     def _gather(self, leaves: List[torch.Tensor]) -> None:
-        """All-gather the updated shards into every rank's params, one
+        """All-gather the updated slices into every rank's params, one
         collective a bucket."""
         pm, dsize = self.mesh, axis_size(self.mesh, "data")
         issued = []
         for idxs in self._buckets():
-            mine = torch.cat([_local(leaves[i], self.shard_specs[i])
-                              .reshape(-1) for i in idxs])
+            mine = torch.cat([self._upd(leaves[i], i).reshape(-1)
+                              for i in idxs])
             out = mine.new_empty(dsize * mine.numel())
             issued.append((pm.all_gather(out, mine, ("data",),
                                          async_op=True), out, idxs))
@@ -645,10 +795,9 @@ class Trainer:
             for r in range(dsize):
                 off = 0
                 for i in idxs:
-                    s = self.shard_specs[i]
-                    k = math.prod(s.local_shape)
-                    _block(leaves[i], s, r).copy_(
-                        rows[r, off:off + k].view(s.local_shape))
+                    dst = self._upd(leaves[i], i, r)
+                    k = dst.numel()
+                    dst.copy_(rows[r, off:off + k].view(dst.shape))
                     off += k
 
     def _sync(self) -> None:
@@ -781,6 +930,7 @@ class Trainer:
             "grad_buckets": self.grad_bucket_plan.n_buckets,
             "opt_state_bytes_per_device": state_bytes_per_device(state),
             "world": nprocs,
+            "mesh": dict(pm.shape),
             "dist_backend": pm.backend or None,
             # host ms a step in each collective, staging included (gloo);
             # None where not timed (one process, or NCCL)

@@ -379,15 +379,20 @@ def test_tensor_core_route_matches_source_table():
 
 
 def test_make_flash_attention_single_device_only():
-    """One device, or a replica / data mesh (each rank attends over its
-    own rows): the direct operator. An axis that shards heads or the
-    sequence raises."""
+    """One device, or a replica / data / fsdp / tensor mesh (each rank
+    attends over its own rows and heads): the direct operator. An axis
+    that shards the sequence (``sp``: context attention's) or belongs to
+    a later slice (``pipe``, ``expert``) raises."""
     fn = tfa.make_flash_attention(None)
     assert fn.fused_rope is True
     assert tfa.make_flash_attention({"data": 1}).fused_rope is True
     assert tfa.make_flash_attention({"replica": 2, "data": 2}).fused_rope
-    for axis in ("fsdp", "tensor", "sp"):
-        with pytest.raises(ValueError, match="multi-chip"):
+    for axis in ("fsdp", "tensor"):
+        assert tfa.make_flash_attention({"data": 2, axis: 2}).fused_rope
+    for axis, match in (("sp", "make_context_attention"),
+                        ("pipe", "later port slice"),
+                        ("expert", "later port slice")):
+        with pytest.raises(ValueError, match=match):
             tfa.make_flash_attention({"data": 2, axis: 2})
 
 

@@ -411,16 +411,19 @@ def test_fit_log_every_and_summary_keys():
     {"mesh": {"data": 2}}, {"mesh": {"sp": 2}}, {"mesh": {"pipe": 2}},
 ], ids=["data2", "sp2", "pipe2"])
 def test_trainer_rejects_later_slices(kw, tmp_path):
-    """Model-sharding axes (sp, pipe) raise naming their slice. A data
-    axis is this slice's: two gloo ranks train on it, in step, with the
-    optimizer state sharded."""
-    if kw["mesh"] == {"data": 2}:
+    """A pipe axis raises naming its slice. A data axis and an sp axis are
+    ported: two gloo ranks train on each, in step (the data axis with the
+    optimizer state sharded, the sp axis through ring attention)."""
+    if "pipe" not in kw["mesh"]:
         ranks = w.run_ranks({"train": {"model": "tiny", "global_batch": 2,
                                        "seq_len": 16, "steps": 2},
                              "mesh": kw["mesh"], "out": str(tmp_path / "r")})
         assert ranks[0]["steps"] == ranks[1]["steps"]
         assert all(np.isfinite(ranks[0]["steps"]).flat)
-        assert ranks[0]["shard_update"] and ranks[0]["world"] == 2
+        assert ranks[0]["world"] == 2
+        assert ranks[0]["shard_update"] == ("data" in kw["mesh"])
+        assert ranks[0]["attn_impl"] == (
+            "context-ring" if "sp" in kw["mesh"] else "dense")
         return
     cfg = tt.TrainConfig(**kw.get("cfg", {}))
     with pytest.raises(ValueError, match="slice"):
@@ -490,7 +493,8 @@ def test_train_main_prints_worker_summary(capsys, clean_env):
 
 
 #: (env, config, runs): what train_main rejects naming its slice, and what
-#: this slice runs (2 processes for a data=2 job; elastic resize at world 1)
+#: the port runs (2 processes for a data=2, tensor=2 or sp=2 job, 4 for
+#: data=2 x fsdp=2; elastic resize at world 1)
 ENTRY_CASES = {
     "KUBEDL_NUM_PROCESSES--": ({"KUBEDL_NUM_PROCESSES": "2"}, {}, True),
     "KUBEDL_MESH_AXES--": ({"KUBEDL_NUM_PROCESSES": "2",
@@ -501,10 +505,14 @@ ENTRY_CASES = {
     "KUBEDL_ELASTIC_BASE_DP--": ({"KUBEDL_ELASTIC_BASE_DP": "2"}, {}, True),
     "--train_mode": ({}, {"train_mode": "ps"}, False),
     "--chaos": ({}, {"chaos": {"trainer.step_stall": [{"nth": 1}]}}, False),
-    "fsdp2": ({"KUBEDL_MESH_AXES": "data=2,fsdp=2"}, {}, False),
-    "tensor2": ({"KUBEDL_MESH_AXES": "tensor=2"}, {}, False),
+    "fsdp2": ({"KUBEDL_NUM_PROCESSES": "4",
+               "KUBEDL_MESH_AXES": "data=2,fsdp=2"}, {}, True),
+    "tensor2": ({"KUBEDL_NUM_PROCESSES": "2",
+                 "KUBEDL_MESH_AXES": "tensor=2"}, {}, True),
     "expert2": ({"KUBEDL_MESH_AXES": "expert=2"}, {}, False),
-    "sp2": ({"KUBEDL_MESH_AXES": "sp=2"}, {}, False),
+    "sp2": ({"KUBEDL_NUM_PROCESSES": "2", "KUBEDL_MESH_AXES": "sp=2"}, {},
+            True),
+    "pipe2": ({"KUBEDL_MESH_AXES": "pipe=2"}, {}, False),
 }
 
 
@@ -512,9 +520,9 @@ ENTRY_CASES = {
                          ids=list(ENTRY_CASES))
 def test_train_main_rejects_what_this_slice_does_not_run(env, opts, runs,
                                                        clean_env, capsys):
-    """The parameter service, a chaos plan and model-sharding mesh axes
-    raise naming their slice. Multi-process jobs and elastic resize are
-    this slice's: they train."""
+    """The parameter service, a chaos plan and the pipe / expert mesh
+    axes raise naming their slice. Multi-process jobs (data, fsdp, tensor,
+    sp) and elastic resize are ported: they train."""
     import sys
 
     from kubedl_tpu_torch.training import entry

@@ -1,5 +1,6 @@
-"""One rank of a data-parallel run of the port, for the CPU tests
-(``tests/test_torch_distributed.py``, ``tests/test_torch_training.py``).
+"""One rank of a multi-process run of the port, for the CPU tests
+(``tests/test_torch_distributed.py``, ``tests/test_torch_training.py``,
+``tests/test_torch_model_parallel.py``).
 
 Run as ``python tests/torch_dist_worker.py '<json spec>'`` with the job's
 env (``KUBEDL_NUM_PROCESSES``, ``KUBEDL_PROCESS_ID``,
@@ -7,12 +8,16 @@ env (``KUBEDL_NUM_PROCESSES``, ``KUBEDL_PROCESS_ID``,
 returns what each wrote. It imports torch and the port only, never JAX.
 
 The spec: ``train`` (``TrainConfig`` fields, ``model`` a preset name),
-``mesh`` (axes), ``init`` (a checkpoint dir whose ``params`` start the
-run), ``resume`` (a checkpoint dir whose train state resumes it),
+``mesh`` (axes), ``init`` (a checkpoint dir whose whole ``params`` start
+the run, each rank keeping its shards of a sharded model), ``resume`` (a checkpoint dir whose train state resumes it),
 ``ckpt_dir`` / ``ckpt_every`` (``fit``'s saves), ``dump_at`` (after that
 many steps of the run, or right after the resume when 0, each rank
-writes its state's tensors to ``<out>-<rank>-dump.npz``) and ``out`` (each
-rank's JSON: per step loss and grad norm, the summary's keys).
+writes its state's tensors to ``<out>-<rank>-dump.npz``),
+``final_params`` (rank 0 writes the whole params at the end, assembled
+from every rank's shards, to ``<out>-final.npz``) and ``out`` (each
+rank's JSON: per step loss and grad norm, the summary's keys). A spec
+with ``attention`` (``B, S, H, KV, hd``) runs the context attention
+instead (:func:`_attention`).
 """
 
 from __future__ import annotations
@@ -46,21 +51,73 @@ def run_ranks(spec: dict, world: int = 2) -> List[dict]:
 
 
 def _dump(path: str, state) -> None:
+    """The rank's state tensors (``<path>.npz``: ``params/i``, ``mu/i``,
+    ``nu/i``, its shards where it holds shards) and where each shard sits
+    (``<path>.json``: per name, per leaf ``[starts, stops]`` or null)."""
     import numpy as np
 
     from kubedl_tpu_torch.training.trainer import tree_leaves
 
     opt = state["opt_state"]
-    specs = opt.get("shards") or [None] * len(opt["mu"])
-    arrays = {}
+    where = {"params": state.get("param_shards"), "mu": opt.get("shards"),
+             "nu": opt.get("shards")}
+    arrays, regions = {}, {}
     for name, ts in (("params", tree_leaves(state["params"])),
                      ("mu", opt["mu"]), ("nu", opt["nu"])):
+        specs = where[name] or [None] * len(ts)
+        regions[name] = [None if s is None else [s.starts, s.stops]
+                         for s in specs]
         for i, t in enumerate(ts):
             arrays[f"{name}/{i}"] = t.detach().float().cpu().numpy()
     np.savez(path + ".npz", **arrays)
     with open(path + ".json", "w") as f:
-        json.dump([None if s is None else [s.dim, s.start, s.stop]
-                   for s in specs], f)
+        json.dump(regions, f)
+
+
+def attention_inputs(B, S, H, KV, hd, seed=0):
+    """Seeded float32 q, k, v and a cotangent w (numpy), the same in the
+    test and in every rank."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd),
+                          (B, S, H, hd))]
+
+
+def _attention(spec: dict, mesh) -> None:
+    """The ``attention`` mode: ring and Ulysses attention (direct and
+    through ``make_context_attention``, which must agree bit for bit) on
+    this rank's block of the sequence, causal and not; writes each
+    case's output and q/k/v gradients of ``sum(out * w)``."""
+    import numpy as np
+    import torch
+
+    from kubedl_tpu_torch.parallel import ring
+
+    a = spec["attention"]
+    q, k, v, w = attention_inputs(**a)
+    n, c = mesh.shape["sp"], mesh.coords["sp"]
+    Sl = a["S"] // n
+    block = [torch.from_numpy(x[:, c * Sl:(c + 1) * Sl].copy())
+             for x in (q, k, v, w)]
+    out = {}
+    for impl, fn in (("ring", ring.ring_attention),
+                     ("ulysses", ring.ulysses_attention)):
+        for causal in (True, False):
+            got = []
+            for direct in (True, False):
+                ins = [t.clone().requires_grad_(True) for t in block[:3]]
+                attn = (lambda *x: fn(*x, mesh, "sp", causal)) if direct \
+                    else ring.make_context_attention(mesh, impl=impl,
+                                                     causal=causal)
+                o = attn(*ins)
+                (o * block[3]).sum().backward()
+                got.append([o.detach()] + [t.grad for t in ins])
+            assert all(torch.equal(x, y) for x, y in zip(*got))
+            for name, t in zip(("out", "dq", "dk", "dv"), got[0]):
+                out[f"{impl}/{causal}/{name}"] = t.numpy()
+    np.savez(f"{spec['out']}-{mesh.rank}.npz", **out)
 
 
 def main(spec: dict) -> None:
@@ -71,10 +128,14 @@ def main(spec: dict) -> None:
     from kubedl_tpu_torch.parallel.mesh import build_mesh, initialize_from_env
     from kubedl_tpu_torch.training import checkpoint as ck
     from kubedl_tpu_torch.training.data import SyntheticTokens
-    from kubedl_tpu_torch.training.trainer import TrainConfig, Trainer
+    from kubedl_tpu_torch.training.trainer import (
+        TrainConfig, Trainer, tree_leaves,
+    )
 
     initialize_from_env(timeout_s=RANK_TIMEOUT_S / 2)
     try:
+        if "attention" in spec:
+            return _attention(spec, build_mesh(MeshSpec(spec["mesh"]), "cpu"))
         kw = dict(spec["train"])
         name = kw.pop("model")
         model = (moe if "moe" in name else llama).preset(name)
@@ -82,10 +143,12 @@ def main(spec: dict) -> None:
         trainer = Trainer(cfg, build_mesh(MeshSpec(spec["mesh"]), "cpu"))
         rank = trainer.mesh.rank
         state = trainer.init_state()
-        if spec.get("init"):
-            state["params"] = ck.restore_checkpoint(
+        if spec.get("init"):  # a whole tree: this rank keeps its shards
+            params = ck.restore_checkpoint(
                 spec["init"], {"params": trainer.family.like()},
                 device="cpu")["params"]
+            state["params"] = params if trainer.shard is None \
+                else trainer.shard.shard(params)
         if spec.get("resume"):
             state = ck.train_state_from_tree(ck.restore_checkpoint(
                 spec["resume"], ck.train_state_like(state), device="cpu"))
@@ -108,7 +171,16 @@ def main(spec: dict) -> None:
             ckpt_every=spec.get("ckpt_every"))
         keep = ("shard_update", "overlap_comm", "grad_buckets", "world",
                 "opt_state_bytes_per_device", "dist_backend", "collective_ms",
-                "first_loss", "final_loss", "attn_impl")
+                "first_loss", "final_loss", "attn_impl", "mesh")
+        if spec.get("final_params"):  # the whole params, from every shard
+            import numpy as np
+
+            params = state["params"] if trainer.shard is None \
+                else trainer.shard.assemble(state["params"])
+            if rank == 0:
+                np.savez(f"{spec['out']}-final.npz", **{
+                    str(i): t.detach().numpy()
+                    for i, t in enumerate(tree_leaves(params))})
         with open(f"{spec['out']}-{rank}.json", "w") as f:
             json.dump({"steps": steps, "rank": rank,
                        **{k: summary[k] for k in keep}}, f)
