@@ -4,7 +4,7 @@
     python3 chip_smoke.py --skip-engine  # without phases 5, 6, 13-19, 22,
                                          # 26, 27
     python3 chip_smoke.py --skip-train   # without phases 8 to 12, 21,
-                                         # 23-25, 28-30
+                                         # 23-25, 28-31
 
 Phases (any failure exits non-zero before the final line):
 
@@ -103,7 +103,10 @@ Phases (any failure exits non-zero before the final line):
    training shape (B=8, H=16, KV=8, S=2048, hd 64, bf16, causal, theta
    10000 RoPE: GQA group 2, phase 25's path), untimed; and the zoo
    draft's distillation shape (B=8, H=KV=32, S=128, hd 64, bf16, causal,
-   RoPE: MHA, group 1, phase 26's path), untimed.
+   RoPE: MHA, group 1, phase 26's path), untimed; and phase 31's stage
+   shapes, untimed: a GPipe microbatch of bench-moe (B=1, H=16, KV=8,
+   S=2048, hd 64, bf16, theta 10000) and of 31a's float32 pipe=2 x
+   tensor=2 stage (B=1, H=16, KV=4, S=512, hd 64).
 8. training: ``train_main`` with KUBEDL_TRAIN_CONFIG={"model":
    "llama3-1b", "global_batch": 4, "seq_len": 2048, "steps": 8} on the
    card, full width and depth, seeded random weights; gates on finite
@@ -174,14 +177,15 @@ Phases (any failure exits non-zero before the final line):
    step (M=40); a MISS line where the decode step's sum is not below
    cuBLAS's or M=512 4096 x 14336 is not below the plain version.
 17. int8 engine: ``serve_main`` with ``quantize`` "int8" on phase 5's
-   config and requests (Llama-3-8B full width and depth); gates on every
-   response, 7 x 32 + 1 W8A16 op calls a decode step, every decode
+   config and requests at Llama-3-8B's full width cut to 8 layers (the
+   cut paid for phase 31: the phase took 127-161 s at 32); gates on every
+   response, 7 x 8 + 1 W8A16 op calls a decode step, every decode
    step's calls on the decode route and prefill chunks on the prefill
    route, the paged kernels, finite logits and resident weight bytes
-   about half of phase 5's; prints ms per decode step and TTFT beside
-   phase 5's bf16 ones and beside phase 5's engine run on the same
-   requests right before and right after (the steps are host-bound and
-   the host's speed drifts within a call), and the W8A16 op calls and
+   exactly the int8 tree's; prints ms per decode step and TTFT beside
+   the bf16 engine at the same depth run on the same requests right
+   before and right after (the steps are host-bound and the host's speed
+   drifts within a call), and the W8A16 op calls and
    device ms a decode step: calls counted in a window of pure decode,
    device ms from a profile of the whole wave (the decode kernel at
    M <= 8 and its split-K combine, over those calls). Then
@@ -361,11 +365,34 @@ Phases (any failure exits non-zero before the final line):
    two shard files, and the save restored at world 1 in this process
    against every saved entry, bit for bit. Prints collective ms a step
    by kind, peak GiB, launches and the phase's seconds.
+31. GPipe stages and MoE's expert and tensor split across processes
+   (the ranks share this card over gloo, as in phases 29-30): 31a, the
+   float32 identity, b4 x s512, 3 steps, against a one-rank trainer on
+   the same global batches (``--pp-identity-rank``; a 2-rank and a
+   4-rank job side by side): Llama-3.2-1B's width at 2 layers on
+   ``pipe=2`` and ``pipe=2 x tensor=2`` (4 microbatches: 5 GPipe ticks),
+   and bench-moe's width at 2 layers of 4 experts on ``expert=2`` and
+   ``tensor=2`` (routing over the whole batch, the preset's capacity and
+   aux weight) and ``pipe=2 x expert=2`` (capacity factor 8, aux weight
+   0: the reference's condition for the pipelined MoE, routed per
+   microbatch, to equal one device's). Gates: each step's loss and grad
+   norm within 1e-5 relative, params (assembled from every rank's
+   shards) within 2e-5, every rank in step, each rank's flash launches
+   (a stage's layer on every GPipe tick, fill and drain included: 5 a
+   step; 2 a step unpipelined). 31b, ``train_main`` as 4 processes with
+   ``KUBEDL_MESH_AXES=pipe=2,expert=2``: bench-moe bf16 at its full 12
+   layers and 8 experts (507.6 M parameters), b8 x s2048 in 8
+   microbatches, 2 steps, a final save; gates: the same losses on every
+   rank, flash on the tensor cores at hd 64 (54 + 54 launches a step a
+   rank: 9 ticks x 6 layers), each rank's optimizer bytes those of its
+   region, four shard files, and the save restored at world 1 in this
+   process against every saved entry, bit for bit. Prints ms a step,
+   collective ms a step by kind, peak GiB a rank and the phase's seconds.
 
 Phase 16 runs after phase 4; phase 22, then phases 13-15, 26, 27 and
 17-19 after phase 6 (they are skipped with ``--skip-engine``); phase 20
-after phase 7, then phases 23, 24, 25 and 28, and phases 21, 29 and 30
-after phase 12 (skipped with ``--skip-train``).
+after phase 7, then phases 23, 24, 25 and 28, and phases 21, 29, 30 and
+31 after phase 12 (skipped with ``--skip-train``).
 
 Output: the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -890,6 +917,13 @@ FLASH_CASES = [
      True, False),
     ("tensor=2 llama3-8b heads", 1, 16, 4, 2048, 128, torch.bfloat16, True,
      True, False),
+    # phase 31's paths: a GPipe stage's microbatch (one row of 2048 at
+    # 31b's bench-moe), and 31a's float32 pipe=2 x tensor=2 stage (a
+    # microbatch of one row, 16 of llama3-1b's 32 heads)
+    ("pipe=2 bench-moe microbatch", 1, 16, 8, 2048, 64, torch.bfloat16,
+     True, True, False),
+    ("pipe=2 x tensor=2 llama3-1b microbatch f32", 1, 16, 4, 512, 64,
+     torch.float32, True, True, False),
 ]
 #: Tolerances against the plain versions on the same inputs (N(0,1)):
 #: out: bf16 2e-2 max abs (both sides sum in float32 and round once to
@@ -908,7 +942,8 @@ FLASH_TOL = {torch.bfloat16: {"out": 2e-2, "lse": 1e-4, "grad": 2e-2},
 PAIR = ("flash_bwd_dq", "flash_bwd_dkdv")
 #: RoPE theta by case label: Gemma's and bench-moe's tables (10000) where
 #: a case is their training shape, llama3's (500000) elsewhere
-FLASH_ROPE_THETA = {"gemma-2b train": 10000.0, "bench-moe": 10000.0}
+FLASH_ROPE_THETA = {"gemma-2b train": 10000.0, "bench-moe": 10000.0,
+                    "pipe=2 bench-moe microbatch": 10000.0}
 
 
 @contextlib.contextmanager
@@ -3895,17 +3930,22 @@ def bf16_wave(server_mod, serve_cfg, reqs):
             "ttft_ms_p50": st.get("ttft_ms_p50"), "wall_s": wall}
 
 
+#: phase 17's model: Llama-3-8B's full width cut to 8 layers
+INT8_PRESET = "llama3-8b-8l"
+
+
 def run_int8_engine(pa, w8, server_mod, llama_mod, serve_cfg, summary):
-    """Phase 17: serve_main with quantize int8 at Llama-3-8B full width
-    and depth on phase 5's requests. Gates: every response; W8A16
-    launches exactly 7 x 32 + 1 a decode step and a prefill dispatch,
-    each decode step's on the decode route and prefill chunks on the
-    prefill route; both paged kernels; finite logits; resident weight
-    bytes exactly the int8 tree's, from the config. Prints the int8
-    decode step and TTFT beside phase 5's bf16 ones and beside the bf16
-    engine's on the same requests right before and right after it."""
-    cfg8 = llama_mod.preset("llama3-8b")
+    """Phase 17: serve_main with quantize int8 at Llama-3-8B full width,
+    cut to 8 layers (``INT8_PRESET``), on phase 5's requests. Gates:
+    every response; W8A16 launches exactly 7 x 8 + 1 a decode step and a
+    prefill dispatch, each decode step's on the decode route and prefill
+    chunks on the prefill route; both paged kernels; finite logits;
+    resident weight bytes exactly the int8 tree's, from the config.
+    Prints the int8 decode step and TTFT beside the bf16 engine's at the
+    same depth on the same requests right before and right after it."""
+    cfg8 = register_cut(llama_mod, INT8_PRESET)
     reqs = make_requests(cfg8.vocab_size)
+    serve_cfg = dict(serve_cfg, preset=INT8_PRESET)
     cfg = dict(serve_cfg, quantize="int8")
     per_step = w8_per_step(cfg8)
     # the bf16 engine on the same requests right before and after: the
@@ -3949,22 +3989,19 @@ def run_int8_engine(pa, w8, server_mod, llama_mod, serve_cfg, summary):
         fail(f"w8a16 window: decode steps left the decode route: {prof}")
     if st["nonfinite_logits"] != 0:
         fail(f"int8 engine: {st['nonfinite_logits']} non-finite logits")
-    wb, bf16_wb = st["weights"]["bytes"], summary.get("bf16_weight_bytes")
+    # the bf16 tree of the same depth: two bytes a parameter
+    wb, bf16_wb = st["weights"]["bytes"], 2 * cfg8.num_params()
     want = int8_weight_bytes(cfg8)
     if st["weights"]["quantize"] != "int8" or wb != want:
         fail(f"int8 engine weights {st['weights']}: want {want} bytes")
     dec_ms = pipe["decode_ms_sum"] - pipe0["decode_ms_sum"]
-    rec = {"requests": len(reqs), "wall_s": wall, "decode_steps": steps,
+    rec = {"preset": INT8_PRESET, "layers": cfg8.n_layers,
+           "requests": len(reqs), "wall_s": wall, "decode_steps": steps,
            "prefill_dispatches": dispatches,
            "prefill_chunks": pipe["prefill_chunks"] - pipe0["prefill_chunks"],
            "w8a16_launches": n_w8,
            "w8a16_launches_by_route": by_route,
            "ms_per_decode_step": dec_ms / steps,
-           "bf16_ms_per_decode_step": summary.get("bf16_ms_per_decode_step"),
-           "int8_over_bf16_step": (dec_ms / steps
-                                   / summary["bf16_ms_per_decode_step"]
-                                   if summary.get("bf16_ms_per_decode_step")
-                                   else None),
            "bf16_bracket": bracket,
            "int8_over_bf16_bracket": dec_ms / steps / statistics.mean(
                b["ms_per_decode_step"] for b in bracket),
@@ -3972,9 +4009,8 @@ def run_int8_engine(pa, w8, server_mod, llama_mod, serve_cfg, summary):
                                    - pipe0["decode_tokens"]) / (dec_ms / 1e3),
            "ttft_ms_p50": st.get("ttft_ms_p50"),
            "ttft_ms_p95": st.get("ttft_ms_p95"),
-           "bf16_ttft_ms_p50": summary.get("bf16_ttft_ms_p50"),
            "weight_bytes": wb, "bf16_weight_bytes": bf16_wb,
-           "weight_bytes_ratio": wb / bf16_wb if bf16_wb else None,
+           "weight_bytes_ratio": wb / bf16_wb,
            "paged_launches": launches,
            "pipeline": {k: pipe.get(k) for k in PIPELINE_FIELDS},
            "w8a16_profile": prof}
@@ -4695,17 +4731,22 @@ def entry_rank(name):
     return entry.train_main()
 
 
-def run_ranks(jobs, world, **extra):
+def run_ranks(jobs, world, label="29", **extra):
     """Each job of ``jobs`` (an argv, or an ``(argv, env)`` pair whose env
-    adds to ``extra``) as ``world`` processes of a job of its own, the
-    jobs side by side, each process with its own timeout; fails the
-    phase if one exits non-zero or times out (all are killed then).
-    Returns, a job, each process's standard output."""
+    adds to ``extra``, or an ``(argv, env, world)`` triple) as ``world``
+    processes of a job of its own, the jobs side by side, each process
+    with its own timeout; fails the phase if one exits non-zero or times
+    out (all are killed then). Returns, a job, each process's standard
+    output."""
     from kubedl_tpu_torch.parallel.launch import join_ranks, start_ranks
 
-    started = [start_ranks(job[0], world, **{**extra, **job[1]})
-               if isinstance(job, tuple) else start_ranks(job, world, **extra)
-               for job in jobs]
+    def start(job):
+        if not isinstance(job, tuple):
+            return start_ranks(job, world, **extra)
+        n = job[2] if len(job) > 2 else world
+        return start_ranks(job[0], n, **{**extra, **job[1]})
+
+    started = [start(job) for job in jobs]
     try:
         return [join_ranks(procs, DP_RANK_TIMEOUT) for procs in started]
     except RuntimeError as e:
@@ -4713,7 +4754,7 @@ def run_ranks(jobs, world, **extra):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-        fail(f"phase 29: {e}")
+        fail(f"phase {label}: {e}")
 
 
 def _json_lines(text, key):
@@ -5114,9 +5155,7 @@ def mp_identity_rank(names):
     from kubedl_tpu_torch.ops import flash_attention as fa
     from kubedl_tpu_torch.parallel.mesh import build_mesh, initialize_from_env
     from kubedl_tpu_torch.training.data import SyntheticTokens
-    from kubedl_tpu_torch.training.trainer import (
-        TrainConfig, Trainer, state_bytes_per_device, tree_leaves,
-    )
+    from kubedl_tpu_torch.training.trainer import TrainConfig, Trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     initialize_from_env(timeout_s=DP_RANK_TIMEOUT / 2)
@@ -5128,58 +5167,82 @@ def mp_identity_rank(names):
     batches = [next(data) for _ in range(kw["steps"])]
     rank = dist.get_rank()
     out = {"rank": rank, "cases": {}}
-    want, ref_params = None, None
-    if rank == 0:
-        one = Trainer(TrainConfig(model=model, **kw), None,
-                      device=torch.device("cuda", 0))
-        ref = one.init_state()
-        want = []
-        for b in batches:
-            ref, m = one.train_step(ref, b)
-            want.append([float(m["loss"]), float(m["grad_norm"])])
-        ref_params = ref["params"]
-        del one, ref
-        gc.collect()
-        torch.cuda.empty_cache()
+    want, ref_params = _one_rank(model, kw, batches) if rank == 0 \
+        else (None, None)
     for name in names:
         axes, over = MP_F32_CASES[name]
         mesh = build_mesh(MeshSpec(axes), "cuda")
         tr = Trainer(TrainConfig(model=model, **kw, **over), mesh)
-        _reset(fa)
-        sec0, calls0 = dict(mesh.seconds), dict(mesh.calls)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        state = tr.init_state()
-        got = []
-        for b in batches:
-            state, m = tr.train_step(state, b)
-            got.append([float(m["loss"]), float(m["grad_norm"])])
-        seconds = time.perf_counter() - t0
-        steps = len(batches)
-        rec = {"steps": got, "seconds": seconds, "backend": mesh.backend,
-               "attn_impl": tr.attn_impl, "mesh": dict(mesh.shape),
-               "flash_launches": dict(fa.LAUNCHES),
-               "collective_ms_per_step": {
-                   k: (v - sec0.get(k, 0.0)) / steps * 1e3
-                   for k, v in mesh.seconds.items()},
-               "collectives_per_step": {
-                   k: (v - calls0.get(k, 0)) / steps
-                   for k, v in mesh.calls.items()},
-               "opt_state_bytes_per_device": state_bytes_per_device(state),
-               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-        whole = tr.shard.assemble(state["params"])
-        if rank == 0:
-            rec["one_rank"] = want
-            rec["param_max_abs_diff"] = max(
-                (a - b).abs().max().item() for a, b in zip(
-                    tree_leaves(whole), tree_leaves(ref_params)))
-        out["cases"][name] = rec
-        del tr, state, whole
-        gc.collect()
-        torch.cuda.empty_cache()
+        out["cases"][name] = _train_case(fa, tr, batches, want, ref_params)
+        del tr
+        _free()
     print(json.dumps({"mp_identity": out}), flush=True)
     dist.destroy_process_group()
+
+
+def _one_rank(model, kw, batches):
+    """A one-rank trainer of ``model`` (TrainConfig fields ``kw``) on
+    ``batches`` on this card: each step's [loss, grad norm], and its
+    params after them."""
+    from kubedl_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    one = Trainer(TrainConfig(model=model, **kw), None,
+                  device=torch.device("cuda", 0))
+    ref = one.init_state()
+    want = []
+    for b in batches:
+        ref, m = one.train_step(ref, b)
+        want.append([float(m["loss"]), float(m["grad_norm"])])
+    params = ref["params"]
+    del one, ref
+    _free()
+    return want, params
+
+
+def _train_case(fa, tr, batches, want=None, ref_params=None):
+    """This rank's run of trainer ``tr`` (on a mesh of the job's
+    processes) from its init on ``batches``: each step's [loss, grad
+    norm], the seconds, the route, the mesh, the flash launches, the
+    collective ms and calls a step, the optimizer bytes and the peak
+    GiB; with the one-rank run (``want``, ``ref_params``: rank 0's),
+    also that and the largest difference of the params, assembled from
+    every rank's shards (a collective: every rank assembles)."""
+    from kubedl_tpu_torch.training.trainer import (
+        state_bytes_per_device, tree_leaves,
+    )
+
+    mesh = tr.mesh
+    _reset(fa)
+    sec0, calls0 = dict(mesh.seconds), dict(mesh.calls)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = tr.init_state()
+    got = []
+    for b in batches:
+        state, m = tr.train_step(state, b)
+        got.append([float(m["loss"]), float(m["grad_norm"])])
+    seconds = time.perf_counter() - t0
+    steps = len(batches)
+    rec = {"steps": got, "seconds": seconds, "backend": mesh.backend,
+           "attn_impl": tr.attn_impl, "mesh": dict(mesh.shape),
+           "microbatches": tr.microbatches,
+           "flash_launches": dict(fa.LAUNCHES),
+           "collective_ms_per_step": {
+               k: (v - sec0.get(k, 0.0)) / steps * 1e3
+               for k, v in mesh.seconds.items()},
+           "collectives_per_step": {
+               k: (v - calls0.get(k, 0)) / steps
+               for k, v in mesh.calls.items()},
+           "opt_state_bytes_per_device": state_bytes_per_device(state),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    whole = tr.shard.assemble(state["params"])
+    if want is not None:
+        rec["one_rank"] = want
+        rec["param_max_abs_diff"] = max(
+            (a - b).abs().max().item() for a, b in zip(
+                tree_leaves(whole), tree_leaves(ref_params)))
+    return rec
 
 
 def mp_identity_jobs():
@@ -5234,12 +5297,13 @@ def check_mp_identity(jobs, seconds):
     return {name: ranks[0][name]["flash_launches"] for name in MP_F32_CASES}
 
 
-def _world1_like(ck, llama_mod, model):
-    """A world-1 train state of ``model`` as ``meta`` tensors (float32
-    mu, nu in the params' type): what a restore at world 1 fills."""
+def _world1_like(ck, family_mod, model):
+    """A world-1 train state of ``model`` (of ``family_mod``: the llama or
+    moe module) as ``meta`` tensors (float32 mu, nu in the params' type):
+    what a restore at world 1 fills."""
     from kubedl_tpu_torch.training.trainer import tree_leaves
 
-    params = llama_mod.param_like(model)
+    params = family_mod.param_like(model)
     leaves = tree_leaves(params)
     return ck.train_state_like({
         "params": params, "step": 0,
@@ -5339,7 +5403,7 @@ def run_mp_phase(fa, ck, llama_mod):
     ckpt = os.path.join(root, "checkpoints")
     try:
         _free()
-        outs = run_ranks([mp_job(ckpt)] + mp_identity_jobs(), 2)
+        outs = run_ranks([mp_job(ckpt)] + mp_identity_jobs(), 2, label="30")
         t_ranks = time.perf_counter() - t0
         f32 = check_mp_identity(outs[1:], t_ranks)
         bf16 = check_mp_job(ck, llama_mod, model, outs[0], ckpt, t_ranks)
@@ -5351,6 +5415,295 @@ def run_mp_phase(fa, ck, llama_mod):
     return {"f32": f32, "bf16": bf16}
 
 
+# ---- phase 31: GPipe stages and MoE's expert and tensor split ----------------------
+
+#: 31a: float32, b4 x s512, 3 steps, each case's mesh of 2 or 4 processes
+#: on this card, against a one-rank trainer on the same global batches
+#: (rank 0's): Llama-3.2-1B's width at 2 layers (one a stage; its tied
+#: embedding read by stage 0 and the head on every stage) and bench-moe's
+#: width at 2 layers of 4 experts
+PP_F32 = {"layers": 2, "experts": 4, "global_batch": 4, "seq_len": 512,
+          "steps": 3}
+#: case -> (model, mesh, TrainConfig fields). "moe-cf8" is the
+#: reference's condition under which the pipelined MoE (routing per
+#: microbatch) and one device's agree (its tests/test_parallel.py:303):
+#: capacity factor 8 (no token dropped) and aux weight 0; the
+#: unpipelined meshes route over the whole batch, as one device does,
+#: at the preset's capacity and aux weight
+PP_F32_CASES = {
+    "llama-pipe2": ("llama", {"pipe": 2}, {"microbatches": 4}),
+    "moe-expert2": ("moe", {"expert": 2}, {}),
+    "moe-tensor2": ("moe", {"tensor": 2}, {}),
+    "llama-pipe2-tensor2": ("llama", {"pipe": 2, "tensor": 2},
+                            {"microbatches": 4}),
+    "moe-pipe2-expert2": ("moe-cf8", {"pipe": 2, "expert": 2},
+                          {"microbatches": 4}),
+}
+#: 31a's jobs, side by side: (processes, cases in turn)
+PP_F32_JOBS = ((2, ("llama-pipe2", "moe-expert2", "moe-tensor2")),
+               (4, ("llama-pipe2-tensor2", "moe-pipe2-expert2")))
+#: 31a's gates are 29a's and 30a's: each step's loss and grad norm within
+#: 1e-5 relative of the one-rank trainer's, params within 2e-5
+PP_RTOL = DP_RTOL
+PP_PARAM_TOL = DP_PARAM_TOL
+#: 31b: bench-moe bf16 at its full 12 layers and 8 experts (507.6 M
+#: parameters) through train_main as 4 processes at pipe=2 x expert=2
+#: (6 layers and 4 experts a rank), b8 x s2048 in 8 microbatches of one
+#: row, 2 steps, the final save's shards
+PP_JOB = {"model": "bench-moe", "global_batch": 8, "seq_len": 2048,
+          "steps": 2, "microbatches": 8, "ckpt_every": 2, "ckpt_async": True}
+PP_JOB_MESH = {"pipe": 2, "expert": 2}
+
+
+def pp_model(name):
+    """31a's model ``name`` ("llama", "moe", "moe-cf8"), float32."""
+    from kubedl_tpu_torch.models import llama, moe
+
+    if name == "llama":
+        return dataclasses.replace(llama.preset("llama3-1b"),
+                                   n_layers=PP_F32["layers"],
+                                   dtype=torch.float32)
+    model = dataclasses.replace(moe.preset("bench-moe"),
+                                n_layers=PP_F32["layers"],
+                                n_experts=PP_F32["experts"],
+                                dtype=torch.float32)
+    if name == "moe-cf8":
+        model = dataclasses.replace(model, capacity_factor=8.0,
+                                    aux_loss_weight=0.0)
+    return model
+
+
+def _ticks(mesh, over):
+    """Stage runs a step: M + pipe - 1 GPipe ticks, or 1 unpipelined."""
+    pipe = mesh.get("pipe", 1)
+    return over["microbatches"] + pipe - 1 if pipe > 1 else 1
+
+
+def pp_identity_rank(names):
+    """One rank of phase 31a (``--pp-identity-rank NAMES``, in the job's
+    env): each case of ``names`` on its mesh of this job's processes;
+    rank 0 also trains a one-rank trainer of each model on the same
+    global batches (once a model) and holds the params, assembled from
+    every rank's shards, against it. Prints one JSON line."""
+    import torch.distributed as dist
+
+    from kubedl_tpu_torch.api.topology import MeshSpec
+    from kubedl_tpu_torch.ops import flash_attention as fa
+    from kubedl_tpu_torch.parallel.mesh import build_mesh, initialize_from_env
+    from kubedl_tpu_torch.training.data import SyntheticTokens
+    from kubedl_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_from_env(timeout_s=DP_RANK_TIMEOUT / 2)
+    kw = {k: v for k, v in PP_F32.items() if k not in ("layers", "experts")}
+    rank = dist.get_rank()
+    out = {"rank": rank, "cases": {}}
+    one_rank = {}  # model -> (losses and norms, params)
+    for name in names:
+        model_name, axes, over = PP_F32_CASES[name]
+        model = pp_model(model_name)
+        data = SyntheticTokens(kw["global_batch"], kw["seq_len"],
+                               model.vocab_size, seed=31)
+        batches = [next(data) for _ in range(kw["steps"])]
+        if rank == 0 and model_name not in one_rank:
+            one_rank[model_name] = _one_rank(model, kw, batches)
+        mesh = build_mesh(MeshSpec(axes), "cuda")
+        tr = Trainer(TrainConfig(model=model, **kw, **over), mesh)
+        out["cases"][name] = _train_case(fa, tr, batches,
+                                         *one_rank.get(model_name,
+                                                       (None, None)))
+        del tr
+        _free()
+    print(json.dumps({"pp_identity": out}), flush=True)
+    dist.destroy_process_group()
+
+
+def pp_identity_jobs():
+    """31a's jobs: ``pp_identity_rank`` as each PP_F32_JOBS entry's
+    processes."""
+    return [([sys.executable, os.path.abspath(__file__),
+              "--pp-identity-rank", ",".join(names)], {}, world)
+            for world, names in PP_F32_JOBS]
+
+
+def check_pp_identity(jobs, seconds):
+    """Phase 31a's gates on its jobs' outputs: the backend, the route,
+    each step's loss and grad norm against the one-rank trainer's, every
+    rank in step, the params, and each rank's flash launches (a stage's
+    layers on every GPipe tick, fill and drain included)."""
+    ranks = {}  # case -> each rank's record
+    for outs, (_, names) in zip(jobs, PP_F32_JOBS):
+        recs = [_json_lines(o, "pp_identity")[0]["cases"] for o in outs]
+        for name in names:
+            ranks[name] = [r[name] for r in recs]
+    steps = PP_F32["steps"]
+    for name, (_, axes, over) in PP_F32_CASES.items():
+        rs = ranks[name]
+        a = rs[0]
+        if a["backend"] != "gloo" or a["attn_impl"] != "flash" or \
+                a["mesh"] != axes:
+            fail(f"31a {name}: backend {a['backend']}, attn_impl "
+                 f"{a['attn_impl']}, mesh {a['mesh']}")
+        if any(r["steps"] != a["steps"] for r in rs):
+            fail(f"31a {name}: the ranks disagree: "
+                 f"{[r['steps'] for r in rs]}")
+        for (l, n), (wl, wn) in zip(a["steps"], a["one_rank"]):
+            if abs(l - wl) > PP_RTOL * abs(wl) or \
+                    abs(n - wn) > PP_RTOL * abs(wn):
+                fail(f"31a {name}: {a['steps']} against one rank's "
+                     f"{a['one_rank']}")
+        if not a["param_max_abs_diff"] <= PP_PARAM_TOL:
+            fail(f"31a {name}: params {a['param_max_abs_diff']} apart")
+        n = PP_F32["layers"] // axes.get("pipe", 1) * _ticks(axes, over) \
+            * steps
+        want_fa = {"flash_fwd": n, "flash_bwd_fused": n, "flash_bwd_dq": 0,
+                   "flash_bwd_dkdv": 0}
+        for r in rs:
+            if r["flash_launches"] != want_fa:
+                fail(f"31a {name}: flash launches {r['flash_launches']} != "
+                     f"{want_fa}")
+    rec = {name: {k: ranks[name][0][k] for k in
+                  ("steps", "one_rank", "param_max_abs_diff", "seconds",
+                   "microbatches", "flash_launches", "collective_ms_per_step",
+                   "collectives_per_step", "opt_state_bytes_per_device")}
+           for name in PP_F32_CASES}
+    for name in PP_F32_CASES:
+        rec[name]["peak_gib"] = [r["peak_gib"] for r in ranks[name]]
+    rec["jobs_seconds"] = seconds
+    print("phase 31a (2 and 4 ranks vs 1, f32, b4 x s512, llama3-1b width "
+          "and bench-moe width x 2 layers): " + json.dumps(rec), flush=True)
+    return {name: ranks[name][0]["flash_launches"] for name in PP_F32_CASES}
+
+
+def pp_job(ckpt):
+    """31b's job: ``train_main`` on PP_JOB at pipe=2 x expert=2, saving
+    to ``ckpt``."""
+    return ([sys.executable, "-m", "kubedl_tpu_torch.training.entry"],
+            {"KUBEDL_MESH_AXES": ",".join(f"{a}={n}" for a, n in
+                                          PP_JOB_MESH.items()),
+             "KUBEDL_CKPT_DIR": ckpt,
+             "KUBEDL_TRAIN_CONFIG": json.dumps(PP_JOB)},
+            math.prod(PP_JOB_MESH.values()))
+
+
+def _pp_opt_bytes(moe_mod, model):
+    """A 31b rank's ``opt_state_bytes_per_device``: float32 mu and nu in
+    the params' type of its region of every leaf (its stage's layers,
+    its experts of those, the embedding and the head whole), two int32
+    counts."""
+    from kubedl_tpu_torch.models.llama import named_leaves
+
+    pipe, ep = PP_JOB_MESH["pipe"], PP_JOB_MESH["expert"]
+    n = 0
+    for path, t in named_leaves(moe_mod.param_like(model)):
+        k = t.numel()
+        if path.startswith("layers/"):
+            k //= pipe * (ep if path in ("layers/w_in", "layers/w_out")
+                          else 1)
+        n += k
+    return 8 + n * 4 + n * torch.empty((), dtype=model.dtype).element_size()
+
+
+def check_pp_job(ck, moe_mod, outs, ckpt, seconds):
+    """Phase 31b's gates on its ranks' outputs (finite losses, equal on
+    every rank; gloo; the mesh; flash on the tensor cores at hd 64, a
+    stage's 6 layers on each of the M + 1 GPipe ticks, a launch of the
+    forward and of the fused backward each, and no split pair; each
+    rank's optimizer bytes those of its region; the shard files), then
+    the final save restored at world 1 in this process against every
+    saved entry of every rank, bit for bit."""
+    model = moe_mod.preset(PP_JOB["model"])
+    world, steps = math.prod(PP_JOB_MESH.values()), PP_JOB["steps"]
+    sums = [_json_lines(o, "worker_summary")[0] for o in outs]
+    per_step = model.n_layers // PP_JOB_MESH["pipe"] * (
+        PP_JOB["microbatches"] + PP_JOB_MESH["pipe"] - 1)
+    want_fa = {"flash_fwd": per_step * steps,
+               "flash_bwd_fused": per_step * steps, "flash_bwd_dq": 0,
+               "flash_bwd_dkdv": 0}
+    want_bytes = _pp_opt_bytes(moe_mod, model)
+    for r, s in enumerate(sums):
+        if s["steps"] != steps or s["dist_backend"] != "gloo" or \
+                s["world"] != world or s["mesh"] != PP_JOB_MESH or \
+                s["attn_impl"] != "flash" or s["model_family"] != "moe":
+            fail(f"31b rank {r}: steps {s['steps']}, backend "
+                 f"{s['dist_backend']}, mesh {s['mesh']}, attn_impl "
+                 f"{s['attn_impl']}, family {s['model_family']}")
+        if not (math.isfinite(s["first_loss"])
+                and math.isfinite(s["final_loss"])):
+            fail(f"31b: non-finite loss {s['first_loss']} {s['final_loss']}")
+        if s["flash_launches"] != want_fa:
+            fail(f"31b rank {r}: flash launches {s['flash_launches']} != "
+                 f"{want_fa}")
+        if s["opt_state_bytes_per_device"] != want_bytes:
+            fail(f"31b rank {r}: optimizer state "
+                 f"{s['opt_state_bytes_per_device']} bytes, its region's "
+                 f"{want_bytes}")
+    if len({(s["first_loss"], s["final_loss"]) for s in sums}) != 1:
+        fail(f"31b: the ranks' losses differ: "
+             f"{[(s['first_loss'], s['final_loss']) for s in sums]}")
+    d = os.path.join(ckpt, f"step-{steps:08d}")
+    names = sorted(os.listdir(d))
+    if names != ["meta.json"] + [f"shards-p{r}.npz" for r in range(world)]:
+        fail(f"31b: step {steps} holds {names}")
+    t1 = time.perf_counter()
+    restored = ck.restore_checkpoint(
+        ckpt, _world1_like(ck, moe_mod, model), device="cuda")
+    t_restore = time.perf_counter() - t1
+    if restored is None:
+        fail("31b: the world-1 restore found no checkpoint")
+    t1 = time.perf_counter()
+    n_entries = _equal_to_saved(ck, restored, d, "31b")
+    t_check = time.perf_counter() - t1
+    del restored
+    rec = {
+        "config": PP_JOB, "mesh": sums[0]["mesh"],
+        "n_params": sums[0]["n_params"],
+        "step_time_ms": [s["step_time_ms"] for s in sums],
+        "first_step_seconds": [s["first_step_seconds"] for s in sums],
+        "collective_ms_per_step": [s["collective_ms"] for s in sums],
+        "opt_state_bytes_per_device": [s["opt_state_bytes_per_device"]
+                                       for s in sums],
+        "peak_gib": [s["peak_memory_bytes"] / 2**30 for s in sums],
+        "losses": [sums[0]["first_loss"], sums[0]["final_loss"]],
+        "flash_launches": sums[0]["flash_launches"],
+        "flash_launches_per_step": {k: v / steps for k, v in
+                                    sums[0]["flash_launches"].items()},
+        "adamw_launches": sums[0]["adamw_launches"],
+        "restored_entries_bitwise": n_entries,
+        "seconds": {"ranks": seconds, "world1_restore": t_restore,
+                    "restore_check": t_check},
+        "note": "the four ranks share one card, which time-slices their "
+                "contexts, and gloo stages every collective through the "
+                "host: the step time is not a speed-up",
+    }
+    print("phase 31b (train_main x 4 ranks, bench-moe bf16 at full size, "
+          "pipe=2 x expert=2): " + json.dumps(rec), flush=True)
+    return sums[0]["flash_launches"]
+
+
+def run_pp_phase(fa, ck, moe_mod):
+    """Phase 31: 31a's two jobs side by side, then 31b's ranks, then each
+    part's gates."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="kubedl-pp-")
+    ckpt = os.path.join(root, "checkpoints")
+    try:
+        _free()
+        outs = run_ranks(pp_identity_jobs(), 2, label="31")
+        t_a = time.perf_counter() - t0
+        f32 = check_pp_identity(outs, t_a)
+        t1 = time.perf_counter()
+        outs = run_ranks([pp_job(ckpt)], 4, label="31")
+        bf16 = check_pp_job(ck, moe_mod, outs[0], ckpt,
+                            time.perf_counter() - t1)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        _free()
+    print(f"phase 31 (GPipe stages, MoE's expert and tensor split): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"f32": f32, "bf16": bf16}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--skip-engine", action="store_true",
@@ -5358,11 +5711,13 @@ def main() -> int:
                     "17-19, 22, 26, 27)")
     ap.add_argument("--skip-train", action="store_true",
                     help="skip the training phases (8 to 12, 21, 23-25, "
-                    "28-30)")
+                    "28-31)")
     ap.add_argument("--dp-identity-rank", metavar="NAMES",
                     help=argparse.SUPPRESS)  # one rank of phase 29a
     ap.add_argument("--mp-identity-rank", metavar="NAMES",
                     help=argparse.SUPPRESS)  # one rank of phase 30a
+    ap.add_argument("--pp-identity-rank", metavar="NAMES",
+                    help=argparse.SUPPRESS)  # one rank of phase 31a
     ap.add_argument("--entry-rank", metavar="PRESET",
                     help=argparse.SUPPRESS)  # a train_main rank, 29b / 30b
     args = ap.parse_args()
@@ -5376,6 +5731,9 @@ def main() -> int:
         return 0
     if args.mp_identity_rank:
         mp_identity_rank(args.mp_identity_rank.split(","))
+        return 0
+    if args.pp_identity_rank:
+        pp_identity_rank(args.pp_identity_rank.split(","))
         return 0
     if args.entry_rank:
         return entry_rank(args.entry_rank)
@@ -5537,6 +5895,7 @@ def main() -> int:
     convnet_launches = {}
     dp_launches = {"flash": {}, "adamw": {}}
     mp_launches = {"f32": {}, "bf16": {}}
+    pp_launches = {"f32": {}, "bf16": {}}
     if not args.skip_train:
         gemma_launches, gemma_train = run_gemma_train(fa, llama_mod)
         stamp("phase 23")
@@ -5565,6 +5924,8 @@ def main() -> int:
         stamp("phase 29")
         mp_launches = run_mp_phase(fa, ck, llama_mod)
         stamp("phase 30")
+        pp_launches = run_pp_phase(fa, ck, moe_mod)
+        stamp("phase 31")
 
     def record(name, source, replaces, n, rec, design):
         lib = rec["library_ms"]
@@ -5632,7 +5993,7 @@ def main() -> int:
             rec["device_ms_per_decode_step"] = window.get(
                 "device_ms_per_decode_step")
             rec["expected_launches_per_decode_step"] = w8_per_step(
-                llama_mod.preset("llama3-8b"))
+                llama_mod.preset(INT8_PRESET))
             rec["table"] = w8k["table"]
         line.append(rec)
     # the optimizer update: its three kernels as one operator, launches
@@ -5675,7 +6036,15 @@ def main() -> int:
                     "fsdp2", {}).get(name),
                 "llama3-1b-f32-tensor2-rank": mp_launches["f32"].get(
                     "tensor2", {}).get(name),
-                "llama3-8b-fsdp2-rank": mp_launches["bf16"].get(name)}
+                "llama3-8b-fsdp2-rank": mp_launches["bf16"].get(name),
+                # phase 31: each rank's count on its stage (a launch a
+                # layer on every GPipe tick) or its experts' and heads'
+                # rows; 31a float32 (the CUDA-core kernels), 31b bf16 at
+                # hd 64 (the tensor cores), bench-moe at pipe=2 x expert=2
+                **{f"f32-{case}-rank": pp_launches["f32"].get(
+                    case, {}).get(name) for case in PP_F32_CASES},
+                "bench-moe-pipe2-expert2-rank": pp_launches["bf16"].get(
+                    name)}
         line.append(rec)
     # Gemma-2B's training paths (hd 256): the forward and the fused
     # backward timed at phase 7's Gemma-2B case, launches from phase 23's

@@ -644,24 +644,11 @@ def llama_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     loop is a Python loop; with ``cfg.remat`` each layer runs under a
     non-reentrant ``torch.utils.checkpoint`` whose selective policy is
     ``remat_policy_for(cfg.remat_policy)``."""
-    from torch.utils.checkpoint import (
-        checkpoint, create_selective_checkpoint_contexts,
-    )
-
     S = tokens.shape[1]
     x = _embed_in(params, tokens, cfg)
     cos, sin = rope_freqs(cfg, S, device=x.device)
-    if cfg.remat:
-        policy = remat_policy_for(cfg.remat_policy)
-        ctx_fn = functools.partial(create_selective_checkpoint_contexts,
-                                   policy)
-        for i in range(cfg.n_layers):
-            x = checkpoint(_block, x, _layer(params, i), cfg, cos, sin,
-                           attn_fn, policy.names, use_reentrant=False,
-                           context_fn=ctx_fn)
-    else:
-        for i in range(cfg.n_layers):
-            x = _block(x, _layer(params, i), cfg, cos, sin, attn_fn)
+    x, _ = remat_layers(_block, x, params["layers"], cfg.remat,
+                        cfg.remat_policy, cfg, cos, sin, attn_fn)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps, cfg.norm_plus_one)
 
 
@@ -761,22 +748,48 @@ def named_leaves(tree, prefix: str = ""):
             yield name, tree[k]
 
 
-def pruned_specs(cfg: LlamaConfig, names) -> Dict[str, tuple]:
-    """:func:`param_pspecs` by leaf path, an axis the mesh does not name
+def prune_specs(specs: Params, names) -> Dict[str, tuple]:
+    """A tree of specs by leaf path, an axis the mesh does not name
     (``names``) dropped (the reference's ``_prune_spec``)."""
     return {path: tuple(a if a in names else None for a in spec)
-            for path, spec in named_leaves(param_pspecs(cfg))}
+            for path, spec in named_leaves(specs)}
+
+
+#: mesh axis -> the config fields it must divide (the reference's
+#: ``_validate_pipe_divisibility`` order: pipe, tensor, expert; then what
+#: the port's own layout splits: the vocabulary over tensor, the width
+#: over fsdp)
+_DIVIDES = (("pipe", ("n_layers",)),
+            ("tensor", ("n_heads", "n_kv_heads", "ffn_dim")),
+            ("expert", ("n_experts",)),
+            ("tensor", ("vocab_size",)),
+            ("fsdp", ("dim",)))
+
+
+def check_divisible(cfg, mesh) -> None:
+    """Raise the reference's ``ValueError`` when an axis above 1 does not
+    split a dimension it shards evenly."""
+    for axis, attrs in _DIVIDES:
+        n = mesh.shape.get(axis, 1)
+        for attr in attrs:
+            val = getattr(cfg, attr, None)
+            if n > 1 and val is not None and val % n:
+                raise ValueError(f"{attr}={val} not divisible by {axis}={n}")
 
 
 class TrainShard:
-    """This rank's part of a Llama model sharded over the ``fsdp``,
-    ``tensor`` and ``sp`` axes of a ``ProcessMesh``, and the training loss
-    that runs on it.
+    """This rank's part of a model sharded over the ``fsdp``, ``tensor``,
+    ``sp``, ``expert`` and ``pipe`` axes of a ``ProcessMesh``, and (for
+    Llama) the training loss that runs on it; ``models/moe.py``'s
+    ``MoEShard`` is the switch-MoE family's.
 
-    Each leaf is held as the region :func:`param_pspecs` gives this rank's
-    coordinates (axes the mesh does not name are dropped, as the
-    reference's ``_prune_spec`` does). The forward gathers each stacked
-    layer's fsdp shards when its block runs (inside the layer's remat, so
+    Each leaf is held as the region its spec gives this rank's
+    coordinates: ``specs``, a tree of specs (default :func:`param_pspecs`;
+    the trainer passes the pipe layout of the reference's
+    ``_pipe_pspecs`` in pipeline mode), axes the mesh does not name
+    dropped, as the reference's ``_prune_spec`` does. The forward
+    gathers each stacked layer's fsdp shards when its block runs (inside
+    the layer's remat, so
     a recompute gathers them again; the gradient is reduce-scattered back
     to the shard), runs this rank's heads and ffn columns with the
     Megatron all-reduces (``_block``'s ``tp``), and, with ``sp``, this
@@ -793,24 +806,19 @@ class TrainShard:
     (replica x data x fsdp x sp) of these is the reference's loss and
     the sum of their gradients, over that count, its gradient."""
 
-    def __init__(self, cfg: LlamaConfig, mesh) -> None:
+    def __init__(self, cfg, mesh, specs: Optional[Params] = None) -> None:
         self.cfg, self.mesh = cfg, mesh
         #: leaf path -> its pruned spec
-        self.specs = pruned_specs(cfg, set(mesh.axis_names))
+        self.specs = prune_specs(param_pspecs(cfg) if specs is None
+                                 else specs, set(mesh.axis_names))
         on = lambda a: mesh.shape.get(a, 1) > 1  # noqa: E731
         #: ``(mesh, axes)`` of the tensor split, or None
         self.tp = (mesh, ("tensor",)) if on("tensor") else None
+        #: ``(mesh, axes)`` of the expert split, or None
+        self.ep = (mesh, ("expert",)) if on("expert") else None
         self.fsdp = on("fsdp")
         self.sp = mesh.shape.get("sp", 1)
-        for axis, attrs in (("tensor", ("n_heads", "n_kv_heads", "ffn_dim",
-                                        "vocab_size")),
-                            ("fsdp", ("dim",))):
-            n = mesh.shape.get(axis, 1)
-            for attr in attrs:
-                val = getattr(cfg, attr)
-                if n > 1 and val % n:
-                    raise ValueError(f"{attr}={val} not divisible by "
-                                     f"{axis}={n}")
+        check_divisible(cfg, mesh)
 
     # ---- layout ---------------------------------------------------------------
 
@@ -896,10 +904,6 @@ class TrainShard:
         docstring). ``tokens``: this rank's rows; with sp, its block of
         the sequence and one more column, the next block's first token
         (a pad on the last block, whose last position scores nothing)."""
-        from torch.utils.checkpoint import (
-            checkpoint, create_selective_checkpoint_contexts,
-        )
-
         cfg = self.cfg
         rows = tokens.shape[0]
         if self.sp > 1:
@@ -918,18 +922,8 @@ class TrainShard:
             x = x * math.sqrt(cfg.dim)
         cos, sin = rope_freqs(cfg, off + Sl, device=x.device)
         cos, sin = cos[off:], sin[off:]
-        if cfg.remat:
-            policy = remat_policy_for(cfg.remat_policy)
-            ctx_fn = functools.partial(create_selective_checkpoint_contexts,
-                                       policy)
-            for i in range(cfg.n_layers):
-                x = checkpoint(self._layer_block, x, _layer(params, i), cos,
-                               sin, attn_fn, policy.names,
-                               use_reentrant=False, context_fn=ctx_fn)
-        else:
-            for i in range(cfg.n_layers):
-                x = self._layer_block(x, _layer(params, i), cos, sin,
-                                      attn_fn, ())
+        x, _ = remat_layers(self._layer_block, x, params["layers"], cfg.remat,
+                            cfg.remat_policy, cos, sin, attn_fn)
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps, cfg.norm_plus_one)
         head = embed.T if cfg.tie_embeddings else \
             self.gather_whole(params["lm_head"], "lm_head")
@@ -943,6 +937,81 @@ class TrainShard:
         else:
             total = _chunk_nll_sum(xs, head, ts)
         return total / (rows * (S - 1) / self.sp)
+
+
+def remat_layers(step, x, layer_params: Params, remat: bool,
+                 policy_name: str, *args):
+    """``x = step(x, layer i, *args, names)`` over the stacked
+    ``layer_params`` (as many layers as their ``attn_norm`` has rows),
+    each layer a non-reentrant ``torch.utils.checkpoint`` whose selective
+    policy is ``remat_policy_for(policy_name)`` when ``remat`` (``names``:
+    the tags it saves; ``()`` without remat). ``step`` returns ``x`` or
+    ``(x, aux)``. Returns ``x`` and the list of auxes (empty when ``step``
+    returns none)."""
+    from torch.utils.checkpoint import (
+        checkpoint, create_selective_checkpoint_contexts,
+    )
+
+    auxes = []
+    policy = remat_policy_for(policy_name) if remat else None
+    ctx_fn = functools.partial(create_selective_checkpoint_contexts, policy)
+    for i in range(layer_params["attn_norm"].shape[0]):
+        lp = {k: map_leaves(lambda a: a[i], v) for k, v in
+              layer_params.items()}
+        if remat:
+            out = checkpoint(step, x, lp, *args, policy.names,
+                             use_reentrant=False, context_fn=ctx_fn)
+        else:
+            out = step(x, lp, *args, ())
+        if isinstance(out, tuple):
+            x, aux = out
+            auxes.append(aux)
+        else:
+            x = out
+    return x, auxes
+
+
+def pipeline_hooks(cfg: LlamaConfig, shard: TrainShard):
+    """The family's adapter for the GPipe pipeline (the reference's
+    ``pipeline_hooks``, ``llama.py:662``): embed / rope / the stage body /
+    head + loss, on ``shard``'s layout (its gathers of the embedding and
+    the head). The stage runs this rank's slice of the stacked layers
+    under the config's remat policy, with the Megatron split inside when
+    ``tp`` is given."""
+    from kubedl_tpu_torch.parallel.pipeline import PipelineHooks
+
+    def embed(params, tokens):
+        e = shard.gather_whole(params["embed"], "embed")
+        x = e[tokens.long()].to(cfg.dtype)
+        return x * math.sqrt(cfg.dim) if cfg.embed_scale else x
+
+    def make_stage(attn_fn, cos, sin, tp=None, ep=None):
+        del ep
+
+        def step(x, lp, names):
+            return _block(x, lp, cfg, cos, sin, attn_fn, names, tp)
+
+        def stage_fn(layer_params, x):
+            x, _ = remat_layers(step, x, layer_params, cfg.remat,
+                                cfg.remat_policy)
+            return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+        return stage_fn
+
+    def head_loss(params, h, tokens, aux_mean):
+        del aux_mean
+        h = rmsnorm(h, params["final_norm"], cfg.norm_eps, cfg.norm_plus_one)
+        head = shard.gather_whole(params["embed"], "embed").T \
+            if cfg.tie_embeddings else \
+            shard.gather_whole(params["lm_head"], "lm_head")
+        if cfg.loss_chunk:
+            return chunked_next_token_nll(h, head, tokens, cfg.loss_chunk)
+        return next_token_nll((h @ head).float(), tokens)
+
+    return PipelineHooks(
+        embed=embed,
+        rope=lambda S, device: rope_freqs(cfg, S, device=device),
+        make_stage=make_stage, head_loss=head_loss, n_layers=cfg.n_layers)
 
 
 def _map_named(tree: Params, fn, prefix: str = "") -> Params:
@@ -1671,5 +1740,7 @@ __all__ = [
     "quantize_leaf_at", "deq", "is_quantized", "map_leaves",
     "params_nbytes", "export_kv_blocks", "import_kv_blocks",
     "init_cache", "decode_step", "copy_prefix_into_row",
-    "extract_prefix_from_row", "prefill_batched_from",
+    "extract_prefix_from_row", "prefill_batched_from", "param_pspecs",
+    "prune_specs", "check_divisible", "TrainShard", "remat_layers",
+    "pipeline_hooks",
 ]

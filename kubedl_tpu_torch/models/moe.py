@@ -26,14 +26,19 @@ reference's one-hot formula line for line as the plain version the
 tests and ``chip_smoke.py`` hold the index dispatch against; nothing on
 the main path calls it.
 
-One device only: expert and tensor parallelism (``ep_axis`` /
-``tp_axis``), ``param_pspecs`` and ``pipeline_hooks`` belong to the
-multi-chip port slice; an ``ep_axis`` or ``tp_axis`` raises.
+Across processes (``parallel/mesh.py``'s ``ProcessMesh``):
+:func:`param_pspecs` is the reference's layout (expert leaves over
+``expert``, the dense ones over ``fsdp`` / ``tensor`` as in Llama), which
+:class:`MoEShard` holds and trains on; :func:`moe_ffn`'s ``ep_axis``
+routes on the full E and dispatches only the tokens routed to this
+rank's experts, ``tp_axis`` splits every expert's ffn columns, and the
+partial outputs are summed over ``expert``, then ``tensor``, in float32;
+:func:`pipeline_hooks` is the GPipe stage adapter. The ``sp`` axis is not
+taken: routing across sequence blocks belongs to the next port slice.
 """
 
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -41,13 +46,12 @@ import torch
 import torch.nn.functional as F
 
 from kubedl_tpu_torch.models.llama import (
-    _dense, _layer, apply_rope, attention, next_token_nll, params_from_numpy,
-    remat_policy_for, rmsnorm, rope_table,
+    TrainShard, _dense, apply_rope, attention, next_token_nll,
+    params_from_numpy, remat_layers, rmsnorm, rope_table,
 )
+from kubedl_tpu_torch.parallel.mesh import copy_to, reduce_from
 
 Params = Dict[str, Any]
-
-MULTI_CHIP = "the multi-chip port slice"
 
 
 @dataclass(frozen=True)
@@ -134,37 +138,45 @@ def preset(name: str) -> MoEConfig:
 
 def _param_tree(cfg: MoEConfig, dense, norm) -> Params:
     """The reference's parameter tree (``moe.py:116-141``), each leaf made
-    by ``dense(shape, fan_in)`` or ``norm(shape)``."""
+    by ``dense(name, shape, fan_in)`` or ``norm(name, shape)`` in the
+    reference's order (``name``: the leaf's path, ``"layers/w_in"``)."""
     hd = cfg.head_dim
     L, D, Fd, E, V = (cfg.n_layers, cfg.dim, cfg.ffn_dim, cfg.n_experts,
                       cfg.vocab_size)
     return {
-        "embed": dense((V, D), D),
+        "embed": dense("embed", (V, D), D),
         "layers": {
-            "attn_norm": norm((L, D)),
-            "wq": dense((L, D, cfg.n_heads * hd), D),
-            "wk": dense((L, D, cfg.n_kv_heads * hd), D),
-            "wv": dense((L, D, cfg.n_kv_heads * hd), D),
-            "wo": dense((L, cfg.n_heads * hd, D), cfg.n_heads * hd),
-            "mlp_norm": norm((L, D)),
-            "router": dense((L, D, E), D),
-            "w_in": dense((L, E, D, Fd), D),
-            "w_out": dense((L, E, Fd, D), Fd),
+            "attn_norm": norm("layers/attn_norm", (L, D)),
+            "wq": dense("layers/wq", (L, D, cfg.n_heads * hd), D),
+            "wk": dense("layers/wk", (L, D, cfg.n_kv_heads * hd), D),
+            "wv": dense("layers/wv", (L, D, cfg.n_kv_heads * hd), D),
+            "wo": dense("layers/wo", (L, cfg.n_heads * hd, D),
+                        cfg.n_heads * hd),
+            "mlp_norm": norm("layers/mlp_norm", (L, D)),
+            "router": dense("layers/router", (L, D, E), D),
+            "w_in": dense("layers/w_in", (L, E, D, Fd), D),
+            "w_out": dense("layers/w_out", (L, E, Fd, D), Fd),
         },
-        "final_norm": norm((D,)),
-        "lm_head": dense((D, V), D),
+        "final_norm": norm("final_norm", (D,)),
+        "lm_head": dense("lm_head", (D, V), D),
     }
 
 
-def moe_init(cfg: MoEConfig, generator: torch.Generator, device) -> Params:
+def moe_init(cfg: MoEConfig, generator: torch.Generator, device,
+             shard: Optional[TrainShard] = None) -> Params:
     """Seeded random init with the reference's fan-in scaling and tree.
-    ``generator`` must live on ``device``."""
+    ``generator`` must live on ``device``. With a ``shard`` each leaf is
+    cut to this rank's region as it is drawn (the values are the one-rank
+    init's)."""
 
-    def dense(shape, fan_in):
-        return _dense(shape, fan_in, cfg, generator, device)
+    def keep(name, t):
+        return t if shard is None else shard.local(name, t)
 
-    def norm(shape):
-        return torch.ones(shape, dtype=cfg.dtype, device=device)
+    def dense(name, shape, fan_in):
+        return keep(name, _dense(shape, fan_in, cfg, generator, device))
+
+    def norm(name, shape):
+        return keep(name, torch.ones(shape, dtype=cfg.dtype, device=device))
 
     return _param_tree(cfg, dense, norm)
 
@@ -172,20 +184,38 @@ def moe_init(cfg: MoEConfig, generator: torch.Generator, device) -> Params:
 def param_like(cfg: MoEConfig, device="meta") -> Params:
     """The parameter tree's shapes and dtypes as empty tensors."""
 
-    def empty(shape, _fan_in=None):
+    def empty(_name, shape, _fan_in=None):
         return torch.empty(shape, dtype=cfg.dtype, device=device)
 
     return _param_tree(cfg, empty, empty)
 
 
+def param_pspecs(cfg: MoEConfig) -> Params:
+    """The reference's layout (``moe.py:144``) as a tree of tuples, one
+    mesh-axis name (or None) a dimension: the expert leaves over
+    "expert" (and their ffn columns over "tensor"), the dense ones over
+    fsdp / tensor as in the Llama rules; the router is split over fsdp
+    only."""
+    del cfg
+    return {
+        "embed": ("tensor", "fsdp"),
+        "layers": {
+            "attn_norm": (None, None),
+            "wq": (None, "fsdp", "tensor"),
+            "wk": (None, "fsdp", "tensor"),
+            "wv": (None, "fsdp", "tensor"),
+            "wo": (None, "tensor", "fsdp"),
+            "mlp_norm": (None, None),
+            "router": (None, "fsdp", None),
+            "w_in": (None, "expert", "fsdp", "tensor"),
+            "w_out": (None, "expert", "tensor", "fsdp"),
+        },
+        "final_norm": (None,),
+        "lm_head": ("fsdp", "tensor"),
+    }
+
+
 # ---- the switch layer ----------------------------------------------------------
-
-def _reject_parallel(ep_axis, tp_axis) -> None:
-    if ep_axis is not None or tp_axis is not None:
-        raise ValueError(
-            f"expert / tensor parallelism (ep_axis={ep_axis!r}, "
-            f"tp_axis={tp_axis!r}) belongs to {MULTI_CHIP}")
-
 
 def capacity(cfg: MoEConfig, tokens: int, n_experts: int) -> int:
     """Per-expert slots for ``tokens`` routed tokens (the microbatch's
@@ -233,12 +263,12 @@ def _experts(xe: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
 
 def moe_ffn(
     x: torch.Tensor,  # [B, S, D]
-    router_w: torch.Tensor,  # [D, E]
-    w_in: torch.Tensor,  # [E, D, F]
-    w_out: torch.Tensor,  # [E, F, D]
+    router_w: torch.Tensor,  # [D, E] (always the FULL expert count)
+    w_in: torch.Tensor,  # [E(, local), D, F(, local)]
+    w_out: torch.Tensor,  # [E(, local), F(, local), D]
     cfg: MoEConfig,
-    ep_axis: Optional[str] = None,
-    tp_axis: Optional[str] = None,
+    ep_axis=None,
+    tp_axis=None,
     dp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-1 switch layer with index dispatch. Returns (out, aux_loss).
@@ -252,6 +282,21 @@ def moe_ffn(
     token's row and an empty slot's), so their backward is a gather: no
     scatter-add, whose runs of one repeated index serialize.
 
+    ``ep_axis`` / ``tp_axis``: ``(mesh, axes)`` of the expert and tensor
+    splits (the reference's axis names, with the mesh that runs their
+    collectives). Routing runs on the full E on every rank;
+    ``w_in`` / ``w_out`` hold this rank's ``E / ep`` experts (from expert
+    ``mesh.index(axes) * E / ep``), whose ffn columns ``tp_axis`` splits
+    (``w_in`` column-parallel, ``w_out`` row-parallel); the rank
+    dispatches only the tokens routed to its experts. The partial outputs
+    are summed over the expert axes, then the tensor axes, in float32
+    before the cast, as the reference's ``psum``s. The token rows and
+    the gates enter that expert-local region through Megatron's f
+    (``copy_to``: their gradients are summed over both splits there),
+    while the routing and the aux loss, which every rank computes whole,
+    stay outside it, so no gradient is summed twice. Every rank issues
+    the sums, also with no token routed to its experts.
+
     ``dp`` (a :class:`DataParallelRouting`): ``x`` is this rank's rows of
     a microbatch split over data-parallel ranks, and the layer keeps the
     reference's global semantics, as its data-sharded step computes them:
@@ -260,7 +305,6 @@ def moe_ffn(
     come first), and the aux loss's token fractions over every rank. The
     aux loss returned is this rank's share, scaled so that the mean over
     ranks is the global value and its gradient the global one."""
-    _reject_parallel(ep_axis, tp_axis)
     B, S, D = x.shape
     E = router_w.shape[-1]
     T = B * S
@@ -272,22 +316,36 @@ def moe_ffn(
         hits = torch.bincount(choice, minlength=E)
         keep = pos + dp.before(hits)[choice] < cap
         c = min(cap, T)  # a kept token's local place is below both
+    El, e0 = w_in.shape[0], 0
+    if ep_axis is not None:  # this rank's experts [e0, e0 + El)
+        mesh, axes = ep_axis
+        e0 = mesh.index(mesh.active(axes)) * El
+        keep = keep & (choice >= e0) & (choice < e0 + El)
+    split = [p for p in (ep_axis, tp_axis) if p is not None]
+    xd, gd = xt, gate
+    if split:
+        mesh = split[0][0]
+        axes = tuple(a for _, ax in split for a in ax)
+        xd, gd = copy_to(xt, mesh, axes), copy_to(gate, mesh, axes)
 
-    # token -> flat slot e*c + place; a dropped token gets a spare row of
-    # its own past the E*c real slots
-    n_slots = E * c
+    # token -> flat slot (e - e0)*c + place; a dropped token (or one routed
+    # to another rank's expert) gets a spare row of its own past the El*c
+    # real slots
+    n_slots = El * c
     tok = torch.arange(T, device=x.device)
-    slot = torch.where(keep, choice * c + pos, n_slots + tok)
-    xe = xt.new_zeros(n_slots + T, D).index_copy_(0, slot, xt)[:n_slots]
+    slot = torch.where(keep, (choice - e0) * c + pos, n_slots + tok)
+    xe = xd.new_zeros(n_slots + T, D).index_copy_(0, slot, xd)[:n_slots]
     # the reference's float32 product rounded to cfg.dtype: a float
     # row widens exactly, so one cast rounds the same
-    ye = _experts(xe.view(E, c, D).to(cfg.dtype), w_in, w_out, cfg.dtype)
+    ye = _experts(xe.view(El, c, D).to(cfg.dtype), w_in, w_out, cfg.dtype)
     # slot -> its token, or a spare row past T for an empty slot
     back = (T + torch.arange(n_slots + T, device=x.device)).index_copy(
         0, slot, tok)[:n_slots]
     yt = ye.new_zeros(T + n_slots, D).index_copy_(
         0, back, ye.view(n_slots, D))[:T]
-    yt = yt.float() * gate[:, None]
+    yt = yt.float() * gd[:, None]
+    for part in split:  # expert, then tensor, as the reference's psums
+        yt = reduce_from(yt, *part)
     if dp is None:
         aux = _aux_loss(probs, choice)
     else:
@@ -366,16 +424,19 @@ def moe_ffn_plain(
 # ---- the model ---------------------------------------------------------------
 
 def _block(x: torch.Tensor, lp: Params, cfg: MoEConfig, cos, sin,
-           attn_fn=None, tp_axis: Optional[str] = None,
-           ep_axis: Optional[str] = None, dp=None):
+           attn_fn=None, tp_axis=None, ep_axis=None, dp=None):
     """One decoder block: attention as the Llama block's (q/k PRE-rope
     with the tables into an ``attn_fn`` that has ``fused_rope``), then
-    the switch layer (``dp`` as in :func:`moe_ffn`). Returns (x, aux)."""
-    _reject_parallel(ep_axis, tp_axis)
+    the switch layer. ``tp_axis`` / ``ep_axis`` / ``dp`` as in
+    :func:`moe_ffn`; under ``tp_axis`` the attention runs this rank's
+    heads, Megatron's f before the projections and the all-reduce after
+    ``wo`` (``moe.py:232``). Returns (x, aux)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-    n_heads = lp["wq"].shape[-1] // hd
+    if tp_axis:
+        h = copy_to(h, *tp_axis)
+    n_heads = lp["wq"].shape[-1] // hd  # local under the tensor split
     n_kv = lp["wk"].shape[-1] // hd
     q = (h @ lp["wq"]).reshape(B, S, n_heads, hd)
     k = (h @ lp["wk"]).reshape(B, S, n_kv, hd)
@@ -386,9 +447,11 @@ def _block(x: torch.Tensor, lp: Params, cfg: MoEConfig, cos, sin,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         attn = (attn_fn or attention)(q, k, v)
-    x = x + attn.reshape(B, S, n_heads * hd) @ lp["wo"]
+    attn_out = attn.reshape(B, S, n_heads * hd) @ lp["wo"]
+    x = x + (reduce_from(attn_out, *tp_axis) if tp_axis else attn_out)
     h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-    ffn, aux = moe_ffn(h, lp["router"], lp["w_in"], lp["w_out"], cfg, dp=dp)
+    ffn, aux = moe_ffn(h, lp["router"], lp["w_in"], lp["w_out"], cfg,
+                       ep_axis, tp_axis, dp)
     return x + ffn, aux
 
 
@@ -399,27 +462,16 @@ def moe_forward(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
     ``dp`` as in :func:`moe_ffn`.
     With ``cfg.remat`` each layer runs under the selective checkpoint of
     ``llama_hidden`` (``remat_policy_for(cfg.remat_policy)``)."""
-    from torch.utils.checkpoint import (
-        checkpoint, create_selective_checkpoint_contexts,
-    )
-
     S = tokens.shape[1]
     x = params["embed"][tokens.long()].to(cfg.dtype)
     cos, sin = rope_table(cfg.head_dim, cfg.rope_theta, S, device=x.device)
-    auxes = []
-    if cfg.remat:
-        ctx_fn = functools.partial(create_selective_checkpoint_contexts,
-                                   remat_policy_for(cfg.remat_policy))
-        for i in range(cfg.n_layers):
-            x, aux = checkpoint(_block, x, _layer(params, i), cfg, cos, sin,
-                                attn_fn, dp=dp, use_reentrant=False,
-                                context_fn=ctx_fn)
-            auxes.append(aux)
-    else:
-        for i in range(cfg.n_layers):
-            x, aux = _block(x, _layer(params, i), cfg, cos, sin, attn_fn,
-                            dp=dp)
-            auxes.append(aux)
+
+    def step(x, lp, names):
+        del names
+        return _block(x, lp, cfg, cos, sin, attn_fn, dp=dp)
+
+    x, auxes = remat_layers(step, x, params["layers"], cfg.remat,
+                            cfg.remat_policy)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ params["lm_head"]).float()
     return logits, torch.stack(auxes).mean()
@@ -431,8 +483,89 @@ def moe_loss(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
     return next_token_nll(logits, tokens) + cfg.aux_loss_weight * aux
 
 
+# ---- across processes: the sharded model and the pipeline stages -----------------
+
+class MoEShard(TrainShard):
+    """This rank's part of a switch-MoE model sharded over the ``fsdp``,
+    ``tensor``, ``expert`` and ``pipe`` axes (``specs``: a tree of specs,
+    default :func:`param_pspecs`), on :class:`TrainShard`'s layout, and
+    the training loss of the unpipelined path on it. ``dp``: the
+    data-parallel routing (:class:`DataParallelRouting`), so that routing
+    spans the whole microbatch as the reference's global arrays do."""
+
+    def __init__(self, cfg: MoEConfig, mesh, specs: Optional[Params] = None,
+                 dp=None) -> None:
+        super().__init__(cfg, mesh,
+                         param_pspecs(cfg) if specs is None else specs)
+        self.dp = dp
+
+    def _step(self, x, lp, cos, sin, attn_fn, names):
+        del names
+        return _block(x, self.gather_layer(lp), self.cfg, cos, sin, attn_fn,
+                      self.tp, self.ep, self.dp)
+
+    def loss(self, params: Params, tokens: torch.Tensor,
+             attn_fn=None) -> torch.Tensor:
+        """:func:`moe_loss` on this rank's rows: the embedding and the
+        head gathered whole, each layer's fsdp shards gathered as it runs
+        (inside its remat), this rank's heads and experts; the NLL is the
+        mean over the rows and the aux loss this rank's share (so the
+        mean over the batch ranks is the reference's loss)."""
+        cfg = self.cfg
+        x = self.gather_whole(params["embed"], "embed")[tokens.long()]
+        x = x.to(cfg.dtype)
+        cos, sin = rope_table(cfg.head_dim, cfg.rope_theta, tokens.shape[1],
+                              device=x.device)
+        x, auxes = remat_layers(self._step, x, params["layers"], cfg.remat,
+                                cfg.remat_policy, cos, sin, attn_fn)
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        head = self.gather_whole(params["lm_head"], "lm_head")
+        logits = (x @ head).float()
+        return next_token_nll(logits, tokens) + \
+            cfg.aux_loss_weight * torch.stack(auxes).mean()
+
+
+def pipeline_hooks(cfg: MoEConfig, shard: TrainShard):
+    """The GPipe adapter (the reference's ``pipeline_hooks``,
+    ``moe.py:292``): the stage body runs this rank's slice of the stacked
+    layers under the remat policy, with the expert and tensor splits
+    inside, and returns the sum of its layers' aux losses. Routing,
+    capacity and the aux loss are per microbatch and per data rank, as
+    inside the reference's ``shard_map``."""
+    from kubedl_tpu_torch.parallel.pipeline import PipelineHooks
+
+    def embed(params, tokens):
+        e = shard.gather_whole(params["embed"], "embed")
+        return e[tokens.long()].to(cfg.dtype)
+
+    def make_stage(attn_fn, cos, sin, tp=None, ep=None):
+        def step(x, lp, names):
+            del names
+            return _block(x, lp, cfg, cos, sin, attn_fn, tp, ep)
+
+        def stage_fn(layer_params, x):
+            x, auxes = remat_layers(step, x, layer_params, cfg.remat,
+                                    cfg.remat_policy)
+            return x, torch.stack(auxes).sum().float()
+
+        return stage_fn
+
+    def head_loss(params, h, tokens, aux_mean):
+        h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+        head = shard.gather_whole(params["lm_head"], "lm_head")
+        logits = (h @ head).float()
+        return next_token_nll(logits, tokens) + cfg.aux_loss_weight * aux_mean
+
+    return PipelineHooks(
+        embed=embed,
+        rope=lambda S, device: rope_table(cfg.head_dim, cfg.rope_theta, S,
+                                          device=device),
+        make_stage=make_stage, head_loss=head_loss, n_layers=cfg.n_layers)
+
+
 __all__ = [
     "MoEConfig", "TINY_MOE", "BENCH_MOE", "PRESETS", "preset", "moe_init",
-    "param_like", "params_from_numpy", "capacity", "route", "moe_ffn",
-    "moe_ffn_plain", "moe_forward", "moe_loss", "DataParallelRouting",
+    "param_like", "param_pspecs", "params_from_numpy", "capacity", "route",
+    "moe_ffn", "moe_ffn_plain", "moe_forward", "moe_loss",
+    "DataParallelRouting", "MoEShard", "pipeline_hooks",
 ]

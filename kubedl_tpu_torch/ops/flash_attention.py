@@ -553,18 +553,17 @@ def make_flash_attention(mesh=None, batch_axes=("replica", "data", "fsdp"),
     own rows and heads, so the direct operator on them is the whole
     function (the reference's ``shard_map`` over the batch and head axes
     needs no collective in its body either): the kernels on CUDA, no
-    plain fallback there. A mesh axis this function cannot take raises:
-    ``sp`` (the sequence split belongs to ``parallel/ring.py``'s
-    ``make_context_attention``), ``pipe`` and ``expert`` (later port
-    slices)."""
+    plain fallback there. A ``pipe`` or ``expert`` axis changes nothing
+    for attention (a GPipe stage runs it on its own microbatch, as the
+    reference's ``stage_attn`` does, ``trainer.py:609``; the expert ranks
+    repeat it on the same rows). An ``sp`` axis raises: the sequence
+    split belongs to ``parallel/ring.py``'s ``make_context_attention``."""
     del batch_axes, head_axis, interpret
-    sharding = {a: n for a, n in mesh_axes(mesh).items()
-                if n > 1 and a not in ("replica", "data", "fsdp", "tensor")}
-    if sharding:
+    if mesh_axes(mesh).get("sp", 1) > 1:
         raise ValueError(
-            f"mesh axes {sharding}: flash attention does not split the "
-            "sequence (an sp axis takes make_context_attention); pipe and "
-            "expert belong to a later port slice"
+            f"mesh axis sp={mesh_axes(mesh)['sp']}: flash attention does "
+            "not split the sequence (an sp axis takes "
+            "make_context_attention)"
         )
 
     def direct(q, k, v, causal=True, mask=None, rope_cos=None,

@@ -21,10 +21,11 @@ are timed on the host (:attr:`ProcessMesh.seconds`; the staging's sync
 also waits for the device work queued before it); a NCCL collective is
 not timed (reading its time would need a host sync inside the step).
 
-The model-sharding axes ``fsdp``, ``tensor`` and ``sp`` run (the Llama
-family, ``models/llama.py``'s :class:`~kubedl_tpu_torch.models.llama.
-TrainShard`); ``pipe`` and ``expert`` above 1 still raise ``ValueError``
-naming the slice they belong to (:func:`check_axes`).
+Every axis of :class:`MeshSpec` runs: the model-sharding axes ``fsdp``,
+``tensor``, ``sp``, ``expert`` (``models/llama.py``'s
+:class:`~kubedl_tpu_torch.models.llama.TrainShard`, ``models/moe.py``'s
+``MoEShard``) and ``pipe`` (GPipe stages, ``parallel/pipeline.py``). An
+axis name outside that set raises ``ValueError`` (:func:`check_axes`).
 
 The collectives the reference's ``shard_map`` bodies use, each over a
 tuple of axes: ``all_reduce``, ``all_gather`` and ``reduce_scatter``
@@ -73,12 +74,9 @@ ENV_MESH_AXES = "KUBEDL_MESH_AXES"
 DATA_AXES = ("replica", "data", "fsdp")
 #: The sequence/context-parallel mesh axis (ring attention shards over it).
 SEQUENCE_AXIS = "sp"
-#: what the axes that still raise (``pipe``, ``expert``) belong to
-MODEL_SHARDING = ("belongs to a later port slice (ROADMAP Queue A item 2, "
-                  "the multi-device compute path)")
-#: the mesh axes this port shards over (a ``pipe`` or ``expert`` axis above
-#: 1 raises: see :func:`check_axes`)
-PORTED_AXES = ("replica", "data", "fsdp", "sp", "tensor")
+#: the mesh axes this port shards over (another name above 1 raises: see
+#: :func:`check_axes`)
+PORTED_AXES = ("replica", "data", "fsdp", "pipe", "expert", "sp", "tensor")
 #: seconds a rendezvous or a collective may wait for its peers
 TIMEOUT_S = 300.0
 
@@ -633,13 +631,12 @@ def _ravel(coords: Sequence[int], sizes: Sequence[int]) -> int:
 
 
 def check_axes(spec: MeshSpec) -> None:
-    """Raise ``ValueError`` for an axis of the mesh this port does not
-    shard over yet: ``pipe`` (GPipe stages with the families'
-    ``pipeline_hooks``) or ``expert`` (MoE's expert axis) above 1."""
+    """Raise ``ValueError`` for an axis above 1 that is none of
+    :data:`PORTED_AXES` (no rule of the trainer names it)."""
     for a, s in spec.ordered():
         if s > 1 and a not in PORTED_AXES:
-            raise ValueError(f"mesh axis {a}={s}: sharding the model "
-                             f"{MODEL_SHARDING}")
+            raise ValueError(f"mesh axis {a}={s}: not an axis the trainer "
+                             f"shards over (one of {PORTED_AXES})")
 
 
 def build_mesh(spec: Optional[MeshSpec] = None,

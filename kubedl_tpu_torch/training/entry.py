@@ -42,15 +42,17 @@ each of these for its part, as in the reference: it prints
 The device is ``KUBEDL_TRAIN_DEVICE``, else ``"device"`` in the config,
 else CUDA (with no card that raises; ask for ``"cpu"`` explicitly).
 
-The mesh: ``KUBEDL_MESH_AXES`` may put ``replica``, ``data``, ``fsdp``,
-``tensor`` and ``sp`` above 1 (a Llama model sharded over the last three,
-``context_parallel_impl`` in the config picking ring or Ulysses
-attention for ``sp``).
+The mesh: ``KUBEDL_MESH_AXES`` may put any of ``replica``, ``data``,
+``fsdp``, ``pipe``, ``expert``, ``sp`` and ``tensor`` above 1 (the model
+sharded over fsdp / tensor / sp / expert, GPipe stages over pipe with
+``microbatches`` in the config, 0 = 4 x pipe; ``context_parallel_impl``
+picking ring or Ulysses attention for ``sp``). The trainer refuses what
+the reference refuses (``pipe`` with ``sp``, a dimension an axis does
+not divide) and MoE on ``sp`` (the next port slice).
 
-Still rejected with a ValueError that names the later port slice: a
-``pipe`` or ``expert`` mesh axis above 1, the parameter service
-(``KUBEDL_PS_ADDR``, ``train_mode: "ps"``) and a chaos plan (``"chaos"``
-in the config, e.g. the ``trainer.step_stall`` site).
+Still rejected with a ValueError that names the later port slice: the
+parameter service (``KUBEDL_PS_ADDR``, ``train_mode: "ps"``) and a chaos
+plan (``"chaos"`` in the config, e.g. the ``trainer.step_stall`` site).
 """
 
 from __future__ import annotations
@@ -91,8 +93,9 @@ def _int(environ, name: str, default: int = 0) -> int:
 
 def _reject_unported(environ: Dict[str, str], opts: dict) -> None:
     """Raise ``ValueError`` for a knob the port does not run yet, naming
-    the slice it belongs to: the parameter service, a chaos plan, and a
-    ``pipe`` or ``expert`` mesh axis above 1. The ``"chaos"`` key of the training config
+    the slice it belongs to: the parameter service and a chaos plan (and
+    a mesh axis no rule names, :func:`~kubedl_tpu_torch.parallel.mesh.
+    check_axes`). The ``"chaos"`` key of the training config
     is the port's own stand-in, not the reference's interface: the
     reference arms its ``trainer.step_stall`` site only through a
     ``FaultPlan`` armed in-process (``chaos.arm``), which reaches no

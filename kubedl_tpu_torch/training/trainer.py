@@ -44,24 +44,35 @@ What the port keeps of the reference, and how:
   tree and format (each rank its shards), so either package resumes the
   other's job.
 
-- The model sharded across processes (Llama): on a mesh whose ``fsdp``,
-  ``tensor`` or ``sp`` axes are above 1 (alone or with ``data`` /
-  ``replica``) each rank holds its shards of every leaf by the
-  reference's ``param_pspecs`` (``models/llama.py::TrainShard``, which
-  also runs the sharded forward: fsdp gathers, the Megatron split,
-  ring / Ulysses attention over ``sp``), its moments are shards of those
-  (cut again over ``data`` by the reference's update rule), the
-  gradients are summed over the ranks that hold other tokens, and the
-  global norm counts a leaf that several ranks hold alike once.
+- The model sharded across processes: on a mesh whose ``fsdp``,
+  ``tensor``, ``sp``, ``expert`` or ``pipe`` axes are above 1 (alone or
+  with ``data`` / ``replica``) each rank holds its shards of every leaf
+  by the family's ``param_pspecs`` (``models/llama.py::TrainShard``,
+  ``models/moe.py::MoEShard``, which also run the sharded forward: fsdp
+  gathers, the Megatron split, ring / Ulysses attention over ``sp``
+  (Llama), this rank's experts), its moments are shards of those (cut
+  again over ``data`` by the reference's update rule), the gradients
+  are summed over the ranks that hold other tokens, and the global norm
+  counts a leaf that several ranks hold alike once.
+- Pipeline mode (a ``pipe`` axis above 1): the reference's
+  ``_pipe_pspecs`` (the stacked ``layers`` leaves split their leading
+  dimension over ``pipe``, keep ``tensor`` / ``expert`` on the inner
+  ones and drop ``fsdp``, which becomes a batch axis) and
+  ``_make_pipeline_loss``: the embedding, ``microbatches`` (0: 4 x pipe)
+  GPipe microbatches through ``parallel/pipeline.py`` (each data rank
+  holds its rows of every microbatch, as the reference's ``[M, mb]``
+  reshape shards them), then the head and the loss on every stage. The
+  update is replicated over the data axes, as the reference's.
 
 Model families: dense Llama (``models/llama.py``) and switch-MoE
-(``models/moe.py``: data-parallel routing spans the ranks; expert and
-tensor parallelism belong to a later slice), through the same optimizer
-and flash operators.
+(``models/moe.py``: data-parallel routing spans the batch ranks of the
+unpipelined path; in pipeline mode routing is per microbatch and data
+rank, as the reference's), through the same optimizer and flash
+operators.
 
-What it rejects with a ValueError naming the later port slice, never
-silently: a ``pipe`` or ``expert`` mesh axis above 1, MoE on a
-model-sharding axis, and ``fit_ps``.
+What it rejects with a ValueError, never silently: ``pipe`` with an
+``sp`` axis above 1 (the reference's message), MoE on an ``sp`` axis
+(the next port slice), and ``fit_ps``.
 """
 
 from __future__ import annotations
@@ -81,13 +92,16 @@ from kubedl_tpu_torch.ops import flash_attention as fa
 from kubedl_tpu_torch.ops.adamw import LAUNCHES as adamw_launches
 from kubedl_tpu_torch.ops.adamw import adamw_update
 from kubedl_tpu_torch.parallel.mesh import (
-    DATA_AXES, MODEL_SHARDING, SEQUENCE_AXIS, ProcessMesh, ShardSpec,
-    axis_size, build_mesh, check_axes, local_mesh,
+    DATA_AXES, SEQUENCE_AXIS, ProcessMesh, ShardSpec, axis_size, build_mesh,
+    check_axes, copy_to, local_mesh,
 )
+from kubedl_tpu_torch.parallel.pipeline import pipeline_apply
 from kubedl_tpu_torch.training.buckets import plan_grad_buckets
 
-MULTI_CHIP = "the multi-chip port slice"
 LATER = "a later port slice"
+#: what MoE on an sp axis belongs to
+MOE_SP = ("the next port slice (MoE routing scanned across sequence "
+          "blocks; ROADMAP Queue A item 2)")
 
 
 @dataclass(frozen=True)
@@ -103,11 +117,16 @@ class ModelFamily:
     vocab_size: int
     #: () -> the parameter tree as ``meta`` tensors (shapes and dtypes)
     like: Callable[[], Any]
+    #: () -> the reference's tree of parameter specs (``param_pspecs``);
+    #: None: the family cannot be sharded
+    pspecs: Optional[Callable[[], Any]] = None
+    #: shard -> the GPipe adapter (``PipelineHooks``); None: no pipe axis
+    pipeline_hooks: Optional[Callable[[Any], Any]] = None
 
 
 def llama_family(cfg: llama.LlamaConfig,
                  shard: Optional[llama.TrainShard] = None) -> ModelFamily:
-    """``shard``: the model split over the mesh's fsdp / tensor / sp axes
+    """``shard``: the model split over the mesh's model axes
     (:class:`~kubedl_tpu_torch.models.llama.TrainShard`): init draws this
     rank's shards and the loss is this rank's share of the global one."""
     if shard is not None:
@@ -127,13 +146,24 @@ def llama_family(cfg: llama.LlamaConfig,
         flops_per_token=cfg.flops_per_token(),
         vocab_size=cfg.vocab_size,
         like=lambda: llama.param_like(cfg),
+        pspecs=lambda: llama.param_pspecs(cfg),
+        pipeline_hooks=lambda sh: llama.pipeline_hooks(cfg, sh),
     )
 
 
-def moe_family(cfg: moe.MoEConfig, dp=None) -> ModelFamily:
+def moe_family(cfg: moe.MoEConfig, dp=None,
+               shard: Optional[moe.MoEShard] = None) -> ModelFamily:
     """``dp``: the data-parallel ranks a microbatch is split over
     (:class:`~kubedl_tpu_torch.models.moe.DataParallelRouting`), which
-    the switch layer's routing spans."""
+    the switch layer's routing spans; ``shard``: the model split over the
+    mesh's model axes (:class:`~kubedl_tpu_torch.models.moe.MoEShard`,
+    which routes over its own ``dp``)."""
+    if shard is not None:
+        return dataclasses.replace(
+            moe_family(cfg),
+            init=lambda gen, device: moe.moe_init(cfg, gen, device, shard),
+            loss=lambda params, batch, attn_fn=None: shard.loss(
+                params, batch, attn_fn))
     return ModelFamily(
         name="moe",
         init=lambda gen, device: moe.moe_init(cfg, gen, device),
@@ -144,6 +174,8 @@ def moe_family(cfg: moe.MoEConfig, dp=None) -> ModelFamily:
         flops_per_token=cfg.flops_per_token(),
         vocab_size=cfg.vocab_size,
         like=lambda: moe.param_like(cfg),
+        pspecs=lambda: moe.param_pspecs(cfg),
+        pipeline_hooks=lambda sh: moe.pipeline_hooks(cfg, sh),
     )
 
 
@@ -173,6 +205,8 @@ class TrainConfig:
     #: (forced: the kernels on CUDA, their plain versions on the CPU)
     attn_impl: str = "auto"
     context_parallel_impl: str = "ring"
+    #: GPipe microbatches when the mesh has a "pipe" axis; 0 = auto (4x the
+    #: pipe axis size, the classic bubble-amortizing choice)
     microbatches: int = 0
     #: save the train state every N steps in ``fit`` (with a ckpt_dir)
     ckpt_every: int = 0
@@ -359,7 +393,13 @@ class Trainer:
         if cfg.seq_len % self.sp:
             raise ValueError(f"seq_len={cfg.seq_len} not divisible by "
                              f"sp={self.sp}")
-        model_axes = mesh.active(("fsdp", "tensor", SEQUENCE_AXIS))
+        #: GPipe stages, and the microbatches a step's batch (of each
+        #: grad_accum microbatch) is cut into (1 without a pipe axis)
+        self.pipe = axis_size(mesh, "pipe")
+        self.microbatches = cfg.microbatches or 4 * self.pipe \
+            if self.pipe > 1 else 1
+        model_axes = mesh.active(("fsdp", "pipe", "expert", SEQUENCE_AXIS,
+                                  "tensor"))
         if getattr(cfg.model, "fuse_projections", False) and \
                 axis_size(mesh, "tensor") > 1:
             # concat-at-use along the column-split dim: the reference
@@ -368,19 +408,47 @@ class Trainer:
                 cfg.model, fuse_projections=False))
         self.cfg = cfg
         cfg = self._apply_long_context_policy(cfg)
-        #: this rank's part of a model sharded over fsdp / tensor / sp
+        base = family_for(cfg.model)
+        is_moe = isinstance(cfg.model, moe.MoEConfig)
+        if is_moe and self.sp > 1:
+            raise ValueError(f"mesh axis sp={self.sp}: MoE on a sequence "
+                             f"split belongs to {MOE_SP}")
+        # the switch layer's routing spans the batch ranks of a microbatch
+        # (in pipeline mode it is per microbatch and data rank)
+        routing = moe.DataParallelRouting(mesh, self.dp_axes) \
+            if is_moe and self.dp > 1 and self.pipe == 1 else None
+        #: this rank's part of a model sharded over the model axes
         self.shard: Optional[llama.TrainShard] = None
+        #: leaf path -> its spec pruned to the mesh's axis names, or None
+        self.specs: Optional[Dict[str, tuple]] = None
+        if base.pspecs is not None:
+            specs = base.pspecs()
+            if self.pipe > 1:
+                specs = self._pipe_pspecs(specs, base)
+            self.specs = llama.prune_specs(specs, set(mesh.axis_names))
         if model_axes:
-            if not isinstance(cfg.model, llama.LlamaConfig):
-                kind = type(cfg.model).__name__
-                raise ValueError(f"mesh axes {model_axes}: sharding the "
-                                 f"{kind} model {MODEL_SHARDING}")
-            self.shard = llama.TrainShard(cfg.model, mesh)
-        self.family = family_for(cfg.model) if self.shard is None \
-            else llama_family(cfg.model, self.shard)
-        if self.dp > 1 and isinstance(cfg.model, moe.MoEConfig):
-            self.family = moe_family(
-                cfg.model, moe.DataParallelRouting(mesh, self.dp_axes))
+            if self.specs is None:
+                raise ValueError(f"mesh axes {model_axes}: the model "
+                                 f"family {base.name!r} has no param_pspecs")
+            if is_moe:
+                self.shard = moe.MoEShard(cfg.model, mesh, specs, routing)
+                self.family = moe_family(cfg.model, shard=self.shard)
+            else:
+                self.shard = llama.TrainShard(cfg.model, mesh, specs)
+                self.family = llama_family(cfg.model, self.shard)
+        else:
+            self.family = moe_family(cfg.model, routing) if routing \
+                else base
+        if self.pipe > 1:
+            rows, M = cfg.global_batch // cfg.grad_accum, self.microbatches
+            if rows % M:
+                raise ValueError(f"global_batch={cfg.global_batch} must "
+                                 f"divide into microbatches={M}")
+            if rows // M % self.dp:
+                raise ValueError(f"a microbatch of {rows // M} rows does "
+                                 f"not split over {self.dp} data ranks")
+            self.family = dataclasses.replace(
+                self.family, loss=self._make_pipeline_loss(base, self.shard))
         self.tx = make_optimizer(cfg)
         like_tree = self.family.like()
         like = tree_leaves(like_tree)
@@ -417,6 +485,59 @@ class Trainer:
         self.attn_impl = "dense"
         self.attn_fn = self._select_attn()
 
+    def _pipe_pspecs(self, specs, family: ModelFamily):
+        """The reference's pipeline layout (``trainer.py:532``): the
+        stacked ``layers`` leaves split their leading dimension over
+        "pipe" and keep "tensor" / "expert" on the inner ones (the stage
+        body issues those collectives itself), fsdp / sp dropped; the
+        other leaves keep their specs. A pipe axis with sp above 1
+        raises the reference's message; so does a dimension a mesh axis
+        does not divide (``_validate_pipe_divisibility``)."""
+        if family.pipeline_hooks is None:
+            raise ValueError(f"model family {family.name!r} has no "
+                             f"pipeline_hooks")
+        if self.sp > 1:
+            raise ValueError(
+                "pipe axis cannot be combined with a >1 'sp' axis (ring "
+                "attention does not cross the GPipe stage boundary); use "
+                "pipe x data/fsdp/tensor/expert meshes")
+        llama.check_divisible(self.cfg.model, self.mesh)
+
+        def inner(axis):
+            return axis if axis in ("tensor", "expert") else None
+
+        out = dict(specs)
+        out["layers"] = {k: ("pipe",) + tuple(inner(a) for a in s[1:])
+                         for k, s in specs["layers"].items()}
+        return out
+
+    def _make_pipeline_loss(self, family: ModelFamily, shard):
+        """The reference's GPipe loss (``trainer.py:762``), on this rank:
+        the embedding of its rows (every stage looks it up, stage 0 uses
+        it, and ``copy_to`` sums its gradient over pipe, so every stage
+        holds the same), the microbatches ``[M, rows / M, S, D]`` through
+        the stage ring, then the head and the loss on the ring's output,
+        on every stage. The aux sum comes back summed over the stages;
+        divided by ``n_layers * M`` it is this data rank's share of the
+        reference's mean over ``n_layers * M * dp``."""
+        hooks = family.pipeline_hooks(shard)
+        mesh, M = self.mesh, self.microbatches
+        tp, ep = shard.tp, shard.ep
+
+        def loss(params, batch, attn_fn=None):
+            rows, S = batch.shape
+            cos, sin = hooks.rope(S, batch.device)
+            embed = copy_to(params["embed"], mesh, ("pipe",))
+            x = hooks.embed(dict(params, embed=embed), batch)
+            x_mb = x.reshape(M, rows // M, S, x.shape[-1])
+            stage = hooks.make_stage(attn_fn, cos, sin, tp, ep)
+            h, aux = pipeline_apply(stage, params["layers"], x_mb, mesh,
+                                    "pipe")
+            return hooks.head_loss(params, h.reshape(rows, S, -1), batch,
+                                   aux / (hooks.n_layers * M))
+
+        return loss
+
     def _split_axes(self, i: int, moments: bool = False) -> Tuple[str, ...]:
         """The axes above 1 that split leaf ``i`` (its moments: also the
         update's data axis)."""
@@ -437,17 +558,15 @@ class Trainer:
         take it (the reference's rule against its partitioner's
         miscompile), and the embedding and head none. The replica axis
         keeps whole shards. None everywhere when the update is replicated
-        (``shard_update`` off, no data axis above 1, or nothing
-        divides)."""
+        (``shard_update`` off, no data axis above 1, pipeline mode, or
+        nothing divides)."""
         pm = self.mesh
         dsize = axis_size(pm, "data")
-        if not self.cfg.shard_update or dsize <= 1:
+        if not self.cfg.shard_update or dsize <= 1 or self.pipe > 1:
             return [None] * len(like)
         model_sharded = bool(pm.active(("fsdp", "tensor", SEQUENCE_AXIS,
                                         "expert")))
-        names = set(pm.axis_names)
-        specs = llama.pruned_specs(self.cfg.model, names) \
-            if isinstance(self.cfg.model, llama.LlamaConfig) else None
+        specs = self.specs
         paths = self.leaf_paths
         dims: List[Optional[int]] = []
         for i, (t, scatter) in enumerate(zip(like,
@@ -581,14 +700,15 @@ class Trainer:
 
         Every rank reads the same global batch; with more than one
         data-parallel rank each keeps, of every microbatch (the batch as
-        ``[grad_accum, B / grad_accum, S]``), the contiguous block of rows
-        the reference's batch sharding gives its device: ``[grad_accum *
-        B / (grad_accum * dp), S]``, microbatch-major. With an ``sp`` axis
+        ``[n, B / n, S]``, n = ``grad_accum``, times ``microbatches`` in
+        pipeline mode), the contiguous block of rows the reference's
+        batch sharding gives its device: ``[n * B / (n * dp), S]``,
+        microbatch-major. With an ``sp`` axis
         each keeps its block of the sequence, S / sp columns, and the
         next-token column after it (the next block's first token; a 0 on
         the last block, which scores one position fewer)."""
         if self.dp > 1:
-            n = self.cfg.grad_accum
+            n = self.cfg.grad_accum * self.microbatches
             B, S = batch.shape
             b = B // (n * self.dp)
             i = self.mesh.index(self.dp_axes)

@@ -299,21 +299,20 @@ def test_bucket_plan_and_resize_math_match_reference():
 @pytest.mark.parametrize("axes", ["fsdp=2", "tensor=2", "sp=2", "pipe=2",
                                   "expert=2"])
 def test_model_sharding_axes_raise_naming_their_slice(axes):
-    """``pipe`` and ``expert`` still raise naming their slice. ``fsdp``,
-    ``tensor`` and ``sp`` run (``tests/test_torch_model_parallel.py``
-    trains on them): the mesh passes, and a process alone is told only
-    that the mesh needs more processes than its job has."""
+    """Every model-sharding axis runs (``tests/test_torch_model_parallel.py``,
+    ``test_torch_expert_parallel.py`` and ``test_torch_pipeline.py``
+    train on them): the mesh passes, and a process alone is told only
+    that the mesh needs more processes than its job has. An axis no rule
+    names still raises."""
     from kubedl_tpu_torch.api.topology import MeshSpec
     from kubedl_tpu_torch.parallel import mesh
 
     spec = MeshSpec.from_env("data=2," + axes)
-    if axes.split("=")[0] in ("pipe", "expert"):
-        with pytest.raises(ValueError, match="Queue A item 2"):
-            mesh.build_mesh(spec)
-    else:
-        mesh.check_axes(spec)
-        with pytest.raises(ValueError, match="needs 4 devices, have 1"):
-            mesh.build_mesh(spec, "cpu")
+    mesh.check_axes(spec)
+    with pytest.raises(ValueError, match="needs 4 devices, have 1"):
+        mesh.build_mesh(spec, "cpu")
+    with pytest.raises(ValueError, match="not an axis the trainer"):
+        mesh.build_mesh(MeshSpec.from_env(axes.replace("=", "x=")), "cpu")
     assert mesh.batch_axes(mesh.build_mesh(None, "cpu")) == ("data",)
 
 

@@ -380,20 +380,20 @@ def test_tensor_core_route_matches_source_table():
 
 def test_make_flash_attention_single_device_only():
     """One device, or a replica / data / fsdp / tensor mesh (each rank
-    attends over its own rows and heads): the direct operator. An axis
-    that shards the sequence (``sp``: context attention's) or belongs to
-    a later slice (``pipe``, ``expert``) raises."""
+    attends over its own rows and heads), or a pipe / expert mesh (a
+    GPipe stage's microbatch, the expert ranks' shared rows, as the
+    reference's ``stage_attn``): the direct operator. An axis that
+    shards the sequence (``sp``: context attention's) raises."""
     fn = tfa.make_flash_attention(None)
     assert fn.fused_rope is True
     assert tfa.make_flash_attention({"data": 1}).fused_rope is True
     assert tfa.make_flash_attention({"replica": 2, "data": 2}).fused_rope
-    for axis in ("fsdp", "tensor"):
+    for axis in ("fsdp", "tensor", "pipe", "expert"):
         assert tfa.make_flash_attention({"data": 2, axis: 2}).fused_rope
-    for axis, match in (("sp", "make_context_attention"),
-                        ("pipe", "later port slice"),
-                        ("expert", "later port slice")):
-        with pytest.raises(ValueError, match=match):
-            tfa.make_flash_attention({"data": 2, axis: 2})
+    assert tfa.make_flash_attention({"pipe": 2, "expert": 2,
+                                     "tensor": 2}).fused_rope
+    with pytest.raises(ValueError, match="make_context_attention"):
+        tfa.make_flash_attention({"data": 2, "sp": 2})
 
 
 def test_kernel_wrapper_rejects_uninstantiated_head_dim():

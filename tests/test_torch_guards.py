@@ -46,7 +46,7 @@ def test_port_files_found():
             "entry.py", "topology.py", "data.py", "checkpoint.py",
             "disagg.py", "w8a16.py", "adamw.py", "client.py", "beacon.py",
             "native.py", "moe.py", "convnet.py", "costmodel.py", "mesh.py",
-            "ring.py", "launch.py"} <= names
+            "ring.py", "launch.py", "pipeline.py"} <= names
 
 
 def test_engine_without_device_raises_when_no_cuda(monkeypatch):

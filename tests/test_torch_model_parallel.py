@@ -464,17 +464,24 @@ def test_divisibility_errors_as_reference(preset, over):
 
 
 def test_moe_and_later_axes_raise_naming_their_slice():
-    """MoE on a model-sharding axis (its expert axis and tensor split),
-    and pipe / expert on any model, belong to a later slice."""
+    """MoE on a model-sharding axis and pipe / expert on any model build
+    (they raised before the multi-device slice; ``tests/
+    test_torch_expert_parallel.py`` and ``tests/test_torch_pipeline.py``
+    train on them): a process alone is told only that the mesh needs
+    more processes. MoE on an sp axis still raises, naming its slice."""
     from kubedl_tpu_torch.api.topology import MeshSpec
     from kubedl_tpu_torch.models import moe as tm
     from kubedl_tpu_torch.parallel.mesh import ProcessMesh
     from kubedl_tpu_torch.training import trainer as tt
 
-    mesh = ProcessMesh(MeshSpec({"fsdp": 2}), torch.device("cpu"),
-                       alone=True)
-    with pytest.raises(ValueError, match="later port slice"):
-        tt.Trainer(tt.TrainConfig(model=tm.TINY_MOE), mesh)
+    for axes in ({"fsdp": 2}, {"tensor": 2}, {"expert": 2}, {"pipe": 2}):
+        mesh = ProcessMesh(MeshSpec(axes), torch.device("cpu"), alone=True)
+        tr = tt.Trainer(tt.TrainConfig(model=tm.TINY_MOE), mesh)
+        assert isinstance(tr.shard, tm.MoEShard)
+        assert tr.family.name == "moe"
     for axes in ({"pipe": 2}, {"expert": 2}):
-        with pytest.raises(ValueError, match="later port slice"):
+        with pytest.raises(ValueError, match="needs 2 devices, have 1"):
             tt.Trainer(tt.TrainConfig(), axes, device="cpu")
+    mesh = ProcessMesh(MeshSpec({"sp": 2}), torch.device("cpu"), alone=True)
+    with pytest.raises(ValueError, match="next port slice"):
+        tt.Trainer(tt.TrainConfig(model=tm.TINY_MOE), mesh)

@@ -148,11 +148,54 @@ def test_index_dispatch_equals_one_hot_formula(cf, zero):
             assert (a - b).abs().max() <= 1e-6 * b.abs().max(), name
 
 
+class _RankOfSplit:
+    """One rank of an expert=2 x tensor=2 split whose sums the test does
+    itself: ``index`` is the rank's place, and every collective is left
+    out (``size`` 1 makes ``copy_to`` / ``reduce_from`` the identity)."""
+
+    def __init__(self, expert, tensor):
+        self.coords = {"expert": expert, "tensor": tensor}
+
+    def active(self, axes):
+        return tuple(axes)
+
+    def size(self, axes):
+        return 1
+
+    def index(self, axes):
+        i = 0
+        for a in axes:
+            i = i * 2 + self.coords[a]
+        return i
+
+
 def test_parallel_axes_raise():
-    x, r, wi, wo = map(_t, _ffn_inputs())
-    for kw in ({"ep_axis": "expert"}, {"tp_axis": "tensor"}):
-        with pytest.raises(ValueError, match="multi-chip port slice"):
-            tm.moe_ffn(x, r, wi, wo, tm.TINY_MOE, **kw)
+    """The expert and tensor splits run (they raised before the
+    multi-device slice): each rank of expert=2 (x tensor=2) routes on the
+    full E, dispatches only its experts' tokens through its slice of the
+    ffn columns, and the ranks' partial outputs sum to the unsplit layer
+    (bit for bit over experts, where one rank holds each token's value;
+    within 1e-6 over the tensor split's two halves of F); the aux loss
+    is the unsplit one on every rank."""
+    cfg = tm.TINY_MOE
+    x, r, wi, wo = map(_t, _ffn_inputs(seed=4))
+    want, want_aux = tm.moe_ffn(x, r, wi, wo, cfg)
+    El, Fl = cfg.n_experts // 2, cfg.ffn_dim // 2
+    for tensor in (1, 2):
+        total = torch.zeros_like(want)
+        for e, t in itertools.product(range(2), range(tensor)):
+            mesh = _RankOfSplit(e, t)
+            f = slice(t * Fl, (t + 1) * Fl) if tensor == 2 else slice(None)
+            out, aux = tm.moe_ffn(
+                x, r, wi[e * El:(e + 1) * El, :, f],
+                wo[e * El:(e + 1) * El, f], cfg, ep_axis=(mesh, ("expert",)),
+                tp_axis=(mesh, ("tensor",)) if tensor == 2 else None)
+            assert torch.equal(aux, want_aux)
+            total += out
+        if tensor == 1:
+            assert torch.equal(total, want)
+        else:
+            assert (total - want).abs().max() <= 1e-6
 
 
 # ---- the model --------------------------------------------------------------------

@@ -411,23 +411,29 @@ def test_fit_log_every_and_summary_keys():
     {"mesh": {"data": 2}}, {"mesh": {"sp": 2}}, {"mesh": {"pipe": 2}},
 ], ids=["data2", "sp2", "pipe2"])
 def test_trainer_rejects_later_slices(kw, tmp_path):
-    """A pipe axis raises naming its slice. A data axis and an sp axis are
-    ported: two gloo ranks train on each, in step (the data axis with the
-    optimizer state sharded, the sp axis through ring attention)."""
-    if "pipe" not in kw["mesh"]:
-        ranks = w.run_ranks({"train": {"model": "tiny", "global_batch": 2,
-                                       "seq_len": 16, "steps": 2},
-                             "mesh": kw["mesh"], "out": str(tmp_path / "r")})
-        assert ranks[0]["steps"] == ranks[1]["steps"]
-        assert all(np.isfinite(ranks[0]["steps"]).flat)
-        assert ranks[0]["world"] == 2
-        assert ranks[0]["shard_update"] == ("data" in kw["mesh"])
-        assert ranks[0]["attn_impl"] == (
-            "context-ring" if "sp" in kw["mesh"] else "dense")
-        return
-    cfg = tt.TrainConfig(**kw.get("cfg", {}))
-    with pytest.raises(ValueError, match="slice"):
-        tt.Trainer(cfg, mesh=kw.get("mesh"), device="cpu")
+    """A data axis, an sp axis and a pipe axis are ported: two gloo ranks
+    train on each, in step (the data axis with the optimizer state
+    sharded, the sp axis through ring attention, the pipe axis as two
+    GPipe stages); MoE on the sp axis still raises, naming its slice."""
+    from kubedl_tpu_torch.api.topology import MeshSpec
+    from kubedl_tpu_torch.models import moe as tm
+    from kubedl_tpu_torch.parallel.mesh import ProcessMesh
+
+    ranks = w.run_ranks({"train": {"model": "tiny", "global_batch": 2,
+                                   "seq_len": 16, "steps": 2,
+                                   "microbatches": 2},
+                         "mesh": kw["mesh"], "out": str(tmp_path / "r")})
+    assert ranks[0]["steps"] == ranks[1]["steps"]
+    assert all(np.isfinite(ranks[0]["steps"]).flat)
+    assert ranks[0]["world"] == 2
+    assert ranks[0]["shard_update"] == ("data" in kw["mesh"])
+    assert ranks[0]["attn_impl"] == (
+        "context-ring" if "sp" in kw["mesh"] else "dense")
+    if "sp" in kw["mesh"]:
+        mesh = ProcessMesh(MeshSpec(kw["mesh"]), torch.device("cpu"),
+                           alone=True)
+        with pytest.raises(ValueError, match="slice"):
+            tt.Trainer(tt.TrainConfig(model=tm.TINY_MOE), mesh)
 
 
 def test_fit_checkpoint_and_ps_raise(tmp_path):
@@ -509,10 +515,13 @@ ENTRY_CASES = {
                "KUBEDL_MESH_AXES": "data=2,fsdp=2"}, {}, True),
     "tensor2": ({"KUBEDL_NUM_PROCESSES": "2",
                  "KUBEDL_MESH_AXES": "tensor=2"}, {}, True),
-    "expert2": ({"KUBEDL_MESH_AXES": "expert=2"}, {}, False),
+    "expert2": ({"KUBEDL_NUM_PROCESSES": "2",
+                 "KUBEDL_MESH_AXES": "expert=2"}, {"model": "tiny-moe"},
+                True),
     "sp2": ({"KUBEDL_NUM_PROCESSES": "2", "KUBEDL_MESH_AXES": "sp=2"}, {},
             True),
-    "pipe2": ({"KUBEDL_MESH_AXES": "pipe=2"}, {}, False),
+    "pipe2": ({"KUBEDL_NUM_PROCESSES": "2", "KUBEDL_MESH_AXES": "pipe=2"},
+              {"microbatches": 4}, True),
 }
 
 
@@ -520,9 +529,10 @@ ENTRY_CASES = {
                          ids=list(ENTRY_CASES))
 def test_train_main_rejects_what_this_slice_does_not_run(env, opts, runs,
                                                        clean_env, capsys):
-    """The parameter service, a chaos plan and the pipe / expert mesh
-    axes raise naming their slice. Multi-process jobs (data, fsdp, tensor,
-    sp) and elastic resize are ported: they train."""
+    """The parameter service and a chaos plan raise naming their slice.
+    Multi-process jobs (data, fsdp, tensor, sp, expert with MoE, pipe
+    with ``microbatches`` from the config) and elastic resize are
+    ported: they train."""
     import sys
 
     from kubedl_tpu_torch.training import entry

@@ -8,7 +8,7 @@ env (``KUBEDL_NUM_PROCESSES``, ``KUBEDL_PROCESS_ID``,
 returns what each wrote. It imports torch and the port only, never JAX.
 
 The spec: ``train`` (``TrainConfig`` fields, ``model`` a preset name),
-``mesh`` (axes), ``init`` (a checkpoint dir whose whole ``params`` start
+``model_over`` (fields of the preset's config replaced), ``mesh`` (axes), ``init`` (a checkpoint dir whose whole ``params`` start
 the run, each rank keeping its shards of a sharded model), ``resume`` (a checkpoint dir whose train state resumes it),
 ``ckpt_dir`` / ``ckpt_every`` (``fit``'s saves), ``dump_at`` (after that
 many steps of the run, or right after the resume when 0, each rank
@@ -121,6 +121,8 @@ def _attention(spec: dict, mesh) -> None:
 
 
 def main(spec: dict) -> None:
+    import dataclasses
+
     import torch.distributed as dist
 
     from kubedl_tpu_torch.api.topology import MeshSpec
@@ -139,6 +141,7 @@ def main(spec: dict) -> None:
         kw = dict(spec["train"])
         name = kw.pop("model")
         model = (moe if "moe" in name else llama).preset(name)
+        model = dataclasses.replace(model, **spec.get("model_over", {}))
         cfg = TrainConfig(model=model, **kw)
         trainer = Trainer(cfg, build_mesh(MeshSpec(spec["mesh"]), "cpu"))
         rank = trainer.mesh.rank
