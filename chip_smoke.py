@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py                # every phase, one card
     python3 chip_smoke.py --skip-engine  # without phases 5, 6, 13-19, 22,
-                                         # 26, 27
+                                         # 26, 27, 32
     python3 chip_smoke.py --skip-train   # without phases 8 to 12, 21,
                                          # 23-25, 28-31
 
@@ -192,7 +192,8 @@ Phases (any failure exits non-zero before the final line):
    Llama-3-8B width, 2 layers, float32: the int8 engine's greedy streams
    with the kernel must equal the same engine's with the plain version
    forced (``forced_plain_w8a16``).
-18. checkpoints and hot swap: Llama-3-8B width, 4 layers, bf16: two seeds'
+18. checkpoints and hot swap: Llama-3-8B width, 2 layers (4 before PR
+   19, whose phases 31c, 31d and 32 it pays for), bf16: two seeds'
    params written by the port's ``save_checkpoint``; ``serve_main`` with
    ``KUBEDL_MODEL_PATH`` restores the first (gated: every restored tensor
    and one prompt's logits equal the in-memory ones); /admin/load_version
@@ -388,9 +389,42 @@ Phases (any failure exits non-zero before the final line):
    region, four shard files, and the save restored at world 1 in this
    process against every saved entry, bit for bit. Prints ms a step,
    collective ms a step by kind, peak GiB a rank and the phase's seconds.
+   31c, MoE on the sequence axis, four more cases in 31a's jobs (the
+   same model, batches and one-rank trainer): bench-moe's width at 2
+   layers of 4 experts on ``sp=2`` ring, ``sp=2`` Ulysses, ``data=2 x
+   sp=2`` and ``sp=2 x expert=2`` (routing scanned across the sequence
+   blocks and data ranks: one device's routing). Gates: 31a's, no flash
+   launch (context attention), and on every unpipelined MoE mesh each
+   step's dropped tokens a layer (``moe_drop_counts``: one forward, the
+   ranks' counts summed) equal to the one-rank trainer's, exactly. 31d,
+   ``train_main`` as 2 processes with ``KUBEDL_MESH_AXES=sp=2``:
+   bench-moe bf16 at full size, b8 x s2048, 2 steps; gates: the same
+   losses on both ranks, ring attention (no flash launch), and the first
+   step's loss within 1e-2 relative of phase 25's one-process
+   ``train_main`` on the same config, init and batch. Prints ms a step,
+   collective ms a step by kind, peak GiB a rank.
+32. serving over a mesh (``LlamaEngine(mesh_axes=...)``: every rank in
+   this process on this card, the contiguous layout). 32a, the float32
+   identity (TF32 off): Llama-3-8B's width at 2 layers on ``tensor=2``
+   (the prefix cache on), ``tensor=4`` and ``fsdp=2 x tensor=2``, and
+   Gemma-2B's width at 2 layers on ``tensor=4`` (its one KV head on every
+   rank): phase 15's requests give greedy streams identical to the
+   unsharded contiguous engine's. 32b, Gemma-2B bf16 at full width and
+   depth over ``tensor=4``: the split's last-token prefill logits
+   against the unsharded model's (``MESH_LOGIT_RTOL``, relative norm)
+   and each rank's bytes of the evenly cut leaves a quarter of the
+   whole within 1 %; then ``serve_main`` with phase 22's config plus
+   ``"mesh": {"tensor": 4}`` on phase 22's requests: every response,
+   finite logits, no paged launch, each rank's weight and KV bytes;
+   prints the greedy agreement with phase 22's streams, ms a decode step
+   and TTFT beside phases 22 and 27. 32c, int8 over ``tensor=2`` at
+   phase 17's depth: the W8A16 kernel against its plain version at each
+   rank's shard shapes (K or N halved, M 8 and 512), then 2 x (7 x 8) + 2
+   W8A16 launches a decode step and a prefill dispatch, exactly.
 
-Phase 16 runs after phase 4; phase 22, then phases 13-15, 26, 27 and
-17-19 after phase 6 (they are skipped with ``--skip-engine``); phase 20
+Phase 16 runs after phase 4; phase 22, then phases 13-15, 26, 27, 32
+and 17-19 after phase 6 (they are skipped with ``--skip-engine``); phase
+20
 after phase 7, then phases 23, 24, 25 and 28, and phases 21, 29, 30 and
 31 after phase 12 (skipped with ``--skip-train``).
 
@@ -1714,6 +1748,7 @@ def run_moe_train(fa, moe_mod):
     _free()
     cats = prof["by_category_ms"]
     summary = {"step_time_ms": rec["step_time_ms"],
+               "first_loss": rec["losses"][0],
                "tokens_per_sec": rec["tokens_per_sec"], "mfu": rec["mfu"],
                "max_memory_allocated_gib": rec["max_memory_allocated_gib"],
                "n_params": rec["n_params"],
@@ -3421,6 +3456,10 @@ def run_gemma_engine(pa, server_mod, llama_mod, summary):
         print("gemma-2b profile: the profiler saw no device time", flush=True)
     summary.setdefault("paths", {})["gemma"] = launches
     summary["gemma_in_model"] = in_model
+    # phase 32b's yardsticks: these streams and this engine's step
+    summary["gemma_streams"] = [r[1]["token_ids"] for r in results]
+    summary["gemma_serve"] = {k: rec[k] for k in (
+        "ms_per_decode_step", "ttft_ms_p50", "ttft_ms_p95")}
 
 
 def run_gemma_prefill_gate(pa, llama_mod):
@@ -4055,7 +4094,7 @@ def run_int8_identity(w8, server_mod, llama_mod, reqs, serve_cfg):
 
 
 def run_checkpoint_swap(server_mod, llama_mod, ck, summary):
-    """Phase 18: Llama-3-8B width cut to 4 layers, bf16: the port's
+    """Phase 18: Llama-3-8B width cut to 2 layers, bf16: the port's
     save_checkpoint writes two seeds' params; serve_main with
     KUBEDL_MODEL_PATH restores the first (gated: every tensor and one
     prompt's logits equal the in-memory ones), /admin/load_version loads
@@ -4064,9 +4103,9 @@ def run_checkpoint_swap(server_mod, llama_mod, ck, summary):
     finish, the retired tree is evicted and its memory freed)."""
     import shutil
 
-    name = "llama3-8b-4layer"
+    name = "llama3-8b-2layer"
     llama_mod.PRESETS.setdefault(name, dataclasses.replace(
-        llama_mod.preset("llama3-8b"), n_layers=4))
+        llama_mod.preset("llama3-8b"), n_layers=2))
     cfg = llama_mod.preset(name)
     root = tempfile.mkdtemp(prefix="kdl-smoke-ckpt-")
     out = {}
@@ -4611,6 +4650,8 @@ def run_contiguous_engine(pa, server_mod, serve_cfg, reqs, summary):
            "paged_ttft_ms_p95": summary.get("bf16_ttft_ms_p95"),
            "phase_seconds": time.perf_counter() - t0}
     summary.setdefault("paths", {})["contiguous"] = launches
+    summary["contiguous_serve"] = {k: rec[k] for k in (
+        "ms_per_decode_step", "ttft_ms_p50", "ttft_ms_p95")}
     print("contiguous engine vs phase 5's paged engine (smoke run, not a "
           "benchmark): " + json.dumps(rec), flush=True)
 
@@ -4869,20 +4910,23 @@ def _sharded_update_check(tr, state, adamw):
     return {"bitwise": same, "norm": norm_k, "plain_norm": norm_p}
 
 
-def run_dp_identity():
+def run_dp_identity(extra=()):
     """Phase 29a: ``dp_identity_rank`` as 2 processes on this card (gloo:
     they share it), two such jobs side by side (their gloo work is on the
     host), one for each ``grad_accum`` so that each trains its own
     one-rank trainer; gates on the backend, every step's loss and grad
     norm against the one-rank trainer's, the params, and the optimizer
-    kernels' sharded update bit for bit against its plain version."""
+    kernels' sharded update bit for bit against its plain version.
+    ``extra``: more 2-rank jobs run beside these (29b's); returns their
+    outputs."""
     t0 = time.perf_counter()
     groups: dict = {}
     for name, over in DP_F32_CASES.items():
         groups.setdefault(over.get("grad_accum", 1), []).append(name)
     jobs = run_ranks([[sys.executable, os.path.abspath(__file__),
                        "--dp-identity-rank", ",".join(names)]
-                      for names in groups.values()], 2)
+                      for names in groups.values()] + list(extra), 2)
+    extra_outs, jobs = jobs[len(groups):], jobs[:len(groups)]
     ranks = [{"cases": {}} for _ in range(2)]
     for outs in jobs:
         for r, out in enumerate(outs):
@@ -4921,6 +4965,16 @@ def run_dp_identity():
     rec["phase_seconds"] = time.perf_counter() - t0
     print("phase 29a (2 ranks vs 1, f32, llama3-1b width x 2 layers): "
           + json.dumps(rec), flush=True)
+    return extra_outs
+
+
+def dp_job(ckpt):
+    """29b's ranks: ``train_main`` on DP_JOB at data=2, saving to
+    ``ckpt``."""
+    return ([sys.executable, os.path.abspath(__file__), "--entry-rank",
+             DP_JOB["model"]],
+            {"KUBEDL_MESH_AXES": "data=2", "KUBEDL_CKPT_DIR": ckpt,
+             "KUBEDL_TRAIN_CONFIG": json.dumps(DP_JOB)})
 
 
 def _opt_bytes_one_rank(llama_mod, model):
@@ -4961,11 +5015,12 @@ def _equal_to_saved(ck, restored, d, label="29b"):
     return n
 
 
-def run_dp_job(fa, adamw_mod, ck, llama_mod):
+def run_dp_job(fa, adamw_mod, ck, llama_mod, ckpt, outs, t_ranks):
     """Phase 29b: ``train_main`` as 2 processes from the job's env
-    (DP_JOB: data=2, the sharded update, async saves every 2 steps), then
-    ``train_main`` in this process resuming at world 1 with
-    KUBEDL_ELASTIC_BASE_WORLD=2.
+    (DP_JOB: data=2, the sharded update, async saves every 2 steps; their
+    outputs ``outs``, run beside 29a's jobs in ``t_ranks`` s, their saves
+    in ``ckpt``), then ``train_main`` in this process resuming at world 1
+    with KUBEDL_ELASTIC_BASE_WORLD=2.
     Gates: each rank's run (finite losses, equal on both ranks; gloo;
     the sharded update; 16 flash_fwd and 16 flash_bwd_fused launches a
     step and no split pair; 11 norm + 2 finish + 11 update optimizer
@@ -4977,16 +5032,7 @@ def run_dp_job(fa, adamw_mod, ck, llama_mod):
     t0 = time.perf_counter()
     model = register_cut(llama_mod, DP_JOB["model"])
     layers, steps = model.n_layers, DP_JOB["steps"]
-    root = tempfile.mkdtemp(prefix="kubedl-dp-")
-    ckpt = os.path.join(root, "checkpoints")
     try:
-        _free()
-        outs, = run_ranks(
-            [[sys.executable, os.path.abspath(__file__), "--entry-rank",
-              DP_JOB["model"]]], 2,
-            KUBEDL_MESH_AXES="data=2", KUBEDL_CKPT_DIR=ckpt,
-            KUBEDL_TRAIN_CONFIG=json.dumps(DP_JOB))
-        t_ranks = time.perf_counter() - t0
         sums = [_json_lines(o, "worker_summary")[0] for o in outs]
         want_fa = {"flash_fwd": layers * steps, "flash_bwd_fused":
                    layers * steps, "flash_bwd_dq": 0, "flash_bwd_dkdv": 0}
@@ -5064,7 +5110,6 @@ def run_dp_job(fa, adamw_mod, ck, llama_mod):
         if not math.isfinite(s1["final_loss"]):
             fail(f"29b resume: loss {s1['final_loss']}")
     finally:
-        shutil.rmtree(root, ignore_errors=True)
         _free()
     one = _opt_bytes_one_rank(llama_mod, model)
     rec = {
@@ -5090,10 +5135,11 @@ def run_dp_job(fa, adamw_mod, ck, llama_mod):
                    "adamw_launches": s1["adamw_launches"]},
         "seconds": {"ranks": t_ranks, "resume": t_resume,
                     "restore_check_in_resume": t_check},
-        "phase_seconds": time.perf_counter() - t0,
+        "phase_seconds": time.perf_counter() - t0 + t_ranks,
         "note": "both ranks share one card, which time-slices their "
-                "contexts, and gloo stages every collective through the "
-                "host: the step time is not a data-parallel speed-up",
+                "contexts, with 29a's four ranks beside them, and gloo "
+                "stages every collective through the host: the step time "
+                "is not a data-parallel speed-up",
     }
     for r, b in enumerate(rec["opt_state_bytes_per_device"]):
         if not b < 0.6 * one:
@@ -5107,9 +5153,19 @@ def run_dp_job(fa, adamw_mod, ck, llama_mod):
 
 
 def run_dp_phase(fa, adamw_mod, ck, llama_mod):
+    """Phase 29: 29a's two jobs and 29b's ranks side by side (the ranks'
+    start-up overlaps), then 29b's resume, and each part's gates."""
     t0 = time.perf_counter()
-    run_dp_identity()
-    launches = run_dp_job(fa, adamw_mod, ck, llama_mod)
+    root = tempfile.mkdtemp(prefix="kubedl-dp-")
+    ckpt = os.path.join(root, "checkpoints")
+    try:
+        _free()
+        outs, = run_dp_identity([dp_job(ckpt)])
+        launches = run_dp_job(fa, adamw_mod, ck, llama_mod, ckpt, outs,
+                              time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        _free()
     print(f"phase 29 (data-parallel training): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return launches
@@ -5180,10 +5236,53 @@ def mp_identity_rank(names):
     dist.destroy_process_group()
 
 
-def _one_rank(model, kw, batches):
+def moe_drop_counts(tr, state, batch):
+    """Each switch layer's dropped tokens in one forward of ``state``'s
+    parameters on ``batch``, summed over the ranks that hold other tokens
+    of the microbatch (so the one-device count on any unpipelined mesh):
+    ``moe.route`` is wrapped to read each layer's keep decision, and
+    ``BatchRouting.offsets`` to read it again from the scan across the
+    ranks where the trainer routes over them. The forward's flash
+    launches are taken back out of the counts: they are this check's,
+    not the path's."""
+    from kubedl_tpu_torch.models import moe
+    from kubedl_tpu_torch.ops import flash_attention as fa
+
+    counts, last, launched = [], {}, dict(fa.LAUNCHES)
+    real_route, real_offsets = moe.route, moe.BatchRouting.offsets
+
+    def route(xt, router_w, cap):
+        out = real_route(xt, router_w, cap)
+        last.update(choice=out[2], pos=out[3], cap=cap)
+        counts.append((~out[4]).sum())
+        return out
+
+    def offsets(self, hits):
+        off = real_offsets(self, hits)
+        T = last["choice"].numel()
+        row = torch.arange(T, device=hits.device) // (T // hits.shape[0])
+        keep = last["pos"] + off[row, last["choice"]] < last["cap"]
+        counts[-1] = (~keep).sum()
+        return off
+
+    moe.route, moe.BatchRouting.offsets = route, offsets
+    try:
+        with torch.no_grad():
+            tr.family.loss(state["params"], tr.shard_batch(batch),
+                           attn_fn=tr.attn_fn)
+    finally:
+        moe.route, moe.BatchRouting.offsets = real_route, real_offsets
+        fa.LAUNCHES.update(launched)
+    total = torch.stack(counts).double()
+    tr.mesh.all_reduce(total, tr.batch_axes)
+    return [int(x) for x in total.tolist()]
+
+
+def _one_rank(model, kw, batches, drops=None):
     """A one-rank trainer of ``model`` (TrainConfig fields ``kw``) on
     ``batches`` on this card: each step's [loss, grad norm], and its
-    params after them."""
+    params after them; with a list ``drops``, each step's per-layer
+    dropped tokens (``moe_drop_counts``) appended to it."""
     from kubedl_tpu_torch.training.trainer import TrainConfig, Trainer
 
     one = Trainer(TrainConfig(model=model, **kw), None,
@@ -5191,6 +5290,8 @@ def _one_rank(model, kw, batches):
     ref = one.init_state()
     want = []
     for b in batches:
+        if drops is not None:
+            drops.append(moe_drop_counts(one, ref, b))
         ref, m = one.train_step(ref, b)
         want.append([float(m["loss"]), float(m["grad_norm"])])
     params = ref["params"]
@@ -5199,14 +5300,16 @@ def _one_rank(model, kw, batches):
     return want, params
 
 
-def _train_case(fa, tr, batches, want=None, ref_params=None):
+def _train_case(fa, tr, batches, want=None, ref_params=None, drops=None):
     """This rank's run of trainer ``tr`` (on a mesh of the job's
     processes) from its init on ``batches``: each step's [loss, grad
     norm], the seconds, the route, the mesh, the flash launches, the
     collective ms and calls a step, the optimizer bytes and the peak
     GiB; with the one-rank run (``want``, ``ref_params``: rank 0's),
     also that and the largest difference of the params, assembled from
-    every rank's shards (a collective: every rank assembles)."""
+    every rank's shards (a collective: every rank assembles). ``drops``
+    (a list, the one-rank run's per-step layer drops where rank 0 has
+    them): each step's ``moe_drop_counts`` first, outside the timing."""
     from kubedl_tpu_torch.training.trainer import (
         state_bytes_per_device, tree_leaves,
     )
@@ -5218,11 +5321,15 @@ def _train_case(fa, tr, batches, want=None, ref_params=None):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = tr.init_state()
-    got = []
+    got, dropped, t_drops = [], [], 0.0
     for b in batches:
+        if drops is not None:
+            t1 = time.perf_counter()
+            dropped.append(moe_drop_counts(tr, state, b))
+            t_drops += time.perf_counter() - t1
         state, m = tr.train_step(state, b)
         got.append([float(m["loss"]), float(m["grad_norm"])])
-    seconds = time.perf_counter() - t0
+    seconds = time.perf_counter() - t0 - t_drops
     steps = len(batches)
     rec = {"steps": got, "seconds": seconds, "backend": mesh.backend,
            "attn_impl": tr.attn_impl, "mesh": dict(mesh.shape),
@@ -5236,6 +5343,8 @@ def _train_case(fa, tr, batches, want=None, ref_params=None):
                for k, v in mesh.calls.items()},
            "opt_state_bytes_per_device": state_bytes_per_device(state),
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if drops is not None:
+        rec["drops"], rec["one_rank_drops"] = dropped, drops
     whole = tr.shard.assemble(state["params"])
     if want is not None:
         rec["one_rank"] = want
@@ -5415,13 +5524,13 @@ def run_mp_phase(fa, ck, llama_mod):
     return {"f32": f32, "bf16": bf16}
 
 
-# ---- phase 31: GPipe stages and MoE's expert and tensor split ----------------------
+# ---- phase 31: GPipe stages, MoE's expert and tensor split, MoE on sp --------------
 
-#: 31a: float32, b4 x s512, 3 steps, each case's mesh of 2 or 4 processes
-#: on this card, against a one-rank trainer on the same global batches
-#: (rank 0's): Llama-3.2-1B's width at 2 layers (one a stage; its tied
-#: embedding read by stage 0 and the head on every stage) and bench-moe's
-#: width at 2 layers of 4 experts
+#: 31a (and 31c): float32, b4 x s512, 3 steps, each case's mesh of 2 or 4
+#: processes on this card, against a one-rank trainer on the same global
+#: batches (rank 0's): Llama-3.2-1B's width at 2 layers (one a stage; its
+#: tied embedding read by stage 0 and the head on every stage) and
+#: bench-moe's width at 2 layers of 4 experts
 PP_F32 = {"layers": 2, "experts": 4, "global_batch": 4, "seq_len": 512,
           "steps": 3}
 #: case -> (model, mesh, TrainConfig fields). "moe-cf8" is the
@@ -5438,12 +5547,26 @@ PP_F32_CASES = {
                             {"microbatches": 4}),
     "moe-pipe2-expert2": ("moe-cf8", {"pipe": 2, "expert": 2},
                           {"microbatches": 4}),
+    # 31c: MoE on sp (ring or Ulysses attention; routing scanned across
+    # the sequence blocks and data ranks, as one device routes)
+    "moe-sp2": ("moe", {"sp": 2}, {}),
+    "moe-sp2-ulysses": ("moe", {"sp": 2},
+                        {"context_parallel_impl": "ulysses"}),
+    "moe-data2-sp2": ("moe", {"data": 2, "sp": 2}, {}),
+    "moe-sp2-expert2": ("moe", {"sp": 2, "expert": 2}, {}),
 }
+#: 31c's cases (reported apart from 31a's)
+SP_F32_CASES = ("moe-sp2", "moe-sp2-ulysses", "moe-data2-sp2",
+                "moe-sp2-expert2")
 #: 31a's jobs, side by side: (processes, cases in turn)
-PP_F32_JOBS = ((2, ("llama-pipe2", "moe-expert2", "moe-tensor2")),
-               (4, ("llama-pipe2-tensor2", "moe-pipe2-expert2")))
+PP_F32_JOBS = ((2, ("llama-pipe2", "moe-expert2", "moe-tensor2", "moe-sp2",
+                    "moe-sp2-ulysses")),
+               (4, ("llama-pipe2-tensor2", "moe-pipe2-expert2",
+                    "moe-data2-sp2", "moe-sp2-expert2")))
 #: 31a's gates are 29a's and 30a's: each step's loss and grad norm within
-#: 1e-5 relative of the one-rank trainer's, params within 2e-5
+#: 1e-5 relative of the one-rank trainer's, params within 2e-5; on an
+#: unpipelined MoE mesh also each step's dropped tokens a layer equal to
+#: the one-rank trainer's, exactly
 PP_RTOL = DP_RTOL
 PP_PARAM_TOL = DP_PARAM_TOL
 #: 31b: bench-moe bf16 at its full 12 layers and 8 experts (507.6 M
@@ -5453,6 +5576,16 @@ PP_PARAM_TOL = DP_PARAM_TOL
 PP_JOB = {"model": "bench-moe", "global_batch": 8, "seq_len": 2048,
           "steps": 2, "microbatches": 8, "ckpt_every": 2, "ckpt_async": True}
 PP_JOB_MESH = {"pipe": 2, "expert": 2}
+#: 31d: bench-moe bf16 at its full 12 layers and 8 experts through
+#: train_main as 2 processes at sp=2 (ring attention on 1024 positions a
+#: rank, routing scanned across the two blocks), b8 x s2048, 2 steps
+SP_JOB = {"model": "bench-moe", "global_batch": 8, "seq_len": 2048,
+          "steps": 2}
+SP_JOB_MESH = {"sp": 2}
+#: 31d's gate on the first step's loss against one process's (phase
+#: 25's ``train_main`` on the same config, init and first batch: flash
+#: there, ring attention's bf16 einsums here)
+SP_LOSS_RTOL = 1e-2
 
 
 def pp_model(name):
@@ -5498,20 +5631,24 @@ def pp_identity_rank(names):
     kw = {k: v for k, v in PP_F32.items() if k not in ("layers", "experts")}
     rank = dist.get_rank()
     out = {"rank": rank, "cases": {}}
-    one_rank = {}  # model -> (losses and norms, params)
+    one_rank = {}  # model -> (losses and norms, params, layer drops)
     for name in names:
         model_name, axes, over = PP_F32_CASES[name]
         model = pp_model(model_name)
         data = SyntheticTokens(kw["global_batch"], kw["seq_len"],
                                model.vocab_size, seed=31)
         batches = [next(data) for _ in range(kw["steps"])]
+        routed = model_name == "moe"  # one device's routing: drops gated
         if rank == 0 and model_name not in one_rank:
-            one_rank[model_name] = _one_rank(model, kw, batches)
+            drops = [] if routed else None
+            one_rank[model_name] = _one_rank(model, kw, batches,
+                                             drops) + (drops,)
         mesh = build_mesh(MeshSpec(axes), "cuda")
         tr = Trainer(TrainConfig(model=model, **kw, **over), mesh)
-        out["cases"][name] = _train_case(fa, tr, batches,
-                                         *one_rank.get(model_name,
-                                                       (None, None)))
+        want, ref, drops = one_rank.get(model_name, (None, None, None))
+        out["cases"][name] = _train_case(
+            fa, tr, batches, want, ref,
+            (drops if drops is not None else []) if routed else None)
         del tr
         _free()
     print(json.dumps({"pp_identity": out}), flush=True)
@@ -5527,10 +5664,13 @@ def pp_identity_jobs():
 
 
 def check_pp_identity(jobs, seconds):
-    """Phase 31a's gates on its jobs' outputs: the backend, the route,
-    each step's loss and grad norm against the one-rank trainer's, every
-    rank in step, the params, and each rank's flash launches (a stage's
-    layers on every GPipe tick, fill and drain included)."""
+    """Phase 31a's and 31c's gates on their jobs' outputs: the backend,
+    the route (flash; context attention on sp), each step's loss and
+    grad norm against the one-rank trainer's, every rank in step, the
+    params, each layer's dropped tokens on an unpipelined MoE mesh
+    against the one-rank trainer's, and each rank's flash launches (a
+    stage's layers on every GPipe tick, fill and drain included; none
+    on sp)."""
     ranks = {}  # case -> each rank's record
     for outs, (_, names) in zip(jobs, PP_F32_JOBS):
         recs = [_json_lines(o, "pp_identity")[0]["cases"] for o in outs]
@@ -5540,10 +5680,17 @@ def check_pp_identity(jobs, seconds):
     for name, (_, axes, over) in PP_F32_CASES.items():
         rs = ranks[name]
         a = rs[0]
-        if a["backend"] != "gloo" or a["attn_impl"] != "flash" or \
+        route = "flash" if "sp" not in axes else \
+            "context-" + over.get("context_parallel_impl", "ring")
+        if a["backend"] != "gloo" or a["attn_impl"] != route or \
                 a["mesh"] != axes:
             fail(f"31a {name}: backend {a['backend']}, attn_impl "
                  f"{a['attn_impl']}, mesh {a['mesh']}")
+        if "drops" in a and (a["drops"] != a["one_rank_drops"] or any(
+                r["drops"] != a["drops"] for r in rs)):
+            fail(f"31a {name}: dropped tokens a layer "
+                 f"{[r['drops'] for r in rs]}, one rank's "
+                 f"{a['one_rank_drops']}")
         if any(r["steps"] != a["steps"] for r in rs):
             fail(f"31a {name}: the ranks disagree: "
                  f"{[r['steps'] for r in rs]}")
@@ -5555,23 +5702,28 @@ def check_pp_identity(jobs, seconds):
         if not a["param_max_abs_diff"] <= PP_PARAM_TOL:
             fail(f"31a {name}: params {a['param_max_abs_diff']} apart")
         n = PP_F32["layers"] // axes.get("pipe", 1) * _ticks(axes, over) \
-            * steps
+            * steps * (route == "flash")
         want_fa = {"flash_fwd": n, "flash_bwd_fused": n, "flash_bwd_dq": 0,
                    "flash_bwd_dkdv": 0}
         for r in rs:
             if r["flash_launches"] != want_fa:
                 fail(f"31a {name}: flash launches {r['flash_launches']} != "
                      f"{want_fa}")
-    rec = {name: {k: ranks[name][0][k] for k in
+    rec = {name: {k: ranks[name][0].get(k) for k in
                   ("steps", "one_rank", "param_max_abs_diff", "seconds",
-                   "microbatches", "flash_launches", "collective_ms_per_step",
-                   "collectives_per_step", "opt_state_bytes_per_device")}
+                   "attn_impl", "microbatches", "flash_launches",
+                   "collective_ms_per_step", "collectives_per_step",
+                   "opt_state_bytes_per_device", "drops")}
            for name in PP_F32_CASES}
     for name in PP_F32_CASES:
         rec[name]["peak_gib"] = [r["peak_gib"] for r in ranks[name]]
-    rec["jobs_seconds"] = seconds
     print("phase 31a (2 and 4 ranks vs 1, f32, b4 x s512, llama3-1b width "
-          "and bench-moe width x 2 layers): " + json.dumps(rec), flush=True)
+          "and bench-moe width x 2 layers): " + json.dumps(
+              {k: v for k, v in rec.items() if k not in SP_F32_CASES}
+              | {"jobs_seconds": seconds}), flush=True)
+    print("phase 31c (MoE on sp, 2 and 4 ranks vs 1, f32, b4 x s512, "
+          "bench-moe width x 2 layers of 4 experts, in 31a's jobs): "
+          + json.dumps({k: rec[k] for k in SP_F32_CASES}), flush=True)
     return {name: ranks[name][0]["flash_launches"] for name in PP_F32_CASES}
 
 
@@ -5584,6 +5736,66 @@ def pp_job(ckpt):
              "KUBEDL_CKPT_DIR": ckpt,
              "KUBEDL_TRAIN_CONFIG": json.dumps(PP_JOB)},
             math.prod(PP_JOB_MESH.values()))
+
+
+def sp_job():
+    """31d's job: ``train_main`` on SP_JOB at sp=2."""
+    return ([sys.executable, "-m", "kubedl_tpu_torch.training.entry"],
+            {"KUBEDL_MESH_AXES": ",".join(f"{a}={n}" for a, n in
+                                          SP_JOB_MESH.items()),
+             "KUBEDL_TRAIN_CONFIG": json.dumps(SP_JOB)},
+            math.prod(SP_JOB_MESH.values()))
+
+
+def check_sp_job(outs, one_loss, seconds):
+    """Phase 31d's gates on its ranks' outputs: two steps, gloo, the sp
+    mesh, ring attention (no flash launch), the MoE family, finite
+    losses, the same on both ranks, and the first step's loss within
+    ``SP_LOSS_RTOL`` of one process's (``one_loss``). Prints ms a step,
+    collective ms a step by kind, peak GiB a rank. Returns the ranks'
+    optimizer launches."""
+    world, steps = math.prod(SP_JOB_MESH.values()), SP_JOB["steps"]
+    sums = [_json_lines(o, "worker_summary")[0] for o in outs]
+    none = {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkdv": 0}
+    for r, s in enumerate(sums):
+        if s["steps"] != steps or s["dist_backend"] != "gloo" or \
+                s["world"] != world or s["mesh"] != SP_JOB_MESH or \
+                s["attn_impl"] != "context-ring" or \
+                s["model_family"] != "moe" or s["flash_launches"] != none:
+            fail(f"31d rank {r}: steps {s['steps']}, backend "
+                 f"{s['dist_backend']}, mesh {s['mesh']}, attn_impl "
+                 f"{s['attn_impl']}, family {s['model_family']}, flash "
+                 f"{s['flash_launches']}")
+        if not (math.isfinite(s["first_loss"])
+                and math.isfinite(s["final_loss"])):
+            fail(f"31d: non-finite loss {s['first_loss']} {s['final_loss']}")
+    if len({(s["first_loss"], s["final_loss"]) for s in sums}) != 1:
+        fail(f"31d: the ranks' losses differ: "
+             f"{[(s['first_loss'], s['final_loss']) for s in sums]}")
+    first = sums[0]["first_loss"]
+    if one_loss is None or abs(first - one_loss) > SP_LOSS_RTOL * abs(
+            one_loss):
+        fail(f"31d: first loss {first}, one process's {one_loss}")
+    rec = {
+        "config": SP_JOB, "mesh": sums[0]["mesh"],
+        "n_params": sums[0]["n_params"],
+        "losses": [first, sums[0]["final_loss"]],
+        "one_process_first_loss": one_loss,
+        "first_loss_rel_diff": abs(first - one_loss) / abs(one_loss),
+        "step_time_ms": [s["step_time_ms"] for s in sums],
+        "first_step_seconds": [s["first_step_seconds"] for s in sums],
+        "collective_ms_per_step": [s["collective_ms"] for s in sums],
+        "peak_gib": [s["peak_memory_bytes"] / 2**30 for s in sums],
+        "adamw_launches": sums[0]["adamw_launches"],
+        "seconds": seconds,
+        "note": "both ranks share one card, with 31b's four ranks beside "
+                "them, and gloo stages every collective through the host: "
+                "the step time is not a speed-up",
+    }
+    print("phase 31d (train_main x 2 ranks, bench-moe bf16 at full size, "
+          "sp=2): " + json.dumps(rec), flush=True)
+    return sums[0]["adamw_launches"]
 
 
 def _pp_opt_bytes(moe_mod, model):
@@ -5681,9 +5893,11 @@ def check_pp_job(ck, moe_mod, outs, ckpt, seconds):
     return sums[0]["flash_launches"]
 
 
-def run_pp_phase(fa, ck, moe_mod):
-    """Phase 31: 31a's two jobs side by side, then 31b's ranks, then each
-    part's gates."""
+def run_pp_phase(fa, ck, moe_mod, one_loss=None):
+    """Phase 31: 31a's two jobs (31c's cases in them) side by side, then
+    31b's ranks beside 31d's (~46 GB and ~24 GB of the card), and each
+    part's gates. ``one_loss``: phase 25's first ``train_main`` loss,
+    31d's one-process side."""
     t0 = time.perf_counter()
     root = tempfile.mkdtemp(prefix="kubedl-pp-")
     ckpt = os.path.join(root, "checkpoints")
@@ -5693,22 +5907,327 @@ def run_pp_phase(fa, ck, moe_mod):
         t_a = time.perf_counter() - t0
         f32 = check_pp_identity(outs, t_a)
         t1 = time.perf_counter()
-        outs = run_ranks([pp_job(ckpt)], 4, label="31")
-        bf16 = check_pp_job(ck, moe_mod, outs[0], ckpt,
-                            time.perf_counter() - t1)
+        outs = run_ranks([pp_job(ckpt), sp_job()], 4, label="31")
+        t_b = time.perf_counter() - t1
+        bf16 = check_pp_job(ck, moe_mod, outs[0], ckpt, t_b)
+        sp_opt = check_sp_job(outs[1], one_loss, t_b)
     finally:
         shutil.rmtree(root, ignore_errors=True)
         _free()
-    print(f"phase 31 (GPipe stages, MoE's expert and tensor split): "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return {"f32": f32, "bf16": bf16}
+    print(f"phase 31 (GPipe stages, MoE's expert and tensor split, MoE on "
+          f"sp): {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"f32": f32, "bf16": bf16, "sp_adamw": sp_opt}
+
+# ---- phase 32: serving over a mesh ----------------------------------------------------
+
+#: 32a: float32 (TF32 off), 2 layers, phase 15's shared-prefix requests in
+#: two waves, each engine's greedy streams against the unsharded
+#: contiguous engine's: (model, mesh, prefix cache MB)
+MESH_F32_CASES = (("llama3-8b", {"tensor": 2}, 512.0),
+                  ("llama3-8b", {"tensor": 4}, 0.0),
+                  ("llama3-8b", {"fsdp": 2, "tensor": 2}, 0.0),
+                  ("gemma-2b", {"tensor": 4}, 0.0))
+#: 32b: phase 22's Gemma-2B config over tensor=4 at full width and depth
+#: (the reference's target: Gemma-2B on four chips; the four ranks share
+#: this card). The engine keeps the contiguous layout (the reference's
+#: normalization), so the chunk and the paged knobs go unused.
+MESH_SERVE = dict(GEMMA_SERVE, mesh={"tensor": 4})
+#: 32b's gate on the prompts' last-token prefill logits, the split against
+#: the unsharded model (bf16, 18 layers, the same weights): the norm of
+#: the difference over the norm of the unsharded logits. The split sums
+#: each row-parallel product's four bf16 partials in bf16 (each partial
+#: rounded, then three sums rounded: ~4 bf16 ulps, 2^-8 relative, of a
+#: partial), where the unsharded product rounds its float32 sum once;
+#: that perturbation of the residual stream passes through 18 layers and
+#: the final norm, relative maps of random weights: 5e-2 leaves room for
+#: ~12 ulps of drift in the logits.
+MESH_LOGIT_RTOL = 5e-2
+#: 32b's gate on the bytes each rank holds of the leaves cut evenly over
+#: tensor (every spec'd leaf but wk / wv, which hold the one KV head on
+#: every rank): a quarter of the whole within 1 %
+MESH_BYTES_RTOL = 1e-2
+#: 32c: int8 over tensor=2 at phase 17's depth (Llama-3-8B's width at 8
+#: layers): 8 requests, 32 new tokens
+MESH_INT8_AXES = {"tensor": 2}
+
+
+def mesh_f32_preset(llama_mod, model):
+    name = f"{model}-2layer-f32"
+    llama_mod.PRESETS.setdefault(name, dataclasses.replace(
+        llama_mod.preset(model), n_layers=2, dtype=torch.float32))
+    return name
+
+
+def run_mesh_f32_identity(server_mod, llama_mod):
+    """Phase 32a: each ``MESH_F32_CASES`` engine's greedy streams on phase
+    15's requests (two waves) must be IDENTICAL to the unsharded
+    contiguous engine's of the same model; the prefix-cache case must
+    graft; each computing rank holds its cache."""
+    out, t0 = {}, time.perf_counter()
+    for model in dict.fromkeys(m for m, _, _ in MESH_F32_CASES):
+        name = mesh_f32_preset(llama_mod, model)
+        reqs = shared_prefix_requests(llama_mod.preset(name).vocab_size, 32,
+                                      seed=3)
+        kw = dict(preset=name, max_batch=8, max_seq=2048,
+                  kv_layout="contiguous")
+        streams = {}
+        for label, axes, mb in [("unsharded", None, 0.0)] + [
+                (f"{m}:" + ",".join(f"{a}={n}" for a, n in ax.items()), ax,
+                 mb) for m, ax, mb in MESH_F32_CASES if m == model]:
+            eng = server_mod.LlamaEngine(**kw, mesh_axes=axes,
+                                         prefix_cache_mb=mb)
+            try:
+                outs = generate_concurrent(eng, reqs[:2]) \
+                    + generate_concurrent(eng, reqs[2:])
+                st = eng.stats()
+            finally:
+                eng.close()
+            del eng
+            _free()
+            streams[label] = [(o or {}).get("token_ids") for o in outs]
+            if any(t is None or len(t) != 32 for t in streams[label]):
+                fail(f"32a {label}: bad responses {str(outs)[:300]}")
+            if axes is None:
+                continue
+            m = st["mesh"]
+            tp = axes.get("tensor", 1)
+            if len(m["devices"]) != math.prod(axes.values()) or \
+                    sum(1 for b in m["kv_bytes"] if b) != tp or \
+                    st["nonfinite_logits"]:
+                fail(f"32a {label}: mesh {m}, nonfinite "
+                     f"{st['nonfinite_logits']}")
+            if mb and not st["prefix_cache"]["hits"]:
+                fail(f"32a {label}: the prefix cache never hit")
+            out[label] = {"weight_bytes": m["weight_bytes"],
+                          "kv_bytes": m["kv_bytes"],
+                          "kv_heads": m["kv_heads"],
+                          "prefix_hits": st.get("prefix_cache", {}).get(
+                              "hits")}
+            if streams[label] != streams["unsharded"]:
+                fail(f"32a {label}: greedy streams differ from the "
+                     f"unsharded engine's: {streams[label]} vs "
+                     f"{streams['unsharded']}")
+    out["seconds"] = time.perf_counter() - t0
+    print("phase 32a (f32, 2 layers, mesh engines == the unsharded "
+          "contiguous engine on 8 streams x 32 tokens): " + json.dumps(out),
+          flush=True)
+
+
+def run_mesh_gemma(pa, server_mod, llama_mod, summary):
+    """Phase 32b: Gemma-2B bf16 at full width and depth over tensor=4.
+    First the split itself (seed 0, the weights serve_main builds): the
+    prompts' last-token prefill logits against the unsharded model's
+    within ``MESH_LOGIT_RTOL`` (argmax agreement printed), and each
+    rank's bytes of the evenly cut leaves a quarter of the whole within
+    ``MESH_BYTES_RTOL``. Then ``serve_main`` with ``MESH_SERVE`` on phase
+    22's requests: every response, finite logits, no paged launch, each
+    rank's weight bytes those of the split above, each computing rank's
+    KV bytes those of its KV head. Prints the greedy agreement with
+    phase 22's streams, ms a decode step and TTFT beside phases 22 and
+    27."""
+    from kubedl_tpu_torch.api.topology import MeshSpec
+    from kubedl_tpu_torch.parallel.mesh import ServingMesh
+
+    t0 = time.perf_counter()
+    cfg = llama_mod.preset("gemma-2b")
+    reqs = make_requests(cfg.vocab_size)
+    axes = MESH_SERVE["mesh"]
+    split = llama_mod.ServingSplit(cfg, ServingMesh(MeshSpec(axes), DEV))
+    whole = llama_mod.llama_init(
+        cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    ranks = split.shard(whole)
+    B, L = len(reqs), max(len(r["prompt_ids"]) for r in reqs)
+    toks = np.zeros((B, L), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, :len(r["prompt_ids"])] = r["prompt_ids"]
+    toks = torch.from_numpy(toks).to(DEV)
+    lens = torch.tensor([len(r["prompt_ids"]) for r in reqs],
+                        dtype=torch.int32, device=DEV)
+    with torch.no_grad():
+        cache = llama_mod.init_batched_cache(cfg, B, L, DEV)
+        want, _ = llama_mod.prefill_batched(whole, cache, toks, lens, cfg)
+        del cache
+        cache = llama_mod.init_batched_cache(cfg, B, L, DEV, split=split)
+        got, _ = llama_mod.prefill_batched(ranks, cache, toks, lens, cfg,
+                                           split)
+        del cache
+    if not bool(torch.isfinite(got).all()):
+        fail("32b: non-finite sharded prefill logits")
+    rel = ((got - want).norm() / want.norm()).item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    if not rel <= MESH_LOGIT_RTOL:
+        fail(f"32b: sharded prefill logits {rel} of the unsharded ones' "
+             f"norm apart (gate {MESH_LOGIT_RTOL})")
+    even = [p for p, sp in split.specs.items() if "tensor" in sp
+            and p not in ("layers/wk", "layers/wv")]
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    whole_even = sum(nbytes(llama_mod._at(whole, p)) for p in even)
+    rank_even = [sum(nbytes(llama_mod._at(r, p)) for p in even)
+                 for r in ranks]
+    tp = axes["tensor"]
+    for b in rank_even:
+        if abs(b - whole_even / tp) > MESH_BYTES_RTOL * whole_even / tp:
+            fail(f"32b: a rank holds {b} bytes of the evenly cut leaves, "
+                 f"the whole's 1/{tp} is {whole_even / tp}")
+    split_bytes = [llama_mod.params_nbytes(r) for r in ranks]
+    whole_bytes = llama_mod.params_nbytes(whole)
+    del whole, ranks, want, got
+    _free()
+    t_split = time.perf_counter() - t0
+    with serving(server_mod, MESH_SERVE) as base:
+        _, before = http_json(base + "/v1/stats")
+        reset_counts(pa)
+        torch.cuda.reset_peak_memory_stats()
+        results, wall = post_all(base, reqs)
+        launches = dict(pa.LAUNCHES)
+        _, st = http_json(base + "/v1/stats")
+        peak = torch.cuda.max_memory_allocated()
+    outs = checked(results, 128, "32b mesh engine")
+    if any(launches.values()):
+        fail(f"32b: the mesh engine launched paged kernels: {launches}")
+    if st["nonfinite_logits"] != 0:
+        fail(f"32b: {st['nonfinite_logits']} non-finite logits")
+    m = st["mesh"]
+    kv_head = 2 * cfg.n_layers * MESH_SERVE["max_batch"] * \
+        MESH_SERVE["max_seq"] * cfg.head_dim * 2  # one KV head, k and v
+    if m["weight_bytes"] != split_bytes or m["kv_bytes"] != [kv_head] * tp \
+            or m["axes"] != axes or len(m["devices"]) != tp:
+        fail(f"32b: mesh stats {m}; the split holds {split_bytes}, a KV "
+             f"head {kv_head} bytes")
+    pipe, pipe0 = st["pipeline"], before["pipeline"]
+    steps = pipe["decode_steps"] - pipe0["decode_steps"]
+    dec_ms = pipe["decode_ms_sum"] - pipe0["decode_ms_sum"]
+    ref = summary.get("gemma_streams") or []
+    greedy = [j for j, r in enumerate(reqs)
+              if r["temperature"] == 0.0 and j < len(ref)]
+    same = sum(x == y for j in greedy
+               for x, y in zip(outs[j]["token_ids"], ref[j]))
+    total = sum(len(ref[j]) for j in greedy)
+    rec = {"mesh": m["axes"], "devices": m["devices"],
+           "ranks_per_device": m["ranks_per_device"],
+           "prefill_logits_rel_diff": rel,
+           "prefill_argmax_agreement": agree,
+           "rank_even_bytes_over_quarter": [b / (whole_even / tp)
+                                            for b in rank_even],
+           "weight_bytes": m["weight_bytes"], "whole_bytes": whole_bytes,
+           "kv_bytes": m["kv_bytes"],
+           "greedy_agreement_with_phase22": same / total if total else None,
+           "wall_s": wall, "decode_steps": steps,
+           "ms_per_decode_step": dec_ms / max(steps, 1),
+           "ttft_ms_p50": st.get("ttft_ms_p50"),
+           "ttft_ms_p95": st.get("ttft_ms_p95"),
+           "phase22_paged": summary.get("gemma_serve"),
+           "phase27_contiguous_llama3_8b": summary.get("contiguous_serve"),
+           "max_memory_allocated_gib": peak / 2**30,
+           "paged_launches": launches,
+           "split_check_seconds": t_split,
+           "phase_seconds": time.perf_counter() - t0}
+    summary.setdefault("paths", {})["mesh_gemma"] = launches
+    print("phase 32b (serve_main, Gemma-2B bf16 over tensor=4, smoke run, "
+          "not a benchmark): " + json.dumps(rec), flush=True)
+
+
+def run_mesh_int8(w8, server_mod, llama_mod, summary):
+    """Phase 32c: int8 over tensor=2 at phase 17's depth. The W8A16 kernel
+    against its plain version at each new shard shape (a rank's K or N
+    halved), M = 8 and 512, bf16, on its static route; then a mesh engine
+    on 8 requests: W8A16 launches exactly 2 x (7 x 8) + 2 (each rank's
+    slice of the head) a decode step and a prefill dispatch, finite
+    logits."""
+    t0 = time.perf_counter()
+    cfg = register_cut(llama_mod, INT8_PRESET)
+    tp = MESH_INT8_AXES["tensor"]
+    D, F = cfg.dim, cfg.ffn_dim
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    shapes = sorted({(D, q // tp), (D, kv // tp), (q // tp, D),
+                     (D, F // tp), (F // tp, D), (D, cfg.vocab_size // tp)})
+    errs = {}
+    with torch.no_grad():
+        for K, N in shapes:
+            q8, s8, _ = w8_case(llama_mod, K, N, False, seed=K + N)
+            for M in (8, 512):
+                g = torch.Generator(device=DEV).manual_seed(M)
+                h = torch.randn((M, K), generator=g, device=DEV).to(
+                    torch.bfloat16)
+                ref = w8.plain_w8a16_matmul(h, q8, s8, False)
+                n0 = w8.LAUNCHES["w8a16"]
+                y = w8.w8a16_matmul(h, q8, s8, False)
+                torch.cuda.synchronize()
+                scale = ref.float().abs().max().item()
+                err = (y.float() - ref.float()).abs().max().item()
+                if w8.LAUNCHES["w8a16"] != n0 + 1 or not math.isfinite(err) \
+                        or err > W8_TOL[torch.bfloat16] * scale:
+                    fail(f"32c w8a16 {K}x{N} M={M}: err {err} of {scale}, "
+                         f"launched {w8.LAUNCHES['w8a16'] - n0}")
+                errs[f"{K}x{N} M={M} "
+                     f"{w8.w8a16_route(M, N, K, torch.bfloat16, False)}"] = \
+                    err / scale
+                del h, ref, y
+            del q8, s8
+            _free()
+    per_step = tp * 7 * cfg.n_layers + tp  # each rank's layers and head
+    reqs = [dict(r, max_tokens=32) for r in make_requests(cfg.vocab_size)]
+    eng = server_mod.LlamaEngine(preset=INT8_PRESET, quantize="int8",
+                                 mesh_axes=MESH_INT8_AXES, max_batch=8,
+                                 max_seq=2048, prefix_cache_mb=0.0)
+    try:
+        before = eng.stats()
+        for k in w8.LAUNCHES:
+            w8.LAUNCHES[k] = 0
+        outs = generate_concurrent(eng, reqs)
+        st = eng.stats()
+        n_w8 = w8.LAUNCHES["w8a16"]
+        by_route = {r: w8.LAUNCHES[f"w8a16_{r}"]
+                    for r in (w8.DECODE, w8.PREFILL, w8.CUDA_CORE)}
+    finally:
+        eng.close()
+    del eng
+    _free()
+    if any(o is None or len(o["token_ids"]) != 32 for o in outs):
+        fail(f"32c: bad responses {str(outs)[:300]}")
+    pipe, pipe0 = st["pipeline"], before["pipeline"]
+    steps = pipe["decode_steps"] - pipe0["decode_steps"]
+    dispatches = pipe["prefills"] - pipe0["prefills"]
+    if steps <= 0 or n_w8 != per_step * (steps + dispatches):
+        fail(f"32c: w8a16 launches {n_w8} != {per_step} x ({steps} decode "
+             f"steps + {dispatches} prefill dispatches)")
+    if st["nonfinite_logits"] != 0 or st["weights"]["quantize"] != "int8":
+        fail(f"32c: nonfinite {st['nonfinite_logits']}, weights "
+             f"{st['weights']}")
+    dec_ms = pipe["decode_ms_sum"] - pipe0["decode_ms_sum"]
+    rec = {"preset": INT8_PRESET, "mesh": MESH_INT8_AXES,
+           "kernel_vs_plain_rel_err": errs, "w8a16_launches": n_w8,
+           "w8a16_launches_by_route": by_route,
+           "launches_per_step": per_step, "decode_steps": steps,
+           "prefill_dispatches": dispatches,
+           "ms_per_decode_step": dec_ms / steps,
+           "weight_bytes": st["mesh"]["weight_bytes"],
+           "kv_bytes": st["mesh"]["kv_bytes"],
+           "phase_seconds": time.perf_counter() - t0}
+    summary["mesh_int8_w8a16"] = by_route
+    print("phase 32c (int8 over tensor=2, llama3-8b width x 8 layers): "
+          + json.dumps(rec), flush=True)
+
+
+def run_mesh_phase(pa, w8, server_mod, llama_mod, summary):
+    """Phase 32: serving over a mesh (32a, 32b, 32c)."""
+    t0 = time.perf_counter()
+    run_mesh_f32_identity(server_mod, llama_mod)
+    run_mesh_gemma(pa, server_mod, llama_mod, summary)
+    with torch.no_grad():
+        run_mesh_int8(w8, server_mod, llama_mod, summary)
+    print(f"phase 32 (serving over a mesh): {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--skip-engine", action="store_true",
                     help="skip the serving engine (phases 5, 6, 13-15, "
-                    "17-19, 22, 26, 27)")
+                    "17-19, 22, 26, 27, 32)")
     ap.add_argument("--skip-train", action="store_true",
                     help="skip the training phases (8 to 12, 21, 23-25, "
                     "28-31)")
@@ -5867,6 +6386,8 @@ def main() -> int:
         stamp("phase 26")
         run_contiguous_engine(pa, server_mod, serve_cfg, reqs, summary)
         stamp("phase 27")
+        run_mesh_phase(pa, w8, server_mod, llama_mod, summary)
+        stamp("phase 32")
         with torch.no_grad():
             run_int8_engine(pa, w8, server_mod, llama_mod, serve_cfg, summary)
             run_int8_identity(w8, server_mod, llama_mod, reqs, serve_cfg)
@@ -5901,7 +6422,7 @@ def main() -> int:
         stamp("phase 23")
         gemma_long_launches, gemma_long = run_gemma_long_train(fa, llama_mod)
         stamp("phase 24")
-        moe_launches, _ = run_moe_phase(fa, moe_mod)
+        moe_launches, moe_summary = run_moe_phase(fa, moe_mod)
         stamp("phase 25")
         convnet_launches = run_convnet(adamw)
         stamp("phase 28")
@@ -5924,7 +6445,8 @@ def main() -> int:
         stamp("phase 29")
         mp_launches = run_mp_phase(fa, ck, llama_mod)
         stamp("phase 30")
-        pp_launches = run_pp_phase(fa, ck, moe_mod)
+        pp_launches = run_pp_phase(fa, ck, moe_mod,
+                                   moe_summary.get("first_loss"))
         stamp("phase 31")
 
     def record(name, source, replaces, n, rec, design):
@@ -5986,6 +6508,11 @@ def main() -> int:
                      by_route.get(route), w8k[route], design)
         rec["step_sums"] = w8k["step_sums"]
         rec["host_us_per_call"] = w8k["host_us_per_call"]
+        # phase 17's engine, and phase 32c's over tensor=2 (each rank's
+        # K- or N-halved slices)
+        rec["launches_by_path"] = {
+            "int8-8l": by_route.get(route),
+            "int8-8l-tensor2": summary.get("mesh_int8_w8a16", {}).get(route)}
         if route == "decode":
             # phase 17's pure-decode window, beside what the model implies
             rec["launches_per_decode_step"] = window.get(
@@ -6013,7 +6540,10 @@ def main() -> int:
             for k in adamw.LAUNCHES) or None,
         "convnet": sum(convnet_launches.values()) or None,
         # phase 29b: each rank's count, on its shards (two finishes a step)
-        "llama3-1b-dp2-rank": sum(dp_launches["adamw"].values()) or None}
+        "llama3-1b-dp2-rank": sum(dp_launches["adamw"].values()) or None,
+        # phase 31d: each rank's count at sp=2 (every leaf whole a rank)
+        "bench-moe-sp2-rank": sum(pp_launches.get("sp_adamw", {}).values())
+        or None}
     line.append(rec)
     main_case = FLASH_CASES[0]  # the timed shape: llama3-1b training
     for name in FLASH_REPLACES:
@@ -6044,7 +6574,10 @@ def main() -> int:
                 **{f"f32-{case}-rank": pp_launches["f32"].get(
                     case, {}).get(name) for case in PP_F32_CASES},
                 "bench-moe-pipe2-expert2-rank": pp_launches["bf16"].get(
-                    name)}
+                    name),
+                # phase 31d: ring attention on sp, no flash launch (gated)
+                "bench-moe-sp2-rank": 0 if "sp_adamw" in pp_launches
+                else None}
         line.append(rec)
     # Gemma-2B's training paths (hd 256): the forward and the fused
     # backward timed at phase 7's Gemma-2B case, launches from phase 23's

@@ -4,8 +4,9 @@ the paged-KV serving path.
 Port of ``kubedl_tpu/models/llama.py`` (config, presets, init, building
 blocks, the training path of ``:39-90`` and ``:415-606``, the paged
 functions of ``:849-1614`` with speculative verify and the prefix-cache
-block ops, and the contiguous functions the model draft needs,
-``:711-925``). Parameters are a plain
+block ops, and the contiguous functions of ``:711-1000``, which also run
+over a serving mesh: ``serving_shardings`` and :class:`ServingSplit`,
+the counterpart of ``:611-660``). Parameters are a plain
 dict with the reference's names and stacked ``[L, in, out]`` shapes, so
 a checkpoint moves between the packages without transposes
 (:func:`params_from_numpy` carries a JAX tree across).
@@ -216,24 +217,24 @@ def llama_init(cfg: LlamaConfig, generator: torch.Generator,
                device, shard: Optional["TrainShard"] = None) -> Params:
     """Seeded random init with the reference's distributions and tree
     (``llama.py:229-264``). ``generator`` must live on ``device``. With a
-    ``shard``, each leaf is cut to this rank's region as it is drawn (the
-    stream, and so every value, is the one-rank init's)."""
+    ``shard`` (anything with ``local(name, leaf)``: a :class:`TrainShard`,
+    a serving split's sink), each leaf is cut as it is drawn (the stream,
+    and so every value, is the one-rank init's)."""
 
     def keep(name, t):
         return t if shard is None else shard.local(name, t)
 
     def dense(name, shape, fan_in):
-        return keep(name, _dense(shape, fan_in, cfg, generator, device))
+        t = _dense(shape, fan_in, cfg, generator, device)
+        if cfg.zero_init_deep_from and name in ("layers/wo", "layers/w_down"):
+            t[cfg.zero_init_deep_from:] = 0  # before any cut of the leaf
+        return keep(name, t)
 
     def norm(name, shape):
         fill = torch.zeros if cfg.norm_plus_one else torch.ones
         return keep(name, fill(shape, dtype=cfg.dtype, device=device))
 
-    params = _param_tree(cfg, dense, norm)
-    if cfg.zero_init_deep_from:
-        for name in ("wo", "w_down"):
-            params["layers"][name][cfg.zero_init_deep_from:] = 0
-    return params
+    return _param_tree(cfg, dense, norm)
 
 
 def param_like(cfg: LlamaConfig, device="meta") -> Params:
@@ -327,18 +328,33 @@ def quantize_params(params: Params, cfg: LlamaConfig) -> Params:
     return out
 
 
-def quantize_leaf_at(key: str, t: torch.Tensor):
-    """:func:`quantize_params` for one leaf, by its tree path string
-    (``['params']['layers']['wq']``): what a checkpoint restore applies
-    to each leaf as it lands, so the float tree is never held whole."""
+def leaf_path(key: str) -> str:
+    """A checkpoint leaf key (``['params']['layers']['wq']``) as the
+    parameter tree's path (``layers/wq``)."""
     names = re.findall(r"\['([^']*)'\]", key)
+    if names and names[0] == "params":
+        names = names[1:]
+    return "/".join(names)
+
+
+def quantize_leaf_named(path: str, t: torch.Tensor):
+    """:func:`quantize_params` for one leaf, by its path (``layers/wq``):
+    what a restore or a serving split applies to each leaf as it lands,
+    so the float tree is never held whole."""
+    names = path.split("/")
     if len(names) >= 2 and names[-2] == "layers" and names[-1] in _QUANT_KEYS:
         return _quant_leaf(t)
-    if names and names[-1] == "embed":
+    if names[-1] == "embed":
         return _quant_leaf(t, axis=-1)
-    if names and names[-1] == "lm_head":
+    if names[-1] == "lm_head":
         return _quant_leaf(t)
     return t
+
+
+def quantize_leaf_at(key: str, t: torch.Tensor):
+    """:func:`quantize_leaf_named` by a checkpoint leaf key
+    (``['params']['layers']['wq']``)."""
+    return quantize_leaf_named(leaf_path(key), t)
 
 
 def deq(w, dtype=None) -> torch.Tensor:
@@ -360,8 +376,11 @@ def deq(w, dtype=None) -> torch.Tensor:
     return w
 
 
-def params_nbytes(params: Params) -> int:
-    """Bytes the parameter tree holds on its device."""
+def params_nbytes(params) -> int:
+    """Bytes the parameter tree holds on its device (a serving split's
+    list of rank trees: the sum over the ranks)."""
+    if isinstance(params, (list, tuple)):
+        return sum(params_nbytes(p) for p in params)
     n = 0
 
     def add(t):
@@ -1518,16 +1537,390 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
     return logits, cache
 
 
-def init_batched_cache(cfg: LlamaConfig, batch: int, max_seq: int,
-                       device="cpu") -> Params:
-    """Contiguous continuous-batching cache with PER-ROW positions:
-    K/V ``[L, B, max_seq, KV, hd]`` + ``pos`` [B]."""
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
-        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+# ---- serving over a mesh: the contiguous functions' split ---------------------
+
+def serving_shardings(params: Params, cfg: LlamaConfig, mesh) -> Params:
+    """The reference's ``serving_shardings`` (``llama.py:611``) as a tree
+    of specs mirroring ``params`` (one mesh-axis name or None a
+    dimension): :func:`param_pspecs` pruned to ``mesh.axis_names``; an
+    int8 leaf's ``q8`` takes the weight's spec and its ``s8`` the same
+    with every dimension of size 1 (the reduced axis) unsharded."""
+    pspecs = param_pspecs(cfg)
+    names = set(mesh.axis_names)
+
+    def prune(spec):
+        return tuple(a if a in names else None for a in spec)
+
+    def leaf(w, spec):
+        return _leaf_serving_spec(w, prune(spec))
+
+    out: Params = {
+        "embed": leaf(params["embed"], pspecs["embed"]),
+        "final_norm": prune(pspecs["final_norm"]),
+        "layers": {k: leaf(params["layers"][k], pspecs["layers"][k])
+                   for k in params["layers"]},
     }
+    if "lm_head" in params:
+        out["lm_head"] = leaf(params["lm_head"], pspecs["lm_head"])
+    return out
+
+
+def _leaf_serving_spec(w, spec: tuple):
+    """A (pruned) weight spec as leaf ``w`` takes it: an int8 leaf's
+    ``q8`` as the weight, its ``s8`` with every size-1 dimension whole."""
+    if is_quantized(w):
+        return {"q8": spec, "s8": tuple(None if w["s8"].shape[i] == 1 else a
+                                        for i, a in enumerate(spec))}
+    return spec
+
+
+class _Whole:
+    """The unsharded model as a split of one rank: what the contiguous
+    functions run when no :class:`ServingSplit` is given (the same ops
+    as a plain forward; every method is the identity or the unsharded
+    lookup)."""
+
+    n = 1
+
+    @staticmethod
+    def heads(j, cfg):
+        return cfg.n_heads, cfg.n_kv_heads
+
+    @staticmethod
+    def to(t, j):
+        return t
+
+    @staticmethod
+    def sum(parts):
+        return parts[0]
+
+    @staticmethod
+    def layer(params, j, i):
+        return _layer(params, i)
+
+    @staticmethod
+    def embed(params, tokens, cfg):
+        return _embed_in(params, tokens, cfg)
+
+    @staticmethod
+    def final_norm(params):
+        return params["final_norm"]
+
+    @staticmethod
+    def logits(params, x, cfg):
+        return _mm(x, lm_head_of(params, cfg)).float()
+
+    @staticmethod
+    def attn_kv(j, t):
+        return t
+
+    @staticmethod
+    def part(t, j):
+        return t
+
+    @staticmethod
+    def pack(parts):
+        return parts[0]
+
+    @staticmethod
+    def kv(cache, name, j):
+        return cache[name]
+
+
+_WHOLE = _Whole()
+
+
+class ServingSplit:
+    """The contiguous serving functions over a serving mesh
+    (``parallel/mesh.py::ServingMesh``): the reference's
+    ``shard_serving_params`` and its jitted model functions under that
+    sharding (``llama.py:611-1000``), as one process runs them.
+
+    Layout. Every rank holds its region of each leaf by
+    :func:`serving_shardings` (:meth:`cut`, reusing ``ShardSpec``), with
+    one exception: the Megatron ``tensor`` split cuts ``wk`` / ``wv`` by
+    whole KV heads. Where ``n_kv_heads`` divides by ``tensor`` that is the
+    reference's layout; otherwise (Gemma-2B's one KV head over four
+    ranks) each rank holds the KV heads its q heads read (``kv = h //
+    group``), replicated across the ranks that share them, where the
+    reference cuts the flat ``KV * hd`` columns inside a head. So q / o
+    split by heads, gate / up by columns and down by rows, the embedding
+    and the head by vocabulary rows; ``fsdp`` splits the other matmul
+    dimension. Axes that shard no serving leaf (data, replica, sp,
+    expert, pipe) hold whole copies of their group's shards, as the
+    reference's pruned specs do (copies on one device share storage).
+
+    Compute. The ranks at coordinate 0 of every axis but ``tensor`` (one
+    a tensor coordinate) compute every row of the batch: each runs its
+    q heads and KV heads, its ffn columns and its vocabulary rows, and
+    holds its KV heads' contiguous cache. An ``fsdp`` split is gathered
+    onto them at use, a layer at a time. The other ranks hold their
+    copies and compute nothing (their results would be the same bits).
+    The row-parallel products (``wo``, ``w_down``) and the
+    vocabulary-split embedding (each rank looks up its rows, zeros
+    elsewhere) are summed on the lead rank in rank order in the
+    activation dtype, so every rank reads the same bits of the next
+    activation; the head's logits are gathered before sampling."""
+
+    def __init__(self, cfg: LlamaConfig, mesh) -> None:
+        self.cfg, self.mesh = cfg, mesh
+        self.tp = mesh.shape.get("tensor", 1)
+        self.fsdp = mesh.shape.get("fsdp", 1)
+        for axis, attrs in (("tensor", ("n_heads", "ffn_dim", "vocab_size")),
+                            ("fsdp", ("dim",))):
+            n = mesh.shape.get(axis, 1)
+            for attr in attrs:
+                if n > 1 and getattr(cfg, attr) % n:
+                    raise ValueError(f"{attr}={getattr(cfg, attr)} not "
+                                     f"divisible by {axis}={n}")
+        #: leaf path -> its pruned spec
+        self.specs = prune_specs(param_pspecs(cfg), set(mesh.axis_names))
+        #: the computing ranks, one a tensor coordinate, and their devices
+        self.ranks = [mesh.rank({"tensor": t}) for t in range(self.tp)]
+        self.n = len(self.ranks)
+        self.devices = [mesh.devices[r] for r in self.ranks]
+        self.lead = self.devices[0]
+        H, KV = cfg.n_heads, cfg.n_kv_heads
+        group, hl = H // KV, H // self.tp
+        #: KV heads cut evenly over tensor (the reference's layout)
+        self.kv_even = KV % self.tp == 0
+        #: per tensor coordinate: the KV heads [lo, hi) it holds, and the
+        #: index of each of its q heads' KV head among them when the
+        #: grouping is not uniform (else None)
+        self.kv_heads, self._kv_index = [], []
+        for t in range(self.tp):
+            heads = range(t * hl, (t + 1) * hl)
+            lo, hi = heads[0] // group, heads[-1] // group + 1
+            idx = [h // group - lo for h in heads]
+            per = hl // (hi - lo)
+            uniform = per * (hi - lo) == hl and idx == [
+                e for e in range(hi - lo) for _ in range(per)]
+            self.kv_heads.append((lo, hi))
+            self._kv_index.append(None if uniform else torch.tensor(idx))
+
+    # ---- layout -------------------------------------------------------------
+
+    def region(self, path: str, spec, shape, rank: int):
+        """Where rank ``rank``'s shard of leaf ``path`` (one tensor of
+        it, of global ``shape``, laid out by ``spec``) sits; None when it
+        holds the whole tensor."""
+        c = self.mesh.coords[rank]
+        starts, stops = [], []
+        for a, n in zip(spec, shape):
+            size = self.mesh.shape.get(a, 1) if a else 1
+            if size <= 1:
+                starts.append(0)
+                stops.append(n)
+            elif a == "tensor" and path in ("layers/wk", "layers/wv") \
+                    and not self.kv_even:
+                lo, hi = self.kv_heads[c["tensor"]]
+                hd = n // self.cfg.n_kv_heads
+                starts.append(lo * hd)
+                stops.append(hi * hd)
+            else:
+                k = n // size
+                starts.append(c[a] * k)
+                stops.append((c[a] + 1) * k)
+        if all(a == 0 and b == n for a, b, n in zip(starts, stops, shape)):
+            return None
+        return ShardSpec(tuple(shape), tuple(starts), tuple(stops))
+
+    def cut(self, path: str, w) -> list:
+        """Leaf ``path`` (a tensor, or an int8 ``{"q8", "s8"}`` leaf) cut
+        into every rank's shard on the rank's device: owned copies, so
+        the whole leaf can go. Ranks that hold the same region on one
+        device share it."""
+        spec = _leaf_serving_spec(w, self.specs[path])
+        made: Dict[tuple, torch.Tensor] = {}
+
+        def piece(t, sp, r):
+            reg = self.region(path, sp, tuple(t.shape), r)
+            dev = self.mesh.devices[r]
+            key = (id(t), None if reg is None else reg.index, str(dev))
+            if key not in made:
+                made[key] = t.to(dev) if reg is None else reg.take(t).to(
+                    device=dev, memory_format=torch.contiguous_format,
+                    copy=True)
+            return made[key]
+
+        out = []
+        for r in range(self.mesh.size):
+            if is_quantized(w):
+                out.append({"q8": piece(w["q8"], spec["q8"], r),
+                            "s8": piece(w["s8"], spec["s8"], r)})
+            else:
+                out.append(piece(w, spec, r))
+        return out
+
+    def shard(self, params: Params) -> list:
+        """A whole (possibly int8) tree -> each rank's tree of shards."""
+
+        def walk(node, prefix):
+            if isinstance(node, dict) and not is_quantized(node):
+                return {k: walk(v, f"{prefix}{k}/") for k, v in node.items()}
+            return self.cut(prefix[:-1], node)
+
+        return self.ranks_of(walk(params, ""))
+
+    def ranks_of(self, tree) -> list:
+        """A tree whose leaves are :meth:`cut` lists -> a list of rank
+        trees."""
+
+        def pick(node, r):
+            if isinstance(node, dict):
+                return {k: pick(v, r) for k, v in node.items()}
+            return node[r]  # a cut list (of tensors or int8 leaves)
+
+        return [pick(tree, r) for r in range(self.mesh.size)]
+
+    def sink(self, quantize: bool):
+        """A ``shard`` for :func:`llama_init` (``local(name, leaf)``):
+        each leaf quantized when asked, then cut, as it is drawn; the
+        init's tree then goes through :meth:`ranks_of`."""
+        split = self
+
+        class _Sink:
+            @staticmethod
+            def local(name, t):
+                return split.cut(name, quantize_leaf_named(name, t)
+                                 if quantize else t)
+
+        return _Sink()
+
+    # ---- the forward's view of the split ----------------------------------------
+
+    def heads(self, j: int, cfg: LlamaConfig):
+        """(q heads, KV heads) computing rank ``j`` runs."""
+        lo, hi = self.kv_heads[j]
+        return cfg.n_heads // self.tp, hi - lo
+
+    def to(self, t: torch.Tensor, j: int) -> torch.Tensor:
+        return t.to(self.devices[j])
+
+    def sum(self, parts) -> torch.Tensor:
+        return self.mesh.sum(parts, self.lead)
+
+    def leaf(self, params: list, j: int, path: str, i: Optional[int] = None):
+        """Computing rank ``j``'s leaf ``path`` (layer ``i`` of a stacked
+        leaf), its fsdp shards gathered onto the rank's device."""
+        r = self.ranks[j]
+
+        def pick(tree):
+            t = _at(tree, path)
+            return t if i is None else map_leaves(lambda a: a[i], t)
+
+        w = pick(params[r])
+        spec = self.specs[path]
+        if self.fsdp <= 1 or "fsdp" not in spec:
+            return w
+        d = spec.index("fsdp") - (i is not None)
+        parts = [pick(params[p]) for p in self.mesh.along(r, "fsdp")]
+        dev = self.devices[j]
+        if not is_quantized(w):
+            return self.mesh.gather(parts, d, dev)
+        s8 = w["s8"] if w["s8"].shape[d] == 1 else self.mesh.gather(
+            [p["s8"] for p in parts], d, dev)
+        return {"q8": self.mesh.gather([p["q8"] for p in parts], d, dev),
+                "s8": s8}
+
+    def layer(self, params: list, j: int, i: int) -> Params:
+        return {k: self.leaf(params, j, f"layers/{k}", i)
+                for k in params[self.ranks[j]]["layers"]}
+
+    def embed(self, params: list, tokens: torch.Tensor, cfg: LlamaConfig):
+        """The vocabulary-split embedding: each rank looks up the tokens
+        in its rows (zeros for the others), the ranks' rows summed."""
+        vl = cfg.vocab_size // self.tp
+        parts = []
+        for j, r in enumerate(self.ranks):
+            local = self.to(tokens, j).long() - self.mesh.coords[r].get(
+                "tensor", 0) * vl
+            inside = (local >= 0) & (local < vl)
+            rows = gather_embed(self.leaf(params, j, "embed"),
+                                local.clamp(0, vl - 1), cfg.dtype)
+            rows = rows.to(cfg.dtype)
+            parts.append(torch.where(inside[..., None], rows,
+                                     rows.new_zeros(())))
+        x = self.sum(parts)
+        if cfg.embed_scale:
+            x = x * math.sqrt(cfg.dim)
+        return x
+
+    def final_norm(self, params: list) -> torch.Tensor:
+        return params[self.ranks[0]]["final_norm"]
+
+    def logits(self, params: list, x: torch.Tensor,
+               cfg: LlamaConfig) -> torch.Tensor:
+        """Each rank's vocabulary block of the head, gathered."""
+        parts = []
+        for j in range(self.n):
+            if cfg.tie_embeddings:
+                e = self.leaf(params, j, "embed")
+                head = {"q8": e["q8"], "s8": e["s8"], "transposed": True} \
+                    if is_quantized(e) else e.T
+            else:
+                head = self.leaf(params, j, "lm_head")
+            parts.append(_mm(self.to(x, j), head).float())
+        return self.mesh.gather(parts, -1, self.lead)
+
+    def attn_kv(self, j: int, t: torch.Tensor) -> torch.Tensor:
+        """Rank ``j``'s K or V heads ``[B, T, KVl, hd]`` in the layout its
+        q heads read: as held, or one head a q head when the grouping is
+        not uniform."""
+        idx = self._kv_index[j]
+        return t if idx is None else t[:, :, idx.to(t.device)]
+
+    @staticmethod
+    def part(t, j: int):
+        return t[j]
+
+    @staticmethod
+    def pack(parts) -> list:
+        return list(parts)
+
+    @staticmethod
+    def kv(cache: Params, name: str, j: int) -> torch.Tensor:
+        return cache[name][j]
+
+    def describe(self, params: list, cache: Optional[Params] = None) -> Dict:
+        """The mesh, each rank's device, weight bytes and KV bytes (the
+        computing ranks hold the cache)."""
+        kv = [0] * self.mesh.size
+        if cache is not None:
+            for j, r in enumerate(self.ranks):
+                kv[r] = sum(cache[f][j].numel() * cache[f][j].element_size()
+                            for f in ("k", "v"))
+        return dict(self.mesh.describe(),
+                    computing_ranks=list(self.ranks),
+                    kv_heads=[list(h) for h in self.kv_heads],
+                    weight_bytes=[params_nbytes(p) for p in params],
+                    kv_bytes=kv)
+
+
+# ---- the contiguous functions (one rank, or a ServingSplit) ----------------------
+
+def init_batched_cache(cfg: LlamaConfig, batch: int, max_seq: int,
+                       device="cpu", split: Optional[ServingSplit] = None
+                       ) -> Params:
+    """Contiguous continuous-batching cache with PER-ROW positions:
+    K/V ``[L, B, max_seq, KV, hd]`` + ``pos`` [B]. With a ``split``, K/V
+    are lists, one a computing rank on its device holding its KV heads,
+    and ``pos`` lives on the lead rank."""
+    if split is None:
+        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        return {
+            "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+        }
+    kv = {"k": [], "v": []}
+    for j, dev in enumerate(split.devices):
+        shape = (cfg.n_layers, batch, max_seq, split.heads(j, cfg)[1],
+                 cfg.head_dim)
+        for f in kv:
+            kv[f].append(torch.zeros(shape, dtype=cfg.dtype, device=dev))
+    return dict(kv, pos=torch.zeros((batch,), dtype=torch.int32,
+                                    device=split.lead))
 
 
 def _row_update(cache_layer: torch.Tensor, new: torch.Tensor,
@@ -1544,48 +1937,78 @@ def _row_update(cache_layer: torch.Tensor, new: torch.Tensor,
     return cache_layer
 
 
-def decode_step_batched(params: Params, cache: Params, tokens: torch.Tensor,
-                        cfg: LlamaConfig) -> Tuple[torch.Tensor, Params]:
+def _split_layer(split, params, i: int, x: torch.Tensor, cfg: LlamaConfig,
+                 attend) -> torch.Tensor:
+    """Layer ``i`` of the contiguous functions on every computing rank of
+    ``split``: ``attend(j, q, k, v)`` takes rank ``j``'s q / k / v (its
+    heads, PRE-rope), writes its cache and returns its attention output
+    ``[B, S, Hl, hd]``; the ``wo`` and ``w_down`` partials are summed."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    po = cfg.norm_plus_one
+    lps = [split.layer(params, j, i) for j in range(split.n)]
+    parts = []
+    for j, lp in enumerate(lps):
+        H, KV = split.heads(j, cfg)
+        h = rmsnorm(split.to(x, j), lp["attn_norm"], cfg.norm_eps, po)
+        q = _mm(h, lp["wq"]).reshape(B, S, H, hd)
+        k = _mm(h, lp["wk"]).reshape(B, S, KV, hd)
+        v = _mm(h, lp["wv"]).reshape(B, S, KV, hd)
+        attn = attend(j, q, k, v)
+        parts.append(_mm(attn.reshape(B, S, H * hd), lp["wo"]))
+    x = x + split.sum(parts)
+    parts = []
+    for j, lp in enumerate(lps):
+        h = rmsnorm(split.to(x, j), lp["mlp_norm"], cfg.norm_eps, po)
+        gate = _act(cfg)(_mm(h, lp["w_gate"]).float()).to(h.dtype)
+        parts.append(_mm(gate * _mm(h, lp["w_up"]), lp["w_down"]))
+    return x + split.sum(parts)
+
+
+def decode_step_batched(params, cache: Params, tokens: torch.Tensor,
+                        cfg: LlamaConfig,
+                        split: Optional[ServingSplit] = None
+                        ) -> Tuple[torch.Tensor, Params]:
     """One decode step over the contiguous cache with per-row positions:
     tokens [B, 1] -> (logits [B, V], cache). Row b writes its K/V at
     ``pos[b]`` and attends ``t <= pos[b]``; pos advances by one
-    (clamped). The cache is updated in place."""
-    B = tokens.shape[0]
-    hd = cfg.head_dim
-    dev = tokens.device
+    (clamped). The cache is updated in place. ``split``: the params and
+    the cache are a :class:`ServingSplit`'s."""
+    sp = split or _WHOLE
     pos = cache["pos"]
     pos_l = pos.long()
-    max_s = cache["k"].shape[2]
-    x = _embed_in(params, tokens, cfg)  # [B, 1, D]
-    cos, sin = rope_freqs(cfg, max_s, device=dev)
+    max_s = sp.kv(cache, "k", 0).shape[2]
+    x = sp.embed(params, tokens, cfg)  # [B, 1, D]
+    cos, sin = rope_freqs(cfg, max_s, device=x.device)
     cos_t = cos[pos_l][:, None, None, :]
     sin_t = sin[pos_l][:, None, None, :]
-    valid = torch.arange(max_s, device=dev)[None, :] <= pos_l[:, None]
+    valid = torch.arange(max_s, device=x.device)[None, :] <= pos_l[:, None]
     mask = valid[:, None, None, None, :]
+
     for i in range(cfg.n_layers):
-        lp = _layer(params, i)
-        h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps, cfg.norm_plus_one)
-        q = _rotate(_mm(h, lp["wq"]).reshape(B, 1, cfg.n_heads, hd), cos_t, sin_t)
-        k = _rotate(_mm(h, lp["wk"]).reshape(B, 1, cfg.n_kv_heads, hd),
-                    cos_t, sin_t)
-        v = _mm(h, lp["wv"]).reshape(B, 1, cfg.n_kv_heads, hd)
-        ck = _row_update(cache["k"][i], k, pos)
-        cv = _row_update(cache["v"][i], v, pos)
-        attn = attention(q, ck, cv, causal=False, mask=mask)
-        x = x + _mm(attn.reshape(B, 1, cfg.n_heads * hd), lp["wo"])
-        x = _mlp(x, lp, cfg)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps, cfg.norm_plus_one)
-    logits = _mm(x[:, 0], lm_head_of(params, cfg)).float()
+        def attend(j, q, k, v):
+            c, s_ = sp.to(cos_t, j), sp.to(sin_t, j)
+            p = sp.to(pos, j)
+            ck = _row_update(sp.kv(cache, "k", j)[i], _rotate(k, c, s_), p)
+            cv = _row_update(sp.kv(cache, "v", j)[i], v, p)
+            return attention(_rotate(q, c, s_), sp.attn_kv(j, ck),
+                             sp.attn_kv(j, cv), causal=False,
+                             mask=sp.to(mask, j))
+
+        x = _split_layer(sp, params, i, x, cfg, attend)
+    x = rmsnorm(x, sp.final_norm(params), cfg.norm_eps, cfg.norm_plus_one)
+    logits = sp.logits(params, x[:, 0], cfg)
     cache["pos"] = torch.clamp(pos + 1, max=max_s - 1).to(torch.int32)
     return logits, cache
 
 
 def decode_segment(
-    params: Params, cache: Params,
+    params, cache: Params,
     tokens: torch.Tensor,  # [B, 1] first input token per row
     temps: torch.Tensor,  # [B] sampling temperature; <= 0 = greedy
     generator: Optional[torch.Generator], cfg: LlamaConfig, n_steps: int,
     greedy: bool = False, nonfinite: Optional[torch.Tensor] = None,
+    split: Optional[ServingSplit] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Params]:
     """``n_steps`` contiguous decode steps with on-device sampling, as
     :func:`paged_decode_segment` over the paged cache (``nonfinite`` as
@@ -1593,7 +2016,7 @@ def decode_segment(
     toks = tokens
     out = []
     for _ in range(n_steps):
-        logits, cache = decode_step_batched(params, cache, toks, cfg)
+        logits, cache = decode_step_batched(params, cache, toks, cfg, split)
         if nonfinite is not None:
             nonfinite += (~torch.isfinite(logits)).sum()
         if greedy:
@@ -1611,36 +2034,40 @@ def decode_segment(
     return torch.stack(out, dim=1), toks, cache
 
 
-def prefill_batched(params: Params, cache: Params, tokens: torch.Tensor,
-                    lengths: torch.Tensor,
-                    cfg: LlamaConfig) -> Tuple[torch.Tensor, Params]:
+def prefill_batched(params, cache: Params, tokens: torch.Tensor,
+                    lengths: torch.Tensor, cfg: LlamaConfig,
+                    split: Optional[ServingSplit] = None
+                    ) -> Tuple[torch.Tensor, Params]:
     """Whole prompts from position 0 into the contiguous cache in one
     forward: last-token logits [B, V] + the cache (in place). Rows with
     ``lengths[b] == 0`` keep their K/V and pos; active rows take K/V at
     [0, S) (pad positions hold garbage that later steps overwrite)."""
-    B, S = tokens.shape
-    hd = cfg.head_dim
-    dev = tokens.device
-    max_s = cache["k"].shape[2]
+    sp = split or _WHOLE
+    S = tokens.shape[1]
+    max_s = sp.kv(cache, "k", 0).shape[2]
     lengths_l = lengths.long()
     active = lengths_l > 0
-    x = _embed_in(params, tokens, cfg)
-    cos, sin = rope_freqs(cfg, S, device=dev)
+    x = sp.embed(params, tokens, cfg)
+    cos, sin = rope_freqs(cfg, S, device=x.device)
+    sel = active[:, None, None, None]
+
     for i in range(cfg.n_layers):
-        lp = _layer(params, i)
-        h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps, cfg.norm_plus_one)
-        q = apply_rope(_mm(h, lp["wq"]).reshape(B, S, cfg.n_heads, hd), cos, sin)
-        k = apply_rope(_mm(h, lp["wk"]).reshape(B, S, cfg.n_kv_heads, hd),
-                       cos, sin)
-        v = _mm(h, lp["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
-        attn = attention(q, k, v, causal=True)
-        x = x + _mm(attn.reshape(B, S, cfg.n_heads * hd), lp["wo"])
-        x = _mlp(x, lp, cfg)
-        sel = active[:, None, None, None]
-        cache["k"][i][:, :S] = torch.where(sel, k, cache["k"][i][:, :S])
-        cache["v"][i][:, :S] = torch.where(sel, v, cache["v"][i][:, :S])
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps, cfg.norm_plus_one)
-    logits = _last_logits(params, x, lengths, cfg)
+        def attend(j, q, k, v):
+            c, s_ = sp.to(cos, j), sp.to(sin, j)
+            q, k = apply_rope(q, c, s_), apply_rope(k, c, s_)
+            attn = attention(q, sp.attn_kv(j, k), sp.attn_kv(j, v),
+                             causal=True)
+            selj = sp.to(sel, j)
+            ck, cv = sp.kv(cache, "k", j)[i], sp.kv(cache, "v", j)[i]
+            ck[:, :S] = torch.where(selj, k, ck[:, :S])
+            cv[:, :S] = torch.where(selj, v, cv[:, :S])
+            return attn
+
+        x = _split_layer(sp, params, i, x, cfg, attend)
+    x = rmsnorm(x, sp.final_norm(params), cfg.norm_eps, cfg.norm_plus_one)
+    idx = torch.clamp(lengths_l - 1, min=0)
+    x_last = x[torch.arange(x.shape[0], device=x.device), idx]  # [B, D]
+    logits = sp.logits(params, x_last, cfg)
     new_pos = torch.clamp(lengths_l, max=max_s - 1)
     cache["pos"] = torch.where(active, new_pos,
                                cache["pos"].long()).to(torch.int32)
@@ -1649,33 +2076,42 @@ def prefill_batched(params: Params, cache: Params, tokens: torch.Tensor,
 
 # ---- prefix KV reuse on the contiguous cache --------------------------------
 
-def copy_prefix_into_row(cache: Params, k: torch.Tensor, v: torch.Tensor,
-                         row: int, length: int) -> Params:
+def copy_prefix_into_row(cache: Params, k, v, row: int, length: int,
+                         split: Optional[ServingSplit] = None) -> Params:
     """Graft a cached prefix's K/V (``[L, P, KV, hd]``, P >= ``length``
-    the entry's padded bucket) into batch row ``row`` at offset 0 and set
-    its ``pos`` to ``length``, IN PLACE. The pad tail lands at positions
-    >= pos, masked until later writes replace it (the garbage-beyond-pos
-    contract every contiguous prefill keeps)."""
-    P = k.shape[1]
-    cache["k"][:, row, :P] = k.to(cache["k"].dtype)
-    cache["v"][:, row, :P] = v.to(cache["v"].dtype)
+    the entry's padded bucket; with a ``split``, a list of each computing
+    rank's) into batch row ``row`` at offset 0 and set its ``pos`` to
+    ``length``, IN PLACE. The pad tail lands at positions >= pos, masked
+    until later writes replace it (the garbage-beyond-pos contract every
+    contiguous prefill keeps)."""
+    sp = split or _WHOLE
+    for j in range(sp.n):
+        kj, vj = sp.part(k, j), sp.part(v, j)
+        ck, cv = sp.kv(cache, "k", j), sp.kv(cache, "v", j)
+        P = kj.shape[1]
+        ck[:, row, :P] = kj.to(ck.dtype)
+        cv[:, row, :P] = vj.to(cv.dtype)
     cache["pos"][row] = int(length)
     return cache
 
 
-def extract_prefix_from_row(cache: Params, row: int,
-                            p_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def extract_prefix_from_row(cache: Params, row: int, p_len: int,
+                            split: Optional[ServingSplit] = None):
     """The first ``p_len`` cached K/V positions of batch row ``row``, each
-    ``[L, p_len, KV, hd]``: a new prefix-cache entry. Copies (queued on
-    the stream behind the prefill that filled them), never views: the
-    live cache is updated in place afterwards."""
-    return (cache["k"][:, row, :p_len].clone(),
-            cache["v"][:, row, :p_len].clone())
+    ``[L, p_len, KV, hd]`` (with a ``split``, a list of each computing
+    rank's): a new prefix-cache entry. Copies (queued on the stream
+    behind the prefill that filled them), never views: the live cache is
+    updated in place afterwards."""
+    sp = split or _WHOLE
+    return tuple(sp.pack([sp.kv(cache, f, j)[:, row, :p_len].clone()
+                          for j in range(sp.n)]) for f in ("k", "v"))
 
 
-def prefill_batched_from(params: Params, cache: Params, tokens: torch.Tensor,
+def prefill_batched_from(params, cache: Params, tokens: torch.Tensor,
                          lengths: torch.Tensor, starts: torch.Tensor,
-                         cfg: LlamaConfig) -> Tuple[torch.Tensor, Params]:
+                         cfg: LlamaConfig,
+                         split: Optional[ServingSplit] = None
+                         ) -> Tuple[torch.Tensor, Params]:
     """Suffix prefill on the contiguous cache: row b's tokens take global
     positions ``[starts[b], starts[b] + lengths[b])`` (RoPE there too),
     their K/V go in at ``starts[b]`` (the start clamped to ``T - S``, as
@@ -1684,14 +2120,14 @@ def prefill_batched_from(params: Params, cache: Params, tokens: torch.Tensor,
     so a grafted prefix is seen. ``starts == 0`` is whole-prompt prefill.
     Rows with ``lengths[b] == 0`` keep their K/V and pos. Last-token
     logits [B, V] + the cache (in place)."""
+    sp = split or _WHOLE
     B, S = tokens.shape
-    hd = cfg.head_dim
-    dev = tokens.device
-    max_s = cache["k"].shape[2]
+    max_s = sp.kv(cache, "k", 0).shape[2]
     lengths_l = lengths.long()
     active = lengths_l > 0
     starts_l = starts.long()
-    x = _embed_in(params, tokens, cfg)
+    x = sp.embed(params, tokens, cfg)
+    dev = x.device
     cos_full, sin_full = rope_freqs(cfg, max_s, device=dev)
     posq = torch.clamp(starts_l[:, None] + torch.arange(S, device=dev)[None],
                        max=max_s - 1)  # [B, S] global query positions
@@ -1703,23 +2139,24 @@ def prefill_batched_from(params: Params, cache: Params, tokens: torch.Tensor,
     rows = torch.arange(B, device=dev)[:, None]
     idx = (torch.clamp(starts_l, 0, max_s - S)[:, None]
            + torch.arange(S, device=dev)[None])  # [B, S] write positions
+
     for i in range(cfg.n_layers):
-        lp = _layer(params, i)
-        h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps, cfg.norm_plus_one)
-        q = _rotate(_mm(h, lp["wq"]).reshape(B, S, cfg.n_heads, hd),
-                    cos_t, sin_t)
-        k = _rotate(_mm(h, lp["wk"]).reshape(B, S, cfg.n_kv_heads, hd),
-                    cos_t, sin_t)
-        v = _mm(h, lp["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
-        ck, cv = cache["k"][i], cache["v"][i]
-        # inactive rows keep their K/V bit for bit (mid-decode neighbours)
-        ck[rows, idx] = torch.where(sel, k, ck[rows, idx])
-        cv[rows, idx] = torch.where(sel, v, cv[rows, idx])
-        attn = attention(q, ck, cv, causal=False, mask=mask)
-        x = x + _mm(attn.reshape(B, S, cfg.n_heads * hd), lp["wo"])
-        x = _mlp(x, lp, cfg)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps, cfg.norm_plus_one)
-    logits = _last_logits(params, x, lengths, cfg)
+        def attend(j, q, k, v):
+            c, s_ = sp.to(cos_t, j), sp.to(sin_t, j)
+            rj, ij, selj = sp.to(rows, j), sp.to(idx, j), sp.to(sel, j)
+            ck, cv = sp.kv(cache, "k", j)[i], sp.kv(cache, "v", j)[i]
+            # inactive rows keep their K/V bit for bit (mid-decode
+            # neighbours)
+            ck[rj, ij] = torch.where(selj, _rotate(k, c, s_), ck[rj, ij])
+            cv[rj, ij] = torch.where(selj, v, cv[rj, ij])
+            return attention(_rotate(q, c, s_), sp.attn_kv(j, ck),
+                             sp.attn_kv(j, cv), causal=False,
+                             mask=sp.to(mask, j))
+
+        x = _split_layer(sp, params, i, x, cfg, attend)
+    x = rmsnorm(x, sp.final_norm(params), cfg.norm_eps, cfg.norm_plus_one)
+    last = torch.clamp(lengths_l - 1, min=0)
+    logits = sp.logits(params, x[torch.arange(B, device=dev), last], cfg)
     new_pos = torch.clamp(starts_l + lengths_l, max=max_s - 1)
     cache["pos"] = torch.where(active, new_pos,
                                cache["pos"].long()).to(torch.int32)
@@ -1741,6 +2178,7 @@ __all__ = [
     "params_nbytes", "export_kv_blocks", "import_kv_blocks",
     "init_cache", "decode_step", "copy_prefix_into_row",
     "extract_prefix_from_row", "prefill_batched_from", "param_pspecs",
+    "serving_shardings", "ServingSplit", "leaf_path", "quantize_leaf_named",
     "prune_specs", "check_divisible", "TrainShard", "remat_layers",
     "pipeline_hooks",
 ]

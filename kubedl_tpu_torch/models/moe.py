@@ -33,8 +33,10 @@ Across processes (``parallel/mesh.py``'s ``ProcessMesh``):
 routes on the full E and dispatches only the tokens routed to this
 rank's experts, ``tp_axis`` splits every expert's ffn columns, and the
 partial outputs are summed over ``expert``, then ``tensor``, in float32;
-:func:`pipeline_hooks` is the GPipe stage adapter. The ``sp`` axis is not
-taken: routing across sequence blocks belongs to the next port slice.
+:class:`BatchRouting` spans the ranks that hold other tokens of the same
+microbatch (the data axes and ``sp``), so routing keeps the reference's
+global ``(b, s)`` order; :func:`pipeline_hooks` is the GPipe stage
+adapter.
 """
 
 from __future__ import annotations
@@ -46,10 +48,10 @@ import torch
 import torch.nn.functional as F
 
 from kubedl_tpu_torch.models.llama import (
-    TrainShard, _dense, apply_rope, attention, next_token_nll,
-    params_from_numpy, remat_layers, rmsnorm, rope_table,
+    TrainShard, _chunk_nll_sum, _dense, apply_rope, attention,
+    next_token_nll, params_from_numpy, remat_layers, rmsnorm, rope_table,
 )
-from kubedl_tpu_torch.parallel.mesh import copy_to, reduce_from
+from kubedl_tpu_torch.parallel.mesh import SEQUENCE_AXIS, copy_to, reduce_from
 
 Params = Dict[str, Any]
 
@@ -297,14 +299,16 @@ def moe_ffn(
     stay outside it, so no gradient is summed twice. Every rank issues
     the sums, also with no token routed to its experts.
 
-    ``dp`` (a :class:`DataParallelRouting`): ``x`` is this rank's rows of
-    a microbatch split over data-parallel ranks, and the layer keeps the
-    reference's global semantics, as its data-sharded step computes them:
-    the capacity of the whole microbatch, each token's place in its
-    expert's queue counted over the ranks before this one (their rows
-    come first), and the aux loss's token fractions over every rank. The
-    aux loss returned is this rank's share, scaled so that the mean over
-    ranks is the global value and its gradient the global one."""
+    ``dp`` (a :class:`BatchRouting`): ``x`` is this rank's part of a
+    microbatch split over data-parallel ranks (rows) and ``sp`` ranks
+    (blocks of the sequence), and the layer keeps the reference's global
+    semantics, as its sharded step computes them: the capacity of the
+    whole microbatch, each token's place in its expert's queue counted
+    over every token before it in the global ``(b, s)`` order
+    (:meth:`BatchRouting.offsets`), and the aux loss's token fractions
+    over every rank. The aux loss returned is this rank's share, scaled
+    so that the mean over ranks is the global value and its gradient the
+    global one."""
     B, S, D = x.shape
     E = router_w.shape[-1]
     T = B * S
@@ -313,8 +317,9 @@ def moe_ffn(
     probs, gate, choice, pos, keep = route(xt, router_w, cap)
     c = cap
     if dp is not None:
-        hits = torch.bincount(choice, minlength=E)
-        keep = pos + dp.before(hits)[choice] < cap
+        row = torch.arange(T, device=x.device) // S
+        hits = torch.bincount(row * E + choice, minlength=B * E).view(B, E)
+        keep = pos + dp.offsets(hits)[row, choice] < cap
         c = min(cap, T)  # a kept token's local place is below both
     El, e0 = w_in.shape[0], 0
     if ep_axis is not None:  # this rank's experts [e0, e0 + El)
@@ -355,22 +360,52 @@ def moe_ffn(
     return yt.reshape(B, S, D).to(x.dtype), aux
 
 
-class DataParallelRouting:
-    """What :func:`moe_ffn` needs of the data-parallel ranks that share a
-    microbatch: their count, and two collectives over them (``mesh``: a
+def block_offsets(every: torch.Tensor, dp_index: int,
+                  block: int) -> torch.Tensor:
+    """The exact integer scan of the routing across ranks. ``every``
+    ``[dp, sp, rows, E]``: each routing rank's per-row, per-expert hit
+    counts, gathered in rank order (data-parallel index major, sequence
+    block minor). Returns ``[rows, E]``: for each row of rank
+    ``(dp_index, block)``, the tokens routed to each expert before the
+    row's first token in the global ``(b, s)`` order (every token of the
+    rows before it, the other data ranks' rows included, then the
+    earlier blocks of its own row), less the tokens of this rank's
+    earlier rows, which the local running count of :func:`route`
+    already holds. So ``pos + offsets[row, choice]`` is a token's place
+    in the one-device queue."""
+    dp, sp, rows, E = every.shape
+    g = every.permute(0, 2, 1, 3).reshape(dp * rows * sp, E)
+    before = (g.cumsum(0) - g).view(dp, rows, sp, E)[dp_index, :, block]
+    mine = every[dp_index, block]
+    return before - (mine.cumsum(0) - mine)
+
+
+class BatchRouting:
+    """What :func:`moe_ffn` needs of the ranks that hold other tokens of
+    the same microbatch (``mesh``: a
     :class:`~kubedl_tpu_torch.parallel.mesh.ProcessMesh`, ``axes``: the
-    data-like axes)."""
+    data-like axes and ``sp``; those above 1 count): their count, the
+    queue offsets of this rank's rows (one all-gather of its per-row hit
+    counts) and a sum over them. Every rank issues each collective, also
+    when no token is routed to its experts."""
 
     def __init__(self, mesh, axes) -> None:
-        self.mesh, self.axes = mesh, tuple(axes)
+        self.mesh, self.axes = mesh, mesh.active(tuple(axes))
         self.size = mesh.size(self.axes)
-        self.index = mesh.index(self.axes)
+        on_sp = SEQUENCE_AXIS in self.axes
+        self.sp = mesh.shape[SEQUENCE_AXIS] if on_sp else 1
+        self.dp_index = mesh.index(tuple(a for a in self.axes
+                                         if a != SEQUENCE_AXIS))
+        self.block = mesh.coords[SEQUENCE_AXIS] if on_sp else 0
 
-    def before(self, hits: torch.Tensor) -> torch.Tensor:
-        """Per expert, the tokens the ranks before this one route to it."""
+    def offsets(self, hits: torch.Tensor) -> torch.Tensor:
+        """``hits`` [rows, E]: this rank's tokens per row and expert ->
+        :func:`block_offsets` of this rank, from every rank's counts."""
         every = hits.new_empty(self.size * hits.numel())
-        self.mesh.all_gather(every, hits, self.axes)
-        return every.view(self.size, -1)[:self.index].sum(dim=0)
+        self.mesh.all_gather(every, hits.reshape(-1).contiguous(), self.axes)
+        return block_offsets(
+            every.view(self.size // self.sp, self.sp, *hits.shape),
+            self.dp_index, self.block)
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the ranks (no gradient flows through it)."""
@@ -487,11 +522,12 @@ def moe_loss(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
 
 class MoEShard(TrainShard):
     """This rank's part of a switch-MoE model sharded over the ``fsdp``,
-    ``tensor``, ``expert`` and ``pipe`` axes (``specs``: a tree of specs,
-    default :func:`param_pspecs`), on :class:`TrainShard`'s layout, and
-    the training loss of the unpipelined path on it. ``dp``: the
-    data-parallel routing (:class:`DataParallelRouting`), so that routing
-    spans the whole microbatch as the reference's global arrays do."""
+    ``tensor``, ``sp``, ``expert`` and ``pipe`` axes (``specs``: a tree
+    of specs, default :func:`param_pspecs`), on :class:`TrainShard`'s
+    layout, and the training loss of the unpipelined path on it. ``dp``:
+    the routing over the ranks that hold other tokens of the microbatch
+    (:class:`BatchRouting`), so that routing spans the whole microbatch
+    as the reference's global arrays do."""
 
     def __init__(self, cfg: MoEConfig, mesh, specs: Optional[Params] = None,
                  dp=None) -> None:
@@ -508,21 +544,35 @@ class MoEShard(TrainShard):
              attn_fn=None) -> torch.Tensor:
         """:func:`moe_loss` on this rank's rows: the embedding and the
         head gathered whole, each layer's fsdp shards gathered as it runs
-        (inside its remat), this rank's heads and experts; the NLL is the
-        mean over the rows and the aux loss this rank's share (so the
-        mean over the batch ranks is the reference's loss)."""
+        (inside its remat), this rank's heads and experts; the aux loss
+        is this rank's share (so the mean over the batch ranks is the
+        reference's loss). The NLL is the mean over the rows; with sp,
+        as :meth:`TrainShard.loss`: ``tokens`` is this rank's block of
+        the sequence and the next block's first token, RoPE runs at
+        global positions, the attention is the trainer's context
+        attention, and the NLL is this rank's share of the global
+        mean."""
         cfg = self.cfg
-        x = self.gather_whole(params["embed"], "embed")[tokens.long()]
+        rows = tokens.shape[0]
+        inp = tokens[:, :-1] if self.sp > 1 else tokens
+        Sl = inp.shape[1]
+        off = self.mesh.coords[SEQUENCE_AXIS] * Sl if self.sp > 1 else 0
+        x = self.gather_whole(params["embed"], "embed")[inp.long()]
         x = x.to(cfg.dtype)
-        cos, sin = rope_table(cfg.head_dim, cfg.rope_theta, tokens.shape[1],
+        cos, sin = rope_table(cfg.head_dim, cfg.rope_theta, off + Sl,
                               device=x.device)
         x, auxes = remat_layers(self._step, x, params["layers"], cfg.remat,
-                                cfg.remat_policy, cos, sin, attn_fn)
+                                cfg.remat_policy, cos[off:], sin[off:],
+                                attn_fn)
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         head = self.gather_whole(params["lm_head"], "lm_head")
-        logits = (x @ head).float()
-        return next_token_nll(logits, tokens) + \
-            cfg.aux_loss_weight * torch.stack(auxes).mean()
+        aux = cfg.aux_loss_weight * torch.stack(auxes).mean()
+        if self.sp == 1:
+            return next_token_nll((x @ head).float(), tokens) + aux
+        S = Sl * self.sp
+        valid = Sl - (off + Sl == S)  # the last block's final position
+        nll = _chunk_nll_sum(x[:, :valid], head, tokens[:, 1:valid + 1])
+        return nll / (rows * (S - 1) / self.sp) + aux
 
 
 def pipeline_hooks(cfg: MoEConfig, shard: TrainShard):
@@ -567,5 +617,5 @@ __all__ = [
     "MoEConfig", "TINY_MOE", "BENCH_MOE", "PRESETS", "preset", "moe_init",
     "param_like", "param_pspecs", "params_from_numpy", "capacity", "route",
     "moe_ffn", "moe_ffn_plain", "moe_forward", "moe_loss",
-    "DataParallelRouting", "MoEShard", "pipeline_hooks",
+    "BatchRouting", "block_offsets", "MoEShard", "pipeline_hooks",
 ]

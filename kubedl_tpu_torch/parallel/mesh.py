@@ -21,6 +21,9 @@ are timed on the host (:attr:`ProcessMesh.seconds`; the staging's sync
 also waits for the device work queued before it); a NCCL collective is
 not timed (reading its time would need a host sync inside the step).
 
+:class:`ServingMesh` is the serving engine's mesh: every rank in one
+process, its collectives copies between the ranks' devices.
+
 Every axis of :class:`MeshSpec` runs: the model-sharding axes ``fsdp``,
 ``tensor``, ``sp``, ``expert`` (``models/llama.py``'s
 :class:`~kubedl_tpu_torch.models.llama.TrainShard`, ``models/moe.py``'s
@@ -373,8 +376,11 @@ class ProcessMesh:
         self.calls["ppermute"] = self.calls.get("ppermute", 0) + 1
         group = self._group((axis,))
         dst, src = self.peer(axis, shift), self.peer(axis, -shift)
+        # gloo sends and receives dense buffers only (a gradient that
+        # reaches the backward's inverse shift may be strided)
+        t = t.contiguous()
         out = torch.empty_like(t)
-        send, recv = t.contiguous(), out
+        send, recv = t, out
         if self.backend == "gloo" and t.is_cuda:
             send, recv = self._host(t), self._host(t)
             send.copy_(t, non_blocking=True)
@@ -662,6 +668,78 @@ def local_mesh(device=None) -> ProcessMesh:
                        alone=True)
 
 
+class ServingMesh:
+    """The serving engine's mesh: the counterpart of the reference's
+    ``build_mesh(spec, jax.devices()[:n])`` for one serving process, as
+    the reference's ``serve_main`` is one process. Every rank lives in
+    this process: rank ``r`` (row-major over the spec's ordered axes, as
+    the reference reshapes its device list) sits on ``cuda:(r mod
+    device_count)``, or on the CPU when ``device`` is the CPU. Ranks may
+    share a card: placing several on one device is reported
+    (:meth:`describe`), nothing falls back to another device.
+
+    The collectives are copies between the ranks' devices: :meth:`sum`
+    adds the ranks' partials in rank order (a fixed order, so every
+    caller sees the same bits), :meth:`gather` concatenates their blocks
+    in rank order."""
+
+    def __init__(self, spec: MeshSpec, device=None) -> None:
+        check_axes(spec)
+        ordered = spec.ordered()
+        self.axis_names = tuple(a for a, _ in ordered)
+        self.shape: Dict[str, int] = dict(ordered)
+        self.size = spec.size()
+        sizes = [s for _, s in ordered]
+        #: per rank: its coordinate on every axis
+        self.coords = [dict(zip(self.axis_names, _unravel(r, sizes)))
+                       for r in range(self.size)]
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            n = torch.cuda.device_count()
+            self.devices = [torch.device("cuda", r % n)
+                            for r in range(self.size)]
+        else:
+            self.devices = [dev] * self.size
+
+    def rank(self, coords: Mapping[str, int]) -> int:
+        """The rank at ``coords`` (an axis left out is at 0)."""
+        return _ravel([coords.get(a, 0) for a in self.axis_names],
+                      [self.shape[a] for a in self.axis_names])
+
+    def along(self, rank: int, axis: str) -> list:
+        """The ranks along ``axis`` through ``rank`` (the other
+        coordinates fixed), in order."""
+        c = dict(self.coords[rank])
+        out = []
+        for i in range(self.shape.get(axis, 1)):
+            c[axis] = i
+            out.append(self.rank(c))
+        return out
+
+    @staticmethod
+    def sum(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
+        """The partials summed on ``device`` in rank order, in their own
+        dtype."""
+        out = parts[0].to(device)
+        for p in parts[1:]:
+            out = out + p.to(device)
+        return out
+
+    @staticmethod
+    def gather(parts: Sequence[torch.Tensor], dim: int,
+               device) -> torch.Tensor:
+        """The ranks' blocks concatenated along ``dim`` on ``device``."""
+        if len(parts) == 1:
+            return parts[0].to(device)
+        return torch.cat([p.to(device) for p in parts], dim=dim)
+
+    def describe(self) -> Dict:
+        """The axes, each rank's device, and how many ranks share one."""
+        names = [str(d) for d in self.devices]
+        return {"axes": dict(self.shape), "devices": names,
+                "ranks_per_device": max(names.count(n) for n in names)}
+
+
 def mesh_from_env(device=None,
                   environ: Optional[Mapping[str, str]] = None
                   ) -> ProcessMesh:
@@ -687,5 +765,5 @@ __all__ = [
     "axis_size", "DATA_AXES", "ProcessMesh", "local_mesh",
     "ShardSpec", "collective_backend", "rank_device", "check_axes", "world",
     "SEQUENCE_AXIS", "PORTED_AXES", "gather_dim", "gather_replicated",
-    "copy_to", "reduce_from", "shift", "all_to_all",
+    "copy_to", "reduce_from", "shift", "all_to_all", "ServingMesh",
 ]

@@ -38,9 +38,14 @@ prefix) first. The contiguous layout (a ``[L, B, max_seq, KV, hd]``
 cache, rows reset at admission, prefix entries as K/V copies, the plain
 model functions' dense attention) serves the same tick and prefix
 cache; speculation, hot swap and the disaggregated roles' handoffs need
-the paged layout and raise there, as in the reference. Mesh sharding
-and the chaos sites are later slices: asking for them raises
-``ValueError`` rather than being ignored.
+the paged layout and raise there, as in the reference. ``mesh_axes``
+serves over a mesh, as the reference's target of Gemma-2B on four chips
+does: the weights are cut over the mesh's ranks
+(``models/llama.py::ServingSplit``, the ranks in this one process,
+``parallel/mesh.py::ServingMesh``) and the engine keeps the contiguous
+layout with no speculation (the reference's normalization). The chaos
+sites and the engine's Prometheus family are later slices: asking for
+them raises ``ValueError`` rather than being ignored.
 
 The host pos/bt mirrors stay authoritative and are uploaded (copied,
 never shared with numpy) before every dispatch, through pinned staging
@@ -64,8 +69,10 @@ import numpy as np
 import torch
 
 from kubedl_tpu_torch import resolve_device
+from kubedl_tpu_torch.api.topology import MeshSpec
 from kubedl_tpu_torch.models import llama
 from kubedl_tpu_torch.models import paged_attention
+from kubedl_tpu_torch.parallel.mesh import ServingMesh
 from kubedl_tpu_torch.remote.client import download_tree, is_remote_root
 from kubedl_tpu_torch.serving.disagg import HandoffError, KVHandoff
 from kubedl_tpu_torch.serving.kv_blocks import BlockAllocator
@@ -265,7 +272,13 @@ class LlamaEngine:
     cache instead of the pool (no allocator, whole-prompt prefill, the
     dense attention, prefix entries as K/V copies), as the reference's
     contiguous engine; speculation, hot swap and the handoffs raise
-    there."""
+    there. ``mesh_axes`` (``{"tensor": 4}``, say) serves over a mesh of
+    that many ranks in this process, rank r on ``cuda:(r mod
+    device_count)`` (or the CPU): each rank holds its shards of the
+    weights (``ServingSplit``, cut as each leaf lands), the tensor ranks
+    compute and hold their KV heads' cache, and a paged layout becomes
+    contiguous with ``spec_k`` 0, as in the reference; ``stats()["mesh"]``
+    says each rank's device, weight bytes and KV bytes."""
 
     #: allowed decode-segment sizes, largest first; segments shrink to 4
     #: whenever requests are waiting (admission latency <= 4 tokens)
@@ -307,8 +320,14 @@ class LlamaEngine:
             )
         if quantize and quantize != "int8":
             raise ValueError(f"unknown quantize mode {quantize!r}")
-        if mesh_axes:
-            raise _unported("mesh_axes", "sharded (mesh) serving")
+        if mesh_axes and kv_layout == "paged":
+            # the reference's normalization: mesh serving keeps the
+            # contiguous layout (the paged gather reorders attention's
+            # reductions under the row-parallel sums) and so no
+            # speculation; an explicit contiguous layout with spec_k
+            # raises below
+            kv_layout = "contiguous"
+            spec_k = 0
         if metrics is not None:
             raise _unported("metrics", "the engine's Prometheus family")
         self.quantize = quantize
@@ -341,6 +360,16 @@ class LlamaEngine:
         self.kv_attention = kv_attention if self._paged else "gather"
         self.advertise_prefix_len = int(advertise_prefix_len)
         self.cfg = llama.preset(preset)
+        #: the serving mesh and the contiguous functions' split over it
+        #: (None: one device)
+        self.mesh: Optional[ServingMesh] = None
+        self._split: Optional[llama.ServingSplit] = None
+        if mesh_axes:
+            self.mesh = ServingMesh(MeshSpec(
+                {k: int(v) for k, v in mesh_axes.items()}), self.device)
+            self._split = llama.ServingSplit(self.cfg, self.mesh)
+            self.device = self._split.lead
+            log.info("serving over mesh %s", dict(mesh_axes))
         self.max_seq = max_seq or min(self.cfg.max_seq, 512)
         self.max_batch = batch or max_batch
         bs = max(1, int(kv_block_size))
@@ -361,9 +390,12 @@ class LlamaEngine:
         self._seed = int(seed)
         if params is None:
             params = self._build_params(ckpt_dir)
-        elif self.quantize == "int8" and not llama.is_quantized(
-                params["embed"]):
-            params = llama.quantize_params(params, self.cfg)
+        else:
+            if self.quantize == "int8" and not llama.is_quantized(
+                    params["embed"]):
+                params = llama.quantize_params(params, self.cfg)
+            if self._split is not None:
+                params = self._split.shard(params)
         self.params = params
         self._versions: Dict[str, object] = {self._default_version: params}
         #: each loaded tree's prefix-cache tag: a negative id that no token
@@ -525,7 +557,8 @@ class LlamaEngine:
         fresh block allocator: every block is free again)."""
         if not self._paged:
             return llama.init_batched_cache(self.cfg, self.max_batch,
-                                            self.max_seq, self.device)
+                                            self.max_seq, self.device,
+                                            split=self._split)
         self._alloc = BlockAllocator(self.kv_blocks, self.kv_block_size,
                                      **self._kv_watermarks)
         return llama.init_paged_cache(
@@ -548,7 +581,7 @@ class LlamaEngine:
             )
         else:
             logits, self._cache = llama.decode_step_batched(
-                self.params, self._cache, tokens, self.cfg)
+                self.params, self._cache, tokens, self.cfg, self._split)
             self._cache["pos"].zero_()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -594,31 +627,43 @@ class LlamaEngine:
         dispatch path (at init or in a hot-swap load) and commits nothing:
         a failure leaves every serving version untouched. The restore
         fills a ``meta`` tree leaf by leaf on the device, quantizing each
-        leaf as it lands, so the float tree is never held twice.
+        leaf as it lands, so the float tree is never held twice; on a
+        mesh each leaf is then cut into the ranks' shards (the
+        reference's restore -> int8 -> shard order, a leaf at a time), as
+        is each leaf of the random init as it is drawn.
 
         ``require_ckpt`` (hot-swap loads): a version whose artifact is
         missing or torn beyond recovery fails the load — random weights
         under a version id would be a silent model swap. Init keeps the
         reference's permissive behaviour: no checkpoint serves the init."""
         int8 = self.quantize == "int8"
+        split = self._split
+        sink = split.sink(int8) if split is not None else None
         step = checkpoint.latest_step(ckpt_dir) if ckpt_dir else None
         if require_ckpt and step is None:
             raise ValueError(f"no checkpoint found under {ckpt_dir!r}")
         if step is not None:
+            leaf_fn = llama.quantize_leaf_at if int8 else None
+            if sink is not None:
+                def leaf_fn(key, t):
+                    return sink.local(llama.leaf_path(key), t)
             state = checkpoint.restore_checkpoint(
                 ckpt_dir, {"params": llama.param_like(self.cfg)},
-                device=self.device,
-                leaf_fn=llama.quantize_leaf_at if int8 else None,
+                device=self.device, leaf_fn=leaf_fn,
             )
             if state is not None:
                 log.info("restored checkpoint from %s", ckpt_dir)
-                return state["params"]
+                params = state["params"]
+                return params if split is None else split.ranks_of(params)
             if require_ckpt:
                 raise ValueError(
                     f"no complete checkpoint step under {ckpt_dir!r} "
                     "(every step torn/incomplete)"
                 )
         gen = torch.Generator(device=self.device).manual_seed(self._seed)
+        if split is not None:
+            return split.ranks_of(llama.llama_init(
+                self.cfg, gen, self.device, shard=sink))
         params = llama.llama_init(self.cfg, gen, self.device)
         if int8:
             params = llama.quantize_params(params, self.cfg)
@@ -1230,6 +1275,9 @@ class LlamaEngine:
             out["kv_blocks"] = self._alloc.stats()
             out["kv_blocks"]["attention_kernel"] = self.kv_attention
             out["kv_blocks"]["role"] = self.role
+        if self._split is not None:
+            out["mesh"] = self._split.describe(versions[default],
+                                               self._cache)
         if self._spec_stats is not None:
             out["speculative"] = self._spec_stats.snapshot()
             out["speculative"]["draft_kind"] = getattr(
@@ -1330,8 +1378,10 @@ class LlamaEngine:
             # the entry is a K/V copy of the row's prefix, padded to a
             # prefill bucket (the pad is masked wherever it is grafted)
             k, v = llama.extract_prefix_from_row(
-                self._cache, i, self._prefill_bucket(cand))
-            self._pcache.insert(key[:cand + 1], k, v, cand)
+                self._cache, i, self._prefill_bucket(cand), self._split)
+            parts = (k, v) if self._split is None else (*k, *v)
+            nbytes = sum(t.numel() * t.element_size() for t in parts)
+            self._pcache.insert(key[:cand + 1], k, v, cand, nbytes=nbytes)
             return
         bs = self.kv_block_size
         full = cand // bs
@@ -1549,7 +1599,8 @@ class LlamaEngine:
         if entry is None:
             return
         self._cache = llama.copy_prefix_into_row(self._cache, entry.k,
-                                                 entry.v, i, mlen)
+                                                 entry.v, i, mlen,
+                                                 self._split)
         slot.cached_len = mlen
         slot.pinned = entry
 
@@ -1863,15 +1914,19 @@ class LlamaEngine:
             else:
                 logits, self._cache = llama.prefill_batched_from(
                     vp, self._cache, self._upload(toks),
-                    self._upload(lens), self._upload(starts), self.cfg)
+                    self._upload(lens), self._upload(starts), self.cfg,
+                    self._split)
             if self._pcache is not None:
                 self._pcache.add_tokens_saved(int(starts.sum()))
-        else:
-            prefill = (llama.paged_prefill_batched if self._paged
-                       else llama.prefill_batched)
-            logits, self._cache = prefill(
+        elif self._paged:
+            logits, self._cache = llama.paged_prefill_batched(
                 vp, self._cache, self._upload(toks),
                 self._upload(lens), self.cfg,
+            )
+        else:
+            logits, self._cache = llama.prefill_batched(
+                vp, self._cache, self._upload(toks),
+                self._upload(lens), self.cfg, self._split,
             )
         ids_dev = self._sample_logits(logits, temps0)
         ids_copy = self._staging.download(ids_dev)
@@ -2305,7 +2360,7 @@ class LlamaEngine:
                 toks, last, self._cache = llama.decode_segment(
                     vp, self._cache, tokens_dev, temps_dev, self._gen,
                     self.cfg, n_steps=k, greedy=greedy,
-                    nonfinite=self._nonfinite,
+                    nonfinite=self._nonfinite, split=self._split,
                 )
             if ev is not None:
                 ev[1].record()
@@ -2657,7 +2712,9 @@ def serve_main(env: Optional[Dict] = None) -> int:
     engine = LlamaEngine(**kwargs)
     model_name = cfg.get("model_name", kwargs["preset"])
     server = ThreadingHTTPServer((host, port), make_handler(engine, model_name))
-    log.info("serving %s on %s:%d (%s)", model_name, host, port, engine.device)
+    log.info("serving %s on %s:%d (%s)", model_name, host, port,
+             engine.device if engine.mesh is None
+             else engine.mesh.describe())
     drain_grace = float(cfg.get("drain_grace_s", 10.0))
 
     def graceful_stop() -> None:

@@ -46,9 +46,9 @@ The mesh: ``KUBEDL_MESH_AXES`` may put any of ``replica``, ``data``,
 ``fsdp``, ``pipe``, ``expert``, ``sp`` and ``tensor`` above 1 (the model
 sharded over fsdp / tensor / sp / expert, GPipe stages over pipe with
 ``microbatches`` in the config, 0 = 4 x pipe; ``context_parallel_impl``
-picking ring or Ulysses attention for ``sp``). The trainer refuses what
-the reference refuses (``pipe`` with ``sp``, a dimension an axis does
-not divide) and MoE on ``sp`` (the next port slice).
+picking ring or Ulysses attention for ``sp``, for Llama and MoE alike).
+The trainer refuses what the reference refuses (``pipe`` with ``sp``, a
+dimension an axis does not divide).
 
 Still rejected with a ValueError that names the later port slice: the
 parameter service (``KUBEDL_PS_ADDR``, ``train_mode: "ps"``) and a chaos

@@ -49,8 +49,8 @@ What the port keeps of the reference, and how:
   with ``data`` / ``replica``) each rank holds its shards of every leaf
   by the family's ``param_pspecs`` (``models/llama.py::TrainShard``,
   ``models/moe.py::MoEShard``, which also run the sharded forward: fsdp
-  gathers, the Megatron split, ring / Ulysses attention over ``sp``
-  (Llama), this rank's experts), its moments are shards of those (cut
+  gathers, the Megatron split, ring / Ulysses attention over ``sp``,
+  this rank's experts), its moments are shards of those (cut
   again over ``data`` by the reference's update rule), the gradients
   are summed over the ranks that hold other tokens, and the global norm
   counts a leaf that several ranks hold alike once.
@@ -65,14 +65,14 @@ What the port keeps of the reference, and how:
   update is replicated over the data axes, as the reference's.
 
 Model families: dense Llama (``models/llama.py``) and switch-MoE
-(``models/moe.py``: data-parallel routing spans the batch ranks of the
-unpipelined path; in pipeline mode routing is per microbatch and data
-rank, as the reference's), through the same optimizer and flash
-operators.
+(``models/moe.py``: on the unpipelined path routing spans every rank
+that holds other tokens of the microbatch, the data axes and ``sp``, in
+the reference's global order; in pipeline mode routing is per
+microbatch and data rank, as the reference's), through the same
+optimizer and flash operators.
 
 What it rejects with a ValueError, never silently: ``pipe`` with an
-``sp`` axis above 1 (the reference's message), MoE on an ``sp`` axis
-(the next port slice), and ``fit_ps``.
+``sp`` axis above 1 (the reference's message) and ``fit_ps``.
 """
 
 from __future__ import annotations
@@ -99,9 +99,6 @@ from kubedl_tpu_torch.parallel.pipeline import pipeline_apply
 from kubedl_tpu_torch.training.buckets import plan_grad_buckets
 
 LATER = "a later port slice"
-#: what MoE on an sp axis belongs to
-MOE_SP = ("the next port slice (MoE routing scanned across sequence "
-          "blocks; ROADMAP Queue A item 2)")
 
 
 @dataclass(frozen=True)
@@ -153,9 +150,9 @@ def llama_family(cfg: llama.LlamaConfig,
 
 def moe_family(cfg: moe.MoEConfig, dp=None,
                shard: Optional[moe.MoEShard] = None) -> ModelFamily:
-    """``dp``: the data-parallel ranks a microbatch is split over
-    (:class:`~kubedl_tpu_torch.models.moe.DataParallelRouting`), which
-    the switch layer's routing spans; ``shard``: the model split over the
+    """``dp``: the ranks a microbatch is split over
+    (:class:`~kubedl_tpu_torch.models.moe.BatchRouting`), which the
+    switch layer's routing spans; ``shard``: the model split over the
     mesh's model axes (:class:`~kubedl_tpu_torch.models.moe.MoEShard`,
     which routes over its own ``dp``)."""
     if shard is not None:
@@ -410,13 +407,11 @@ class Trainer:
         cfg = self._apply_long_context_policy(cfg)
         base = family_for(cfg.model)
         is_moe = isinstance(cfg.model, moe.MoEConfig)
-        if is_moe and self.sp > 1:
-            raise ValueError(f"mesh axis sp={self.sp}: MoE on a sequence "
-                             f"split belongs to {MOE_SP}")
-        # the switch layer's routing spans the batch ranks of a microbatch
-        # (in pipeline mode it is per microbatch and data rank)
-        routing = moe.DataParallelRouting(mesh, self.dp_axes) \
-            if is_moe and self.dp > 1 and self.pipe == 1 else None
+        # the switch layer's routing spans the ranks that hold other
+        # tokens of a microbatch, rows and sequence blocks (in pipeline
+        # mode it is per microbatch and data rank)
+        routing = moe.BatchRouting(mesh, self.batch_axes) \
+            if is_moe and self.batch_ranks > 1 and self.pipe == 1 else None
         #: this rank's part of a model sharded over the model axes
         self.shard: Optional[llama.TrainShard] = None
         #: leaf path -> its spec pruned to the mesh's axis names, or None
@@ -475,6 +470,14 @@ class Trainer:
         #: backward (the batch axes, less fsdp where the backward's
         #: reduce-scatter summed it, less data where the update's does)
         self.sum_axes = [self._sum_axes(i) for i in range(len(like))]
+        #: per leaf: the expert axes above 1 that do not split it. Every
+        #: rank along them runs the leaf's computation on the same tokens
+        #: (attention, embedding, head, router), and the flash backward's
+        #: dq sums land in a run-to-run order, so its gradient is averaged
+        #: over them: the replicas stay bit-identical
+        self.replica_axes = [
+            tuple(a for a in mesh.active(("expert",))
+                  if a not in self._split_axes(i)) for i in range(len(like))]
         #: per leaf: 1.0 where this rank's slice counts in the global
         #: norm (the first of the ranks that hold it alike), else 0.0
         self._norm_keep = [
@@ -759,6 +762,9 @@ class Trainer:
           rest of its batch axes (``sum_axes``: one collective a bucket
           and axes set), their mean taken, the full update of this rank's
           shard of every leaf;
+        - a leaf that every expert rank computes alike is averaged over
+          them (``replica_axes``), so that a backward kernel's run-to-run
+          summation order cannot set the replicas apart;
         - sharded update: each scattered leaf's gradient reduce-scattered
           over the data axis, the update on this rank's slice of params,
           ``mu`` and ``nu`` (the norm's partial sums summed over the mesh
@@ -814,6 +820,7 @@ class Trainer:
         else:
             for idxs in self.grad_bucket_plan.buckets:
                 self._all_reduce_by_axes(grads, idxs)
+        self._mean_replicas(grads)
         grads = [g if g.is_contiguous() else g.contiguous() for g in grads]
         if n * self.batch_ranks > 1:
             for g in grads:
@@ -875,6 +882,18 @@ class Trainer:
             by_axes.setdefault(self.sum_axes[i], []).append(grads[i])
         for axes, tensors in by_axes.items():
             self._all_reduce(tensors, axes)
+
+    def _mean_replicas(self, grads: List[torch.Tensor]) -> None:
+        """Average each gradient in place over its ``replica_axes``: one
+        flat collective for each set of axes."""
+        by_axes: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+        for g, axes in zip(grads, self.replica_axes):
+            if axes:
+                by_axes.setdefault(axes, []).append(g)
+        for axes, tensors in by_axes.items():
+            self._all_reduce(tensors, axes)
+            for t in tensors:
+                t.div_(self.mesh.size(axes))
 
     def _all_reduce(self, tensors: List[torch.Tensor], axes) -> None:
         """Sum ``tensors`` in place over ``axes`` as one flat collective."""

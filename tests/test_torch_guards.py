@@ -81,7 +81,10 @@ def test_resolve_device_rule(monkeypatch):
 
 @pytest.mark.parametrize("kw", [
     {"quantize": "int4"},
-    {"mesh_axes": {"tensor": 2}},
+    # mesh serving is served now: what raises on a mesh is the
+    # reference's error for speculation on the contiguous layout it keeps
+    {"mesh_axes": {"tensor": 2}, "kv_layout": "contiguous", "spec_k": 4},
+    {"metrics": "prometheus"},
     # trained zoo drafts and the contiguous layout are served now: what
     # raises is a name the zoo lacks and speculation on the contiguous
     # layout (the reference's rule: its rollback frees blocks)
@@ -145,8 +148,9 @@ def test_unknown_spec_draft_raises():
 
 def test_hot_swap_raises_naming_later_slice(tmp_path):
     """The three hot-swap calls are served now (load, activate, retire);
-    what still raises naming a later slice is the mesh-sharded engine
-    they would otherwise meet."""
+    a mesh engine (served now, on the contiguous layout) cannot hot-load,
+    as in the reference, and what still raises naming a later slice is
+    the engine's Prometheus family."""
     from kubedl_tpu_torch.serving.server import LlamaEngine
     from kubedl_tpu_torch.training.checkpoint import save_checkpoint
 
@@ -161,9 +165,16 @@ def test_hot_swap_raises_naming_later_slice(tmp_path):
             eng.load_version("v3", str(tmp_path / "missing"))
     finally:
         eng.close()
+    eng = LlamaEngine(preset="tiny", device="cpu", max_seq=64,
+                      mesh_axes={"tensor": 2})
+    try:
+        with pytest.raises(ValueError, match="requires kv_layout='paged'"):
+            eng.load_version("v2", str(tmp_path))
+    finally:
+        eng.close()
     with pytest.raises(ValueError, match="later port slice"):
         LlamaEngine(preset="tiny", device="cpu", max_seq=64,
-                    mesh_axes={"tensor": 2})
+                    metrics="prometheus")
 
 
 def test_serve_main_rejects_chaos(monkeypatch):

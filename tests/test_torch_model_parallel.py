@@ -468,7 +468,8 @@ def test_moe_and_later_axes_raise_naming_their_slice():
     (they raised before the multi-device slice; ``tests/
     test_torch_expert_parallel.py`` and ``tests/test_torch_pipeline.py``
     train on them): a process alone is told only that the mesh needs
-    more processes. MoE on an sp axis still raises, naming its slice."""
+    more processes. MoE on an sp axis is built now too (routing over the
+    sequence blocks); with pipe it raises the reference's message."""
     from kubedl_tpu_torch.api.topology import MeshSpec
     from kubedl_tpu_torch.models import moe as tm
     from kubedl_tpu_torch.parallel.mesh import ProcessMesh
@@ -483,5 +484,9 @@ def test_moe_and_later_axes_raise_naming_their_slice():
         with pytest.raises(ValueError, match="needs 2 devices, have 1"):
             tt.Trainer(tt.TrainConfig(), axes, device="cpu")
     mesh = ProcessMesh(MeshSpec({"sp": 2}), torch.device("cpu"), alone=True)
-    with pytest.raises(ValueError, match="next port slice"):
+    tr = tt.Trainer(tt.TrainConfig(model=tm.TINY_MOE), mesh)
+    assert isinstance(tr.shard, tm.MoEShard) and tr.shard.dp.axes == ("sp",)
+    mesh = ProcessMesh(MeshSpec({"pipe": 2, "sp": 2}), torch.device("cpu"),
+                       alone=True)
+    with pytest.raises(ValueError, match="cannot be combined with a >1 'sp'"):
         tt.Trainer(tt.TrainConfig(model=tm.TINY_MOE), mesh)

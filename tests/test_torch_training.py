@@ -414,7 +414,9 @@ def test_trainer_rejects_later_slices(kw, tmp_path):
     """A data axis, an sp axis and a pipe axis are ported: two gloo ranks
     train on each, in step (the data axis with the optimizer state
     sharded, the sp axis through ring attention, the pipe axis as two
-    GPipe stages); MoE on the sp axis still raises, naming its slice."""
+    GPipe stages); MoE on the sp axis is built too, its routing spanning
+    the sequence blocks (``tests/test_torch_expert_parallel.py`` trains
+    it)."""
     from kubedl_tpu_torch.api.topology import MeshSpec
     from kubedl_tpu_torch.models import moe as tm
     from kubedl_tpu_torch.parallel.mesh import ProcessMesh
@@ -432,8 +434,9 @@ def test_trainer_rejects_later_slices(kw, tmp_path):
     if "sp" in kw["mesh"]:
         mesh = ProcessMesh(MeshSpec(kw["mesh"]), torch.device("cpu"),
                            alone=True)
-        with pytest.raises(ValueError, match="slice"):
-            tt.Trainer(tt.TrainConfig(model=tm.TINY_MOE), mesh)
+        tr = tt.Trainer(tt.TrainConfig(model=tm.TINY_MOE), mesh)
+        assert isinstance(tr.shard, tm.MoEShard)
+        assert tr.shard.dp.axes == ("sp",)
 
 
 def test_fit_checkpoint_and_ps_raise(tmp_path):
