@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py                # every phase, one card
     python3 chip_smoke.py --skip-engine  # without phases 5, 6, 13-19, 22,
-                                         # 26, 27, 32
+                                         # 26, 27, 32, 33
     python3 chip_smoke.py --skip-train   # without phases 8 to 12, 21,
                                          # 23-25, 28-31
 
@@ -58,12 +58,13 @@ Phases (any failure exits non-zero before the final line):
    kernels' launch counts during that run, on a deferred (overlapped)
    harvest and on finite logits; prints ms per decode step, decode
    tokens/s, TTFT p50/p95 and the pipeline's fields; then the same
-   requests on a kv_attention="gather" engine, whose greedy-token
-   agreement with the blocked run is printed (not gated: bf16 logits of
-   random weights have near-ties); then Llama-3-8B width cut to 2 layers
+   greedy requests at 32 tokens on a kv_attention="gather" engine, whose
+   greedy-token agreement with the blocked run is printed (not gated:
+   bf16 logits of random weights have near-ties); then Llama-3-8B width
+   cut to 2 layers
    in float32, where the blocked and gather engines' greedy streams must
    be identical (gated: f32 leaves no near-ties at these logit gaps).
-6. profile: the blocked Llama-3-8B engine again, at full width cut to 8
+6. profile: the blocked Llama-3-8B engine again, at full width cut to 4
    layers (the profiler's post-processing, ~470k events at 32 layers,
    took most of the phase), 32 new tokens per
    request, under torch.profiler (device activity only): device time
@@ -139,8 +140,8 @@ Phases (any failure exits non-zero before the final line):
    and every gradient leaf of one train step on the split route (the
    route at these lengths) against the same step with the fused route
    forced, within the tolerances stated in ``run_train_bf16_routes``.
-13. shared prefix: ``serve_main`` with Llama-3-8B bf16, full depth,
-   ``prefix_cache_mb`` 512, whole-prompt prefill: 8 greedy requests share
+13. shared prefix: ``serve_main`` with Llama-3-8B bf16 at full width cut
+   to 8 layers (``SIDE_PRESET``), ``prefix_cache_mb`` 512, whole-prompt prefill: 8 greedy requests share
    a 1024-token system prompt (own 64-256-token suffixes, 64 new tokens);
    two go first (the observation trie stores the shared prompt at their
    prefill), then six graft it. Gates: prefix hits, tokens saved, every
@@ -148,8 +149,8 @@ Phases (any failure exits non-zero before the final line):
    suffixes (and none at ``prefix_cache_mb`` 0, whose TTFT on the same
    waves is printed beside); a profiled repeat of the wave gives the
    grafted-suffix prefill's in-model time.
-14. speculative: the main engine's config with ``spec_k`` 4 and the
-   n-gram draft, then the model draft (``spec_draft_layers`` 4), 8 greedy
+14. speculative: the main engine's config at ``SIDE_PRESET`` with
+   ``spec_k`` 4 and the n-gram draft, then the model draft (``spec_draft_layers`` 4), 8 greedy
    requests x 64 tokens. Gates: verify rounds and blocked launches on the
    split-K route (S = 5); prints acceptance, tokens per verify, ms per
    emitted token, verify ms, and the verify launches' in-model time.
@@ -208,9 +209,15 @@ Phases (any failure exits non-zero before the final line):
    prefill and role decode, Llama-3-8B full depth bf16; phase 5's greedy
    requests go /v1/prefill -> KVH1 bytes -> /v1/adopt; gates on every
    response, handoffs_out == handoffs_in and each pool's free blocks;
-   prints handoff ms and bytes and the bf16 agreement with phase 5's
-   streams (not gated). Then 2 layers in float32: disaggregated greedy
-   streams IDENTICAL to the colocated engine's.
+   each /v1/prefill carries an ``X-Trace-Context``, and then /metrics
+   of the prefill replica counts every handoff exported and the decode
+   replica's every one adopted, each side's
+   ``kubedl_tpu_serving_handoff_bytes`` the KVH1 payload bytes sent, and
+   each replica's /v1/trace holds ``engine.handoff_export`` and
+   ``engine.handoff_adopt`` under the request's one trace id; prints
+   handoff ms and bytes and the bf16 agreement with phase 5's streams
+   (not gated). Then 2 layers in float32: disaggregated greedy streams
+   IDENTICAL to the colocated engine's.
 
 22. Gemma-2B: ``serve_main`` with ``GEMMA_SERVE`` (phase 5's config with
    ``gemma-2b``: full width and depth, 18 layers, MQA at hd 256, seeded
@@ -286,7 +293,7 @@ Phases (any failure exits non-zero before the final line):
    to the plain version, two calls identical, no norm launch; the bf16
    update's device ms beside its bound.
 21. the training job's lifecycle: ``train_main`` on Llama-3.2-1B (full
-   width, cut to 4 layers, b4 x s2048) with a seeded token file, a save
+   width, cut to 2 layers, b4 x s2048) with a seeded token file, a save
    every 2
    steps (async), ``KUBEDL_FAULT_ONCE_AT_STEP`` 3 and
    ``KUBEDL_MODEL_PATH``: the first run exits 137 leaving a complete
@@ -301,13 +308,15 @@ Phases (any failure exits non-zero before the final line):
 26. a trained zoo draft: the ``zoo:llama-1b`` draft (16 layers, D 2048,
    32 MHA heads at hd 64, ffn 8192, the target's 128,256-token
    vocabulary: 1.6 B bf16 parameters, seed 0) distilled on the card by
-   ``distill_draft`` on Llama-3-8B's greedy rollouts of 8 seeded 64-token
+   ``distill_draft`` on the greedy rollouts of Llama-3-8B's width at 8
+   layers (``SIDE_PRESET``) of 8 seeded 64-token
    prompts (``DISTILL``: 64 tokens each, then 64 steps of
    ``optax.adam(1e-3)``; the target's weights are those ``serve_main``
    builds from seed 0); gates on finite losses, the last below the
    first, and flash and optimizer launches during it; prints the losses,
    seconds and peak memory. Saved, it serves through ``serve_main``
-   (phase 5's config, ``spec_k`` 4, ``spec_draft`` "zoo:llama-1b",
+   (phase 5's config at ``SIDE_PRESET``, ``spec_k`` 4, ``spec_draft``
+   "zoo:llama-1b",
    ``KUBEDL_SPEC_DRAFT_CKPT``), then phase 14's n-gram and early-exit
    drafts on the same requests: the 8 distillation prompts and 8
    held-out ones, 64 greedy tokens each; gates on every response and on
@@ -339,7 +348,7 @@ Phases (any failure exits non-zero before the final line):
    ``train_main`` twice as subprocesses with the job's env
    (``KUBEDL_NUM_PROCESSES=2``, ``KUBEDL_MESH_AXES=data=2``; each rank
    ``--entry-rank``, which registers the cut preset first): Llama-3.2-1B
-   bf16 at full width, cut to 4 layers, b4 x s2048 (2 rows a
+   bf16 at full width, cut to 2 layers, b4 x s2048 (2 rows a
    rank), 4 steps, the sharded update, async saves every 2 steps
    (``shards-p0/p1.npz``, one ``latest``); then the world-1 restore of
    step 4 against the saved entries bit for bit, and one ``train_main``
@@ -421,10 +430,32 @@ Phases (any failure exits non-zero before the final line):
    phase 17's depth: the W8A16 kernel against its plain version at each
    rank's shard shapes (K or N halved, M 8 and 512), then 2 x (7 x 8) + 2
    W8A16 launches a decode step and a prefill dispatch, exactly.
+33. the engine's observability and fault sites (``kubedl_tpu_torch/
+   {chaos,observability}``; every plan disarmed in a ``finally``). 33a,
+   in process: Llama-3-8B width at 2 layers, float32, paged "blocked",
+   chunk 512, prefix cache on; phase 5's greedy requests (32 tokens)
+   unarmed with half traced, then ``serving.kv_alloc``,
+   ``serving.dispatch``, ``serving.chunk_admit`` and
+   ``serving.weight_swap`` armed one at a time (``OBS_SITES``). Gates:
+   every stream that completes equals the unarmed one; the dispatch
+   faults' requests get the reference's error and are then served; the
+   failed hot load leaves "base" serving; the preemption, scheduler-error
+   and prefix counters equal ``stats()``; each traced tree has the
+   catalog's spans, parented and inside its wall time. 33b, ``serve_main``
+   bf16 at Llama-3-8B width and phase 17's 8 layers, phase 5's 8 requests
+   over HTTP with ``cache_prefix`` (a storing wave, then four with the
+   tracer on, off, off, on: every prompt grafted; half with
+   ``X-Trace-Context``, one with ``debug.trace``), and the config's
+   seeded ``"chaos"`` plan: /metrics against /v1/stats (TTFT count,
+   token and segment counters, KV gauges), /v1/trace?trace_id= per
+   traced request; prints ms a decode step and decode tokens/s with the
+   tracer on and off; then two-token requests walk the plan to its one
+   ``serving.dispatch`` fault: that request fails with the reference's
+   error, the scheduler-error counter reads 1, the next is served.
 
-Phase 16 runs after phase 4; phase 22, then phases 13-15, 26, 27, 32
-and 17-19 after phase 6 (they are skipped with ``--skip-engine``); phase
-20
+Phase 16 runs after phase 4; phase 22, then phases 13-15, 26, 27, 32,
+17-19 and 33 after phase 6 (they are skipped with ``--skip-engine``);
+phase 20
 after phase 7, then phases 23, 24, 25 and 28, and phases 21, 29, 30 and
 31 after phase 12 (skipped with ``--skip-train``).
 
@@ -2435,12 +2466,12 @@ def run_adam_configs(adamw_mod, llama_mod):
 
 # ---- phase 21: the training job's lifecycle -----------------------------------
 
-#: the job: Llama-3.2-1B at full width, cut to 4 layers (its saves,
+#: the job: Llama-3.2-1B at full width, cut to 2 layers (its saves,
 #: restores and publish scale with the parameters: 4.07 of the 9.89 GB
-#: of state at 16 layers), b4 x s2048, a seeded token file, a save every
+#: of state at 4 of its 16 layers, about 3.1 GB at 2), b4 x s2048, a seeded token file, a save every
 #: 2 steps (async), a fault after step index 3 (before the step-4 save),
 #: published to KUBEDL_MODEL_PATH
-LIFECYCLE_CONFIG = {"model": "llama3-1b-4l", "global_batch": 4,
+LIFECYCLE_CONFIG = {"model": "llama3-1b-2l", "global_batch": 4,
                     "seq_len": 2048,
                     "steps": 6, "ckpt_every": 2, "ckpt_async": True,
                     "token_bytes": 4, "log_every": 1}
@@ -2652,7 +2683,7 @@ def run_lifecycle(fa, adamw_mod, pa, ck, llama_mod, server_mod):
         _clear_job_env(entry)
         shutil.rmtree(root, ignore_errors=True)
         _free()
-    print("job lifecycle llama3-1b width x 4 layers (smoke run, not a "
+    print("job lifecycle llama3-1b width x 2 layers (smoke run, not a "
           "benchmark): "
           + json.dumps(report), flush=True)
     return report
@@ -2728,10 +2759,11 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def http_json(url, body=None, timeout=1200.0):
+def http_json(url, body=None, timeout=1200.0, headers=None):
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(
-        url, data=data, headers={"Content-Type": "application/json"})
+        url, data=data, headers={"Content-Type": "application/json",
+                                 **(headers or {})})
     with urllib.request.urlopen(req, timeout=timeout) as r:
         return r.status, json.loads(r.read())
 
@@ -2884,6 +2916,7 @@ def run_engine(pa, server_mod, llama_mod, summary):
     }
     print("engine (smoke run, not a benchmark): " + json.dumps(eng), flush=True)
     summary["launches"] = launches
+    summary["bf16_segments"] = pipe["segments"] - pipe0["segments"]
     summary["bf16_weight_bytes"] = st["weights"]["bytes"]
     summary["bf16_ms_per_decode_step"] = eng["ms_per_decode_step"]
     summary["bf16_ttft_ms_p50"] = eng["ttft_ms_p50"]
@@ -2974,8 +3007,8 @@ def _kernel_category(name: str) -> str:
 def run_profile(server_mod, reqs, serve_cfg):
     """Where the device time goes on the main path: device time of every
     kernel in a profiled engine run, by category, and the busy share, at
-    PROFILE_PRESET (Llama-3-8B's width, 8 of its 32 layers: the same
-    kernels a layer, a quarter of the events to post-process). Device
+    PROFILE_PRESET (Llama-3-8B's width, 4 of its 32 layers: the same
+    kernels a layer, an eighth of the events to post-process). Device
     activity only: the kernel times are all it reads."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3013,7 +3046,7 @@ def run_profile(server_mod, reqs, serve_cfg):
         top.append((us / 1e3, e.count, e.key[:90]))
     dev_ms = sum(cats.values())
     top.sort(reverse=True)
-    print("profile (8 concurrent requests x 32 tokens, llama3-8b width x 8 "
+    print("profile (8 concurrent requests x 32 tokens, llama3-8b width x 4 "
           "layers): " + json.dumps({
         "wall_ms": wall_ms, "device_ms": dev_ms,
         "busy_share": dev_ms / wall_ms if wall_ms else None,
@@ -3027,11 +3060,13 @@ def run_profile(server_mod, reqs, serve_cfg):
 
 
 def run_gather(server_mod, reqs, serve_cfg, blocked_tokens):
+    greedy = [dict(r, max_tokens=32) for r in reqs if r["temperature"] == 0.0]
     outs = generate_all(server_mod, dict(serve_cfg, kv_attention="gather"),
-                        reqs)
+                        greedy)
     same = total = 0
     prefixes = []
-    for a, res in zip(blocked_tokens, outs[:6]):
+    for a, res in zip(blocked_tokens, outs):
+        a = a[:32]
         b = (res or {}).get("token_ids", [])
         total += len(a)
         same += sum(1 for x, y in zip(a, b) if x == y)
@@ -3086,16 +3121,17 @@ def profiled_paged(fn):
 
 
 def run_shared_prefix(pa, server_mod, llama_mod, summary):
-    """Phase 13: Llama-3-8B bf16, full depth, prefix_cache_mb 512, whole-
+    """Phase 13: Llama-3-8B bf16 at 8 layers (``SIDE_PRESET``),
+    prefix_cache_mb 512, whole-
     prompt prefill (so the only blocked launches are grafted suffixes):
     two requests walk the shared 1024-token prompt (the observation trie
     stores it at their prefill), then six more graft it. Gates on hits,
     tokens saved, every second-wave row grafting all 1024 tokens and
     blocked launches in that wave; records TTFT against the same waves at
     prefix_cache_mb 0 (no graft: no blocked launch there, gated)."""
-    cfg8 = llama_mod.preset("llama3-8b")
+    cfg8 = register_cut(llama_mod, SIDE_PRESET)
     reqs = shared_prefix_requests(cfg8.vocab_size, 64)
-    base_cfg = {"preset": "llama3-8b", "max_batch": 8, "max_seq": 2048,
+    base_cfg = {"preset": SIDE_PRESET, "max_batch": 8, "max_seq": 2048,
                 "kv_block_size": 16, "kv_attention": "blocked",
                 "prefill_chunk_tokens": 0}
     out, streams = {}, {}
@@ -3158,18 +3194,19 @@ def spec_requests(vocab, seed=2):
 
 
 def run_speculative(pa, server_mod, llama_mod, serve_cfg, summary):
-    """Phase 14: Llama-3-8B bf16, full depth, the main engine's config
-    with spec_k 4 and the n-gram draft, then the early-exit model draft
+    """Phase 14: Llama-3-8B bf16 at 8 layers (``SIDE_PRESET``), the main
+    engine's config with spec_k 4 and the n-gram draft, then the early-exit model draft
     (spec_draft_layers 4). Gates: every request answered, verify rounds,
     and the blocked kernel launched on the split-K route (S = 5, R = 20)
     while verifying; records acceptance, tokens per verify, ms per
     emitted token and verify ms, and (n-gram) the in-model time of the
     verify launches."""
-    cfg8 = llama_mod.preset("llama3-8b")
+    cfg8 = register_cut(llama_mod, SIDE_PRESET)
     reqs = spec_requests(cfg8.vocab_size)
     out = {}
     for draft, extra in (("ngram", {}), ("model", {"spec_draft_layers": 4})):
-        cfg = dict(serve_cfg, spec_k=4, spec_draft=draft, **extra)
+        cfg = dict(serve_cfg, preset=SIDE_PRESET, spec_k=4, spec_draft=draft,
+                   **extra)
         with serving(server_mod, cfg) as base:
             reset_counts(pa)
             res, wall = post_all(base, reqs)
@@ -4334,9 +4371,10 @@ def run_versions_identity(server_mod, llama_mod, ck):
           flush=True)
 
 
-def _post_bytes(url, data, ctype, timeout=1200.0):
+def _post_bytes(url, data, ctype, timeout=1200.0, headers=None):
     req = urllib.request.Request(url, data=data,
-                                 headers={"Content-Type": ctype})
+                                 headers={"Content-Type": ctype,
+                                          **(headers or {})})
     with urllib.request.urlopen(req, timeout=timeout) as r:
         return r.status, r.read()
 
@@ -4344,13 +4382,20 @@ def _post_bytes(url, data, ctype, timeout=1200.0):
 def run_disagg_pair(server_mod, llama_mod, reqs, serve_cfg, colocated):
     """Phase 19: two serve_main replicas on the card, role prefill and
     role decode, Llama-3-8B full depth bf16 (prefix cache off); phase
-    5's greedy requests go /v1/prefill -> KVH1 bytes -> /v1/adopt.
-    Gates: every response, handoffs_out == handoffs_in, each pool's free
-    blocks back where they began. Prints handoff ms and bytes, and bf16
-    agreement with phase 5's colocated streams (not gated)."""
+    5's greedy requests go /v1/prefill (each with an X-Trace-Context)
+    -> KVH1 bytes -> /v1/adopt. Gates: every response, handoffs_out ==
+    handoffs_in, each pool's free blocks back where they began; each
+    side's handoff counters on /metrics (every handoff, the KVH1 payload
+    bytes) and both legs' spans under the request's trace id on each
+    replica's /v1/trace. Prints handoff ms and bytes, and bf16 agreement
+    with phase 5's colocated streams (not gated)."""
+    from kubedl_tpu_torch.observability import tracing
+
     greedy = [r for r in reqs if r["temperature"] == 0.0]
     cfg = dict(serve_cfg, prefix_cache_mb=0.0)
     legs = [None] * len(greedy)
+    ctxs = [tracing.TraceContext(tracing.new_trace_id(),
+                                 tracing.new_span_id()) for _ in greedy]
     with serving(server_mod, dict(cfg, role="prefill")) as pre, \
             serving(server_mod, dict(cfg, role="decode")) as dec:
         free0 = [http_json(b + "/v1/stats")[1]["kv_blocks"]["free"]
@@ -4358,15 +4403,19 @@ def run_disagg_pair(server_mod, llama_mod, reqs, serve_cfg, colocated):
 
         def one(j):
             t0 = time.perf_counter()
-            code, blob = _post_bytes(pre + "/v1/prefill",
-                                     json.dumps(greedy[j]).encode(),
-                                     "application/json")
+            code, blob = _post_bytes(
+                pre + "/v1/prefill", json.dumps(greedy[j]).encode(),
+                "application/json",
+                headers={tracing.TRACE_HEADER: ctxs[j].to_header()})
             t1 = time.perf_counter()
             code2, body = _post_bytes(dec + "/v1/adopt", blob,
                                       "application/octet-stream")
             legs[j] = {"prefill_ms": (t1 - t0) * 1e3,
                        "adopt_ms": (time.perf_counter() - t1) * 1e3,
                        "bytes": len(blob), "codes": [code, code2],
+                       # the payload: all but its magic, length, header
+                       "payload": len(blob) - 8
+                       - int.from_bytes(blob[4:8], "big"),
                        "result": json.loads(body)}
 
         ths = [threading.Thread(target=one, args=(j,))
@@ -4378,10 +4427,39 @@ def run_disagg_pair(server_mod, llama_mod, reqs, serve_cfg, colocated):
             t.join(timeout=1500)
         wall = time.perf_counter() - t0
         sts = [http_json(b + "/v1/stats")[1] for b in (pre, dec)]
+        mets = [scrape(b) for b in (pre, dec)]
+        pulls = [[json.loads(http_text(f"{b}/v1/trace?trace_id="
+                                       f"{c.trace_id}"))["spans"]
+                  for c in ctxs] for b in (pre, dec)]
     for j, leg in enumerate(legs):
         if leg is None or leg["codes"] != [200, 200] or \
                 len(leg["result"].get("token_ids", [])) != 128:
             fail(f"disagg request {j}: {str(leg)[:300]}")
+    payload = sum(leg["payload"] for leg in legs)
+    handoffs = {
+        "export": (mets[0]("kubedl_tpu_serving_handoff_total",
+                           (("direction", "export"),)),
+                   mets[0]("kubedl_tpu_serving_handoff_bytes",
+                           (("direction", "export"),))),
+        "adopt": (mets[1]("kubedl_tpu_serving_handoff_total",
+                          (("direction", "adopt"),)),
+                  mets[1]("kubedl_tpu_serving_handoff_bytes",
+                          (("direction", "adopt"),))),
+    }
+    if any(v != (len(greedy), payload) for v in handoffs.values()):
+        fail(f"disagg /metrics handoffs {handoffs} for {len(greedy)} "
+             f"handoffs of {payload} payload bytes")
+    for j, c in enumerate(ctxs):
+        for side, spans in zip(("prefill", "decode"), (p[j] for p in pulls)):
+            names = {s["name"] for s in spans}
+            if {s["trace_id"] for s in spans} != {c.trace_id} or \
+                    not {"engine.handoff_export",
+                         "engine.handoff_adopt"} <= names:
+                fail(f"disagg request {j}: {side} replica's /v1/trace "
+                     f"spans {sorted(names)}")
+        if legs[j]["result"].get("trace_id") != c.trace_id:
+            fail(f"disagg request {j}: adopt result trace "
+                 f"{legs[j]['result'].get('trace_id')}")
     if sts[0]["handoffs_out"] != sts[1]["handoffs_in"] or \
             sts[0]["handoffs_out"] != len(greedy):
         fail(f"handoffs out {sts[0]['handoffs_out']} in "
@@ -4401,6 +4479,7 @@ def run_disagg_pair(server_mod, llama_mod, reqs, serve_cfg, colocated):
            "adopt_leg_ms": [leg["adopt_ms"] for leg in legs],
            "ttft_ms": [leg["result"].get("ttft_ms") for leg in legs],
            "handoffs": [sts[0]["handoffs_out"], sts[1]["handoffs_in"]],
+           "metrics_handoffs": handoffs,
            "failures": [st["handoff_failures"] for st in sts],
            "free_blocks": free0,
            "greedy_tokens_equal_colocated": [same, 128 * len(greedy)]
@@ -4512,7 +4591,8 @@ def run_zoo_draft(pa, fa, adamw_mod, server_mod, llama_mod, serve_cfg,
     from kubedl_tpu_torch.serving import speculative as spec
     from kubedl_tpu_torch.training.trainer import tree_leaves
 
-    cfg8 = llama_mod.preset("llama3-8b")
+    cfg8 = register_cut(llama_mod, SIDE_PRESET)
+    serve_cfg = dict(serve_cfg, preset=SIDE_PRESET)
     t_phase = time.perf_counter()
     gen = torch.Generator(device=DEV).manual_seed(0)
     target = llama_mod.llama_init(cfg8, gen, DEV)
@@ -4598,7 +4678,6 @@ def run_zoo_draft(pa, fa, adamw_mod, server_mod, llama_mod, serve_cfg,
     finally:
         os.environ.pop("KUBEDL_SPEC_DRAFT_CKPT", None)
         shutil.rmtree(tmp, ignore_errors=True)
-    out["plain_ms_per_decode_step"] = summary.get("bf16_ms_per_decode_step")
     out["phase_seconds"] = time.perf_counter() - t_phase
     print("zoo draft vs phase 14's drafts (smoke run, not a benchmark): "
           + json.dumps(out), flush=True)
@@ -4735,21 +4814,26 @@ DP_F32_CASES = {
 #: layers (5.1e-6 at 1 layer), 4.3e-6 after 4, on an H100
 DP_RTOL = 1e-5
 DP_PARAM_TOL = 2e-5
-#: 29b: Llama-3.2-1B bf16 at full width, cut to 4 layers (its gloo
+#: 29b: Llama-3.2-1B bf16 at full width, cut to 2 layers (its gloo
 #: reductions, saves and restore scale with the parameters: 1.236 B at 16
-#: layers, 0.508 B at 4), through train_main as 2 processes (data=2: 2
+#: layers, 0.384 B at 2), through train_main as 2 processes (data=2: 2
 #: rows a rank), the sharded update, async saves
-DP_JOB = {"model": "llama3-1b-4l", "global_batch": 4, "seq_len": 2048,
+DP_JOB = {"model": "llama3-1b-2l", "global_batch": 4, "seq_len": 2048,
           "steps": 4, "shard_update": True, "ckpt_every": 2,
           "ckpt_async": True}
-#: presets cut in depth (phases 6, 21, 29b, 30b): name -> (published
-#: preset, layers); a process registers one before it names it (a
-#: ``--entry-rank NAME`` rank before it calls train_main)
-CUT_PRESETS = {"llama3-1b-4l": ("llama3-1b", 4),
+#: presets cut in depth (phases 6, 13, 14, 17, 21, 26, 29b, 30b, 33b):
+#: name -> (published preset, layers); a process registers one before it
+#: names it (a ``--entry-rank NAME`` rank before it calls train_main)
+CUT_PRESETS = {"llama3-1b-2l": ("llama3-1b", 2),
+               "llama3-8b-4l": ("llama3-8b", 4),
                "llama3-8b-2l": ("llama3-8b", 2),
                "llama3-8b-8l": ("llama3-8b", 8)}
 #: phase 6's model
-PROFILE_PRESET = "llama3-8b-8l"
+PROFILE_PRESET = "llama3-8b-4l"
+#: the side serving paths' model (phases 13, 14, 26 and 33b): Llama-3-8B's
+#: width at 8 layers, so that the whole script keeps inside its limit on
+#: a slow host
+SIDE_PRESET = "llama3-8b-8l"
 #: seconds a rank (or the resumed process) may run before the phase fails
 DP_RANK_TIMEOUT = 420
 
@@ -5145,7 +5229,7 @@ def run_dp_job(fa, adamw_mod, ck, llama_mod, ckpt, outs, t_ranks):
         if not b < 0.6 * one:
             fail(f"29b rank {r}: optimizer state {b} bytes against one "
                  f"rank's {one}")
-    print("phase 29b (train_main x 2 ranks, llama3-1b width x 4 layers bf16, "
+    print("phase 29b (train_main x 2 ranks, llama3-1b width x 2 layers bf16, "
           "data=2): "
           + json.dumps(rec), flush=True)
     return {"flash": sums[0]["flash_launches"],
@@ -6223,11 +6307,511 @@ def run_mesh_phase(pa, w8, server_mod, llama_mod, summary):
           flush=True)
 
 
+# ---- phase 33: the engine's observability and fault sites ----------------------
+
+#: the catalog's engine spans (docs/observability.md): name -> attributes
+ENGINE_SPANS = {
+    "engine.request": {"kind", "tokens"}, "engine.queue_wait": set(),
+    "engine.admission": {"row"}, "engine.kv_alloc": {"blocks", "shared"},
+    "engine.prefill": {"prompt_len", "cached_len"},
+    "engine.decode_segment": {"tokens"},
+    "engine.spec_round": {"k", "accepted", "emitted"},
+    "engine.handoff_export": {"nbytes"},
+    "engine.handoff_adopt": {"blocks", "shared"},
+}
+#: the spans every traced generate on a paged engine has under its request
+GENERATE_SPANS = {"engine.queue_wait", "engine.admission", "engine.kv_alloc",
+                  "engine.prefill", "engine.decode_segment"}
+#: 33a: each serving site armed alone on the 2-layer f32 engine, with the
+#: call its one fault lands on inside a wave of phase 5's greedy requests
+#: (a wave that grafts every prompt from the prefix cache makes a single
+#: decode dispatch: the dispatch sites fault their first call)
+OBS_SITES = (("serving.kv_alloc", 2), ("serving.dispatch", 1),
+             ("serving.chunk_admit", 1), ("serving.weight_swap", 1))
+#: 33b: the timed waves of phase 5's requests, TRACER on (True) or off,
+#: in ABBA order so that neither state owns the early or late waves
+OBS_WAVES = (True, False, False, True)
+
+
+def http_post(url, body, headers=None):
+    """POST ``body`` as JSON with ``headers``: (status, JSON reply), an
+    HTTP error's status too."""
+    try:
+        return http_json(url, body, headers=headers)
+    except urllib.error.HTTPError as e:
+        return e.code, {"error": e.read().decode()}
+
+
+def http_text(url, timeout=60.0):
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read().decode()
+
+
+def parse_exposition(text):
+    """``{(name, ((label, value), ...)): value}`` of Prometheus text."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = re.match(r"([a-zA-Z_:]+)(\{[^}]*\})? (\S+)", line)
+        if m is None:
+            fail(f"/metrics: unparsable line {line!r}")
+        labels = tuple(sorted(re.findall(r'(\w+)="([^"]*)"',
+                                         m.group(2) or "")))
+        out[(m.group(1), labels)] = float(m.group(3))
+    return out
+
+
+def scrape(base):
+    """/metrics of a replica: a lookup ``m(name, labels=())`` (0 for a
+    counter never incremented: it is not rendered)."""
+    exp = parse_exposition(http_text(base + "/metrics"))
+    return lambda name, labels=(): exp.get((name, tuple(labels)), 0.0)
+
+
+def check_span_tree(tree, parent, wall, what, want=GENERATE_SPANS):
+    """One traced request's tree: a single ``engine.request`` root under
+    ``parent`` (the caller's span) inside the client's wall window
+    ``(t_send, t_recv)`` (epoch s); ``want`` among its children, every
+    child of it with the catalog's attributes and inside its span."""
+    reqs = [n for n in tree if n["name"] == "engine.request"]
+    if len(reqs) != 1 or reqs[0]["parent_id"] != parent:
+        fail(f"{what}: span roots {[(n['name'], n['parent_id']) for n in tree]}"
+             f" (want one engine.request under {parent!r})")
+    req = reqs[0]
+    t0, t1 = req["ts"], req["ts"] + req["duration_ms"] / 1e3
+    if not (wall[0] - 1e-3 <= t0 <= t1 <= wall[1] + 1e-3):
+        fail(f"{what}: engine.request [{t0}, {t1}] outside the request's "
+             f"wall time {wall}")
+    names = set()
+    for c in req["children"]:
+        names.add(c["name"])
+        end = c["ts"] + c["duration_ms"] / 1e3
+        if set(c["attrs"]) != ENGINE_SPANS.get(c["name"]) or \
+                c["parent_id"] != req["span_id"] or \
+                not (t0 - 1e-6 <= c["ts"] <= end <= t1 + 1e-6):
+            fail(f"{what}: span {c} does not match the catalog under "
+                 f"[{t0}, {t1}]")
+    if not want <= names:
+        fail(f"{what}: spans {sorted(names)} lack {sorted(want - names)}")
+    return len(req["children"])
+
+
+def run_obs_sites(server_mod, llama_mod, reqs):
+    """Phase 33a: Llama-3-8B width at 2 layers, float32, paged "blocked",
+    chunk 512, prefix cache on; one in-process engine. A wave of phase 5's
+    greedy requests (32 tokens) unarmed, half of them traced; then each of
+    ``OBS_SITES`` armed alone around a wave (``serving.weight_swap`` around
+    a hot load). Gates: every stream that completes equals the unarmed
+    engine's; the dispatch faults fail their in-flight requests with the
+    reference's error and the failed requests are then served; the failed
+    load leaves the old version serving; the preemption, scheduler-error
+    and prefix counters equal ``stats()``; the TTFT count is the unarmed
+    wave's request count; each traced tree has the catalog's spans."""
+    from kubedl_tpu_torch import chaos
+    from kubedl_tpu_torch.observability import tracing
+
+    name = f32_2layer(llama_mod)
+    greedy = [dict(r, max_tokens=32) for r in reqs if r["temperature"] == 0.0]
+    t0 = time.perf_counter()
+    eng = server_mod.LlamaEngine(
+        preset=name, max_batch=8, max_seq=2048, kv_block_size=16,
+        kv_attention="blocked", prefill_chunk_tokens=512,
+        prefix_cache_mb=512.0)
+    rec = {"requests": len(greedy), "sites": {}}
+
+    def wave(items, ctxs=None):
+        outs, walls = [None] * len(items), [None] * len(items)
+
+        def one(j):
+            t_send = time.time()
+            outs[j] = eng.generate(
+                items[j]["prompt_ids"], items[j]["max_tokens"], 0.0,
+                trace=ctxs[j] if ctxs else None)
+            walls[j] = (t_send, time.time())
+
+        ths = [threading.Thread(target=one, args=(j,))
+               for j in range(len(items))]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=600)
+        if any(o is None for o in outs):
+            fail(f"33a: a request never returned: {str(outs)[:300]}")
+        return outs, walls
+
+    try:
+        ctxs = [tracing.TraceContext(tracing.new_trace_id(),
+                                     tracing.new_span_id())
+                if j % 2 == 0 else None for j in range(len(greedy))]
+        outs, walls = wave(greedy, ctxs)
+        base = [o.get("token_ids") for o in outs]
+        if any(t is None or len(t) != 32 for t in base):
+            fail(f"33a unarmed: bad responses {str(outs)[:300]}")
+        if eng.metrics.ttft_ms.summary()[0] != len(greedy) or \
+                eng.metrics.queue_wait_ms.summary()[0] != len(greedy):
+            fail(f"33a: TTFT / queue-wait counts "
+                 f"{eng.metrics.ttft_ms.summary()[0]} / "
+                 f"{eng.metrics.queue_wait_ms.summary()[0]} for "
+                 f"{len(greedy)} requests")
+        spans = 0
+        for j, ctx in enumerate(ctxs):
+            if ctx is None:
+                continue
+            if outs[j].get("trace_id") != ctx.trace_id:
+                fail(f"33a: request {j} carries trace {outs[j].get('trace_id')}")
+            spans += check_span_tree(tracing.TRACER.span_tree(ctx.trace_id),
+                                     ctx.span_id, walls[j], f"33a request {j}")
+        rec["traced_spans"] = spans
+        for site, n in OBS_SITES:
+            plan = chaos.FaultPlan(33, {site: [chaos.FaultSpec.nth(n)]})
+            chaos.arm(plan)
+            try:
+                if site == "serving.weight_swap":
+                    # the site fires at the top of the build, before the
+                    # (empty) artifact directory is read
+                    empty = tempfile.mkdtemp(prefix="kdl-obs-swap-")
+                    try:
+                        eng.load_version("v2", empty)
+                        fail("33a: load_version survived serving.weight_swap")
+                    except chaos.FaultInjected:
+                        pass
+                    finally:
+                        shutil.rmtree(empty, ignore_errors=True)
+                    outs, _ = wave(greedy[:1])
+                else:
+                    outs, _ = wave(greedy)
+            finally:
+                chaos.disarm()
+            if plan.faults(site) != 1:
+                fail(f"33a {site}: {plan.faults(site)} faults "
+                     f"({plan.calls(site)} calls)")
+            err = f"chaos: injected fault at {site} (call #{n})"
+            failed = [j for j, o in enumerate(outs) if "error" in o]
+            if any(outs[j] != {"error": err} for j in failed):
+                fail(f"33a {site}: failed requests {[outs[j] for j in failed]}"
+                     f" (want {err!r})")
+            if failed and site not in ("serving.dispatch",
+                                       "serving.chunk_admit"):
+                fail(f"33a {site} failed requests {failed}")
+            if site in ("serving.dispatch", "serving.chunk_admit") and \
+                    not failed:
+                fail(f"33a {site}: the fault failed no request")
+            got = [o.get("token_ids") for o in outs]
+            for j, t in enumerate(got):
+                if j not in failed and t != base[j]:
+                    fail(f"33a {site}: stream {j} differs from the unarmed "
+                         f"engine's: {t} vs {base[j]}")
+            again = []
+            if failed:  # later requests are served
+                again, _ = wave([greedy[j] for j in failed])
+                if [o.get("token_ids") for o in again] != \
+                        [base[j] for j in failed]:
+                    fail(f"33a {site}: the failed requests, sent again: "
+                         f"{str(again)[:300]}")
+            rec["sites"][site] = {"calls": plan.calls(site),
+                                  "failed": len(failed),
+                                  "served_again": len(again)}
+        if eng.versions()["loaded"] != ["base"]:
+            fail(f"33a: versions after the failed load {eng.versions()}")
+        st = eng.stats()
+        m = eng.metrics
+    finally:
+        chaos.disarm()
+        eng.close()
+    pc = st["prefix_cache"]
+    checks = {
+        "kv_preemptions": (m.kv_preemptions.value(), st["kv_preemptions"]),
+        "scheduler_errors": (m.scheduler_errors.value(),
+                             st["pipeline"]["errors"]),
+        "prefix_hits": (m.prefix_hits.value(), pc["hits"]),
+        "prefix_misses": (m.prefix_misses.value(), pc["misses"]),
+        "prefix_inserts": (m.prefix_inserts.value(), pc["inserts"]),
+    }
+    bad = {k: v for k, v in checks.items() if v[0] != v[1]}
+    if bad or checks["scheduler_errors"][0] != 2:
+        fail(f"33a: metrics against stats(): {checks}")
+    n_ttft = m.ttft_ms.summary()[0]
+    rec.update({k: v[0] for k, v in checks.items()},
+               ttft_count=n_ttft, prefix_evictions=m.prefix_evictions.value(),
+               seconds=time.perf_counter() - t0)
+    del eng
+    _free()
+    print("33a (f32 2-layer llama3-8b width, each serving site armed alone): "
+          + json.dumps(rec), flush=True)
+    return rec
+
+
+def obs_wave(base, reqs, traced, cost):
+    """One wave of ``reqs`` over HTTP, every even request with an
+    ``X-Trace-Context`` header and request 1 with ``debug.trace``;
+    ``traced`` says whether the tracer is on. Returns the wave's record:
+    ms a decode step and decode tokens/s (the pipeline's stream times),
+    the host seconds ``cost`` summed over the wave (the per-tick fold,
+    the span records), the replies, the contexts and each request's wall
+    window."""
+    from kubedl_tpu_torch.observability import tracing
+
+    _, before = http_json(base + "/v1/stats")
+    cost0 = dict(cost)
+    ctxs = [tracing.TraceContext(tracing.new_trace_id(),
+                                 tracing.new_span_id())
+            if j % 2 == 0 else None for j in range(len(reqs))]
+    outs, walls = [None] * len(reqs), [None] * len(reqs)
+
+    def one(j):
+        body = dict(reqs[j])
+        if j == 1:
+            body["debug"] = {"trace": True}
+        hdr = {tracing.TRACE_HEADER: ctxs[j].to_header()} if ctxs[j] else {}
+        t_send = time.time()
+        outs[j] = http_post(base + "/v1/generate", body, hdr)
+        walls[j] = (t_send, time.time())
+
+    ths = [threading.Thread(target=one, args=(j,)) for j in range(len(reqs))]
+    t0 = time.perf_counter()
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(timeout=1500)
+    wall = time.perf_counter() - t0
+    res = checked(outs, 128, f"33b wave (tracer {'on' if traced else 'off'})")
+    _, st = http_json(base + "/v1/stats")
+    p, p0 = st["pipeline"], before["pipeline"]
+    steps = p["decode_steps"] - p0["decode_steps"]
+    dec_ms = p["decode_ms_sum"] - p0["decode_ms_sum"]
+    host = {k: cost[k] - cost0[k] for k in cost}
+    for j, r in enumerate(res):
+        has = "trace_id" in r
+        if has != (traced and (ctxs[j] is not None or j == 1)) or \
+                (j == 1 and ("trace" in r) != traced):
+            fail(f"33b: request {j} trace fields {sorted(r)} with the "
+                 f"tracer {'on' if traced else 'off'}")
+    segs = p["segments"] - p0["segments"]
+    return {"traced": traced, "wall_s": wall,
+            "ms_per_decode_step": dec_ms / steps,
+            "decode_tokens_per_s": (p["decode_tokens"] - p0["decode_tokens"])
+            / (dec_ms / 1e3),
+            "decode_steps": steps, "segments": segs,
+            "fold_us_per_tick": host["fold_s"] * 1e6 / max(host["ticks"], 1),
+            "span_records": host["spans"],
+            "span_us_per_segment": host["span_s"] * 1e6 / max(segs, 1),
+            "host_us_per_decode_step": (host["fold_s"] + host["span_s"])
+            * 1e6 / steps,
+            "res": res, "ctxs": ctxs, "walls": walls}
+
+
+def run_obs_serve(pa, server_mod, llama_mod, reqs, serve_cfg, summary):
+    """Phase 33b: ``serve_main`` bf16 at Llama-3-8B width cut to 8 layers
+    (phase 17's ``INT8_PRESET``), phase 5's config and 8 requests over
+    HTTP (``cache_prefix``: a first wave stores every prompt, so the
+    timed waves all graft it), then ``OBS_WAVES`` (the tracer on and off
+    on the same engine, ABBA), with the config's seeded
+    ``"chaos"`` plan: one ``serving.dispatch`` fault at a call past the
+    waves' dispatches. The host seconds of the per-tick fold
+    (``_commit_tick``) and of every span record are summed by timers put
+    around them for the waves.
+    Gates: after the waves, /metrics' TTFT count, token and segment
+    counters and KV gauges equal /v1/stats; /v1/trace?trace_id= returns
+    each traced request's spans (the catalog's, under its caller's span,
+    inside its wall time); then small requests (one dispatch each) walk
+    the plan to its fault: that request gets the reference's error, the
+    plan's trace has its one fault, the scheduler-error counter reads 1,
+    and the next request is served. Prints ms a decode step and decode
+    tokens/s with the tracer on and off."""
+    from kubedl_tpu_torch import chaos
+    from kubedl_tpu_torch.observability import tracing
+
+    t0 = time.perf_counter()
+    register_cut(llama_mod, INT8_PRESET)
+    # n past the waves' dispatches: phase 5's wave of the same requests
+    # made ``bf16_segments``; a wave here makes as many or fewer (13-17 a
+    # wave against phase 5's 17 on an H100)
+    seg5 = max(summary.get("bf16_segments") or 0, 16)
+    n_fault = (len(OBS_WAVES) + 1) * seg5 + 16
+    reqs = [dict(r, cache_prefix=True) for r in reqs]
+    cost = {"fold_s": 0.0, "ticks": 0, "span_s": 0.0, "spans": 0}
+    fold0, record0 = server_mod.LlamaEngine._commit_tick, \
+        tracing.TRACER.record
+
+    def fold(self, acct, tick_ms):
+        t = time.perf_counter()
+        fold0(self, acct, tick_ms)
+        cost["fold_s"] += time.perf_counter() - t
+        cost["ticks"] += 1
+
+    def record(*a, **k):
+        t = time.perf_counter()
+        out = record0(*a, **k)
+        cost["span_s"] += time.perf_counter() - t
+        cost["spans"] += 1
+        return out
+
+    cfg = dict(serve_cfg, preset=INT8_PRESET, chaos={
+        "seed": 33, "sites": {"serving.dispatch": [
+            {"mode": "nth", "n": n_fault}]}})
+    rec = {"preset": INT8_PRESET, "n_fault": n_fault, "card": smi_line()}
+    try:
+        with serving(server_mod, cfg) as base:
+            plan = chaos.active()
+            if plan is None or plan.seed != 33:
+                fail(f"33b: serve_main armed {plan}")
+            reset_counts(pa)
+            server_mod.LlamaEngine._commit_tick = fold
+            tracing.TRACER.record = record
+            waves = []
+            for on in (True,) + OBS_WAVES:  # the first stores the prompts
+                tracing.TRACER.enabled = on
+                try:
+                    waves.append(obs_wave(base, reqs, on, cost))
+                finally:
+                    tracing.TRACER.enabled = True
+            launches = dict(pa.LAUNCHES)
+            calls = plan.calls("serving.dispatch")
+            if calls >= n_fault or plan.faults("serving.dispatch"):
+                fail(f"33b: the timed waves made {calls} dispatches, not "
+                     f"fewer than the plan's n {n_fault}")
+            m = scrape(base)
+            _, st = http_json(base + "/v1/stats")
+            p = st["pipeline"]
+            kern = (("attention_kernel", serve_cfg["kv_attention"]),
+                    ("role", "colocated"))
+            checks = {
+                "ttft_count": (m("kubedl_tpu_serving_ttft_ms_count"),
+                               st["requests"]),
+                "queue_wait_count": (
+                    m("kubedl_tpu_serving_queue_wait_ms_count"),
+                    st["requests"]),
+                "segments": (m("kubedl_tpu_serving_segments"),
+                             p["segments"]),
+                "deferred_harvests": (
+                    m("kubedl_tpu_serving_deferred_harvests"),
+                    p["deferred_harvests"]),
+                "pipeline_flushes": (m("kubedl_tpu_serving_pipeline_flushes"),
+                                     p["flushes"]),
+                "chain_rebuilds": (m("kubedl_tpu_serving_chain_rebuilds"),
+                                   p["chain_rebuilds"]),
+                "ticks": (m("kubedl_tpu_serving_dispatch_ms_count"),
+                          p["ticks"]),
+                "admission_chunks": (
+                    m("kubedl_tpu_serving_admission_chunks"),
+                    p["prefill_chunks"]),
+                "tokens_saved": (
+                    m("kubedl_tpu_serving_prefix_cache_tokens_saved"),
+                    st["prefix_cache"]["tokens_saved"]),
+                **{f"kv_blocks_{k}": (
+                    m(f"kubedl_tpu_serving_kv_blocks_{k}", kern),
+                    st["kv_blocks"][k]) for k in ("total", "free", "shared")},
+            }
+            bad = {k: v for k, v in checks.items() if v[0] != v[1]}
+            if bad or checks["ttft_count"][0] != len(reqs) * len(waves):
+                fail(f"33b: /metrics against /v1/stats: {bad or checks}")
+            # how much of TTFT is queueing (enqueue -> a batch row)
+            n_req = checks["ttft_count"][0]
+            rec["ttft_split_ms"] = {
+                "ttft_mean": m("kubedl_tpu_serving_ttft_ms_sum") / n_req,
+                "queue_wait_mean":
+                    m("kubedl_tpu_serving_queue_wait_ms_sum") / n_req,
+                "ttft_p50": st.get("ttft_ms_p50"),
+                "queue_wait_p50": st.get("queue_wait_ms_p50")}
+            spans = 0
+            for w in waves:
+                if not w["traced"]:
+                    continue
+                for j, ctx in enumerate(w["ctxs"]):
+                    if ctx is None:
+                        continue
+                    got = json.loads(http_text(
+                        f"{base}/v1/trace?trace_id={ctx.trace_id}"))
+                    if not got["enabled"] or {s["trace_id"] for s in
+                                              got["spans"]} != {ctx.trace_id}:
+                        fail(f"33b: /v1/trace for request {j}: "
+                             f"{str(got)[:300]}")
+                    tree = tracing.build_span_tree(got["spans"])
+                    spans += check_span_tree(tree, ctx.span_id,
+                                             w["walls"][j],
+                                             f"33b request {j}")
+                dbg = w["res"][1]["trace"]
+                spans += check_span_tree(dbg["spans"], "", w["walls"][1],
+                                         "33b debug request")
+            # walk the plan to its fault: a two-token request makes one
+            # dispatch (its prefill samples the first token)
+            small = {"prompt_ids": reqs[0]["prompt_ids"][:16],
+                     "max_tokens": 2, "temperature": 0.0}
+            fillers = 0
+            while plan.calls("serving.dispatch") < n_fault - 1:
+                checked([http_post(base + "/v1/generate", small)], 2,
+                        "33b filler")
+                fillers += 1
+            code, hit = http_post(base + "/v1/generate", small)
+            want = {"error": f"chaos: injected fault at serving.dispatch "
+                             f"(call #{n_fault})"}
+            if code != 200 or hit != want:
+                fail(f"33b: the fault's request got {code} {hit} "
+                     f"(want {want})")
+            checked([http_post(base + "/v1/generate", small)], 2,
+                    "33b after the fault")
+            if [t for t in plan.trace_tuples() if t[2] == "fault"] != \
+                    [("serving.dispatch", n_fault, "fault")]:
+                fail(f"33b: the plan's faults "
+                     f"{[t for t in plan.trace_tuples() if t[2] == 'fault']}")
+            m = scrape(base)
+            if m("kubedl_tpu_serving_scheduler_errors") != 1:
+                fail(f"33b: scheduler errors "
+                     f"{m('kubedl_tpu_serving_scheduler_errors')}")
+    finally:
+        chaos.disarm()
+        tracing.TRACER.enabled = True
+        server_mod.LlamaEngine._commit_tick = fold0
+        tracing.TRACER.__dict__.pop("record", None)
+    summary.setdefault("paths", {})["observability"] = launches
+    timed = waves[1:]
+
+    def mean(key, on):
+        vals = [w[key] for w in timed if w["traced"] == on]
+        return sum(vals) / len(vals)
+
+    on_ms, off_ms = mean("ms_per_decode_step", True), \
+        mean("ms_per_decode_step", False)
+    rec.update({
+        "waves": [{k: w[k] for k in (
+            "traced", "wall_s", "ms_per_decode_step", "decode_tokens_per_s",
+            "decode_steps", "segments", "fold_us_per_tick", "span_records",
+            "span_us_per_segment", "host_us_per_decode_step")}
+            for w in waves],
+        "ms_per_decode_step": {"tracer_on": on_ms, "tracer_off": off_ms},
+        "decode_tokens_per_s": {
+            "tracer_on": mean("decode_tokens_per_s", True),
+            "tracer_off": mean("decode_tokens_per_s", False)},
+        "on_over_off": on_ms / off_ms,
+        "host_us_per_decode_step": {
+            "tracer_on": mean("host_us_per_decode_step", True),
+            "tracer_off": mean("host_us_per_decode_step", False)},
+        "fold_us_per_tick": mean("fold_us_per_tick", False),
+        "traced_spans": spans, "fillers": fillers, "launches": launches,
+        "metrics_vs_stats": {k: v[0] for k, v in checks.items()},
+        "seconds": time.perf_counter() - t0})
+    print("33b (serve_main bf16 llama3-8b width x 8 layers, tracer on / "
+          "off; smoke run, not a benchmark): " + json.dumps(rec), flush=True)
+    return rec
+
+
+def run_obs_phase(pa, server_mod, llama_mod, reqs, serve_cfg, summary):
+    """Phase 33: the engine's observability and fault sites (33a, 33b).
+    Every plan is disarmed in a ``finally`` before the next phase."""
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        run_obs_sites(server_mod, llama_mod, reqs)
+    run_obs_serve(pa, server_mod, llama_mod, reqs, serve_cfg, summary)
+    print(f"phase 33 (observability and fault sites): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--skip-engine", action="store_true",
                     help="skip the serving engine (phases 5, 6, 13-15, "
-                    "17-19, 22, 26, 27, 32)")
+                    "17-19, 22, 26, 27, 32, 33)")
     ap.add_argument("--skip-train", action="store_true",
                     help="skip the training phases (8 to 12, 21, 23-25, "
                     "28-31)")
@@ -6399,6 +6983,8 @@ def main() -> int:
                             blocked_tokens)
             run_disagg_identity(server_mod, llama_mod, reqs)
             stamp("phase 19")
+        run_obs_phase(pa, server_mod, llama_mod, reqs, serve_cfg, summary)
+        stamp("phase 33")
 
     kernels.update(run_flash_kernels(fa))
     run_flash_long(fa, kernels)

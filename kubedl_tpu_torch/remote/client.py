@@ -7,24 +7,22 @@ The training worker publishes to one with :func:`upload_tree`, and
 :func:`download_tree` mirrors a checkpoint replica back in
 (``training/checkpoint.py::restore_from_best``).
 
-Left out of the copy: the reference's ``chaos.check("remote.request")``
-fault-injection site (fault injection belongs to a later port slice).
-Transient failures (5xx, a refused or reset connection) are retried as
-the reference's shared policy does: 4 attempts, backoff from 0.05 s
-doubling to at most 0.5 s; a 4xx surfaces at once.
+Every round trip consults the chaos site ``remote.request``. Transient
+failures (5xx, a refused or reset connection, an injected fault) retry
+under the shared policy (``chaos.RetryPolicy``: 4 attempts, full-jitter
+backoff from 0.05 s capped at 0.5 s); a 4xx surfaces at once.
 """
 
 from __future__ import annotations
 
 import json
-import time
 import urllib.error
 import urllib.parse
 import urllib.request
 from pathlib import Path
 from typing import List
 
-ATTEMPTS, BASE_DELAY, MAX_DELAY = 4, 0.05, 0.5
+from kubedl_tpu_torch import chaos
 
 
 class RemoteError(Exception):
@@ -45,6 +43,7 @@ def _split(root: str) -> tuple:
 
 
 def _request_once(url: str, data: bytes = None, method: str = "GET") -> bytes:
+    chaos.check("remote.request")
     req = urllib.request.Request(url, data=data, method=method)
     try:
         with urllib.request.urlopen(req, timeout=30) as resp:
@@ -59,17 +58,15 @@ def _request_once(url: str, data: bytes = None, method: str = "GET") -> bytes:
 
 
 def _request(url: str, data: bytes = None, method: str = "GET") -> bytes:
-    """One blob-server round trip, retrying transient failures."""
-    delay = BASE_DELAY
-    for attempt in range(ATTEMPTS):
-        try:
-            return _request_once(url, data=data, method=method)
-        except RemoteError as e:
-            if not e.transient or attempt == ATTEMPTS - 1:
-                raise
-        time.sleep(delay)
-        delay = min(delay * 2, MAX_DELAY)
-    raise AssertionError("unreachable")
+    """One blob-server round trip; transient failures (5xx, connection
+    reset, injected chaos) retry under the shared policy, permanent 4xx
+    surface immediately."""
+    policy = chaos.RetryPolicy(max_attempts=4, base_delay=0.05, max_delay=0.5)
+    return policy.call(
+        lambda: _request_once(url, data=data, method=method),
+        retry_on=(RemoteError, chaos.FaultInjected),
+        giveup=lambda e: isinstance(e, RemoteError) and not e.transient,
+    )
 
 
 def _quote_key(key: str) -> str:

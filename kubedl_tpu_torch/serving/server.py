@@ -6,9 +6,15 @@ Port of ``kubedl_tpu/serving/server.py``, both KV layouts
 - GET  /healthz            -> {"status": "ok"}
 - GET  /v1/models          -> model metadata
 - GET  /v1/stats           -> live counters (same keys where ported)
+- GET  /metrics            -> the Prometheus family (``ServingMetrics``)
+- GET  /v1/trace[?trace_id=&limit=] -> {"enabled", "spans"}: this
+                              replica's retained spans (one trace's)
 - POST /v1/generate        -> {"prompt_ids": [...], "max_tokens": N,
                                "temperature": T, "cache_prefix": bool}
                               -> {"token_ids": [...], "latency_ms": ...}
+  (``X-Trace-Context`` and ``"debug": {"trace": true}`` trace a request,
+  as on /v1/prefill and /v1/adopt: the result carries ``trace_id``, and
+  with debug on the request's span tree)
 - POST /v1/cancel, /admin/drain
 - POST /admin/load_version {"version", "ckpt_dir"}, /admin/activate_version,
   /admin/retire_version {"version"}  -> the version inventory
@@ -43,9 +49,15 @@ serves over a mesh, as the reference's target of Gemma-2B on four chips
 does: the weights are cut over the mesh's ranks
 (``models/llama.py::ServingSplit``, the ranks in this one process,
 ``parallel/mesh.py::ServingMesh``) and the engine keeps the contiguous
-layout with no speculation (the reference's normalization). The chaos
-sites and the engine's Prometheus family are later slices: asking for
-them raises ``ValueError`` rather than being ignored.
+layout with no speculation (the reference's normalization).
+
+Observability and faults, as in the reference: the Prometheus family
+(``metrics=``, default a fresh :class:`ServingMetrics`; the per-tick
+pipeline fold in :meth:`LlamaEngine._commit_tick`), request tracing
+(``TRACER`` spans ``engine.*`` under the caller's ``X-Trace-Context``)
+and the six ``serving.*`` chaos sites, with ``serve_main`` arming
+``KUBEDL_SERVE_CONFIG["chaos"]``. No metric reads a device value: the
+tick stays free of syncs.
 
 The host pos/bt mirrors stay authoritative and are uploaded (copied,
 never shared with numpy) before every dispatch, through pinned staging
@@ -61,6 +73,7 @@ import os
 import statistics
 import threading
 import time
+import urllib.parse
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional
@@ -68,10 +81,15 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from kubedl_tpu_torch import resolve_device
+from kubedl_tpu_torch import chaos, resolve_device
 from kubedl_tpu_torch.api.topology import MeshSpec
 from kubedl_tpu_torch.models import llama
 from kubedl_tpu_torch.models import paged_attention
+from kubedl_tpu_torch.observability.metrics import ServingMetrics
+from kubedl_tpu_torch.observability.tracing import (
+    TRACE_HEADER, TRACER, TraceContext, new_span_id, new_trace_id,
+    parse_trace_header, span_to_dict,
+)
 from kubedl_tpu_torch.parallel.mesh import ServingMesh
 from kubedl_tpu_torch.remote.client import download_tree, is_remote_root
 from kubedl_tpu_torch.serving.disagg import HandoffError, KVHandoff
@@ -128,6 +146,12 @@ class _Slot:
         self.adopt: Optional[KVHandoff] = None
         self.ttft_ms: Optional[float] = None
         self.out_ids: list = []
+        #: tracing: ``trace`` is the caller's context (X-Trace-Context);
+        #: ``span_id`` is this request's PRE-MINTED engine.request id, so
+        #: sub-spans recorded before the request span can parent under it
+        self.trace: Optional[TraceContext] = None
+        self.span_id = ""
+        self.prefill_t0: Optional[float] = None
         self.done = threading.Event()
         self.result: Optional[Dict] = None
         self.t0 = time.perf_counter()
@@ -135,13 +159,6 @@ class _Slot:
     def next_input(self) -> int:
         seq = self.prompt + self.out_ids
         return int(seq[self.fed])
-
-
-def _unported(knob: str, slice_name: str) -> ValueError:
-    return ValueError(
-        f"{knob} is not served by the PyTorch port yet ({slice_name} is a "
-        "later port slice)"
-    )
 
 
 def _host_payload(t: torch.Tensor):
@@ -278,7 +295,9 @@ class LlamaEngine:
     weights (``ServingSplit``, cut as each leaf lands), the tensor ranks
     compute and hold their KV heads' cache, and a paged layout becomes
     contiguous with ``spec_k`` 0, as in the reference; ``stats()["mesh"]``
-    says each rank's device, weight bytes and KV bytes."""
+    says each rank's device, weight bytes and KV bytes. ``metrics`` is
+    the engine's :class:`ServingMetrics` (a fresh one by default; a
+    caller may pass one to share its registry), as in the reference."""
 
     #: allowed decode-segment sizes, largest first; segments shrink to 4
     #: whenever requests are waiting (admission latency <= 4 tokens)
@@ -328,8 +347,6 @@ class LlamaEngine:
             # raises below
             kv_layout = "contiguous"
             spec_k = 0
-        if metrics is not None:
-            raise _unported("metrics", "the engine's Prometheus family")
         self.quantize = quantize
         self.kv_layout = kv_layout
         self._paged = kv_layout == "paged"
@@ -537,6 +554,8 @@ class LlamaEngine:
             "spec_rounds": 0, "spec_ms_sum": 0.0, "verify_ms_sum": 0.0,
         }
         self._pipe_recent: "deque[tuple]" = deque(maxlen=2048)
+        self.metrics = metrics or ServingMetrics()
+        self._prefix_evictions_seen = 0  # metric delta vs pcache stats
         self.max_queue_depth = max(1, int(max_queue_depth))
         self.max_queue_age_s = float(max_queue_age_s)
         self._recent: "deque[float]" = deque(maxlen=100_000)
@@ -635,7 +654,10 @@ class LlamaEngine:
         ``require_ckpt`` (hot-swap loads): a version whose artifact is
         missing or torn beyond recovery fails the load — random weights
         under a version id would be a silent model swap. Init keeps the
-        reference's permissive behaviour: no checkpoint serves the init."""
+        reference's permissive behaviour: no checkpoint serves the init.
+        The chaos site ``serving.weight_swap`` fires at the top, so an
+        injected torn artifact or mid-swap crash tests that contract."""
+        chaos.check("serving.weight_swap")
         int8 = self.quantize == "int8"
         split = self._split
         sink = split.sink(int8) if split is not None else None
@@ -828,9 +850,72 @@ class LlamaEngine:
         # a vacated row must not keep its prefix-cache entry pinned
         self._release_prefix_locked(slot)
 
+    # -- request tracing ----------------------------------------------------
+
+    @staticmethod
+    def _arm_trace(slot: _Slot, trace: Optional[TraceContext],
+                   debug_trace: bool = False) -> None:
+        """Give a slot span identity: the caller sent a context, or asked
+        for a flight recording without one (a fresh trace then roots the
+        recording). A disarmed tracer leaves the slot untraced: every
+        scheduler-side record guards on ``slot.span_id``."""
+        if not TRACER.enabled:
+            return
+        if trace is None and debug_trace:
+            trace = TraceContext(new_trace_id(), "")
+        if trace is not None:
+            slot.trace = trace
+            slot.span_id = new_span_id()
+
+    def _trace_admitted_locked(self, s: _Slot, t_adm: float,
+                               row: int) -> None:
+        """Queue wait (enqueue -> admission start): the stats() sample and
+        the metric for EVERY admission, plus the engine.queue_wait /
+        engine.admission spans when the request is traced. Caller holds
+        cv."""
+        wait_ms = (t_adm - s.t0) * 1e3
+        self._queue_wait_recent.append(wait_ms)
+        self.metrics.queue_wait_ms.observe(wait_ms)
+        if not s.span_id:
+            return
+        now = time.perf_counter()
+        TRACER.record("engine.queue_wait", start=s.t0,
+                      duration=t_adm - s.t0, trace=s.trace,
+                      parent_id=s.span_id)
+        TRACER.record("engine.admission", start=t_adm,
+                      duration=now - t_adm, trace=s.trace,
+                      parent_id=s.span_id, row=row)
+
+    def _trace_request_locked(self, s: _Slot, kind: str) -> None:
+        """Close the request span (its id minted at arm time) BEFORE the
+        waiter wakes, so a read right after ``done`` sees the whole tree.
+        Caller holds cv."""
+        if s.span_id:
+            TRACER.record("engine.request", start=s.t0,
+                          duration=time.perf_counter() - s.t0,
+                          trace=s.trace, span_id=s.span_id, kind=kind,
+                          tokens=len(s.out_ids))
+
+    @staticmethod
+    def _trace_result(slot: _Slot, result: Dict,
+                      debug_trace: bool) -> Dict:
+        """Stamp the trace id on a finished result; with the flight
+        recorder on, attach the request's own span tree."""
+        if slot.span_id and slot.trace is not None:
+            tid = slot.trace.trace_id
+            result.setdefault("trace_id", tid)
+            if debug_trace:
+                result["trace"] = {
+                    "trace_id": tid,
+                    "spans": TRACER.span_tree(tid),
+                }
+        return result
+
     def generate(self, prompt_ids, max_tokens: int = 16,
                  temperature: float = 0.0, timeout_s: float = 600.0,
                  cache_prefix: bool = False, request_id: str = "",
+                 trace: Optional[TraceContext] = None,
+                 debug_trace: bool = False,
                  model_version: str = "") -> Dict:
         budget = self.max_seq - 1
         prompt = [int(t) for t in list(prompt_ids)[:budget]]
@@ -840,6 +925,7 @@ class LlamaEngine:
         slot = _Slot(prompt, max_tokens, float(temperature),
                      bool(cache_prefix), request_id=request_id)
         slot.version = str(model_version or "")
+        self._arm_trace(slot, trace, debug_trace)
         self._enqueue_slot_locked_checks(slot)
         result = self._await_slot(slot, timeout_s)
         with self._cv:
@@ -849,7 +935,7 @@ class LlamaEngine:
             self._stats["tokens_in"] += len(prompt)
             self._stats["tokens_out"] += len(result.get("token_ids", []))
             self._recent.append(time.time())
-        return result
+        return self._trace_result(slot, result, debug_trace)
 
     def _enqueue_slot_locked_checks(self, slot: _Slot) -> None:
         """The admission gate generate(), prefill_handoff() and
@@ -869,6 +955,7 @@ class LlamaEngine:
             if depth >= self.max_queue_depth or head_age > self.max_queue_age_s:
                 self._stats["shed"] += 1
                 self._shed_recent.append(time.time())
+                self.metrics.shed_requests.inc()
                 retry = max(1.0, min(self.max_queue_age_s, 0.25 * depth))
                 raise EngineOverloaded(
                     f"queue depth {depth} (budget {self.max_queue_depth}), "
@@ -881,6 +968,8 @@ class LlamaEngine:
                 self._stats["shed"] += 1
                 self._stats["kv_sheds"] += 1
                 self._shed_recent.append(time.time())
+                self.metrics.shed_requests.inc()
+                self.metrics.kv_block_sheds.inc()
                 raise EngineOverloaded(
                     f"free KV blocks {self._alloc.free_count}/"
                     f"{self._alloc.total} below low watermark",
@@ -923,6 +1012,8 @@ class LlamaEngine:
             "cache_prefix": bool(s.cache_prefix),
             "request_id": s.request_id,
             "ttft_ms": s.ttft_ms,
+            "trace": s.trace,
+            "span_id": s.span_id,
             # the adopter decodes on the version the prefill ran on
             "model_version": s.version or self._default_version,
             "t": time.time(),
@@ -942,6 +1033,7 @@ class LlamaEngine:
         self._slots[i] = None
         self._free_row_locked(i)
         self._release_prefix_locked(s)
+        self._trace_request_locked(s, "prefill")
         s.done.set()
 
     def prefill_handoff(self, prompt_ids, max_tokens: int = 16,
@@ -953,8 +1045,9 @@ class LlamaEngine:
         instead of decoding. Returns a :class:`KVHandoff` for a decode
         engine's :meth:`adopt_handoff`; the seam is the colocated engine's
         own prefill/decode seam, so disaggregated greedy output is the
-        colocated output. ``trace`` is taken for the coordinator's call
-        and not recorded (spans are a later slice)."""
+        colocated output. ``trace`` (the caller's context) parents the
+        prefill leg's spans, and the handoff carries this request's span
+        as its ``trace`` header, so the adopt leg joins the same trace."""
         if not self._paged:
             raise ValueError(
                 "disaggregated prefill requires kv_layout='paged'"
@@ -975,6 +1068,7 @@ class LlamaEngine:
                      request_id=request_id)
         slot.handoff = {"max_tokens": max_tokens}
         slot.version = str(model_version or "")
+        self._arm_trace(slot, trace)
         self._enqueue_slot_locked_checks(slot)
         result = self._await_slot(slot, timeout_s)
         with self._cv:
@@ -1035,7 +1129,9 @@ class LlamaEngine:
         start their copy to pinned host memory. The handoff's block
         references go back at once: any later write to those blocks is
         queued behind the gather. :meth:`_finish_exports` completes them
-        once the copies are done."""
+        once the copies are done. The chaos site ``serving.kv_handoff``
+        injects a transfer failure here; the blocks are freed on that
+        path too."""
         with self._cv:
             if not self._export_q and not self._handoffs:
                 return
@@ -1049,11 +1145,13 @@ class LlamaEngine:
                 box["error"] = f"unknown or expired handoff {hid!r}"
                 ev.set()
                 continue
+            t0 = time.perf_counter()
             try:
+                chaos.check("serving.kv_handoff")
                 idx = self._upload(np.asarray(rec["blocks"], np.int64))
                 k, v = llama.export_kv_blocks(self._cache, idx)
                 self._exports.append((rec, box, ev, self._device_to_host(k),
-                                      self._device_to_host(v)))
+                                      self._device_to_host(v), t0))
             except Exception as e:
                 box["error"] = f"handoff export failed: {e}"
                 with self._cv:
@@ -1065,16 +1163,23 @@ class LlamaEngine:
     def _finish_exports(self) -> None:
         """Wait on each in-flight export's copies and hand the fetcher its
         :class:`KVHandoff`. Runs after the tick's dispatch, so the wait
-        overlaps device work."""
+        overlaps device work. The handoff carries its trace as a header
+        string (parent: the prefill request's span), so a decode engine
+        adopting it with no HTTP header still joins the trace; the export
+        metrics and span time the gather's dispatch through the copy."""
         done, self._exports = self._exports, []
-        for rec, box, ev, (k, kev), (v, vev) in done:
+        for rec, box, ev, (k, kev), (v, vev), t0 in done:
             try:
                 for e in (kev, vev):
                     if e is not None:
                         e.synchronize()
                 kp, dtype = _host_payload(k)
                 vp, _ = _host_payload(v)
-                box["handoff"] = KVHandoff(
+                th = ""
+                if rec.get("span_id") and rec.get("trace") is not None:
+                    th = TraceContext(rec["trace"].trace_id,
+                                      rec["span_id"]).to_header()
+                h = KVHandoff(
                     model=self.preset_name,
                     prompt_ids=rec["prompt"],
                     first_token=rec["first_token"],
@@ -1086,9 +1191,22 @@ class LlamaEngine:
                     request_id=rec["request_id"],
                     cache_prefix=rec["cache_prefix"],
                     ttft_ms=rec["ttft_ms"],
+                    trace=th,
                     model_version=rec.get("model_version", ""),
                     dtype=dtype,
                 )
+                box["handoff"] = h
+                m = self.metrics
+                m.handoff_total.inc(direction="export")
+                m.handoff_bytes.inc(h.nbytes, direction="export")
+                m.handoff_ms.observe((time.perf_counter() - t0) * 1e3,
+                                     direction="export")
+                if rec.get("span_id"):
+                    TRACER.record("engine.handoff_export", start=t0,
+                                  duration=time.perf_counter() - t0,
+                                  trace=rec["trace"],
+                                  parent_id=rec["span_id"],
+                                  nbytes=h.nbytes)
             except Exception as e:
                 box["error"] = f"handoff export failed: {e}"
                 with self._cv:
@@ -1097,12 +1215,16 @@ class LlamaEngine:
                 ev.set()
 
     def adopt_handoff(self, h: KVHandoff, timeout_s: float = 600.0,
-                      request_id: str = "") -> Dict:
+                      request_id: str = "",
+                      trace: Optional[TraceContext] = None,
+                      debug_trace: bool = False) -> Dict:
         """Decode-pool entry: adopt a prefill engine's :class:`KVHandoff`
         — allocate blocks from THIS pool (all-or-nothing, the same
         watermark admission as generate), write the payloads in, and
         resume decoding from the first token. Returns generate()'s result
-        shape; greedy streams equal a colocated engine's."""
+        shape; greedy streams equal a colocated engine's. An explicit
+        ``trace`` (the HTTP header) wins; else the handoff's own embedded
+        header keeps a direct engine-to-engine adoption on its trace."""
         if not self._paged:
             raise ValueError(
                 "adopting a KV handoff requires kv_layout='paged'"
@@ -1135,6 +1257,9 @@ class LlamaEngine:
         # version stickiness across the seam: decode on exactly the
         # version that prefilled, or reject the adopt (400)
         slot.version = str(getattr(h, "model_version", "") or "")
+        if trace is None:
+            trace = parse_trace_header(getattr(h, "trace", ""))
+        self._arm_trace(slot, trace, debug_trace)
         self._enqueue_slot_locked_checks(slot)
         result = self._await_slot(slot, timeout_s)
         with self._cv:
@@ -1144,7 +1269,7 @@ class LlamaEngine:
             self._stats["tokens_in"] += len(prompt)
             self._stats["tokens_out"] += len(result.get("token_ids", []))
             self._recent.append(time.time())
-        return result
+        return self._trace_result(slot, result, debug_trace)
 
     def _admit_row_adopt_locked(self, i: int, slot: _Slot):
         """Admit an adopted slot into row ``i``: allocate the handoff's
@@ -1179,6 +1304,20 @@ class LlamaEngine:
             return None
         a.incref(shared)
         blocks = shared + got
+        if chaos.should_fail("serving.kv_handoff"):
+            # transfer failure mid-flight: every reference taken above
+            # goes straight back, the waiter learns why
+            a.free(blocks)
+            if entry is not None:
+                self._pcache.unpin(entry)
+            self._stats["handoff_failures"] += 1
+            slot.result = {
+                "error": "handoff transfer failed (injected)",
+                "handoff_failed": True,
+            }
+            slot.done.set()
+            return False
+        t0 = time.perf_counter()
         if got:
             start = len(shared)
             try:
@@ -1215,9 +1354,22 @@ class LlamaEngine:
         # that tenant's token
         self._chain = None
         if entry is not None:
+            self.metrics.prefix_hits.inc()
             # the shares are increfed: no prefill reads through the entry
             self._pcache.unpin(entry)
+        elif self._pcache is not None:
+            self.metrics.prefix_misses.inc()
         self._stats["handoffs_in"] += 1
+        m = self.metrics
+        m.handoff_total.inc(direction="adopt")
+        m.handoff_bytes.inc(h.nbytes, direction="adopt")
+        m.handoff_ms.observe((time.perf_counter() - t0) * 1e3,
+                             direction="adopt")
+        if slot.span_id:
+            TRACER.record("engine.handoff_adopt", start=t0,
+                          duration=time.perf_counter() - t0,
+                          trace=slot.trace, parent_id=slot.span_id,
+                          blocks=len(blocks), shared=len(shared))
         # adopted prompts join this replica's prefix cache
         self._maybe_insert_prefix_locked(i, slot)
         self._maybe_finalize_locked(i, slot)
@@ -1381,26 +1533,38 @@ class LlamaEngine:
                 self._cache, i, self._prefill_bucket(cand), self._split)
             parts = (k, v) if self._split is None else (*k, *v)
             nbytes = sum(t.numel() * t.element_size() for t in parts)
-            self._pcache.insert(key[:cand + 1], k, v, cand, nbytes=nbytes)
-            return
-        bs = self.kv_block_size
-        full = cand // bs
-        row_blocks = self._row_blocks[i]
-        blocks = list(row_blocks[:full])
-        if cand % bs:
-            got = self._alloc.alloc(1)
-            if got is None:
-                return  # pool pressure: skip the insert
-            self._cache = llama.copy_kv_block(self._cache, row_blocks[full],
-                                              got[0])
-            blocks.append(got[0])
-        self._alloc.incref(blocks[:full])
-        ok = self._pcache.insert(
-            key[:cand + 1], None, None, cand, blocks=tuple(blocks),
-            nbytes=len(blocks) * self._block_bytes,
-        )
-        if not ok:
-            self._alloc.free(blocks)  # duplicate/over-budget: undo
+            if not self._pcache.insert(key[:cand + 1], k, v, cand,
+                                       nbytes=nbytes):
+                return
+        else:
+            bs = self.kv_block_size
+            full = cand // bs
+            row_blocks = self._row_blocks[i]
+            blocks = list(row_blocks[:full])
+            if cand % bs:
+                got = self._alloc.alloc(1)
+                if got is None:
+                    return  # pool pressure: skip the insert
+                self._cache = llama.copy_kv_block(
+                    self._cache, row_blocks[full], got[0])
+                blocks.append(got[0])
+            self._alloc.incref(blocks[:full])
+            ok = self._pcache.insert(
+                key[:cand + 1], None, None, cand, blocks=tuple(blocks),
+                nbytes=len(blocks) * self._block_bytes,
+            )
+            if not ok:
+                self._alloc.free(blocks)  # duplicate/over-budget: undo
+                return
+        st = self._pcache.stats()
+        m = self.metrics
+        m.prefix_inserts.inc()
+        m.prefix_bytes.set(float(st["bytes"]))
+        m.prefix_entries.set(float(st["entries"]))
+        ev = st["evictions"] - self._prefix_evictions_seen
+        if ev > 0:
+            m.prefix_evictions.inc(ev)
+        self._prefix_evictions_seen = st["evictions"]
 
     def _paged_entry_evicted(self, entry) -> None:
         """PrefixCache eviction callback: hand the entry's block
@@ -1498,22 +1662,26 @@ class LlamaEngine:
         s.pending = 0
         self._waiting.appendleft(s)
         self._stats["kv_preemptions"] += 1
+        self.metrics.kv_preemptions.inc()
         log.warning("KV blocks exhausted: preempted row %d (requeued)", j)
 
     def _reserve_decode_locked(self, decoding, steps: int):
         """Ensure every decoding row can cache ``steps`` more positions:
         on exhaustion evict unpinned prefix entries first, then preempt
-        victims; rows that still cannot grow sit this dispatch out.
+        victims; rows that still cannot grow sit this dispatch out (the
+        chaos site ``serving.kv_alloc`` injects the exhaustion once).
         Caller holds cv."""
         out = []
+        inject = chaos.should_fail("serving.kv_alloc")
         for i, s in decoding:
             if self._slots[i] is not s:
                 continue  # preempted earlier in this very loop
             need = min(int(self._pos_host[i]) + steps, self.max_seq)
             while True:
-                if self._reserve_locked(i, need):
+                if not inject and self._reserve_locked(i, need):
                     out.append((i, s))
                     break
+                inject = False  # one injected failure exercises the path
                 if self._reclaim_prefix_locked():
                     continue
                 victim = self._pick_victim_locked({i} | {j for j, _ in out})
@@ -1546,6 +1714,7 @@ class LlamaEngine:
             if mlen % bs:
                 tail_src = entry_blocks[full]
         n_alloc = need_total - len(shared)
+        t_alloc = time.perf_counter()
         got = a.alloc(n_alloc)
         if got is None and self._reclaim_prefix_locked():
             got = a.alloc(n_alloc)
@@ -1568,8 +1737,16 @@ class LlamaEngine:
         self._bt_host[i, :len(blocks)] = blocks
         self._pos_host[i] = mlen
         self._slots[i] = slot
+        if slot.span_id:
+            TRACER.record("engine.kv_alloc", start=t_alloc,
+                          duration=time.perf_counter() - t_alloc,
+                          trace=slot.trace, parent_id=slot.span_id,
+                          blocks=len(blocks), shared=len(shared))
         if entry is None:
+            if self._pcache is not None:
+                self.metrics.prefix_misses.inc()
             return True
+        self.metrics.prefix_hits.inc()
         slot.cached_len = mlen
         slot.pinned = entry
         if not entry_blocks:
@@ -1589,7 +1766,7 @@ class LlamaEngine:
         tick prefill is dispatched before decode, so no decode step writes
         inside the grafted span. Caller holds cv."""
         self._slots[i] = slot
-        self._queue_wait_recent.append((time.perf_counter() - slot.t0) * 1e3)
+        self._trace_admitted_locked(slot, time.perf_counter(), i)
         self._cache["pos"][i] = 0
         if self._pcache is None:
             return
@@ -1597,7 +1774,9 @@ class LlamaEngine:
         self._pcache.observe(key)
         entry, mlen = self._pcache.match(key)
         if entry is None:
+            self.metrics.prefix_misses.inc()
             return
+        self.metrics.prefix_hits.inc()
         self._cache = llama.copy_prefix_into_row(self._cache, entry.k,
                                                  entry.v, i, mlen,
                                                  self._split)
@@ -1616,20 +1795,19 @@ class LlamaEngine:
                 if not self._alloc.admission_open():
                     break  # below low watermark: hysteresis holds
                 head = self._waiting[0]
+                t_adm = time.perf_counter()
                 if head.adopt is not None:
                     r = self._admit_row_adopt_locked(i, head)
                     if r is None:
                         break  # pool dry: wait for frees
                     self._waiting.popleft()
                     if r:
-                        self._queue_wait_recent.append(
-                            (time.perf_counter() - head.t0) * 1e3)
+                        self._trace_admitted_locked(head, t_adm, i)
                     continue  # False: the waiter was failed and woken
                 if not self._admit_row_locked(i, head):
                     break  # pool dry: wait for frees / preemption
                 self._waiting.popleft()
-                wait_ms = (time.perf_counter() - head.t0) * 1e3
-                self._queue_wait_recent.append(wait_ms)
+                self._trace_admitted_locked(head, t_adm, i)
 
     # -- scheduler ---------------------------------------------------------
 
@@ -1691,6 +1869,8 @@ class LlamaEngine:
                   "tick_ms_sum", "overlap_ms_sum"):
             p[k] = 0.0
         self._pipe_recent.clear()
+        self.metrics.scheduler_errors.inc()
+        self.metrics.queue_depth.set(float(len(self._waiting)))
 
     def _rem(self, s: _Slot) -> int:
         """Remaining token budget for a slot, counting tokens already
@@ -1729,6 +1909,8 @@ class LlamaEngine:
             self._slots[i] = None
             self._free_row_locked(i)
             self._release_prefix_locked(s)
+            self._trace_request_locked(
+                s, "adopt" if s.adopt is not None else "generate")
             s.done.set()
 
     def _prefill_bucket(self, max_len: int) -> int:
@@ -1809,6 +1991,7 @@ class LlamaEngine:
             seg_ms = pend["ev"][0].elapsed_time(pend["ev"][1])
         else:
             seg_ms = pend["dispatch_ms"]
+        seg_t0 = pend["t0"]
         with self._cv:
             p = self._pipe
             p["inflight"] = 0
@@ -1820,6 +2003,12 @@ class LlamaEngine:
                     continue  # vacated (timeout/cancel) mid-segment
                 s.out_ids.extend(int(t) for t in rows[i][:take])
                 p["decode_tokens"] += take
+                if s.span_id and take:
+                    # the segment's time is SHARED by its rows (one
+                    # batched dispatch); each traced row gets its own span
+                    TRACER.record("engine.decode_segment", start=seg_t0,
+                                  duration=t1 - seg_t0, trace=s.trace,
+                                  parent_id=s.span_id, tokens=take)
                 self._maybe_finalize_locked(i, s)
             self._admit_locked()
             self._cv.notify_all()
@@ -1842,8 +2031,16 @@ class LlamaEngine:
                 if budgeted and s.ttft_ms is None:
                     s.ttft_ms = (t1 - s.t0) * 1e3
                     self._ttft_recent.append(s.ttft_ms)
+                    self.metrics.ttft_ms.observe(s.ttft_ms)
                 if budgeted:
                     s.out_ids.append(int(ids[i]))
+                if s.span_id:
+                    p0 = s.prefill_t0 if s.prefill_t0 is not None else t0
+                    TRACER.record("engine.prefill", start=p0,
+                                  duration=t1 - p0, trace=s.trace,
+                                  parent_id=s.span_id,
+                                  prompt_len=len(s.prompt),
+                                  cached_len=s.cached_len)
                 # the row's prefix KV is self-contained now: the grafted
                 # entry no longer needs its pin
                 self._release_prefix_locked(s)
@@ -1916,8 +2113,10 @@ class LlamaEngine:
                     vp, self._cache, self._upload(toks),
                     self._upload(lens), self._upload(starts), self.cfg,
                     self._split)
+            saved = int(starts.sum())
             if self._pcache is not None:
-                self._pcache.add_tokens_saved(int(starts.sum()))
+                self._pcache.add_tokens_saved(saved)
+            self.metrics.prefix_tokens_saved.inc(saved)
         elif self._paged:
             logits, self._cache = llama.paged_prefill_batched(
                 vp, self._cache, self._upload(toks),
@@ -1939,6 +2138,7 @@ class LlamaEngine:
                 # (vacated rows get reset at readmission)
                 self._pos_host[i] = min(int(starts[i]) + int(lens[i]),
                                         self.max_seq - 1)
+                s.prefill_t0 = t0  # dispatch start, for engine.prefill
             pre = self._pre_rows_locked(todo)
         return pre, ids_copy
 
@@ -1967,6 +2167,9 @@ class LlamaEngine:
             left -= take
         if not sched:
             return [], None
+        # an injected chunk-dispatch fault: the scheduler recovers (fails
+        # the in-flight rows, rebuilds the cache) as for a segment fault
+        chaos.check("serving.chunk_admit")
         bucket = self._prefill_bucket(
             max(max(t for _i, _s, _b, t, _f in sched), 1))
         toks = np.zeros((self.max_batch, bucket), np.int32)
@@ -1987,8 +2190,11 @@ class LlamaEngine:
             vp, self._cache, self._upload(toks), self._upload(lens),
             self._upload(starts), self.cfg, kv_attention=self.kv_attention,
         )
-        if saved and self._pcache is not None:
-            self._pcache.add_tokens_saved(saved)
+        if saved:
+            if self._pcache is not None:
+                self._pcache.add_tokens_saved(saved)
+            self.metrics.prefix_tokens_saved.inc(saved)
+        self.metrics.admission_chunks.inc(len(sched))
         final_rows = [(i, s) for i, s, _b, _t, f in sched if f]
         ids_copy = None
         if final_rows:
@@ -2003,6 +2209,8 @@ class LlamaEngine:
                 self._pos_host[i] = min(base + take, self.max_seq - 1)
                 if self._slots[i] is s:
                     s.prefill_pos = base + take
+                    if s.prefill_t0 is None:
+                        s.prefill_t0 = t0  # the first chunk starts it
             pre = self._pre_rows_locked(final_rows)
         return pre, (ids_copy if pre else None)
 
@@ -2024,6 +2232,7 @@ class LlamaEngine:
         N = self.spec_candidates
         multi = N > 1
         tree = multi and self.spec_tree
+        draft_kind = getattr(self._draft, "name", self.spec_draft)
         t_round = time.perf_counter()
         # phase 1 — snapshot contexts under the lock, draft outside it
         with self._cv:
@@ -2040,7 +2249,9 @@ class LlamaEngine:
         else:
             cand_lists = [[p] for p in self._draft.propose_batch(
                 [ctx for _, _, ctx, _ in cand], k)]
-        self._spec_stats.record_draft_ms((time.perf_counter() - t_d) * 1e3)
+        draft_ms = (time.perf_counter() - t_d) * 1e3
+        self._spec_stats.record_draft_ms(draft_ms)
+        self.metrics.spec_draft_ms.observe(draft_ms, draft=draft_kind)
 
         def _pad(drafts, ctx):
             d = [int(t) for t in drafts][:k]
@@ -2083,6 +2294,7 @@ class LlamaEngine:
                 lens[i] = 0
         if not rows:
             return
+        chaos.check("serving.dispatch")
         self._upload_mirrors()
         t0 = time.perf_counter()
         if tree:
@@ -2161,6 +2373,13 @@ class LlamaEngine:
                                         self.max_seq - 1)
                 self._trim_row_locked(i, int(self._pos_host[i]))
                 self._spec_stats.record(k, a, take)
+                self.metrics.spec_proposed.inc(k, draft=draft_kind)
+                self.metrics.spec_accepted.inc(a, draft=draft_kind)
+                if s.span_id:
+                    TRACER.record("engine.spec_round", start=t_d,
+                                  duration=time.perf_counter() - t_d,
+                                  trace=s.trace, parent_id=s.span_id,
+                                  k=k, accepted=int(a), emitted=take)
                 self._maybe_finalize_locked(i, s)
             p = self._pipe
             p["spec_rounds"] += 1
@@ -2174,7 +2393,9 @@ class LlamaEngine:
         acct["host_ms"] += (time.perf_counter() - t2) * 1e3
 
     def _commit_tick(self, acct: Dict, tick_ms: float) -> None:
-        """Fold one tick's accounting into the pipeline stats."""
+        """Fold one tick's accounting into the pipeline stats and the
+        metrics: one fold a tick, from host values only (the allocator's
+        block walk included, once)."""
         overlap_ms = (acct["dispatch_ms"] + acct["host_ms"]
                       if acct["overlapped"] else 0.0)
         with self._cv:
@@ -2192,6 +2413,31 @@ class LlamaEngine:
             self._pipe_recent.append(
                 (acct["dispatch_ms"], acct["harvest_ms"], acct["host_ms"],
                  tick_ms))
+            queued = len(self._waiting)
+            ratio = p["overlap_ms_sum"] / max(p["tick_ms_sum"], 1e-9)
+        m = self.metrics
+        if acct["segments"]:
+            m.segments.inc(acct["segments"])
+        if acct["deferred"]:
+            m.deferred_harvests.inc(acct["deferred"])
+        if acct["flushes"]:
+            m.pipeline_flushes.inc(acct["flushes"])
+        if acct["rebuilds"]:
+            m.chain_rebuilds.inc(acct["rebuilds"])
+        m.dispatch_ms.observe(acct["dispatch_ms"])
+        m.harvest_ms.observe(acct["harvest_ms"])
+        m.host_ms.observe(acct["host_ms"])
+        m.overlap_ratio.set(ratio)
+        m.queue_depth.set(float(queued))
+        if self._paged:
+            st = self._alloc.stats()
+            kern = {"attention_kernel": self.kv_attention,
+                    "role": self.role}
+            m.kv_blocks_total.set(float(st["total"]), **kern)
+            m.kv_blocks_free.set(float(st["free"]), **kern)
+            m.kv_blocks_shared.set(float(st["shared"]), **kern)
+        if self._spec_stats is not None:
+            m.spec_acceptance_rate.set(self._spec_stats.acceptance_rate())
 
     @torch.no_grad()
     def _loop_once(self) -> bool:
@@ -2248,6 +2494,12 @@ class LlamaEngine:
             # tree only; rows of co-resident versions sit the tick out
             tick_version = self._pick_tick_version_locked(active)
             vp = self._versions[tick_version]
+
+        if tick_version != self._default_version:
+            # seeded canary degradation: hits only non-default-version
+            # ticks, so a drill can degrade a canary while the baseline
+            # traffic on the same replica stays healthy
+            chaos.check("serving.canary_dispatch")
 
         def _mine(s: _Slot) -> bool:
             return (s.version or self._default_version) == tick_version
@@ -2339,6 +2591,10 @@ class LlamaEngine:
             with self._cv:
                 decoding = self._reserve_decode_locked(decoding, k)
         if decoding:
+            # an injected device fault: raising here exercises _loop's
+            # recovery (fail the in-flight rows, rebuild the cache, reset
+            # the pipeline, keep serving)
+            chaos.check("serving.dispatch")
             temps_dev = self._temps_dev(temps)
             self._upload_mirrors()
             t0 = time.perf_counter()
@@ -2391,7 +2647,7 @@ class LlamaEngine:
                                             self.max_seq - 1)
                 self._pipe["inflight"] = 1
             new_pending = {"toks": toks_copy, "sched": sched, "k": k,
-                           "ev": ev, "dispatch_ms": dispatch_ms}
+                           "ev": ev, "dispatch_ms": dispatch_ms, "t0": t0}
             acct["segments"] += 1
 
         # ---- harvest: segment N-1's ids (then prefill's first ids)
@@ -2438,11 +2694,32 @@ def make_handler(engine: LlamaEngine, model_name: str):
             )
 
         def do_GET(self):
-            path = self.path.partition("?")[0]
+            path, _, qs = self.path.partition("?")
             if path == "/healthz":
                 self._json(200, {"status": "ok"})
             elif path == "/v1/stats":
                 self._json(200, engine.stats())
+            elif path == "/v1/trace":
+                # flight-recorder pull: this replica's retained spans,
+                # optionally one trace's (the router and
+                # scripts/tracemerge.py read this)
+                q = urllib.parse.parse_qs(qs)
+                tid = (q.get("trace_id") or [""])[0]
+                limit = int((q.get("limit") or ["0"])[0] or 0)
+                spans = TRACER.trace_spans(tid) if tid else TRACER.spans()
+                if limit > 0:
+                    spans = spans[-limit:]
+                self._json(200, {
+                    "enabled": TRACER.enabled,
+                    "spans": [span_to_dict(s) for s in spans],
+                })
+            elif path == "/metrics":
+                body = engine.metrics.registry.render().encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "text/plain; version=0.0.4")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
             elif path == "/v1/models":
                 self._json(200, {
                     "models": [{
@@ -2458,6 +2735,11 @@ def make_handler(engine: LlamaEngine, model_name: str):
         def _read_json(self) -> dict:
             length = int(self.headers.get("Content-Length", "0"))
             return json.loads(self.rfile.read(length) or b"{}")
+
+        def _trace(self):
+            """The caller's context from ``X-Trace-Context`` (None when
+            absent or malformed: propagation never fails a request)."""
+            return parse_trace_header(self.headers.get(TRACE_HEADER))
 
         def _deadline_s(self):
             """(timeout_s, deadline header or None); None when an expired
@@ -2514,6 +2796,7 @@ def make_handler(engine: LlamaEngine, model_name: str):
                     timeout_s=timeout_s,
                     cache_prefix=bool(req.get("cache_prefix", False)),
                     request_id=str(req.get("request_id", "")),
+                    trace=self._trace(),
                     model_version=str(req.get("model_version", "")),
                 )
                 body = h.to_bytes()
@@ -2539,7 +2822,8 @@ def make_handler(engine: LlamaEngine, model_name: str):
                 timeout_s, hdr = self._deadline_s()
                 if timeout_s is None:
                     return
-                result = engine.adopt_handoff(h, timeout_s=timeout_s)
+                result = engine.adopt_handoff(h, timeout_s=timeout_s,
+                                              trace=self._trace())
                 if result.get("handoff_failed"):
                     self._json(502, result)
                     return
@@ -2585,6 +2869,7 @@ def make_handler(engine: LlamaEngine, model_name: str):
                 timeout_s, deadline_hdr = self._deadline_s()
                 if timeout_s is None:
                     return
+                dbg = req.get("debug")
                 result = engine.generate(
                     req.get("prompt_ids", []),
                     int(req.get("max_tokens", 16)),
@@ -2592,6 +2877,9 @@ def make_handler(engine: LlamaEngine, model_name: str):
                     timeout_s=timeout_s,
                     cache_prefix=bool(req.get("cache_prefix", False)),
                     request_id=str(req.get("request_id", "")),
+                    trace=self._trace(),
+                    debug_trace=bool(isinstance(dbg, dict)
+                                     and dbg.get("trace")),
                     model_version=str(req.get("model_version", "")),
                 )
                 if result.get("timed_out") and deadline_hdr is not None:
@@ -2701,13 +2989,19 @@ def serve_main(env: Optional[Dict] = None) -> int:
         if isinstance(v, str) and os.environ.get(k) != v:
             os.environ[k] = v
     cfg = json.loads(os.environ.get("KUBEDL_SERVE_CONFIG", "{}"))
-    if cfg.get("chaos"):
-        raise _unported("chaos", "fault injection")
     ckpt = os.environ.get("KUBEDL_MODEL_PATH", "")
     if is_remote_root(ckpt):
         ckpt = mirror_model_root(ckpt)
     port = int(cfg.get("port", 8080))
     host = cfg.get("host") or os.environ.get("KUBEDL_SERVE_HOST", "127.0.0.1")
+    if cfg.get("chaos"):
+        # a seeded fault schedule for THIS replica (a drill against
+        # subprocess replicas cannot share an in-process plan); same seed,
+        # same fault trace. Armed process-wide, as in the reference.
+        plan = chaos.plan_from_config(cfg["chaos"])
+        chaos.arm(plan)
+        log.info("armed chaos plan seed=%d sites=%s", plan.seed,
+                 sorted(cfg["chaos"].get("sites") or {}))
     kwargs = engine_kwargs(cfg, ckpt)
     engine = LlamaEngine(**kwargs)
     model_name = cfg.get("model_name", kwargs["preset"])

@@ -73,6 +73,7 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from kubedl_tpu_torch import chaos
 from kubedl_tpu_torch.parallel.mesh import ShardSpec
 
 log = logging.getLogger("kubedl_tpu_torch.training.checkpoint")
@@ -228,7 +229,10 @@ def write_snapshot(ckpt_dir: str, shards: Dict[str, np.ndarray],
                    nprocs: int, barrier: Optional[Callable] = None) -> str:
     """Persist a snapshot: the shard file (written to a temporary name,
     then renamed); then ``barrier()`` (every rank's shard file is in
-    place past it); then on rank 0 the manifest and the marker."""
+    place past it); then on rank 0 the manifest and the marker. The
+    chaos site ``checkpoint.torn`` sits between the shards and the
+    manifest: a rank that dies there leaves shards without a manifest or
+    marker, and a restore falls back to the previous complete step."""
     d = Path(ckpt_dir) / f"step-{step:08d}"
     d.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=str(d), suffix=".tmp.npz")
@@ -237,6 +241,7 @@ def write_snapshot(ckpt_dir: str, shards: Dict[str, np.ndarray],
     os.replace(tmp, d / f"shards-p{pid}.npz")
     if barrier is not None:
         barrier()
+    chaos.check("checkpoint.torn")
     if pid == 0:
         (d / "meta.json").write_text(
             json.dumps({"step": step, "nprocs": nprocs, "leaves": manifest})

@@ -32,7 +32,12 @@ each of these for its part, as in the reference: it prints
   first batch.
 - Fault injection: ``KUBEDL_FAULT_ONCE_AT_STEP`` with
   ``KUBEDL_FAULT_MARKER`` exits with SystemExit(137) once, after that
-  step, writing the marker.
+  step, writing the marker; and each step consults the chaos site
+  ``trainer.step_stall`` of a plan armed in this process
+  (``kubedl_tpu_torch.chaos.arm``, as in the reference): a fault wedges
+  the step loop (the beacon keeps stamping) until the cancel event is
+  set, a latency spec delays the step. A ``"chaos"`` key in the config
+  is ignored, as the reference ignores keys it does not read.
 - The progress beacon: ``KUBEDL_BEACON_FILE`` (every
   ``KUBEDL_BEACON_INTERVAL`` s), stopped (and flushed) in ``finally``.
 - Publish: the final state to ``KUBEDL_MODEL_PATH``; a remote root
@@ -51,8 +56,7 @@ The trainer refuses what the reference refuses (``pipe`` with ``sp``, a
 dimension an axis does not divide).
 
 Still rejected with a ValueError that names the later port slice: the
-parameter service (``KUBEDL_PS_ADDR``, ``train_mode: "ps"``) and a chaos
-plan (``"chaos"`` in the config, e.g. the ``trainer.step_stall`` site).
+parameter service (``KUBEDL_PS_ADDR``, ``train_mode: "ps"``).
 """
 
 from __future__ import annotations
@@ -93,28 +97,14 @@ def _int(environ, name: str, default: int = 0) -> int:
 
 def _reject_unported(environ: Dict[str, str], opts: dict) -> None:
     """Raise ``ValueError`` for a knob the port does not run yet, naming
-    the slice it belongs to: the parameter service and a chaos plan (and
-    a mesh axis no rule names, :func:`~kubedl_tpu_torch.parallel.mesh.
-    check_axes`). The ``"chaos"`` key of the training config
-    is the port's own stand-in, not the reference's interface: the
-    reference arms its ``trainer.step_stall`` site only through a
-    ``FaultPlan`` armed in-process (``chaos.arm``), which reaches no
-    worker through its environment. The port has no chaos sites, so a
-    caller that puts a plan in the config is told so rather than ignored."""
+    the slice it belongs to: the parameter service (and a mesh axis no
+    rule names, :func:`~kubedl_tpu_torch.parallel.mesh.check_axes`)."""
     from kubedl_tpu_torch.api.topology import MeshSpec
     from kubedl_tpu_torch.parallel.mesh import check_axes
 
-    later = "belongs to a later port slice"
-    checks = [
-        (bool(environ.get(ENV_PS_ADDR)) or opts.get("train_mode") == "ps",
-         f"parameter-service training {later}"),
-        (bool(opts.get("chaos")),
-         f"a chaos plan (e.g. the trainer.step_stall site): fault "
-         f"injection {later}"),
-    ]
-    for bad, msg in checks:
-        if bad:
-            raise ValueError(msg)
+    if bool(environ.get(ENV_PS_ADDR)) or opts.get("train_mode") == "ps":
+        raise ValueError(
+            "parameter-service training belongs to a later port slice")
     check_axes(MeshSpec.from_env(environ.get(ENV_MESH_AXES, "")))
 
 
@@ -308,19 +298,34 @@ def _train(environ: Dict[str, str], opts: dict, cancel,
             beat = 0.5
         beacon = ProgressBeacon(beacon_file, interval=beat).start()
     tokens_per_step = float(cfg.global_batch * cfg.seq_len)
+    from kubedl_tpu_torch import chaos
+
+    def cancelled() -> bool:
+        return cancel is not None and getattr(cancel, "is_set",
+                                              lambda: False)()
 
     def on_step(i, metrics):
         if "t" not in first_step_wall:
             first_step_wall["t"] = time.time()
         if beacon is not None:
             beacon.step(i + 1, tokens=(i + 1) * tokens_per_step)
-        if cancel is not None and getattr(cancel, "is_set", lambda: False)():
+        if cancelled():
             raise SystemExit(137)  # retryable: gang restart requested
         if (fault_step >= 0 and i == fault_step and fault_marker
                 and not os.path.exists(fault_marker)):
             with open(fault_marker, "w") as f:
                 f.write("fired")
             raise SystemExit(137)
+        if chaos.should_fail("trainer.step_stall"):
+            # injected hang: wedge the STEP LOOP without exiting — the
+            # beacon thread keeps stamping fresh ts, so a watchdog sees
+            # the hang signature (not silent death); only the cancel gets
+            # us out. A latency spec returns after should_fail's own
+            # bounded sleep instead of entering this.
+            while True:
+                if cancelled():
+                    raise SystemExit(137)
+                time.sleep(0.02)
 
     try:
         state, summary = trainer.fit(

@@ -46,7 +46,8 @@ def test_port_files_found():
             "entry.py", "topology.py", "data.py", "checkpoint.py",
             "disagg.py", "w8a16.py", "adamw.py", "client.py", "beacon.py",
             "native.py", "moe.py", "convnet.py", "costmodel.py", "mesh.py",
-            "ring.py", "launch.py", "pipeline.py"} <= names
+            "ring.py", "launch.py", "pipeline.py", "plan.py", "retry.py",
+            "metrics.py", "tracing.py"} <= names
 
 
 def test_engine_without_device_raises_when_no_cuda(monkeypatch):
@@ -84,7 +85,6 @@ def test_resolve_device_rule(monkeypatch):
     # mesh serving is served now: what raises on a mesh is the
     # reference's error for speculation on the contiguous layout it keeps
     {"mesh_axes": {"tensor": 2}, "kv_layout": "contiguous", "spec_k": 4},
-    {"metrics": "prometheus"},
     # trained zoo drafts and the contiguous layout are served now: what
     # raises is a name the zoo lacks and speculation on the contiguous
     # layout (the reference's rule: its rollback frees blocks)
@@ -149,8 +149,10 @@ def test_unknown_spec_draft_raises():
 def test_hot_swap_raises_naming_later_slice(tmp_path):
     """The three hot-swap calls are served now (load, activate, retire);
     a mesh engine (served now, on the contiguous layout) cannot hot-load,
-    as in the reference, and what still raises naming a later slice is
-    the engine's Prometheus family."""
+    as in the reference; and the engine's Prometheus family is served
+    now: ``metrics=`` takes the caller's ``ServingMetrics``, whose
+    registry then renders the engine's family."""
+    from kubedl_tpu_torch.observability.metrics import ServingMetrics
     from kubedl_tpu_torch.serving.server import LlamaEngine
     from kubedl_tpu_torch.training.checkpoint import save_checkpoint
 
@@ -172,18 +174,69 @@ def test_hot_swap_raises_naming_later_slice(tmp_path):
             eng.load_version("v2", str(tmp_path))
     finally:
         eng.close()
-    with pytest.raises(ValueError, match="later port slice"):
-        LlamaEngine(preset="tiny", device="cpu", max_seq=64,
-                    metrics="prometheus")
+    m = ServingMetrics()
+    eng = LlamaEngine(preset="tiny", device="cpu", max_seq=64, metrics=m)
+    try:
+        assert eng.metrics is m
+        eng.generate([1, 2, 3], max_tokens=2)
+        assert m.ttft_ms.summary()[0] == 1
+        assert "kubedl_tpu_serving_ttft_ms_count 1" in m.registry.render()
+    finally:
+        eng.close()
 
 
 def test_serve_main_rejects_chaos(monkeypatch):
+    """``serve_main`` arms the configured chaos plan process-wide, as the
+    reference's does (the seed and sites of ``KUBEDL_SERVE_CONFIG
+    ["chaos"]``), and rejects a plan naming an unknown site before any
+    engine is built: a typo'd drill fails at arm."""
+    import threading
+
+    from kubedl_tpu_torch import chaos
     from kubedl_tpu_torch.serving import server
 
-    monkeypatch.setenv("KUBEDL_SERVE_CONFIG",
-                       json.dumps({"chaos": {"seed": 1, "sites": {}}}))
-    with pytest.raises(ValueError, match="later port slice"):
-        server.serve_main({})
+    for k in ("KUBEDL_MODEL_PATH", "KUBEDL_SERVE_DEVICE"):
+        monkeypatch.delenv(k, raising=False)
+    plan_cfg = {"seed": 7, "sites": {
+        "serving.dispatch": [{"mode": "nth", "n": 10 ** 6}]}}
+    cfg = {"preset": "tiny", "max_seq": 64, "device": "cpu", "port": 0,
+           "chaos": plan_cfg}
+    monkeypatch.setenv("KUBEDL_SERVE_CONFIG", json.dumps(cfg))
+    cancel = threading.Event()
+    box = {}
+
+    def run():
+        try:
+            box["rc"] = server.serve_main({"_KUBEDL_CANCEL": cancel})
+        except BaseException as e:  # surfaced below
+            box["error"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    try:
+        th.start()
+        for _ in range(600):
+            if chaos.active() is not None or "error" in box:
+                break
+            threading.Event().wait(0.05)
+        plan = chaos.active()
+        assert plan is not None and plan.seed == 7, box
+        assert plan._sites == {"serving.dispatch": [chaos.FaultSpec.nth(
+            10 ** 6)]}
+        cancel.set()
+        th.join(timeout=60)
+        assert not th.is_alive() and box.get("rc") == 0, box
+    finally:
+        cancel.set()
+        chaos.disarm()
+    bad = dict(cfg, chaos={"seed": 1, "sites": {"serving.nope": [
+        {"mode": "always"}]}})
+    monkeypatch.setenv("KUBEDL_SERVE_CONFIG", json.dumps(bad))
+    try:
+        with pytest.raises(ValueError, match="unknown chaos site"):
+            server.serve_main({})
+    finally:
+        chaos.disarm()
+    assert chaos.active() is None
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):

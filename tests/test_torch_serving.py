@@ -177,9 +177,16 @@ def test_reference_constructor_arguments_preempt_and_requeue(ref):
         assert wide.max_batch == 3 and wide.stats()["max_batch"] == 3
     finally:
         wide.close()
-    with pytest.raises(ValueError, match="later port slice"):
-        srv.LlamaEngine(preset=preset, max_seq=64, device="cpu",
-                        params=params, metrics=object())
+    # the reference's metrics= argument: the caller's ServingMetrics
+    from kubedl_tpu_torch.observability.metrics import ServingMetrics
+
+    m = ServingMetrics()
+    eng = srv.LlamaEngine(preset=preset, max_seq=64, device="cpu",
+                          params=params, metrics=m)
+    try:
+        assert eng.metrics is m
+    finally:
+        eng.close()
 
 
 def test_pipelined_streams_under_concurrent_admission(ref):
