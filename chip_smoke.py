@@ -4,7 +4,7 @@
     python3 chip_smoke.py --skip-engine  # without phases 5, 6, 13-19, 22,
                                          # 26, 27, 32, 33
     python3 chip_smoke.py --skip-train   # without phases 8 to 12, 21,
-                                         # 23-25, 28-31
+                                         # 23-25, 28-31, 34
 
 Phases (any failure exits non-zero before the final line):
 
@@ -452,12 +452,35 @@ Phases (any failure exits non-zero before the final line):
    tracer on and off; then two-token requests walk the plan to its one
    ``serving.dispatch`` fault: that request fails with the reference's
    error, the scheduler-error counter reads 1, the next is served.
+34. parameter-service training (``kubedl_tpu_torch/{ps,core}``,
+   ``Trainer.fit_ps``). 34a, in process: ``fit_ps`` at Llama-3.2-1B width
+   and depth (bf16, flash, remat as phase 8, b1 x s2048, 6 steps, a push
+   every 2) against the port's ``ParameterService`` (2 shards, staleness
+   4, memory-only) seeded from the worker's init. Gates: (a) with the
+   backward forced to the split pair (deterministic dq), ``fit_ps``'s
+   losses equal ``Trainer.fit``'s bit for bit; (b) the tier's snapshot
+   equals the worker's float32 params within ``n_applied * 2**-23`` of
+   each leaf's largest value; (c) a seeded ``ps.push`` fault at push 2
+   gives ``ps_dropped`` 1 and the next push carries both intervals; (d)
+   on the main path (the fused backward), ``evict_silent_death`` between
+   pushes gives ``ps_rejoins`` 1 and params equal to the snapshot rounded
+   to bf16 right after the rejoin; flash_fwd and flash_bwd_fused once a
+   layer a step. Prints the host ms a push (D2H, delta, the tier's
+   apply), the bytes a push, the step ms with and without a push, the
+   peak host RSS. 34b: two ``train_main`` workers on the card (tiny, a
+   push every 5 of 40 steps) against the port's ``PSServer`` hosted here
+   (a WAL, ``lease_ttl`` 0.5 s), through a seeded ``ps.push`` fault, a
+   silent-death eviction of worker-1 and a shard failover through
+   ``/ps/admin``. Gates: both finish every step with a finite final loss
+   below their first, the drop and the rejoin in the summaries, one
+   silent-death eviction and a failover in the tier, and the snapshot
+   equal to its init plus the committed weighted deltas, bit for bit.
 
 Phase 16 runs after phase 4; phase 22, then phases 13-15, 26, 27, 32,
 17-19 and 33 after phase 6 (they are skipped with ``--skip-engine``);
 phase 20
-after phase 7, then phases 23, 24, 25 and 28, and phases 21, 29, 30 and
-31 after phase 12 (skipped with ``--skip-train``).
+after phase 7, then phases 23, 24, 25 and 28, and phases 21, 29, 30, 31
+and 34 after phase 12 (skipped with ``--skip-train``).
 
 Output: the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -6807,6 +6830,484 @@ def run_obs_phase(pa, server_mod, llama_mod, reqs, serve_cfg, summary):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---- phase 34: parameter-service training ------------------------------------------
+
+#: 34a's worker: Llama-3.2-1B width and depth, bf16, flash, remat as phase 8
+#: ("dots_flash"), one row of 2048 tokens, 6 steps, a push every 2 steps.
+#: Learning rate 1e-3 from the second step on (one warmup step), so that
+#: every step moves the bf16 params by several ulps: at the default 3e-4
+#: with 10 warmup steps most of them would not move, and the deltas would
+#: be mostly zeros
+PS_TRAIN = dict(global_batch=1, seq_len=2048, steps=6, learning_rate=1e-3,
+                warmup_steps=1, attn_impl="flash")
+PS_PUSH_EVERY = 2
+#: 34a's tier: in process, memory-only (a JSON WAL of 1.24e9 floats would
+#: be tens of GB of text)
+PS_TIER = dict(num_shards=2, max_staleness=4, wal_root="")
+#: 34b: two train_main workers on tiny (the model and learning rate of the
+#: reference's own drive), a push every 5 steps, 8 pushes a worker, on a
+#: token file with a learnable pattern (``ps_token_file``: on uniform
+#: random tokens 40 steps do not move the loss past its noise). The
+#: attention is dense, said in the config: tiny's head dim 16 has no flash
+#: kernel (``KERNEL_HEAD_DIMS``), and "auto" would pick flash on the card,
+#: whose operator raises for it
+PS_WORKER_CONFIG = {"model": "tiny", "global_batch": 4, "seq_len": 16,
+                    "steps": 40, "learning_rate": 3e-3, "train_mode": "ps",
+                    "attn_impl": "dense"}
+PS_WORKER_PUSH_EVERY = 5
+#: 34b's faults: the n-th ps.push call over both workers is dropped (a 503
+#: to the worker: PSUnavailable), worker-1 is evicted as silently dead at
+#: its 3rd push, shard 0 is failed through /ps/admin at worker-0's 4th
+PS_DROP_CALL = 6
+PS_EVICT_AT = ("worker-1", 3)
+PS_FAIL_SHARD_AT = ("worker-0", 4)
+#: seconds a 34b worker may run
+PS_WORKER_TIMEOUT = 300
+
+
+class RssSampler:
+    """The process's resident set (VmRSS), sampled every 20 ms on a
+    thread: ``start`` and ``peak`` in bytes."""
+
+    def __init__(self):
+        self.peak = self.start = self._rss()
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def _rss():
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self._rss())
+
+    def __enter__(self):
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+        self.peak = max(self.peak, self._rss())
+
+
+def ps_snapshot_check(snap, host, n_applied):
+    """Gate (b): the tier's snapshot against the worker's float32 params.
+    The tier holds the init plus the pushed deltas, summed in float32:
+    each applied push adds at most two roundings (the delta's subtraction
+    on the worker, the add in the tier), each within half an ulp of the
+    leaf's largest value, so a leaf may be ``n_applied * 2**-23 *
+    max|p|`` away. Returns the worst leaf's error over that bound and the
+    share of elements equal bit for bit."""
+    worst, same, total = 0.0, 0, 0
+    for k, p in host.items():
+        s, t = torch.from_numpy(snap[k]), torch.from_numpy(p)
+        bound = n_applied * 2.0 ** -23 * float(t.abs().max())
+        err = float((s - t).abs().max())
+        worst = max(worst, err / bound if bound > 0 else
+                    (0.0 if err == 0 else math.inf))
+        same += int((s == t).sum())
+        total += t.numel()
+    return worst, same / total
+
+
+def _ms_stats(xs):
+    return {"n": len(xs), "median": statistics.median(xs) if xs else None,
+            "max": max(xs) if xs else None}
+
+
+def run_ps_inprocess(fa, llama_mod):
+    """Phase 34a: ``Trainer.fit_ps`` at Llama-3.2-1B width against the
+    port's in-process ``ParameterService(PSConfig(**PS_TIER))``, seeded
+    from the worker's own init, three runs of ``PS_TRAIN`` from one seed
+    on one batch stream:
+
+    - F (``Trainer.fit``) and P (``fit_ps``, a seeded ``ps.push`` fault
+      at push 2), both with the backward forced to the split pair: its dq
+      is summed in registers, while the fused backward's bulk reduce-adds
+      sum dq in run-to-run order, so that two runs of it part in their
+      last bits from the second step on. Gate (a): P's six losses are F's
+      bit for bit (its applied pushes are fresh, and the dropped one
+      touches nothing either). Gate (c): ``ps_dropped`` 1, the plan's one
+      fault, 2 pushes applied and each shard at version 2 (push 3 carried
+      both intervals), and gate (b) after it.
+    - E, the main path (the default fused backward): ``evict_silent_death``
+      from ``on_step`` after push 1, so push 2 raises ``MemberEvicted`` and
+      the worker re-registers. Gate (d): ``ps_rejoins`` 1, and the params
+      right after the rejoin (the anchor fit_ps takes then) equal the
+      snapshot rounded to bf16, bit for bit. Gate (b) after push 3. Flash
+      launches: flash_fwd and flash_bwd_fused once a layer a step (16 x 6
+      each), none of the split pair.
+
+    Prints the host ms a push (the D2H copy into the pinned buffers, the
+    delta, the tier's apply), the bytes a push, the step ms with and
+    without a push, the peak host RSS. Returns (E's flash launches, P's
+    and F's, the record)."""
+    from kubedl_tpu_torch import chaos
+    from kubedl_tpu_torch.ps import PSConfig, ParameterService
+    from kubedl_tpu_torch.training.data import SyntheticTokens
+    from kubedl_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    model = llama_mod.preset("llama3-1b")
+    tr = Trainer(TrainConfig(model=model, **PS_TRAIN))
+    real_host = tr._host_params
+    timing = {"d2h": [], "delta": [], "apply": [], "bytes": []}
+    seen = {"rejoin": None, "rejoin_bitwise": None, "rejoin_f32_bitwise": None}
+
+    def host_params(params, slot=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_host(params, slot)
+        seen["host_done"] = time.perf_counter()
+        timing["d2h"].append((seen["host_done"] - t) * 1e3)
+        snap = seen.pop("rejoin_snapshot", None)
+        if snap is not None:  # the anchor right after the rejoin's load
+            seen["rejoin_bitwise"] = all(torch.equal(
+                torch.from_numpy(out[k]),
+                torch.from_numpy(snap[k]).to(torch.bfloat16).float())
+                for k in out)
+            seen["rejoin_f32_bitwise"] = all(
+                np.array_equal(out[k], snap[k]) for k in out)
+        return out
+
+    class Tier:
+        """The tier as fit_ps sees it, timed: a push's apply, and the delta
+        computed between the D2H copy and the push."""
+
+        def __init__(self, svc):
+            self.svc, self.registers = svc, 0
+
+        def register(self, w):
+            snap, versions = self.svc.register(w)
+            self.registers += 1
+            if self.registers > 1:
+                seen["rejoin_snapshot"] = snap
+            return snap, versions
+
+        def pull(self, w):
+            return self.svc.pull(w)
+
+        def push(self, w, step, deltas, versions=None):
+            t = time.perf_counter()
+            timing["delta"].append((t - seen["host_done"]) * 1e3)
+            timing["bytes"].append(sum(d.nbytes for d in deltas.values()))
+            try:
+                return self.svc.push(w, step, deltas, versions=versions)
+            finally:
+                timing["apply"].append((time.perf_counter() - t) * 1e3)
+
+    def run(kind, route, plan=None, evict_at=None):
+        """One run from the seeded init on the seeded stream: (final host
+        params, summary, losses, on_step times, tier)."""
+        losses, stamps, svc = [], [], None
+
+        def on_step(i, m):
+            losses.append(m["loss"].detach().clone())
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            if i == evict_at:
+                svc.evict_silent_death("worker-0")
+
+        state = tr.init_state()
+        data = iter(SyntheticTokens(1, PS_TRAIN["seq_len"], model.vocab_size,
+                                    seed=34))
+        host = None
+        with forced_route(fa, route):
+            if kind == "fit":
+                state, summary = tr.fit(data, state=state, on_step=on_step)
+            else:
+                # the tier copies its init out of the pinned slot
+                svc = ParameterService(real_host(state["params"], 0),
+                                       PSConfig(**PS_TIER))
+                tr._host_params = host_params
+                if plan is not None:
+                    chaos.arm(plan)
+                try:
+                    state, summary = tr.fit_ps(
+                        data, Tier(svc), "worker-0", state=state,
+                        on_step=on_step, push_every=PS_PUSH_EVERY)
+                finally:
+                    chaos.disarm()
+                    tr._host_params = real_host
+                host = real_host(state["params"], 0)  # views, checked next
+        del state
+        _free()
+        return host, summary, torch.stack(losses), stamps, svc
+
+    rec = {"config": dict(PS_TRAIN, model="llama3-1b",
+                          push_every=PS_PUSH_EVERY, tier=PS_TIER)}
+    with RssSampler() as rss:
+        _reset(fa)
+        _, _, loss_f, _, _ = run("fit", "split")
+        plan = chaos.FaultPlan(34, {"ps.push": [chaos.FaultSpec.nth(2)]})
+        host, sp, loss_p, _, svc = run("ps", "split", plan=plan)
+        pair_launches = dict(fa.LAUNCHES)
+        worst_p, same_p = ps_snapshot_check(svc.snapshot(), host,
+                                            sp["ps_pushes"])
+        ident = {
+            "fit_losses": loss_f.tolist(), "fit_ps_losses": loss_p.tolist(),
+            "losses_bitwise": bool(torch.equal(loss_f, loss_p)),
+            "counters": {k: v for k, v in sp.items() if k.startswith("ps_")},
+            "faults": plan.faults("ps.push"), "versions": svc.versions(),
+            "snapshot_err_over_tolerance": worst_p,
+            "snapshot_bitwise_share": same_p,
+            "launches": pair_launches}
+        rec["identity_split"] = ident
+        del svc, host
+        if not ident["losses_bitwise"]:
+            fail(f"34a (a): fit_ps's losses differ from fit's: "
+                 f"{json.dumps(ident)}")
+        if (sp["ps_dropped"], sp["ps_pushes"], ident["faults"],
+                ident["versions"]) != (1, 2, 1, [2, 2]):
+            fail(f"34a (c): the dropped push was not carried forward: "
+                 f"{json.dumps(ident)}")
+        if not worst_p <= 1.0:
+            fail(f"34a (b) after the drop: the snapshot is {worst_p:.3g} x "
+                 f"its tolerance from the worker's params")
+        # E: the main path; evicted after push 1 (step 2, i == 1)
+        for xs in timing.values():
+            del xs[:]
+        _reset(fa)
+        host, se, loss_e, stamps, svc = run("ps", None, evict_at=2)
+        launches = dict(fa.LAUNCHES)
+        worst_e, same_e = ps_snapshot_check(svc.snapshot(), host,
+                                            se["ps_pushes"])
+        del svc, host
+        _free()
+    layers = model.n_layers
+    want = {"flash_fwd": layers * 6, "flash_bwd_fused": layers * 6,
+            "flash_bwd_dq": 0, "flash_bwd_dkdv": 0}
+    # the step ms: on_step times (each after a synchronise); a step whose
+    # interval holds the push after the step before it counts as "with"
+    gaps = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    with_push = [g for i, g in enumerate(gaps, 1) if i % PS_PUSH_EVERY == 0]
+    without = [g for i, g in enumerate(gaps, 1) if i % PS_PUSH_EVERY != 0]
+    rec["main"] = {
+        "losses": loss_e.tolist(),
+        "counters": {k: v for k, v in se.items() if k.startswith("ps_")},
+        "step_time_ms": se["step_time_ms"],
+        "tokens_per_sec": se["tokens_per_sec"],
+        "rejoin_params_equal_bf16_snapshot": seen["rejoin_bitwise"],
+        "rejoin_params_equal_f32_snapshot": seen["rejoin_f32_bitwise"],
+        "snapshot_err_over_tolerance": worst_e,
+        "snapshot_bitwise_share": same_e,
+        "launches": launches,
+        # the first push's D2H also pins its buffers
+        "host_ms_a_push": {k: _ms_stats(timing[k])
+                           for k in ("d2h", "delta", "apply")},
+        "bytes_a_push": timing["bytes"][0] if timing["bytes"] else None,
+        "step_ms_with_push": _ms_stats(with_push),
+        "step_ms_without_push": _ms_stats(without)}
+    rec["peak_host_rss_gib"] = rss.peak / 2**30
+    rec["host_rss_before_gib"] = rss.start / 2**30
+    rec["seconds"] = time.perf_counter() - t_phase
+    print("phase 34a (fit_ps, llama3-1b width, in process; smoke run, not a "
+          "benchmark): " + json.dumps(rec), flush=True)
+    main = rec["main"]
+    if (se["ps_rejoins"], se["ps_pushes"]) != (1, 2) or \
+            not seen["rejoin_bitwise"]:
+        fail(f"34a (d): eviction and rejoin: {json.dumps(main)}")
+    if not worst_e <= 1.0:
+        fail(f"34a (b): the snapshot is {worst_e:.3g} x its tolerance from "
+             f"the worker's params")
+    if launches != want:
+        fail(f"34a: flash launches {launches} != {want}")
+    if not all(math.isfinite(x) for x in main["losses"]):
+        fail(f"34a: non-finite losses {main['losses']}")
+    return launches, pair_launches, rec
+
+
+def ps_recording_tier():
+    """The port's ``ParameterService`` recording every committed push (its
+    versions after the commit, its weight, its deltas) for the
+    conservation check, and running ``hooks[(worker, n)]`` just before
+    the worker's n-th push."""
+    from kubedl_tpu_torch.ps import ParameterService
+
+    class Recording(ParameterService):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.committed, self.hooks, self._n = [], {}, {}
+            self._n_lock = threading.Lock()
+
+        def push(self, worker, step, deltas, versions=None):
+            with self._n_lock:
+                n = self._n[worker] = self._n.get(worker, 0) + 1
+                hook = self.hooks.pop((worker, n), None)
+            if hook is not None:
+                hook()
+            res = super().push(worker, step, deltas, versions=versions)
+            with self._n_lock:
+                self.committed.append((list(res.versions), res.weight,
+                                       deltas))
+            return res
+
+    return Recording
+
+
+def ps_conserved(init, svc, num_shards):
+    """The tier's conservation: its snapshot is its init plus every
+    committed weighted delta, each shard's in version order, in the
+    tier's own float32 expression. Returns the first key that is not
+    equal bit for bit, or None."""
+    from kubedl_tpu_torch.ps.shards import shard_for
+
+    want = {k: v.copy() for k, v in init.items()}
+    for s in range(num_shards):
+        for _, w, deltas in sorted(svc.committed, key=lambda c: c[0][s]):
+            for k, d in deltas.items():
+                if shard_for(k, num_shards) == s:
+                    want[k] = want[k] + w * np.asarray(d, np.float32)
+    snap = svc.snapshot()
+    return next((k for k in want if want[k].tobytes() != snap[k].tobytes()),
+                None)
+
+
+def ps_token_file(tmp):
+    """A token file (int32) whose next token is the current one plus 3,
+    mod tiny's vocabulary: a pattern 40 steps of tiny learn."""
+    path = os.path.join(tmp, "tokens.bin")
+    (np.arange(1 << 16, dtype=np.int64) * 3 % 256).astype(np.int32).tofile(
+        path)
+    return path
+
+
+def run_ps_workers(llama_mod):
+    """Phase 34b: this process hosts the port's ``PSServer`` over a
+    recording ``ParameterService`` (2 shards, a WAL with ``fsync`` off,
+    ``lease_ttl`` 0.5 s), seeded with the workers' init, and starts two
+    ``python -m kubedl_tpu_torch.training.entry`` workers on the card
+    (``PS_WORKER_CONFIG`` on ``ps_token_file``'s tokens, ``KUBEDL_PS_ADDR``,
+    ``KUBEDL_PROCESS_ID`` 0 / 1,
+    ``KUBEDL_PS_PUSH_EVERY``, a beacon file each). Three faults mid-run: a
+    seeded ``ps.push`` fault armed here (a 503: the worker's push is
+    dropped), worker-1 evicted as silently dead at its 3rd push, shard 0
+    failed through ``/ps/admin`` at worker-0's 4th push (the next op fails
+    it over: a fence bump and a WAL replay). Gates: both exit 0 after
+    every step with a finite final loss below their first; the faulted
+    worker's ``ps_dropped`` >= 1 and the drops equal the plan's faults;
+    worker-1's ``ps_rejoins`` 1; the tier's one silent-death eviction and
+    at least one failover; conservation, bit for bit. The plan is disarmed
+    and the workers are stopped in a ``finally``."""
+    from kubedl_tpu_torch import chaos
+    from kubedl_tpu_torch.observability.metrics import PSMetrics
+    from kubedl_tpu_torch.ops import flash_attention as fa
+    from kubedl_tpu_torch.ps import PSConfig
+    from kubedl_tpu_torch.ps.server import PSClient, PSServer
+    from kubedl_tpu_torch.core.store import ObjectStore
+    from kubedl_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="kdl-ps-")
+    cfg = dict(PS_WORKER_CONFIG, data_path=ps_token_file(tmp))
+    model = llama_mod.preset(cfg["model"])
+    tr = Trainer(TrainConfig(model=model, global_batch=cfg["global_batch"],
+                             seq_len=cfg["seq_len"], steps=cfg["steps"],
+                             learning_rate=cfg["learning_rate"],
+                             attn_impl=cfg["attn_impl"]))
+    init = tr._host_params(tr.init_state()["params"])
+    route = {"attn_impl": tr.attn_impl, "head_dim": model.head_dim,
+             "kernel_head_dims": list(fa.KERNEL_HEAD_DIMS)}
+    del tr
+    svc = ps_recording_tier()(
+        init, PSConfig(num_shards=2, max_staleness=4,
+                       wal_root=os.path.join(tmp, "wal"), fsync="off",
+                       lease_ttl=0.5),
+        store=ObjectStore(), metrics=PSMetrics())
+    plan = chaos.FaultPlan(34, {"ps.push": [chaos.FaultSpec.nth(
+        PS_DROP_CALL)]})
+    procs, outs = [], []
+    srv = PSServer(svc).start()
+    try:
+        svc.hooks[PS_EVICT_AT] = lambda: svc.evict_silent_death(
+            PS_EVICT_AT[0])
+        svc.hooks[PS_FAIL_SHARD_AT] = lambda: PSClient(srv.addr)._post(
+            "/ps/admin", {"op": "fail_shard", "shard": 0})
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("KUBEDL_")}
+        env.update(PYTHONPATH=os.path.dirname(os.path.abspath(__file__)),
+                   KUBEDL_TRAIN_CONFIG=json.dumps(cfg),
+                   KUBEDL_PS_ADDR=srv.addr,
+                   KUBEDL_PS_PUSH_EVERY=str(PS_WORKER_PUSH_EVERY))
+        chaos.arm(plan)
+        for i in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "kubedl_tpu_torch.training.entry"],
+                env=dict(env, KUBEDL_PROCESS_ID=str(i),
+                         KUBEDL_BEACON_FILE=os.path.join(tmp, f"beacon-{i}")),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for p in procs:
+            outs.append(p.communicate(timeout=PS_WORKER_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"34b: a worker ran past {PS_WORKER_TIMEOUT} s")
+    finally:
+        chaos.disarm()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        srv.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if [p.returncode for p in procs] != [0, 0]:
+        fail("34b: workers exited "
+             f"{[p.returncode for p in procs]}: {[o[-3000:] for o in outs]}")
+    sums = [_json_lines(o, "worker_summary") for o in outs]
+    if [len(s) for s in sums] != [1, 1]:
+        fail(f"34b: worker summaries {sums}")
+    sums = [s[0] for s in sums]
+    stats = svc.stats()
+    missing = ps_conserved(init, svc, 2)
+    keys = ("steps", "first_loss", "final_loss", "ps_pushes", "ps_decayed",
+            "ps_rejected", "ps_dropped", "ps_repulls", "ps_rejoins",
+            "ps_versions", "step_time_ms")
+    rec = {"config": dict(cfg, push_every=PS_WORKER_PUSH_EVERY),
+           "route": route,
+           "workers": [{k: s[k] for k in keys} for s in sums],
+           "tier": stats, "fences": [sh.fence for sh in svc.shards],
+           "evictions": {r: svc.metrics.ps_evictions.value(reason=r)
+                         for r in ("silent_death", "preemption")},
+           "plan_faults": plan.faults("ps.push"),
+           "committed_pushes": len(svc.committed),
+           "conserved": missing is None,
+           "seconds": time.perf_counter() - t0}
+    print("phase 34b (train_main x 2 workers against the port's PSServer, "
+          "tiny; smoke run, not a benchmark): " + json.dumps(rec), flush=True)
+    for s in sums:
+        if s["steps"] != cfg["steps"] or not (
+                math.isfinite(s["final_loss"])
+                and s["final_loss"] < s["first_loss"]):
+            fail(f"34b: a worker did not train: {json.dumps(rec)}")
+    dropped = [s["ps_dropped"] for s in sums]
+    if sum(dropped) != rec["plan_faults"] or rec["plan_faults"] != 1:
+        fail(f"34b: drops {dropped} != the plan's faults: {json.dumps(rec)}")
+    if sums[1]["ps_rejoins"] != 1 or sums[0]["ps_rejoins"] != 0:
+        fail(f"34b: rejoins {[s['ps_rejoins'] for s in sums]}")
+    if rec["evictions"]["silent_death"] != 1 or stats["failovers"] < 1 \
+            or rec["fences"][0] < 1:
+        fail(f"34b: the tier's eviction / failover: {json.dumps(rec)}")
+    if missing is not None or rec["committed_pushes"] != sum(
+            s["ps_pushes"] for s in sums):
+        fail(f"34b: conservation fails at {missing!r}: {json.dumps(rec)}")
+    return rec
+
+
+def run_ps_phase(fa, llama_mod):
+    """Phase 34: parameter-service training (34a, 34b). Returns 34a's
+    main-path flash launches and its identity pair's."""
+    t0 = time.perf_counter()
+    launches, pair_launches, _ = run_ps_inprocess(fa, llama_mod)
+    run_ps_workers(llama_mod)
+    print(f"phase 34 (parameter-service training): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, pair_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--skip-engine", action="store_true",
@@ -6814,7 +7315,7 @@ def main() -> int:
                     "17-19, 22, 26, 27, 32, 33)")
     ap.add_argument("--skip-train", action="store_true",
                     help="skip the training phases (8 to 12, 21, 23-25, "
-                    "28-31)")
+                    "28-31, 34)")
     ap.add_argument("--dp-identity-rank", metavar="NAMES",
                     help=argparse.SUPPRESS)  # one rank of phase 29a
     ap.add_argument("--mp-identity-rank", metavar="NAMES",
@@ -7003,6 +7504,7 @@ def main() -> int:
     dp_launches = {"flash": {}, "adamw": {}}
     mp_launches = {"f32": {}, "bf16": {}}
     pp_launches = {"f32": {}, "bf16": {}}
+    ps_launches, ps_pair_launches = {}, {}
     if not args.skip_train:
         gemma_launches, gemma_train = run_gemma_train(fa, llama_mod)
         stamp("phase 23")
@@ -7034,6 +7536,8 @@ def main() -> int:
         pp_launches = run_pp_phase(fa, ck, moe_mod,
                                    moe_summary.get("first_loss"))
         stamp("phase 31")
+        ps_launches, ps_pair_launches = run_ps_phase(fa, llama_mod)
+        stamp("phase 34")
 
     def record(name, source, replaces, n, rec, design):
         lib = rec["library_ms"]
@@ -7163,7 +7667,14 @@ def main() -> int:
                     name),
                 # phase 31d: ring attention on sp, no flash launch (gated)
                 "bench-moe-sp2-rank": 0 if "sp_adamw" in pp_launches
-                else None}
+                else None,
+                # phase 34a: Trainer.fit_ps's main path (the fused
+                # backward), one worker against the in-process tier
+                "llama3-1b-ps": ps_launches.get(name)}
+        if name in PAIR:  # phase 34a's identity pair forces the split pair
+            rec["launches_by_path"] = {
+                "llama3-1b": launches[name],
+                "llama3-1b-ps-identity": ps_pair_launches.get(name)}
         line.append(rec)
     # Gemma-2B's training paths (hd 256): the forward and the fused
     # backward timed at phase 7's Gemma-2B case, launches from phase 23's

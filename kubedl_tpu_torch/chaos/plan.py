@@ -9,9 +9,11 @@ site follows a seeded schedule so the same seed always produces the same
 fault trace. The :data:`SITES` registry is the reference's, whole, so
 every drill config written for the reference parses here; the sites the
 port consults are the engine's six ``serving.*`` sites, ``remote.request``
-(the blob client), ``checkpoint.torn`` (``training/checkpoint.py``) and
-``trainer.step_stall`` (``training/entry.py``). The rest belong to the
-control plane, which stays the reference's.
+(the blob client), ``checkpoint.torn`` (``training/checkpoint.py``),
+``trainer.step_stall`` (``training/entry.py``), the parameter service's
+``ps.push`` / ``ps.pull`` / ``ps.shard_failover`` (``ps/service.py``) and
+the object store's ``store.*`` sites (``core/store.py``, ``core/wal.py``).
+The rest belong to the control plane, which stays the reference's.
 
 Injection sites of the registry::
 

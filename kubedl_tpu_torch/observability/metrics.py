@@ -1,11 +1,12 @@
 """Prometheus-style metrics, dependency-free: the port's copy of
 ``kubedl_tpu/observability/metrics.py`` (standard library only) —
 ``Counter``, ``Gauge``, ``Histogram``, ``MetricsRegistry`` and the serving
-engine's family, :class:`ServingMetrics`. The family names, HELP strings,
-label keys and buckets are the reference's, letter for letter (the
-``kubedl_tpu_serving_`` prefix included): dashboards, alerts and the
-router read them. ``JobMetrics``, ``PSMetrics``, ``RouterMetrics`` and
-``SLOMetrics`` belong to the control plane, which stays the reference's.
+engine's family, :class:`ServingMetrics`, and the parameter service's,
+:class:`PSMetrics`. The family names, HELP strings, label keys and
+buckets are the reference's, letter for letter (the ``kubedl_tpu_serving_``
+and ``kubedl_tpu_ps_`` prefixes included): dashboards, alerts and the
+router read them. ``JobMetrics``, ``RouterMetrics`` and ``SLOMetrics``
+belong to the control plane, which stays the reference's.
 Exported in Prometheus text format by :meth:`MetricsRegistry.render`
 (``GET /metrics`` on a port replica).
 """
@@ -226,6 +227,50 @@ class MetricsRegistry:
         return "\n".join(lines) + "\n"
 
 
+class PSMetrics:
+    """The parameter-service metric family (``kubedl_tpu_torch/ps``,
+    docs/elasticity.md "Parameter-service mode"): asynchronous push/pull
+    aggregation accounting — push outcomes by staleness handling, member
+    churn, and shard failovers."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None) -> None:
+        self.registry = registry or MetricsRegistry()
+        r = self.registry
+        self.ps_pushes = r.counter(
+            "kubedl_tpu_ps_pushes",
+            "Worker delta pushes, by outcome: fresh (staleness 0, full "
+            "weight), decayed (in-bound staleness, decay-weighted), "
+            "rejected (beyond max_staleness — the worker must re-pull)",
+        )
+        self.ps_pulls = r.counter(
+            "kubedl_tpu_ps_pulls",
+            "Shard snapshot pulls served (registration warm-starts "
+            "included)",
+        )
+        self.ps_members = r.gauge(
+            "kubedl_tpu_ps_members",
+            "Workers currently registered in the aggregation group",
+        )
+        self.ps_shard_failovers = r.counter(
+            "kubedl_tpu_ps_shard_failovers",
+            "Shard ownership transfers (lease re-acquired with a bumped "
+            "fencing token, state replayed from the shard WAL)",
+        )
+        self.ps_evictions = r.counter(
+            "kubedl_tpu_ps_evictions",
+            "Members removed from the aggregation group, by reason: "
+            "preemption (notice — in-flight contribution committed), "
+            "silent_death (watchdog — in-flight contribution discarded), "
+            "departed (clean deregister)",
+        )
+        self.ps_push_staleness = r.histogram(
+            "kubedl_tpu_ps_push_staleness_steps",
+            "Aggregate-steps of staleness per accepted push (shard head "
+            "version minus the worker's pulled version)",
+            buckets=(0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0),
+        )
+
+
 #: ms-scale buckets for the decode pipeline's per-tick timings (the
 #: default seconds-scale buckets would dump every tick into the first one)
 _TICK_MS_BUCKETS = (0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0,
@@ -416,3 +461,7 @@ class ServingMetrics:
             "RUNNING predictor pods whose stats probe has failed "
             "consecutively past the NotReady threshold",
         )
+
+
+#: Process-wide default for the parameter-service tier (kubedl_tpu_torch/ps).
+DEFAULT_PS_METRICS = PSMetrics()

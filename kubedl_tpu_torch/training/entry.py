@@ -55,8 +55,13 @@ picking ring or Ulysses attention for ``sp``, for Llama and MoE alike).
 The trainer refuses what the reference refuses (``pipe`` with ``sp``, a
 dimension an axis does not divide).
 
-Still rejected with a ValueError that names the later port slice: the
-parameter service (``KUBEDL_PS_ADDR``, ``train_mode: "ps"``).
+- Parameter-service mode: with ``train_mode: "ps"`` in the config AND
+  ``KUBEDL_PS_ADDR`` set (the reference's rule; either alone trains
+  synchronously), the worker ``"worker-" + KUBEDL_PROCESS_ID`` runs
+  :meth:`Trainer.fit_ps` against :class:`~kubedl_tpu_torch.ps.server.PSClient`
+  at that address (either package's tier), pushing every
+  ``KUBEDL_PS_PUSH_EVERY`` steps, else ``ps_push_every`` from the config
+  (default 1), with the same beacon and step hook; no interval saves.
 """
 
 from __future__ import annotations
@@ -79,6 +84,8 @@ ENV_CKPT_DIR = "KUBEDL_CKPT_DIR"
 ENV_CKPT_PEER = "KUBEDL_CKPT_PEER"
 ENV_MODEL_PATH = "KUBEDL_MODEL_PATH"
 ENV_PS_ADDR = "KUBEDL_PS_ADDR"
+ENV_PS_PUSH_EVERY = "KUBEDL_PS_PUSH_EVERY"
+ENV_PROCESS_ID = "KUBEDL_PROCESS_ID"
 ENV_ELASTIC_BASE_WORLD = "KUBEDL_ELASTIC_BASE_WORLD"
 ENV_ELASTIC_BASE_DP = "KUBEDL_ELASTIC_BASE_DP"
 ENV_BEACON_FILE = "KUBEDL_BEACON_FILE"
@@ -95,16 +102,12 @@ def _int(environ, name: str, default: int = 0) -> int:
     return int(environ.get(name, "") or default)
 
 
-def _reject_unported(environ: Dict[str, str], opts: dict) -> None:
-    """Raise ``ValueError`` for a knob the port does not run yet, naming
-    the slice it belongs to: the parameter service (and a mesh axis no
-    rule names, :func:`~kubedl_tpu_torch.parallel.mesh.check_axes`)."""
+def _check_mesh(environ: Dict[str, str]) -> None:
+    """Raise ``ValueError`` for a mesh axis no rule names
+    (:func:`~kubedl_tpu_torch.parallel.mesh.check_axes`)."""
     from kubedl_tpu_torch.api.topology import MeshSpec
     from kubedl_tpu_torch.parallel.mesh import check_axes
 
-    if bool(environ.get(ENV_PS_ADDR)) or opts.get("train_mode") == "ps":
-        raise ValueError(
-            "parameter-service training belongs to a later port slice")
     check_axes(MeshSpec.from_env(environ.get(ENV_MESH_AXES, "")))
 
 
@@ -172,7 +175,7 @@ def train_main(env: Optional[Dict[str, object]] = None) -> int:
     if spawn_ts:
         phases["spawn_to_proc"] = max(t_start - spawn_ts, 0.0)
     opts = json.loads(environ.get(ENV_TRAIN_CONFIG, "{}") or "{}")
-    _reject_unported(environ, opts)
+    _check_mesh(environ)
     from kubedl_tpu_torch.parallel.mesh import initialize_from_env
 
     t0 = time.time()
@@ -327,11 +330,24 @@ def _train(environ: Dict[str, str], opts: dict, cancel,
                     raise SystemExit(137)
                 time.sleep(0.02)
 
+    # parameter-service mode: this worker pushes deltas to / pulls the
+    # aggregate from the tier at KUBEDL_PS_ADDR instead of the sync gang
+    ps_addr = environ.get(ENV_PS_ADDR, "")
     try:
-        state, summary = trainer.fit(
-            iter(data), state=state, on_step=on_step,
-            ckpt_dir=ckpt_dir or None, ckpt_every=cfg.ckpt_every,
-            ckpt_peer=ckpt_peer)
+        if opts.get("train_mode", "sync") == "ps" and ps_addr:
+            from kubedl_tpu_torch.ps.server import PSClient
+
+            push_every = int(environ.get(ENV_PS_PUSH_EVERY, "0")
+                             or opts.get("ps_push_every", 1))
+            state, summary = trainer.fit_ps(
+                iter(data), PSClient(ps_addr),
+                "worker-" + environ.get(ENV_PROCESS_ID, "0"),
+                state=state, on_step=on_step, push_every=push_every)
+        else:
+            state, summary = trainer.fit(
+                iter(data), state=state, on_step=on_step,
+                ckpt_dir=ckpt_dir or None, ckpt_every=cfg.ckpt_every,
+                ckpt_peer=ckpt_peer)
     finally:
         if beacon is not None:
             beacon.stop()  # flush the final step count

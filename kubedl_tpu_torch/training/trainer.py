@@ -71,8 +71,17 @@ the reference's global order; in pipeline mode routing is per
 microbatch and data rank, as the reference's), through the same
 optimizer and flash operators.
 
+- ``fit_ps``: the parameter-service loop (``train_mode: "ps"``), the
+  reference's protocol against an in-process
+  :class:`~kubedl_tpu_torch.ps.service.ParameterService` or the HTTP
+  :class:`~kubedl_tpu_torch.ps.server.PSClient` (either package's tier):
+  the params cross to the host as float32 by their keystr names
+  (``checkpoint._leaf_items``: the reference's), through two sets of
+  pinned buffers on CUDA and one synchronisation a push.
+
 What it rejects with a ValueError, never silently: ``pipe`` with an
-``sp`` axis above 1 (the reference's message) and ``fit_ps``.
+``sp`` axis above 1 (the reference's message), and ``fit_ps`` on a model
+sharded across processes (each worker pushes its whole model).
 """
 
 from __future__ import annotations
@@ -97,8 +106,6 @@ from kubedl_tpu_torch.parallel.mesh import (
 )
 from kubedl_tpu_torch.parallel.pipeline import pipeline_apply
 from kubedl_tpu_torch.training.buckets import plan_grad_buckets
-
-LATER = "a later port slice"
 
 
 @dataclass(frozen=True)
@@ -487,6 +494,8 @@ class Trainer:
             for i in range(len(like))]
         self.attn_impl = "dense"
         self.attn_fn = self._select_attn()
+        #: fit_ps's two sets of pinned host buffers (CUDA), by slot
+        self._pinned: Dict[int, Dict[str, torch.Tensor]] = {}
 
     def _pipe_pspecs(self, specs, family: ModelFamily):
         """The reference's pipeline layout (``trainer.py:532``): the
@@ -1103,9 +1112,198 @@ class Trainer:
         summary["ckpt_async"] = checkpointer is not None
         return state, summary
 
-    def fit_ps(self, *args, **kwargs):
-        raise ValueError(f"parameter-service training (fit_ps) belongs to "
-                         f"{LATER}")
+    # ---- parameter-service mode ---------------------------------------
+
+    def _host_params(self, params, slot: Optional[int] = None
+                     ) -> Dict[str, np.ndarray]:
+        """The params as the wire-format dict the tier shards by:
+        ``keystr(path) -> float32 host array`` (the reference's names and
+        order). With ``slot`` (0 or 1) on CUDA the arrays are views of
+        that set of pinned buffers, filled by asynchronous copies and one
+        synchronisation; they hold until the same slot is filled again.
+        Otherwise (or on the CPU) each array is a copy of its own."""
+        from kubedl_tpu_torch.training.checkpoint import _leaf_items
+
+        if any(self.param_specs):
+            raise ValueError(
+                "fit_ps pushes each worker's whole model: the params are "
+                "sharded across processes on this mesh")
+        items = list(_leaf_items(params))
+        if slot is None or self.device.type != "cuda":
+            return {name: leaf.detach().to("cpu", torch.float32,
+                                           copy=True).numpy()
+                    for name, leaf in items}
+        pinned = self._pinned.setdefault(slot, {})
+        for name, leaf in items:
+            buf = pinned.get(name)
+            if buf is None or buf.shape != leaf.shape:
+                buf = pinned[name] = torch.empty(
+                    leaf.shape, dtype=torch.float32, pin_memory=True)
+            buf.copy_(leaf.detach().float(), non_blocking=True)
+        torch.cuda.synchronize(self.device)
+        return {name: pinned[name].numpy() for name, _ in items}
+
+    @staticmethod
+    def _load_params(params, host: Dict[str, np.ndarray]):
+        """Overwrite the params' leaves from a tier snapshot (by keystr
+        name), in place, rounded to each leaf's dtype; leaves the snapshot
+        does not cover keep their local values. Returns ``params``."""
+        from kubedl_tpu_torch.training.checkpoint import _leaf_items
+
+        for name, leaf in _leaf_items(params):
+            arr = host.get(name)
+            if arr is not None:
+                src = torch.from_numpy(np.asarray(arr, dtype=np.float32))
+                leaf.copy_(src.reshape(leaf.shape))
+        return params
+
+    @staticmethod
+    def _deltas(current: Dict[str, np.ndarray],
+                anchor: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """``current - anchor`` a leaf (``current`` where the anchor has no
+        such leaf), each a new float32 array: IEEE subtraction on the
+        host's threads, the bits of the reference's numpy expression."""
+        out = {}
+        for k, cur in current.items():
+            anc = anchor.get(k)
+            if anc is None:
+                out[k] = cur - np.zeros_like(cur)
+            else:
+                out[k] = torch.sub(torch.from_numpy(cur),
+                                   torch.from_numpy(anc)).numpy()
+        return out
+
+    def fit_ps(
+        self,
+        data: Iterator,
+        ps,
+        worker_id: str,
+        state: Optional[Dict[str, Any]] = None,
+        steps: Optional[int] = None,
+        on_step: Optional[Callable[[int, Dict[str, Any]], None]] = None,
+        push_every: int = 1,
+    ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """The ``train_mode: "ps"`` loop (the reference's
+        ``Trainer.fit_ps``): train locally, and every ``push_every`` steps
+        (and at the last) push the parameter delta since the last anchor
+        to ``ps``, a :class:`~kubedl_tpu_torch.ps.service.ParameterService`
+        or the HTTP :class:`~kubedl_tpu_torch.ps.server.PSClient` (the
+        same duck type; either package's tier).
+
+        Failure handling is the protocol:
+
+        - ``PushRejected`` (past the staleness bound): the local delta is
+          dropped, the worker re-pulls the aggregate and resumes from it;
+        - ``PSUnavailable`` / an injected ``ps.push`` or ``ps.pull``
+          fault: transient, the anchor is kept, so the delta keeps
+          accumulating and rides the next push;
+        - ``MemberEvicted``: the worker re-registers and warm-starts from
+          the tier's snapshot (the late joiner's path).
+
+        Registration itself warm-starts: the local params are overwritten
+        from the snapshot. The optimizer state is left as it is."""
+        from kubedl_tpu_torch.chaos import FaultInjected
+        from kubedl_tpu_torch.ps.server import PSUnavailable
+        from kubedl_tpu_torch.ps.service import MemberEvicted, PushRejected
+
+        steps = steps or self.cfg.steps
+        state = state or self.init_state()
+        push_every = max(1, int(push_every))
+        start = int(state["step"])
+        tokens_per_step = self.cfg.global_batch * self.cfg.seq_len
+        slot = 0  # the pinned set the anchor's arrays are views of
+
+        def anchor_now():
+            nonlocal slot
+            slot ^= 1
+            return self._host_params(state["params"], slot)
+
+        snapshot, versions = ps.register(worker_id)
+        if snapshot:
+            self._load_params(state["params"], snapshot)
+        anchor = anchor_now()
+
+        pushes = decayed = rejected = dropped = repulls = rejoins = 0
+        steps_run = 0
+        last_loss_arr = None
+        first_loss = None
+        first_step_s = 0.0
+        t0 = time.perf_counter()
+        t_run = t0
+        for i in range(start, steps):
+            state, metrics = self.train_step(state, next(data))
+            last_loss_arr = metrics["loss"]
+            steps_run += 1
+            if i == start:
+                first_loss = _fetch_scalar(metrics["loss"])
+                first_step_s = time.perf_counter() - t0
+                t_run = time.perf_counter()
+            if on_step is not None:
+                on_step(i, metrics)
+            if (i + 1 - start) % push_every != 0 and i + 1 != steps:
+                continue
+            current = self._host_params(state["params"], slot ^ 1)
+            deltas = self._deltas(current, anchor)
+            try:
+                res = ps.push(worker_id, i + 1, deltas, versions=versions)
+                pushes += 1
+                if res.outcome == "decayed":
+                    decayed += 1
+                versions = list(res.versions)
+                # the push moved the head; re-anchor on the local params
+                # so the next delta is disjoint from this one
+                anchor, slot = current, slot ^ 1
+            except PushRejected as e:
+                # past the bound: drop the delta, adopt the aggregate
+                rejected += 1
+                repulls += 1
+                try:
+                    pulled, versions = ps.pull(worker_id)
+                    self._load_params(state["params"], pulled)
+                    anchor = anchor_now()
+                except (PSUnavailable, FaultInjected):
+                    versions = list(e.versions) or versions
+            except MemberEvicted:
+                rejoins += 1
+                snapshot, versions = ps.register(worker_id)
+                if snapshot:
+                    self._load_params(state["params"], snapshot)
+                anchor = anchor_now()
+            except (PSUnavailable, FaultInjected):
+                # transient drop: keep the anchor, the delta keeps
+                # accumulating and rides the next push
+                dropped += 1
+        if steps_run:
+            last_loss = _fetch_scalar(last_loss_arr)
+        else:
+            last_loss = first_loss = float("nan")
+        total = time.perf_counter() - t_run
+        steady_steps = steps_run - 1
+        tps = (tokens_per_step * steady_steps / total
+               if total > 0 and steady_steps > 0 else 0.0)
+        summary = {
+            "train_mode": "ps",
+            "first_step_seconds": first_step_s,
+            "steps": steps_run,
+            "total_steps": steps,
+            "start_step": start,
+            "first_loss": first_loss,
+            "final_loss": last_loss,
+            "tokens_per_sec": tps,
+            "tokens_per_sec_per_chip": tps / self.mesh.world,
+            "step_time_ms": (total / steady_steps * 1e3
+                             if steady_steps > 0 else 0.0),
+            "model_family": self.family.name,
+            "n_params": self.family.num_params,
+            "ps_pushes": pushes,
+            "ps_decayed": decayed,
+            "ps_rejected": rejected,
+            "ps_dropped": dropped,
+            "ps_repulls": repulls,
+            "ps_rejoins": rejoins,
+            "ps_versions": list(versions),
+        }
+        return state, summary
 
     # ------------------------------------------------------------------
 

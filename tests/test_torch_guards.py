@@ -47,7 +47,8 @@ def test_port_files_found():
             "disagg.py", "w8a16.py", "adamw.py", "client.py", "beacon.py",
             "native.py", "moe.py", "convnet.py", "costmodel.py", "mesh.py",
             "ring.py", "launch.py", "pipeline.py", "plan.py", "retry.py",
-            "metrics.py", "tracing.py"} <= names
+            "metrics.py", "tracing.py", "service.py", "shards.py",
+            "store.py", "wal.py", "leases.py", "objects.py"} <= names
 
 
 def test_engine_without_device_raises_when_no_cuda(monkeypatch):

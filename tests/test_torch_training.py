@@ -439,18 +439,21 @@ def test_trainer_rejects_later_slices(kw, tmp_path):
         assert tr.shard.dp.axes == ("sp",)
 
 
-def test_fit_checkpoint_and_ps_raise(tmp_path):
-    """fit(ckpt_dir=...) saves (ported); fit_ps still raises; an MoE
-    config builds the MoE family (ported)."""
+def test_fit_checkpoint_and_ps_run(tmp_path):
+    """fit(ckpt_dir=...) saves; fit_ps trains against the port's tier; an
+    MoE config builds the MoE family."""
     from kubedl_tpu_torch.models import moe as tm
+    from kubedl_tpu_torch.ps import PSConfig, ParameterService
 
     tr = tt.Trainer(tt.TrainConfig(global_batch=2, seq_len=16, steps=1),
                     device="cpu")
     data = iter(SyntheticTokens(2, 16, 256))
-    _, summary = tr.fit(data, ckpt_dir=str(tmp_path))
+    state, summary = tr.fit(data, ckpt_dir=str(tmp_path))
     assert summary["ckpt_saves"] == 1 and (tmp_path / "latest").exists()
-    with pytest.raises(ValueError, match="slice"):
-        tr.fit_ps(data, None, "w0")
+    svc = ParameterService(tr._host_params(state["params"]), PSConfig())
+    _, s = tr.fit_ps(data, svc, "w0", state=state, steps=3)
+    assert s["train_mode"] == "ps" and s["steps"] == 2
+    assert s["ps_pushes"] == 2 and svc.members() == ["w0"]
     fam = tt.moe_family(tm.TINY_MOE)
     assert fam.name == "moe" and fam.vocab_size == tm.TINY_MOE.vocab_size
     assert fam.num_params == tm.TINY_MOE.num_params()
@@ -501,18 +504,24 @@ def test_train_main_prints_worker_summary(capsys, clean_env):
     assert s["steps"] == 3 and entry.LAST_SUMMARY["steps"] == 3
 
 
-#: (env, config, runs): what train_main rejects naming its slice, and what
-#: the port runs (2 processes for a data=2, tensor=2 or sp=2 job, 4 for
-#: data=2 x fsdp=2; elastic resize at world 1)
+#: (env, config, runs): what the port runs (2 processes for a data=2,
+#: tensor=2 or sp=2 job, 4 for data=2 x fsdp=2; elastic resize at world
+#: 1); the parameter service's address alone, or train_mode "ps" alone,
+#: trains synchronously (the reference's rule); both run fit_ps against a
+#: port PSServer ("live": its address)
 ENTRY_CASES = {
     "KUBEDL_NUM_PROCESSES--": ({"KUBEDL_NUM_PROCESSES": "2"}, {}, True),
     "KUBEDL_MESH_AXES--": ({"KUBEDL_NUM_PROCESSES": "2",
                             "KUBEDL_MESH_AXES": "data=2"}, {}, True),
-    "KUBEDL_PS_ADDR--": ({"KUBEDL_PS_ADDR": "localhost:1"}, {}, False),
+    "KUBEDL_PS_ADDR--": ({"KUBEDL_PS_ADDR": "localhost:1"}, {}, True),
     "KUBEDL_ELASTIC_BASE_WORLD--": ({"KUBEDL_ELASTIC_BASE_WORLD": "4"}, {},
                                     True),
     "KUBEDL_ELASTIC_BASE_DP--": ({"KUBEDL_ELASTIC_BASE_DP": "2"}, {}, True),
-    "--train_mode": ({}, {"train_mode": "ps"}, False),
+    "--train_mode": ({}, {"train_mode": "ps"}, True),
+    "KUBEDL_PS_ADDR--train_mode": ({"KUBEDL_PS_ADDR": "live",
+                                    "KUBEDL_PROCESS_ID": "3",
+                                    "KUBEDL_PS_PUSH_EVERY": "1"},
+                                   {"train_mode": "ps"}, True),
     # a "chaos" key is ignored, as the reference's train_main ignores
     # keys it does not read (its site is armed in-process: chaos.arm)
     "--chaos": ({}, {"chaos": {"trainer.step_stall": [{"nth": 1}]}}, True),
@@ -534,10 +543,10 @@ ENTRY_CASES = {
                          ids=list(ENTRY_CASES))
 def test_train_main_rejects_what_this_slice_does_not_run(env, opts, runs,
                                                        clean_env, capsys):
-    """The parameter service raises naming its slice.
-    Multi-process jobs (data, fsdp, tensor, sp, expert with MoE, pipe
-    with ``microbatches`` from the config) and elastic resize are
-    ported: they train."""
+    """Multi-process jobs (data, fsdp, tensor, sp, expert with MoE, pipe
+    with ``microbatches`` from the config), elastic resize and the
+    parameter service (with both its address and ``train_mode: "ps"``;
+    either alone trains synchronously) are ported: they train."""
     import sys
 
     from kubedl_tpu_torch.training import entry
@@ -547,6 +556,23 @@ def test_train_main_rejects_what_this_slice_does_not_run(env, opts, runs,
     if not runs:
         with pytest.raises(ValueError, match="slice"):
             entry.train_main(dict(env, KUBEDL_TRAIN_CONFIG=json.dumps(cfg)))
+        return
+    if env.get("KUBEDL_PS_ADDR") == "live":
+        from kubedl_tpu_torch.ps import PSConfig, ParameterService
+        from kubedl_tpu_torch.ps.server import PSServer
+
+        tr = tt.Trainer(tt.TrainConfig(model=tl.TINY, seq_len=16),
+                        device="cpu")
+        svc = ParameterService(tr._host_params(tr.init_state()["params"]),
+                               PSConfig())
+        with PSServer(svc) as srv:
+            assert entry.train_main(dict(
+                env, KUBEDL_PS_ADDR=srv.addr,
+                KUBEDL_TRAIN_CONFIG=json.dumps(cfg))) == 0
+        s = entry.LAST_SUMMARY
+        assert s["train_mode"] == "ps" and s["steps"] == 1
+        assert s["ps_pushes"] == 1 and svc.members() == ["worker-3"]
+        assert svc.versions() == s["ps_versions"] == [1, 1]
         return
     world = int(env.get("KUBEDL_NUM_PROCESSES", "1"))
     if world > 1:
