@@ -4,14 +4,18 @@
     python3 chip_smoke.py --skip-engine  # without phases 5, 6, 13-19, 22,
                                          # 26, 27, 32, 33
     python3 chip_smoke.py --skip-train   # without phases 8 to 12, 21,
-                                         # 23-25, 28-31, 34
+                                         # 23-25, 28-31, 34, 35
 
 Phases (any failure exits non-zero before the final line):
 
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA.
+   Every process of the run (ranks and workers too) builds into and
+   loads from one kernel cache, ``KUBEDL_COMPILE_CACHE_DIR`` =
+   ``build/kernel-cache`` (``utils/compile_cache.py``).
 2. build: compiles the port's CUDA sources (kubedl_tpu_torch/csrc) with
    nvcc for sm_90a (``-Xptxas -v``), one nvcc per source started
-   together, and prints the build seconds; then, for each tensor-core
+   together, and prints the build seconds, which sources it compiled and
+   which it loaded, and the cache's entries; then, for each tensor-core
    kernel (flash forward, fused backward and the split pair at hd 64,
    128 and 256, paged prefill at hd 64, 128 and 256), its registers and
    spill bytes (ptxas) and its
@@ -107,7 +111,12 @@ Phases (any failure exits non-zero before the final line):
    RoPE: MHA, group 1, phase 26's path), untimed; and phase 31's stage
    shapes, untimed: a GPipe microbatch of bench-moe (B=1, H=16, KV=8,
    S=2048, hd 64, bf16, theta 10000) and of 31a's float32 pipe=2 x
-   tensor=2 stage (B=1, H=16, KV=4, S=512, hd 64).
+   tensor=2 stage (B=1, H=16, KV=4, S=512, hd 64). And hd 16 and 32, the
+   CUDA-core route in float32 and bf16: all four kernels against
+   their plain versions, the forward and fused backward timed in float32
+   at 35a's step-bench shape (B=2, H=8, KV=4, S=128, hd 32) and 34b's
+   tiny shape (B=4, H=4, KV=2, S=16, hd 16) against SDPA, and untimed at
+   MQA, GQA groups 2 and 4, ragged and non-causal lengths.
 8. training: ``train_main`` with KUBEDL_TRAIN_CONFIG={"model":
    "llama3-1b", "global_batch": 4, "seq_len": 2048, "steps": 8} on the
    card, full width and depth, seeded random weights; gates on finite
@@ -468,19 +477,37 @@ Phases (any failure exits non-zero before the final line):
    layer a step. Prints the host ms a push (D2H, delta, the tier's
    apply), the bytes a push, the step ms with and without a push, the
    peak host RSS. 34b: two ``train_main`` workers on the card (tiny, a
-   push every 5 of 40 steps) against the port's ``PSServer`` hosted here
+   push every 5 of 40 steps, attention "auto": flash at head dim 16,
+   gated on each worker) against the port's ``PSServer`` hosted here
    (a WAL, ``lease_ttl`` 0.5 s), through a seeded ``ps.push`` fault, a
    silent-death eviction of worker-1 and a shard failover through
    ``/ps/admin``. Gates: both finish every step with a finite final loss
    below their first, the drop and the rejoin in the summaries, one
    silent-death eviction and a failover in the tier, and the snapshot
    equal to its init plus the committed weighted deltas, bit for bit.
+35. the worker's host surface. 35a: ``python -m
+   kubedl_tpu_torch.training.stepbench --devices 2`` (two ranks sharing
+   the card over gloo; the bench model's head dim 32 on the flash
+   kernels' CUDA-core route). Gates: finite losses, ``max_loss_delta``
+   <= 1e-5, ``opt_state_bytes_reduced``, each arm's optimizer bytes and
+   gradient buckets as the CPU test finds them, and on each rank flash
+   #1 / #2 and the AdamW kernels launched; prints each arm's step,
+   compute, update and exposed-communication ms (a host reduction). 35b:
+   a fresh ``train_main`` process on ``llama3-1b-2l`` (Llama-3.2-1B's
+   widths, two layers, bf16, b4 x s2048, 2 steps) on the run's kernel
+   cache. Gates: no cache miss, a hit for every source it loaded, no new
+   entry, flash #1 and #2 launched, finite losses; prints
+   ``startup_phases``. 35c: the planner's ``h100-*`` catalog against the
+   card (HBM within 2 % of ``total_memory``, peak 989 TFLOP/s for its
+   name; gated); ``plan()`` for phase 8's configuration on ``h100-1``
+   against phase 8's step and peak memory, and ``llama-1b`` /
+   ``llama-4b`` on one and two ``h100-8`` nodes (recorded).
 
 Phase 16 runs after phase 4; phase 22, then phases 13-15, 26, 27, 32,
 17-19 and 33 after phase 6 (they are skipped with ``--skip-engine``);
 phase 20
-after phase 7, then phases 23, 24, 25 and 28, and phases 21, 29, 30, 31
-and 34 after phase 12 (skipped with ``--skip-train``).
+after phase 7, then phases 23, 24, 25 and 28, and phases 21, 29, 30, 31,
+34 and 35 after phase 12 (skipped with ``--skip-train``).
 
 Output: the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -1012,7 +1039,31 @@ FLASH_CASES = [
      True, True, False),
     ("pipe=2 x tensor=2 llama3-1b microbatch f32", 1, 16, 4, 512, 64,
      torch.float32, True, True, False),
+    # hd 16 and 32, the CUDA-core route in both types: timed at
+    # their main paths' shapes, float32 — 35a's step-bench model (a
+    # rank's microbatch of 2 rows: H 8, KV 4, S 128, hd 32) and 34b's
+    # tiny workers (b4 x s16: H 4, KV 2, hd 16); then bf16 and float32 at
+    # other groups, ragged lengths (RoPE pairs split across lanes at hd
+    # 16), causal and not, untimed
+    ("step bench hd32 f32", 2, 8, 4, 128, 32, torch.float32, True, True,
+     True),
+    ("tiny hd16 f32", 4, 4, 2, 16, 16, torch.float32, True, True, True),
+    ("tiny-gemma hd32 bf16 MQA", 2, 4, 1, 256, 32, torch.bfloat16, True,
+     True, False),
+    ("hd32 bf16 group 2 ragged non-causal", 1, 8, 4, 1000, 32,
+     torch.bfloat16, False, True, False),
+    ("hd16 bf16 group 2 ragged", 2, 4, 2, 200, 16, torch.bfloat16, True,
+     True, False),
+    ("hd16 bf16 group 4 non-causal no-rope", 1, 8, 2, 512, 16,
+     torch.bfloat16, False, False, False),
+    ("hd16 f32 group 4 ragged", 1, 8, 2, 1000, 16, torch.float32, True,
+     True, False),
+    ("hd32 f32 MQA ragged non-causal", 2, 4, 1, 200, 32, torch.float32,
+     False, True, False),
 ]
+#: head dims whose timed records carry a suffix (the llama3-1b main
+#: path's hd 64 has none)
+FLASH_HD_SUFFIX = {16: "_hd16", 32: "_hd32", 256: "_hd256"}
 #: Tolerances against the plain versions on the same inputs (N(0,1)):
 #: out: bf16 2e-2 max abs (both sides sum in float32 and round once to
 #: bf16, ~1 ulp of |out| <= 4 after reordered sums); f32 1e-5. lse: 1e-4
@@ -1131,7 +1182,8 @@ def flash_routes(fa, dtype, hd) -> dict:
 def check_flash_case(fa, case, records):
     """One FLASH_CASES entry: every kernel against its plain version, the
     two backward routes against each other; timings when ``timed``,
-    recorded under each operator's name (with ``_hd256`` at hd 256)."""
+    recorded under each operator's name (with ``FLASH_HD_SUFFIX``'s
+    suffix at hd 16, 32 and 256)."""
     label, B, H, KV, S, hd, dtype, causal, rope, timed = case
     tol = FLASH_TOL[dtype]
     q, k, v, do, cos, sin = flash_inputs(
@@ -1213,7 +1265,7 @@ def check_flash_case(fa, case, records):
         rec["shape"] = f"B={B} H={H} KV={KV} S={S} hd={hd} {str(dtype)[6:]}" \
                        f" causal={causal} rope={rope}"
         rec["route"] = routes[name]
-        records[name + ("_hd256" if hd == 256 else "")] = rec
+        records[name + FLASH_HD_SUFFIX.get(hd, "")] = rec
         print(f"{name} timed ({label}): " + json.dumps(rec), flush=True)
 
 
@@ -1527,7 +1579,7 @@ def run_train_entry(fa, llama_mod):
     print("train_main llama3-1b (smoke run, not a benchmark): "
           + json.dumps(rec), flush=True)
     return ({k: launches[k] for k in ("flash_fwd", "flash_bwd_fused")},
-            rec["optimizer_launches"])
+            rec["optimizer_launches"], rec)
 
 
 #: phase 23's path: Gemma-2B (18 layers, MQA at hd 256, a 256,000-token
@@ -2516,8 +2568,10 @@ class _Tee:
 
 
 def _clear_job_env(entry):
+    """Drop every env name ``train_main`` reads but the run's kernel cache
+    (``KUBEDL_COMPILE_CACHE_DIR``, set for every process of the run)."""
     for name in dir(entry):
-        if name.startswith("ENV_"):
+        if name.startswith("ENV_") and name != "ENV_COMPILE_CACHE_DIR":
             os.environ.pop(getattr(entry, name), None)
 
 
@@ -4859,6 +4913,10 @@ PROFILE_PRESET = "llama3-8b-4l"
 SIDE_PRESET = "llama3-8b-8l"
 #: seconds a rank (or the resumed process) may run before the phase fails
 DP_RANK_TIMEOUT = 420
+#: the run's kernel build cache (``KUBEDL_COMPILE_CACHE_DIR`` for every
+#: process of it; ``build/`` is not committed)
+KERNEL_CACHE_DIR = os.path.realpath(os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "build", "kernel-cache"))
 
 
 def register_cut(llama_mod, name):
@@ -4871,12 +4929,22 @@ def register_cut(llama_mod, name):
 
 def entry_rank(name):
     """One rank of a ``train_main`` job (``--entry-rank NAME``, in the
-    job's env) on the cut preset ``name``."""
+    job's env) on the preset ``name`` (a cut one registered first). After
+    it, one line: which kernel sources this process loaded (0.0) or
+    compiled (35b), and its kernels' launches (34b)."""
     from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.ops import adamw, build
+    from kubedl_tpu_torch.ops import flash_attention as fa
     from kubedl_tpu_torch.training import entry
 
-    register_cut(llama, name)
-    return entry.train_main()
+    if name in CUT_PRESETS:
+        register_cut(llama, name)
+    rc = entry.train_main()
+    print(json.dumps({"entry_rank": {
+        "build_seconds": build.BUILD_SECONDS,
+        "flash_launches": fa.LAUNCHES,
+        "adamw_launches": adamw.LAUNCHES}}), flush=True)
+    return rc
 
 
 def run_ranks(jobs, world, label="29", **extra):
@@ -6848,12 +6916,10 @@ PS_TIER = dict(num_shards=2, max_staleness=4, wal_root="")
 #: reference's own drive), a push every 5 steps, 8 pushes a worker, on a
 #: token file with a learnable pattern (``ps_token_file``: on uniform
 #: random tokens 40 steps do not move the loss past its noise). The
-#: attention is dense, said in the config: tiny's head dim 16 has no flash
-#: kernel (``KERNEL_HEAD_DIMS``), and "auto" would pick flash on the card,
-#: whose operator raises for it
+#: attention is the default "auto": flash on the card, at tiny's head dim
+#: 16 the CUDA-core kernels (gated on every worker)
 PS_WORKER_CONFIG = {"model": "tiny", "global_batch": 4, "seq_len": 16,
-                    "steps": 40, "learning_rate": 3e-3, "train_mode": "ps",
-                    "attn_impl": "dense"}
+                    "steps": 40, "learning_rate": 3e-3, "train_mode": "ps"}
 PS_WORKER_PUSH_EVERY = 5
 #: 34b's faults: the n-th ps.push call over both workers is dropped (a 503
 #: to the worker: PSUnavailable), worker-1 is evicted as silently dead at
@@ -7182,8 +7248,9 @@ def run_ps_workers(llama_mod):
     """Phase 34b: this process hosts the port's ``PSServer`` over a
     recording ``ParameterService`` (2 shards, a WAL with ``fsync`` off,
     ``lease_ttl`` 0.5 s), seeded with the workers' init, and starts two
-    ``python -m kubedl_tpu_torch.training.entry`` workers on the card
-    (``PS_WORKER_CONFIG`` on ``ps_token_file``'s tokens, ``KUBEDL_PS_ADDR``,
+    ``train_main`` workers on the card (``chip_smoke.py --entry-rank
+    tiny``, which then prints the worker's kernel launches;
+    ``PS_WORKER_CONFIG`` on ``ps_token_file``'s tokens, ``KUBEDL_PS_ADDR``,
     ``KUBEDL_PROCESS_ID`` 0 / 1,
     ``KUBEDL_PS_PUSH_EVERY``, a beacon file each). Three faults mid-run: a
     seeded ``ps.push`` fault armed here (a 503: the worker's push is
@@ -7193,7 +7260,8 @@ def run_ps_workers(llama_mod):
     every step with a finite final loss below their first; the faulted
     worker's ``ps_dropped`` >= 1 and the drops equal the plan's faults;
     worker-1's ``ps_rejoins`` 1; the tier's one silent-death eviction and
-    at least one failover; conservation, bit for bit. The plan is disarmed
+    at least one failover; conservation, bit for bit; flash #1 and #2
+    launched on each worker (head dim 16). The plan is disarmed
     and the workers are stopped in a ``finally``."""
     from kubedl_tpu_torch import chaos
     from kubedl_tpu_torch.observability.metrics import PSMetrics
@@ -7210,7 +7278,7 @@ def run_ps_workers(llama_mod):
     tr = Trainer(TrainConfig(model=model, global_batch=cfg["global_batch"],
                              seq_len=cfg["seq_len"], steps=cfg["steps"],
                              learning_rate=cfg["learning_rate"],
-                             attn_impl=cfg["attn_impl"]))
+                             attn_impl=cfg.get("attn_impl", "auto")))
     init = tr._host_params(tr.init_state()["params"])
     route = {"attn_impl": tr.attn_impl, "head_dim": model.head_dim,
              "kernel_head_dims": list(fa.KERNEL_HEAD_DIMS)}
@@ -7229,16 +7297,23 @@ def run_ps_workers(llama_mod):
             PS_EVICT_AT[0])
         svc.hooks[PS_FAIL_SHARD_AT] = lambda: PSClient(srv.addr)._post(
             "/ps/admin", {"op": "fail_shard", "shard": 0})
+        # the job's env: no KUBEDL_* name of this process but the kernel
+        # cache's, which the operator gives every worker
         env = {k: v for k, v in os.environ.items()
-               if not k.startswith("KUBEDL_")}
+               if not k.startswith("KUBEDL_")
+               or k == "KUBEDL_COMPILE_CACHE_DIR"}
         env.update(PYTHONPATH=os.path.dirname(os.path.abspath(__file__)),
                    KUBEDL_TRAIN_CONFIG=json.dumps(cfg),
                    KUBEDL_PS_ADDR=srv.addr,
                    KUBEDL_PS_PUSH_EVERY=str(PS_WORKER_PUSH_EVERY))
         chaos.arm(plan)
         for i in range(2):
+            # train_main through --entry-rank: it then prints the
+            # worker's kernel launches (fit_ps's summary has the
+            # reference's keys only)
             procs.append(subprocess.Popen(
-                [sys.executable, "-m", "kubedl_tpu_torch.training.entry"],
+                [sys.executable, os.path.abspath(__file__), "--entry-rank",
+                 cfg["model"]],
                 env=dict(env, KUBEDL_PROCESS_ID=str(i),
                          KUBEDL_BEACON_FILE=os.path.join(tmp, f"beacon-{i}")),
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -7266,9 +7341,14 @@ def run_ps_workers(llama_mod):
     keys = ("steps", "first_loss", "final_loss", "ps_pushes", "ps_decayed",
             "ps_rejected", "ps_dropped", "ps_repulls", "ps_rejoins",
             "ps_versions", "step_time_ms")
+    ranks = [_json_lines(o, "entry_rank") for o in outs]
+    if [len(r) for r in ranks] != [1, 1]:
+        fail(f"34b: worker kernel lines {ranks}")
     rec = {"config": dict(cfg, push_every=PS_WORKER_PUSH_EVERY),
            "route": route,
-           "workers": [{k: s[k] for k in keys} for s in sums],
+           "workers": [dict({k: s[k] for k in keys},
+                            flash_launches=r[0]["flash_launches"])
+                       for s, r in zip(sums, ranks)],
            "tier": stats, "fences": [sh.fence for sh in svc.shards],
            "evictions": {r: svc.metrics.ps_evictions.value(reason=r)
                          for r in ("silent_death", "preemption")},
@@ -7278,11 +7358,16 @@ def run_ps_workers(llama_mod):
            "seconds": time.perf_counter() - t0}
     print("phase 34b (train_main x 2 workers against the port's PSServer, "
           "tiny; smoke run, not a benchmark): " + json.dumps(rec), flush=True)
-    for s in sums:
+    for s, w in zip(sums, rec["workers"]):
         if s["steps"] != cfg["steps"] or not (
                 math.isfinite(s["final_loss"])
                 and s["final_loss"] < s["first_loss"]):
             fail(f"34b: a worker did not train: {json.dumps(rec)}")
+        # "auto" at head dim 16: the flash kernels' CUDA-core route
+        if route["attn_impl"] != "flash" or not (
+                w["flash_launches"]["flash_fwd"] > 0
+                and w["flash_launches"]["flash_bwd_fused"] > 0):
+            fail(f"34b: not on the flash route at hd 16: {json.dumps(rec)}")
     dropped = [s["ps_dropped"] for s in sums]
     if sum(dropped) != rec["plan_faults"] or rec["plan_faults"] != 1:
         fail(f"34b: drops {dropped} != the plan's faults: {json.dumps(rec)}")
@@ -7299,13 +7384,200 @@ def run_ps_workers(llama_mod):
 
 def run_ps_phase(fa, llama_mod):
     """Phase 34: parameter-service training (34a, 34b). Returns 34a's
-    main-path flash launches and its identity pair's."""
+    main-path flash launches, its identity pair's, and 34b's (both
+    workers', at tiny's head dim 16)."""
     t0 = time.perf_counter()
     launches, pair_launches, _ = run_ps_inprocess(fa, llama_mod)
-    run_ps_workers(llama_mod)
+    rec = run_ps_workers(llama_mod)
+    workers = {op: sum(w["flash_launches"][op] for w in rec["workers"])
+               for op in fa.OPS}
     print(f"phase 34 (parameter-service training): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return launches, pair_launches
+    return launches, pair_launches, workers
+
+
+# ---- phase 35: the worker's host surface ---------------------------------------
+
+#: 35a: the step bench's ranks (they share the one card over gloo)
+STEPBENCH_DEVICES = 2
+#: each arm's (opt_state_bytes_per_device, grad_buckets) at 2 devices, as
+#: tests/test_torch_stepbench.py finds them on the CPU for the port and
+#: the reference alike (float32 moments: the layout, not the device,
+#: sets them)
+STEPBENCH_LAYOUT = {"replicated": (35670024, 5), "sharded": (17836040, 5),
+                    "sharded_overlap": (17836040, 5)}
+STEPBENCH_TIMEOUT = 600
+#: 35b: a fresh train_main process at Llama-3.2-1B's widths, two layers,
+#: bf16, on the run's cache directory
+WARM_RESTART_CONFIG = {"model": "llama3-1b-2l", "global_batch": 4,
+                       "seq_len": 2048, "steps": 2}
+#: 35c: the planner's HBM against the card's within this share
+PLAN_HBM_TOL = 0.02
+
+
+def run_stepbench_on_card():
+    """35a: ``python -m kubedl_tpu_torch.training.stepbench --devices 2``
+    (two ranks through ``parallel/launch.py``, the card's kernels at the
+    bench model's head dim 32). Gates: every arm's final loss finite and
+    its loss delta under 1e-5 (``proxy.max_loss_delta``),
+    ``opt_state_bytes_reduced``, each arm's optimizer bytes and gradient
+    buckets as ``STEPBENCH_LAYOUT``, and on each rank flash #1 / #2 and
+    the AdamW kernels launched. Prints each arm's step, compute, update
+    and exposed-communication ms (a host reduction here: the ranks share
+    the card over gloo). Returns the ranks' flash launches, summed, and
+    the record."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="kdl-stepbench-")
+    path = os.path.join(tmp, "stepbench.json")
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "kubedl_tpu_torch.training.stepbench",
+             "--devices", str(STEPBENCH_DEVICES), "--json", path],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=STEPBENCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"35a: the step bench ran past {STEPBENCH_TIMEOUT} s")
+    if proc.returncode != 0:
+        fail(f"35a: the step bench exited {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    with open(path) as f:
+        res = json.load(f)
+    shutil.rmtree(tmp, ignore_errors=True)
+    # each rank's one-line record (the result itself follows, indented)
+    ranks = [json.loads(ln)["stepbench_rank"]
+             for ln in proc.stdout.splitlines()
+             if ln.startswith('{"stepbench_rank"')]
+    arms = res["arms"]
+    rec = {"arms": {name: {k: arm[k] for k in (
+        "step_ms", "compute_ms", "update_ms", "exposed_comm_ms",
+        "final_loss", "loss_delta_vs_replicated",
+        "opt_state_bytes_per_device", "grad_buckets",
+        "shard_update_compiled")} for name, arm in arms.items()},
+        "proxy": res["proxy"], "ranks": ranks,
+        "seconds": time.perf_counter() - t0}
+    print("phase 35a (the step bench, 2 ranks sharing the card over gloo: "
+          "exposed_comm_ms is a host reduction; smoke run, not a "
+          "benchmark): " + json.dumps(rec), flush=True)
+    bad = [n for n, a in arms.items() if not math.isfinite(a["final_loss"])]
+    if bad or not res["proxy"]["max_loss_delta"] <= 1e-5:
+        fail(f"35a: losses {bad} / max_loss_delta "
+             f"{res['proxy']['max_loss_delta']}")
+    layout = {n: (a["opt_state_bytes_per_device"], a["grad_buckets"])
+              for n, a in arms.items()}
+    if not res["proxy"]["opt_state_bytes_reduced"] or \
+            layout != STEPBENCH_LAYOUT:
+        fail(f"35a: layout {layout} != {STEPBENCH_LAYOUT}")
+    if len(ranks) != STEPBENCH_DEVICES or not all(
+            r["flash_launches"]["flash_fwd"] > 0
+            and r["flash_launches"]["flash_bwd_fused"] > 0
+            and r["adamw_launches"]["adamw_update"] > 0 for r in ranks):
+        fail(f"35a: a rank missed the kernels: {json.dumps(ranks)}")
+    return {op: sum(r["flash_launches"][op] for r in ranks)
+            for op in FLASH_REPLACES}, rec
+
+
+def run_warm_restart():
+    """35b: a fresh ``train_main`` process (``--entry-rank``, one rank) at
+    ``WARM_RESTART_CONFIG`` on the run's cache directory, which phase 2
+    filled. Gates: ``compile_cache.cache_misses`` 0, ``cache_hits`` equal
+    to the sources the process loaded (every one of them loaded, none
+    compiled), no new entry, flash #1 and #2 launched, finite losses.
+    Prints ``startup_phases``."""
+    t0 = time.perf_counter()
+    _free()
+    script = os.path.abspath(__file__)
+    [[out]] = run_ranks(
+        [[sys.executable, script, "--entry-rank",
+          WARM_RESTART_CONFIG["model"]]], 1, label="35b",
+        KUBEDL_TRAIN_CONFIG=json.dumps(WARM_RESTART_CONFIG))
+    [s] = _json_lines(out, "worker_summary")
+    [rank] = _json_lines(out, "entry_rank")
+    built = rank["build_seconds"]
+    cache = s["compile_cache"]
+    rec = {"config": WARM_RESTART_CONFIG, "compile_cache": cache,
+           "build_seconds": built, "startup_phases": s["startup_phases"],
+           "first_loss": s["first_loss"], "final_loss": s["final_loss"],
+           "flash_launches": s["flash_launches"],
+           "seconds": time.perf_counter() - t0}
+    print("phase 35b (a warm restart: train_main in a fresh process on the "
+          "run's kernel cache): " + json.dumps(rec), flush=True)
+    if cache["cache_misses"] != 0 or not built or \
+            any(v != 0.0 for v in built.values()) or \
+            cache["cache_hits"] != len(built):
+        fail(f"35b: compiled in a warm restart: {json.dumps(rec)}")
+    if cache["entries_after"] != cache["entries_before"] or \
+            cache["dir"] != os.environ["KUBEDL_COMPILE_CACHE_DIR"]:
+        fail(f"35b: the cache changed or moved: {json.dumps(cache)}")
+    if not (s["flash_launches"]["flash_fwd"] > 0
+            and s["flash_launches"]["flash_bwd_fused"] > 0) or not all(
+                math.isfinite(x) for x in (s["first_loss"], s["final_loss"])):
+        fail(f"35b: {json.dumps(rec)}")
+    return rec
+
+
+def run_plan_on_card(llama_mod, phase8):
+    """35c: the planner's catalog against this card. Gates: every
+    ``h100-*`` entry's ``hbm_gib_per_chip`` within ``PLAN_HBM_TOL`` of
+    ``total_memory``, and ``peak_flops_for_device_kind`` of the card's
+    name 989e12. Records, ungated: ``plan()`` for phase 8's configuration
+    on ``h100-1`` against phase 8's measured step and peak memory (as
+    ratios), and ``llama-1b`` / ``llama-4b`` on ``h100-8`` and on 2 x
+    ``h100-8``."""
+    from kubedl_tpu_torch.api import topology as topo
+    from kubedl_tpu_torch import planner
+
+    kind = torch.cuda.get_device_name(0)
+    total = torch.cuda.get_device_properties(0).total_memory
+    hbm = {name: t.hbm_gib_per_chip for name, t in topo.SLICE_CATALOG.items()
+           if name.startswith("h100-")}
+    rel = {name: abs(g * 2**30 - total) / total for name, g in hbm.items()}
+    peak = topo.peak_flops_for_device_kind(kind)
+    cfg = llama_mod.preset(TRAIN_CONFIG["model"])
+    md = planner.ModelDesc(
+        params=cfg.num_params(), layers=cfg.n_layers, hidden=cfg.dim,
+        ffn=cfg.ffn_dim, vocab=cfg.vocab_size,
+        seq_len=TRAIN_CONFIG["seq_len"],
+        global_batch=TRAIN_CONFIG["global_batch"], dtype="bfloat16")
+    p8 = planner.plan(md, topo.get_slice("h100-1"))
+    rec = {"device": kind, "total_memory": total,
+           "total_memory_gib": total / 2**30, "hbm_rel_err": rel,
+           "peak_flops": peak,
+           "phase8_plan": {"mesh": p8.mesh.to_env(),
+                           "step_time_ms": p8.step_time_ms,
+                           "compute_ms": p8.compute_ms,
+                           "hbm_gib": p8.hbm_gib},
+           "phase8_measured": phase8,
+           "zoo": {}}
+    if phase8:
+        rec["step_ratio_modeled_over_measured"] = (
+            p8.step_time_ms / phase8["step_time_ms"])
+        rec["hbm_ratio_modeled_over_measured"] = (
+            p8.hbm_gib / phase8["max_memory_allocated_gib"])
+    for name in ("llama-1b", "llama-4b"):
+        for n in (1, 2):
+            try:
+                p = planner.plan(planner.MODEL_ZOO[name],
+                                 topo.get_slice("h100-8"), n)
+                rec["zoo"][f"{name} {n}x h100-8"] = p.summary()
+            except planner.PlanError as e:
+                rec["zoo"][f"{name} {n}x h100-8"] = f"PlanError: {e}"
+    print("phase 35c (the planner on the card's shape): " + json.dumps(rec),
+          flush=True)
+    if not all(r <= PLAN_HBM_TOL for r in rel.values()) or peak != 989e12:
+        fail(f"35c: the catalog against {kind}: {json.dumps(rec)}")
+    return rec
+
+
+def run_host_surface(llama_mod, phase8):
+    """Phase 35: the step bench (35a), a warm restart (35b), the planner
+    on the card (35c). Returns 35a's flash launches."""
+    t0 = time.perf_counter()
+    stepbench_launches, _ = run_stepbench_on_card()
+    run_warm_restart()
+    run_plan_on_card(llama_mod, phase8)
+    print(f"phase 35 (the worker's host surface): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return stepbench_launches
 
 
 def main() -> int:
@@ -7315,7 +7587,7 @@ def main() -> int:
                     "17-19, 22, 26, 27, 32, 33)")
     ap.add_argument("--skip-train", action="store_true",
                     help="skip the training phases (8 to 12, 21, 23-25, "
-                    "28-31, 34)")
+                    "28-31, 34, 35)")
     ap.add_argument("--dp-identity-rank", metavar="NAMES",
                     help=argparse.SUPPRESS)  # one rank of phase 29a
     ap.add_argument("--mp-identity-rank", metavar="NAMES",
@@ -7330,6 +7602,12 @@ def main() -> int:
         print("no CUDA device: chip_smoke.py needs a GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # the whole run's kernel builds, every process of it (the ranks and
+    # workers inherit the name), in one cache directory under build/
+    os.environ["KUBEDL_COMPILE_CACHE_DIR"] = KERNEL_CACHE_DIR
+    from kubedl_tpu_torch.utils.compile_cache import enable_compilation_cache
+
+    enable_compilation_cache()
     if args.dp_identity_rank:
         dp_identity_rank(args.dp_identity_rank.split(","))
         return 0
@@ -7360,10 +7638,21 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
 
     t0 = time.perf_counter()
+    from kubedl_tpu_torch.utils.compile_cache import cache_entry_count
+
+    entries = cache_entry_count(KERNEL_CACHE_DIR)
     # a fresh build even where one exists: phase 2 reads ptxas's report
     build.build_all(verbose=True, force=True)
     print(f"build: {time.perf_counter() - t0:.1f} s "
-          f"({json.dumps(build.BUILD_SECONDS)})", flush=True)
+          f"({json.dumps(build.BUILD_SECONDS)}) into {build.build_dir()}: "
+          + json.dumps({
+              "compiled": sorted(k for k, v in build.BUILD_SECONDS.items()
+                                 if v > 0),
+              "loaded": sorted(k for k, v in build.BUILD_SECONDS.items()
+                               if v == 0),
+              "entries_before": entries,
+              "entries_after": cache_entry_count(KERNEL_CACHE_DIR)}),
+          flush=True)
     print("tensor-core kernels (ptxas -v, cuobjdump -sass): "
           + json.dumps(tc_kernel_report(build)), flush=True)
     print("tensor-core decode kernels (ptxas -v, cuobjdump -sass): "
@@ -7505,6 +7794,7 @@ def main() -> int:
     mp_launches = {"f32": {}, "bf16": {}}
     pp_launches = {"f32": {}, "bf16": {}}
     ps_launches, ps_pair_launches = {}, {}
+    tiny_launches, stepbench_launches = {}, {}
     if not args.skip_train:
         gemma_launches, gemma_train = run_gemma_train(fa, llama_mod)
         stamp("phase 23")
@@ -7514,7 +7804,8 @@ def main() -> int:
         stamp("phase 25")
         convnet_launches = run_convnet(adamw)
         stamp("phase 28")
-        flash_launches, opt_launches = run_train_entry(fa, llama_mod)
+        flash_launches, opt_launches, phase8 = run_train_entry(fa,
+                                                               llama_mod)
         launches.update(flash_launches)
         run_overfit_and_split(fa, llama_mod)
         stamp("phase 8")
@@ -7536,8 +7827,11 @@ def main() -> int:
         pp_launches = run_pp_phase(fa, ck, moe_mod,
                                    moe_summary.get("first_loss"))
         stamp("phase 31")
-        ps_launches, ps_pair_launches = run_ps_phase(fa, llama_mod)
+        ps_launches, ps_pair_launches, tiny_launches = run_ps_phase(
+            fa, llama_mod)
         stamp("phase 34")
+        stepbench_launches = run_host_surface(llama_mod, phase8)
+        stamp("phase 35")
 
     def record(name, source, replaces, n, rec, design):
         lib = rec["library_ms"]
@@ -7690,6 +7984,22 @@ def main() -> int:
                      kernels[name + "_hd256"], kernels[name + "_hd256"]["route"])
         rec["in_model_ms"] = path.get("in_model_ms", {}).get(name)
         line.append(rec)
+    # hd 16 and 32 (the CUDA-core route): the forward and the fused
+    # backward (the reference's route at these lengths) timed in float32
+    # at their main paths' shapes (phase 7); launches from 34b's two tiny
+    # workers (hd 16) and 35a's two step-bench ranks (hd 32), each summed
+    # over its processes. The split pair at these widths is held against
+    # its plain versions in phase 7 and is on no main path.
+    for hd, counts, path in ((16, tiny_launches, "tiny-ps-workers"),
+                             (32, stepbench_launches, "stepbench-ranks")):
+        for name in ("flash_fwd", "flash_bwd_fused"):
+            rec = record(f"{name}_hd{hd}",
+                         "kubedl_tpu_torch/csrc/flash_attention.cu",
+                         FLASH_REPLACES[name], counts.get(name),
+                         kernels[f"{name}_hd{hd}"],
+                         kernels[f"{name}_hd{hd}"]["route"])
+            rec["launches_by_path"] = {path: counts.get(name)}
+            line.append(rec)
     print(f"card: {smi}", flush=True)
     print(f"whole run: {time.perf_counter() - t_start:.1f} s "
           f"({time.perf_counter() - t0:.1f} s since the build began)",

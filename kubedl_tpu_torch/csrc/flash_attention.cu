@@ -120,7 +120,9 @@
 //    two score tiles in registers; ptxas serialised the wgmmas when that
 //    was tried, and it is left for a later change.
 // 2. CUDA cores (float32 at every hd, where TF32 tensor cores would break
-//    the float32 contract), whose design follows:
+//    the float32 contract; and bf16 at hd 16 and 32, below the tensor-core
+//    kernels' 64-wide panels, where a head's products are too short to pay
+//    for them), whose design follows:
 // - The TPU grid walked (q block, k block) tiles in order and carried
 //   the softmax state, and the fused backward's whole-sequence dk/dv, in
 //   VMEM scratch from one grid step to the next. Hopper blocks run in no
@@ -164,6 +166,17 @@ constexpr int kThreads = 256;  // a 16 x 16 grid: tx = tid % 16, ty = tid / 16
 
 template <int HD>
 struct Tile;
+// hd 16 and 32 (the `tiny`, `tiny-gemma` and step-bench widths) run only
+// here, in float32 and bf16 alike: a thread's micro-tile holds HD / 16
+// columns (one at hd 16, see unrotate_cols).
+template <>
+struct Tile<16> {
+  static constexpr int BQ = 64, BK = 64;
+};
+template <>
+struct Tile<32> {
+  static constexpr int BQ = 64, BK = 64;
+};
 template <>
 struct Tile<64> {
   static constexpr int BQ = 64, BK = 64;
@@ -259,6 +272,39 @@ __device__ __forceinline__ void rotate(float x1, float x2, float c, float s,
   if (inverse) s = -s;
   o1 = __fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, s));
   o2 = __fadd_rn(__fmul_rn(x1, s), __fmul_rn(x2, c));
+}
+
+// The backward epilogues' inverse rotation of a thread's float32 columns
+// tx + 16 j (j < HD / 16) of the row at position `pos`. From hd 32 up the
+// pair (d, d + HD / 2) sits in this thread: j and j + HD / 32. At hd 16 a
+// thread holds one column, d = tx, and its partner d ^ 8 sits in lane ^ 8
+// of the same half-warp (same ty, so the same row): one shuffle exchanges
+// them, so every lane of the warp calls this, `valid` or not (a row past
+// the sequence reads no table entry).
+template <int HD>
+__device__ __forceinline__ void unrotate_cols(float (&x)[HD / 16],
+                                              const Params& p, int pos,
+                                              bool valid) {
+  constexpr int DJ = HD / 16, H2 = HD / 2;
+  const int tx = threadIdx.x & 15;
+  if constexpr (DJ == 1) {
+    const float other = __shfl_xor_sync(0xffffffffu, x[0], 8);
+    if (!valid) return;
+    const bool lo = tx < 8;
+    const int d = tx & 7;
+    float o1, o2;
+    rotate(lo ? x[0] : other, lo ? other : x[0], p.cos[(size_t)pos * H2 + d],
+           p.sin[(size_t)pos * H2 + d], true, o1, o2);
+    x[0] = lo ? o1 : o2;
+  } else {
+    if (!valid) return;
+#pragma unroll
+    for (int j = 0; j < DJ / 2; ++j) {
+      const int d = tx + 16 * j;
+      rotate(x[j], x[j + DJ / 2], p.cos[(size_t)pos * H2 + d],
+             p.sin[(size_t)pos * H2 + d], true, x[j], x[j + DJ / 2]);
+    }
+  }
 }
 
 // Stage rows [row0, row0 + R) of head `head` of a [B, S, NH, HD] tensor
@@ -505,7 +551,7 @@ __device__ __forceinline__ void bwd_tile_scores(const Params& p, int q0,
 template <typename T, int HD, bool kFused>
 __global__ void __launch_bounds__(kThreads) flash_bwd_kv_kernel(Params p) {
   constexpr int BQ = Tile<HD>::BQ, BK = Tile<HD>::BK, LD = HD + 1;
-  constexpr int RI = BQ / 16, RK = BK / 16, DJ = HD / 16, H2J = DJ / 2;
+  constexpr int RI = BQ / 16, RK = BK / 16, DJ = HD / 16;
   extern __shared__ float smem[];
   const BwdSmem<HD> sm(smem);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -602,19 +648,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kv_kernel(Params p) {
 #pragma unroll
   for (int i = 0; i < RK; ++i) {
     const int kj = k0 + ty + 16 * i;
-    if (kj >= p.Sk) continue;
     float x[DJ];
 #pragma unroll
     for (int j = 0; j < DJ; ++j) x[j] = dk[i][j] * p.scale;
-    if (p.rope) {
-      // the pair (d, d + hd/2) sits in this thread: j and j + DJ/2
-#pragma unroll
-      for (int j = 0; j < H2J; ++j) {
-        const int d = tx + 16 * j;
-        rotate(x[j], x[j + H2J], p.cos[(size_t)kj * (HD / 2) + d],
-               p.sin[(size_t)kj * (HD / 2) + d], true, x[j], x[j + H2J]);
-      }
-    }
+    if (p.rope) unrotate_cols<HD>(x, p, kj, kj < p.Sk);
+    if (kj >= p.Sk) continue;
     const size_t base = ((size_t)(b * p.Sk + kj) * heads_out + head_out) * HD;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
@@ -629,7 +667,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kv_kernel(Params p) {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   constexpr int BQ = Tile<HD>::BQ, BK = Tile<HD>::BK, LD = HD + 1;
-  constexpr int RI = BQ / 16, DJ = HD / 16, H2J = DJ / 2;
+  constexpr int RI = BQ / 16, DJ = HD / 16;
   extern __shared__ float smem[];
   const BwdSmem<HD> sm(smem);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -680,18 +718,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int qi = q0 + ty + 16 * i;
-    if (qi >= p.Sq) continue;
     float x[DJ];
 #pragma unroll
     for (int j = 0; j < DJ; ++j) x[j] = dq[i][j] * p.scale;
-    if (p.rope) {
-#pragma unroll
-      for (int j = 0; j < H2J; ++j) {
-        const int d = tx + 16 * j;
-        rotate(x[j], x[j + H2J], p.cos[(size_t)qi * (HD / 2) + d],
-               p.sin[(size_t)qi * (HD / 2) + d], true, x[j], x[j + H2J]);
-      }
-    }
+    if (p.rope) unrotate_cols<HD>(x, p, qi, qi < p.Sq);
+    if (qi >= p.Sq) continue;
     T* row = dq_out + ((size_t)(b * p.Sq + qi) * p.H + h) * HD;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) row[tx + 16 * j] = from_f<T>(x[j]);
@@ -737,8 +768,8 @@ enum Which { kFwd, kBwdFused, kBwdDq, kBwdDkdv };
 
 // Static route, per operator: the head widths whose bf16 kernels take the
 // tensor cores (ops/flash_attention.py's TENSOR_CORE_HEAD_DIMS is the same
-// table): every width for all four operators; float32 stays on the CUDA
-// cores.
+// table): hd 64, 128 and 256 for all four operators; float32, and bf16 at
+// hd 16 and 32, stay on the CUDA cores.
 constexpr bool tc_head_dim(Which w, int hd) {
   switch (w) {
     case kFwd: return hd == 64 || hd == 128 || hd == 256;
@@ -2048,6 +2079,10 @@ int route_of(Which w) {
 template <typename T>
 int route_hd(Which w, int hd) {
   switch (hd) {
+    case 16:
+      return route_of<T, 16>(w);
+    case 32:
+      return route_of<T, 32>(w);
     case 64:
       return route_of<T, 64>(w);
     case 128:
@@ -2061,6 +2096,10 @@ int route_hd(Which w, int hd) {
 template <typename T>
 int dispatch_hd(Which w, const Params& p, int hd, cudaStream_t st) {
   switch (hd) {
+    case 16:
+      return (int)launch<T, 16>(w, p, st);
+    case 32:
+      return (int)launch<T, 32>(w, p, st);
     case 64:
       return (int)launch<T, 64>(w, p, st);
     case 128:

@@ -1,13 +1,20 @@
 """Build and load the port's CUDA kernels.
 
 Every ``*.cu`` under ``kubedl_tpu_torch/csrc/`` is compiled by ``nvcc``
-for Hopper (``sm_90a``) into a shared library with a plain C interface
-under ``build/kubedl_tpu_torch/`` at the repository root, at first use,
-and loaded with ``ctypes``. The library name carries a hash of the
-source, of the shared headers (``csrc/*.cuh``) and of the flags, so an
-edited source or header never loads a stale build. No
+for Hopper (``sm_90a``) into a shared library with a plain C interface,
+at first use, and loaded with ``ctypes``. The library name carries a
+hash of the source, of the shared headers (``csrc/*.cuh``) and of the
+flags, so an edited source or header never loads a stale build, and a
+process whose tree is unchanged loads every build and compiles none. No
 PyTorch headers are involved (a source including them takes minutes to
 compile; this one takes seconds).
+
+The builds live in :func:`build_dir`, read at every call:
+``build/kubedl_tpu_torch/`` at the repository root, unless
+:func:`kubedl_tpu_torch.utils.compile_cache.enable_compilation_cache`
+pointed it at the job's cache directory (``KUBEDL_COMPILE_CACHE_DIR``),
+whose size it bounds: past the bound a new build evicts the least
+recently used builds that this process has not loaded.
 
 Nothing here runs at import: the CPU tests import every module of the
 port on machines without ``nvcc`` or a card.
@@ -27,6 +34,7 @@ from typing import Optional
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
+#: where the builds go unless a compile cache is enabled
 BUILD_DIR = PKG_DIR.parent / "build" / "kubedl_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -40,6 +48,27 @@ BUILD_SECONDS: dict = {}
 #: nvcc's output per source built in this process (with ``verbose``, the
 #: ``-Xptxas -v`` report: registers, spills, shared memory per kernel)
 BUILD_LOG: dict = {}
+#: the enabled compile cache's directory and its bound in bytes
+#: (:func:`set_build_dir`); None: ``BUILD_DIR``, unbounded
+_cache_dir: Optional[Path] = None
+_cache_max_bytes: Optional[int] = None
+#: the builds this process compiled or loaded (it never evicts them)
+_used: set = set()
+
+
+def build_dir() -> Path:
+    """The directory builds go to and load from, as of this call."""
+    return _cache_dir or BUILD_DIR
+
+
+def set_build_dir(path, max_bytes: Optional[int] = None) -> Path:
+    """Point every later build and load at ``path`` (None: back to
+    ``BUILD_DIR``), bounded at ``max_bytes`` of builds (None: unbounded).
+    Libraries this process already loaded stay loaded."""
+    global _cache_dir, _cache_max_bytes
+    _cache_dir = None if path is None else Path(path).resolve()
+    _cache_max_bytes = max_bytes
+    return build_dir()
 
 
 def find_nvcc() -> str:
@@ -64,7 +93,28 @@ def _lib_path(src: Path) -> Path:
     for hdr in sorted(src.parent.glob("*.cuh")):
         h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
+    return build_dir() / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
+
+
+def _evict(max_bytes: int) -> None:
+    """Delete the least recently used builds (a load refreshes a build's
+    time) that this process has not used, until the builds take at most
+    ``max_bytes``."""
+    libs = []
+    for lib in build_dir().glob("lib*.so"):
+        try:
+            st = lib.stat()
+        except FileNotFoundError:  # another process evicted it
+            continue
+        libs.append((st.st_mtime, st.st_size, lib))
+    total = sum(size for _, size, _ in libs)
+    for _, size, lib in sorted(libs, key=lambda x: x[0]):
+        if total <= max_bytes:
+            break
+        if lib in _used:
+            continue
+        lib.unlink(missing_ok=True)
+        total -= size
 
 
 def build(src_name: str, verbose: bool = False, force: bool = False) -> Path:
@@ -75,8 +125,13 @@ def build(src_name: str, verbose: bool = False, force: bool = False) -> Path:
     out = _lib_path(src)
     if out.exists() and not force:
         BUILD_SECONDS.setdefault(src_name, 0.0)
+        _used.add(out)
+        try:
+            os.utime(out)  # recently used: the last to be evicted
+        except OSError:  # a cache another user owns still serves
+            pass
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [find_nvcc(), *NVCC_FLAGS]
     if verbose:
@@ -94,6 +149,9 @@ def build(src_name: str, verbose: bool = False, force: bool = False) -> Path:
         print(BUILD_LOG[src_name], flush=True)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees a torso
     BUILD_SECONDS[src_name] = time.perf_counter() - t0
+    _used.add(out)
+    if _cache_max_bytes is not None:
+        _evict(_cache_max_bytes)
     return out
 
 
@@ -258,5 +316,5 @@ def check_launch(err: int, name: str) -> None:
 __all__ = ["build", "build_all", "load_kernels", "load_flash_kernels",
            "load_w8a16_kernels", "load_adamw_kernels", "stream_handle",
            "float_workspace", "int_counters",
-           "check_launch", "find_nvcc", "BUILD_DIR", "BUILD_SECONDS",
-           "BUILD_LOG"]
+           "check_launch", "find_nvcc", "build_dir", "set_build_dir",
+           "BUILD_DIR", "BUILD_SECONDS", "BUILD_LOG"]

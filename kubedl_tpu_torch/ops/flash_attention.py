@@ -32,7 +32,8 @@ operator): bf16 at hd 64, 128 and 256 launches the tensor-core kernels
 (wgmma on TMA-staged bf16 tiles) for all four operators; for those the
 wrapper allocates the rotated-q/k and row-stats workspaces (and the
 fused route's dq sums, and at hd 256 its float32 dk/dv group sums).
-float32 at every hd launches the CUDA-core kernels.
+float32 at every hd, and bf16 at hd 16 and 32 (``tiny``, ``tiny-gemma``,
+the step bench's model), launch the CUDA-core kernels.
 
 Numerics contract (the reference's; kernels and plain versions keep it,
 and a kernel redesign must too):
@@ -84,13 +85,15 @@ _FUSED_BWD_SMALL_TILE_BYTES = 2 << 20
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dq": 0,
             "flash_bwd_dkdv": 0}
 
-#: head dims the CUDA kernels are compiled for
-KERNEL_HEAD_DIMS = (64, 128, 256)
+#: head dims the CUDA kernels are compiled for (the reference's Pallas
+#: kernel runs at any; ``Trainer`` refuses flash at any other)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 #: the four operators, in the order of the source's ``Which`` (the code
 #: ``kdl_flash_route`` takes)
 OPS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkdv")
 #: head dims whose bf16 kernels take the tensor cores (wgmma, TMA), per
-#: operator; float32 at every hd takes the CUDA-core ones. The source's
+#: operator; float32 at every hd, and bf16 at hd 16 and 32, take the
+#: CUDA-core ones. The source's
 #: ``tc_head_dim`` is the same table.
 TENSOR_CORE_HEAD_DIMS = dict.fromkeys(OPS, (64, 128, 256))
 #: the tensor-core backward's q tile: its workspaces pad Sq to a multiple

@@ -14,6 +14,11 @@ import socket
 import subprocess
 from typing import Dict, List
 
+from kubedl_tpu_torch.api.constants import (
+    ENV_COMPILE_CACHE_DIR, ENV_COORDINATOR_ADDRESS, ENV_NUM_PROCESSES,
+    ENV_PROCESS_ID,
+)
+
 #: the checkout's root (the directory that holds the package)
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -27,13 +32,15 @@ def free_port() -> int:
 
 def job_env(rank: int, world: int, port: int, **extra: str) -> Dict[str, str]:
     """The environment of rank ``rank`` of a ``world``-process job: this
-    process's, without any ``KUBEDL_*`` name it holds, the checkout on
-    ``PYTHONPATH``, and ``extra``."""
+    process's, without any ``KUBEDL_*`` name it holds but the kernel
+    cache's (``KUBEDL_COMPILE_CACHE_DIR``, which the operator gives every
+    worker of a job alike), the checkout on ``PYTHONPATH``, and
+    ``extra``."""
     env = {k: v for k, v in os.environ.items()
-           if not k.startswith("KUBEDL_")}
-    env.update({"KUBEDL_NUM_PROCESSES": str(world),
-                "KUBEDL_PROCESS_ID": str(rank),
-                "KUBEDL_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+           if not k.startswith("KUBEDL_") or k == ENV_COMPILE_CACHE_DIR}
+    env.update({ENV_NUM_PROCESSES: str(world),
+                ENV_PROCESS_ID: str(rank),
+                ENV_COORDINATOR_ADDRESS: f"127.0.0.1:{port}",
                 "PYTHONPATH": ROOT + os.pathsep + env.get("PYTHONPATH", "")},
                **extra)
     return env

@@ -64,14 +64,12 @@ import torch
 import torch.distributed as dist
 
 from kubedl_tpu_torch import resolve_device
+# the env names the bootstrap reads
+from kubedl_tpu_torch.api.constants import (
+    ENV_COORDINATOR_ADDRESS, ENV_MESH_AXES, ENV_NUM_PROCESSES, ENV_PROCESS_ID,
+)
 from kubedl_tpu_torch.api.topology import MeshSpec
 
-# the env names the bootstrap reads (its own copy of the reference's
-# kubedl_tpu/api/constants.py entries)
-ENV_COORDINATOR_ADDRESS = "KUBEDL_COORDINATOR_ADDRESS"
-ENV_NUM_PROCESSES = "KUBEDL_NUM_PROCESSES"
-ENV_PROCESS_ID = "KUBEDL_PROCESS_ID"
-ENV_MESH_AXES = "KUBEDL_MESH_AXES"
 
 #: Axes a batch dimension is sharded over (all data-parallel-like axes).
 DATA_AXES = ("replica", "data", "fsdp")

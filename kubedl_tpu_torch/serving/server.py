@@ -2982,12 +2982,16 @@ def mirror_model_root(root: str) -> str:
 def serve_main(env: Optional[Dict] = None) -> int:
     """Container entrypoint: build the engine from ``KUBEDL_SERVE_CONFIG``
     and serve until SIGTERM (main thread) or the ``_KUBEDL_CANCEL``
-    event in ``env`` is set; either drains gracefully first."""
+    event in ``env`` is set; either drains gracefully first. The kernel
+    build cache (``KUBEDL_COMPILE_CACHE_DIR``) is enabled first."""
     env = env or {}
     for k, v in env.items():
         # changed string values only; the cancel event is not an env var
         if isinstance(v, str) and os.environ.get(k) != v:
             os.environ[k] = v
+    from kubedl_tpu_torch.utils.compile_cache import enable_compilation_cache
+
+    enable_compilation_cache()  # before the engine's first kernel
     cfg = json.loads(os.environ.get("KUBEDL_SERVE_CONFIG", "{}"))
     ckpt = os.environ.get("KUBEDL_MODEL_PATH", "")
     if is_remote_root(ckpt):

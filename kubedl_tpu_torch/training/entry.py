@@ -21,6 +21,13 @@ each of these for its part, as in the reference: it prints
   (``elastic/resize.py``); prints ``{"elastic_grad_accum": ..., "world":
   ..., "base_world": ...}``.
 
+- The kernel build cache: ``KUBEDL_COMPILE_CACHE_DIR`` is enabled before
+  the first kernel (``utils/compile_cache.py``); the summary's
+  ``compile_cache`` has the reference's keys: ``dir`` (the build
+  directory, the default one when no cache is set), ``entries_before``
+  / ``entries_after`` (files in it), ``cache_hits`` / ``cache_misses``
+  (sources this process loaded from a build / compiled).
+
 - Checkpoints: ``KUBEDL_CKPT_DIR``, or ``<KUBEDL_MODEL_PATH>/checkpoints``
   when ``ckpt_every`` is set (for a remote model root a local temporary
   directory named by its hash); restore from it, else from the replica
@@ -75,21 +82,17 @@ import tempfile
 import time
 from typing import Dict, Optional
 
-# the env names this entry reads (its own copy of kubedl_tpu/api/constants.py)
+from kubedl_tpu_torch.api.constants import (
+    ENV_BEACON_FILE, ENV_BEACON_INTERVAL, ENV_CKPT_DIR, ENV_CKPT_PEER,
+    ENV_COMPILE_CACHE_DIR, ENV_ELASTIC_BASE_DP, ENV_ELASTIC_BASE_WORLD,
+    ENV_MESH_AXES, ENV_MODEL_PATH, ENV_NUM_PROCESSES, ENV_PROCESS_ID,
+    ENV_PS_ADDR, ENV_PS_PUSH_EVERY,
+)
+
+# the env names this entry reads that the control plane's table does not
+# hold (as in the reference, which spells them where it reads them)
 ENV_TRAIN_CONFIG = "KUBEDL_TRAIN_CONFIG"
 ENV_TRAIN_DEVICE = "KUBEDL_TRAIN_DEVICE"
-ENV_NUM_PROCESSES = "KUBEDL_NUM_PROCESSES"
-ENV_MESH_AXES = "KUBEDL_MESH_AXES"
-ENV_CKPT_DIR = "KUBEDL_CKPT_DIR"
-ENV_CKPT_PEER = "KUBEDL_CKPT_PEER"
-ENV_MODEL_PATH = "KUBEDL_MODEL_PATH"
-ENV_PS_ADDR = "KUBEDL_PS_ADDR"
-ENV_PS_PUSH_EVERY = "KUBEDL_PS_PUSH_EVERY"
-ENV_PROCESS_ID = "KUBEDL_PROCESS_ID"
-ENV_ELASTIC_BASE_WORLD = "KUBEDL_ELASTIC_BASE_WORLD"
-ENV_ELASTIC_BASE_DP = "KUBEDL_ELASTIC_BASE_DP"
-ENV_BEACON_FILE = "KUBEDL_BEACON_FILE"
-ENV_BEACON_INTERVAL = "KUBEDL_BEACON_INTERVAL"
 ENV_FAULT_ONCE_AT_STEP = "KUBEDL_FAULT_ONCE_AT_STEP"
 ENV_FAULT_MARKER = "KUBEDL_FAULT_MARKER"
 ENV_SPAWN_TS = "KUBEDL_SPAWN_TS"
@@ -176,13 +179,25 @@ def train_main(env: Optional[Dict[str, object]] = None) -> int:
         phases["spawn_to_proc"] = max(t_start - spawn_ts, 0.0)
     opts = json.loads(environ.get(ENV_TRAIN_CONFIG, "{}") or "{}")
     _check_mesh(environ)
+    from kubedl_tpu_torch.ops.build import BUILD_SECONDS, build_dir
+    from kubedl_tpu_torch.utils.compile_cache import (
+        cache_entry_count, enable_compilation_cache,
+    )
+
+    # before the first kernel: a gang restart / resize / resume re-enters
+    # here and must load, not compile again, the unchanged kernels
+    enable_compilation_cache(environ.get(ENV_COMPILE_CACHE_DIR, ""))
+    cache = {"dir": str(build_dir()),
+             "entries_before": cache_entry_count(str(build_dir())),
+             "built_before": dict(BUILD_SECONDS)}
     from kubedl_tpu_torch.parallel.mesh import initialize_from_env
 
     t0 = time.time()
     joined = initialize_from_env(environ)
     phases["dist_init"] = time.time() - t0
     try:
-        return _train(environ, opts, cancel, phases, t_start, spawn_ts)
+        return _train(environ, opts, cancel, phases, t_start, spawn_ts,
+                      cache)
     finally:
         if joined:
             import torch.distributed as dist
@@ -191,7 +206,8 @@ def train_main(env: Optional[Dict[str, object]] = None) -> int:
 
 
 def _train(environ: Dict[str, str], opts: dict, cancel,
-           phases: Dict[str, float], t_start: float, spawn_ts: float) -> int:
+           phases: Dict[str, float], t_start: float, spawn_ts: float,
+           cache: dict) -> int:
     """The rest of :func:`train_main`, inside the job's process group."""
     global LAST_SUMMARY
     from kubedl_tpu_torch.parallel.mesh import mesh_from_env
@@ -361,7 +377,19 @@ def _train(environ: Dict[str, str], opts: dict, cancel,
     phases["unattributed"] = max(total - sum(phases.values()), 0.0)
     phases["total_to_first_step"] = total
     summary["startup_phases"] = {k: round(v, 3) for k, v in phases.items()}
-    summary["compile_cache"] = None  # eager PyTorch compiles nothing
+    from kubedl_tpu_torch.utils.compile_cache import (
+        cache_entry_count, cache_events,
+    )
+
+    # the kernel builds this process loaded (hits) and compiled (misses)
+    events = cache_events(since=cache["built_before"])
+    summary["compile_cache"] = {
+        "dir": cache["dir"],
+        "entries_before": cache["entries_before"],
+        "entries_after": cache_entry_count(cache["dir"]),
+        "cache_hits": events["hits"],
+        "cache_misses": events["misses"],
+    }
     LAST_SUMMARY = summary
     print(json.dumps({"worker_summary": summary}), flush=True)
     if out:

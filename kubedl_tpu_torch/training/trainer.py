@@ -658,7 +658,8 @@ class Trainer:
         ``cfg.context_parallel_impl``); else "auto" is flash on CUDA and
         dense on the CPU, and "flash" forces the kernel route (on the CPU
         its operators run their plain versions). Flash runs each rank's
-        rows and heads."""
+        rows and heads. On CUDA a head dim with no kernel
+        (``fa.KERNEL_HEAD_DIMS``) raises under "auto" and "flash" alike."""
         cfg = self.cfg
         from kubedl_tpu_torch.parallel.ring import make_context_attention
 
@@ -677,6 +678,14 @@ class Trainer:
                         f"flash attention cannot tile seq_len={cfg.seq_len}"
                     )
                 return None
+            hd = getattr(cfg.model, "head_dim", None)
+            if on_cuda and hd not in fa.KERNEL_HEAD_DIMS:
+                # never dense behind the caller's back: the reference runs
+                # its kernel here, so say that this one has none
+                raise ValueError(
+                    f"attn_impl={cfg.attn_impl!r}: the flash kernels are "
+                    f"built for head_dim {fa.KERNEL_HEAD_DIMS}, the model's "
+                    f"is {hd}; pass attn_impl='dense'")
             self.attn_impl = "flash"
             return fa.make_flash_attention(self.mesh)
         return None
@@ -837,6 +846,23 @@ class Trainer:
         loss = (loss / n).reshape(1)
         pm.all_reduce(loss, self.batch_axes)
         loss = loss[0] / self.batch_ranks
+        gnorm = self.apply_update(state, grads)
+        state["step"] += 1
+        return state, {"loss": loss, "grad_norm": gnorm}
+
+    @torch.no_grad()
+    def apply_update(self, state: Dict[str, Any],
+                     grads: List[torch.Tensor]) -> torch.Tensor:
+        """The optimizer apply alone, in this trainer's update layout, on
+        ``state`` in place: ``grads`` (tree order) are the reduced
+        gradients, each leaf's whole or, under the sharded update, this
+        rank's slice of it (``_upd``); the update of this rank's slices
+        of params and moments (the norm's partial sums summed over the
+        mesh first), then, sharded, the params all-gathered. Returns the
+        global norm (a device scalar). ``train_step`` ends with it, and
+        the step bench times it alone (``training/stepbench.py``)."""
+        leaves = tree_leaves(state["params"])
+        sharded = bool(self.update_axes)
         local = [self._upd(p, i) for i, p in enumerate(leaves)]
         contig = [t if t.is_contiguous() else t.contiguous() for t in local]
         spread = sharded or self.shard is not None
@@ -847,8 +873,7 @@ class Trainer:
                 t.copy_(u)
         if sharded:
             self._gather(leaves)
-        state["step"] += 1
-        return state, {"loss": loss, "grad_norm": gnorm}
+        return gnorm
 
     def _buckets(self) -> List[List[int]]:
         """The bucket plan's buckets, in issue order, cut to the leaves

@@ -399,11 +399,12 @@ def test_make_flash_attention_single_device_only():
 def test_kernel_wrapper_rejects_uninstantiated_head_dim():
     """An hd with no compiled kernel raises in the wrapper's checks; it is
     never routed to the plain version."""
-    q, k, v = (torch.from_numpy(x) for x in _qkv(10, S=16, hd=32))
+    q, k, v = (torch.from_numpy(x) for x in _qkv(10, S=16, hd=48))
     with pytest.raises(ValueError, match="head_dim"):
         tfa._check_cuda_inputs(q, k, v, None, None)
-    q, k, v = (torch.from_numpy(x) for x in _qkv(10, S=16, hd=64))
-    tfa._check_cuda_inputs(q, k, v, None, None)
+    for hd in tfa.KERNEL_HEAD_DIMS:
+        q, k, v = (torch.from_numpy(x) for x in _qkv(10, S=16, hd=hd))
+        tfa._check_cuda_inputs(q, k, v, None, None)
     with pytest.raises(TypeError):
         tfa._check_cuda_inputs(q.double(), k.double(), v.double(), None, None)
 
@@ -456,7 +457,7 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch, split):
                                atol=1e-5, rtol=1e-5)
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_attention(*(torch.from_numpy(x).to(cuda)
-                              for x in _qkv(seed, S=16, hd=32)))
+                              for x in _qkv(seed, S=16, hd=48)))
 
 
 #: tolerances on the card, kernel against plain version on the same inputs
@@ -473,7 +474,7 @@ CARD_TOL = {"bfloat16": {"out": 2e-2, "lse": 1e-4, "grad": 2e-2},
 @pytest.mark.parametrize("shape", ["causal-S256", "ragged-noncausal-S200"])
 @pytest.mark.parametrize("rope", [False, True], ids=["norope", "rope"])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 def test_cuda_kernels_match_plain_versions(cuda, hd, dtype, rope, shape):
     """All four operators' kernels (tensor-core or CUDA-core, as the route
     table says) against their plain versions on the same CUDA inputs, and
@@ -590,7 +591,9 @@ def test_cuda_route_table_matches_source(cuda):
                     int(tfa.tensor_core_route(op, dtype, hd)), (op, dtype, hd)
     assert [lib.kdl_flash_route(i, 1, 256) for i in range(4)] == [1, 1, 1, 1]
     assert [lib.kdl_flash_route(i, 0, 256) for i in range(4)] == [0, 0, 0, 0]
-    assert lib.kdl_flash_route(0, 1, 32) == -1
+    assert [lib.kdl_flash_route(i, 1, hd) for i in range(4)
+            for hd in (16, 32)] == [0] * 8
+    assert lib.kdl_flash_route(0, 1, 48) == -1
     assert lib.kdl_flash_route(4, 1, 64) == -1
 
 
@@ -637,3 +640,75 @@ def test_cuda_gemma_training_shape_matches_plain_versions(cuda):
     p_dk_h, p_dv_h = tfa._plain_bwd_dkdv_per_head(*args)
     assert rel(dk_h, p_dk_h) <= tol["grad"]
     assert rel(dv_h, p_dv_h) <= tol["grad"]
+
+
+# ---- head dims 16 and 32: the CUDA-core route (the "auto" repair) ----------
+
+def _source_cases(fn_head: str) -> set:
+    """The ``case N:`` head widths of the source's function ``fn_head``."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tfa.__file__).resolve().parents[1] / "csrc"
+           / "flash_attention.cu").read_text()
+    body = src[src.index(fn_head):]
+    body = body[:body.index("\n}\n")]
+    return {int(x) for x in re.findall(r"case (\d+):", body)}
+
+
+@pytest.mark.parametrize("fn_head", ["int route_hd(Which w, int hd)",
+                                     "int dispatch_hd(Which w"])
+def test_source_instantiates_every_kernel_head_dim(fn_head):
+    """``KERNEL_HEAD_DIMS`` holds the step bench's and the tiny presets'
+    widths, and the source's route and launch switches have exactly those
+    cases; 16 and 32 are on no operator's tensor-core route."""
+    assert {16, 32} <= set(tfa.KERNEL_HEAD_DIMS)
+    assert _source_cases(fn_head) == set(tfa.KERNEL_HEAD_DIMS)
+    for op in tfa.OPS:
+        for hd in (16, 32):
+            assert not tfa.tensor_core_route(op, torch.bfloat16, hd)
+
+
+@pytest.mark.parametrize("preset", ["tiny", "tiny-gemma"])
+def test_trainer_takes_flash_at_small_head_dims(preset, monkeypatch):
+    """A Trainer at hd 16 / 32 with ``attn_impl: "flash"`` takes the flash
+    route through the plain operators on the CPU (each launch counted by
+    the forward and backward ops); on a CUDA device "auto" picks flash
+    there too, and a width with no kernel raises when the Trainer is
+    built instead of running dense."""
+    import dataclasses
+
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.training import trainer as tt
+
+    model = llama.preset(preset)
+    assert model.head_dim in (16, 32)
+    calls = []
+    for name in ("flash_fwd", "flash_bwd_fused"):
+        real = getattr(tfa, name)
+
+        def spy(*a, _real=real, _name=name):
+            calls.append(_name)
+            return _real(*a)
+
+        monkeypatch.setattr(tfa, name, spy)
+    cfg = tt.TrainConfig(model=model, global_batch=2, seq_len=64, steps=1,
+                         attn_impl="flash")
+    tr = tt.Trainer(cfg, device="cpu")
+    assert tr.attn_impl == "flash"
+    state = tr.init_state()
+    batch = np.random.RandomState(0).randint(0, model.vocab_size, (2, 64))
+    _, metrics = tr.train_step(state, batch)
+    assert np.isfinite(float(metrics["loss"]))
+    assert calls.count("flash_fwd") == model.n_layers
+    assert calls.count("flash_bwd_fused") == model.n_layers
+
+    # the device's side of the choice, without a card: the rule reads
+    # only the device type and the model's head dim
+    tr.device = torch.device("cuda")
+    tr.cfg = dataclasses.replace(cfg, attn_impl="auto")
+    assert tr._select_attn() is not None and tr.attn_impl == "flash"
+    tr.cfg = dataclasses.replace(cfg, attn_impl="auto", model=dataclasses.replace(
+        model, head_dim_fixed=48))
+    with pytest.raises(ValueError, match="head_dim"):
+        tr._select_attn()

@@ -48,7 +48,9 @@ def test_port_files_found():
             "native.py", "moe.py", "convnet.py", "costmodel.py", "mesh.py",
             "ring.py", "launch.py", "pipeline.py", "plan.py", "retry.py",
             "metrics.py", "tracing.py", "service.py", "shards.py",
-            "store.py", "wal.py", "leases.py", "objects.py"} <= names
+            "store.py", "wal.py", "leases.py", "objects.py",
+            "constants.py", "stepbench.py", "compile_cache.py",
+            "planner.py", "search.py"} <= names
 
 
 def test_engine_without_device_raises_when_no_cuda(monkeypatch):
